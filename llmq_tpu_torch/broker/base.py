@@ -1,0 +1,171 @@
+"""Abstract broker interface + message envelope (port of
+``llmq_tpu/broker/base.py``; this slice ships the ``memory://`` broker
+only — the TCP and AMQP clients come with a later slice).
+
+Semantics contract (what every implementation must honor — mirrors what the
+reference relies on from RabbitMQ, SURVEY.md §1 L0):
+
+- **Durability**: published messages survive broker restart (for the
+  implementations that have a persistence story) and consumer churn.
+- **At-least-once**: a message is redelivered (to any consumer) if its
+  consumer disconnects or rejects with ``requeue=True`` before ack.
+- **Prefetch/QoS**: a consumer has at most ``prefetch`` unacked messages in
+  flight; this is the back-pressure mechanism that feeds continuous batching.
+- **Dead-lettering**: a message rejected-with-requeue more than
+  ``max_redeliveries`` times is routed to ``<queue>.failed`` instead of being
+  requeued forever (fixes the reference's retry-forever gap,
+  workers/base.py:245).
+- **TTL**: queues may declare a message TTL; expired messages are dropped at
+  dispatch time.
+"""
+
+from __future__ import annotations
+
+import abc
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, Awaitable, Callable, Dict, Optional
+
+from llmq_tpu_torch.core.models import QueueStats
+from llmq_tpu_torch.utils import clock
+
+
+def new_message_id() -> str:
+    return uuid.uuid4().hex
+
+
+@dataclass
+class StoredMessage:
+    """Broker-side message record."""
+
+    body: bytes
+    message_id: str = field(default_factory=new_message_id)
+    headers: Dict[str, Any] = field(default_factory=dict)
+    delivery_count: int = 0
+    # Wall stamp for TTL ages, read through the injectable clock.
+    enqueued_at: float = field(default_factory=clock.wall)
+
+
+class DeliveredMessage:
+    """A message as seen by a consumer; must be acked or rejected exactly once.
+
+    ``redelivered``/``delivery_count`` let workers implement poison-message
+    policies; the broker itself dead-letters past the redelivery cap.
+    """
+
+    def __init__(
+        self,
+        body: bytes,
+        message_id: str,
+        *,
+        delivery_count: int = 0,
+        headers: Optional[Dict[str, Any]] = None,
+        _settle: Optional[Callable[[str, bool], Awaitable[None]]] = None,
+    ) -> None:
+        self.body = body
+        self.message_id = message_id
+        self.delivery_count = delivery_count
+        self.headers = headers or {}
+        self._settle = _settle
+        self._settled = False
+
+    @property
+    def redelivered(self) -> bool:
+        return self.delivery_count > 0
+
+    async def ack(self) -> None:
+        await self._do_settle("ack", False)
+
+    async def reject(self, requeue: bool = False) -> None:
+        await self._do_settle("reject", requeue)
+
+    async def _do_settle(self, verb: str, requeue: bool) -> None:
+        if self._settled:
+            return
+        self._settled = True
+        if self._settle is not None:
+            await self._settle(verb, requeue)
+
+
+MessageHandler = Callable[[DeliveredMessage], Awaitable[None]]
+
+
+class Broker(abc.ABC):
+    """Transport-level broker API (one connection)."""
+
+    @abc.abstractmethod
+    async def connect(self) -> None: ...
+
+    @abc.abstractmethod
+    async def close(self) -> None: ...
+
+    @abc.abstractmethod
+    async def declare_queue(
+        self,
+        name: str,
+        *,
+        durable: bool = True,
+        ttl_ms: Optional[int] = None,
+        max_redeliveries: Optional[int] = None,
+    ) -> None: ...
+
+    @abc.abstractmethod
+    async def publish(
+        self,
+        queue: str,
+        body: bytes,
+        *,
+        message_id: Optional[str] = None,
+        headers: Optional[Dict[str, Any]] = None,
+    ) -> None: ...
+
+    @abc.abstractmethod
+    async def consume(
+        self, queue: str, handler: MessageHandler, *, prefetch: int = 1
+    ) -> str:
+        """Start consuming; returns a consumer tag for ``cancel``."""
+
+    @abc.abstractmethod
+    async def cancel(self, consumer_tag: str, *, requeue: bool = True) -> None:
+        """Stop the consumer. ``requeue=True`` (default) returns its
+        unacked deliveries to ready, like a consumer disconnect.
+        ``requeue=False`` is basic.cancel semantics — deliveries stop but
+        in-flight messages stay settleable, for drain-with-handoff where
+        the worker acks each one after finishing or republishing it."""
+
+    @abc.abstractmethod
+    async def get(self, queue: str) -> Optional[DeliveredMessage]:
+        """Fetch a single message without starting a consumer (DLQ peek)."""
+
+    @abc.abstractmethod
+    async def stats(self, queue: str) -> QueueStats: ...
+
+    @abc.abstractmethod
+    async def purge(self, queue: str) -> int: ...
+
+    async def __aenter__(self) -> "Broker":
+        await self.connect()
+        return self
+
+    async def __aexit__(self, *exc: Any) -> None:
+        await self.close()
+
+
+RESULTS_SUFFIX = ".results"
+
+
+def results_queue_name(queue: str) -> str:
+    return queue if queue.endswith(RESULTS_SUFFIX) else queue + RESULTS_SUFFIX
+
+
+def make_broker(url: str) -> Broker:
+    """Instantiate (without connecting) the implementation for a broker URL."""
+    scheme = url.split("://", 1)[0].lower() if "://" in url else ""
+    if scheme == "memory":
+        from llmq_tpu_torch.broker.memory import MemoryBroker
+
+        return MemoryBroker(url)
+    raise ValueError(
+        f"Unsupported broker URL scheme: {url!r} (this slice of the port "
+        "ships memory:// only; tcp:// and amqp:// come with a later slice)"
+    )

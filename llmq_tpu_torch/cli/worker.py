@@ -1,0 +1,101 @@
+"""Worker launcher of the port (counterpart of ``llmq_tpu/cli/worker.py``
+``run_tpu_worker`` :15).
+
+``run_torch_worker("preset://NAME", queue, ...)`` builds a random-weight
+model of a named preset on the device, wraps it in an engine and serves
+``queue`` until ``max_jobs`` jobs are settled (or forever). Checkpoint
+loading and the click command come with the TCP broker client (ROADMAP
+M6).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import Optional
+
+import torch
+
+from llmq_tpu_torch.device import DeviceLike, resolve_device
+from llmq_tpu_torch.engine.engine import AsyncEngine, EngineConfig, EngineCore
+from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+from llmq_tpu_torch.models.presets import get_preset
+from llmq_tpu_torch.models.transformer import init_params
+from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+logger = logging.getLogger(__name__)
+
+PRESET_SCHEMES = ("preset://", "random://")
+_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float32": torch.float32, "f32": torch.float32}
+
+
+def build_engine(
+    model: str,
+    *,
+    device: DeviceLike = "cuda",
+    max_num_seqs: Optional[int] = None,
+    max_model_len: Optional[int] = None,
+    dtype: str = "bfloat16",
+    kv_dtype: Optional[str] = None,
+    seed: int = 0,
+) -> AsyncEngine:
+    """An engine over a ``preset://NAME`` model with random weights drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    if not model.startswith(PRESET_SCHEMES):
+        raise NotImplementedError(
+            f"model {model!r}: checkpoint loading is not ported yet "
+            "(ROADMAP.md queue 1, M6); use preset://NAME"
+        )
+    dev = resolve_device(device)
+    if dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"dtype={dtype!r}: quantized weights are not ported yet (ROADMAP.md queue 1, M9)"
+        )
+    config = get_preset(model.split("://", 1)[1] or "tiny")
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(config, generator, _DTYPES[dtype], device=dev)
+    overrides = {}
+    if max_num_seqs:
+        overrides["max_num_seqs"] = max_num_seqs
+    if max_model_len:
+        overrides["max_model_len"] = max_model_len
+    if kv_dtype:
+        overrides["kv_dtype"] = kv_dtype
+    core = EngineCore(
+        config, params, ByteTokenizer(), engine_config=EngineConfig(**overrides), device=dev
+    )
+    return AsyncEngine(core)
+
+
+def run_torch_worker(
+    model: str,
+    queue: str,
+    *,
+    device: DeviceLike = "cuda",
+    max_num_seqs: Optional[int] = None,
+    max_model_len: Optional[int] = None,
+    dtype: str = "bfloat16",
+    kv_dtype: Optional[str] = None,
+    broker_url: str = "memory://default",
+    concurrency: Optional[int] = None,
+    max_jobs: Optional[int] = None,
+    seed: int = 0,
+) -> TorchWorker:
+    """Serve ``queue`` from ``broker_url`` with a preset model; returns the
+    worker (its engine shut down) once ``max_jobs`` jobs are settled."""
+    engine = build_engine(
+        model, device=device, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
+        dtype=dtype, kv_dtype=kv_dtype, seed=seed,
+    )
+    worker = TorchWorker(
+        queue, engine, broker_url=broker_url, concurrency=concurrency, max_jobs=max_jobs
+    )
+    logger.info("torch worker: model=%s queue=%s device=%s", model, queue, engine.core.device)
+    try:
+        asyncio.run(worker.run())
+    except KeyboardInterrupt:
+        pass
+    finally:
+        engine.shutdown()
+    return worker

@@ -1,0 +1,1 @@
+"""engine layer of the PyTorch port (see ``llmq_tpu_torch/__init__.py``)."""

@@ -1,0 +1,1079 @@
+"""Inference engine: continuous batching over eager PyTorch steps.
+
+Port of ``llmq_tpu/engine/engine.py`` at its default configuration:
+``EngineConfig`` (:166), ``RequestOutput`` (:145), the ``EngineCore``
+step loop (bucketed whole-prompt prefill padded to 1 or
+``max_prefill_batch`` rows, one decode step per dispatch, a run-ahead
+pipeline of ``runahead`` dispatches with deferred page frees, device-side
+sampling and stopping plus host-side stop strings, recompute preemption)
+and ``AsyncEngine`` with its engine thread.
+
+Device decode state. The 12 leaves of the JAX state (:1300) live in
+device tensors — tokens, ctx, block tables, active, keys, steps, temps,
+top-k, top-p, limits, min-tokens, stop ids — and every decode step
+updates them on the device (``advance_state``), so steady-state decode
+ships nothing host→device. A step's sampled tokens go to pinned host
+memory with ``non_blocking=True`` and a ``torch.cuda.Event``; the host
+reads them ``runahead`` dispatches later. On the CPU the same queue runs
+synchronously.
+
+Config. The engine honours ``max_num_seqs``, ``max_model_len``,
+``page_size``, ``num_pages``, ``hbm_utilization``, ``kv_dtype`` (bf16 or
+f32), ``min_prefill_bucket``, ``max_prefill_batch``, ``admit_max_wait_s``,
+``runahead`` and ``stop_id_capacity``. Any other field set away from its
+default raises ``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from llmq_tpu_torch.device import DeviceLike, resolve_device
+from llmq_tpu_torch.engine import sampling as sampling_mod
+from llmq_tpu_torch.engine.sampling import (
+    SamplingParams,
+    make_base_key,
+    request_tag,
+    sample_tokens,
+    step_gumbel,
+)
+from llmq_tpu_torch.engine.scheduler import (
+    OutOfPages,
+    Scheduler,
+    SchedulerConfig,
+    Sequence,
+)
+from llmq_tpu_torch.engine.tokenizer import Tokenizer
+from llmq_tpu_torch.models.config import ModelConfig
+from llmq_tpu_torch.models.transformer import Params, Transformer, make_kv_pages
+
+logger = logging.getLogger(__name__)
+
+#: Cancellations for rids the engine doesn't hold age out after this long.
+_CANCEL_TTL_S = 5.0
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    """Final result of one generation request."""
+
+    rid: str
+    text: str
+    token_ids: List[int]
+    prompt_tokens: int
+    completion_tokens: int
+    finish_reason: str  # "stop" | "length" | "cancelled" | "aborted" ...
+    # Host-side monotonic lifecycle stamps (enqueued/admitted/
+    # prefill_start/first_token/last_token/finished + preempt_count).
+    timing: Optional[Dict[str, float]] = None
+
+
+_KV_DTYPES = {
+    "bf16": torch.bfloat16,
+    "bfloat16": torch.bfloat16,
+    "f32": torch.float32,
+    "float32": torch.float32,
+}
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Field for field the JAX ``EngineConfig``; see the module docstring
+    for which fields this engine honours. Descriptions of the others are
+    in ``llmq_tpu/engine/engine.py``."""
+
+    max_num_seqs: int = 64
+    max_model_len: int = 4096
+    page_size: int = 32
+    num_pages: Optional[int] = None  # None → size from device memory
+    hbm_utilization: float = 0.9
+    kv_dtype: Any = torch.bfloat16  # bf16 | f32 (fp8 is ROADMAP M9)
+    min_prefill_bucket: int = 32
+    max_prefill_batch: int = 4  # admitted seqs prefilled per dispatch
+    prefill_chunk_size: Optional[int] = None
+    enable_prefix_caching: bool = False
+    # Admission waits for a full prefill batch of free slots, but never
+    # defers admissible work for longer than this.
+    admit_max_wait_s: float = 0.5
+    runahead: int = 8  # decode dispatches in flight ahead of result reads
+    decode_block: int = 1
+    spec_tokens: int = 0
+    spec_ngram: int = 2
+    # Per-slot device-side stop-token-id capacity; grows (resync at the
+    # wider shape) when a request's stop set exceeds it.
+    stop_id_capacity: int = 8
+    tp_overlap: str = "off"
+    mixed_step: str = "off"
+    preempt_mode: str = "recompute"
+    priority_classes: bool = True
+    priority_preempt: bool = True
+    interactive_decode_block: int = 0
+    prefix_host_gb: float = 0.0
+    watchdog_mult: float = 0.0
+    watchdog_min_s: float = 30.0
+    logit_guard: str = "off"
+    guard_logit_max: float = 0.0
+    guard_entropy_min: float = 0.0
+    weight_audit_every: float = 0.0
+    canary_every: float = 0.0
+
+    def __post_init__(self):
+        if isinstance(self.kv_dtype, str):
+            name = self.kv_dtype.lower()
+            if name in ("fp8", "fp8_e5m2", "float8_e5m2"):
+                raise NotImplementedError(
+                    f"kv_dtype={self.kv_dtype!r} is not ported yet "
+                    "(ROADMAP.md queue 1, M9)"
+                )
+            try:
+                self.kv_dtype = _KV_DTYPES[name]
+            except KeyError:
+                raise ValueError(
+                    f"kv_dtype={self.kv_dtype!r} (want one of {sorted(_KV_DTYPES)})"
+                ) from None
+        if self.kv_dtype not in (torch.bfloat16, torch.float32):
+            raise NotImplementedError(
+                f"kv_dtype={self.kv_dtype} is not ported yet (ROADMAP.md queue 1, M9)"
+            )
+
+
+#: Fields of EngineConfig this engine does not honour yet → the ROADMAP.md
+#: queue 1 item that brings them.
+_UNPORTED_FIELDS = {
+    "prefill_chunk_size": "M8",
+    "enable_prefix_caching": "M8",
+    "prefix_host_gb": "M8",
+    "decode_block": "M10",
+    "spec_tokens": "M10",
+    "spec_ngram": "M10",
+    "mixed_step": "M10",
+    "interactive_decode_block": "M10",
+    "preempt_mode": "M11",
+    "priority_classes": "M11",
+    "priority_preempt": "M11",
+    "watchdog_mult": "M12",
+    "watchdog_min_s": "M12",
+    "logit_guard": "M12",
+    "guard_logit_max": "M12",
+    "guard_entropy_min": "M12",
+    "weight_audit_every": "M12",
+    "canary_every": "M12",
+    "tp_overlap": "M13",
+}
+
+
+def _check_ported(cfg: EngineConfig) -> None:
+    defaults = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
+    for name, item in _UNPORTED_FIELDS.items():
+        value = getattr(cfg, name)
+        if value != defaults[name]:
+            raise NotImplementedError(
+                f"EngineConfig.{name}={value!r} is not ported yet "
+                f"(ROADMAP.md queue 1, {item})"
+            )
+
+
+def _prefill_buckets(cfg: EngineConfig) -> List[int]:
+    """Prompt buckets up to max_model_len: powers of two, plus quarter
+    steps between octaves above 128 (a 200-token prompt pads to 224, not
+    256), and max_model_len itself on top."""
+    buckets = []
+    b = cfg.min_prefill_bucket
+    while b < cfg.max_model_len:
+        buckets.append(b)
+        if b >= 128:
+            for quarter in (b + b // 4, b + b // 2, b + 3 * b // 4):
+                if quarter < cfg.max_model_len:
+                    buckets.append(quarter)
+        b *= 2
+    buckets.append(cfg.max_model_len)
+    return sorted(set(buckets))
+
+
+# Pipeline entry: (dispatch index, kind, host token buffer, copy-done event
+# or None, [(row, Sequence, epoch), ...]).
+_Pending = Tuple[int, str, torch.Tensor, Optional[Any], List[Tuple[int, Sequence, int]]]
+
+# Device decode state, leaf order as in JAX (:1300).
+_STATE_LEAVES = (
+    "tokens", "ctx", "bt", "active", "keys", "steps",
+    "temps", "topks", "topps", "limits", "mins", "stop_ids",
+)
+
+
+def advance_state(st: tuple, out: torch.Tensor, active: torch.Tensor) -> tuple:
+    """One decode step's state update, on the device: count the step,
+    deactivate rows that hit a stop id (past min_tokens) or their limit."""
+    (tokens, ctx, bt, _, keys, steps, temps, topks, topps,
+     limits, mins, stop_ids) = st
+    act = active.to(steps.dtype)
+    new_steps = steps + act
+    hit_stop = (out[:, None] == stop_ids).any(dim=1) & (new_steps > mins)
+    hit_limit = new_steps >= limits
+    still = active & ~(hit_stop | hit_limit)
+    return (
+        torch.where(active, out, tokens),
+        ctx + act,
+        bt,
+        still,
+        keys,
+        new_steps,
+        temps,
+        topks,
+        topps,
+        limits,
+        mins,
+        stop_ids,
+    )
+
+
+def suppress_stops(
+    logits: torch.Tensor, stop_ids: torch.Tensor, steps: torch.Tensor, mins: torch.Tensor
+) -> torch.Tensor:
+    """Mask stop/EOS logits of rows still under min_tokens, so the
+    forbidden token can never be sampled (vLLM semantics). No host sync:
+    padding ids (-1) route to a dropped extra column."""
+    S, V = logits.shape
+    ids = torch.where(stop_ids < 0, V, stop_ids).long()
+    hit = torch.zeros((S, V + 1), dtype=torch.bool, device=logits.device)
+    hit.scatter_(1, ids, True)
+    block = hit[:, :V] & (steps < mins)[:, None]
+    return torch.where(block, sampling_mod.NEG_INF, logits)
+
+
+class EngineCore:
+    """Synchronous engine: owns the device state and the step loop body."""
+
+    def __init__(
+        self,
+        model_config: ModelConfig,
+        params: Params,
+        tokenizer: Tokenizer,
+        *,
+        engine_config: Optional[EngineConfig] = None,
+        device: DeviceLike = "cuda",
+    ) -> None:
+        self.device = resolve_device(device)
+        self.model_config = model_config
+        self.tokenizer = tokenizer
+        self.cfg = engine_config or EngineConfig()
+        _check_ported(self.cfg)
+        self.model = Transformer(model_config, params).to(self.device)
+        self._vocab = model_config.vocab_size
+
+        num_pages = self.cfg.num_pages or self._auto_num_pages()
+        sched_cfg = SchedulerConfig(
+            max_num_seqs=self.cfg.max_num_seqs,
+            num_pages=num_pages,
+            page_size=self.cfg.page_size,
+            max_model_len=self.cfg.max_model_len,
+        )
+        self.scheduler = Scheduler(sched_cfg)
+        self._pages_per_seq = sched_cfg.pages_per_seq
+        self.k_pages, self.v_pages = make_kv_pages(
+            model_config, num_pages, self.cfg.page_size,
+            dtype=self.cfg.kv_dtype, device=self.device,
+        )
+        logger.info(
+            "KV cache: %d pages x %d tokens (%.2f GiB total), %d slots on %s",
+            num_pages, self.cfg.page_size,
+            2 * self.k_pages.numel() * self.k_pages.element_size() / 2**30,
+            self.cfg.max_num_seqs, self.device,
+        )
+        self._eos_ids = set(model_config.eos_token_ids) | set(tokenizer.eos_token_ids)
+        self._buckets = _prefill_buckets(self.cfg)
+
+        # Host mirrors of the device decode state, rebuilt at every resync.
+        S = self.cfg.max_num_seqs
+        self._stop_capacity = self.cfg.stop_id_capacity
+        self._h_tokens = np.zeros((S,), np.int32)
+        self._h_ctx = np.zeros((S,), np.int32)
+        self._h_bt = np.zeros((S, self._pages_per_seq), np.int32)
+        self._h_active = np.zeros((S,), bool)
+        self._h_keys = np.zeros((S,), np.int64)
+        self._h_steps = np.zeros((S,), np.int32)
+        self._h_temp = np.zeros((S,), np.float32)
+        self._h_topk = np.zeros((S,), np.int32)
+        self._h_topp = np.ones((S,), np.float32)
+        self._h_limits = np.zeros((S,), np.int32)
+        self._h_mins = np.zeros((S,), np.int32)
+        self._h_stopids = np.full((S, self._stop_capacity), -1, np.int32)
+
+        # Run-ahead pipeline state.
+        self._pending: Deque[_Pending] = deque()
+        self._pending_decodes = 0
+        self._defer_since: Optional[float] = None
+        self._deferred_pages: List[Tuple[int, List[int]]] = []
+        self._dispatch_idx = 0
+        self._processed_idx = 0
+        self._dirty = True
+        self._mode = "greedy"
+        self._suppress = False  # some resident row has min_tokens > 0
+        self._dev_state: Optional[tuple] = None
+        self._cancel_rids: Dict[str, float] = {}
+
+        # Counters for stats/heartbeats.
+        self.total_prompt_tokens = 0
+        self.total_generated_tokens = 0
+        self.decode_steps = 0
+        self.decode_dispatches = 0
+        self.prefills = 0
+        self.prefill_dispatches = 0
+        self.prefill_tokens = 0
+        self.cancellations = 0
+        self._started_at = time.monotonic()
+
+        self._resync()
+
+    def _auto_num_pages(self) -> int:
+        """Size the KV pool from free device memory (vLLM
+        gpu_memory_utilization parity); a conservative cap on the CPU."""
+        cfg = self.model_config
+        itemsize = torch.empty((), dtype=self.cfg.kv_dtype).element_size()
+        page_bytes = (
+            2 * cfg.num_layers * self.cfg.page_size * cfg.num_kv_heads * cfg.head_dim_ * itemsize
+        )
+        max_useful = (
+            self.cfg.max_num_seqs * (-(-self.cfg.max_model_len // self.cfg.page_size) + 1) + 1
+        )
+        if self.device.type != "cuda":
+            return min(max_useful, 4096)
+        free, total = torch.cuda.mem_get_info(self.device)
+        budget = int(total * self.cfg.hbm_utilization) - (total - free)
+        return int(min(max(2, budget // page_bytes), max_useful))
+
+    # --- request intake ---------------------------------------------------
+    def add_request(
+        self,
+        rid: str,
+        *,
+        prompt: Optional[str] = None,
+        messages: Optional[List[Dict[str, str]]] = None,
+        prompt_ids: Optional[List[int]] = None,
+        params: Optional[SamplingParams] = None,
+        priority: str = "batch",
+    ) -> Sequence:
+        if priority != "batch":
+            raise NotImplementedError(
+                f"priority={priority!r}: priority classes are not ported yet "
+                "(ROADMAP.md queue 1, M11)"
+            )
+        if prompt_ids is None:
+            if messages is not None:
+                prompt_ids = self.tokenizer.apply_chat_template(messages)
+            elif prompt is not None:
+                prompt_ids = self.tokenizer.encode(prompt)
+            else:
+                raise ValueError("request needs prompt, messages, or prompt_ids")
+        if not prompt_ids:
+            prompt_ids = [0]
+        # Own copy: the scheduler caps max_tokens in place.
+        params = dataclasses.replace(params) if params else SamplingParams()
+        need = len(set(params.stop_token_ids) | (set() if params.ignore_eos else self._eos_ids))
+        if need > self._stop_capacity:
+            self._grow_stop_capacity(need)
+        seq = Sequence(rid=rid, prompt_ids=list(prompt_ids), params=params)
+        self.total_prompt_tokens += len(seq.prompt_ids)
+        self.scheduler.add(seq)
+        return seq
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.scheduler.running) or self.scheduler.has_waiting or bool(self._pending)
+
+    # --- one engine iteration --------------------------------------------
+    def step(self) -> List[RequestOutput]:
+        """Admit + prefill new sequences, dispatch one decode step for the
+        batch, process lagged results. Returns the requests whose finish
+        was observed this iteration (results lag dispatch by <= runahead)."""
+        finished: List[RequestOutput] = []
+        if self._cancel_rids:
+            self._sweep_cancels(finished)
+        pre_wave = [s.rid for s in self._decodable_seqs()]
+        while self._try_admit(finished):
+            if any(rid in self.scheduler.running for rid in pre_wave):
+                self._dispatch_decode(finished)
+        if self.scheduler.running:
+            self._dispatch_decode(finished)
+        elif self._pending:
+            self._process_oldest(finished)
+        self._flush_deferred()
+        return finished
+
+    def _decodable_seqs(self) -> List[Sequence]:
+        return [s for s in self.scheduler.running.values() if s.prefilled]
+
+    def cancel_request(self, rid: str) -> None:
+        """Cancel a waiting/running request at the next step's sweep: it
+        finishes with ``finish_reason="cancelled"``. Unknown rids age out."""
+        self._cancel_rids[rid] = time.monotonic()
+
+    def _sweep_cancels(self, finished: List[RequestOutput]) -> None:
+        now = time.monotonic()
+        for seq in [s for s in self.scheduler.waiting if s.rid in self._cancel_rids]:
+            self.scheduler.waiting.remove(seq)
+            self.scheduler.finish(seq, "cancelled")
+            finished.append(self._output_for(seq))
+            del self._cancel_rids[seq.rid]
+            self.cancellations += 1
+        for seq in [
+            s for s in self.scheduler.running.values()
+            if s.prefilled and s.rid in self._cancel_rids
+        ]:
+            self._finish_seq(seq, "cancelled", device_detected=False, finished=finished)
+            del self._cancel_rids[seq.rid]
+            self.cancellations += 1
+        for rid, t in list(self._cancel_rids.items()):
+            if now - t > _CANCEL_TTL_S:
+                del self._cancel_rids[rid]
+
+    def _try_admit(self, finished: List[RequestOutput]) -> bool:
+        """Admit + prefill up to one batch; True if anything was admitted
+        (the caller loops until the admissible backlog is drained)."""
+        while len(self._pending) > self.cfg.runahead:
+            self._process_oldest(finished)
+        self._flush_deferred()
+        free = sum(s is None for s in self.scheduler.slots)
+        want = (
+            min(self.cfg.max_prefill_batch, len(self.scheduler.waiting), len(self.scheduler.slots))
+            if self.scheduler.has_waiting
+            else 0
+        )
+        # Wait for enough free slots to fill a prefill batch rather than
+        # prefilling singletons as slots trickle free; never defer when
+        # nothing runs, nor for longer than admit_max_wait_s.
+        can_admit = bool(want) and free > 0
+        full = free >= (want if self.scheduler.running else 1)
+        if not can_admit or full:
+            self._defer_since = None
+        elif self._defer_since is None:
+            self._defer_since = time.monotonic()
+        overdue = (
+            self._defer_since is not None
+            and time.monotonic() - self._defer_since > self.cfg.admit_max_wait_s
+        )
+        if not (can_admit and (full or overdue)):
+            return False
+        self._defer_since = None
+        admitted = self.scheduler.admit(max_new=self.cfg.max_prefill_batch)
+        todo = []
+        for seq in admitted:
+            if seq.params.max_tokens <= 0:
+                self.scheduler.finish(seq, "length")
+                finished.append(self._output_for(seq))
+            else:
+                todo.append(seq)
+        if todo:
+            self._prefill_batch(todo, finished)
+        return bool(admitted)
+
+    # --- run-ahead pipeline ----------------------------------------------
+    def _drain(self, finished: List[RequestOutput]) -> None:
+        while self._pending:
+            self._process_oldest(finished)
+        self._flush_deferred()
+
+    def _push_pending(
+        self, kind: str, out: torch.Tensor, snapshot: List[Tuple[int, Sequence]]
+    ) -> None:
+        """Start the device→host copy of a step's tokens and queue it."""
+        if out.is_cuda:
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = out, None
+        self._dispatch_idx += 1
+        if kind == "decode":
+            self._pending_decodes += 1
+        # Epoch stamps: a row snapshotted before a preemption must not be
+        # appended after the sequence is re-admitted.
+        stamped = [(row, seq, seq.epoch) for row, seq in snapshot]
+        self._pending.append((self._dispatch_idx, kind, host, event, stamped))
+
+    def _process_oldest(self, finished: List[RequestOutput]) -> None:
+        idx, kind, host, event, snapshot = self._pending.popleft()
+        if kind == "decode":
+            self._pending_decodes -= 1
+        if event is not None:
+            event.synchronize()
+        tokens = host.numpy()
+        for row, seq, epoch in snapshot:
+            if (
+                seq.finish_reason is not None
+                or seq.rid not in self.scheduler.running
+                or seq.epoch != epoch
+            ):
+                # Finished or preempted while this step was in flight:
+                # its token is lagged garbage from abandoned device state.
+                continue
+            self._append_and_check(seq, int(tokens[row]), finished)
+        self._processed_idx = idx
+
+    def _flush_deferred(self) -> None:
+        while self._deferred_pages and self._deferred_pages[0][0] <= self._processed_idx:
+            _, pages = self._deferred_pages.pop(0)
+            self.scheduler.release_pages(pages)
+
+    def _resync(self) -> None:
+        """Rebuild the device decode state from scheduler truth. Only
+        valid after a full drain."""
+        if self._pending:
+            raise RuntimeError("resync with in-flight steps")
+        fills = [
+            (self._h_tokens, 0), (self._h_ctx, 0), (self._h_active, False),
+            (self._h_bt, 0), (self._h_temp, 0.0), (self._h_topk, 0),
+            (self._h_topp, 1.0), (self._h_keys, 0), (self._h_steps, 0),
+            (self._h_limits, 0), (self._h_mins, 0), (self._h_stopids, -1),
+        ]
+        for arr, fill in fills:
+            arr[...] = fill
+        modes = []
+        for i, seq in enumerate(self.scheduler.slots):
+            if seq is None or not seq.prefilled:
+                continue  # unprefilled slots join via the prefill scatter
+            p = seq.params
+            self._h_tokens[i] = seq.last_token
+            self._h_ctx[i] = seq.num_tokens - 1
+            self._h_bt[i, : len(seq.pages)] = seq.pages
+            self._h_active[i] = True
+            self._h_temp[i] = p.temperature
+            self._h_topk[i] = p.top_k
+            self._h_topp[i] = p.top_p
+            self._h_keys[i] = make_base_key(p.seed, request_tag(seq.rid))
+            self._h_steps[i] = len(seq.output_ids)
+            self._h_limits[i] = p.max_tokens
+            self._h_mins[i] = p.min_tokens
+            self._h_stopids[i] = self._stop_ids_for(seq)
+            modes.append(sampling_mod.required_mode(p))
+        self._mode = sampling_mod.join_modes(modes) if modes else "greedy"
+        self._suppress = bool((self._h_mins > 0).any())
+        state = (
+            self._h_tokens, self._h_ctx, self._h_bt, self._h_active,
+            self._h_keys, self._h_steps, self._h_temp, self._h_topk,
+            self._h_topp, self._h_limits, self._h_mins, self._h_stopids,
+        )
+        self._dev_state = tuple(torch.from_numpy(a.copy()).to(self.device) for a in state)
+        self._dirty = False
+
+    def _grow_stop_capacity(self, need: int) -> None:
+        """Widen the per-slot stop-id arrays to the next power of two >=
+        ``need``; the state is marked dirty, so the next dispatch drains
+        and resyncs at the new shape."""
+        E = 1 << max(need - 1, 1).bit_length()
+        self._stop_capacity = E
+        self._h_stopids = np.full((self.cfg.max_num_seqs, E), -1, np.int32)
+        self._dirty = True
+
+    def _stop_ids_for(self, seq: Sequence) -> np.ndarray:
+        """Per-slot device stop-token ids ([-1]-padded)."""
+        ids = list(dict.fromkeys(seq.params.stop_token_ids))
+        if not seq.params.ignore_eos:
+            ids.extend(i for i in self._eos_ids if i not in ids)
+        row = np.full((self._stop_capacity,), -1, np.int32)
+        row[: len(ids)] = ids
+        return row
+
+    # --- device steps ------------------------------------------------------
+    def _sample(self, logits, keys, steps, temps, topks, topps, mode) -> torch.Tensor:
+        gumbel = None if mode == "greedy" else step_gumbel(keys, steps, self._vocab)
+        return sample_tokens(logits, gumbel, temps, topks, topps, mode=mode)
+
+    def _decode_fn(self, st: tuple, mode: str) -> Tuple[torch.Tensor, tuple]:
+        (tokens, ctx, bt, active, keys, steps, temps, topks,
+         topps, _limits, mins, stop_ids) = st
+        logits = self.model.decode(tokens, ctx, self.k_pages, self.v_pages, bt, active)
+        if self._suppress:
+            logits = suppress_stops(logits, stop_ids, steps, mins)
+        next_tokens = self._sample(logits, keys, steps, temps, topks, topps, mode)
+        out = torch.where(active, next_tokens, 0).to(torch.int32)
+        return out, advance_state(st, out, active)
+
+    def _prefill_fn(self, args: Dict[str, torch.Tensor], n: int, mode: str) -> torch.Tensor:
+        """Prefill rows, sample each valid row's first token, and scatter
+        the first ``n`` (valid) rows into the decode state in place."""
+        logits = self.model.prefill(
+            args["tokens"], args["lengths"], self.k_pages, self.v_pages, args["bt"]
+        )
+        if self._suppress:
+            logits = suppress_stops(logits, args["stop_ids"], args["steps"], args["mins"])
+        nt = self._sample(
+            logits, args["keys"], args["steps"], args["temps"], args["topks"],
+            args["topps"], mode,
+        )
+        out = nt[:n].to(torch.int32)
+        new_steps = args["steps"][:n] + 1
+        hit_stop = (out[:, None] == args["stop_ids"][:n]).any(dim=1) & (
+            new_steps > args["mins"][:n]
+        )
+        alive = ~(hit_stop | (new_steps >= args["limits"][:n]))
+        idx = args["slots"][:n].long()
+        rows = {
+            "tokens": out, "ctx": args["lengths"][:n], "bt": args["bt"][:n],
+            "active": alive, "keys": args["keys"][:n], "steps": new_steps,
+            "temps": args["temps"][:n], "topks": args["topks"][:n],
+            "topps": args["topps"][:n], "limits": args["limits"][:n],
+            "mins": args["mins"][:n], "stop_ids": args["stop_ids"][:n],
+        }
+        for leaf, name in zip(self._dev_state, _STATE_LEAVES):
+            leaf[idx] = rows[name]
+        return out
+
+    # --- prefill ----------------------------------------------------------
+    def _prefill_batch(self, seqs: List[Sequence], finished: List[RequestOutput]) -> None:
+        """Prefill admitted sequences in bucket-grouped batches; each
+        batch scatters its rows straight into the device decode state,
+        so admission costs no pipeline drain."""
+        if self._dirty:
+            self._drain(finished)
+            self._resync()
+        by_bucket: Dict[int, List[Sequence]] = {}
+        for seq in seqs:
+            bucket = next(b for b in self._buckets if b >= seq.num_tokens)
+            by_bucket.setdefault(bucket, []).append(seq)
+        for bucket, group in by_bucket.items():
+            for i in range(0, len(group), self.cfg.max_prefill_batch):
+                self._prefill_chunk(group[i : i + self.cfg.max_prefill_batch], bucket)
+
+    def _prefill_chunk(self, chunk: List[Sequence], bucket: int) -> None:
+        # Pad to {1, max_prefill_batch} rows, as the JAX engine does.
+        B = 1 if len(chunk) == 1 else self.cfg.max_prefill_batch
+        E = self._stop_capacity
+        tokens = np.zeros((B, bucket), np.int32)
+        lengths = np.zeros((B,), np.int32)
+        bt = np.zeros((B, self._pages_per_seq), np.int32)
+        slots = np.full((B,), -1, np.int32)
+        keys = np.zeros((B,), np.int64)
+        steps = np.zeros((B,), np.int32)
+        temps = np.zeros((B,), np.float32)
+        topks = np.zeros((B,), np.int32)
+        topps = np.ones((B,), np.float32)
+        limits = np.full((B,), 1, np.int32)
+        mins = np.zeros((B,), np.int32)
+        stop_ids = np.full((B, E), -1, np.int32)
+        for r, seq in enumerate(chunk):
+            ids = seq.prompt_ids + seq.output_ids
+            p = seq.params
+            tokens[r, : len(ids)] = ids
+            lengths[r] = len(ids)
+            bt[r, : len(seq.pages)] = seq.pages
+            slots[r] = seq.slot
+            keys[r] = make_base_key(p.seed, request_tag(seq.rid))
+            steps[r] = len(seq.output_ids)
+            temps[r] = p.temperature
+            topks[r] = p.top_k
+            topps[r] = p.top_p
+            limits[r] = p.max_tokens
+            mins[r] = p.min_tokens
+            stop_ids[r] = self._stop_ids_for(seq)
+        host = dict(
+            tokens=tokens, lengths=lengths, bt=bt, slots=slots, keys=keys, steps=steps,
+            temps=temps, topks=topks, topps=topps, limits=limits, mins=mins,
+            stop_ids=stop_ids,
+        )
+        args = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        chunk_mode = sampling_mod.join_modes(sampling_mod.required_mode(s.params) for s in chunk)
+        if any(s.params.min_tokens > 0 for s in chunk):
+            self._suppress = True
+        t0 = time.monotonic()
+        for seq in chunk:
+            if seq.t_prefill_start == 0.0:
+                seq.t_prefill_start = t0
+        out = self._prefill_fn(args, len(chunk), chunk_mode)
+        for seq in chunk:
+            seq.prefilled = True
+            self.prefill_tokens += seq.num_tokens
+        self.prefills += len(chunk)
+        self.prefill_dispatches += 1
+        self._push_pending("prefill", out, list(enumerate(chunk)))
+        self._mode = sampling_mod.join_modes((self._mode, chunk_mode))
+
+    # --- decode -----------------------------------------------------------
+    def _ensure_decode_pages(self, finished: List[RequestOutput]) -> bool:
+        """Page lookahead for every decodable row, then the dirty drain +
+        resync. Returns False when nothing is left running.
+
+        Every position an in-flight or about-to-dispatch step may write
+        must have a page now: pages are only ever added to a block table,
+        so the grown table swaps into the device state without a drain.
+        Only allocator exhaustion (preemption needed) forces a drain."""
+        lookahead = self._pending_decodes + 2  # in flight + this one + slack
+        decodable = self._decodable_seqs()
+        needs_pages = any(
+            -(-self._page_target(seq, lookahead) // self.cfg.page_size) > len(seq.pages)
+            for seq in decodable
+        )
+        if needs_pages:
+            grown = False
+            for seq in decodable:
+                if seq.rid not in self.scheduler.running:
+                    continue  # preempted by an earlier iteration's ensure
+                try:
+                    # Amortize: top up a full page beyond the need.
+                    before = len(seq.pages)
+                    self.scheduler.ensure_pages(
+                        seq,
+                        self._page_target(seq, lookahead + self.cfg.page_size),
+                        allow_preempt=False,
+                    )
+                    grown = grown or len(seq.pages) > before
+                except OutOfPages:
+                    # Pool exhausted: catch the host up so deferred pages
+                    # return and preemption can free a victim safely.
+                    self._drain(finished)
+                    if seq.rid not in self.scheduler.running:
+                        continue
+                    try:
+                        self.scheduler.ensure_pages(
+                            seq,
+                            self._page_target(seq, lookahead),
+                            preemptible=lambda s: s.prefilled,
+                        )
+                    except OutOfPages:
+                        if len(self.scheduler.running) == 1:
+                            # Alone and still short: the pool is the cap.
+                            self._finish_seq(seq, "length", device_detected=False,
+                                             finished=finished)
+                        else:
+                            # Others hold the pool: retry later, keeping
+                            # the generated tokens (recompute preemption).
+                            self._self_preempt_deferred(seq)
+                        continue
+                    self._dirty = True
+            if grown and not self._dirty:
+                self._swap_block_tables()
+        if self._dirty:
+            self._drain(finished)
+            if not self.scheduler.running:
+                return False
+            self._resync()
+        return True
+
+    def _dispatch_decode(self, finished: List[RequestOutput]) -> None:
+        if not self._ensure_decode_pages(finished):
+            return
+        out, self._dev_state = self._decode_fn(self._dev_state, self._mode)
+        self.decode_steps += 1
+        self.decode_dispatches += 1
+        self._push_pending(
+            "decode",
+            out,
+            [
+                (i, seq)
+                for i, seq in enumerate(self.scheduler.slots)
+                if seq is not None and seq.prefilled
+            ],
+        )
+        while len(self._pending) > self.cfg.runahead:
+            self._process_oldest(finished)
+
+    def _self_preempt_deferred(self, seq: Sequence) -> None:
+        """Preempt ``seq`` itself; its pages return to the allocator only
+        after every in-flight step that may write them is processed."""
+        pages = self.scheduler.preempt(seq, defer_pages=True)
+        if pages:
+            self._deferred_pages.append((self._dispatch_idx, pages))
+        self._dirty = True
+
+    def _swap_block_tables(self) -> None:
+        """Ship grown block tables into the device state without a drain."""
+        self._h_bt[...] = 0
+        for i, seq in enumerate(self.scheduler.slots):
+            if seq is not None:
+                self._h_bt[i, : len(seq.pages)] = seq.pages
+        bt_dev = torch.from_numpy(self._h_bt.copy()).to(self.device)
+        st = self._dev_state
+        self._dev_state = st[:2] + (bt_dev,) + st[3:]
+
+    def _page_target(self, seq: Sequence, lookahead: int) -> int:
+        """KV positions ``seq`` must have pages for, capped by its own
+        finish horizon and the per-sequence page map."""
+        horizon = len(seq.prompt_ids) + seq.params.max_tokens + 1
+        cap = self._pages_per_seq * self.cfg.page_size
+        return min(seq.num_tokens + lookahead, horizon, cap)
+
+    def _append_and_check(self, seq: Sequence, token: int, finished: List[RequestOutput]) -> None:
+        seq.output_ids.append(token)
+        self.total_generated_tokens += 1
+        now = time.monotonic()
+        if seq.t_first_token == 0.0:
+            seq.t_first_token = now
+        seq.t_last_token = now
+        # Stops are checked BEFORE the page top-up: a stopping sequence
+        # needs no more pages.
+        reason = self._stop_reason(seq, token)
+        if reason is not None:
+            # Token stops and length caps were detected on the device
+            # (advance_state); only stop strings force a resync.
+            self._finish_seq(seq, reason, device_detected=seq.finish_text is None,
+                             finished=finished)
+            return
+        try:
+            # Pages were pre-allocated at dispatch time; a no-op except
+            # under pool exhaustion.
+            self.scheduler.ensure_pages(seq, seq.num_tokens + 1, allow_preempt=False)
+        except OutOfPages:
+            self._flush_deferred()
+            try:
+                self.scheduler.ensure_pages(seq, seq.num_tokens + 1, allow_preempt=False)
+                return
+            except OutOfPages:
+                pass
+            if len(self.scheduler.running) == 1 and not self._deferred_pages:
+                self._finish_seq(seq, "length", device_detected=False, finished=finished)
+            else:
+                self._self_preempt_deferred(seq)
+
+    def _finish_seq(
+        self, seq: Sequence, reason: str, *, device_detected: bool,
+        finished: List[RequestOutput],
+    ) -> None:
+        pages = self.scheduler.finish(seq, reason, defer_pages=True)
+        if pages:
+            self._deferred_pages.append((self._dispatch_idx, pages))
+        if not device_detected:
+            self._dirty = True
+        finished.append(self._output_for(seq))
+
+    def _stop_reason(self, seq: Sequence, token: int) -> Optional[str]:
+        p = seq.params
+        # Token stops are popped from the output, so the surviving output
+        # must still hold min_tokens afterwards (strict compare).
+        past_min_tok = len(seq.output_ids) > p.min_tokens
+        past_min = len(seq.output_ids) >= p.min_tokens
+        if past_min_tok and token in p.stop_token_ids:
+            seq.output_ids.pop()
+            return "stop"
+        if past_min_tok and not p.ignore_eos and token in self._eos_ids:
+            seq.output_ids.pop()
+            return "stop"
+        if len(seq.output_ids) >= p.max_tokens:
+            return "length"
+        if p.stop and past_min:
+            # Incremental detokenization: only the tail past the cached
+            # head is decoded per token; the head trails the end by a
+            # window wide enough that a match never hides in it.
+            window = max(len(s) for s in p.stop) + 8
+            tail = self._detok_tail(seq, window)
+            seam = max(len(s) for s in p.stop) - 1
+            hay = seq.detok_text[-seam:] + tail if seam > 0 else tail
+            if any(s in hay for s in p.stop):
+                text = seq.detok_text + tail
+                hits = [i for i in (text.find(s) for s in p.stop) if i >= 0]
+                if hits:
+                    seq.finish_text = text[: min(hits)]  # earliest match
+                    self._trim_to_match(seq, p.stop)
+                    return "stop"
+        return None
+
+    def _detok_tail(self, seq: Sequence, window: int) -> str:
+        n = len(seq.output_ids)
+        if seq.detok_len > n:  # output was truncated past the cache
+            seq.detok_len, seq.detok_text = 0, ""
+        if n - seq.detok_len > window:
+            m = n - window
+            seq.detok_text += self.tokenizer.decode(seq.output_ids[seq.detok_len : m])
+            seq.detok_len = m
+        return self.tokenizer.decode(seq.output_ids[seq.detok_len :])
+
+    def _trim_to_match(self, seq: Sequence, stops) -> None:
+        """Drop output tokens past the stop-string match so token_ids and
+        usage agree with the truncated text."""
+        seam = max(len(s) for s in stops) - 1
+        head_tail = seq.detok_text[-seam:] if seam > 0 else ""
+        lo = seq.detok_len
+        for n in range(lo, len(seq.output_ids) + 1):
+            head = head_tail + self.tokenizer.decode(seq.output_ids[lo:n])
+            if any(s in head for s in stops):
+                seq.output_ids = seq.output_ids[:n]
+                return
+
+    def _output_for(self, seq: Sequence) -> RequestOutput:
+        text = seq.finish_text
+        if text is None:
+            text = self.tokenizer.decode(seq.output_ids)
+        timing: Optional[Dict[str, float]] = None
+        if seq.t_enqueue > 0.0:
+            timing = {
+                "enqueued": seq.t_enqueue,
+                "admitted": seq.t_admit,
+                "prefill_start": seq.t_prefill_start,
+                "first_token": seq.t_first_token,
+                "last_token": seq.t_last_token,
+                "finished": time.monotonic(),
+                "preempt_count": float(seq.preempt_count),
+            }
+        return RequestOutput(
+            rid=seq.rid,
+            text=text,
+            token_ids=list(seq.output_ids),
+            prompt_tokens=len(seq.prompt_ids),
+            completion_tokens=len(seq.output_ids),
+            finish_reason=seq.finish_reason or "stop",
+            timing=timing,
+        )
+
+    def abort_all(self, note: str = "aborted") -> None:
+        """Drop every running/waiting sequence and release their pages —
+        recovery after a failed step."""
+        if self._pending:
+            last = self._pending[-1]
+            if last[3] is not None:
+                try:  # wait out in-flight steps; their results are dropped
+                    last[3].synchronize()
+                except RuntimeError:  # the failed step's own error
+                    logger.exception("in-flight step failed during abort")
+            self._processed_idx = last[0]
+            self._pending.clear()
+            self._pending_decodes = 0
+        self._flush_deferred()
+        for seq in list(self.scheduler.running.values()):
+            self.scheduler.finish(seq, note)
+        self.scheduler.waiting.clear()
+        self._dirty = True
+
+    # --- metrics ----------------------------------------------------------
+    def stats(self) -> Dict[str, Any]:
+        elapsed = max(1e-9, time.monotonic() - self._started_at)
+        s: Dict[str, Any] = self.scheduler.stats()
+        s.update(
+            prompt_tokens=self.total_prompt_tokens,
+            generated_tokens=self.total_generated_tokens,
+            decode_steps=self.decode_steps,
+            decode_dispatches=self.decode_dispatches,
+            prefills=self.prefills,
+            prefill_dispatches=self.prefill_dispatches,
+            prefill_tokens=self.prefill_tokens,
+            tokens_per_sec=self.total_generated_tokens / elapsed,
+            decode_kernel="cuda" if self.device.type == "cuda" else "plain",
+            kv_dtype=str(self.cfg.kv_dtype).replace("torch.", ""),
+            device=str(self.device),
+        )
+        if self.cancellations:
+            s["cancellations"] = self.cancellations
+        return s
+
+
+class AsyncEngine:
+    """Async facade: the step loop on a dedicated thread, asyncio-awaitable
+    results. All device work happens on the engine thread."""
+
+    def __init__(self, core: EngineCore) -> None:
+        self.core = core
+        self._intake: "queue.Queue[tuple]" = queue.Queue()
+        self._calls: "queue.Queue[Any]" = queue.Queue()
+        self._futures: Dict[str, Future] = {}
+        self._wake = threading.Event()
+        self._stop = False
+        self.error: Optional[BaseException] = None  # the first failed step's exception
+        self._thread = threading.Thread(target=self._run, name="llmq-torch-engine", daemon=True)
+        self._thread.start()
+
+    async def generate(
+        self,
+        *,
+        rid: str,
+        prompt: Optional[str] = None,
+        messages: Optional[List[Dict[str, str]]] = None,
+        prompt_ids: Optional[List[int]] = None,
+        params: Optional[SamplingParams] = None,
+    ) -> RequestOutput:
+        fut = self._submit(rid, prompt, messages, prompt_ids, params)
+        try:
+            return await asyncio.wrap_future(fut)
+        finally:
+            self._futures.pop(rid, None)
+
+    def generate_sync(self, *, rid: str, timeout: Optional[float] = None, **kwargs) -> RequestOutput:
+        fut = self._submit(
+            rid, kwargs.get("prompt"), kwargs.get("messages"),
+            kwargs.get("prompt_ids"), kwargs.get("params"),
+        )
+        try:
+            return fut.result(timeout=timeout)
+        finally:
+            self._futures.pop(rid, None)
+
+    def _submit(self, rid, prompt, messages, prompt_ids, params) -> Future:
+        fut: Future = Future()
+        self._futures[rid] = fut
+        self._intake.put((rid, prompt, messages, prompt_ids, params))
+        self._wake.set()
+        return fut
+
+    def stats(self) -> Dict[str, Any]:
+        return self.core.stats()
+
+    def cancel(self, rid: str) -> None:
+        """Cancel one in-flight request (thread-safe, non-blocking): it
+        finishes with finish_reason='cancelled' through the normal path."""
+        if self._thread.is_alive():
+            self._calls.put(lambda: self.core.cancel_request(rid))
+            self._wake.set()
+
+    def shutdown(self) -> None:
+        self._stop = True
+        self._wake.set()
+        self._thread.join(timeout=30)
+
+    def _run(self) -> None:
+        while not self._stop:
+            while True:
+                try:
+                    self._calls.get_nowait()()
+                except queue.Empty:
+                    break
+            added = False
+            while True:
+                try:
+                    rid, prompt, messages, prompt_ids, params = self._intake.get_nowait()
+                except queue.Empty:
+                    break
+                try:
+                    self.core.add_request(
+                        rid, prompt=prompt, messages=messages,
+                        prompt_ids=prompt_ids, params=params,
+                    )
+                    added = True
+                except Exception as exc:  # noqa: BLE001 — invalid request
+                    fut = self._futures.get(rid)
+                    if fut is not None and not fut.done():
+                        fut.set_exception(exc)
+            if not self.core.has_work and not added:
+                self._wake.wait(timeout=0.02)
+                self._wake.clear()
+                continue
+            try:
+                for out in self.core.step():
+                    fut = self._futures.get(out.rid)
+                    if fut is not None and not fut.done():
+                        fut.set_result(out)
+            except Exception as exc:  # noqa: BLE001 — keep the loop alive
+                logger.exception("engine step failed")
+                if self.error is None:
+                    self.error = exc
+                failure = RuntimeError("engine step failed")
+                failure.__cause__ = exc
+                for fut in list(self._futures.values()):
+                    if not fut.done():
+                        fut.set_exception(failure)
+                try:
+                    self.core.abort_all("error")
+                except Exception:  # noqa: BLE001 — the callers already hold the failure
+                    logger.exception("abort after a failed step failed")
+        try:  # catch the host up so deferred pages release
+            self.core._drain([])
+        except Exception:  # noqa: BLE001 — best-effort cleanup
+            logger.exception("drain on shutdown failed")

@@ -1,0 +1,391 @@
+"""Dense decoder-only transformer over a paged KV cache, in PyTorch.
+
+Port of ``llmq_tpu/models/transformer.py`` (building blocks :100-176,
+``Transformer`` :340-824, ``init_params`` :840, ``make_kv_pages`` :946).
+Same parameter tree (per-layer weights stacked on a leading ``[L, ...]``
+axis, ``[in, out]`` matmul layout), same family switches (Qwen2 QKV bias,
+Qwen3 qk-norm, Gemma-2 softcaps / post-norms / alternating sliding window
+/ ``1 + w`` RMSNorm / scaled embeddings, llama3 RoPE scaling), same
+arithmetic order.
+
+PyTorch idiom in place of JAX's:
+
+- :class:`Transformer` is an ``nn.Module`` that owns the weights as
+  frozen parameters; the layer loop is a Python loop over views of the
+  stacked tensors (``w[li]`` never copies).
+- The KV pools ``[L, P, page, n_kv, d]`` are updated IN PLACE by
+  ``prefill``/``decode`` (the JAX functions return new pools).
+- RoPE angles and the KV write index are computed once per forward and
+  shared by all layers (JAX recomputes them per scanned layer; the values
+  are identical).
+
+Dense models only: an MoE config raises ``NotImplementedError``
+(ROADMAP M14).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from llmq_tpu_torch.models.config import ModelConfig
+from llmq_tpu_torch.ops import attention as attn_ops
+from llmq_tpu_torch.ops import dispatch as attn_dispatch
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(
+    x: torch.Tensor, weight: torch.Tensor, eps: float, *, one_plus: bool = False
+) -> torch.Tensor:
+    """RMSNorm in f32 accumulation. Gemma uses ``x * (1 + w)``."""
+    dtype = x.dtype
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    x32 = x32 * torch.rsqrt(var + eps)
+    w = weight.float()
+    out = x32 * (1.0 + w) if one_plus else x32 * w
+    return out.to(dtype)
+
+
+def compute_rope_inv_freq(
+    config: ModelConfig, device: Optional[torch.device] = None
+) -> torch.Tensor:
+    """Inverse RoPE frequencies [head_dim/2] (f32), with llama3-style or
+    linear scaling."""
+    d = config.head_dim_
+    exponent = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    inv_freq = 1.0 / torch.pow(torch.tensor(config.rope_theta, dtype=torch.float32), exponent)
+    scaling = config.rope_scaling or {}
+    rope_type = scaling.get("rope_type", scaling.get("type"))
+    if rope_type == "llama3":
+        factor = scaling.get("factor", 8.0)
+        low_factor = scaling.get("low_freq_factor", 1.0)
+        high_factor = scaling.get("high_freq_factor", 4.0)
+        original_ctx = scaling.get("original_max_position_embeddings", 8192)
+        low_freq_wavelen = original_ctx / low_factor
+        high_freq_wavelen = original_ctx / high_factor
+        wavelen = 2 * math.pi / inv_freq
+        scaled = inv_freq / factor
+        smooth = (original_ctx / wavelen - low_factor) / (high_factor - low_factor)
+        smoothed = (1 - smooth) * scaled + smooth * inv_freq
+        inv_freq = torch.where(
+            wavelen > low_freq_wavelen,
+            scaled,
+            torch.where(wavelen < high_freq_wavelen, inv_freq, smoothed),
+        )
+    elif rope_type == "linear":
+        inv_freq = inv_freq / scaling.get("factor", 1.0)
+    return inv_freq
+
+
+def rope_cos_sin(
+    positions: torch.Tensor, inv_freq: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin of the RoPE angles, [..., T, 1, d/2] f32."""
+    angles = positions[..., None].float() * inv_freq
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(
+    x: torch.Tensor,  # [..., T, n, d]
+    positions: torch.Tensor,  # [..., T]
+    inv_freq: torch.Tensor,  # [d/2]
+) -> torch.Tensor:
+    """Rotate-half RoPE; positions may be -1 (padding) — harmless garbage."""
+    return _rotate(x, *rope_cos_sin(positions, inv_freq))
+
+
+def _mlp(h: torch.Tensor, lp: Params, activation: str) -> torch.Tensor:
+    gate = h @ lp["gate_proj"]
+    up = h @ lp["up_proj"]
+    if activation == "gelu_tanh":
+        act = F.gelu(gate, approximate="tanh")
+    else:
+        act = F.silu(gate)
+    return (act * up) @ lp["down_proj"]
+
+
+# ---------------------------------------------------------------------------
+# Transformer
+# ---------------------------------------------------------------------------
+
+
+class Transformer(nn.Module):
+    """``prefill`` and ``decode`` over a layer-stacked paged KV cache.
+
+    ``params`` is the parameter tree of :func:`init_params` (or of
+    ``models.convert.params_from_numpy``); the module keeps its tensors as
+    frozen parameters, so ``.to(device)`` moves them."""
+
+    def __init__(self, config: ModelConfig, params: Params) -> None:
+        super().__init__()
+        if config.num_experts:
+            raise NotImplementedError(
+                "MoE models are not ported yet (ROADMAP.md queue 1, M14)"
+            )
+        self.config = config
+
+        def frozen(t: torch.Tensor) -> nn.Parameter:
+            return nn.Parameter(t, requires_grad=False)
+
+        self.embed = frozen(params["embed"])
+        self.final_norm = frozen(params["final_norm"])
+        self.lm_head = frozen(params["lm_head"]) if "lm_head" in params else None
+        self.layers = nn.ParameterDict(
+            {name: frozen(t) for name, t in params["layers"].items()}
+        )
+        self.one_plus = config.model_type.startswith("gemma")
+        disabled = config.max_position_embeddings + 1
+        self.windows: List[int] = [
+            config.sliding_window if config.layer_uses_sliding_window(i) else disabled
+            for i in range(config.num_layers)
+        ]
+        self._inv_freq_cache: Dict[torch.device, torch.Tensor] = {}
+
+    def _inv_freq(self, device: torch.device) -> torch.Tensor:
+        inv = self._inv_freq_cache.get(device)
+        if inv is None:
+            inv = self._inv_freq_cache[device] = compute_rope_inv_freq(self.config, device)
+        return inv
+
+    def layer_params(self, li: int) -> Params:
+        """Layer ``li``'s weights: views into the stacked tensors."""
+        return {name: p[li] for name, p in self.layers.items()}
+
+    # --- shared layer body -------------------------------------------------
+    def _qkv(
+        self, lp: Params, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        cfg = self.config
+        d = cfg.head_dim_
+        *lead, _ = h.shape
+        q = h @ lp["q_proj"]
+        k = h @ lp["k_proj"]
+        v = h @ lp["v_proj"]
+        if cfg.attention_bias:
+            q = q + lp["q_bias"]
+            k = k + lp["k_bias"]
+            v = v + lp["v_bias"]
+        q = q.reshape(*lead, cfg.num_heads, d)
+        k = k.reshape(*lead, cfg.num_kv_heads, d)
+        v = v.reshape(*lead, cfg.num_kv_heads, d)
+        if cfg.qk_norm:
+            q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+            k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+        return _rotate(q, cos, sin), _rotate(k, cos, sin), v
+
+    def _finish_layer(
+        self, lp: Params, h: torch.Tensor, attn_out: torch.Tensor
+    ) -> torch.Tensor:
+        cfg = self.config
+        *lead, _, _ = attn_out.shape
+        attn_proj = attn_out.reshape(*lead, cfg.num_heads * cfg.head_dim_) @ lp["o_proj"]
+        if cfg.post_norms:
+            attn_proj = rms_norm(
+                attn_proj, lp["post_attn_norm"], cfg.rms_norm_eps, one_plus=self.one_plus
+            )
+        h = h + attn_proj
+        mlp_in = rms_norm(h, lp["ln2"], cfg.rms_norm_eps, one_plus=self.one_plus)
+        mlp_out = _mlp(mlp_in, lp, cfg.activation)
+        if cfg.post_norms:
+            mlp_out = rms_norm(
+                mlp_out, lp["post_mlp_norm"], cfg.rms_norm_eps, one_plus=self.one_plus
+            )
+        return h + mlp_out
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        h = F.embedding(tokens, self.embed)
+        if self.config.scale_embeddings:
+            # sqrt(hidden) rounded to the weight dtype first, as in JAX.
+            h = h * torch.tensor(math.sqrt(self.config.hidden_size), dtype=h.dtype)
+        return h
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        h = rms_norm(h, self.final_norm, cfg.rms_norm_eps, one_plus=self.one_plus)
+        head = self.embed.t() if self.lm_head is None else self.lm_head
+        logits = (h @ head).float()
+        if cfg.logit_softcap is not None:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        return logits
+
+    # --- prefill -----------------------------------------------------------
+    @torch.no_grad()
+    def prefill(
+        self,
+        tokens: torch.Tensor,  # [B, T] right-padded prompt bucket
+        lengths: torch.Tensor,  # [B] int32 true prompt lengths
+        k_pages: torch.Tensor,  # [L, P, page, n_kv, d] — written in place
+        v_pages: torch.Tensor,
+        block_tables: torch.Tensor,  # [B, pages_per_seq] int32
+    ) -> torch.Tensor:
+        """Full-prompt forward: writes the prompt's K/V into the pages and
+        returns the last valid position's logits [B, V] (f32)."""
+        cfg = self.config
+        B, T = tokens.shape
+        dev = tokens.device
+        pos_grid = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
+        positions = torch.where(pos_grid < lengths[:, None], pos_grid, -1)
+        cos, sin = rope_cos_sin(positions, self._inv_freq(dev))
+        h = self._embed(tokens)
+        page_aligned = T % k_pages.shape[2] == 0
+        index = None if page_aligned else attn_ops.kv_write_index(
+            block_tables, positions, k_pages.shape[2]
+        )
+        for li in range(cfg.num_layers):
+            lp = self.layer_params(li)
+            x = rms_norm(h, lp["ln1"], cfg.rms_norm_eps, one_plus=self.one_plus)
+            q, k, v = self._qkv(lp, x, cos, sin)
+            if page_aligned:
+                attn_ops.write_prompt_kv_pages(k_pages, v_pages, k, v, block_tables, li)
+            else:
+                attn_ops.write_kv_pages(
+                    k_pages, v_pages, k, v, block_tables, positions, li, index=index
+                )
+            attn_out = attn_dispatch.prefill_attention(
+                q, k, v, scale=cfg.attn_scale, lengths=lengths,
+                sliding_window=self.windows[li], softcap=cfg.attn_softcap,
+            )
+            h = self._finish_layer(lp, h, attn_out)
+        last_idx = (lengths.long() - 1).clamp(min=0)
+        last_h = h[torch.arange(B, device=dev), last_idx]
+        return self._logits(last_h)
+
+    # --- decode ------------------------------------------------------------
+    @torch.no_grad()
+    def decode(
+        self,
+        tokens: torch.Tensor,  # [S] current token per slot
+        context_lens: torch.Tensor,  # [S] int32 tokens already cached (excl. new)
+        k_pages: torch.Tensor,  # [L, P, page, n_kv, d] — written in place
+        v_pages: torch.Tensor,
+        block_tables: torch.Tensor,  # [S, pages_per_seq] int32
+        active: torch.Tensor,  # [S] bool — slot holds a live sequence
+    ) -> torch.Tensor:
+        """One decode step for every slot; returns logits [S, V] (f32).
+        Inactive slots write their K/V to the scratch page and attend
+        nothing (context length 0)."""
+        cfg = self.config
+        positions = torch.where(active, context_lens, -1).to(torch.int32)  # [S]
+        cos, sin = rope_cos_sin(positions[:, None], self._inv_freq(tokens.device))
+        h = self._embed(tokens)  # [S, H]
+        ctx_incl = torch.where(active, context_lens + 1, 0).to(torch.int32)
+        index = attn_ops.kv_write_index(block_tables, positions[:, None], k_pages.shape[2])
+        for li in range(cfg.num_layers):
+            lp = self.layer_params(li)
+            x = rms_norm(h, lp["ln1"], cfg.rms_norm_eps, one_plus=self.one_plus)
+            q, k, v = self._qkv(lp, x[:, None, :], cos, sin)  # [S, 1, heads, d]
+            attn_ops.write_kv_pages(
+                k_pages, v_pages, k, v, block_tables, positions[:, None], li, index=index
+            )
+            attn_out = attn_dispatch.decode_attention(
+                q[:, 0], k_pages, v_pages, block_tables, ctx_incl,
+                scale=cfg.attn_scale, sliding_window=self.windows[li],
+                softcap=cfg.attn_softcap, layer=li,
+            )
+            h = self._finish_layer(lp, h, attn_out)
+        return self._logits(h)
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def init_params(
+    config: ModelConfig,
+    generator: torch.Generator,
+    dtype: torch.dtype = torch.float32,
+    *,
+    device: Optional[torch.device] = None,
+) -> Params:
+    """Random init (testing / benchmarks without a checkpoint): the JAX
+    tree's leaves and scales (normal / sqrt(fan_in), unit norms, zero
+    biases), drawn from ``generator`` on its device. The numbers differ
+    from ``jax.random``'s; tests carry one tree across with
+    ``models.convert.params_from_numpy`` instead."""
+    cfg = config
+    if cfg.num_experts:
+        raise NotImplementedError("MoE models are not ported yet (ROADMAP.md queue 1, M14)")
+    device = torch.device(device) if device is not None else generator.device
+    d = cfg.head_dim_
+    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+
+    def w(shape, fan_in):
+        arr = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return arr.div_(math.sqrt(fan_in)).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    layers: Params = {
+        "ln1": ones(L, H),
+        "ln2": ones(L, H),
+        "q_proj": w((L, H, cfg.num_heads * d), H),
+        "k_proj": w((L, H, cfg.num_kv_heads * d), H),
+        "v_proj": w((L, H, cfg.num_kv_heads * d), H),
+        "o_proj": w((L, cfg.num_heads * d, H), cfg.num_heads * d),
+        "gate_proj": w((L, H, I), H),
+        "up_proj": w((L, H, I), H),
+        "down_proj": w((L, I, H), I),
+    }
+    if cfg.attention_bias:
+        layers["q_bias"] = zeros(L, cfg.num_heads * d)
+        layers["k_bias"] = zeros(L, cfg.num_kv_heads * d)
+        layers["v_bias"] = zeros(L, cfg.num_kv_heads * d)
+    if cfg.qk_norm:
+        layers["q_norm"] = ones(L, d)
+        layers["k_norm"] = ones(L, d)
+    if cfg.post_norms:
+        layers["post_attn_norm"] = ones(L, H)
+        layers["post_mlp_norm"] = ones(L, H)
+    params: Params = {
+        "embed": w((cfg.vocab_size, H), H),
+        "layers": layers,
+        "final_norm": ones(H),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w((H, cfg.vocab_size), H)
+    return params
+
+
+def make_kv_pages(
+    config: ModelConfig,
+    num_pages: int,
+    page_size: int,
+    dtype: torch.dtype = torch.bfloat16,
+    *,
+    device: Optional[torch.device] = None,
+    num_layers: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the paged KV cache: [L, P, page, n_kv, d] ×2, zeroed."""
+    shape = (
+        config.num_layers if num_layers is None else num_layers,
+        num_pages,
+        page_size,
+        config.num_kv_heads,
+        config.head_dim_,
+    )
+    return (
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+    )

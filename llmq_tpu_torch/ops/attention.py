@@ -1,0 +1,207 @@
+"""Plain PyTorch attention + paged-KV functions.
+
+Port of ``llmq_tpu/ops/attention.py``: the same functions, arguments,
+layouts and arithmetic, written with torch ops. They are the CPU path of
+the port and the oracle the CUDA kernels in ``ops/csrc`` are held
+against (``chip_smoke.py``, ``tests/test_torch_ops.py``).
+
+KV cache layout (paged, layer-stacked):
+    k_pages, v_pages: [L, P, page_size, n_kv, head_dim] (or [P, ...])
+    block_tables:     [num_seqs, pages_per_seq] int32 — logical→physical
+    context_lens:     [num_seqs] int32 — INCLUDING the new token
+Page 0 is scratch: padded or inactive positions (position −1) write there.
+
+Unlike the JAX reference, the KV writes update the pools IN PLACE (an
+``index_put_``) and return the same tensors: the engine holds one pool
+for its whole life instead of threading new arrays through every step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
+
+
+def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
+def _compute_dtype(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> torch.dtype:
+    """Dtype the attention math runs in, given the query dtype and the KV
+    storage dtype: narrow (1-byte) pools upcast to the query dtype, a pool
+    wider than the query promotes (an f32 pool under a bf16 query keeps
+    its precision)."""
+    q_size = torch.empty((), dtype=q_dtype).element_size()
+    kv_size = torch.empty((), dtype=kv_dtype).element_size()
+    if kv_size == 1:
+        return q_dtype
+    if q_size == 1:
+        return kv_dtype
+    return torch.promote_types(q_dtype, kv_dtype)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[..., n_kv, d] → [..., n_kv*n_rep, d] (GQA key/value head expansion)."""
+    if n_rep == 1:
+        return x
+    return torch.repeat_interleave(x, n_rep, dim=-2)
+
+
+def full_prefill_attention(
+    q: torch.Tensor,  # [B, T, n_heads, head_dim]
+    k: torch.Tensor,  # [B, T, n_kv_heads, head_dim]
+    v: torch.Tensor,  # [B, T, n_kv_heads, head_dim]
+    *,
+    scale: float,
+    lengths: Optional[torch.Tensor] = None,  # [B] valid prompt lengths
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal self-attention over a full (possibly right-padded) prompt."""
+    B, T, n_heads, _ = q.shape
+    n_rep = n_heads // k.shape[2]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    scores = _softcap(scores, softcap)
+    pos = torch.arange(T, device=q.device)
+    q_pos = pos[:, None]
+    k_pos = pos[None, :]
+    mask = k_pos <= q_pos
+    if sliding_window is not None:
+        mask = mask & (k_pos > q_pos - sliding_window)
+    if lengths is not None:
+        mask = mask[None, :, :] & (k_pos[None, :, :] < lengths[:, None, None])
+        mask = mask[:, None, :, :]
+    else:
+        mask = mask[None, None, :, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [S, n_heads, head_dim] — one new token per sequence
+    k_pages: torch.Tensor,  # [P, page_size, n_kv, head_dim] or [L, P, ...]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, pages_per_seq] int32
+    context_lens: torch.Tensor,  # [S] int32 — INCLUDING the new token
+    *,
+    scale: float,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    layer: Optional[int] = None,  # required when pages are stacked
+) -> torch.Tensor:
+    """Decode-step attention reading K/V through the page table: gathers
+    each sequence's pages into a contiguous [S, max_ctx] view and does a
+    masked softmax (the CUDA kernel computes the same without the gather)."""
+    if k_pages.dim() == 5:
+        if layer is None:
+            raise ValueError("stacked pages need a layer index")
+        k_pages = k_pages[layer]
+        v_pages = v_pages[layer]
+    S, n_heads, head_dim = q.shape
+    page_size = k_pages.shape[1]
+    pages_per_seq = block_tables.shape[1]
+    max_ctx = pages_per_seq * page_size
+    n_kv = k_pages.shape[2]
+    n_rep = n_heads // n_kv
+
+    out_dtype = q.dtype
+    mul = _compute_dtype(q.dtype, k_pages.dtype)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(S, max_ctx, n_kv, head_dim)
+    v = v_pages[bt].reshape(S, max_ctx, n_kv, head_dim)
+    k = repeat_kv(k, n_rep).to(mul)
+    v = repeat_kv(v, n_rep).to(mul)
+    q = q.to(mul)
+
+    scores = torch.einsum("shd,skhd->shk", q, k) * scale
+    scores = _softcap(scores, softcap)
+    k_pos = torch.arange(max_ctx, device=q.device)[None, :]
+    mask = k_pos < context_lens[:, None]
+    if sliding_window is not None:
+        mask = mask & (k_pos >= context_lens[:, None] - sliding_window)
+    scores = torch.where(mask[:, None, :], scores, NEG_INF)
+    weights = torch.softmax(scores.float(), dim=-1).to(mul)
+    return torch.einsum("shk,skhd->shd", weights, v).to(out_dtype)
+
+
+def write_prompt_kv_pages(
+    k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d] (stacked only)
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,  # [B, T, n_kv, d] — positions 0..T-1 per row
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, pages_per_seq]
+    layer: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Page-granular prefill KV write (whole pages, not token rows), in
+    place. Requires a page-aligned bucket ``T``. Rows shorter than ``T``
+    write garbage into the unread tail of their last page(s); padded rows
+    carry an all-zero block table and land on scratch page 0."""
+    B, T, n_kv, d = k_new.shape
+    page_size = k_pages.shape[-3]
+    if T % page_size:
+        raise ValueError("bucket must be page-aligned for page writes")
+    n_lp = T // page_size
+    phys = block_tables[:, :n_lp].reshape(B * n_lp).long()
+    k_pages[layer, phys] = k_new.to(k_pages.dtype).reshape(B * n_lp, page_size, n_kv, d)
+    v_pages[layer, phys] = v_new.to(v_pages.dtype).reshape(B * n_lp, page_size, n_kv, d)
+    return k_pages, v_pages
+
+
+def kv_write_index(
+    block_tables: torch.Tensor,  # [B, pages_per_seq]
+    positions: torch.Tensor,  # [B, T] absolute positions (−1 = skip)
+    page_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(physical page, in-page offset) per flattened position for
+    :func:`write_kv_pages`; position −1 maps to (0, 0), the scratch page.
+    The same for every layer, so a forward pass computes it once."""
+    B, T = positions.shape
+    pos = positions.reshape(B * T)
+    valid = pos >= 0
+    logical = torch.where(valid, torch.div(pos, page_size, rounding_mode="floor"), 0)
+    # An index past the page map clamps, as the JAX gather does.
+    logical = logical.clamp(max=block_tables.shape[1] - 1).long()
+    offset = torch.where(valid, pos % page_size, 0).long()
+    batch_idx = torch.arange(B, device=positions.device).repeat_interleave(T)
+    physical = block_tables[batch_idx, logical]
+    physical = torch.where(valid, physical, 0).long()
+    return physical, offset
+
+
+def write_kv_pages(
+    k_pages: torch.Tensor,  # [P, page_size, n_kv, d] or [L, P, ...]
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,  # [B, T, n_kv, d]
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, pages_per_seq]
+    positions: torch.Tensor,  # [B, T] absolute token positions (−1 = skip)
+    layer: Optional[int] = None,  # required when pages are stacked
+    *,
+    index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter fresh K/V into their pages, in place. Padded/inactive
+    entries (position −1) go to the scratch page 0. ``index`` is a
+    precomputed :func:`kv_write_index` result."""
+    B, T, n_kv, d = k_new.shape
+    physical, offset = index if index is not None else kv_write_index(
+        block_tables, positions, k_pages.shape[-3]
+    )
+    k_flat = k_new.reshape(B * T, n_kv, d).to(k_pages.dtype)
+    v_flat = v_new.reshape(B * T, n_kv, d).to(v_pages.dtype)
+    if k_pages.dim() == 5:
+        if layer is None:
+            raise ValueError("stacked pages need a layer index")
+        k_pages[layer, physical, offset] = k_flat
+        v_pages[layer, physical, offset] = v_flat
+    else:
+        k_pages[physical, offset] = k_flat
+        v_pages[physical, offset] = v_flat
+    return k_pages, v_pages

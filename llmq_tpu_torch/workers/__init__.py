@@ -1,0 +1,1 @@
+"""workers layer of the PyTorch port (see ``llmq_tpu_torch/__init__.py``)."""

@@ -1,0 +1,85 @@
+"""The port stands alone: no JAX and nothing of the JAX package.
+
+An AST scan finds no ``jax`` or ``llmq_tpu`` import in ``llmq_tpu_torch/``
+or ``chip_smoke.py``; a fresh interpreter that imports every port module
+loads neither; and the entry points default to CUDA, raising here where
+there is none.
+"""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import llmq_tpu_torch
+
+pytestmark = pytest.mark.unit
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "llmq_tpu_torch"
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "llmq_tpu")
+
+
+def test_no_jax_or_reference_imports_in_source():
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names if _forbidden(n)]
+    assert not offenders, offenders
+
+
+def _all_port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(llmq_tpu_torch.__path__, "llmq_tpu_torch.")
+    )
+
+
+def test_importing_every_module_loads_no_jax():
+    modules = _all_port_modules()
+    assert "llmq_tpu_torch.engine.engine" in modules and len(modules) > 20
+    code = (
+        "import sys, importlib\n"
+        "before = set(sys.modules)\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "new = sorted(set(sys.modules) - before)\n"
+        "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'llmq_tpu')]\n"
+        "print(len(new), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_cuda():
+    from llmq_tpu_torch.cli.worker import build_engine
+    from llmq_tpu_torch.device import resolve_device
+    from llmq_tpu_torch.engine.engine import EngineCore
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.models.config import ModelConfig
+    from llmq_tpu_torch.models.transformer import init_params
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA error cannot show")
+    cfg = ModelConfig.tiny()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        EngineCore(cfg, params, ByteTokenizer())
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_engine("preset://tiny")
+    with pytest.raises(ValueError):
+        resolve_device("meta")

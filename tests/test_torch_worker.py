@@ -1,0 +1,104 @@
+"""The port's worker over ``memory://``: jobs in, results out.
+
+Drives ``run_torch_worker`` on the CPU with the tiny preset and checks
+ids, ``usage.completion_tokens``, extra-field passthrough, and that each
+result's text equals ``generate_sync`` of an engine with the same seeded
+weights.
+"""
+
+import asyncio
+import json
+
+import pytest
+
+from llmq_tpu_torch.broker.base import make_broker
+from llmq_tpu_torch.broker.memory import reset_namespace
+from llmq_tpu_torch.cli.worker import build_engine, run_torch_worker
+from llmq_tpu_torch.core.models import Job
+from llmq_tpu_torch.engine.sampling import SamplingParams
+from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+pytestmark = pytest.mark.unit
+
+URL, QUEUE = "memory://torch-worker-test", "jobs"
+ENGINE = dict(device="cpu", dtype="float32", max_num_seqs=4, max_model_len=64)
+
+
+async def _submit(payloads, url=URL):
+    broker = make_broker(url)
+    await broker.connect()
+    for body in payloads:
+        await broker.publish(QUEUE, body)
+    await broker.close()
+
+
+async def _drain(queue, url=URL):
+    broker = make_broker(url)
+    await broker.connect()
+    out = []
+    while (msg := await broker.get(queue)) is not None:
+        out.append(msg.body)
+        await msg.ack()
+    await broker.close()
+    return out
+
+
+def test_worker_serves_memory_queue():
+    reset_namespace(URL.split("://")[1])
+    jobs = [
+        Job(id=f"j{i}", prompt="Say {word} {n}", word="hi", n=i, temperature=0.0,
+            max_tokens=5 + i, ignore_eos=True, result="collides")
+        for i in range(5)
+    ]
+    payloads = [j.model_dump_json().encode() for j in jobs] + [b"{not json"]
+    asyncio.run(_submit(payloads))
+    worker = run_torch_worker("preset://tiny", QUEUE, broker_url=URL, max_jobs=6, **ENGINE)
+    assert (worker.jobs_processed, worker.jobs_failed) == (5, 1)
+    results = {r["id"]: r for r in map(json.loads, asyncio.run(_drain(QUEUE + ".results")))}
+    assert sorted(results) == [j.id for j in jobs]
+    assert asyncio.run(_drain(QUEUE + ".failed")) == [b"{not json"]  # dead-lettered
+
+    reference = build_engine("preset://tiny", **ENGINE)
+    try:
+        for i, job in enumerate(jobs):
+            r = results[job.id]
+            assert r["usage"] == {"prompt_tokens": len(f"Say hi {i}"),
+                                  "completion_tokens": 5 + i}
+            assert r["prompt"] == f"Say hi {i}"
+            assert (r["word"], r["n"], r["job_result"]) == ("hi", i, "collides")
+            assert r["finish_reason"] == "length"
+            expect = reference.generate_sync(
+                rid=job.id, prompt=f"Say hi {i}", timeout=60,
+                params=SamplingParams(temperature=0.0, max_tokens=5 + i, ignore_eos=True),
+            )
+            assert r["result"] == expect.text
+    finally:
+        reference.shutdown()
+
+
+def test_worker_stops_with_the_engine_failure():
+    """A failed engine step (a kernel launch error, say) stops the worker:
+    ``run`` raises with the engine's exception as the cause, every job goes
+    back to the queue once, and nothing is published or dead-lettered."""
+    url = "memory://torch-worker-fail"
+    reset_namespace(url.split("://")[1])
+    jobs = [Job(id=f"f{i}", prompt=f"job {i}", temperature=0.0, max_tokens=4) for i in range(3)]
+    asyncio.run(_submit([j.model_dump_json().encode() for j in jobs], url))
+    engine = build_engine("preset://tiny", **ENGINE)
+
+    def failing_step():
+        raise RuntimeError("paged_decode kernel launch failed: CUDA error 700")
+
+    engine.core.step = failing_step
+    worker = TorchWorker(QUEUE, engine, broker_url=url, max_jobs=len(jobs))
+    try:
+        with pytest.raises(RuntimeError, match="engine failed") as info:
+            asyncio.run(worker.run())
+    finally:
+        engine.shutdown()
+    assert "CUDA error 700" in str(info.value.__cause__)
+    assert worker.jobs_processed == 0
+    requeued = [json.loads(b)["id"] for b in asyncio.run(_drain(QUEUE, url))]
+    assert sorted(requeued) == [j.id for j in jobs]
+    assert asyncio.run(_drain(QUEUE + ".results", url)) == []
+    assert asyncio.run(_drain(QUEUE + ".failed", url)) == []
