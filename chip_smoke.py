@@ -6,27 +6,42 @@
 Phases, each printing one JSON line (a phase that fails exits non-zero):
 
 1. ``nvidia-smi`` name and power limit (verbatim), then the build of every
-   kernel under ``llmq_tpu_torch/ops/csrc`` with ``nvcc``, timed.
+   kernel under ``llmq_tpu_torch/ops/csrc`` with ``nvcc`` (one process per
+   source, all started together), timed.
 2. Each kernel against its plain PyTorch version on the card, on the same
-   inputs, at the main path's shapes (qwen2.5-3b; the decode kernel also
-   at gemma2-2b shapes with head_dim 256, softcap and window), in f32
-   (tolerance 2e-5) and bf16 (3e-2; the decode kernel, whose math is f32
-   as on the TPU, is also held within 1e-2 of the plain version run in
-   f32 on the same bf16 values). Times: the kernel's, the plain
-   version's and one PyTorch library call's device time per call in ms
-   (``torch.profiler``: the summed time of every kernel and copy the call
-   put on the card), the host span per call of back-to-back calls, and
-   the least time the card could take (``bound_ms``).
-3. The main path at full width: ``run_torch_worker`` serves 16 greedy
+   inputs, in f32 (tolerance 2e-5) and bf16 (3e-2), at the main paths'
+   shapes (qwen2.5-3b) and at gemma2-2b shapes (head_dim 256, softcap 50,
+   window 64): K1 paged decode, K2 flash prefill, K3 chunked prefill
+   (chunks of 256 at contexts 0 / 256 / 1040, a row with no valid query),
+   K5 chunked decode and K4 fused-write decode (whose pools must equal
+   ``write_kv_pages`` + the plain decode bit for bit on pages >= 1). The
+   decode kernels, whose math is f32 as on the TPU, are also held within
+   1e-2 of the plain version run in f32 on the same bf16 values. Times:
+   the kernel's, the plain version's and one PyTorch library call's
+   device time per call in ms (``torch.profiler``: the summed time of
+   every kernel and copy the call put on the card), the host span per
+   call of back-to-back calls, and the least time the card could take
+   (``bound_ms``).
+3. The default path at full width: ``run_torch_worker`` serves 16 greedy
    jobs of qwen2.5-3b (36 layers, random weights from a seeded
    generator) over ``memory://``, 128 tokens each. Every kernel launch
-   counter is set to 0 just before and read just after; each kernel must
-   have launched, the decode kernel exactly 36 times per decode step.
-4. f32 parity of the slice: the qwen2.5-3b widths at 2 layers with the
-   same numpy-made weights, the port on ``cuda`` (kernels) against the
-   port on ``cpu`` (plain versions): logits within 1e-4 and identical
-   greedy tokens over 32 steps, with TF32 off.
-5. ``{"kernels": [...]}``: one record per ported kernel.
+   counter is set to 0 just before and read just after: K1 must launch 36
+   times per decode step and K2 36 times per prefill dispatch.
+4. The prefix-cache path at full width: the same model with
+   ``LLMQ_DECODE_KERNEL=v3``, ``prefill_chunk_size=256`` and
+   ``enable_prefix_caching=True`` serves 16 greedy jobs sharing a
+   ~1,024-token template with distinct tails, 64 tokens each. Counters as
+   above: K3 launches 36 times per chunk dispatch, K4 36 times per decode
+   step, K1, K2 and K5 never; the prefix cache must hit.
+5. f32 parity, card against CPU, with TF32 off: the qwen2.5-3b widths at
+   2 layers with the same numpy-made weights. The default path (bucketed
+   prefill + K1): logits within 1e-4 and identical greedy tokens over 32
+   steps. Then the chunked + prefix-cache path under each of
+   ``LLMQ_DECODE_KERNEL`` v1, v2 and v3: chunk and decode logits within
+   1e-4, identical tokens (greedy, and one seeded request at temperature
+   0.8 through the threefry sampler) and prefix-cache counters; K5 is
+   counted on the v2 run, the path it carries.
+6. ``{"kernels": [...]}``: one record per ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -38,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import math
@@ -54,7 +70,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
-ALL_PHASES = ("build", "kernels", "serve", "parity")
+ALL_PHASES = ("build", "kernels", "serve", "prefix", "parity")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -105,10 +121,22 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
 # --- phase 2: kernels against their plain versions --------------------------
 
 
-def check_decode(label, *, S, H, n_kv, d, L, page, max_ctx, dtype, softcap, window, iters, seed):
-    from llmq_tpu_torch.ops import attention as plain
-    from llmq_tpu_torch.ops.cuda_attention import paged_decode_attention_cuda
+def _decode_kernels():
+    from llmq_tpu_torch.ops import cuda_attention as ca
 
+    return {"v1": ("paged_decode", ca.paged_decode_attention_cuda),
+            "v2": ("paged_decode_v2", ca.paged_decode_attention_v2_cuda),
+            "v3": ("paged_decode_v3", ca.paged_decode_attention_v3_cuda)}
+
+
+def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, softcap, window,
+                 iters, seed):
+    """K1 (v1), K5 (v2) or K4 (v3, with the fused write of the new rows)
+    against the plain version on the same inputs."""
+    from llmq_tpu_torch.ops import attention as plain
+
+    name, fn = _decode_kernels()[variant]
+    fused = variant == "v3"
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     pps = max_ctx // page
@@ -120,13 +148,27 @@ def check_decode(label, *, S, H, n_kv, d, L, page, max_ctx, dtype, softcap, wind
     q = torch.randn((S, H, d), generator=g, device=dev).to(dtype)
     kp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(dtype)
     vp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(dtype)
+    k_new = torch.randn((S, n_kv, d), generator=g, device=dev).to(dtype)
+    v_new = torch.randn((S, n_kv, d), generator=g, device=dev).to(dtype)
     bt_t = torch.from_numpy(bt).to(dev)
     ctx_t = torch.from_numpy(ctx.astype(np.int32)).to(dev)
     layer = L // 2
     scale = d ** -0.5
     kw = dict(scale=scale, sliding_window=window, softcap=softcap)
-    out = paged_decode_attention_cuda(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
-    ref = plain.paged_decode_attention(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
+    pools_equal = None
+    if fused:
+        kp_p, vp_p = kp.clone(), vp.clone()  # the plain write goes here
+        out, _, _ = fn(q, kp, vp, k_new, v_new, bt_t, ctx_t, layer=layer, **kw)
+        ref, _, _ = plain.paged_decode_attention_fused_write(
+            q, kp_p, vp_p, k_new, v_new, bt_t, ctx_t, layer=layer, **kw)
+        torch.cuda.synchronize()
+        # Page 0 is scratch: the plain scatter parks inactive rows there.
+        pools_equal = bool(torch.equal(kp[:, 1:], kp_p[:, 1:])
+                           and torch.equal(vp[:, 1:], vp_p[:, 1:]))
+        del kp_p, vp_p
+    else:
+        out = fn(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
+        ref = plain.paged_decode_attention(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
     torch.cuda.synchronize()
     # A ctx == 0 row is inactive: the kernel writes exact zeros, the plain
     # version a finite average (both never read). Compare the live rows.
@@ -136,7 +178,8 @@ def check_decode(label, *, S, H, n_kv, d, L, page, max_ctx, dtype, softcap, wind
     # The kernel's math is f32 whatever the storage (q, k and v upcast, as
     # in the TPU kernel); the plain version multiplies in bf16. So a bf16
     # run is also held, more tightly, against the plain version in f32 on
-    # the same bf16 values: what is left is the output's rounding.
+    # the same bf16 values (the pools as the kernel left them): what is
+    # left is the output's rounding.
     f32_math_err = None
     if dtype != torch.float32:
         ref32 = plain.paged_decode_attention(
@@ -145,11 +188,19 @@ def check_decode(label, *, S, H, n_kv, d, L, page, max_ctx, dtype, softcap, wind
         f32_math_err = (out[live_rows].float() - ref32[live_rows]).abs().max().item()
     # Times rotate over the layers: each launch reads another layer's
     # pages, so the 50 MB L2 holds none of them, as on the main path.
-    def kernel(i):
-        return paged_decode_attention_cuda(q, kp, vp, bt_t, ctx_t, layer=i % L, **kw)
+    if fused:
+        def kernel(i):
+            return fn(q, kp, vp, k_new, v_new, bt_t, ctx_t, layer=i % L, **kw)
 
-    def plain_fn(i):
-        return plain.paged_decode_attention(q, kp, vp, bt_t, ctx_t, layer=i % L, **kw)
+        def plain_fn(i):
+            return plain.paged_decode_attention_fused_write(
+                q, kp, vp, k_new, v_new, bt_t, ctx_t, layer=i % L, **kw)
+    else:
+        def kernel(i):
+            return fn(q, kp, vp, bt_t, ctx_t, layer=i % L, **kw)
+
+        def plain_fn(i):
+            return plain.paged_decode_attention(q, kp, vp, bt_t, ctx_t, layer=i % L, **kw)
 
     ms, host_ms = device_ms(kernel, iters), span_ms(kernel, iters)
     plain_ms = device_ms(plain_fn, max(3, iters // 10))
@@ -167,35 +218,135 @@ def check_decode(label, *, S, H, n_kv, d, L, page, max_ctx, dtype, softcap, wind
     lib_ms = device_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
         q4, dense_k[i % L], dense_v[i % L], attn_mask=mask, scale=scale, enable_gqa=True
     ), iters)
+    del dense_k, dense_v
     # What the function must move: the live rows' queries in, every
     # output row out, each live key's K and V row once, the block-table
-    # entries of the live pages and the context lengths.
+    # entries of the live pages and the context lengths; K4 also reads
+    # the live rows' new K/V rows and writes them into the pool.
     start = np.zeros_like(ctx) if window is None else np.maximum(ctx - window, 0)
     live = ctx - start
     live_pages = np.where(ctx > 0, (ctx - 1) // page - start // page + 1, 0)
     item = torch.empty((), dtype=dtype).element_size()
+    active = int((ctx > 0).sum())
     nbytes = (
-        (int((ctx > 0).sum()) + S) * H * d * item  # q of live rows in, out
+        (active + S) * H * d * item  # q of live rows in, out
         + 2 * int(live.sum()) * n_kv * d * item  # live K and V rows, once each
         + int(live_pages.sum()) * 4 + ctx.nbytes
+        + (4 * active * n_kv * d * item if fused else 0)  # new rows in, stored
     )
     ops = 4 * int(live.sum()) * H * d  # QK and PV multiply-adds
     b_ms, b_by = bound(nbytes, ops, dtype)
     rec = dict(
-        phase="kernel_check", kernel="paged_decode", case=label, dtype=str(dtype)[6:],
+        phase="kernel_check", kernel=name, case=label, dtype=str(dtype)[6:],
         shape=dict(S=S, H=H, n_kv=n_kv, d=d, L=L, page=page, max_ctx=max_ctx,
                    window=window, softcap=softcap, layer=layer),
         max_abs_err=err, tolerance=TOLERANCE[dtype], ctx0_row_max=zero_row,
         max_abs_err_vs_f32_math=f32_math_err,
         tolerance_vs_f32_math=None if f32_math_err is None else DECODE_F32_MATH_TOLERANCE,
+        pools_bit_exact_pages_ge_1=pools_equal,
         ms=ms, host_span_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=b_ms, bound_by=b_by, timing="torch.profiler device time per call",
     )
     emit(rec)
-    if (not (err <= TOLERANCE[dtype]) or zero_row != 0.0
+    if (not (err <= TOLERANCE[dtype]) or zero_row != 0.0 or pools_equal is False
             or not (f32_math_err is None or f32_math_err <= DECODE_F32_MATH_TOLERANCE)):
-        raise SystemExit(f"paged_decode {label} {dtype}: error {err}, against f32 math "
-                         f"{f32_math_err}, ctx=0 row {zero_row}")
+        raise SystemExit(f"{name} {label} {dtype}: error {err}, against f32 math "
+                         f"{f32_math_err}, ctx=0 row {zero_row}, pools equal {pools_equal}")
+    return rec
+
+
+def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dtype, softcap,
+                        window, iters, seed):
+    """K3 against its plain version: a chunk of C queries per row at the
+    given absolute starts, with num_valid valid queries each."""
+    from llmq_tpu_torch.ops import attention as plain
+    from llmq_tpu_torch.ops.cuda_attention import paged_prefill_attention_cuda
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    pps = -(-max(s0 + n for s0, n in zip(starts, valids)) // page)
+    P = 1 + B * pps
+    bt = (1 + rng.permutation(B * pps)).reshape(B, pps).astype(np.int32)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, C, H, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(dtype)
+    positions = np.full((B, C), -1, np.int32)
+    for r, (s0, n) in enumerate(zip(starts, valids)):
+        positions[r, :n] = np.arange(s0, s0 + n)
+    bt_t, pos_t = (torch.from_numpy(a).to(dev) for a in (bt, positions))
+    start_t = torch.tensor(starts, dtype=torch.int32, device=dev)
+    nv_t = torch.tensor(valids, dtype=torch.int32, device=dev)
+    layer = L // 2
+    scale = d ** -0.5
+    kw = dict(scale=scale, sliding_window=window, softcap=softcap)
+    out = paged_prefill_attention_cuda(q, kp, vp, bt_t, start_t, nv_t, layer=layer, **kw)
+    ref = plain.paged_prefill_attention(q, kp, vp, bt_t, pos_t, layer=layer, **kw)
+    torch.cuda.synchronize()
+    # Query rows past num_valid are padding (zeros from the kernel, an
+    # average from the plain version, never read): compare valid rows.
+    err = max((out[b, :n].float() - ref[b, :n].float()).abs().max().item()
+              for b, n in enumerate(valids) if n)
+    pad_zero = all(bool((out[b, n:] == 0).all()) for b, n in enumerate(valids))
+
+    def kernel(i):
+        return paged_prefill_attention_cuda(q, kp, vp, bt_t, start_t, nv_t, layer=i % L, **kw)
+
+    def plain_fn(i):
+        return plain.paged_prefill_attention(q, kp, vp, bt_t, pos_t, layer=i % L, **kw)
+
+    ms, host_ms = device_ms(kernel, iters), span_ms(kernel, iters)
+    plain_ms = device_ms(plain_fn, max(3, iters // 10))
+    # Library yardstick: SDPA over the rows' K/V gathered densely (per
+    # layer, outside the timed region), with the causal + window frontier
+    # of each query as a boolean mask.
+    idx = bt_t.long()
+    max_ctx = pps * page
+    dense_k = [kp[i][idx].reshape(B, max_ctx, n_kv, d).transpose(1, 2) for i in range(L)]
+    dense_v = [vp[i][idx].reshape(B, max_ctx, n_kv, d).transpose(1, 2) for i in range(L)]
+    qpos = pos_t.long()[:, :, None]
+    kpos = torch.arange(max_ctx, device=dev)[None, None, :]
+    keep = (kpos <= qpos) & (qpos >= 0)
+    if window is not None:
+        keep &= kpos > qpos - window
+    mask = keep[:, None]
+    qt = q.transpose(1, 2)
+    lib_ms = device_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qt, dense_k[i % L], dense_v[i % L], attn_mask=mask, scale=scale, enable_gqa=True
+    ), iters)
+    del dense_k, dense_v
+    # What the function must move: the valid queries in, every output row
+    # out, each row's live keys [first query - window + 1, last query] once
+    # as K and V rows, their block-table entries, starts and counts.
+    item = torch.empty((), dtype=dtype).element_size()
+    live_keys = live_pages = pairs = 0
+    for s0, n in zip(starts, valids):
+        if not n:
+            continue
+        lo = 0 if window is None else max(0, s0 - window + 1)
+        live_keys += s0 + n - lo
+        live_pages += (s0 + n - 1) // page - lo // page + 1
+        qp = np.arange(s0, s0 + n)[:, None]
+        kp_ = np.arange(lo, s0 + n)[None, :]
+        m = kp_ <= qp
+        if window is not None:
+            m &= kp_ > qp - window
+        pairs += int(m.sum())
+    nbytes = ((sum(valids) + B * C) * H * d * item + 2 * live_keys * n_kv * d * item
+              + live_pages * 4 + 2 * B * 4)
+    ops = 4 * pairs * H * d  # QK and PV multiply-adds over the live pairs
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    rec = dict(
+        phase="kernel_check", kernel="paged_prefill", case=label, dtype=str(dtype)[6:],
+        shape=dict(B=B, C=C, H=H, n_kv=n_kv, d=d, L=L, page=page, starts=list(starts),
+                   valids=list(valids), window=window, softcap=softcap, layer=layer),
+        max_abs_err=err, tolerance=TOLERANCE[dtype], padding_rows_zero=pad_zero,
+        ms=ms, host_span_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=b_ms, bound_by=b_by, timing="torch.profiler device time per call",
+    )
+    emit(rec)
+    if not (err <= TOLERANCE[dtype]) or not pad_zero:
+        raise SystemExit(f"paged_prefill {label} {dtype}: error {err}, padding zero {pad_zero}")
     return rec
 
 
@@ -256,15 +407,21 @@ def check_prefill(label, *, B, T, H, n_kv, d, lengths, dtype, softcap, window, i
 
 
 def phase_kernels(iters: int) -> dict:
+    """Every kernel in f32 and bf16; the bf16 record at qwen2.5-3b shapes
+    is the one the final kernels line reports."""
     main = {}
+    qwen = dict(S=16, H=16, n_kv=2, d=128, L=36, page=32, max_ctx=1024, softcap=None,
+                window=None, iters=iters)
+    gemma = dict(S=16, H=8, n_kv=4, d=256, L=26, page=32, max_ctx=1024, softcap=50.0,
+                 window=64, iters=iters)
+    chunk = dict(B=4, C=256, page=32, starts=[0, 256, 1040, 512], valids=[256, 256, 200, 0],
+                 iters=iters)
     for dtype in (torch.float32, torch.bfloat16):
-        rec = check_decode("qwen2.5-3b", S=16, H=16, n_kv=2, d=128, L=36, page=32,
-                           max_ctx=1024, dtype=dtype, softcap=None, window=None,
-                           iters=iters, seed=1)
-        if dtype == torch.bfloat16:
-            main["paged_decode"] = rec
-        check_decode("gemma2-2b", S=16, H=8, n_kv=4, d=256, L=26, page=32, max_ctx=1024,
-                     dtype=dtype, softcap=50.0, window=64, iters=iters, seed=2)
+        for variant in ("v1", "v2", "v3"):  # the same inputs for the three
+            rec = check_decode("qwen2.5-3b", variant=variant, dtype=dtype, seed=1, **qwen)
+            if dtype == torch.bfloat16:
+                main[rec["kernel"]] = rec
+            check_decode("gemma2-2b", variant=variant, dtype=dtype, seed=2, **gemma)
         lengths = [224, 200, 151, 37]
         rec = check_prefill("qwen2.5-3b", B=4, T=224, H=16, n_kv=2, d=128, lengths=lengths,
                             dtype=dtype, softcap=None, window=None, iters=iters, seed=3)
@@ -272,10 +429,51 @@ def phase_kernels(iters: int) -> dict:
             main["flash_prefill"] = rec
         check_prefill("window+softcap", B=4, T=224, H=16, n_kv=2, d=128, lengths=lengths,
                       dtype=dtype, softcap=50.0, window=64, iters=iters, seed=4)
+        rec = check_paged_prefill("qwen2.5-3b", H=16, n_kv=2, d=128, L=36, dtype=dtype,
+                                  softcap=None, window=None, seed=8, **chunk)
+        if dtype == torch.bfloat16:
+            main["paged_prefill"] = rec
+        check_paged_prefill("gemma2-2b", H=8, n_kv=4, d=256, L=26, dtype=dtype, softcap=50.0,
+                            window=64, seed=9, **chunk)
     return main
 
 
-# --- phase 3: the main path at full width -----------------------------------
+# --- phases 3 and 4: the serving paths at full width -------------------------
+
+KERNEL_COUNTERS = {  # name in the kernels line -> wrapper attribute
+    "paged_decode": "paged_decode_attention_cuda",
+    "flash_prefill": "flash_prefill_attention_cuda",
+    "paged_prefill": "paged_prefill_attention_cuda",
+    "paged_decode_v3": "paged_decode_attention_v3_cuda",
+    "paged_decode_v2": "paged_decode_attention_v2_cuda",
+}
+
+
+def reset_launches() -> None:
+    from llmq_tpu_torch.ops import cuda_attention as ca
+
+    for attr in KERNEL_COUNTERS.values():
+        getattr(ca, attr).launches = 0
+
+
+def read_launches() -> dict:
+    from llmq_tpu_torch.ops import cuda_attention as ca
+
+    return {name: getattr(ca, attr).launches for name, attr in KERNEL_COUNTERS.items()}
+
+
+@contextlib.contextmanager
+def decode_kernel_env(kernel: str):
+    """``LLMQ_DECODE_KERNEL`` while a model is built (it is read then)."""
+    old = os.environ.get("LLMQ_DECODE_KERNEL")
+    os.environ["LLMQ_DECODE_KERNEL"] = kernel
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("LLMQ_DECODE_KERNEL", None)
+        else:
+            os.environ["LLMQ_DECODE_KERNEL"] = old
 
 
 async def _submit(url: str, queue: str, jobs) -> None:
@@ -304,10 +502,6 @@ async def _receive(url: str, queue: str) -> list:
 def phase_serve(smi: str) -> dict:
     from llmq_tpu_torch.cli.worker import run_torch_worker
     from llmq_tpu_torch.core.models import Job
-    from llmq_tpu_torch.ops.cuda_attention import (
-        flash_prefill_attention_cuda,
-        paged_decode_attention_cuda,
-    )
 
     n_jobs, gen, url, queue = 16, 128, "memory://chip-smoke", "smoke"
     base = ("Translate the following passage into French, keeping the tone formal and the "
@@ -318,32 +512,21 @@ def phase_serve(smi: str) -> dict:
         for i in range(n_jobs)
     ]
     asyncio.run(_submit(url, queue, jobs))
-    paged_decode_attention_cuda.launches = 0
-    flash_prefill_attention_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
-    worker = run_torch_worker(
-        "preset://qwen2.5-3b", queue, device="cuda", dtype="bfloat16",
-        max_num_seqs=16, max_model_len=512, broker_url=url, max_jobs=n_jobs,
-    )
+    with decode_kernel_env("v1"):
+        worker = run_torch_worker(
+            "preset://qwen2.5-3b", queue, device="cuda", dtype="bfloat16",
+            max_num_seqs=16, max_model_len=512, broker_url=url, max_jobs=n_jobs,
+        )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {
-        "paged_decode": paged_decode_attention_cuda.launches,
-        "flash_prefill": flash_prefill_attention_cuda.launches,
-    }
+    launches = read_launches()
     results = asyncio.run(_receive(url, queue))
     core = worker.engine.core
     stats = core.stats()
     L = core.model_config.num_layers
-    ids = [r["id"] for r in results]
-    problems = []
-    if len(results) != n_jobs or len(set(ids)) != n_jobs:
-        problems.append(f"{len(results)} results, {len(set(ids))} unique ids")
-    for r in results:
-        if r["usage"]["completion_tokens"] != gen:
-            problems.append(f"{r['id']}: {r['usage']}")
-        if r.get("row") is None or r.get("lang") != "fr":
-            problems.append(f"{r['id']}: extras not passed through")
+    problems = _check_results(results, n_jobs, gen)
     if launches["paged_decode"] <= 0 or launches["flash_prefill"] <= 0:
         problems.append(f"a kernel did not launch on the main path: {launches}")
     if launches["paged_decode"] != L * stats["decode_steps"]:
@@ -352,6 +535,9 @@ def phase_serve(smi: str) -> dict:
     if launches["flash_prefill"] != L * stats["prefill_dispatches"]:
         problems.append(f"prefill launches {launches['flash_prefill']} != {L} x "
                         f"{stats['prefill_dispatches']} prefill dispatches")
+    off_path = {k: n for k, n in launches.items() if k not in ("paged_decode", "flash_prefill")}
+    if any(off_path.values()):
+        problems.append(f"kernels off the default path launched: {off_path}")
 
     # Step rates of the same model on the card, synchronised, after the
     # counted run: one prefill of 4 x ~200-token prompts, one decode step
@@ -365,23 +551,14 @@ def phase_serve(smi: str) -> dict:
         return model.prefill(tok, lengths, core.k_pages, core.v_pages, bt)
 
     pre_ms, pre_dev_ms = span_ms(prefill, 5), device_ms(prefill, 3)
-    S = 16
-    dbt = torch.arange(1, 1 + S * 12, device=dev, dtype=torch.int32).reshape(S, 12)
-    dbt = torch.nn.functional.pad(dbt, (0, core._pages_per_seq - 12))
-    dtok = torch.randint(1, 257, (S,), device=dev, dtype=torch.int32)
-    dctx = torch.full((S,), 330, device=dev, dtype=torch.int32)
-    active = torch.ones((S,), device=dev, dtype=torch.bool)
-    def decode(i):
-        return model.decode(dtok, dctx, core.k_pages, core.v_pages, dbt, active)
-
-    dec_ms, dec_dev_ms = span_ms(decode, 10), device_ms(decode, 5)
+    dec_ms, dec_dev_ms = _decode_rates(core, S=16, ctx=330)
     gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
     prompt_tokens = sum(r["usage"]["prompt_tokens"] for r in results)
     rec = dict(
-        phase="serve", model="preset://qwen2.5-3b", layers=L, jobs=len(results),
-        gen_tokens=gen_tokens, prompt_tokens=prompt_tokens, wall_s=wall,
+        phase="serve", model="preset://qwen2.5-3b", layers=L, decode_kernel=stats["decode_kernel"],
+        jobs=len(results), gen_tokens=gen_tokens, prompt_tokens=prompt_tokens, wall_s=wall,
         serve_completion_tok_s=gen_tokens / wall,
-        decode_tok_s=S / (dec_ms / 1e3), decode_step_ms=dec_ms,
+        decode_tok_s=16 / (dec_ms / 1e3), decode_step_ms=dec_ms,
         decode_step_device_ms=dec_dev_ms, decode_idle_share=max(0.0, 1 - dec_dev_ms / dec_ms),
         prefill_tok_s=800 / (pre_ms / 1e3), prefill_4x200_ms=pre_ms,
         prefill_4x200_device_ms=pre_dev_ms,
@@ -391,7 +568,136 @@ def phase_serve(smi: str) -> dict:
     emit(rec)
     if problems:
         raise SystemExit("serve phase failed: " + "; ".join(problems[:5]))
-    worker.engine.core.model = None  # free the 3B weights before phase 4
+    worker.engine.core.model = None  # free the 3B weights before the next phase
+    return launches
+
+
+def _check_results(results, n_jobs: int, gen: int) -> list:
+    ids = [r["id"] for r in results]
+    problems = []
+    if len(results) != n_jobs or len(set(ids)) != n_jobs:
+        problems.append(f"{len(results)} results, {len(set(ids))} unique ids")
+    for r in results:
+        if r["usage"]["completion_tokens"] != gen:
+            problems.append(f"{r['id']}: {r['usage']}")
+        if r.get("row") is None or r.get("lang") != "fr":
+            problems.append(f"{r['id']}: extras not passed through")
+    return problems
+
+
+def _decode_rates(core, *, S: int, ctx: int) -> tuple:
+    """Span and device time (ms) of one decode step of ``S`` rows at
+    context ``ctx``, through the engine's model and pool."""
+    dev = core.device
+    n_pages = ctx // core.cfg.page_size + 2
+    bt = torch.arange(1, 1 + S * n_pages, device=dev, dtype=torch.int32).reshape(S, n_pages)
+    bt = torch.nn.functional.pad(bt, (0, core._pages_per_seq - n_pages))
+    tok = torch.randint(1, 257, (S,), device=dev, dtype=torch.int32)
+    ctx_t = torch.full((S,), ctx, device=dev, dtype=torch.int32)
+    active = torch.ones((S,), device=dev, dtype=torch.bool)
+
+    def decode(i):
+        return core.model.decode(tok, ctx_t, core.k_pages, core.v_pages, bt, active)
+
+    return span_ms(decode, 10), device_ms(decode, 5)
+
+
+PREFIX_TEMPLATE = (
+    "You are a careful assistant for a customer-support team. Read the ticket below, "
+    "decide which of the listed teams owns it, and answer with the team's name only. "
+    "Teams: billing (invoices, refunds, payment failures), accounts (sign-in, "
+    "passwords, profile changes), shipping (delivery dates, lost parcels, returns), "
+    "product (defects, missing parts, manuals), and security (phishing, suspicious "
+    "logins, data requests). "
+)
+
+
+def phase_prefix(smi: str) -> dict:
+    """The chunked-prefill + prefix-cache path with the fused-write decode
+    kernel, at full width."""
+    from llmq_tpu_torch.cli.worker import run_torch_worker
+    from llmq_tpu_torch.core.models import Job
+
+    n_jobs, gen, chunk, url, queue = 16, 64, 256, "memory://chip-smoke-prefix", "prefix"
+    template = (PREFIX_TEMPLATE * 3)[:1024]  # ByteTokenizer: 1,024 tokens = 32 pages of 32
+    jobs = [
+        Job(id=f"pfx-{i:02d}", prompt=template + f" Ticket {i}: my parcel {1000 + 37 * i} "
+            "arrived damaged and the box was open; I would like a replacement soon.",
+            temperature=0.0, max_tokens=gen, ignore_eos=True, row=i, lang="fr")
+        for i in range(n_jobs)
+    ]
+    asyncio.run(_submit(url, queue, jobs))
+    reset_launches()
+    t0 = time.perf_counter()
+    with decode_kernel_env("v3"):
+        worker = run_torch_worker(
+            "preset://qwen2.5-3b", queue, device="cuda", dtype="bfloat16",
+            max_num_seqs=16, max_model_len=2048, prefill_chunk_size=chunk,
+            enable_prefix_caching=True, broker_url=url, max_jobs=n_jobs,
+        )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    results = asyncio.run(_receive(url, queue))
+    core = worker.engine.core
+    stats = core.stats()
+    L = core.model_config.num_layers
+    problems = _check_results(results, n_jobs, gen)
+    if stats.get("prefix_cache_hit_pages", 0) <= 0:
+        problems.append(f"no prefix-cache hit: {stats.get('prefix_cache_hit_pages')}")
+    if stats["decode_kernel"] != "v3":
+        problems.append(f"decode kernel {stats['decode_kernel']}, not v3")
+    if launches["paged_prefill"] <= 0 or launches["paged_decode_v3"] <= 0:
+        problems.append(f"a kernel did not launch on the prefix-cache path: {launches}")
+    if launches["paged_prefill"] != L * stats["prefill_dispatches"]:
+        problems.append(f"chunk launches {launches['paged_prefill']} != {L} x "
+                        f"{stats['prefill_dispatches']} chunk dispatches")
+    if launches["paged_decode_v3"] != L * stats["decode_steps"]:
+        problems.append(f"fused-write decode launches {launches['paged_decode_v3']} != {L} x "
+                        f"{stats['decode_steps']} decode steps")
+    off_path = {k: launches[k] for k in ("paged_decode", "flash_prefill", "paged_decode_v2")}
+    if any(off_path.values()):
+        problems.append(f"kernels off the prefix-cache path launched: {off_path}")
+
+    # Step rates after the counted run: one chunk dispatch of 4 rows x 256
+    # positions at context 1,024 (a template's worth of prefix behind it),
+    # one decode step of 16 rows at context 1,100.
+    model, dev = core.model, core.device
+    B, n_pages = 4, (1024 + chunk) // core.cfg.page_size
+    bt = torch.arange(1, 1 + B * n_pages, device=dev, dtype=torch.int32).reshape(B, n_pages)
+    bt = torch.nn.functional.pad(bt, (0, core._pages_per_seq - n_pages))
+    tok = torch.randint(1, 257, (B, chunk), device=dev, dtype=torch.int32)
+    pos = torch.arange(1024, 1024 + chunk, device=dev, dtype=torch.int32).expand(B, chunk)
+    last = torch.full((B,), chunk - 1, device=dev, dtype=torch.int32)
+
+    def chunk_step(i):
+        return model.prefill_chunk(tok, pos.contiguous(), core.k_pages, core.v_pages, bt, last)
+
+    chunk_ms, chunk_dev_ms = span_ms(chunk_step, 5), device_ms(chunk_step, 3)
+    dec_ms, dec_dev_ms = _decode_rates(core, S=16, ctx=1100)
+    gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
+    prompt_tokens = sum(r["usage"]["prompt_tokens"] for r in results)
+    rec = dict(
+        phase="prefix_serve", model="preset://qwen2.5-3b", layers=L,
+        decode_kernel=stats["decode_kernel"], prefill_chunk_size=chunk,
+        jobs=len(results), gen_tokens=gen_tokens, prompt_tokens=prompt_tokens,
+        prefill_tokens=stats["prefill_tokens"],
+        prefix_cache_hit_pages=stats["prefix_cache_hit_pages"],
+        prefix_cache_miss_pages=stats["prefix_cache_miss_pages"],
+        prefix_hit_rate=stats["prefix_hit_rate"], wall_s=wall,
+        serve_completion_tok_s=gen_tokens / wall,
+        decode_tok_s=16 / (dec_ms / 1e3), decode_step_ms=dec_ms,
+        decode_step_device_ms=dec_dev_ms, decode_idle_share=max(0.0, 1 - dec_dev_ms / dec_ms),
+        chunk_tok_s=B * chunk / (chunk_ms / 1e3), chunk_4x256_ms=chunk_ms,
+        chunk_4x256_device_ms=chunk_dev_ms,
+        chunk_idle_share=max(0.0, 1 - chunk_dev_ms / chunk_ms),
+        launches=launches, decode_steps=stats["decode_steps"],
+        chunk_dispatches=stats["prefill_dispatches"], card=smi, problems=problems,
+    )
+    emit(rec)
+    if problems:
+        raise SystemExit("prefix-cache serve phase failed: " + "; ".join(problems[:5]))
+    worker.engine.core.model = None
     return launches
 
 
@@ -422,17 +728,43 @@ def _numpy_params(cfg, seed: int) -> dict:
             "final_norm": np.ones((H,), np.float32)}
 
 
-def phase_parity() -> dict:
+def _parity_config():
+    from llmq_tpu_torch.models.presets import get_preset
+
+    cfg = dataclasses.replace(get_preset("qwen2.5-3b"), num_layers=2)
+    return cfg, _numpy_params(cfg, seed=7)
+
+
+def _engine(cfg, tree, dev, **ecfg):
     from llmq_tpu_torch.engine.engine import EngineConfig, EngineCore
-    from llmq_tpu_torch.engine.sampling import SamplingParams
     from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
     from llmq_tpu_torch.models.convert import params_from_numpy
-    from llmq_tpu_torch.models.presets import get_preset
+
+    return EngineCore(cfg, params_from_numpy(tree, device=dev), ByteTokenizer(),
+                      engine_config=EngineConfig(**ecfg), device=dev)
+
+
+def _generate(core, prompts, n_tokens: int, temperature: float = 0.0, seed=None) -> dict:
+    from llmq_tpu_torch.engine.sampling import SamplingParams
+
+    params = SamplingParams(temperature=temperature, seed=seed, max_tokens=n_tokens,
+                            ignore_eos=True)
+    for i, p in enumerate(prompts):
+        core.add_request(f"r{i}", prompt=p, params=params)
+    done = {}
+    while core.has_work:
+        for o in core.step():
+            done[o.rid] = o.token_ids
+    return done
+
+
+def phase_parity() -> dict:
+    """The default path (bucketed prefill, K2 + K1), card against CPU."""
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_preset("qwen2.5-3b"), num_layers=2)
-    tree = _numpy_params(cfg, seed=7)
+    cfg, tree = _parity_config()
     prompts = [
         "The capital of France is",
         "def fibonacci(n):\n    if n < 2:",
@@ -443,9 +775,8 @@ def phase_parity() -> dict:
                 kv_dtype="f32", min_prefill_bucket=32)
     outs, logits = {}, {}
     for dev in ("cuda", "cpu"):
-        params = params_from_numpy(tree, device=dev)
-        core = EngineCore(cfg, params, ByteTokenizer(), engine_config=EngineConfig(**ecfg),
-                          device=dev)
+        with decode_kernel_env("v1"):
+            core = _engine(cfg, tree, dev, **ecfg)
         # Model-level logits: one prefill of the 4 prompts + one decode step.
         tok = ByteTokenizer()
         ids = [tok.encode(p) for p in prompts]
@@ -463,20 +794,13 @@ def phase_parity() -> dict:
         logits[dev] = (pre.cpu(), dec.cpu())
         core.k_pages.zero_()
         core.v_pages.zero_()
-        params_s = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
-        for i, p in enumerate(prompts):
-            core.add_request(f"r{i}", prompt=p, params=params_s)
-        done = {}
-        while core.has_work:
-            for o in core.step():
-                done[o.rid] = o.token_ids
-        outs[dev] = done
-        del core, params
+        outs[dev] = _generate(core, prompts, 32)
+        del core
     err_pre = (logits["cuda"][0] - logits["cpu"][0]).abs().max().item()
     err_dec = (logits["cuda"][1] - logits["cpu"][1]).abs().max().item()
     same = outs["cuda"] == outs["cpu"] and all(len(v) == 32 for v in outs["cuda"].values())
     rec = dict(
-        phase="parity_f32", config="qwen2.5-3b widths, 2 layers",
+        phase="parity_f32", config="qwen2.5-3b widths, 2 layers", path="bucketed prefill, v1",
         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
         prefill_logits_max_abs_err=err_pre, decode_logits_max_abs_err=err_dec,
@@ -487,6 +811,111 @@ def phase_parity() -> dict:
     if not (err_pre <= 1e-4 and err_dec <= 1e-4 and same):
         raise SystemExit("f32 parity failed")
     return rec
+
+
+CHUNK_PARITY_HEAD = ("System: answer in one short sentence and cite the page number. "
+                     "Question follows. ")  # 82 byte tokens: 2 full pages of 32
+
+
+def _chunk_logits(core, ids, C: int) -> tuple:
+    """Logits of two chunks (positions 0..C-1, then C..len-1, a row's last
+    position the one read) and of one decode step after them."""
+    B = len(ids)
+    dev = core.device
+    n_pages = core._pages_per_seq
+    bt = torch.arange(1, 1 + B * n_pages, dtype=torch.int32).reshape(B, n_pages).to(dev)
+    outs = []
+    for lo in (0, C):
+        tokens = torch.zeros((B, C), dtype=torch.int32)
+        pos = torch.full((B, C), -1, dtype=torch.int32)
+        last = torch.zeros((B,), dtype=torch.int32)
+        for r, row in enumerate(ids):
+            seg = row[lo:lo + C]
+            tokens[r, : len(seg)] = torch.tensor(seg)
+            pos[r, : len(seg)] = torch.arange(lo, lo + len(seg))
+            last[r] = max(len(seg) - 1, 0)
+        outs.append(core.model.prefill_chunk(tokens.to(dev), pos.to(dev), core.k_pages,
+                                             core.v_pages, bt, last.to(dev)))
+    lengths = torch.tensor([len(r) for r in ids], dtype=torch.int32, device=dev)
+    nxt = outs[-1].argmax(-1).to(torch.int32)
+    dec = core.model.decode(nxt, lengths, core.k_pages, core.v_pages, bt,
+                            torch.ones(B, dtype=torch.bool, device=dev))
+    return outs[-1].cpu(), dec.cpu()
+
+
+def phase_chunk_parity() -> dict:
+    """The chunked + prefix-cache path, card under v1 / v2 / v3 against
+    the CPU: chunk and decode logits, tokens (greedy, and one seeded
+    request at temperature 0.8 through the threefry sampler), cache
+    counters. The v2 run is the path K5 carries; its launches are
+    counted there."""
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, tree = _parity_config()
+    C = 64
+    tails = ["Which page mentions the harbour?", "Who wrote the foreword, and when?",
+             "How many chapters are there?", "Is there an index at the end?"]
+    prompts = [CHUNK_PARITY_HEAD + t for t in tails]
+    ids = [ByteTokenizer().encode(p) for p in prompts]
+    ecfg = dict(max_num_seqs=4, max_model_len=256, page_size=32, num_pages=64,
+                kv_dtype="f32", prefill_chunk_size=C, enable_prefix_caching=True)
+
+    def run(dev):
+        core = _engine(cfg, tree, dev, **ecfg)
+        logit_pair = _chunk_logits(core, ids, C)
+        core.k_pages.zero_()
+        core.v_pages.zero_()
+        # Two waves, so the second one hits the first one's prefix pages.
+        tokens = _generate(core, prompts[:2], 24)
+        tokens.update({f"w2-{k}": v for k, v in _generate(core, prompts[2:], 24).items()})
+        tokens.update({f"seeded-{k}": v for k, v in _generate(
+            core, prompts[:1], 24, temperature=0.8, seed=7).items()})
+        stats = core.stats()
+        del core
+        return logit_pair, tokens, stats
+
+    with decode_kernel_env("v1"):
+        ref_logits, ref_tokens, ref_stats = run("cpu")
+    recs, launches = [], {}
+    for kernel in ("v1", "v2", "v3"):
+        reset_launches()
+        with decode_kernel_env(kernel):
+            (chunk_l, dec_l), tokens, stats = run("cuda")
+        torch.cuda.synchronize()
+        counted = read_launches()
+        err_chunk = (chunk_l - ref_logits[0]).abs().max().item()
+        err_dec = (dec_l - ref_logits[1]).abs().max().item()
+        same = tokens == ref_tokens and all(len(v) == 24 for v in tokens.values())
+        counters = {k: stats[k] for k in ("prefix_cache_hit_pages", "prefix_cache_miss_pages")}
+        counters_equal = counters == {k: ref_stats[k] for k in counters}
+        decode_name = {"v1": "paged_decode", "v2": "paged_decode_v2",
+                       "v3": "paged_decode_v3"}[kernel]
+        # Two chunk dispatches and one decode step of the logits check, plus
+        # the engine's own.
+        want_decode = 2 * (stats["decode_steps"] + 1)
+        want_chunk = 2 * (stats["prefill_dispatches"] + 2)
+        launch_ok = (counted[decode_name] == want_decode and counted["paged_prefill"] == want_chunk
+                     and sum(counted.values()) == want_decode + want_chunk)
+        rec = dict(
+            phase="parity_f32", config="qwen2.5-3b widths, 2 layers",
+            path=f"chunked prefill {C} + prefix cache, {kernel}",
+            decode_kernel=stats["decode_kernel"],
+            chunk_logits_max_abs_err=err_chunk, decode_logits_max_abs_err=err_dec,
+            tolerance=1e-4, tokens_identical=same, seeded_requests=1,
+            tokens_compared=sum(len(v) for v in tokens.values()),
+            prefix_counters=counters, prefix_counters_equal=counters_equal,
+            launches=counted, launches_as_expected=launch_ok,
+        )
+        emit(rec)
+        recs.append(rec)
+        if not (err_chunk <= 1e-4 and err_dec <= 1e-4 and same and counters_equal and launch_ok
+                and counters["prefix_cache_hit_pages"] > 0 and stats["decode_kernel"] == kernel):
+            raise SystemExit(f"chunked f32 parity failed under {kernel}")
+        if kernel == "v2":
+            launches["paged_decode_v2"] = counted["paged_decode_v2"]
+    return launches
 
 
 def main() -> int:
@@ -522,10 +951,16 @@ def main() -> int:
     if "kernels" in phases:
         main_recs = phase_kernels(args.iters)
     if "serve" in phases:
-        launches = phase_serve(smi)
+        launches.update(phase_serve(smi))
+        torch.cuda.empty_cache()
+    if "prefix" in phases:
+        prefix = phase_prefix(smi)
+        launches.update(paged_prefill=prefix["paged_prefill"],
+                        paged_decode_v3=prefix["paged_decode_v3"])
         torch.cuda.empty_cache()
     if "parity" in phases:
         phase_parity()
+        launches.update(phase_chunk_parity())
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -535,6 +970,12 @@ def main() -> int:
          "llmq_tpu/ops/pallas_attention.py:168"),
         ("flash_prefill", "llmq_tpu_torch/ops/csrc/flash_prefill.cu",
          "llmq_tpu/ops/pallas_attention.py:1039"),
+        ("paged_prefill", "llmq_tpu_torch/ops/csrc/paged_prefill.cu",
+         "llmq_tpu/ops/pallas_attention.py:830"),
+        ("paged_decode_v3", "llmq_tpu_torch/ops/csrc/paged_decode_v2.cu",
+         "llmq_tpu/ops/pallas_attention.py:575"),
+        ("paged_decode_v2", "llmq_tpu_torch/ops/csrc/paged_decode_v2.cu",
+         "llmq_tpu/ops/pallas_attention.py:487"),
     ):
         rec = main_recs.get(name, {})
         kernels.append(dict(

@@ -38,6 +38,8 @@ def build_engine(
     max_model_len: Optional[int] = None,
     dtype: str = "bfloat16",
     kv_dtype: Optional[str] = None,
+    prefill_chunk_size: Optional[int] = None,
+    enable_prefix_caching: bool = False,
     seed: int = 0,
 ) -> AsyncEngine:
     """An engine over a ``preset://NAME`` model with random weights drawn
@@ -62,6 +64,10 @@ def build_engine(
         overrides["max_model_len"] = max_model_len
     if kv_dtype:
         overrides["kv_dtype"] = kv_dtype
+    if prefill_chunk_size:
+        overrides["prefill_chunk_size"] = prefill_chunk_size
+    if enable_prefix_caching:
+        overrides["enable_prefix_caching"] = True
     core = EngineCore(
         config, params, ByteTokenizer(), engine_config=EngineConfig(**overrides), device=dev
     )
@@ -77,16 +83,22 @@ def run_torch_worker(
     max_model_len: Optional[int] = None,
     dtype: str = "bfloat16",
     kv_dtype: Optional[str] = None,
+    prefill_chunk_size: Optional[int] = None,
+    enable_prefix_caching: bool = False,
     broker_url: str = "memory://default",
     concurrency: Optional[int] = None,
     max_jobs: Optional[int] = None,
     seed: int = 0,
 ) -> TorchWorker:
     """Serve ``queue`` from ``broker_url`` with a preset model; returns the
-    worker (its engine shut down) once ``max_jobs`` jobs are settled."""
+    worker (its engine shut down) once ``max_jobs`` jobs are settled.
+    ``prefill_chunk_size`` and ``enable_prefix_caching`` select chunked
+    prefill and the prefix cache, as ``llmq_tpu``'s ``run_tpu_worker``
+    does."""
     engine = build_engine(
         model, device=device, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
-        dtype=dtype, kv_dtype=kv_dtype, seed=seed,
+        dtype=dtype, kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,
+        enable_prefix_caching=enable_prefix_caching, seed=seed,
     )
     worker = TorchWorker(
         queue, engine, broker_url=broker_url, concurrency=concurrency, max_jobs=max_jobs

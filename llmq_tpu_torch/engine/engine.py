@@ -1,27 +1,30 @@
 """Inference engine: continuous batching over eager PyTorch steps.
 
-Port of ``llmq_tpu/engine/engine.py`` at its default configuration:
-``EngineConfig`` (:166), ``RequestOutput`` (:145), the ``EngineCore``
-step loop (bucketed whole-prompt prefill padded to 1 or
-``max_prefill_batch`` rows, one decode step per dispatch, a run-ahead
-pipeline of ``runahead`` dispatches with deferred page frees, device-side
-sampling and stopping plus host-side stop strings, recompute preemption)
-and ``AsyncEngine`` with its engine thread.
+Port of ``llmq_tpu/engine/engine.py``: ``EngineConfig`` (:166),
+``RequestOutput`` (:145), the ``EngineCore`` step loop (bucketed
+whole-prompt prefill padded to 1 or ``max_prefill_batch`` rows, or
+chunked prefill with an optional prefix cache (``_prefill_chunked``
+:3301); one decode step per dispatch, a run-ahead pipeline of
+``runahead`` dispatches with deferred page frees, device-side sampling
+and stopping plus host-side stop strings, recompute preemption) and
+``AsyncEngine`` with its engine thread.
 
 Device decode state. The 12 leaves of the JAX state (:1300) live in
-device tensors — tokens, ctx, block tables, active, keys, steps, temps,
-top-k, top-p, limits, min-tokens, stop ids — and every decode step
-updates them on the device (``advance_state``), so steady-state decode
-ships nothing host→device. A step's sampled tokens go to pinned host
-memory with ``non_blocking=True`` and a ``torch.cuda.Event``; the host
-reads them ``runahead`` dispatches later. On the CPU the same queue runs
-synchronously.
+device tensors — tokens, ctx, block tables, active, two-word threefry
+keys, steps, temps, top-k, top-p, limits, min-tokens, stop ids — and
+every decode step updates them on the device (``advance_state``), so
+steady-state decode ships nothing host→device. A step's sampled tokens
+go to pinned host memory with ``non_blocking=True`` and a
+``torch.cuda.Event``; the host reads them ``runahead`` dispatches later.
+On the CPU the same queue runs synchronously.
 
 Config. The engine honours ``max_num_seqs``, ``max_model_len``,
 ``page_size``, ``num_pages``, ``hbm_utilization``, ``kv_dtype`` (bf16 or
-f32), ``min_prefill_bucket``, ``max_prefill_batch``, ``admit_max_wait_s``,
-``runahead`` and ``stop_id_capacity``. Any other field set away from its
-default raises ``NotImplementedError`` naming its ROADMAP.md item.
+f32), ``min_prefill_bucket``, ``max_prefill_batch``,
+``prefill_chunk_size``, ``enable_prefix_caching`` (chunked prefill only,
+as in JAX), ``admit_max_wait_s``, ``runahead`` and ``stop_id_capacity``.
+Any other field set away from its default raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from llmq_tpu_torch.engine.scheduler import (
 from llmq_tpu_torch.engine.tokenizer import Tokenizer
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.models.transformer import Params, Transformer, make_kv_pages
+from llmq_tpu_torch.ops.dispatch import decode_kernel_plan
 
 logger = logging.getLogger(__name__)
 
@@ -151,9 +155,7 @@ class EngineConfig:
 #: Fields of EngineConfig this engine does not honour yet → the ROADMAP.md
 #: queue 1 item that brings them.
 _UNPORTED_FIELDS = {
-    "prefill_chunk_size": "M8",
-    "enable_prefix_caching": "M8",
-    "prefix_host_gb": "M8",
+    "prefix_host_gb": "M11",
     "decode_block": "M10",
     "spec_tokens": "M10",
     "spec_ngram": "M10",
@@ -269,6 +271,12 @@ class EngineCore:
         self.tokenizer = tokenizer
         self.cfg = engine_config or EngineConfig()
         _check_ported(self.cfg)
+        if self.cfg.enable_prefix_caching and not self.cfg.prefill_chunk_size:
+            raise ValueError(
+                "enable_prefix_caching requires prefill_chunk_size: only chunked "
+                "prefill can start mid-prompt (the bucketed prefill always computes "
+                "positions 0..T)"
+            )
         self.model = Transformer(model_config, params).to(self.device)
         self._vocab = model_config.vocab_size
 
@@ -278,6 +286,7 @@ class EngineCore:
             num_pages=num_pages,
             page_size=self.cfg.page_size,
             max_model_len=self.cfg.max_model_len,
+            enable_prefix_caching=self.cfg.enable_prefix_caching,
         )
         self.scheduler = Scheduler(sched_cfg)
         self._pages_per_seq = sched_cfg.pages_per_seq
@@ -301,7 +310,7 @@ class EngineCore:
         self._h_ctx = np.zeros((S,), np.int32)
         self._h_bt = np.zeros((S, self._pages_per_seq), np.int32)
         self._h_active = np.zeros((S,), bool)
-        self._h_keys = np.zeros((S,), np.int64)
+        self._h_keys = np.zeros((S, 2), np.int64)  # threefry key data (uint32 words)
         self._h_steps = np.zeros((S,), np.int32)
         self._h_temp = np.zeros((S,), np.float32)
         self._h_topk = np.zeros((S,), np.int32)
@@ -314,7 +323,8 @@ class EngineCore:
         self._pending: Deque[_Pending] = deque()
         self._pending_decodes = 0
         self._defer_since: Optional[float] = None
-        self._deferred_pages: List[Tuple[int, List[int]]] = []
+        # (dispatch watermark, pages, leading cacheable count)
+        self._deferred_pages: List[Tuple[int, List[int], int]] = []
         self._dispatch_idx = 0
         self._processed_idx = 0
         self._dirty = True
@@ -524,8 +534,8 @@ class EngineCore:
 
     def _flush_deferred(self) -> None:
         while self._deferred_pages and self._deferred_pages[0][0] <= self._processed_idx:
-            _, pages = self._deferred_pages.pop(0)
-            self.scheduler.release_pages(pages)
+            _, pages, cacheable = self._deferred_pages.pop(0)
+            self.scheduler.release_pages(pages, cacheable)
 
     def _resync(self) -> None:
         """Rebuild the device decode state from scheduler truth. Only
@@ -601,35 +611,67 @@ class EngineCore:
         out = torch.where(active, next_tokens, 0).to(torch.int32)
         return out, advance_state(st, out, active)
 
-    def _prefill_fn(self, args: Dict[str, torch.Tensor], n: int, mode: str) -> torch.Tensor:
-        """Prefill rows, sample each valid row's first token, and scatter
-        the first ``n`` (valid) rows into the decode state in place."""
-        logits = self.model.prefill(
-            args["tokens"], args["lengths"], self.k_pages, self.v_pages, args["bt"]
-        )
+    def _sample_and_scatter(
+        self, logits: torch.Tensor, args: Dict[str, torch.Tensor], rows, mode: str
+    ) -> torch.Tensor:
+        """Shared tail of both prefill paths: sample every row's first
+        token ([B] int32) and scatter ``rows`` (a slice or an index
+        tensor) into the decode state in place."""
         if self._suppress:
             logits = suppress_stops(logits, args["stop_ids"], args["steps"], args["mins"])
         nt = self._sample(
             logits, args["keys"], args["steps"], args["temps"], args["topks"],
             args["topps"], mode,
         )
-        out = nt[:n].to(torch.int32)
-        new_steps = args["steps"][:n] + 1
-        hit_stop = (out[:, None] == args["stop_ids"][:n]).any(dim=1) & (
-            new_steps > args["mins"][:n]
-        )
-        alive = ~(hit_stop | (new_steps >= args["limits"][:n]))
-        idx = args["slots"][:n].long()
-        rows = {
-            "tokens": out, "ctx": args["lengths"][:n], "bt": args["bt"][:n],
-            "active": alive, "keys": args["keys"][:n], "steps": new_steps,
-            "temps": args["temps"][:n], "topks": args["topks"][:n],
-            "topps": args["topps"][:n], "limits": args["limits"][:n],
-            "mins": args["mins"][:n], "stop_ids": args["stop_ids"][:n],
+        out = nt.to(torch.int32)
+        new_steps = args["steps"] + 1
+        hit_stop = (out[:, None] == args["stop_ids"]).any(dim=1) & (new_steps > args["mins"])
+        alive = ~(hit_stop | (new_steps >= args["limits"]))
+        values = {
+            "tokens": out, "ctx": args["lengths"], "bt": args["bt"], "active": alive,
+            "keys": args["keys"], "steps": new_steps, "temps": args["temps"],
+            "topks": args["topks"], "topps": args["topps"], "limits": args["limits"],
+            "mins": args["mins"], "stop_ids": args["stop_ids"],
         }
+        idx = args["slots"][rows].long()
         for leaf, name in zip(self._dev_state, _STATE_LEAVES):
-            leaf[idx] = rows[name]
+            leaf[idx] = values[name][rows]
         return out
+
+    def _prefill_fn(self, args: Dict[str, torch.Tensor], n: int, mode: str) -> torch.Tensor:
+        """Prefill rows, sample each row's first token, and scatter the
+        first ``n`` (valid) rows into the decode state in place."""
+        logits = self.model.prefill(
+            args["tokens"], args["lengths"], self.k_pages, self.v_pages, args["bt"]
+        )
+        return self._sample_and_scatter(logits, args, slice(0, n), mode)
+
+    def _pack_sampling_rows(self, rows: List[Sequence], B: int) -> Dict[str, np.ndarray]:
+        """Per-row decode-state values shared by both prefill paths. Padding
+        rows keep slot −1 and limit 1."""
+        E = self._stop_capacity
+        host = dict(
+            slots=np.full((B,), -1, np.int32), keys=np.zeros((B, 2), np.int64),
+            steps=np.zeros((B,), np.int32), temps=np.zeros((B,), np.float32),
+            topks=np.zeros((B,), np.int32), topps=np.ones((B,), np.float32),
+            limits=np.full((B,), 1, np.int32), mins=np.zeros((B,), np.int32),
+            stop_ids=np.full((B, E), -1, np.int32),
+        )
+        for r, seq in enumerate(rows):
+            p = seq.params
+            host["slots"][r] = seq.slot
+            host["keys"][r] = make_base_key(p.seed, request_tag(seq.rid))
+            host["steps"][r] = len(seq.output_ids)
+            host["temps"][r] = p.temperature
+            host["topks"][r] = p.top_k
+            host["topps"][r] = p.top_p
+            host["limits"][r] = p.max_tokens
+            host["mins"][r] = p.min_tokens
+            host["stop_ids"][r] = self._stop_ids_for(seq)
+        return host
+
+    def _to_device(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
 
     # --- prefill ----------------------------------------------------------
     def _prefill_batch(self, seqs: List[Sequence], finished: List[RequestOutput]) -> None:
@@ -639,6 +681,9 @@ class EngineCore:
         if self._dirty:
             self._drain(finished)
             self._resync()
+        if self.cfg.prefill_chunk_size:
+            self._prefill_chunked(seqs, finished)
+            return
         by_bucket: Dict[int, List[Sequence]] = {}
         for seq in seqs:
             bucket = next(b for b in self._buckets if b >= seq.num_tokens)
@@ -650,40 +695,17 @@ class EngineCore:
     def _prefill_chunk(self, chunk: List[Sequence], bucket: int) -> None:
         # Pad to {1, max_prefill_batch} rows, as the JAX engine does.
         B = 1 if len(chunk) == 1 else self.cfg.max_prefill_batch
-        E = self._stop_capacity
         tokens = np.zeros((B, bucket), np.int32)
         lengths = np.zeros((B,), np.int32)
         bt = np.zeros((B, self._pages_per_seq), np.int32)
-        slots = np.full((B,), -1, np.int32)
-        keys = np.zeros((B,), np.int64)
-        steps = np.zeros((B,), np.int32)
-        temps = np.zeros((B,), np.float32)
-        topks = np.zeros((B,), np.int32)
-        topps = np.ones((B,), np.float32)
-        limits = np.full((B,), 1, np.int32)
-        mins = np.zeros((B,), np.int32)
-        stop_ids = np.full((B, E), -1, np.int32)
         for r, seq in enumerate(chunk):
             ids = seq.prompt_ids + seq.output_ids
-            p = seq.params
             tokens[r, : len(ids)] = ids
             lengths[r] = len(ids)
             bt[r, : len(seq.pages)] = seq.pages
-            slots[r] = seq.slot
-            keys[r] = make_base_key(p.seed, request_tag(seq.rid))
-            steps[r] = len(seq.output_ids)
-            temps[r] = p.temperature
-            topks[r] = p.top_k
-            topps[r] = p.top_p
-            limits[r] = p.max_tokens
-            mins[r] = p.min_tokens
-            stop_ids[r] = self._stop_ids_for(seq)
-        host = dict(
-            tokens=tokens, lengths=lengths, bt=bt, slots=slots, keys=keys, steps=steps,
-            temps=temps, topks=topks, topps=topps, limits=limits, mins=mins,
-            stop_ids=stop_ids,
+        args = self._to_device(
+            dict(tokens=tokens, lengths=lengths, bt=bt, **self._pack_sampling_rows(chunk, B))
         )
-        args = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
         chunk_mode = sampling_mod.join_modes(sampling_mod.required_mode(s.params) for s in chunk)
         if any(s.params.min_tokens > 0 for s in chunk):
             self._suppress = True
@@ -699,6 +721,87 @@ class EngineCore:
         self.prefill_dispatches += 1
         self._push_pending("prefill", out, list(enumerate(chunk)))
         self._mode = sampling_mod.join_modes((self._mode, chunk_mode))
+
+    def _prefill_chunked(self, seqs: List[Sequence], finished: List[RequestOutput]) -> None:
+        """Chunked prefill: run each admitted group's prompts through
+        fixed [B, C] chunks, C positions at a time, each row from its own
+        ``prefix_len`` on (the prefix-cached positions already sit in its
+        shared leading pages), and interleave one decode step for the
+        already-running batch between chunks."""
+        C = self.cfg.prefill_chunk_size
+        B = self.cfg.max_prefill_batch
+        # Interleave decode only for sequences decodable BEFORE this wave:
+        # a cold-start wave must not decode its own fresh rows at tiny
+        # occupancy.
+        pre_wave = [s.rid for s in self._decodable_seqs()]
+        for i in range(0, len(seqs), B):
+            rows = seqs[i : i + B]
+            # Chunk-invariant per-row values, snapshotted ONCE: interleaved
+            # decode steps append tokens to rows that went final in an
+            # earlier chunk, and a re-read length would mark such a row
+            # final again (block tables are the exception: pages only grow,
+            # and the final scatter should carry the freshest map).
+            lens = [seq.num_tokens for seq in rows]
+            ids0 = [seq.prompt_ids + seq.output_ids for seq in rows]
+            prefix0 = [seq.prefix_len for seq in rows]
+            lengths0 = np.zeros((B,), np.int32)
+            lengths0[: len(rows)] = lens
+            inv = self._to_device(dict(lengths=lengths0, **self._pack_sampling_rows(rows, B)))
+            chunk_mode = sampling_mod.join_modes(
+                sampling_mod.required_mode(s.params) for s in rows
+            )
+            if any(s.params.min_tokens > 0 for s in rows):
+                self._suppress = True
+            maxlen = max(lens)
+            for lo in range(0, maxlen, C):
+                tokens = np.zeros((B, C), np.int32)
+                positions = np.full((B, C), -1, np.int32)
+                bt = np.zeros((B, self._pages_per_seq), np.int32)
+                last = np.zeros((B,), np.int32)
+                snapshot: List[Tuple[int, Sequence]] = []
+                any_rows = False
+                for r, seq in enumerate(rows):
+                    n = lens[r]
+                    hi = min(n, lo + C)
+                    row_start = max(lo, prefix0[r])
+                    if lo >= n or hi <= prefix0[r] or seq.rid not in self.scheduler.running:
+                        continue  # nothing to compute: a padding row
+                    any_rows = True
+                    self.prefill_tokens += hi - row_start
+                    tokens[r, : hi - row_start] = ids0[r][row_start:hi]
+                    positions[r, : hi - row_start] = np.arange(row_start, hi)
+                    bt[r, : len(seq.pages)] = seq.pages
+                    if row_start <= n - 1 < hi:
+                        last[r] = n - 1 - row_start
+                        snapshot.append((r, seq))
+                if not any_rows:
+                    continue  # the whole chunk lies inside every row's prefix
+                chunk = self._to_device(dict(tokens=tokens, positions=positions, bt=bt,
+                                             last=last))
+                t0 = time.monotonic()
+                for seq in rows:
+                    if seq.t_prefill_start == 0.0:
+                        seq.t_prefill_start = t0
+                # The JAX chunkfill_step: every row extends its cached K/V;
+                # rows whose prompt ends here sample their first token and
+                # join the decode state.
+                logits = self.model.prefill_chunk(
+                    chunk["tokens"], chunk["positions"], self.k_pages, self.v_pages,
+                    chunk["bt"], chunk["last"],
+                )
+                self.prefill_dispatches += 1
+                if snapshot:  # rows whose prompt finished in this chunk
+                    final = torch.tensor([r for r, _ in snapshot], device=self.device)
+                    out = self._sample_and_scatter(logits, {**inv, "bt": chunk["bt"]}, final,
+                                                   chunk_mode)
+                    for _, seq in snapshot:
+                        seq.prefilled = True
+                        self.scheduler.register_prefix(seq)
+                    self.prefills += len(snapshot)
+                    self._push_pending("prefill", out, snapshot)
+                    self._mode = sampling_mod.join_modes((self._mode, chunk_mode))
+                if lo + C < maxlen and any(rid in self.scheduler.running for rid in pre_wave):
+                    self._dispatch_decode(finished)
 
     # --- decode -----------------------------------------------------------
     def _ensure_decode_pages(self, finished: List[RequestOutput]) -> bool:
@@ -782,9 +885,9 @@ class EngineCore:
     def _self_preempt_deferred(self, seq: Sequence) -> None:
         """Preempt ``seq`` itself; its pages return to the allocator only
         after every in-flight step that may write them is processed."""
-        pages = self.scheduler.preempt(seq, defer_pages=True)
+        pages, cacheable = self.scheduler.preempt(seq, defer_pages=True)
         if pages:
-            self._deferred_pages.append((self._dispatch_idx, pages))
+            self._deferred_pages.append((self._dispatch_idx, pages, cacheable))
         self._dirty = True
 
     def _swap_block_tables(self) -> None:
@@ -840,9 +943,9 @@ class EngineCore:
         self, seq: Sequence, reason: str, *, device_detected: bool,
         finished: List[RequestOutput],
     ) -> None:
-        pages = self.scheduler.finish(seq, reason, defer_pages=True)
+        pages, cacheable = self.scheduler.finish(seq, reason, defer_pages=True)
         if pages:
-            self._deferred_pages.append((self._dispatch_idx, pages))
+            self._deferred_pages.append((self._dispatch_idx, pages, cacheable))
         if not device_detected:
             self._dirty = True
         finished.append(self._output_for(seq))
@@ -939,6 +1042,10 @@ class EngineCore:
             self._pending.clear()
             self._pending_decodes = 0
         self._flush_deferred()
+        # The prefix cache must not survive an abort: a failed step leaves
+        # the KV content untrusted, and a cached hash would hand it to
+        # future requests.
+        self.scheduler.invalidate_prefix_cache()
         for seq in list(self.scheduler.running.values()):
             self.scheduler.finish(seq, note)
         self.scheduler.waiting.clear()
@@ -957,7 +1064,7 @@ class EngineCore:
             prefill_dispatches=self.prefill_dispatches,
             prefill_tokens=self.prefill_tokens,
             tokens_per_sec=self.total_generated_tokens / elapsed,
-            decode_kernel="cuda" if self.device.type == "cuda" else "plain",
+            decode_kernel=decode_kernel_plan(self.model.decode_kernel, self.device)[0],
             kv_dtype=str(self.cfg.kv_dtype).replace("torch.", ""),
             device=str(self.device),
         )

@@ -7,13 +7,15 @@ rank masks, Gumbel argmax, un-sorted back) — and takes the Gumbel noise
 as an argument, so a test can feed the JAX sampler and this one the same
 noise.
 
-Noise source. JAX derives per-slot noise from threefry keys,
-``fold_in(base_key, step)``. The port keeps the invariant that matters
-(noise is a pure function of the slot's base key, its step counter and
-the vocab index, computed on the device, so run-ahead steps need no host
-RNG state), but with a counter-based integer hash (splitmix64 finalizer)
-in torch int64 arithmetic. Seeded streams are reproducible within the
-port and differ from the JAX package's (ROADMAP queue 3).
+Noise source. As in JAX, per-slot noise is ``jax.random.gumbel`` under
+the threefry key ``fold_in(base_key, step)``: the port carries
+threefry2x32 (``jax._src.prng``, the partitionable bit layout that
+``jax_threefry_partitionable=True`` selects) over in torch int64
+arithmetic masked to 32 bits. A slot's base key is the two-word key data
+JAX makes for its seed (``make_base_key``), so seeded requests draw the
+same tokens on both backends. Noise is a pure function of (base key,
+step counter, vocab index) computed on the device, so run-ahead steps
+need no host RNG state.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import dataclasses
 import zlib
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -133,49 +136,85 @@ def sample_tokens(
     return torch.where(temperature <= 0.0, greedy, sampled)
 
 
-# --- device-side noise -----------------------------------------------------
+# --- device-side noise: threefry2x32, as jax.random ----------------------
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32_TINY = torch.finfo(torch.float32).tiny
 
 
-def _s64(c: int) -> int:
-    """A 64-bit constant as the signed value torch int64 arithmetic takes."""
-    return c - (1 << 64) if c >= (1 << 63) else c
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
 
 
-_GOLDEN = _s64(0x9E3779B97F4A7C15)
-_MIX1 = _s64(0xBF58476D1CE4E5B9)
-_MIX2 = _s64(0x94D049BB133111EB)
+def threefry2x32(
+    k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block cipher (20 rounds) of ``jax._src.prng``,
+    on int64 tensors holding uint32 values; the arguments broadcast."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
 
 
-def _lsr(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Logical right shift of int64 (torch's >> is arithmetic)."""
-    return (x >> n) & ((1 << (64 - n)) - 1)
+def fold_step_keys(keys: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """``jax.random.fold_in(base_key, step)`` per slot: keys [S, 2] (uint32
+    values in int64) and steps [S] → the step keys [S, 2]."""
+    keys = keys.long()
+    k0, k1 = threefry2x32(keys[:, 0], keys[:, 1], torch.zeros_like(keys[:, 0]),
+                          steps.long() & _M32)
+    return torch.stack((k0, k1), dim=1)
 
 
-def _mix64(x: torch.Tensor) -> torch.Tensor:
-    """splitmix64 finalizer (wrapping int64 arithmetic)."""
-    x = x ^ _lsr(x, 30)
-    x = x * _MIX1
-    x = x ^ _lsr(x, 27)
-    x = x * _MIX2
-    return x ^ _lsr(x, 31)
+def uniform_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` per row of ``keys`` [S, 2]:
+    the partitionable layout hashes the counter pair (0, i) and XORs the
+    two output words. Returns int64 [S, n]."""
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    y0, y1 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(idx), idx)
+    return y0 ^ y1
+
+
+def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), float32, minval=tiny, maxval=1)``
+    per row of ``keys`` [S, 2], bit for bit: 23 random mantissa bits make
+    a float in [0, 1), lifted to [tiny, 1) with JAX's own arithmetic."""
+    bits = uniform_bits(keys, n)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    # JAX computes floats * (maxval - minval) + minval; in f32 the span
+    # 1 - tiny rounds to 1.0, so the product is exact and drops out.
+    return torch.clamp_min(floats + _F32_TINY, _F32_TINY)
 
 
 def step_gumbel(keys: torch.Tensor, steps: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Gumbel noise [S, vocab] (f32), a pure function of each slot's base
-    key (int64), its step counter and the vocab index — the port's
-    counterpart of ``fold_in(base_key, step)`` + ``jax.random.gumbel``."""
-    row = _mix64(keys.long() * _GOLDEN + steps.long())
-    idx = torch.arange(vocab, dtype=torch.int64, device=keys.device)
-    bits = _lsr(_mix64(row[:, None] + idx[None, :] * _GOLDEN), 41)  # 23 bits
-    u = (bits.float() + 0.5) * (1.0 / (1 << 23))  # exact, in (0, 1)
-    return -torch.log(-torch.log(u))
+    """Gumbel noise [S, vocab] (f32): ``jax.random.gumbel(fold_in(key,
+    step), (vocab,), float32)`` in its default ("low") mode,
+    ``-log(-log(u))`` of the uniform draw above. The logs run in f64 and
+    round once to f32: the draw is then within an f32 ulp of JAX's and
+    the same on every call (torch's f32 log on the CPU was seen to differ
+    from call to call in its last bits)."""
+    u = uniform(fold_step_keys(keys, steps), vocab).double()
+    return (-torch.log(-torch.log(u))).float()
 
 
-def make_base_key(seed: Optional[int], request_tag: int) -> int:
-    """A request's base key, computed once at admission: the seed when the
-    request is seeded (reproducible), else derived from a stable tag of
-    the request id, so a preempted request continues its own stream."""
-    return (seed if seed is not None else 0x5EED ^ request_tag) & ((1 << 63) - 1)
+def make_base_key(seed: Optional[int], request_tag: int) -> np.ndarray:
+    """A request's base key data (uint32[2]), computed once at admission:
+    what ``jax.random.key_data(jax.random.key(seed))`` gives with JAX's
+    default 32-bit integers — the seed wraps to 32 bits, so the high word
+    is 0 and the low word is ``seed mod 2**32``. Seeded requests are
+    reproducible; unseeded ones derive from a stable tag of the request
+    id, so a preempted request continues its own stream."""
+    eff = seed if seed is not None else 0x5EED ^ request_tag
+    if not -(1 << 63) <= eff < (1 << 63):
+        raise OverflowError(f"seed {eff} does not fit in 64 bits")
+    return np.array([0, eff & _M32], dtype=np.uint32)
 
 
 def request_tag(rid: str) -> int:

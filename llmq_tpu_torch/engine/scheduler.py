@@ -1,14 +1,17 @@
 """Continuous-batching scheduler: slots, paged KV allocation, preemption.
 
-Port of ``llmq_tpu/engine/scheduler.py`` without the prefix cache (its
-chain hashing and refcount sharing come with ROADMAP M8) and without
-priority classes (M11). The device half is a fixed-shape decode step over
+Port of ``llmq_tpu/engine/scheduler.py`` with its prefix cache (the
+refcounted allocator with a parked evictable pool :83-175, chain-hash
+matching at admission :462-521, ``register_prefix`` :327,
+``invalidate_prefix_cache`` :364) and without priority classes or the
+host prefix tier (M11). The device half is a fixed-shape decode step over
 ``max_num_seqs`` slots; this module decides which sequence lives in which
 slot and which physical KV pages back it.
 
 Invariants (``check_invariants``):
-  - every physical page in use belongs to exactly one running sequence;
-    page 0 is a reserved scratch page and is never handed out,
+  - every physical page's refcount covers the running sequences listing
+    it (one owner unless prefix caching shares it; deferred releases hold
+    the rest); page 0 is a reserved scratch page and is never handed out,
   - every admitted sequence has pages covering len(tokens)+1 positions,
   - slots hold at most one sequence,
   - admission is FIFO; preemption evicts the youngest running sequence
@@ -20,9 +23,10 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 from llmq_tpu_torch.engine.sampling import SamplingParams
+from llmq_tpu_torch.utils.hashing import token_prefix_chain
 
 
 class OutOfPages(Exception):
@@ -30,38 +34,88 @@ class OutOfPages(Exception):
 
 
 class PageAllocator:
-    """Free-list allocator over the physical KV page pool. Page 0 is
-    reserved: masked/padded positions scatter there, so it never backs
-    live data."""
+    """Refcounted free-list allocator over the physical KV page pool. Page
+    0 is reserved: masked/padded positions scatter there, so it never
+    backs live data.
+
+    Three page states: *allocated* (refcount >= 1; a prefix-cached page
+    shared by several sequences carries one reference per sharer),
+    *cached* (refcount 0 but registered as evictable: its KV may serve a
+    future prefix match; reclaimed lazily, oldest first, under pressure),
+    and *free*. Without prefix caching every page has refcount 1 and this
+    is a plain free list."""
 
     def __init__(self, num_pages: int) -> None:
         if num_pages < 2:
             raise ValueError("need at least 2 pages (page 0 is reserved)")
         self.num_pages = num_pages
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
-        self._used: set = set()
+        self._refs: Dict[int, int] = {}
+        self._cached: Dict[int, None] = {}  # LRU order of refcount-0 pages
+        # Called with a page id when a cached page is evicted, so the
+        # prefix cache drops the hashes pointing at it.
+        self.on_evict: Optional[Callable[[int], None]] = None
 
     @property
     def available(self) -> int:
-        return len(self._free)
+        return len(self._free) + len(self._cached)
 
     def refcount(self, page: int) -> int:
-        return int(page in self._used)
+        return self._refs.get(page, 0)
 
     def alloc(self, n: int = 1) -> List[int]:
-        """Allocate n pages atomically; raises OutOfPages if short."""
-        if n > len(self._free):
-            raise OutOfPages(f"want {n} pages, have {len(self._free)}")
+        """Allocate n fresh pages atomically (evicting cached pages, oldest
+        first, as needed); raises OutOfPages if short."""
+        if n > self.available:
+            raise OutOfPages(f"want {n} pages, have {self.available}")
+        while len(self._free) < n:
+            self._evict_one()
         pages = [self._free.pop() for _ in range(n)]
-        self._used.update(pages)
+        for page in pages:
+            self._refs[page] = 1
         return pages
 
-    def free(self, pages: List[int]) -> None:
+    def share(self, page: int) -> None:
+        """Take another reference on an allocated or cached page."""
+        rc = self._refs.get(page)
+        if rc is None:
+            raise ValueError(f"share of unallocated page {page}")
+        if rc == 0:  # revive from the evictable pool
+            del self._cached[page]
+        self._refs[page] = rc + 1
+
+    def free(self, pages: List[int], *, cacheable: bool = False) -> None:
+        """Drop one reference per page. At refcount 0 a page returns to the
+        free list, or parks in the evictable pool when ``cacheable``."""
         for page in pages:
-            if page not in self._used:
+            rc = self._refs.get(page)
+            if rc is None or rc < 1:
                 raise ValueError(f"double-free or foreign page {page}")
-            self._used.discard(page)
-            self._free.append(page)
+            if rc > 1:
+                self._refs[page] = rc - 1
+            elif cacheable:
+                self._refs[page] = 0
+                self._cached[page] = None
+            else:
+                del self._refs[page]
+                self._free.append(page)
+
+    def drop_cached(self, page: int) -> None:
+        """Return a cached (refcount-0) page to the free list, notifying
+        ``on_evict`` as pressure eviction does: a page freed while a hash
+        still named it would hand its next owner's content to strangers."""
+        if page in self._cached:
+            self._release_cached(page)
+
+    def _evict_one(self) -> None:
+        self._release_cached(next(iter(self._cached)))  # oldest
+
+    def _release_cached(self, page: int) -> None:
+        del self._cached[page]
+        del self._refs[page]
+        if self.on_evict is not None:
+            self.on_evict(page)
+        self._free.append(page)
 
 
 @dataclasses.dataclass
@@ -73,6 +127,12 @@ class Sequence:
     params: SamplingParams
     output_ids: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
+    # Prefix caching: leading prompt positions whose KV already sits in
+    # shared leading pages (prefill starts there), and how many leading
+    # pages are cache-registered (they park in the evictable pool instead
+    # of the free list when released).
+    prefix_len: int = 0
+    cacheable_pages: int = 0
     # Bumped on every preemption: in-flight device results snapshotted
     # under an older epoch must not be appended after re-admission.
     epoch: int = 0
@@ -108,6 +168,10 @@ class SchedulerConfig:
     num_pages: int
     page_size: int
     max_model_len: int
+    # Sequences sharing full leading prompt pages (position-identical, so
+    # RoPE'd K matches) reuse them by refcount instead of recomputing; the
+    # engine then prefills from prefix_len on (chunked prefill only).
+    enable_prefix_caching: bool = False
 
     @property
     def pages_per_seq(self) -> int:
@@ -125,6 +189,66 @@ class Scheduler:
         self.running: Dict[str, Sequence] = {}
         self._tick = 0
         self.preemptions = 0
+        # Prefix cache: chain hash of a prompt's leading full page → the
+        # page holding that KV, and the reverse map for eviction.
+        self._prefix_cache: Dict[bytes, int] = {}
+        self._prefix_rev: Dict[int, List[bytes]] = {}
+        self.prefix_hits = 0  # pages reused through the cache
+        self.prefix_misses = 0  # full prompt pages that had to prefill
+        self.allocator.on_evict = self._drop_page_hashes
+
+    # --- prefix caching ---------------------------------------------------
+    def _prefix_hashes(self, prompt_ids: List[int]) -> List[bytes]:
+        """Chain digests of the prompt's leading FULL pages
+        (``utils/hashing.py``, byte-identical to the JAX package's)."""
+        return token_prefix_chain(prompt_ids, self.config.page_size)
+
+    def _match_prefix_hashes(self, hashes: List[bytes]) -> List[int]:
+        """Longest run of cached pages matching the hash chain."""
+        matched: List[int] = []
+        for h in hashes:
+            page = self._prefix_cache.get(h)
+            if page is None:
+                break
+            matched.append(page)
+        return matched
+
+    def register_prefix(self, seq: Sequence) -> None:
+        """Offer a prefilled sequence's full prompt pages to the cache.
+        First writer wins per hash; only the leading pages that ARE the
+        cache's pages count as cacheable on release."""
+        if not self.config.enable_prefix_caching:
+            return
+        cacheable = 0
+        for i, h in enumerate(self._prefix_hashes(seq.prompt_ids)):
+            if i >= len(seq.pages):
+                break
+            page = self._prefix_cache.get(h)
+            if page is None:
+                self._prefix_cache[h] = seq.pages[i]
+                self._prefix_rev.setdefault(seq.pages[i], []).append(h)
+                cacheable = i + 1
+            elif page == seq.pages[i]:
+                cacheable = i + 1  # re-admission re-matched the same page
+            else:
+                break  # a different page already serves this chain
+        seq.cacheable_pages = cacheable
+
+    def _drop_page_hashes(self, page: int) -> None:
+        for h in self._prefix_rev.pop(page, []):
+            if self._prefix_cache.get(h) == page:
+                del self._prefix_cache[h]
+
+    def invalidate_prefix_cache(self) -> None:
+        """Forget every cached prefix and return the parked pages to the
+        free list: after a failed step the KV content is untrusted, and a
+        surviving hash would hand it to future requests."""
+        for page in list(self.allocator._cached):
+            self.allocator.drop_cached(page)
+        self._prefix_cache.clear()
+        self._prefix_rev.clear()
+        for seq in list(self.running.values()) + list(self.waiting):
+            seq.cacheable_pages = 0  # nothing may re-park as cached
 
     # --- queue ------------------------------------------------------------
     def add(self, seq: Sequence) -> None:
@@ -166,10 +290,30 @@ class Scheduler:
             if max_new is not None and len(admitted) >= max_new:
                 break
             seq = self.waiting[0]
+            matched: List[int] = []
+            hashes: List[bytes] = []
+            if self.config.enable_prefix_caching:
+                hashes = self._prefix_hashes(seq.prompt_ids)
+                matched = self._match_prefix_hashes(hashes)
+                # Share FIRST: matched refcount-0 pages leave the evictable
+                # pool, so the fresh alloc below cannot evict them.
+                for page in matched:
+                    self.allocator.share(page)
+            need = self._pages_needed(seq.num_tokens) - len(matched)
             try:
-                seq.pages = self.allocator.alloc(self._pages_needed(seq.num_tokens))
+                fresh = self.allocator.alloc(need) if need > 0 else []
             except OutOfPages:
+                for page in matched:  # undo the shares; stay cacheable
+                    self.allocator.free([page], cacheable=True)
                 break
+            seq.pages = matched + fresh
+            seq.prefix_len = len(matched) * self.config.page_size
+            # Matched pages are cache-registered by construction: they park
+            # back in the evictable pool on release even if this sequence
+            # never registers (e.g. it finishes early).
+            seq.cacheable_pages = len(matched)
+            self.prefix_hits += len(matched)
+            self.prefix_misses += len(hashes) - len(matched)
             self.waiting.popleft()
             seq.slot = free_slots.pop(0)
             seq.admitted_at = self._tick
@@ -218,38 +362,48 @@ class Scheduler:
             return None
         return max(candidates, key=lambda s: s.admitted_at)
 
-    def preempt(self, seq: Sequence, *, defer_pages: bool = False) -> List[int]:
+    def preempt(
+        self, seq: Sequence, *, defer_pages: bool = False
+    ) -> Tuple[List[int], int]:
         """Evict a running sequence back to the head of the waiting queue.
         Its generated tokens are kept; re-admission re-prefills
         prompt+output (recompute preemption). With ``defer_pages`` the
-        pages are detached and returned instead of freed — the engine
-        releases them once no in-flight step can still write them."""
+        pages are detached and returned, with the count of leading
+        cache-registered pages, instead of freed: the engine releases them
+        once no in-flight step can still write them."""
         seq.epoch += 1  # stale in-flight results must not resurface
-        pages: List[int] = []
-        if defer_pages:
-            pages, seq.pages = seq.pages, []
+        pages, cacheable = self._detach_pages(seq) if defer_pages else ([], 0)
         self._release(seq)
         seq.preempt_count += 1
         self.preemptions += 1
         seq.prefilled = False  # KV is gone; re-admission re-prefills
         self.waiting.appendleft(seq)
-        return pages
+        return pages, cacheable
 
     def finish(
         self, seq: Sequence, reason: str, *, defer_pages: bool = False
-    ) -> List[int]:
-        """Finish a sequence; with ``defer_pages`` its pages are detached
-        and returned for a later :meth:`release_pages`."""
+    ) -> Tuple[List[int], int]:
+        """Finish a sequence; with ``defer_pages`` its pages (and their
+        cacheable count) are detached and returned for a later
+        :meth:`release_pages`."""
         seq.finish_reason = reason
-        pages: List[int] = []
-        if defer_pages:
-            pages, seq.pages = seq.pages, []
+        pages, cacheable = self._detach_pages(seq) if defer_pages else ([], 0)
         self._release(seq)
-        return pages
+        return pages, cacheable
 
-    def release_pages(self, pages: List[int]) -> None:
-        """Return deferred pages (from ``finish``/``preempt``)."""
-        self.allocator.free(pages)
+    @staticmethod
+    def _detach_pages(seq: Sequence) -> Tuple[List[int], int]:
+        pages, cacheable = seq.pages, min(seq.cacheable_pages, len(seq.pages))
+        seq.pages, seq.cacheable_pages = [], 0
+        return pages, cacheable
+
+    def release_pages(self, pages: List[int], cacheable: int = 0) -> None:
+        """Return deferred pages (from ``finish``/``preempt``); the leading
+        ``cacheable`` ones park in the evictable prefix pool."""
+        if cacheable:
+            self.allocator.free(pages[:cacheable], cacheable=True)
+        if pages[cacheable:]:
+            self.allocator.free(pages[cacheable:])
 
     def _release(self, seq: Sequence) -> None:
         if seq.slot >= 0:
@@ -257,13 +411,13 @@ class Scheduler:
             seq.slot = -1
         self.running.pop(seq.rid, None)
         if seq.pages:
-            self.allocator.free(seq.pages)
+            self.release_pages(seq.pages, min(seq.cacheable_pages, len(seq.pages)))
             seq.pages = []
 
     # --- introspection ----------------------------------------------------
     def stats(self) -> Dict[str, float]:
         total_pages = self.config.num_pages - 1
-        return {
+        out = {
             "running": len(self.running),
             "waiting": len(self.waiting),
             "slots": self.config.max_num_seqs,
@@ -272,6 +426,12 @@ class Scheduler:
             / max(1, total_pages),
             "preemptions": self.preemptions,
         }
+        if self.config.enable_prefix_caching:
+            seen = self.prefix_hits + self.prefix_misses
+            out["prefix_cache_hit_pages"] = self.prefix_hits
+            out["prefix_cache_miss_pages"] = self.prefix_misses
+            out["prefix_hit_rate"] = self.prefix_hits / seen if seen else 0.0
+        return out
 
     def check_invariants(self) -> None:
         """Debug/test hook: raise if a documented invariant is broken."""
@@ -285,8 +445,15 @@ class Scheduler:
                 owners[page] = owners.get(page, 0) + 1
         if 0 in owners:
             raise AssertionError("scratch page handed out")
-        if any(n != 1 for n in owners.values()):
+        # Pages of finished/preempted sequences awaiting a deferred release
+        # still hold their references: a refcount may exceed its owners.
+        for page, n in owners.items():
+            if self.allocator.refcount(page) < n:
+                raise AssertionError(
+                    f"page {page}: refcount {self.allocator.refcount(page)} < {n} owners"
+                )
+        if not self.config.enable_prefix_caching and any(n != 1 for n in owners.values()):
             raise AssertionError("page owned twice")
-        in_use = len(self.allocator._used)
-        if len(owners) > in_use or in_use + self.allocator.available != self.config.num_pages - 1:
+        in_use = sum(rc > 0 for rc in self.allocator._refs.values())
+        if in_use + self.allocator.available != self.config.num_pages - 1:
             raise AssertionError("allocator out of balance")

@@ -1,7 +1,8 @@
 """Dense decoder-only transformer over a paged KV cache, in PyTorch.
 
 Port of ``llmq_tpu/models/transformer.py`` (building blocks :100-176,
-``Transformer`` :340-824, ``init_params`` :840, ``make_kv_pages`` :946).
+``Transformer`` :340-824 with ``_paged_chunk_trunk`` :569 and
+``prefill_chunk`` :628, ``init_params`` :840, ``make_kv_pages`` :946).
 Same parameter tree (per-layer weights stacked on a leading ``[L, ...]``
 axis, ``[in, out]`` matmul layout), same family switches (Qwen2 QKV bias,
 Qwen3 qk-norm, Gemma-2 softcaps / post-norms / alternating sliding window
@@ -18,6 +19,8 @@ PyTorch idiom in place of JAX's:
 - RoPE angles and the KV write index are computed once per forward and
   shared by all layers (JAX recomputes them per scanned layer; the values
   are identical).
+- The decode kernel (``LLMQ_DECODE_KERNEL``) is resolved once, when the
+  module is built: the counterpart of the JAX trace-time resolution.
 
 Dense models only: an MoE config raises ``NotImplementedError``
 (ROADMAP M14).
@@ -157,6 +160,7 @@ class Transformer(nn.Module):
             for i in range(config.num_layers)
         ]
         self._inv_freq_cache: Dict[torch.device, torch.Tensor] = {}
+        self.decode_kernel = attn_dispatch.resolve_decode_kernel()
 
     def _inv_freq(self, device: torch.device) -> torch.Tensor:
         inv = self._inv_freq_cache.get(device)
@@ -267,6 +271,58 @@ class Transformer(nn.Module):
         last_h = h[torch.arange(B, device=dev), last_idx]
         return self._logits(last_h)
 
+    # --- chunked prefill ---------------------------------------------------
+    def _paged_chunk_trunk(
+        self,
+        tokens: torch.Tensor,  # [B, C] query tokens (padding rows arbitrary)
+        positions: torch.Tensor,  # [B, C] absolute positions (−1 = padding)
+        k_pages: torch.Tensor,  # [L, P, page, n_kv, d] — written in place
+        v_pages: torch.Tensor,
+        block_tables: torch.Tensor,  # [B, pages_per_seq] int32
+    ) -> torch.Tensor:
+        """Write-then-attend over every layer: store each row's valid
+        positions' K/V in the paged cache, attend every query against
+        everything cached so far (causal, K3 on the card), run the MLP.
+        Returns the hidden grid [B, C, H]. Each row's positions must be a
+        leading contiguous run (``ops/dispatch.chunked_prefill_attention``)."""
+        cfg = self.config
+        cos, sin = rope_cos_sin(positions, self._inv_freq(tokens.device))
+        h = self._embed(tokens)
+        index = attn_ops.kv_write_index(block_tables, positions, k_pages.shape[2])
+        for li in range(cfg.num_layers):
+            lp = self.layer_params(li)
+            x = rms_norm(h, lp["ln1"], cfg.rms_norm_eps, one_plus=self.one_plus)
+            q, k, v = self._qkv(lp, x, cos, sin)
+            attn_ops.write_kv_pages(
+                k_pages, v_pages, k, v, block_tables, positions, li, index=index
+            )
+            attn_out = attn_dispatch.chunked_prefill_attention(
+                q, k_pages, v_pages, block_tables, positions, scale=cfg.attn_scale,
+                layer=li, sliding_window=self.windows[li], softcap=cfg.attn_softcap,
+            )
+            h = self._finish_layer(lp, h, attn_out)
+        return h
+
+    @torch.no_grad()
+    def prefill_chunk(
+        self,
+        tokens: torch.Tensor,  # [B, C] one chunk of prompt tokens
+        positions: torch.Tensor,  # [B, C] absolute positions (−1 = padding)
+        k_pages: torch.Tensor,  # [L, P, page, n_kv, d] — written in place
+        v_pages: torch.Tensor,
+        block_tables: torch.Tensor,  # [B, pages_per_seq] int32
+        last_in_chunk: torch.Tensor,  # [B] index of each row's last valid position
+    ) -> torch.Tensor:
+        """One fixed-size chunk of prompt positions through all layers:
+        writes the chunk's K/V and attends each query against everything
+        cached so far (earlier chunks and prefix-cache pages included).
+        Returns the logits [B, V] (f32) at each row's ``last_in_chunk``
+        position, meaningful on a row's final chunk."""
+        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables)
+        B = tokens.shape[0]
+        last_h = h[torch.arange(B, device=h.device), last_in_chunk.long()]
+        return self._logits(last_h)
+
     # --- decode ------------------------------------------------------------
     @torch.no_grad()
     def decode(
@@ -279,26 +335,35 @@ class Transformer(nn.Module):
         active: torch.Tensor,  # [S] bool — slot holds a live sequence
     ) -> torch.Tensor:
         """One decode step for every slot; returns logits [S, V] (f32).
-        Inactive slots write their K/V to the scratch page and attend
-        nothing (context length 0)."""
+        Inactive slots attend nothing (context length 0); they write their
+        K/V to the scratch page, or nothing under the fused-write kernel
+        (K4 skips ctx == 0 rows)."""
         cfg = self.config
         positions = torch.where(active, context_lens, -1).to(torch.int32)  # [S]
         cos, sin = rope_cos_sin(positions[:, None], self._inv_freq(tokens.device))
         h = self._embed(tokens)  # [S, H]
         ctx_incl = torch.where(active, context_lens + 1, 0).to(torch.int32)
-        index = attn_ops.kv_write_index(block_tables, positions[:, None], k_pages.shape[2])
+        kernel, fused_write = attn_dispatch.decode_kernel_plan(self.decode_kernel, h.device)
+        index = None if fused_write else attn_ops.kv_write_index(
+            block_tables, positions[:, None], k_pages.shape[2]
+        )
         for li in range(cfg.num_layers):
             lp = self.layer_params(li)
             x = rms_norm(h, lp["ln1"], cfg.rms_norm_eps, one_plus=self.one_plus)
             q, k, v = self._qkv(lp, x[:, None, :], cos, sin)  # [S, 1, heads, d]
-            attn_ops.write_kv_pages(
-                k_pages, v_pages, k, v, block_tables, positions[:, None], li, index=index
-            )
-            attn_out = attn_dispatch.decode_attention(
-                q[:, 0], k_pages, v_pages, block_tables, ctx_incl,
-                scale=cfg.attn_scale, sliding_window=self.windows[li],
-                softcap=cfg.attn_softcap, layer=li,
-            )
+            kw = dict(scale=cfg.attn_scale, layer=li, sliding_window=self.windows[li],
+                      softcap=cfg.attn_softcap)
+            if fused_write:
+                attn_out, _, _ = attn_dispatch.decode_attention_fused_write(
+                    q[:, 0], k_pages, v_pages, k[:, 0], v[:, 0], block_tables, ctx_incl, **kw
+                )
+            else:
+                attn_ops.write_kv_pages(
+                    k_pages, v_pages, k, v, block_tables, positions[:, None], li, index=index
+                )
+                attn_out = attn_dispatch.decode_attention(
+                    q[:, 0], k_pages, v_pages, block_tables, ctx_incl, kernel=kernel, **kw
+                )
             h = self._finish_layer(lp, h, attn_out)
         return self._logits(h)
 

@@ -27,6 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_prefill": "flash_prefill.cu",
+    "paged_prefill": "paged_prefill.cu",
+    "paged_decode_v2": "paged_decode_v2.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -132,6 +132,85 @@ def paged_decode_attention(
     return torch.einsum("shk,skhd->shd", weights, v).to(out_dtype)
 
 
+def paged_prefill_attention(
+    q: torch.Tensor,  # [B, C, n_heads, head_dim] — a chunk of query positions
+    k_pages: torch.Tensor,  # [P, page_size, n_kv, head_dim] or [L, P, ...]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, pages_per_seq] int32
+    q_positions: torch.Tensor,  # [B, C] absolute positions (−1 = padding)
+    *,
+    scale: float,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    layer: Optional[int] = None,  # required when pages are stacked
+) -> torch.Tensor:
+    """Chunked-prefill attention: C query positions per row against the
+    paged KV cache, which must already hold the chunk's own K/V (the same
+    write-then-attend order as the decode step). The causal frontier is
+    per token and absolute: the query at position ``p`` attends cached
+    keys ``[max(0, p+1−window), p]``.
+
+    A padding query (position −1) attends nothing: its row is a finite
+    average of the gathered values that no caller reads. The kernel (K3)
+    writes zeros there instead; both sides compare valid rows only."""
+    if k_pages.dim() == 5:
+        if layer is None:
+            raise ValueError("stacked pages need a layer index")
+        k_pages = k_pages[layer]
+        v_pages = v_pages[layer]
+    B, C, n_heads, head_dim = q.shape
+    page_size = k_pages.shape[1]
+    pages_per_seq = block_tables.shape[1]
+    max_ctx = pages_per_seq * page_size
+    n_kv = k_pages.shape[2]
+    n_rep = n_heads // n_kv
+
+    out_dtype = q.dtype
+    mul = _compute_dtype(q.dtype, k_pages.dtype)
+    bt = block_tables.long()
+    k = repeat_kv(k_pages[bt].reshape(B, max_ctx, n_kv, head_dim), n_rep).to(mul)
+    v = repeat_kv(v_pages[bt].reshape(B, max_ctx, n_kv, head_dim), n_rep).to(mul)
+    q = q.to(mul)
+
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    scores = _softcap(scores, softcap)
+    k_pos = torch.arange(max_ctx, device=q.device)[None, None, :]
+    q_pos = q_positions[:, :, None]
+    mask = (k_pos <= q_pos) & (q_pos >= 0)
+    if sliding_window is not None:
+        mask = mask & (k_pos > q_pos - sliding_window)
+    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
+    weights = torch.softmax(scores.float(), dim=-1).to(mul)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v).to(out_dtype)
+
+
+def paged_decode_attention_fused_write(
+    q: torch.Tensor,  # [S, n_heads, head_dim]
+    k_pages: torch.Tensor,  # [L, P, page_size, n_kv, head_dim]
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,  # [S, n_kv, head_dim] — this step's fresh K/V rows
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, pages_per_seq] int32
+    context_lens: torch.Tensor,  # [S] int32 — INCLUDING the new token
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the fused-write decode kernel (K4): store each
+    active row's new K/V at position ``ctx − 1`` (inactive rows, ctx == 0,
+    go to the scratch page), then attend. Returns (out, k_pages, v_pages),
+    the pools updated in place."""
+    positions = torch.where(context_lens > 0, context_lens - 1, -1)[:, None]
+    write_kv_pages(k_pages, v_pages, k_new[:, None], v_new[:, None], block_tables,
+                   positions, layer)
+    out = paged_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
+                                 scale=scale, sliding_window=sliding_window,
+                                 softcap=softcap, layer=layer)
+    return out, k_pages, v_pages
+
+
 def write_prompt_kv_pages(
     k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d] (stacked only)
     v_pages: torch.Tensor,

@@ -4,6 +4,12 @@
   the port of ``pallas_attention.py::paged_decode_attention_pallas``.
 - :func:`flash_prefill_attention_cuda` — K2, ``csrc/flash_prefill.cu``,
   the port of ``pallas_attention.py::flash_prefill_attention_pallas``.
+- :func:`paged_prefill_attention_cuda` — K3, ``csrc/paged_prefill.cu``,
+  the port of ``pallas_attention.py::paged_prefill_attention_pallas``.
+- :func:`paged_decode_attention_v2_cuda` — K5, and
+  :func:`paged_decode_attention_v3_cuda` — K4, both
+  ``csrc/paged_decode_v2.cu``, the ports of
+  ``pallas_attention.py::paged_decode_attention_pallas_v2`` / ``_v3``.
 
 The wrappers take CUDA tensors only: each launches its kernel on the
 current stream or raises — there is no fallback. The choice between a
@@ -17,7 +23,7 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,12 +34,16 @@ HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16  # query heads per KV head the decode kernel holds
 DECODE_TILE = 32  # keys per tile of the decode kernel
 MAX_SPLITS = 32
+MAX_PAGES_PER_CHUNK = 4  # the TPU kernel's pages_per_chunk default
+SM_SHARED_BYTES = 228 * 1024  # shared memory of one Hopper SM (1 KB of it per block reserved)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "paged_decode": ("llmq_paged_decode", [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P]),
     "flash_prefill": ("llmq_flash_prefill", [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _F, _F, _P]),
+    "paged_prefill": ("llmq_paged_prefill", [_P] * 7 + [_I] * 11 + [_L] * 3 + [_I, _F, _F, _P]),
+    "paged_decode_v2": ("llmq_paged_decode_v2", [_P] * 9 + [_I] * 13 + [_F, _F, _I, _P]),
 }
 _fns = {}
 
@@ -73,13 +83,29 @@ def _softcap(softcap: Optional[float]) -> float:
     return 0.0 if softcap is None else float(softcap)
 
 
-def decode_splits(num_seqs: int, n_kv: int, max_ctx: int, device: torch.device) -> int:
-    """Blocks per (sequence, KV head) for the decode kernel: enough for two
-    blocks per SM, never more than the page map has key tiles. A function
-    of shapes only, so every layer of a step launches the same grid."""
+def decode_splits(
+    num_seqs: int, n_kv: int, max_ctx: int, device: torch.device, tile: int = DECODE_TILE
+) -> int:
+    """Blocks per (sequence, KV head) for a decode kernel: enough for two
+    blocks per SM, never more than the page map has key tiles of ``tile``
+    keys. A function of shapes only, so every layer of a step launches the
+    same grid."""
     sms = _sm_count(device)
     want = -(-2 * sms // max(1, num_seqs * n_kv))
-    return max(1, min(want, -(-max_ctx // DECODE_TILE), MAX_SPLITS))
+    return max(1, min(want, -(-max_ctx // tile), MAX_SPLITS))
+
+
+def pages_per_chunk(page_size: int, head_dim: int, kv_itemsize: int, blocks_per_sm: int) -> int:
+    """Pages the v2/v3 decode kernel stages per step: as many (1 to the TPU
+    kernel's 4) as let ``blocks_per_sm`` blocks share one SM's shared
+    memory, so a grid of that many blocks per SM runs in one wave. A
+    block holds its f32 query rows and softmax state, then per staged key
+    two stages of K and V rows (pitch head_dim + 16 bytes) and one f32
+    score per query head."""
+    fixed = 4 * MAX_GROUP * (head_dim + 3) + 1024
+    per_page = page_size * (4 * (head_dim * kv_itemsize + 16) + 4 * MAX_GROUP)
+    budget = SM_SHARED_BYTES // max(1, blocks_per_sm) - fixed
+    return max(1, min(MAX_PAGES_PER_CHUNK, budget // per_page))
 
 
 def _sm_count(device: torch.device) -> int:
@@ -90,20 +116,17 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
-def paged_decode_attention_cuda(
-    q: torch.Tensor,  # [S, n_heads, d]
-    k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d]
+def _check_decode(
+    name: str,
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
     v_pages: torch.Tensor,
-    block_tables: torch.Tensor,  # [S, pages_per_seq] int32
-    context_lens: torch.Tensor,  # [S] int32, INCLUDING the new token
-    *,
-    scale: float,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
     layer: int,
-    sliding_window: Optional[int] = None,
-    softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """K1: paged decode attention over a layer-stacked page pool."""
-    _require(q.is_cuda, "paged_decode_attention_cuda takes CUDA tensors")
+) -> None:
+    """The decode kernels' shared argument checks (K1, K5, K4)."""
+    _require(q.is_cuda, f"{name} takes CUDA tensors")
     _require(k_pages.dim() == 5, "k_pages must be a layer-stacked [L, P, page, n_kv, d] pool")
     S, n_heads, d = q.shape
     L, P, page_size, n_kv, d_kv = k_pages.shape
@@ -119,9 +142,27 @@ def paged_decode_attention_cuda(
     for t in (k_pages, v_pages, block_tables, context_lens):
         _require(t.device == q.device, "all tensors must be on q's device")
     for t in (q, k_pages, v_pages, block_tables, context_lens):
-        _require(t.is_contiguous(), "paged decode takes contiguous tensors")
-    layer = int(layer)
-    _require(0 <= layer < L, f"layer {layer} outside the {L}-layer pool")
+        _require(t.is_contiguous(), f"{name} takes contiguous tensors")
+    _require(0 <= int(layer) < L, f"layer {layer} outside the {L}-layer pool")
+
+
+def paged_decode_attention_cuda(
+    q: torch.Tensor,  # [S, n_heads, d]
+    k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, pages_per_seq] int32
+    context_lens: torch.Tensor,  # [S] int32, INCLUDING the new token
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """K1: paged decode attention over a layer-stacked page pool."""
+    _check_decode("paged_decode_attention_cuda", q, k_pages, v_pages, block_tables,
+                  context_lens, layer)
+    S, n_heads, d = q.shape
+    _, P, page_size, n_kv, _ = k_pages.shape
     fn = _kernel("paged_decode")
     out = torch.empty_like(q)
     splits = decode_splits(S, n_kv, block_tables.shape[1] * page_size, q.device)
@@ -134,7 +175,7 @@ def paged_decode_attention_cuda(
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
         int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
-        S, n_heads, n_kv, d, P, page_size, block_tables.shape[1], layer,
+        S, n_heads, n_kv, d, P, page_size, block_tables.shape[1], int(layer),
         _window(sliding_window), float(scale), _softcap(softcap), splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -189,3 +230,164 @@ def flash_prefill_attention_cuda(
 
 
 flash_prefill_attention_cuda.launches = 0
+
+
+def _paged_decode_v2(
+    name: str,
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: Optional[torch.Tensor],
+    v_new: Optional[torch.Tensor],
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int],
+    softcap: Optional[float],
+) -> torch.Tensor:
+    """Checks and launch of ``csrc/paged_decode_v2.cu``: K4 when ``k_new``
+    is given (the pools are written in place), K5 otherwise."""
+    _check_decode(name, q, k_pages, v_pages, block_tables, context_lens, layer)
+    S, n_heads, d = q.shape
+    _, P, page_size, n_kv, _ = k_pages.shape
+    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             "the v2/v3 decode kernels stage 16-byte rows: pools must be 16-byte aligned")
+    fused = k_new is not None
+    if fused:
+        for t in (k_new, v_new):
+            _require(t.shape == (S, n_kv, d) and t.dtype == q.dtype and t.device == q.device
+                     and t.is_contiguous(),
+                     f"k_new/v_new must be contiguous [{S}, {n_kv}, {d}] {q.dtype} on q's device")
+    fn = _kernel("paged_decode_v2")
+    pps = block_tables.shape[1]
+    # The grid at one page per chunk sets the blocks an SM must hold; the
+    # chunk grows only as far as they all still fit.
+    splits = decode_splits(S, n_kv, pps * page_size, q.device, tile=page_size)
+    blocks_per_sm = -(-S * n_kv * splits // _sm_count(q.device))
+    ppc = pages_per_chunk(page_size, d, k_pages.element_size(), blocks_per_sm)
+    splits = decode_splits(S, n_kv, pps * page_size, q.device, tile=ppc * page_size)
+    out = torch.empty_like(q)
+    part = (
+        torch.empty(S * n_heads * splits * (d + 2), dtype=torch.float32, device=q.device)
+        if splits > 1 else None
+    )
+    code = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_new.data_ptr() if fused else None, v_new.data_ptr() if fused else None,
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16), int(fused),
+        S, n_heads, n_kv, d, P, page_size, pps, ppc, int(layer),
+        _window(sliding_window), float(scale), _softcap(softcap), splits,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check("paged_decode_v2", code)
+    return out
+
+
+def paged_decode_attention_v2_cuda(
+    q: torch.Tensor,  # [S, n_heads, d]
+    k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, pages_per_seq] int32
+    context_lens: torch.Tensor,  # [S] int32, INCLUDING the new token
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """K5: K1's contract, staged ``pages_per_chunk`` pages at a time
+    through a cp.async double buffer."""
+    out = _paged_decode_v2(
+        "paged_decode_attention_v2_cuda", q, k_pages, v_pages, None, None, block_tables,
+        context_lens, scale=scale, layer=layer, sliding_window=sliding_window, softcap=softcap,
+    )
+    paged_decode_attention_v2_cuda.launches += 1
+    return out
+
+
+paged_decode_attention_v2_cuda.launches = 0
+
+
+def paged_decode_attention_v3_cuda(
+    q: torch.Tensor,  # [S, n_heads, d]
+    k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d] — written in place
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,  # [S, n_kv, d] in q's dtype — this step's rows
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, pages_per_seq] int32
+    context_lens: torch.Tensor,  # [S] int32, INCLUDING the new token
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: K5 plus the store of each active row's new K/V at position
+    ``ctx − 1`` (the caller must not have written it). Returns (out,
+    k_pages, v_pages), the pools updated in place."""
+    out = _paged_decode_v2(
+        "paged_decode_attention_v3_cuda", q, k_pages, v_pages, k_new, v_new, block_tables,
+        context_lens, scale=scale, layer=layer, sliding_window=sliding_window, softcap=softcap,
+    )
+    paged_decode_attention_v3_cuda.launches += 1
+    return out, k_pages, v_pages
+
+
+paged_decode_attention_v3_cuda.launches = 0
+
+
+def paged_prefill_attention_cuda(
+    q: torch.Tensor,  # [B, C, n_heads, d]
+    k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, pages_per_seq] int32
+    chunk_start: torch.Tensor,  # [B] int32 absolute position of query 0
+    num_valid: torch.Tensor,  # [B] int32 valid queries (a leading run)
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """K3: a chunk of queries per row against the paged cache, which
+    already holds the chunk's K/V. Query rows past ``num_valid`` come back
+    as zeros (the plain version leaves a finite average); callers never
+    read them."""
+    _require(q.is_cuda, "paged_prefill_attention_cuda takes CUDA tensors")
+    _require(k_pages.dim() == 5, "k_pages must be a layer-stacked [L, P, page, n_kv, d] pool")
+    B, C, n_heads, d = q.shape
+    L, P, page_size, n_kv, d_kv = k_pages.shape
+    _require(v_pages.shape == k_pages.shape, "k_pages and v_pages differ in shape")
+    _require(d == d_kv and d in HEAD_DIMS, f"head_dim {d} (pool {d_kv}); want one of {HEAD_DIMS}")
+    _require(n_heads % n_kv == 0, f"{n_heads} query heads over {n_kv} KV heads")
+    _require(q.dtype in _DTYPES and k_pages.dtype in _DTYPES and v_pages.dtype == k_pages.dtype,
+             f"dtypes q={q.dtype} pools={k_pages.dtype}/{v_pages.dtype}; want f32 or bf16")
+    for t in (block_tables, chunk_start, num_valid):
+        _require(t.dtype == torch.int32 and t.is_contiguous() and t.device == q.device,
+                 "block_tables, chunk_start and num_valid must be contiguous int32 on q's device")
+    _require(block_tables.shape[0] == B and chunk_start.shape == (B,)
+             and num_valid.shape == (B,), "batch mismatch")
+    for t in (k_pages, v_pages):
+        _require(t.device == q.device and t.is_contiguous(), "pools: contiguous, on q's device")
+    _require(q.stride(3) == 1, "the head dimension must be contiguous")
+    _require(0 <= int(layer) < L, f"layer {layer} outside the {L}-layer pool")
+    fn = _kernel("paged_prefill")
+    out = torch.empty((B, C, n_heads, d), dtype=q.dtype, device=q.device)
+    code = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+        chunk_start.data_ptr(), num_valid.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
+        B, C, n_heads, n_kv, d, P, page_size, block_tables.shape[1], int(layer),
+        *q.stride()[:3], _window(sliding_window), float(scale), _softcap(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check("paged_prefill", code)
+    paged_prefill_attention_cuda.launches += 1
+    return out
+
+
+paged_prefill_attention_cuda.launches = 0

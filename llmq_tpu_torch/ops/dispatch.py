@@ -2,18 +2,25 @@
 PyTorch versions for CPU tensors.
 
 Port of ``llmq_tpu/ops/dispatch.py`` (``prefill_attention`` :67,
-``decode_attention`` :381). The model calls these two functions, and
-this is the one place where a kernel or its plain version is chosen: by
-the device of the tensors and by nothing else (no environment switch, no
-fallback). A CUDA tensor goes to the wrapper in ``ops/cuda_attention``,
-which launches its kernel or raises; a CPU tensor goes to the plain
-version in ``ops/attention``. Tensor parallelism (the JAX ``shard_map``
-over heads) comes with ROADMAP M13.
+``chunked_prefill_attention`` :119, ``decode_kernel_plan`` :193,
+``decode_attention_fused_write`` :322, ``decode_attention`` :381). The
+model calls these functions, and this is the one place where a kernel or
+its plain version is chosen: by the device of the tensors and by nothing
+else (no fallback). A CUDA tensor goes to the wrapper in
+``ops/cuda_attention``, which launches its kernel or raises; a CPU tensor
+goes to the plain version in ``ops/attention``.
+
+Which decode kernel runs on the card is ``LLMQ_DECODE_KERNEL`` (v1 = K1,
+v2 = K5, v3 = K4 with the fused KV write), read once by
+:func:`resolve_decode_kernel` when the model is built, as the JAX package
+resolves it once at trace time. Tensor parallelism (the JAX
+``shard_map`` over heads) comes with ROADMAP M13.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,7 +28,12 @@ from llmq_tpu_torch.ops import attention as plain
 from llmq_tpu_torch.ops.cuda_attention import (
     flash_prefill_attention_cuda,
     paged_decode_attention_cuda,
+    paged_decode_attention_v2_cuda,
+    paged_decode_attention_v3_cuda,
+    paged_prefill_attention_cuda,
 )
+
+DECODE_KERNELS = ("v1", "v2", "v3")
 
 
 def prefill_attention(
@@ -41,6 +53,82 @@ def prefill_attention(
                   softcap=softcap)
 
 
+def chunked_prefill_attention(
+    q: torch.Tensor,  # [B, C, n_heads, d]
+    k_pages: torch.Tensor,  # [L, P, page, n_kv, d]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, pages_per_seq] int32
+    q_positions: torch.Tensor,  # [B, C] absolute positions (−1 = padding)
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Chunk-of-queries attention against the paged cache (chunked
+    prefill): K3 on the card, the plain gather-and-mask version on the CPU.
+
+    CONTRACT: each row's valid positions are a LEADING CONTIGUOUS run
+    (``q_positions[b] = [s, s+1, ..., s+n−1, −1, ...]``, which is how the
+    engine's chunk loop builds them); the kernel takes the run as
+    (start, count) and cannot represent gaps."""
+    if not q.is_cuda:
+        return plain.paged_prefill_attention(
+            q, k_pages, v_pages, block_tables, q_positions, scale=scale,
+            sliding_window=sliding_window, softcap=softcap, layer=layer,
+        )
+    num_valid = (q_positions >= 0).sum(dim=1, dtype=torch.int32)
+    chunk_start = torch.where(num_valid > 0, q_positions[:, 0], 0).to(torch.int32)
+    return paged_prefill_attention_cuda(
+        q, k_pages, v_pages, block_tables, chunk_start, num_valid, scale=scale, layer=layer,
+        sliding_window=sliding_window, softcap=softcap,
+    )
+
+
+def resolve_decode_kernel() -> str:
+    """``LLMQ_DECODE_KERNEL`` (v1 | v2 | v3; empty or unset means v1, as the
+    ``VAR= cmd`` shell idiom expects). Any other value raises."""
+    kern = (os.environ.get("LLMQ_DECODE_KERNEL") or "v1").lower()
+    if kern not in DECODE_KERNELS:
+        raise ValueError(f"LLMQ_DECODE_KERNEL={kern!r} (want v1|v2|v3)")
+    return kern
+
+
+def decode_kernel_plan(kernel: str, device: torch.device) -> Tuple[str, bool]:
+    """(kernel name, fused_write) for a model built under ``kernel`` whose
+    tensors lie on ``device``. ``fused_write`` (v3, K4) means the decode
+    kernel stores the step's new K/V row itself, so the model must skip
+    ``write_kv_pages`` and call :func:`decode_attention_fused_write`. CPU
+    tensors run the plain versions with the separate write, as the JAX
+    package's non-Pallas branch does."""
+    if device.type != "cuda":
+        return "plain", False
+    return kernel, kernel == "v3"
+
+
+def decode_attention_fused_write(
+    q: torch.Tensor,  # [S, n_heads, d]
+    k_pages: torch.Tensor,  # [L, P, page, n_kv, d] — written in place
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,  # [S, n_kv, d] — this step's fresh K/V rows
+    v_new: torch.Tensor,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,  # [S] INCLUDING the new token
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """v3 decode: attention and the new rows' KV write in one launch (K4);
+    only valid when :func:`decode_kernel_plan` returned ``fused_write``.
+    Returns (out, k_pages, v_pages)."""
+    attend = (paged_decode_attention_v3_cuda if q.is_cuda
+              else plain.paged_decode_attention_fused_write)
+    return attend(q, k_pages, v_pages, k_new, v_new, block_tables, context_lens,
+                  scale=scale, layer=layer, sliding_window=sliding_window, softcap=softcap)
+
+
 def decode_attention(
     q: torch.Tensor,  # [S, n_heads, d]
     k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d]
@@ -52,7 +140,15 @@ def decode_attention(
     layer: int,
     sliding_window: Optional[int] = None,
     softcap: Optional[float] = None,
+    kernel: str = "v1",
 ) -> torch.Tensor:
-    attend = paged_decode_attention_cuda if q.is_cuda else plain.paged_decode_attention
+    """Decode attention after the new rows were written: K1 (v1) or K5 (v2;
+    v3's write-free form, as in the JAX package) on the card."""
+    if not q.is_cuda:
+        attend = plain.paged_decode_attention
+    elif kernel == "v1":
+        attend = paged_decode_attention_cuda
+    else:
+        attend = paged_decode_attention_v2_cuda
     return attend(q, k_pages, v_pages, block_tables, context_lens, scale=scale, layer=layer,
                   sliding_window=sliding_window, softcap=softcap)

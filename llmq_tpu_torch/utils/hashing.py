@@ -1,0 +1,42 @@
+"""Content hashing of token pages: the prefix cache's page identity.
+
+Port of ``llmq_tpu/utils/hashing.py`` (``chain_hash`` :33,
+``token_prefix_chain`` :51). The digests are the wire identity of a KV
+prefix page across a fleet (the host tier and cross-worker shipping key
+on them), so they must stay byte-identical to the JAX package's: blake2b
+is keyless and process-stable, unlike Python's salted ``hash()``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import List, Sequence
+
+CHAIN_DIGEST_SIZE = 16
+
+
+def chain_hash(
+    prev: bytes, token_ids: Sequence[int], *, digest_size: int = CHAIN_DIGEST_SIZE
+) -> bytes:
+    """One link of a token-page hash chain: digest(prev_digest || tokens),
+    each token as 8 little-endian signed bytes. Chaining makes a page's
+    digest name its content AND its whole left context, so position-
+    dependent KV (RoPE'd keys) only matches a prefix computed at the same
+    positions over the same tokens."""
+    dig = hashlib.blake2b(prev, digest_size=digest_size)
+    dig.update(b"".join(int(t).to_bytes(8, "little", signed=True) for t in token_ids))
+    return dig.digest()
+
+
+def token_prefix_chain(token_ids: Sequence[int], page_size: int) -> List[bytes]:
+    """Chain digests of a prompt's leading FULL pages, capped at
+    ``(len - 1) // page_size`` pages so the final prompt position is always
+    recomputed: its logits seed generation, and decode's +1 headroom
+    position stays private to the request."""
+    n_full = (len(token_ids) - 1) // page_size
+    hashes: List[bytes] = []
+    h = b""
+    for i in range(n_full):
+        h = chain_hash(h, token_ids[i * page_size : (i + 1) * page_size])
+        hashes.append(h)
+    return hashes

@@ -7,7 +7,9 @@ engine settings, on ``ModelConfig.tiny()`` and on the flagship-tiny qwen2 config
 than slots, stop token ids, a stop string, ``min_tokens``,
 ``max_model_len`` truncation, and a pool tight enough to force
 recompute preemption. Each JAX engine costs seconds of compiles on one
-core, so the tests build two.
+core, so the tests build few. The chunked-prefill tests add templated
+traffic with the prefix cache on and off, and seeded temperature > 0
+requests, whose tokens must match too (the threefry stream is ported).
 """
 
 import dataclasses
@@ -56,7 +58,7 @@ def _cores(jcfg: JConfig, seed: int = 0, **overrides):
 
 def _run(core, requests, params_cls):
     for rid, prompt, kw in requests:
-        core.add_request(rid, prompt=prompt, params=params_cls(temperature=0.0, **kw))
+        core.add_request(rid, prompt=prompt, params=params_cls(**{"temperature": 0.0, **kw}))
     outs = {}
     for _ in range(1000):
         for out in core.step():
@@ -119,6 +121,38 @@ def test_greedy_tokens_stops_and_preemption_match_jax_engine_tiny():
         assert text[2:4] not in tout["stop_str"].text
 
 
+# Templated traffic: a shared 5-page head, distinct tails, greedy and
+# sampled rows (seeded, and one unseeded whose stream follows its rid).
+TEMPLATE = "Summarise the ticket below in one line. "  # 40 byte tokens: 5 pages of 8
+PREFIX_MIX = [
+    (f"p{i}", TEMPLATE + f"ticket {i}: " + "x" * (3 * i), dict(max_tokens=5 + i, ignore_eos=True))
+    for i in range(4)
+] + [
+    ("s0", TEMPLATE + "seeded one", dict(max_tokens=8, temperature=0.8, seed=7, ignore_eos=True)),
+    ("s1", TEMPLATE + "seeded two", dict(max_tokens=8, temperature=1.2, seed=2**31 + 5,
+                                         ignore_eos=True)),
+    ("u0", "unseeded " + TEMPLATE, dict(max_tokens=6, temperature=0.9, ignore_eos=True)),
+]
+
+
+@pytest.mark.parametrize("chunk,prefix", [(8, True), (16, False)])
+def test_chunked_prefill_and_prefix_cache_match_jax_engine(chunk, prefix):
+    """Chunked prefill (with and without the prefix cache) on a pool tight
+    enough to force recompute preemption: greedy AND sampled tokens
+    identical to the JAX engine (the threefry stream is ported), and the
+    prefix-cache page counters equal."""
+    cores = _cores(JConfig.tiny(vocab_size=304), num_pages=15, max_model_len=80,
+                   prefill_chunk_size=chunk, enable_prefix_caching=prefix)
+    _both(cores, PREFIX_MIX)
+    jstats, tstats = cores[0].scheduler.stats(), cores[1].scheduler.stats()
+    assert tstats["preemptions"] > 0 and tstats["preemptions"] == jstats["preemptions"]
+    if prefix:
+        assert tstats["prefix_cache_hit_pages"] > 0
+        for key in ("prefix_cache_hit_pages", "prefix_cache_miss_pages"):
+            assert tstats[key] == jstats[key], key
+    assert cores[1].stats()["prefill_tokens"] == cores[0].stats()["prefill_tokens"]
+
+
 def test_engine_config_fields_and_unported_options():
     assert [f.name for f in dataclasses.fields(tengine.EngineConfig)] == [
         f.name for f in dataclasses.fields(jengine.EngineConfig)
@@ -132,13 +166,40 @@ def test_engine_config_fields_and_unported_options():
         jengine._prefill_buckets(jengine.EngineConfig(max_model_len=700))
     cfg = TConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
-    for field, value, item in (("decode_block", 4, "M10"), ("prefill_chunk_size", 32, "M8"),
-                               ("logit_guard", "on", "M12"), ("tp_overlap", "on", "M13")):
+    for field, value, item in (("decode_block", 4, "M10"), ("mixed_step", "on", "M10"),
+                               ("prefix_host_gb", 0.5, "M11"), ("logit_guard", "on", "M12"),
+                               ("tp_overlap", "on", "M13")):
         with pytest.raises(NotImplementedError, match=item):
             tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
                                engine_config=tengine.EngineConfig(**{field: value}))
     with pytest.raises(NotImplementedError, match="M9"):
         tengine.EngineConfig(kv_dtype="fp8")
+    with pytest.raises(ValueError, match="prefill_chunk_size"):
+        tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
+                           engine_config=tengine.EngineConfig(enable_prefix_caching=True))
+
+
+def test_abort_all_invalidates_prefix_cache():
+    """After an abort the KV content is untrusted: no cached prefix page may
+    survive to serve a later request, and every page returns to the pool."""
+    cfg = TConfig.tiny()
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    core = tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
+                              engine_config=tengine.EngineConfig(
+                                  **{**ENGINE, "prefill_chunk_size": 16,
+                                     "enable_prefix_caching": True}))
+    for i in range(2):  # one after the other: the second hits the first's pages
+        _run(core, [(f"a{i}", TEMPLATE + str(i), dict(max_tokens=3, ignore_eos=True))], TParams)
+    sched = core.scheduler
+    assert sched.stats()["prefix_cache_hit_pages"] > 0 and sched.allocator._cached
+    core.add_request("late", prompt=TEMPLATE + "late", params=TParams(max_tokens=3))
+    core.abort_all()
+    assert not sched._prefix_cache and not sched.allocator._cached
+    assert sched.allocator.available == sched.config.num_pages - 1
+    out = _run(core, [("after", TEMPLATE + "after", dict(max_tokens=3, ignore_eos=True))],
+               TParams)
+    assert out["after"].completion_tokens == 3
+    assert sched.stats()["prefix_cache_miss_pages"] >= 5  # nothing left to hit
 
 
 def test_async_engine_generate_sync_and_cancel():

@@ -1,12 +1,13 @@
-"""Port sampler against the JAX sampler on the same noise, plus the
-device-side stopping helpers of the port's engine.
+"""Port sampler against the JAX sampler on the same noise, the port's
+threefry noise against JAX's, plus the device-side stopping helpers of
+the port's engine.
 
-JAX draws its Gumbel noise from threefry keys (``_step_gumbel``); the port
-takes the noise as an argument, so the test hands it JAX's noise and the
-sampled tokens must be identical in greedy, stochastic and filtered
-modes. The port's own noise (``step_gumbel``, a counter hash) is checked
-for determinism and distribution, since its bits differ from JAX's by
-design.
+The port takes the noise as an argument, so the test hands it JAX's noise
+and the sampled tokens must be identical in greedy, stochastic and
+filtered modes. The noise itself (``step_gumbel``: threefry ``fold_in``,
+random bits, uniform, Gumbel) is held against ``jax.random``: key data,
+step keys, bits and uniforms exactly, the Gumbel values within 1e-6 (the
+two ``log`` implementations may differ in the last place).
 """
 
 import jax
@@ -67,7 +68,7 @@ def test_modes_and_sampling_params_match_jax():
 
 
 def test_step_gumbel_is_a_pure_function_of_key_step_and_index():
-    keys = torch.tensor([5, 5, 7, 2**40], dtype=torch.int64)
+    keys = torch.tensor([[0, 5], [0, 5], [0, 7], [3, 2**32 - 1]], dtype=torch.int64)
     steps = torch.tensor([0, 1, 0, 3], dtype=torch.int32)
     g = tsampling.step_gumbel(keys, steps, 4096)
     assert g.shape == (4, 4096) and g.dtype == torch.float32
@@ -79,6 +80,59 @@ def test_step_gumbel_is_a_pure_function_of_key_step_and_index():
     # Gumbel(0, 1): mean ~ Euler-Mascheroni, variance ~ pi^2 / 6.
     assert abs(g.mean().item() - 0.5772) < 0.05
     assert abs(g.var().item() - 1.6449) < 0.15
+
+
+SEEDS = [0, 7, 2**31 - 1, 2**31 + 5, 2**32 - 1, -1, -(2**31) - 1, 123456789012, None]
+
+
+def test_threefry_keys_fold_in_and_bits_match_jax():
+    tags = [0, jsampling.request_tag("job-1"), 0xFFFFFFFF]  # unseeded: 0x5EED ^ tag
+    for seed in SEEDS:
+        for tag in tags:
+            expect = np.asarray(jsampling.make_base_key(seed, tag))
+            got = tsampling.make_base_key(seed, tag)
+            assert got.dtype == np.uint32 and (got == expect).all(), (seed, tag)
+    keys = np.stack([np.asarray(jsampling.make_base_key(s, 99)) for s in SEEDS])
+    steps = np.arange(len(SEEDS), dtype=np.int32) * 1000 + [0, 1, 2, 3, 4, 5, 6, 7, 2**20]
+    jkeys = np.asarray(jax.random.key_data(
+        jsampling.fold_step_keys(jnp.asarray(keys), jnp.asarray(steps))))
+    tkeys = tsampling.fold_step_keys(torch.from_numpy(keys.astype(np.int64)),
+                                     torch.from_numpy(steps))
+    np.testing.assert_array_equal(tkeys.numpy(), jkeys.astype(np.int64))
+    n = 1000
+    jbits = np.stack([
+        np.asarray(jax.random.bits(jax.random.wrap_key_data(jnp.asarray(k)), (n,), jnp.uint32))
+        for k in jkeys
+    ])
+    np.testing.assert_array_equal(tsampling.uniform_bits(tkeys, n).numpy(),
+                                  jbits.astype(np.int64))
+    tiny = np.finfo(np.float32).tiny
+    juni = np.stack([
+        np.asarray(jax.random.uniform(jax.random.wrap_key_data(jnp.asarray(k)), (n,),
+                                      jnp.float32, minval=tiny, maxval=1.0))
+        for k in jkeys
+    ])
+    np.testing.assert_array_equal(tsampling.uniform(tkeys, n).numpy(), juni)
+
+
+def test_step_gumbel_and_sampled_tokens_match_jax():
+    """The port's own noise: Gumbel within 1e-6 of JAX's, and the tokens
+    that ``sample_tokens`` draws from it identical to JAX's."""
+    for seed in (0, 1):
+        logits, temps, topk, topp, keys, steps = _batch(seed, V=4099)
+        S, V = logits.shape
+        jg = np.asarray(jsampling._step_gumbel(jnp.asarray(keys), jnp.asarray(steps), (S, V)))
+        tg = tsampling.step_gumbel(torch.from_numpy(keys.astype(np.int64)),
+                                   torch.from_numpy(steps), V)
+        np.testing.assert_allclose(tg.numpy(), jg, rtol=0, atol=1e-6)
+        for mode in ("stochastic", "filtered"):
+            expect = np.asarray(jsampling.sample_tokens(
+                jnp.asarray(logits), jnp.asarray(keys), jnp.asarray(steps), jnp.asarray(temps),
+                jnp.asarray(topk), jnp.asarray(topp), mode=mode))
+            got = tsampling.sample_tokens(
+                torch.from_numpy(logits), tg, torch.from_numpy(temps), torch.from_numpy(topk),
+                torch.from_numpy(topp), mode=mode).numpy()
+            np.testing.assert_array_equal(got, expect)
 
 
 def test_suppress_stops_masks_only_rows_under_min_tokens():

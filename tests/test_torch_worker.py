@@ -102,3 +102,22 @@ def test_worker_stops_with_the_engine_failure():
     assert sorted(requeued) == [j.id for j in jobs]
     assert asyncio.run(_drain(QUEUE + ".results", url)) == []
     assert asyncio.run(_drain(QUEUE + ".failed", url)) == []
+
+
+def test_worker_serves_templated_jobs_with_chunked_prefix_cache():
+    """The chunked prefill + prefix-cache path through the worker: every
+    job is answered, and later jobs reuse the shared head's pages."""
+    url = "memory://torch-worker-prefix"
+    reset_namespace(url.split("://")[1])
+    head = "Classify the sentiment of this review as positive or negative. " * 2
+    jobs = [Job(id=f"t{i}", prompt=head + f"Review {i}: fine.", temperature=0.0,
+                max_tokens=4, ignore_eos=True) for i in range(6)]
+    asyncio.run(_submit([j.model_dump_json().encode() for j in jobs], url=url))
+    worker = run_torch_worker("preset://tiny", QUEUE, broker_url=url, max_jobs=6,
+                              prefill_chunk_size=32, enable_prefix_caching=True,
+                              **{**ENGINE, "max_model_len": 256})
+    results = [json.loads(b) for b in asyncio.run(_drain(QUEUE + ".results", url=url))]
+    assert sorted(r["id"] for r in results) == [j.id for j in jobs]
+    assert all(r["usage"]["completion_tokens"] == 4 for r in results)
+    stats = worker.engine.core.stats()
+    assert stats["prefix_cache_hit_pages"] > 0 and stats["decode_kernel"] == "plain"

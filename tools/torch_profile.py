@@ -2,15 +2,23 @@
 """Where a decode step of the PyTorch port spends its time, on one GPU.
 
     python3 tools/torch_profile.py [--preset qwen2.5-3b] [--rows 16] [--steps 10]
+    python3 tools/torch_profile.py --prefix [--decode-kernel v3]
 
 Builds the port's engine on ``cuda`` (random bf16 weights from a seeded
-generator), admits ``--rows`` greedy requests with ~200-token prompts,
-runs a few decode steps to warm up, then traces ``--steps`` engine steps
-with ``torch.profiler`` (CPU and CUDA activities). Prints one JSON line:
-host wall time per step, device busy time per step (the sum of kernel
-times), the device's idle share, the count of kernel launches per step,
-and the top kernels by device time. The full table goes to
-``chiprun_out/torch_profile.txt``.
+generator), admits ``--rows`` greedy requests, runs a few decode steps to
+warm up, then traces ``--steps`` engine steps with ``torch.profiler``
+(CPU and CUDA activities). Prints one JSON line: host wall time per step,
+device busy time per step (the sum of kernel times), the device's idle
+share, the count of kernel launches per step, and the top kernels by
+device time. The full table goes to ``chiprun_out/torch_profile.txt``.
+
+The default requests are ~200-token prompts on the bucketed path. With
+``--prefix`` the engine runs chunked prefill (chunks of 256) with the
+prefix cache, the requests share a 1,024-token template with distinct
+tails (as ``chip_smoke.py``'s prefix-cache phase), and a second JSON line
+profiles one chunk dispatch of 4 x 256 positions at context 1,024
+(``chiprun_out/torch_profile_chunk.txt``). ``--decode-kernel`` sets
+``LLMQ_DECODE_KERNEL`` for the engine (v1 = K1, v2 = K5, v3 = K4).
 """
 
 from __future__ import annotations
@@ -36,7 +44,12 @@ def main() -> int:
     ap.add_argument("--preset", default="qwen2.5-3b")
     ap.add_argument("--rows", type=int, default=16)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--prefix", action="store_true",
+                    help="chunked prefill + prefix cache, templated ~1,124-token prompts")
+    ap.add_argument("--decode-kernel", choices=("v1", "v2", "v3"), default=None)
     args = ap.parse_args()
+    if args.decode_kernel:
+        os.environ["LLMQ_DECODE_KERNEL"] = args.decode_kernel
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -44,14 +57,19 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    chunk = 256 if args.prefix else None
     engine = build_engine(f"preset://{args.preset}", device="cuda", dtype="bfloat16",
-                          max_num_seqs=args.rows, max_model_len=512)
+                          max_num_seqs=args.rows, max_model_len=2048 if args.prefix else 512,
+                          prefill_chunk_size=chunk, enable_prefix_caching=args.prefix)
     engine.shutdown()  # drive the core directly, on this thread
     core = engine.core
     params = SamplingParams(temperature=0.0, max_tokens=400, ignore_eos=True)
     for i in range(args.rows):
-        core.add_request(f"r{i}", prompt=("profile the decode step of the port " * 6)[:200] + str(i),
-                         params=params)
+        if args.prefix:
+            prompt = ("template of a templated batch job; " * 40)[:1024] + f" tail {i} " * 10
+        else:
+            prompt = ("profile the decode step of the port " * 6)[:200] + str(i)
+        core.add_request(f"r{i}", prompt=prompt, params=params)
     while core.prefills < args.rows:
         core.step()
     for _ in range(5):
@@ -63,6 +81,35 @@ def main() -> int:
             core.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    report("decode_step", prof, wall, args.steps, smi, args, core, "torch_profile.txt")
+    if args.prefix:
+        B, dev = 4, core.device
+        n_pages = (1024 + chunk) // core.cfg.page_size
+        bt = torch.arange(1, 1 + B * n_pages, device=dev, dtype=torch.int32).reshape(B, -1)
+        bt = torch.nn.functional.pad(bt, (0, core._pages_per_seq - n_pages))
+        tok = torch.randint(1, 257, (B, chunk), device=dev, dtype=torch.int32)
+        pos = torch.arange(1024, 1024 + chunk, device=dev, dtype=torch.int32).repeat(B, 1)
+        last = torch.full((B,), chunk - 1, device=dev, dtype=torch.int32)
+
+        def chunk_step():
+            return core.model.prefill_chunk(tok, pos, core.k_pages, core.v_pages, bt, last)
+
+        chunk_step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                chunk_step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report("chunk_dispatch_4x256_at_1024", prof, wall, args.steps, smi, args, core,
+               "torch_profile_chunk.txt")
+    return 0
+
+
+def report(what, prof, wall, steps, smi, args, core, table_name) -> None:
+    """One JSON line for a profiled window of ``steps`` steps, and the
+    full kernel table under ``chiprun_out/``."""
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -71,19 +118,19 @@ def main() -> int:
     out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "torch_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, table_name), "w") as f:
         f.write(smi + "\n")
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     print(json.dumps(dict(
-        tool="torch_profile", card=smi, preset=args.preset, rows=args.rows, steps=args.steps,
-        wall_ms_per_step=wall * 1e3 / args.steps,
-        device_busy_ms_per_step=busy_us / 1e3 / args.steps,
+        tool="torch_profile", what=what, card=smi, preset=args.preset, rows=args.rows,
+        steps=steps, prefix=args.prefix, decode_kernel=core.stats()["decode_kernel"],
+        wall_ms_per_step=wall * 1e3 / steps,
+        device_busy_ms_per_step=busy_us / 1e3 / steps,
         device_idle_share=max(0.0, 1 - busy_us / 1e6 / wall),
-        kernel_launches_per_step=launches / args.steps,
-        top_kernels=[dict(name=e.key[:80], ms_per_step=e.self_device_time_total / 1e3 / args.steps,
-                          calls_per_step=e.count / args.steps) for e in top],
+        kernel_launches_per_step=launches / steps,
+        top_kernels=[dict(name=e.key[:80], ms_per_step=e.self_device_time_total / 1e3 / steps,
+                          calls_per_step=e.count / steps) for e in top],
     )))
-    return 0
 
 
 if __name__ == "__main__":
