@@ -16,12 +16,20 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    K5 chunked decode and K4 fused-write decode (whose pools must equal
    ``write_kv_pages`` + the plain decode bit for bit on pages >= 1). The
    decode kernels, whose math is f32 as on the TPU, are also held within
-   1e-2 of the plain version run in f32 on the same bf16 values. Times:
+   1e-2 of the plain version run in f32 on the same bf16 values. K1, K3,
+   K4 and K5 again over a float8_e5m2 pool (the plain version on the same
+   pool; K4 stores one row past e5m2's range, which must give +-57,344
+   and +-inf exactly as the plain cast does). K6 (int8) and K7 (int4)
+   weight-only matmuls at qwen2.5-3b's projection shapes and
+   llama3.1-8b's down_proj, M = 16 and 1,024: in f32 both the kernel and
+   the plain version within 1e-5 / 1e-4 (K6) and 1e-4 (K7) of the f64
+   product, in bf16 the kernel within 2e-2 of the plain version. Times:
    the kernel's, the plain version's and one PyTorch library call's
    device time per call in ms (``torch.profiler``: the summed time of
    every kernel and copy the call put on the card), the host span per
    call of back-to-back calls, and the least time the card could take
-   (``bound_ms``).
+   (``bound_ms``). K6/K7's library call is cuBLAS on the weight
+   dequantized to bf16 (no single PyTorch call computes their function).
 3. The default path at full width: ``run_torch_worker`` serves 16 greedy
    jobs of qwen2.5-3b (36 layers, random weights from a seeded
    generator) over ``memory://``, 128 tokens each. Every kernel launch
@@ -33,15 +41,23 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    ~1,024-token template with distinct tails, 64 tokens each. Counters as
    above: K3 launches 36 times per chunk dispatch, K4 36 times per decode
    step, K1, K2 and K5 never; the prefix cache must hit.
-5. f32 parity, card against CPU, with TF32 off: the qwen2.5-3b widths at
+5. Quantized weights at full width, ``LLMQ_INT8_MATMUL=pallas
+   LLMQ_INT4_MATMUL=pallas``: phase 3's workload served by qwen2.5-3b
+   ``dtype="int8"`` (K6 launches 7 x 36 per dispatch) and by llama3.1-8b
+   ``dtype="int4"`` with ``kv_dtype="fp8"`` (K7 7 x 32 per dispatch, K6
+   once per dispatch for the untied int8 head, K1 and K2 over the e5m2
+   pool), with step rates.
+6. f32 parity, card against CPU, with TF32 off: the qwen2.5-3b widths at
    2 layers with the same numpy-made weights. The default path (bucketed
-   prefill + K1): logits within 1e-4 and identical greedy tokens over 32
-   steps. Then the chunked + prefix-cache path under each of
-   ``LLMQ_DECODE_KERNEL`` v1, v2 and v3: chunk and decode logits within
-   1e-4, identical tokens (greedy, and one seeded request at temperature
-   0.8 through the threefry sampler) and prefix-cache counters; K5 is
-   counted on the v2 run, the path it carries.
-6. ``{"kernels": [...]}``: one record per ported kernel.
+   prefill + K1) with f32 weights, with int8 and int4 weights (through K6
+   / K7 on the card) and with an fp8 KV pool: logits within 1e-4 and
+   identical greedy tokens over 32 steps. Then the chunked + prefix-cache
+   path under each of ``LLMQ_DECODE_KERNEL`` v1, v2 and v3: chunk and
+   decode logits within 1e-4, identical tokens (greedy, and one seeded
+   request at temperature 0.8 through the threefry sampler) and
+   prefix-cache counters; K5 is counted on the v2 run, the path it
+   carries.
+7. ``{"kernels": [...]}``: one record per ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -70,12 +86,19 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
-ALL_PHASES = ("build", "kernels", "serve", "prefix", "parity")
+ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout, and the same line appended to
+    ``chip_smoke.jsonl`` under ``OUT_DIR``: the whole run, for a caller
+    that reads only the tail of stdout."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "a") as f:
+        f.write(line + "\n")
 
 
 def span_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -93,23 +116,29 @@ def span_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILE_ATTEMPTS = 3  # a trace that records no device activity is taken again
+
+
 def device_ms(fn, iters: int, warmup: int = 2) -> float:
     """Device time per call of ``fn(i)``: the summed self device time of
     every kernel, copy and fill that ``iters`` calls put on the card, as
     ``torch.profiler`` traces them. The gaps in which the card waits for
-    the host are left out."""
+    the host are left out. Now and then a trace comes back without any
+    device activity (seen once in a few hundred traces on the H100); the
+    window is then traced again, up to ``PROFILE_ATTEMPTS`` times."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    if busy_us <= 0:
-        raise SystemExit("torch.profiler traced no device time")
-    return busy_us / 1e3 / iters
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+    raise SystemExit(f"torch.profiler traced no device time in {PROFILE_ATTEMPTS} attempts")
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple:
@@ -129,14 +158,30 @@ def _decode_kernels():
             "v3": ("paged_decode_v3", ca.paged_decode_attention_v3_cuda)}
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def _dense(pool: torch.Tensor, idx: torch.Tensor, dtype) -> torch.Tensor:
+    """A layer's pages gathered densely through ``idx``, in ``dtype`` (an
+    fp8 pool is gathered as bytes)."""
+    raw = pool.view(torch.uint8) if pool.element_size() == 1 else pool
+    return raw[idx].view(pool.dtype).to(dtype)
+
+
 def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, softcap, window,
-                 iters, seed):
+                 iters, seed, kv_dtype=None):
     """K1 (v1), K5 (v2) or K4 (v3, with the fused write of the new rows)
-    against the plain version on the same inputs."""
+    against the plain version on the same inputs; ``kv_dtype`` is the
+    pools' dtype (default: ``dtype``). On an fp8 pool K4's check writes
+    one row of values past e5m2's range (50,000-70,000): the pools must
+    hold +-57,344 and +-inf where the plain cast puts them."""
     from llmq_tpu_torch.ops import attention as plain
 
     name, fn = _decode_kernels()[variant]
     fused = variant == "v3"
+    kv_dtype = kv_dtype or dtype
+    overflow_row = 1 if fused and kv_dtype == torch.float8_e5m2 else None
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     pps = max_ctx // page
@@ -146,16 +191,21 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
     bt = (1 + rng.permutation(S * pps)).reshape(S, pps).astype(np.int32)
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((S, H, d), generator=g, device=dev).to(dtype)
-    kp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(dtype)
-    vp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(kv_dtype)
+    vp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(kv_dtype)
     k_new = torch.randn((S, n_kv, d), generator=g, device=dev).to(dtype)
     v_new = torch.randn((S, n_kv, d), generator=g, device=dev).to(dtype)
+    if overflow_row is not None:
+        ramp = torch.linspace(5.0e4, 7.0e4, n_kv * d, device=dev).reshape(n_kv, d)
+        sign = 1.0 - 2.0 * (torch.arange(d, device=dev) % 2)
+        k_new[overflow_row] = (ramp * sign).to(dtype)
+        v_new[overflow_row] = (-ramp * sign).to(dtype)
     bt_t = torch.from_numpy(bt).to(dev)
     ctx_t = torch.from_numpy(ctx.astype(np.int32)).to(dev)
     layer = L // 2
     scale = d ** -0.5
     kw = dict(scale=scale, sliding_window=window, softcap=softcap)
-    pools_equal = None
+    pools_equal = overflow = None
     if fused:
         kp_p, vp_p = kp.clone(), vp.clone()  # the plain write goes here
         out, _, _ = fn(q, kp, vp, k_new, v_new, bt_t, ctx_t, layer=layer, **kw)
@@ -163,8 +213,11 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
             q, kp_p, vp_p, k_new, v_new, bt_t, ctx_t, layer=layer, **kw)
         torch.cuda.synchronize()
         # Page 0 is scratch: the plain scatter parks inactive rows there.
-        pools_equal = bool(torch.equal(kp[:, 1:], kp_p[:, 1:])
-                           and torch.equal(vp[:, 1:], vp_p[:, 1:]))
+        pools_equal = _same_bits(kp[:, 1:], kp_p[:, 1:]) and _same_bits(vp[:, 1:], vp_p[:, 1:])
+        if overflow_row is not None:
+            stored = kp.float()
+            overflow = dict(inf=int(torch.isinf(stored).sum()),
+                            max_finite=int((stored.abs() == 57344.0).sum()))
         del kp_p, vp_p
     else:
         out = fn(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
@@ -173,6 +226,8 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
     # A ctx == 0 row is inactive: the kernel writes exact zeros, the plain
     # version a finite average (both never read). Compare the live rows.
     live_rows = ctx_t > 0
+    if overflow_row is not None:  # its scores meet +-inf: not compared
+        live_rows[overflow_row] = False
     err = (out[live_rows].float() - ref[live_rows].float()).abs().max().item()
     zero_row = out[0].float().abs().max().item()
     # The kernel's math is f32 whatever the storage (q, k and v upcast, as
@@ -207,8 +262,10 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
     # Library yardstick: SDPA over the same K/V gathered densely (per
     # layer, outside the timed region), a key mask for length and window.
     idx = bt_t.long()
-    dense_k = [kp[i][idx].reshape(S, pps * page, n_kv, d).transpose(1, 2) for i in range(L)]
-    dense_v = [vp[i][idx].reshape(S, pps * page, n_kv, d).transpose(1, 2) for i in range(L)]
+    dense_k = [_dense(kp[i], idx, dtype).reshape(S, pps * page, n_kv, d).transpose(1, 2)
+               for i in range(L)]
+    dense_v = [_dense(vp[i], idx, dtype).reshape(S, pps * page, n_kv, d).transpose(1, 2)
+               for i in range(L)]
     kpos = torch.arange(pps * page, device=dev)[None, :]
     keep = kpos < ctx_t[:, None].long()
     if window is not None:
@@ -227,38 +284,43 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
     live = ctx - start
     live_pages = np.where(ctx > 0, (ctx - 1) // page - start // page + 1, 0)
     item = torch.empty((), dtype=dtype).element_size()
+    kv_item = torch.empty((), dtype=kv_dtype).element_size()
     active = int((ctx > 0).sum())
     nbytes = (
         (active + S) * H * d * item  # q of live rows in, out
-        + 2 * int(live.sum()) * n_kv * d * item  # live K and V rows, once each
+        + 2 * int(live.sum()) * n_kv * d * kv_item  # live K and V rows, once each
         + int(live_pages.sum()) * 4 + ctx.nbytes
-        + (4 * active * n_kv * d * item if fused else 0)  # new rows in, stored
+        + (2 * active * n_kv * d * (item + kv_item) if fused else 0)  # new rows in, stored
     )
     ops = 4 * int(live.sum()) * H * d  # QK and PV multiply-adds
     b_ms, b_by = bound(nbytes, ops, dtype)
     rec = dict(
         phase="kernel_check", kernel=name, case=label, dtype=str(dtype)[6:],
+        kv_dtype=str(kv_dtype)[6:],
         shape=dict(S=S, H=H, n_kv=n_kv, d=d, L=L, page=page, max_ctx=max_ctx,
                    window=window, softcap=softcap, layer=layer),
         max_abs_err=err, tolerance=TOLERANCE[dtype], ctx0_row_max=zero_row,
         max_abs_err_vs_f32_math=f32_math_err,
         tolerance_vs_f32_math=None if f32_math_err is None else DECODE_F32_MATH_TOLERANCE,
-        pools_bit_exact_pages_ge_1=pools_equal,
+        pools_bit_exact_pages_ge_1=pools_equal, overflow_row_values_stored=overflow,
         ms=ms, host_span_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=b_ms, bound_by=b_by, timing="torch.profiler device time per call",
     )
     emit(rec)
     if (not (err <= TOLERANCE[dtype]) or zero_row != 0.0 or pools_equal is False
-            or not (f32_math_err is None or f32_math_err <= DECODE_F32_MATH_TOLERANCE)):
-        raise SystemExit(f"{name} {label} {dtype}: error {err}, against f32 math "
-                         f"{f32_math_err}, ctx=0 row {zero_row}, pools equal {pools_equal}")
+            or not (f32_math_err is None or f32_math_err <= DECODE_F32_MATH_TOLERANCE)
+            or (overflow is not None and not (overflow["inf"] and overflow["max_finite"]))):
+        raise SystemExit(f"{name} {label} {dtype}/{kv_dtype}: error {err}, against f32 math "
+                         f"{f32_math_err}, ctx=0 row {zero_row}, pools equal {pools_equal}, "
+                         f"overflow row {overflow}")
     return rec
 
 
 def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dtype, softcap,
-                        window, iters, seed):
+                        window, iters, seed, kv_dtype=None):
     """K3 against its plain version: a chunk of C queries per row at the
-    given absolute starts, with num_valid valid queries each."""
+    given absolute starts, with num_valid valid queries each; the pools
+    in ``kv_dtype`` (default: ``dtype``)."""
     from llmq_tpu_torch.ops import attention as plain
     from llmq_tpu_torch.ops.cuda_attention import paged_prefill_attention_cuda
 
@@ -268,9 +330,10 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
     P = 1 + B * pps
     bt = (1 + rng.permutation(B * pps)).reshape(B, pps).astype(np.int32)
     g = torch.Generator(device=dev).manual_seed(seed)
+    kv_dtype = kv_dtype or dtype
     q = torch.randn((B, C, H, d), generator=g, device=dev).to(dtype)
-    kp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(dtype)
-    vp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(kv_dtype)
+    vp = torch.randn((L, P, page, n_kv, d), generator=g, device=dev).to(kv_dtype)
     positions = np.full((B, C), -1, np.int32)
     for r, (s0, n) in enumerate(zip(starts, valids)):
         positions[r, :n] = np.arange(s0, s0 + n)
@@ -302,8 +365,10 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
     # of each query as a boolean mask.
     idx = bt_t.long()
     max_ctx = pps * page
-    dense_k = [kp[i][idx].reshape(B, max_ctx, n_kv, d).transpose(1, 2) for i in range(L)]
-    dense_v = [vp[i][idx].reshape(B, max_ctx, n_kv, d).transpose(1, 2) for i in range(L)]
+    dense_k = [_dense(kp[i], idx, dtype).reshape(B, max_ctx, n_kv, d).transpose(1, 2)
+               for i in range(L)]
+    dense_v = [_dense(vp[i], idx, dtype).reshape(B, max_ctx, n_kv, d).transpose(1, 2)
+               for i in range(L)]
     qpos = pos_t.long()[:, :, None]
     kpos = torch.arange(max_ctx, device=dev)[None, None, :]
     keep = (kpos <= qpos) & (qpos >= 0)
@@ -332,12 +397,14 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
         if window is not None:
             m &= kp_ > qp - window
         pairs += int(m.sum())
-    nbytes = ((sum(valids) + B * C) * H * d * item + 2 * live_keys * n_kv * d * item
+    kv_item = torch.empty((), dtype=kv_dtype).element_size()
+    nbytes = ((sum(valids) + B * C) * H * d * item + 2 * live_keys * n_kv * d * kv_item
               + live_pages * 4 + 2 * B * 4)
     ops = 4 * pairs * H * d  # QK and PV multiply-adds over the live pairs
     b_ms, b_by = bound(nbytes, ops, dtype)
     rec = dict(
         phase="kernel_check", kernel="paged_prefill", case=label, dtype=str(dtype)[6:],
+        kv_dtype=str(kv_dtype)[6:],
         shape=dict(B=B, C=C, H=H, n_kv=n_kv, d=d, L=L, page=page, starts=list(starts),
                    valids=list(valids), window=window, softcap=softcap, layer=layer),
         max_abs_err=err, tolerance=TOLERANCE[dtype], padding_rows_zero=pad_zero,
@@ -346,7 +413,8 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
     )
     emit(rec)
     if not (err <= TOLERANCE[dtype]) or not pad_zero:
-        raise SystemExit(f"paged_prefill {label} {dtype}: error {err}, padding zero {pad_zero}")
+        raise SystemExit(f"paged_prefill {label} {dtype}/{kv_dtype}: error {err}, "
+                         f"padding zero {pad_zero}")
     return rec
 
 
@@ -406,6 +474,127 @@ def check_prefill(label, *, B, T, H, n_kv, d, lengths, dtype, softcap, window, i
     return rec
 
 
+# K6 / K7: tolerances against the f64 product (f32 activations) as
+# tests/test_pallas_matmul.py holds the TPU kernels, and against the plain
+# version in bf16.
+QUANT_F64_TOLERANCE = {"int8": (1e-5, 1e-4), "int4": (1e-4, 1e-4)}  # (rtol, atol)
+QUANT_BF16_TOLERANCE = 2e-2  # rtol and atol
+
+
+def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed):
+    """K6 (``kind="int8"``) or K7 (``"int4"``) against its plain version on
+    one weight quantized from seeded normals, scales in the activation
+    dtype as the serving path makes them. f32: both held against the f64
+    product at the TPU kernel tests' tolerances; bf16: the kernel against
+    the plain version. ``timed`` adds device times and the bound."""
+    from llmq_tpu_torch.models import quant as qm
+    from llmq_tpu_torch.ops import matmul as plain
+    from llmq_tpu_torch.ops.cuda_matmul import int4_matmul_cuda, int8_matmul_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    if kind == "int8":
+        qt = qm.quantize_array(w.to(dtype), axis=-2, scale_dtype=dtype)
+        parts = (qt["q"], qt["scale"])
+        fn, plain_fn = int8_matmul_cuda, plain.int8_matmul
+    else:
+        qt = qm.quantize_array_int4(w.to(dtype), scale_dtype=dtype)
+        parts = (qt["q"], qt["scale"], qt["zero"])
+        fn, plain_fn = int4_matmul_cuda, plain.int4_matmul
+    del w
+    out = fn(x, *parts)
+    ref = plain_fn(x, *parts)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rec = dict(phase="kernel_check", kernel=f"{kind}_matmul", case=label, dtype=str(dtype)[6:],
+               shape=dict(M=M, K=K, N=N), max_abs_err=err)
+    if dtype == torch.float32:
+        if kind == "int8":
+            exact = (x.double() @ qt["q"].double()) * qt["scale"].double()
+        else:
+            exact = x.double() @ qm.dequantize(qt, torch.float32).double()
+        rtol, atol = QUANT_F64_TOLERANCE[kind]
+        excess = {name: ((o.double() - exact).abs() - rtol * exact.abs()).max().item()
+                  for name, o in (("kernel", out), ("plain", ref))}
+        ok = all(e <= atol for e in excess.values())
+        rec.update(vs_f64_excess_over_rtol=excess, rtol=rtol, atol=atol)
+    else:
+        excess = ((out.float() - ref.float()).abs() - QUANT_BF16_TOLERANCE * ref.float().abs())
+        excess = excess.max().item()
+        ok = excess <= QUANT_BF16_TOLERANCE
+        rec.update(excess_over_rtol=excess, rtol=QUANT_BF16_TOLERANCE, atol=QUANT_BF16_TOLERANCE)
+    ok = ok and bool(torch.isfinite(out.float()).all())
+    if timed:
+        w_deq = qm.dequantize(qt, dtype)  # the library yardstick's weight, made once
+        rec.update(
+            ms=device_ms(lambda i: fn(x, *parts), iters),
+            host_span_ms=span_ms(lambda i: fn(x, *parts), iters),
+            plain_ms=device_ms(lambda i: plain_fn(x, *parts), 3),
+            library_ms=device_ms(lambda i: torch.matmul(x, w_deq), iters),
+            library="torch.matmul(x, w dequantized to the activation dtype): cuBLAS",
+        )
+        del w_deq
+        # What the function must move: x in, the packed weight, its scales
+        # (and zero-points) in the scale dtype, the output; against 2 M K N
+        # operations at the activation dtype's dense peak.
+        item = torch.empty((), dtype=dtype).element_size()
+        nbytes = (M * K + M * N) * item + sum(t.numel() * t.element_size() for t in parts)
+        rec.update(zip(("bound_ms", "bound_by"), bound(nbytes, 2 * M * K * N, dtype)))
+        rec["timing"] = "torch.profiler device time per call"
+    emit(rec)
+    if not ok:
+        raise SystemExit(f"{kind}_matmul {label} {dtype}: {rec}")
+    return rec
+
+
+# (label, K, N): qwen2.5-3b's projections (q/o 2048 -> 2048, k/v 2048 ->
+# 256, gate/up 2048 -> 11008, down 11008 -> 2048) and llama3.1-8b's
+# down_proj (14336 -> 4096), a long contraction.
+QUANT_SHAPES = (
+    ("qwen2.5-3b q/o_proj", 2048, 2048),
+    ("qwen2.5-3b k/v_proj", 2048, 256),
+    ("qwen2.5-3b gate/up_proj", 2048, 11008),
+    ("qwen2.5-3b down_proj", 11008, 2048),
+    ("llama3.1-8b down_proj", 14336, 4096),
+)
+# Projections of one qwen2.5-3b layer per QUANT_SHAPES entry.
+QWEN_LAYER_COUNT = {"qwen2.5-3b q/o_proj": 2, "qwen2.5-3b k/v_proj": 2,
+                    "qwen2.5-3b gate/up_proj": 2, "qwen2.5-3b down_proj": 1}
+
+
+def phase_quant_kernels(iters: int) -> dict:
+    """K6 and K7 at every shape, M = 16 (decode) and 1,024 (prefill), f32
+    and bf16; per-layer sums of the bf16 qwen2.5-3b times. Returns the
+    kernels line's records: K6 at qwen2.5-3b gate/up_proj, K7 at
+    llama3.1-8b down_proj, both bf16 at M = 16."""
+    main, layer = {}, {}
+    for kind in ("int8", "int4"):
+        for M in (16, 1024):
+            for i, (label, K, N) in enumerate(QUANT_SHAPES):
+                for dtype in (torch.float32, torch.bfloat16):
+                    rec = check_quant_matmul(label, kind=kind, M=M, K=K, N=N, dtype=dtype,
+                                             iters=iters, seed=20 + i,
+                                             timed=dtype == torch.bfloat16)
+                    if dtype != torch.bfloat16:
+                        continue
+                    n = QWEN_LAYER_COUNT.get(label, 0)
+                    if n:
+                        acc = layer.setdefault((kind, M), dict(ms=0.0, plain_ms=0.0,
+                                                               library_ms=0.0, bound_ms=0.0))
+                        for key in acc:
+                            acc[key] += n * rec[key]
+                    headline = ("qwen2.5-3b gate/up_proj" if kind == "int8"
+                                else "llama3.1-8b down_proj")
+                    if M == 16 and label == headline:
+                        main[f"{kind}_matmul"] = rec
+    for (kind, M), acc in layer.items():
+        emit(dict(phase="kernel_layer_sum", kernel=f"{kind}_matmul", model="qwen2.5-3b",
+                  M=M, dtype="bfloat16", projections=7, **acc))
+    return main
+
+
 def phase_kernels(iters: int) -> dict:
     """Every kernel in f32 and bf16; the bf16 record at qwen2.5-3b shapes
     is the one the final kernels line reports."""
@@ -435,45 +624,64 @@ def phase_kernels(iters: int) -> dict:
             main["paged_prefill"] = rec
         check_paged_prefill("gemma2-2b", H=8, n_kv=4, d=256, L=26, dtype=dtype, softcap=50.0,
                             window=64, seed=9, **chunk)
+        # fp8 (float8_e5m2) pools: every pool-reading kernel on the same
+        # e5m2 pool as its plain version, at the f32 / bf16 tolerances.
+        fp8 = torch.float8_e5m2
+        for variant in ("v1", "v2", "v3"):
+            check_decode("qwen2.5-3b fp8 pool", variant=variant, dtype=dtype, kv_dtype=fp8,
+                         seed=5, **qwen)
+        check_paged_prefill("qwen2.5-3b fp8 pool", H=16, n_kv=2, d=128, L=36, dtype=dtype,
+                            kv_dtype=fp8, softcap=None, window=None, seed=10, **chunk)
+    main.update(phase_quant_kernels(iters))
     return main
 
 
 # --- phases 3 and 4: the serving paths at full width -------------------------
 
-KERNEL_COUNTERS = {  # name in the kernels line -> wrapper attribute
-    "paged_decode": "paged_decode_attention_cuda",
-    "flash_prefill": "flash_prefill_attention_cuda",
-    "paged_prefill": "paged_prefill_attention_cuda",
-    "paged_decode_v3": "paged_decode_attention_v3_cuda",
-    "paged_decode_v2": "paged_decode_attention_v2_cuda",
+KERNEL_COUNTERS = {  # name in the kernels line -> (wrapper module, wrapper)
+    "paged_decode": ("cuda_attention", "paged_decode_attention_cuda"),
+    "flash_prefill": ("cuda_attention", "flash_prefill_attention_cuda"),
+    "paged_prefill": ("cuda_attention", "paged_prefill_attention_cuda"),
+    "paged_decode_v3": ("cuda_attention", "paged_decode_attention_v3_cuda"),
+    "paged_decode_v2": ("cuda_attention", "paged_decode_attention_v2_cuda"),
+    "int8_matmul": ("cuda_matmul", "int8_matmul_cuda"),
+    "int4_matmul": ("cuda_matmul", "int4_matmul_cuda"),
 }
 
 
-def reset_launches() -> None:
-    from llmq_tpu_torch.ops import cuda_attention as ca
+def _wrapper(module: str, attr: str):
+    import importlib
 
-    for attr in KERNEL_COUNTERS.values():
-        getattr(ca, attr).launches = 0
+    return getattr(importlib.import_module(f"llmq_tpu_torch.ops.{module}"), attr)
+
+
+def reset_launches() -> None:
+    for module, attr in KERNEL_COUNTERS.values():
+        _wrapper(module, attr).launches = 0
 
 
 def read_launches() -> dict:
-    from llmq_tpu_torch.ops import cuda_attention as ca
-
-    return {name: getattr(ca, attr).launches for name, attr in KERNEL_COUNTERS.items()}
+    return {name: _wrapper(*where).launches for name, where in KERNEL_COUNTERS.items()}
 
 
 @contextlib.contextmanager
-def decode_kernel_env(kernel: str):
-    """``LLMQ_DECODE_KERNEL`` while a model is built (it is read then)."""
-    old = os.environ.get("LLMQ_DECODE_KERNEL")
-    os.environ["LLMQ_DECODE_KERNEL"] = kernel
+def env(**values):
+    """Environment variables while a model is built (the kernel switches
+    are read then)."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("LLMQ_DECODE_KERNEL", None)
-        else:
-            os.environ["LLMQ_DECODE_KERNEL"] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+#: both weight-only rungs through their kernels (K6, K7)
+QUANT_KERNELS_ON = dict(LLMQ_INT8_MATMUL="pallas", LLMQ_INT4_MATMUL="pallas")
 
 
 async def _submit(url: str, queue: str, jobs) -> None:
@@ -499,22 +707,28 @@ async def _receive(url: str, queue: str) -> list:
     return results
 
 
-def phase_serve(smi: str) -> dict:
-    from llmq_tpu_torch.cli.worker import run_torch_worker
+def _default_jobs(n_jobs: int, gen: int) -> list:
+    """Phase 3's workload: ~200-character (ByteTokenizer: ~200-token)
+    greedy prompts, ``gen`` new tokens each."""
     from llmq_tpu_torch.core.models import Job
 
-    n_jobs, gen, url, queue = 16, 128, "memory://chip-smoke", "smoke"
     base = ("Translate the following passage into French, keeping the tone formal and the "
             "terminology exact. The quarterly report shows steady growth in all regions; ")
-    jobs = [
+    return [
         Job(id=f"job-{i:02d}", prompt=(base + f"item {i} of {n_jobs}.")[:200],
             temperature=0.0, max_tokens=gen, ignore_eos=True, row=i, lang="fr")
         for i in range(n_jobs)
     ]
-    asyncio.run(_submit(url, queue, jobs))
+
+
+def phase_serve(smi: str) -> dict:
+    from llmq_tpu_torch.cli.worker import run_torch_worker
+
+    n_jobs, gen, url, queue = 16, 128, "memory://chip-smoke", "smoke"
+    asyncio.run(_submit(url, queue, _default_jobs(n_jobs, gen)))
     reset_launches()
     t0 = time.perf_counter()
-    with decode_kernel_env("v1"):
+    with env(LLMQ_DECODE_KERNEL="v1"):
         worker = run_torch_worker(
             "preset://qwen2.5-3b", queue, device="cuda", dtype="bfloat16",
             max_num_seqs=16, max_model_len=512, broker_url=url, max_jobs=n_jobs,
@@ -570,6 +784,95 @@ def phase_serve(smi: str) -> dict:
         raise SystemExit("serve phase failed: " + "; ".join(problems[:5]))
     worker.engine.core.model = None  # free the 3B weights before the next phase
     return launches
+
+
+def phase_quant(smi: str) -> dict:
+    """Phase 3's workload served with quantized weights at full width,
+    both weight-only rungs through their kernels: qwen2.5-3b int8 (K6 on
+    the 7 projections of every layer; the tied head is a plain product),
+    and llama3.1-8b int4 with an fp8 KV pool (K7 on the projections, K6
+    on the untied int8 head, K2 and K1 over the e5m2 pool)."""
+    from llmq_tpu_torch.cli.worker import run_torch_worker
+
+    n_jobs, gen = 16, 128
+    launches = {}
+    for model, dtype, kv_dtype in (("qwen2.5-3b", "int8", None),
+                                   ("llama3.1-8b", "int4", "fp8")):
+        url, queue = f"memory://chip-smoke-{dtype}", f"quant-{dtype}"
+        asyncio.run(_submit(url, queue, _default_jobs(n_jobs, gen)))
+        reset_launches()
+        t0 = time.perf_counter()
+        with env(LLMQ_DECODE_KERNEL="v1", **QUANT_KERNELS_ON):
+            worker = run_torch_worker(
+                f"preset://{model}", queue, device="cuda", dtype=dtype, kv_dtype=kv_dtype,
+                max_num_seqs=16, max_model_len=512, broker_url=url, max_jobs=n_jobs,
+            )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = read_launches()
+        results = asyncio.run(_receive(url, queue))
+        core = worker.engine.core
+        stats = core.stats()
+        L = core.model_config.num_layers
+        dispatches = stats["decode_steps"] + stats["prefill_dispatches"]
+        rung = f"{dtype}_matmul"
+        want = {rung: 7 * L * dispatches, "paged_decode": L * stats["decode_steps"],
+                "flash_prefill": L * stats["prefill_dispatches"]}
+        if not core.model_config.tie_word_embeddings:  # the int8 head through K6
+            want["int8_matmul"] = want.get("int8_matmul", 0) + dispatches
+        problems = _check_results(results, n_jobs, gen)
+        for name in ("int8_matmul", rung, "paged_decode"):
+            if counted[name] <= 0:
+                problems.append(f"{name} did not launch on the {dtype} path: {counted}")
+        for name, n in counted.items():
+            if n != want.get(name, 0):
+                problems.append(f"{name} launched {n} times, want {want.get(name, 0)}")
+        want_kv = "float8_e5m2" if kv_dtype == "fp8" else "bfloat16"
+        if stats["kv_dtype"] != want_kv:
+            problems.append(f"kv_dtype {stats['kv_dtype']}, want {want_kv}")
+        dec_ms, dec_dev_ms = _decode_rates(core, S=16, ctx=330)
+        head = {}
+        if core.model_config.tie_word_embeddings:
+            head = _tied_head_cost(core)
+        gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
+        rec = dict(
+            phase="quant_serve", model=f"preset://{model}", layers=L, dtype=dtype,
+            kv_dtype=stats["kv_dtype"], quant_kernels=sorted(core.model.quant_kernels),
+            jobs=len(results), gen_tokens=gen_tokens, wall_s=wall,
+            serve_completion_tok_s=gen_tokens / wall,
+            decode_tok_s=16 / (dec_ms / 1e3), decode_step_ms=dec_ms,
+            decode_step_device_ms=dec_dev_ms,
+            decode_idle_share=max(0.0, 1 - dec_dev_ms / dec_ms),
+            launches=counted, expected_launches=want, decode_steps=stats["decode_steps"],
+            prefill_dispatches=stats["prefill_dispatches"], card=smi, problems=problems, **head,
+        )
+        emit(rec)
+        if problems:
+            raise SystemExit(f"{dtype} serve phase failed: " + "; ".join(problems[:5]))
+        for name in {"int8_matmul", rung}:
+            launches[name] = launches.get(name, 0) + counted[name]
+        worker.engine.core.model = None
+        del worker, core
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _tied_head_cost(core) -> dict:
+    """Device ms of the tied int8 head at a decode step of 16 rows: the
+    plain product converts the whole [vocab, hidden] table to bf16 on
+    every call (``quant.tied_head_matmul``, as the JAX package computes it
+    outside any kernel), beside the same product on a bf16 table made
+    once."""
+    from llmq_tpu_torch.models import quant as qm
+
+    embed = core.model.top_params()["embed"]
+    h = torch.randn((16, embed["q"].shape[1]), device=core.device, dtype=torch.bfloat16)
+    table = qm.dequantize({"q": embed["q"].t(), "scale": embed["scale"]}, torch.bfloat16).t()
+    rec = dict(tied_head_ms=device_ms(lambda i: qm.tied_head_matmul(h, embed), 10),
+               tied_head_on_bf16_table_ms=device_ms(lambda i: h @ table.t(), 10),
+               tied_head_table=list(embed["q"].shape))
+    del table
+    return rec
 
 
 def _check_results(results, n_jobs: int, gen: int) -> list:
@@ -629,7 +932,7 @@ def phase_prefix(smi: str) -> dict:
     asyncio.run(_submit(url, queue, jobs))
     reset_launches()
     t0 = time.perf_counter()
-    with decode_kernel_env("v3"):
+    with env(LLMQ_DECODE_KERNEL="v3"):
         worker = run_torch_worker(
             "preset://qwen2.5-3b", queue, device="cuda", dtype="bfloat16",
             max_num_seqs=16, max_model_len=2048, prefill_chunk_size=chunk,
@@ -736,12 +1039,15 @@ def _parity_config():
 
 
 def _engine(cfg, tree, dev, **ecfg):
+    """An engine on ``dev`` over a numpy tree, or a torch tree (on the
+    CPU: the engine moves it), such as a quantized one."""
     from llmq_tpu_torch.engine.engine import EngineConfig, EngineCore
     from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
     from llmq_tpu_torch.models.convert import params_from_numpy
 
-    return EngineCore(cfg, params_from_numpy(tree, device=dev), ByteTokenizer(),
-                      engine_config=EngineConfig(**ecfg), device=dev)
+    params = tree if isinstance(tree["final_norm"], torch.Tensor) else params_from_numpy(tree)
+    return EngineCore(cfg, params, ByteTokenizer(), engine_config=EngineConfig(**ecfg),
+                      device=dev)
 
 
 def _generate(core, prompts, n_tokens: int, temperature: float = 0.0, seed=None) -> dict:
@@ -758,13 +1064,31 @@ def _generate(core, prompts, n_tokens: int, temperature: float = 0.0, seed=None)
     return done
 
 
-def phase_parity() -> dict:
-    """The default path (bucketed prefill, K2 + K1), card against CPU."""
+def phase_parity(variant: str = "f32") -> dict:
+    """The default path (bucketed prefill, K2 + K1), card against CPU, in
+    f32: ``f32`` weights and pool; ``int8`` / ``int4``, the weights
+    quantized with f32 scales by ``models/quant.py`` and both rungs
+    through their kernels (K6, K7; their plain versions on the CPU);
+    ``fp8``, an e5m2 KV pool.
+
+    An e5m2 value has two mantissa bits, so a K or V element that the two
+    devices compute one f32 ulp apart rounds to two neighbouring e5m2
+    values (25 % apart) when it lies that close to a rounding midpoint;
+    the prefill's ~73,000 values at the prompts' positions make such a
+    split likely in some runs, and one split moved decode logits 1.2e-3. So under fp8 the CPU
+    decode step reads the card's prefill pools (the same e5m2 bits, as
+    the JAX package's fp8 tests compare over the same pool), the count of
+    prefill pool elements stored apart is reported, and the generated
+    tokens still come from each device's own pools."""
     from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.models import quant as qm
+    from llmq_tpu_torch.models.convert import params_from_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, tree = _parity_config()
+    if variant in ("int8", "int4"):
+        tree = qm.quantize_params(params_from_numpy(tree), bits=int(variant[3]))
     prompts = [
         "The capital of France is",
         "def fibonacci(n):\n    if n < 2:",
@@ -772,10 +1096,12 @@ def phase_parity() -> dict:
         "Q: What is 12 times 12?\nA:",
     ]
     ecfg = dict(max_num_seqs=4, max_model_len=256, page_size=32, num_pages=64,
-                kv_dtype="f32", min_prefill_bucket=32)
-    outs, logits = {}, {}
+                kv_dtype="fp8" if variant == "fp8" else "f32", min_prefill_bucket=32)
+    outs, logits, card_pools = {}, {}, None
+    pool_split = None
     for dev in ("cuda", "cpu"):
-        with decode_kernel_env("v1"):
+        reset_launches()
+        with env(LLMQ_DECODE_KERNEL="v1", **QUANT_KERNELS_ON):
             core = _engine(cfg, tree, dev, **ecfg)
         # Model-level logits: one prefill of the 4 prompts + one decode step.
         tok = ByteTokenizer()
@@ -788,19 +1114,38 @@ def phase_parity() -> dict:
         bt = torch.arange(1, 1 + 4 * 8, dtype=torch.int32).reshape(4, 8)
         args = [x.to(core.device) for x in (tokens, lengths, bt)]
         pre = core.model.prefill(args[0], args[1], core.k_pages, core.v_pages, args[2])
+        if variant == "fp8" and dev == "cuda":
+            card_pools = [p.view(torch.uint8).cpu() for p in (core.k_pages, core.v_pages)]
+        elif variant == "fp8":
+            # Count the prompts' own positions only: the bucket's padding
+            # rows hold values no one reads (K2 leaves zeros there, the
+            # plain version an average, so their layer-2 K/V differ).
+            pos = torch.arange(T)
+            live = pos[None, :] < lengths[:, None]
+            page, slot = bt[:, pos // 32][live], (pos % 32).expand(4, T)[live]
+            pool_split = sum(int((p.view(torch.uint8)[:, page, slot] != c[:, page, slot]).sum())
+                             for p, c in zip((core.k_pages, core.v_pages), card_pools))
+            for p, c in zip((core.k_pages, core.v_pages), card_pools):
+                p.view(torch.uint8).copy_(c)
         nxt = pre.argmax(-1).to(torch.int32)
         dec = core.model.decode(nxt, args[1], core.k_pages, core.v_pages, args[2],
                                 torch.ones(4, dtype=torch.bool, device=core.device))
         logits[dev] = (pre.cpu(), dec.cpu())
-        core.k_pages.zero_()
-        core.v_pages.zero_()
+        core.k_pages.view(torch.uint8).zero_()
+        core.v_pages.view(torch.uint8).zero_()
         outs[dev] = _generate(core, prompts, 32)
+        if dev == "cuda":
+            counted = read_launches()
         del core
     err_pre = (logits["cuda"][0] - logits["cpu"][0]).abs().max().item()
     err_dec = (logits["cuda"][1] - logits["cpu"][1]).abs().max().item()
     same = outs["cuda"] == outs["cpu"] and all(len(v) == 32 for v in outs["cuda"].values())
+    rung = f"{variant}_matmul"
+    launch_ok = counted["paged_decode"] > 0 and counted.get(rung, 1) > 0
     rec = dict(
         phase="parity_f32", config="qwen2.5-3b widths, 2 layers", path="bucketed prefill, v1",
+        variant=variant, kv_dtype=ecfg["kv_dtype"], card_launches=counted,
+        prefill_pool_elements_stored_apart=pool_split,
         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
         prefill_logits_max_abs_err=err_pre, decode_logits_max_abs_err=err_dec,
@@ -808,8 +1153,8 @@ def phase_parity() -> dict:
         tokens_compared=sum(len(v) for v in outs["cuda"].values()),
     )
     emit(rec)
-    if not (err_pre <= 1e-4 and err_dec <= 1e-4 and same):
-        raise SystemExit("f32 parity failed")
+    if not (err_pre <= 1e-4 and err_dec <= 1e-4 and same and launch_ok):
+        raise SystemExit(f"f32 parity failed ({variant})")
     return rec
 
 
@@ -876,12 +1221,12 @@ def phase_chunk_parity() -> dict:
         del core
         return logit_pair, tokens, stats
 
-    with decode_kernel_env("v1"):
+    with env(LLMQ_DECODE_KERNEL="v1"):
         ref_logits, ref_tokens, ref_stats = run("cpu")
     recs, launches = [], {}
     for kernel in ("v1", "v2", "v3"):
         reset_launches()
-        with decode_kernel_env(kernel):
+        with env(LLMQ_DECODE_KERNEL=kernel):
             (chunk_l, dec_l), tokens, stats = run("cuda")
         torch.cuda.synchronize()
         counted = read_launches()
@@ -936,12 +1281,13 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w").close()
     emit(dict(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
               device=torch.cuda.get_device_name(0), count=torch.cuda.device_count()))
     t0 = time.perf_counter()
     paths = _build.build()
     build_s = time.perf_counter() - t0
-    os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         for name, log in _build.build_logs.items():
             f.write(f"=== {name}\n{log}\n")
@@ -958,8 +1304,11 @@ def main() -> int:
         launches.update(paged_prefill=prefix["paged_prefill"],
                         paged_decode_v3=prefix["paged_decode_v3"])
         torch.cuda.empty_cache()
+    if "quant" in phases:
+        launches.update(phase_quant(smi))
     if "parity" in phases:
-        phase_parity()
+        for variant in ("f32", "int8", "int4", "fp8"):
+            phase_parity(variant)
         launches.update(phase_chunk_parity())
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
@@ -976,6 +1325,10 @@ def main() -> int:
          "llmq_tpu/ops/pallas_attention.py:575"),
         ("paged_decode_v2", "llmq_tpu_torch/ops/csrc/paged_decode_v2.cu",
          "llmq_tpu/ops/pallas_attention.py:487"),
+        ("int8_matmul", "llmq_tpu_torch/ops/csrc/int8_matmul.cu",
+         "llmq_tpu/ops/pallas_matmul.py:145"),
+        ("int4_matmul", "llmq_tpu_torch/ops/csrc/int4_matmul.cu",
+         "llmq_tpu/ops/pallas_matmul.py:219"),
     ):
         rec = main_recs.get(name, {})
         kernels.append(dict(

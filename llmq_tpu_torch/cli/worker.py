@@ -3,15 +3,20 @@
 
 ``run_torch_worker("preset://NAME", queue, ...)`` builds a random-weight
 model of a named preset on the device, wraps it in an engine and serves
-``queue`` until ``max_jobs`` jobs are settled (or forever). Checkpoint
-loading and the click command come with the TCP broker client (ROADMAP
-M6).
+``queue`` until ``max_jobs`` jobs are settled (or forever). ``dtype`` is
+bfloat16, float32, or int8 / int4: weight-only quantization
+(``models/quant.py``) with bf16 compute, as the JAX worker's
+``--dtype`` (``tpu_worker.py:351-374``). The KV pool takes ``kv_dtype``
+(bf16, f32, fp8), else ``LLMQ_KV_DTYPE``, else the compute dtype.
+Checkpoint loading and the click command come with the TCP broker
+client (ROADMAP M6).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 from typing import Optional
 
 import torch
@@ -26,8 +31,20 @@ from llmq_tpu_torch.workers.torch_worker import TorchWorker
 logger = logging.getLogger(__name__)
 
 PRESET_SCHEMES = ("preset://", "random://")
-_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
-           "float32": torch.float32, "f32": torch.float32}
+# dtype -> (compute dtype, init_params(quantize=...))
+_DTYPES = {"bfloat16": (torch.bfloat16, False), "bf16": (torch.bfloat16, False),
+           "float32": (torch.float32, False), "f32": (torch.float32, False),
+           "int8": (torch.bfloat16, "int8"), "int4": (torch.bfloat16, "int4")}
+
+
+def resolve_pool_dtype(dtype: str, kv_dtype: Optional[str] = None) -> str:
+    """The KV pool dtype, as the JAX worker's ``_resolve_pool_dtype``:
+    ``kv_dtype`` > ``LLMQ_KV_DTYPE`` > the compute dtype (float32 under
+    float32, else bfloat16: int8 and int4 compute in bf16)."""
+    kv = kv_dtype or os.environ.get("LLMQ_KV_DTYPE")
+    if kv not in (None, "", "auto"):
+        return kv
+    return "float32" if _DTYPES[dtype][0] == torch.float32 else "bfloat16"
 
 
 def build_engine(
@@ -51,19 +68,16 @@ def build_engine(
         )
     dev = resolve_device(device)
     if dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"dtype={dtype!r}: quantized weights are not ported yet (ROADMAP.md queue 1, M9)"
-        )
+        raise ValueError(f"dtype={dtype!r} (want one of {sorted(_DTYPES)})")
     config = get_preset(model.split("://", 1)[1] or "tiny")
     generator = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(config, generator, _DTYPES[dtype], device=dev)
-    overrides = {}
+    compute, quantize = _DTYPES[dtype]
+    params = init_params(config, generator, compute, device=dev, quantize=quantize)
+    overrides = {"kv_dtype": resolve_pool_dtype(dtype, kv_dtype)}
     if max_num_seqs:
         overrides["max_num_seqs"] = max_num_seqs
     if max_model_len:
         overrides["max_model_len"] = max_model_len
-    if kv_dtype:
-        overrides["kv_dtype"] = kv_dtype
     if prefill_chunk_size:
         overrides["prefill_chunk_size"] = prefill_chunk_size
     if enable_prefix_caching:

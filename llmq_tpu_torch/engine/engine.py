@@ -19,8 +19,8 @@ go to pinned host memory with ``non_blocking=True`` and a
 On the CPU the same queue runs synchronously.
 
 Config. The engine honours ``max_num_seqs``, ``max_model_len``,
-``page_size``, ``num_pages``, ``hbm_utilization``, ``kv_dtype`` (bf16 or
-f32), ``min_prefill_bucket``, ``max_prefill_batch``,
+``page_size``, ``num_pages``, ``hbm_utilization``, ``kv_dtype`` (bf16,
+f32 or fp8 = float8_e5m2), ``min_prefill_bucket``, ``max_prefill_batch``,
 ``prefill_chunk_size``, ``enable_prefix_caching`` (chunked prefill only,
 as in JAX), ``admit_max_wait_s``, ``runahead`` and ``stop_id_capacity``.
 Any other field set away from its default raises ``NotImplementedError``
@@ -83,9 +83,14 @@ class RequestOutput:
     timing: Optional[Dict[str, float]] = None
 
 
+# The JAX EngineConfig's name table: "fp8" is float8_e5m2, stored without
+# scales (e5m2 keeps bf16's exponent range), half the bytes of bf16.
 _KV_DTYPES = {
     "bf16": torch.bfloat16,
     "bfloat16": torch.bfloat16,
+    "fp8": torch.float8_e5m2,
+    "fp8_e5m2": torch.float8_e5m2,
+    "float8_e5m2": torch.float8_e5m2,
     "f32": torch.float32,
     "float32": torch.float32,
 }
@@ -102,7 +107,7 @@ class EngineConfig:
     page_size: int = 32
     num_pages: Optional[int] = None  # None → size from device memory
     hbm_utilization: float = 0.9
-    kv_dtype: Any = torch.bfloat16  # bf16 | f32 (fp8 is ROADMAP M9)
+    kv_dtype: Any = torch.bfloat16  # bf16 | f32 | fp8 (float8_e5m2)
     min_prefill_bucket: int = 32
     max_prefill_batch: int = 4  # admitted seqs prefilled per dispatch
     prefill_chunk_size: Optional[int] = None
@@ -134,22 +139,14 @@ class EngineConfig:
 
     def __post_init__(self):
         if isinstance(self.kv_dtype, str):
-            name = self.kv_dtype.lower()
-            if name in ("fp8", "fp8_e5m2", "float8_e5m2"):
-                raise NotImplementedError(
-                    f"kv_dtype={self.kv_dtype!r} is not ported yet "
-                    "(ROADMAP.md queue 1, M9)"
-                )
             try:
-                self.kv_dtype = _KV_DTYPES[name]
+                self.kv_dtype = _KV_DTYPES[self.kv_dtype.lower()]
             except KeyError:
                 raise ValueError(
                     f"kv_dtype={self.kv_dtype!r} (want one of {sorted(_KV_DTYPES)})"
                 ) from None
-        if self.kv_dtype not in (torch.bfloat16, torch.float32):
-            raise NotImplementedError(
-                f"kv_dtype={self.kv_dtype} is not ported yet (ROADMAP.md queue 1, M9)"
-            )
+        if self.kv_dtype not in set(_KV_DTYPES.values()):
+            raise ValueError(f"kv_dtype={self.kv_dtype} (want bf16, f32 or fp8)")
 
 
 #: Fields of EngineConfig this engine does not honour yet → the ROADMAP.md

@@ -4,8 +4,10 @@ The tree is the JAX reference's ``init_params`` layout (``embed``,
 ``final_norm``, optional ``lm_head``, and ``layers`` whose leaves are
 stacked ``[L, ...]``) with every leaf converted to a numpy array (for a
 JAX tree: ``jax.tree.map(np.asarray, params)``). Conversion is bit-exact:
-a bfloat16 leaf (numpy's ``ml_dtypes`` extension type, which torch cannot
-read directly) travels as its raw 16-bit patterns.
+a bfloat16 or float8_e5m2 leaf (numpy's ``ml_dtypes`` extension types,
+which torch cannot read directly) travels as its raw bit patterns; the
+int8 and uint8 leaves of a quantized tree (``models/quant.py``) are
+plain numpy integers. A quantized leaf is a nested dict like any other.
 """
 
 from __future__ import annotations
@@ -15,14 +17,22 @@ from typing import Any, Mapping, Optional, Union
 import numpy as np
 import torch
 
+# ml_dtypes name -> (numpy integer of its width, torch dtype)
+_BIT_TYPES = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
 
 def tensor_from_numpy(
     arr: np.ndarray, device: Union[str, torch.device] = "cpu"
 ) -> torch.Tensor:
-    """One array → a tensor with the same bits (bfloat16 included)."""
+    """One array → a tensor with the same bits (bfloat16 and float8_e5m2
+    included)."""
     arr = np.ascontiguousarray(arr)
-    if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    if arr.dtype.name in _BIT_TYPES:
+        bits, dtype = _BIT_TYPES[arr.dtype.name]
+        t = torch.from_numpy(arr.view(bits).copy()).view(dtype)
     else:
         t = torch.from_numpy(arr.copy())
     return t.to(device)

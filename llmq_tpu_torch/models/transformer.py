@@ -2,7 +2,8 @@
 
 Port of ``llmq_tpu/models/transformer.py`` (building blocks :100-176,
 ``Transformer`` :340-824 with ``_paged_chunk_trunk`` :569 and
-``prefill_chunk`` :628, ``init_params`` :840, ``make_kv_pages`` :946).
+``prefill_chunk`` :628, ``init_params`` :840 with its int8/int4
+quantization, ``make_kv_pages`` :946).
 Same parameter tree (per-layer weights stacked on a leading ``[L, ...]``
 axis, ``[in, out]`` matmul layout), same family switches (Qwen2 QKV bias,
 Qwen3 qk-norm, Gemma-2 softcaps / post-norms / alternating sliding window
@@ -13,7 +14,13 @@ PyTorch idiom in place of JAX's:
 
 - :class:`Transformer` is an ``nn.Module`` that owns the weights as
   frozen parameters; the layer loop is a Python loop over views of the
-  stacked tensors (``w[li]`` never copies).
+  stacked tensors (``w[li]`` never copies). A quantized leaf
+  (``models/quant.py``) is stored as one flat parameter per part
+  (``q_proj__q``, ``q_proj__scale``, ...) and handed to the layer body as
+  the JAX package's dict again.
+- Every product goes through ``quant.matmul`` as in JAX; whether a 2-D
+  quantized weight takes its kernel (K6 / K7) is resolved once, when the
+  module is built (``LLMQ_INT8_MATMUL`` / ``LLMQ_INT4_MATMUL``).
 - The KV pools ``[L, P, page, n_kv, d]`` are updated IN PLACE by
   ``prefill``/``decode`` (the JAX functions return new pools).
 - RoPE angles and the KV write index are computed once per forward and
@@ -35,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from llmq_tpu_torch.models import quant as qm
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.ops import attention as attn_ops
 from llmq_tpu_torch.ops import dispatch as attn_dispatch
@@ -114,14 +122,43 @@ def apply_rope(
     return _rotate(x, *rope_cos_sin(positions, inv_freq))
 
 
-def _mlp(h: torch.Tensor, lp: Params, activation: str) -> torch.Tensor:
-    gate = h @ lp["gate_proj"]
-    up = h @ lp["up_proj"]
+def _mlp(h: torch.Tensor, lp: Params, activation: str, kernels) -> torch.Tensor:
+    gate = qm.matmul(h, lp["gate_proj"], kernels)
+    up = qm.matmul(h, lp["up_proj"], kernels)
     if activation == "gelu_tanh":
         act = F.gelu(gate, approximate="tanh")
     else:
         act = F.silu(gate)
-    return (act * up) @ lp["down_proj"]
+    return qm.matmul(act * up, lp["down_proj"], kernels)
+
+
+_PART = "__"  # flat parameter name of a quantized leaf's part: name__q
+
+
+def _flatten(tree: Params) -> Dict[str, torch.Tensor]:
+    """A tree level's leaves by flat name (quantized parts as name__part)."""
+    flat: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        if qm.is_quantized(leaf):
+            flat.update({f"{name}{_PART}{part}": t for part, t in leaf.items()})
+        else:
+            flat[name] = leaf
+    return flat
+
+
+def _unflatten(flat, index: Optional[int] = None) -> Params:
+    """Inverse of :func:`_flatten`, optionally viewing leading index
+    ``index`` of every tensor."""
+    out: Params = {}
+    for key, t in flat.items():
+        if index is not None:
+            t = t[index]
+        name, sep, part = key.partition(_PART)
+        if sep:
+            out.setdefault(name, {})[part] = t
+        else:
+            out[name] = t
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +184,10 @@ class Transformer(nn.Module):
         def frozen(t: torch.Tensor) -> nn.Parameter:
             return nn.Parameter(t, requires_grad=False)
 
-        self.embed = frozen(params["embed"])
-        self.final_norm = frozen(params["final_norm"])
-        self.lm_head = frozen(params["lm_head"]) if "lm_head" in params else None
+        top = {k: params[k] for k in ("embed", "final_norm", "lm_head") if k in params}
+        self.top = nn.ParameterDict({n: frozen(t) for n, t in _flatten(top).items()})
         self.layers = nn.ParameterDict(
-            {name: frozen(t) for name, t in params["layers"].items()}
+            {n: frozen(t) for n, t in _flatten(params["layers"]).items()}
         )
         self.one_plus = config.model_type.startswith("gemma")
         disabled = config.max_position_embeddings + 1
@@ -161,6 +197,7 @@ class Transformer(nn.Module):
         ]
         self._inv_freq_cache: Dict[torch.device, torch.Tensor] = {}
         self.decode_kernel = attn_dispatch.resolve_decode_kernel()
+        self.quant_kernels = attn_dispatch.resolve_quant_matmul()
 
     def _inv_freq(self, device: torch.device) -> torch.Tensor:
         inv = self._inv_freq_cache.get(device)
@@ -170,7 +207,11 @@ class Transformer(nn.Module):
 
     def layer_params(self, li: int) -> Params:
         """Layer ``li``'s weights: views into the stacked tensors."""
-        return {name: p[li] for name, p in self.layers.items()}
+        return _unflatten(self.layers, li)
+
+    def top_params(self) -> Params:
+        """``embed``, ``final_norm`` and an untied ``lm_head``."""
+        return _unflatten(self.top)
 
     # --- shared layer body -------------------------------------------------
     def _qkv(
@@ -179,9 +220,9 @@ class Transformer(nn.Module):
         cfg = self.config
         d = cfg.head_dim_
         *lead, _ = h.shape
-        q = h @ lp["q_proj"]
-        k = h @ lp["k_proj"]
-        v = h @ lp["v_proj"]
+        q = qm.matmul(h, lp["q_proj"], self.quant_kernels)
+        k = qm.matmul(h, lp["k_proj"], self.quant_kernels)
+        v = qm.matmul(h, lp["v_proj"], self.quant_kernels)
         if cfg.attention_bias:
             q = q + lp["q_bias"]
             k = k + lp["k_bias"]
@@ -199,14 +240,15 @@ class Transformer(nn.Module):
     ) -> torch.Tensor:
         cfg = self.config
         *lead, _, _ = attn_out.shape
-        attn_proj = attn_out.reshape(*lead, cfg.num_heads * cfg.head_dim_) @ lp["o_proj"]
+        attn_proj = qm.matmul(attn_out.reshape(*lead, cfg.num_heads * cfg.head_dim_),
+                              lp["o_proj"], self.quant_kernels)
         if cfg.post_norms:
             attn_proj = rms_norm(
                 attn_proj, lp["post_attn_norm"], cfg.rms_norm_eps, one_plus=self.one_plus
             )
         h = h + attn_proj
         mlp_in = rms_norm(h, lp["ln2"], cfg.rms_norm_eps, one_plus=self.one_plus)
-        mlp_out = _mlp(mlp_in, lp, cfg.activation)
+        mlp_out = _mlp(mlp_in, lp, cfg.activation, self.quant_kernels)
         if cfg.post_norms:
             mlp_out = rms_norm(
                 mlp_out, lp["post_mlp_norm"], cfg.rms_norm_eps, one_plus=self.one_plus
@@ -214,7 +256,7 @@ class Transformer(nn.Module):
         return h + mlp_out
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        h = F.embedding(tokens, self.embed)
+        h = qm.embed_lookup(self.top_params()["embed"], tokens)
         if self.config.scale_embeddings:
             # sqrt(hidden) rounded to the weight dtype first, as in JAX.
             h = h * torch.tensor(math.sqrt(self.config.hidden_size), dtype=h.dtype)
@@ -222,9 +264,12 @@ class Transformer(nn.Module):
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        h = rms_norm(h, self.final_norm, cfg.rms_norm_eps, one_plus=self.one_plus)
-        head = self.embed.t() if self.lm_head is None else self.lm_head
-        logits = (h @ head).float()
+        top = self.top_params()
+        h = rms_norm(h, top["final_norm"], cfg.rms_norm_eps, one_plus=self.one_plus)
+        if "lm_head" in top:
+            logits = qm.matmul(h, top["lm_head"], self.quant_kernels).float()
+        else:
+            logits = qm.tied_head_matmul(h, top["embed"]).float()
         if cfg.logit_softcap is not None:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits
@@ -379,22 +424,52 @@ def init_params(
     dtype: torch.dtype = torch.float32,
     *,
     device: Optional[torch.device] = None,
+    quantize: Any = False,
 ) -> Params:
     """Random init (testing / benchmarks without a checkpoint): the JAX
     tree's leaves and scales (normal / sqrt(fan_in), unit norms, zero
     biases), drawn from ``generator`` on its device. The numbers differ
     from ``jax.random``'s; tests carry one tree across with
-    ``models.convert.params_from_numpy`` instead."""
+    ``models.convert.params_from_numpy`` instead.
+
+    ``quantize`` ("int8" or True, "int4") returns the quantized tree
+    directly, as the JAX ``init_params(quantize=...)`` does: each weight
+    is drawn in f32, rounded to ``dtype`` and quantized with ``dtype``
+    scales, a stacked layer weight one leading-axis slice at a time, so
+    the full-precision transient is one layer's slice. On int4 the layer
+    weights take the group rung; the embedding and an untied LM head stay
+    int8."""
     cfg = config
     if cfg.num_experts:
         raise NotImplementedError("MoE models are not ported yet (ROADMAP.md queue 1, M14)")
     device = torch.device(device) if device is not None else generator.device
+    quant_mode = "int4" if str(quantize).lower() == "int4" else ("int8" if quantize else None)
     d = cfg.head_dim_
     L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
 
-    def w(shape, fan_in):
+    def draw(shape, fan_in):
         arr = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
         return arr.div_(math.sqrt(fan_in)).to(dtype)
+
+    def w(shape, fan_in, *, axis: int = -2, top: bool = False):
+        if not quant_mode:
+            return draw(shape, fan_in)
+
+        def quant(arr):
+            if quant_mode == "int4" and not top:
+                return qm.quantize_array_int4(arr, scale_dtype=dtype)
+            return qm.quantize_array(arr, axis=axis, scale_dtype=dtype)
+
+        if len(shape) == 2:
+            return quant(draw(shape, fan_in))
+        out: Params = {}
+        for li in range(shape[0]):
+            part = quant(draw(shape[1:], fan_in))
+            for key, t in part.items():
+                if key not in out:
+                    out[key] = torch.empty((shape[0], *t.shape), dtype=t.dtype, device=device)
+                out[key][li] = t
+        return out
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -424,12 +499,12 @@ def init_params(
         layers["post_attn_norm"] = ones(L, H)
         layers["post_mlp_norm"] = ones(L, H)
     params: Params = {
-        "embed": w((cfg.vocab_size, H), H),
+        "embed": w((cfg.vocab_size, H), H, axis=-1, top=True),
         "layers": layers,
         "final_norm": ones(H),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w((H, cfg.vocab_size), H)
+        params["lm_head"] = w((H, cfg.vocab_size), H, top=True)
     return params
 
 
@@ -442,7 +517,9 @@ def make_kv_pages(
     device: Optional[torch.device] = None,
     num_layers: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the paged KV cache: [L, P, page, n_kv, d] ×2, zeroed."""
+    """Allocate the paged KV cache: [L, P, page, n_kv, d] ×2, zeroed. A
+    1-byte pool (float8_e5m2) is allocated as zeroed bytes and viewed as
+    its dtype (zero bits are +0.0)."""
     shape = (
         config.num_layers if num_layers is None else num_layers,
         num_pages,
@@ -450,7 +527,8 @@ def make_kv_pages(
         config.num_kv_heads,
         config.head_dim_,
     )
+    store = torch.uint8 if attn_ops.is_byte_pool(dtype) else dtype
     return (
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=store, device=device).view(dtype),
+        torch.zeros(shape, dtype=store, device=device).view(dtype),
     )

@@ -4,9 +4,11 @@ Each source in ``ops/csrc`` is compiled by its own ``nvcc`` process into
 a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), all processes started together, into ``build/kernels``
 at the repository root (git-ignored). A library's file name carries a
-digest of its source and flags, so an edited source rebuilds and an
-unchanged one is reused. Libraries are loaded with ``ctypes``; the
-wrappers in ``ops/cuda_attention.py`` declare their signatures.
+digest of its source, the headers in ``ops/csrc`` and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
+Libraries are loaded with ``ctypes``; the wrappers in
+``ops/cuda_attention.py`` and ``ops/cuda_matmul.py`` declare their
+signatures.
 
 Nothing here runs at import: the first kernel launch builds.
 """
@@ -20,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -29,6 +31,8 @@ SOURCES = {
     "flash_prefill": "flash_prefill.cu",
     "paged_prefill": "paged_prefill.cu",
     "paged_decode_v2": "paged_decode_v2.cu",
+    "int8_matmul": "int8_matmul.cu",
+    "int4_matmul": "int4_matmul.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,8 +57,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -101,3 +108,42 @@ def load(name: str) -> ctypes.CDLL:
                 _libs[n] = ctypes.CDLL(str(p))
             lib = _libs[name]
         return lib
+
+
+_fns: Dict[Tuple[str, str], Any] = {}  # (library, symbol) -> entry point
+_errs: Dict[str, Any] = {}  # library -> its llmq_cuda_error_string
+_sms: Dict[Optional[int], int] = {}
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry point ``symbol`` of library ``name``, with its ctypes
+    signature; it returns a ``cudaError_t`` code (0 = success)."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        lib = load(name)
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = lib.llmq_cuda_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _fns[(name, symbol)] = fn
+        _errs[name] = err
+    return fn
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a launch in library ``name`` returned a CUDA error."""
+    if code != 0:
+        msg = _errs[name](code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (cached)."""
+    import torch
+
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n

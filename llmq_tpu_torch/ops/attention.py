@@ -14,6 +14,12 @@ Page 0 is scratch: padded or inactive positions (position −1) write there.
 Unlike the JAX reference, the KV writes update the pools IN PLACE (an
 ``index_put_``) and return the same tensors: the engine holds one pool
 for its whole life instead of threading new arrays through every step.
+
+Pools may be float8_e5m2 (``kv_dtype="fp8"``): writes cast to the pool
+dtype (round to nearest even, overflow to ±inf, as JAX's cast), reads
+upcast to the query dtype (:func:`_compute_dtype`). The gathers and
+scatters move a 1-byte pool's elements as raw bytes (:func:`_bits`), so
+they need no float8 support from the indexing kernels.
 """
 
 from __future__ import annotations
@@ -43,6 +49,21 @@ def _compute_dtype(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> torch.dtype:
     if q_size == 1:
         return kv_dtype
     return torch.promote_types(q_dtype, kv_dtype)
+
+
+def is_byte_pool(dtype: torch.dtype) -> bool:
+    """A 1-byte float pool (float8_e5m2)."""
+    return dtype.is_floating_point and torch.empty((), dtype=dtype).element_size() == 1
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A 1-byte float tensor as its raw bytes (same shape); others as is."""
+    return t.view(torch.uint8) if is_byte_pool(t.dtype) else t
+
+
+def _gather_pages(pages: torch.Tensor, bt: torch.Tensor, mul: torch.dtype) -> torch.Tensor:
+    """``pages[bt]`` ([S, pages_per_seq, page, n_kv, d]) in ``mul``."""
+    return _bits(pages)[bt].view(pages.dtype).to(mul)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -115,10 +136,8 @@ def paged_decode_attention(
     out_dtype = q.dtype
     mul = _compute_dtype(q.dtype, k_pages.dtype)
     bt = block_tables.long()
-    k = k_pages[bt].reshape(S, max_ctx, n_kv, head_dim)
-    v = v_pages[bt].reshape(S, max_ctx, n_kv, head_dim)
-    k = repeat_kv(k, n_rep).to(mul)
-    v = repeat_kv(v, n_rep).to(mul)
+    k = repeat_kv(_gather_pages(k_pages, bt, mul).reshape(S, max_ctx, n_kv, head_dim), n_rep)
+    v = repeat_kv(_gather_pages(v_pages, bt, mul).reshape(S, max_ctx, n_kv, head_dim), n_rep)
     q = q.to(mul)
 
     scores = torch.einsum("shd,skhd->shk", q, k) * scale
@@ -168,8 +187,8 @@ def paged_prefill_attention(
     out_dtype = q.dtype
     mul = _compute_dtype(q.dtype, k_pages.dtype)
     bt = block_tables.long()
-    k = repeat_kv(k_pages[bt].reshape(B, max_ctx, n_kv, head_dim), n_rep).to(mul)
-    v = repeat_kv(v_pages[bt].reshape(B, max_ctx, n_kv, head_dim), n_rep).to(mul)
+    k = repeat_kv(_gather_pages(k_pages, bt, mul).reshape(B, max_ctx, n_kv, head_dim), n_rep)
+    v = repeat_kv(_gather_pages(v_pages, bt, mul).reshape(B, max_ctx, n_kv, head_dim), n_rep)
     q = q.to(mul)
 
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
@@ -229,8 +248,10 @@ def write_prompt_kv_pages(
         raise ValueError("bucket must be page-aligned for page writes")
     n_lp = T // page_size
     phys = block_tables[:, :n_lp].reshape(B * n_lp).long()
-    k_pages[layer, phys] = k_new.to(k_pages.dtype).reshape(B * n_lp, page_size, n_kv, d)
-    v_pages[layer, phys] = v_new.to(v_pages.dtype).reshape(B * n_lp, page_size, n_kv, d)
+    _bits(k_pages)[layer, phys] = _bits(k_new.to(k_pages.dtype)).reshape(
+        B * n_lp, page_size, n_kv, d)
+    _bits(v_pages)[layer, phys] = _bits(v_new.to(v_pages.dtype)).reshape(
+        B * n_lp, page_size, n_kv, d)
     return k_pages, v_pages
 
 
@@ -273,14 +294,15 @@ def write_kv_pages(
     physical, offset = index if index is not None else kv_write_index(
         block_tables, positions, k_pages.shape[-3]
     )
-    k_flat = k_new.reshape(B * T, n_kv, d).to(k_pages.dtype)
-    v_flat = v_new.reshape(B * T, n_kv, d).to(v_pages.dtype)
+    k_flat = _bits(k_new.reshape(B * T, n_kv, d).to(k_pages.dtype))
+    v_flat = _bits(v_new.reshape(B * T, n_kv, d).to(v_pages.dtype))
+    kb, vb = _bits(k_pages), _bits(v_pages)
     if k_pages.dim() == 5:
         if layer is None:
             raise ValueError("stacked pages need a layer index")
-        k_pages[layer, physical, offset] = k_flat
-        v_pages[layer, physical, offset] = v_flat
+        kb[layer, physical, offset] = k_flat
+        vb[layer, physical, offset] = v_flat
     else:
-        k_pages[physical, offset] = k_flat
-        v_pages[physical, offset] = v_flat
+        kb[physical, offset] = k_flat
+        vb[physical, offset] = v_flat
     return k_pages, v_pages

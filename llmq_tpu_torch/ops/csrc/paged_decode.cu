@@ -11,7 +11,9 @@
 // [max(0, ctx - window), ctx) attend. Scores are scaled, take an
 // optional tanh softcap (applied before the mask), and go through an
 // online softmax in f32; q, k and v are upcast to f32 as the TPU kernel
-// does. GQA: the group = H / n_kv query heads of one KV head share it.
+// does. The pool is f32, bf16 or float8_e5m2 (an fp8 KV cache: each
+// element widens exactly, to the query dtype's value and on to f32).
+// GQA: the group = H / n_kv query heads of one KV head share it.
 // A row with ctx == 0 writes exact zeros. The output has q's dtype.
 //
 // Bound on the H100: the KV bytes read. Each live key and value row is
@@ -36,6 +38,8 @@
 // and bf16 tiles in shared memory.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -48,6 +52,10 @@ constexpr int kMaxGroup = 16;      // query heads per KV head
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 x) {
+  // e5m2 is the top byte of an fp16: the widening is exact.
+  return __half2float(__ushort_as_half((unsigned short)((unsigned)x.__x << 8)));
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -299,14 +307,15 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k_pool,
 
 extern "C" {
 
-// Returns a cudaError_t code (0 = success). dtype flags: 1 = bf16, 0 = f32.
-// softcap <= 0 means no softcap. num_splits > 1 splits each row's keys over
+// Returns a cudaError_t code (0 = success). q_bf16: 1 = bf16, 0 = f32;
+// kv_dtype: 0 = f32, 1 = bf16, 2 = float8_e5m2. softcap <= 0 means no
+// softcap. num_splits > 1 splits each row's keys over
 // that many blocks and needs `partials`, f32 scratch of
 // num_seqs * n_heads * num_splits * (head_dim + 2) values. The launches are
 // asynchronous on `stream`.
 int llmq_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                       const void* block_tables, const void* context_lens,
-                      void* out, void* partials, int q_bf16, int kv_bf16, int num_seqs,
+                      void* out, void* partials, int q_bf16, int kv_dtype, int num_seqs,
                       int n_heads, int n_kv, int head_dim, int num_pages,
                       int page_size, int pages_per_seq, int layer, int window,
                       float scale, float softcap, int num_splits, void* stream) {
@@ -318,23 +327,27 @@ int llmq_paged_decode(const void* q, const void* k_pool, const void* v_pool,
   const int* bt = static_cast<const int*>(block_tables);
   const int* ctx = static_cast<const int*>(context_lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto q_type, auto kv_type) {
+    using TQ = decltype(q_type);
+    using TKV = decltype(kv_type);
+    return launch_dim<TQ, TKV>(head_dim, q, k_pool, v_pool, bt, ctx, out, part, num_seqs,
+                               n_heads, n_kv, num_pages, page_size, pages_per_seq, layer,
+                               window, scale, softcap, num_splits, st);
+  };
   cudaError_t err;
-  if (q_bf16 && kv_bf16)
-    err = launch_dim<__nv_bfloat16, __nv_bfloat16>(
-        head_dim, q, k_pool, v_pool, bt, ctx, out, part, num_seqs, n_heads, n_kv, num_pages,
-        page_size, pages_per_seq, layer, window, scale, softcap, num_splits, st);
-  else if (q_bf16)
-    err = launch_dim<__nv_bfloat16, float>(
-        head_dim, q, k_pool, v_pool, bt, ctx, out, part, num_seqs, n_heads, n_kv, num_pages,
-        page_size, pages_per_seq, layer, window, scale, softcap, num_splits, st);
-  else if (kv_bf16)
-    err = launch_dim<float, __nv_bfloat16>(
-        head_dim, q, k_pool, v_pool, bt, ctx, out, part, num_seqs, n_heads, n_kv, num_pages,
-        page_size, pages_per_seq, layer, window, scale, softcap, num_splits, st);
-  else
-    err = launch_dim<float, float>(
-        head_dim, q, k_pool, v_pool, bt, ctx, out, part, num_seqs, n_heads, n_kv, num_pages,
-        page_size, pages_per_seq, layer, window, scale, softcap, num_splits, st);
+  switch (kv_dtype) {
+    case 0:
+      err = q_bf16 ? run(__nv_bfloat16(), float()) : run(float(), float());
+      break;
+    case 1:
+      err = q_bf16 ? run(__nv_bfloat16(), __nv_bfloat16()) : run(float(), __nv_bfloat16());
+      break;
+    case 2:
+      err = q_bf16 ? run(__nv_bfloat16(), __nv_fp8_e5m2()) : run(float(), __nv_fp8_e5m2());
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return (int)err;
 }
 

@@ -16,11 +16,15 @@
 // [max(0, ctx - window), ctx) attend (the window clamp in 64-bit).
 // Scores are scaled, take an optional tanh softcap and go through an
 // online softmax in f32, with q, k and v upcast to f32 as the TPU kernel
-// does. GQA: the H / n_kv query heads of a KV head share it. A row with
+// does. The pool is f32, bf16 or float8_e5m2 (an fp8 KV cache: each
+// element widens exactly, to the query dtype's value and on to f32).
+// GQA: the H / n_kv query heads of a KV head share it. A row with
 // ctx == 0 writes exact zeros. The output has q's dtype.
 //
 // K4 additionally stores the step's new rows k_new / v_new [S, n_kv, D]
-// (q's dtype, cast to the pool's) at position ctx - 1: page
+// (q's dtype, cast to the pool's with round to nearest even; an fp8 pool
+// takes +-inf past its range, never a saturated +-57344) at position
+// ctx - 1: page
 // block_tables[s, (ctx-1) / page], slot (ctx-1) % page. The new row
 // stands in for the pool's copy of that key in this step's attention.
 // Rows with ctx == 0, or whose position lies past the page map, write
@@ -47,6 +51,8 @@
 //     head; P.V with thread d owning output column d of every head.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -58,6 +64,10 @@ constexpr int kMaxGroup = 16;      // query heads per KV head
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 x) {
+  // e5m2 is the top byte of an fp16: the widening is exact.
+  return __half2float(__ushort_as_half((unsigned short)((unsigned)x.__x << 8)));
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -66,6 +76,15 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __nv_fp8_e5m2 from_f32<__nv_fp8_e5m2>(float x) {
+  // Round to nearest even, overflow to +-inf (__NV_NOSAT), as torch's and
+  // JAX's casts do; the __nv_fp8_e5m2(float) constructor would saturate
+  // to +-57344 instead, and the pools would differ from write_kv_pages.
+  __nv_fp8_e5m2 r;
+  r.__x = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E5M2);
+  return r;
 }
 
 // 16 bytes of the pool's dtype as floats.
@@ -83,6 +102,12 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f, const __nv_bf
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float* f, const __nv_fp8_e5m2*) {
+  const unsigned char* b = reinterpret_cast<const unsigned char*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = __half2float(__ushort_as_half((unsigned short)((unsigned)b[i] << 8)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -391,30 +416,42 @@ cudaError_t launch_dim(int head_dim, const Args& a, cudaStream_t stream) {
   }
 }
 
+template <typename TQ, bool FUSED_WRITE>
+cudaError_t launch_kv(int kv_dtype, int head_dim, const Args& a, cudaStream_t stream) {
+  switch (kv_dtype) {
+    case 0:
+      return launch_dim<TQ, float, FUSED_WRITE>(head_dim, a, stream);
+    case 1:
+      return launch_dim<TQ, __nv_bfloat16, FUSED_WRITE>(head_dim, a, stream);
+    case 2:
+      return launch_dim<TQ, __nv_fp8_e5m2, FUSED_WRITE>(head_dim, a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <bool FUSED_WRITE>
-cudaError_t launch_types(int q_bf16, int kv_bf16, int head_dim, const Args& a,
+cudaError_t launch_types(int q_bf16, int kv_dtype, int head_dim, const Args& a,
                          cudaStream_t stream) {
-  if (q_bf16 && kv_bf16)
-    return launch_dim<__nv_bfloat16, __nv_bfloat16, FUSED_WRITE>(head_dim, a, stream);
-  if (q_bf16) return launch_dim<__nv_bfloat16, float, FUSED_WRITE>(head_dim, a, stream);
-  if (kv_bf16) return launch_dim<float, __nv_bfloat16, FUSED_WRITE>(head_dim, a, stream);
-  return launch_dim<float, float, FUSED_WRITE>(head_dim, a, stream);
+  return q_bf16 ? launch_kv<__nv_bfloat16, FUSED_WRITE>(kv_dtype, head_dim, a, stream)
+                : launch_kv<float, FUSED_WRITE>(kv_dtype, head_dim, a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t code (0 = success). dtype flags: 1 = bf16, 0 = f32.
-// fused_write = 1 launches K4 (k_new / v_new in q's dtype, [S, n_kv, D]),
-// 0 launches K5 (k_new / v_new unused). softcap <= 0 means no softcap.
+// Returns a cudaError_t code (0 = success). q_bf16: 1 = bf16, 0 = f32;
+// kv_dtype: 0 = f32, 1 = bf16, 2 = float8_e5m2. fused_write = 1 launches
+// K4 (k_new / v_new in q's dtype, [S, n_kv, D]), 0 launches K5 (k_new /
+// v_new unused). softcap <= 0 means no softcap.
 // num_splits > 1 needs `partials`, f32 scratch of
 // num_seqs * n_heads * num_splits * (head_dim + 2) values. The pools must
 // be 16-byte aligned. The launches are asynchronous on `stream`.
 int llmq_paged_decode_v2(const void* q, void* k_pool, void* v_pool, const void* k_new,
                          const void* v_new, const void* block_tables,
                          const void* context_lens, void* out, void* partials, int q_bf16,
-                         int kv_bf16, int fused_write, int num_seqs, int n_heads, int n_kv,
+                         int kv_dtype, int fused_write, int num_seqs, int n_heads, int n_kv,
                          int head_dim, int num_pages, int page_size, int pages_per_seq,
                          int pages_per_chunk, int layer, int window, float scale,
                          float softcap, int num_splits, void* stream) {
@@ -429,8 +466,8 @@ int llmq_paged_decode_v2(const void* q, void* k_pool, void* v_pool, const void* 
          num_seqs, n_heads, n_kv, num_pages, page_size, pages_per_seq, pages_per_chunk,
          layer, window, num_splits, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = fused_write ? launch_types<true>(q_bf16, kv_bf16, head_dim, a, st)
-                                : launch_types<false>(q_bf16, kv_bf16, head_dim, a, st);
+  cudaError_t err = fused_write ? launch_types<true>(q_bf16, kv_dtype, head_dim, a, st)
+                                : launch_types<false>(q_bf16, kv_dtype, head_dim, a, st);
   return (int)err;
 }
 

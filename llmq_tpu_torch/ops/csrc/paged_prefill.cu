@@ -14,7 +14,8 @@
 // (pos - window, pos], read through block_tables [B, pages_per_seq] at
 // layer `layer`. Scores are scaled, take an optional tanh softcap (before
 // the mask) and go through an online softmax in f32. Products are taken
-// in the promoted dtype of q and the pool, summed in f32 (bf16 x bf16
+// in the promoted dtype of q and the pool (_mul_dtype: an f32 pool
+// promotes, a float8_e5m2 pool widens exactly to q's dtype), summed in f32 (bf16 x bf16
 // products are exact in f32, as the TPU kernel's
 // preferred_element_type=f32); probabilities are rounded to the promoted
 // dtype before P.V, as the TPU kernel does. GQA: head h reads KV head
@@ -44,6 +45,8 @@
 // Later work, not done here: mma.sync/wgmma tensor-core tiles fed by TMA.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,6 +62,10 @@ constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 scores each
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 x) {
+  // e5m2 is the top byte of an fp16: the widening is exact.
+  return __half2float(__ushort_as_half((unsigned short)((unsigned)x.__x << 8)));
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -99,10 +106,10 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     TQ* __restrict__ out, int chunk, int n_heads, int n_kv, int num_pages, int page_size,
     int pages_per_seq, int layer, long long q_sb, long long q_st, long long q_sh,
     int window, float scale, float softcap) {
-  // Probabilities are rounded to the promoted dtype before P.V: bf16 only
-  // when both q and the pool are bf16.
+  // Probabilities are rounded to the promoted dtype before P.V: bf16 when
+  // q is bf16 and the pool is not f32 (bf16, or fp8 widened to bf16).
   constexpr bool kBf16Math =
-      std::is_same<TQ, __nv_bfloat16>::value && std::is_same<TKV, __nv_bfloat16>::value;
+      std::is_same<TQ, __nv_bfloat16>::value && !std::is_same<TKV, float>::value;
   constexpr int LD = D + 1;    // tile row pitch (words)
   constexpr int LP = kBK + 1;  // score row pitch (words)
   constexpr int kCols = D / 16;
@@ -325,12 +332,13 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k_pool, const vo
 
 extern "C" {
 
-// Returns a cudaError_t code (0 = success). dtype flags: 1 = bf16, 0 = f32.
-// q strides in elements (batch, time, head). softcap <= 0 means no
-// softcap. The launch is asynchronous on `stream`.
+// Returns a cudaError_t code (0 = success). q_bf16: 1 = bf16, 0 = f32;
+// kv_dtype: 0 = f32, 1 = bf16, 2 = float8_e5m2. q strides in elements
+// (batch, time, head). softcap <= 0 means no softcap. The launch is
+// asynchronous on `stream`.
 int llmq_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
                        const void* block_tables, const void* chunk_start,
-                       const void* num_valid, void* out, int q_bf16, int kv_bf16, int batch,
+                       const void* num_valid, void* out, int q_bf16, int kv_dtype, int batch,
                        int chunk, int n_heads, int n_kv, int head_dim, int num_pages,
                        int page_size, int pages_per_seq, int layer, long long q_sb,
                        long long q_st, long long q_sh, int window, float scale,
@@ -342,23 +350,27 @@ int llmq_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
   const int* st = static_cast<const int*>(chunk_start);
   const int* nv = static_cast<const int*>(num_valid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto q_type, auto kv_type) {
+    using TQ = decltype(q_type);
+    using TKV = decltype(kv_type);
+    return launch_dim<TQ, TKV>(head_dim, q, k_pool, v_pool, bt, st, nv, out, batch, chunk,
+                               n_heads, n_kv, num_pages, page_size, pages_per_seq, layer,
+                               q_strides, window, scale, softcap, s);
+  };
   cudaError_t err;
-  if (q_bf16 && kv_bf16)
-    err = launch_dim<__nv_bfloat16, __nv_bfloat16>(
-        head_dim, q, k_pool, v_pool, bt, st, nv, out, batch, chunk, n_heads, n_kv, num_pages,
-        page_size, pages_per_seq, layer, q_strides, window, scale, softcap, s);
-  else if (q_bf16)
-    err = launch_dim<__nv_bfloat16, float>(
-        head_dim, q, k_pool, v_pool, bt, st, nv, out, batch, chunk, n_heads, n_kv, num_pages,
-        page_size, pages_per_seq, layer, q_strides, window, scale, softcap, s);
-  else if (kv_bf16)
-    err = launch_dim<float, __nv_bfloat16>(
-        head_dim, q, k_pool, v_pool, bt, st, nv, out, batch, chunk, n_heads, n_kv, num_pages,
-        page_size, pages_per_seq, layer, q_strides, window, scale, softcap, s);
-  else
-    err = launch_dim<float, float>(
-        head_dim, q, k_pool, v_pool, bt, st, nv, out, batch, chunk, n_heads, n_kv, num_pages,
-        page_size, pages_per_seq, layer, q_strides, window, scale, softcap, s);
+  switch (kv_dtype) {
+    case 0:
+      err = q_bf16 ? run(__nv_bfloat16(), float()) : run(float(), float());
+      break;
+    case 1:
+      err = q_bf16 ? run(__nv_bfloat16(), __nv_bfloat16()) : run(float(), __nv_bfloat16());
+      break;
+    case 2:
+      err = q_bf16 ? run(__nv_bfloat16(), __nv_fp8_e5m2()) : run(float(), __nv_fp8_e5m2());
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return (int)err;
 }
 

@@ -11,7 +11,8 @@
   ``csrc/paged_decode_v2.cu``, the ports of
   ``pallas_attention.py::paged_decode_attention_pallas_v2`` / ``_v3``.
 
-The wrappers take CUDA tensors only: each launches its kernel on the
+Pools may be f32, bf16 or float8_e5m2 (K2 reads fresh K/V in the
+compute dtype and has no pool). The wrappers take CUDA tensors only: each launches its kernel on the
 current stream or raises — there is no fallback. The choice between a
 kernel and its plain PyTorch version (``ops/attention.py``) is made in
 one place, ``ops/dispatch.py``, by the device of the tensors. Each
@@ -37,6 +38,8 @@ MAX_SPLITS = 32
 MAX_PAGES_PER_CHUNK = 4  # the TPU kernel's pages_per_chunk default
 SM_SHARED_BYTES = 228 * 1024  # shared memory of one Hopper SM (1 KB of it per block reserved)
 _DTYPES = (torch.float32, torch.bfloat16)
+#: pool dtype -> the kernels' kv_dtype code (an fp8 pool widens exactly)
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
@@ -45,29 +48,10 @@ _SIGNATURES = {
     "paged_prefill": ("llmq_paged_prefill", [_P] * 7 + [_I] * 11 + [_L] * 3 + [_I, _F, _F, _P]),
     "paged_decode_v2": ("llmq_paged_decode_v2", [_P] * 9 + [_I] * 13 + [_F, _F, _I, _P]),
 }
-_fns = {}
 
 
 def _kernel(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load(name)
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        err = lib.llmq_cuda_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _fns[name] = fn
-        _fns[name + ".err"] = err
-    return fn
-
-
-def _check(name: str, code: int) -> None:
-    if code != 0:
-        msg = _fns[name + ".err"](code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+    return _build.function(name, *_SIGNATURES[name])
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -90,7 +74,7 @@ def decode_splits(
     blocks per SM, never more than the page map has key tiles of ``tile``
     keys. A function of shapes only, so every layer of a step launches the
     same grid."""
-    sms = _sm_count(device)
+    sms = _build.sm_count(device)
     want = -(-2 * sms // max(1, num_seqs * n_kv))
     return max(1, min(want, -(-max_ctx // tile), MAX_SPLITS))
 
@@ -108,12 +92,11 @@ def pages_per_chunk(page_size: int, head_dim: int, kv_itemsize: int, blocks_per_
     return max(1, min(MAX_PAGES_PER_CHUNK, budget // per_page))
 
 
-def _sm_count(device: torch.device) -> int:
-    key = ("sms", device.index)
-    n = _fns.get(key)
-    if n is None:
-        n = _fns[key] = torch.cuda.get_device_properties(device).multi_processor_count
-    return n
+def _check_dtypes(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:
+    _require(q.dtype in _DTYPES and k_pages.dtype in _KV_CODES
+             and v_pages.dtype == k_pages.dtype,
+             f"dtypes q={q.dtype} pools={k_pages.dtype}/{v_pages.dtype}; want q f32/bf16 and "
+             "pools f32/bf16/float8_e5m2")
 
 
 def _check_decode(
@@ -134,8 +117,7 @@ def _check_decode(
     _require(d == d_kv and d in HEAD_DIMS, f"head_dim {d} (pool {d_kv}); want one of {HEAD_DIMS}")
     _require(n_heads % n_kv == 0 and n_heads // n_kv <= MAX_GROUP,
              f"{n_heads} query heads over {n_kv} KV heads (group <= {MAX_GROUP})")
-    _require(q.dtype in _DTYPES and k_pages.dtype in _DTYPES and v_pages.dtype == k_pages.dtype,
-             f"dtypes q={q.dtype} pools={k_pages.dtype}/{v_pages.dtype}; want f32 or bf16")
+    _check_dtypes(q, k_pages, v_pages)
     _require(block_tables.dtype == torch.int32 and context_lens.dtype == torch.int32,
              "block_tables and context_lens must be int32")
     _require(block_tables.shape[0] == S and context_lens.shape == (S,), "batch mismatch")
@@ -174,12 +156,12 @@ def paged_decode_attention_cuda(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype],
         S, n_heads, n_kv, d, P, page_size, block_tables.shape[1], int(layer),
         _window(sliding_window), float(scale), _softcap(softcap), splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check("paged_decode", code)
+    _build.check("paged_decode", code)
     paged_decode_attention_cuda.launches += 1
     return out
 
@@ -224,7 +206,7 @@ def flash_prefill_attention_cuda(
         _window(sliding_window), float(scale), _softcap(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check("flash_prefill", code)
+    _build.check("flash_prefill", code)
     flash_prefill_attention_cuda.launches += 1
     return out
 
@@ -265,7 +247,7 @@ def _paged_decode_v2(
     # The grid at one page per chunk sets the blocks an SM must hold; the
     # chunk grows only as far as they all still fit.
     splits = decode_splits(S, n_kv, pps * page_size, q.device, tile=page_size)
-    blocks_per_sm = -(-S * n_kv * splits // _sm_count(q.device))
+    blocks_per_sm = -(-S * n_kv * splits // _build.sm_count(q.device))
     ppc = pages_per_chunk(page_size, d, k_pages.element_size(), blocks_per_sm)
     splits = decode_splits(S, n_kv, pps * page_size, q.device, tile=ppc * page_size)
     out = torch.empty_like(q)
@@ -278,12 +260,12 @@ def _paged_decode_v2(
         k_new.data_ptr() if fused else None, v_new.data_ptr() if fused else None,
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16), int(fused),
+        int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype], int(fused),
         S, n_heads, n_kv, d, P, page_size, pps, ppc, int(layer),
         _window(sliding_window), float(scale), _softcap(softcap), splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check("paged_decode_v2", code)
+    _build.check("paged_decode_v2", code)
     return out
 
 
@@ -364,8 +346,7 @@ def paged_prefill_attention_cuda(
     _require(v_pages.shape == k_pages.shape, "k_pages and v_pages differ in shape")
     _require(d == d_kv and d in HEAD_DIMS, f"head_dim {d} (pool {d_kv}); want one of {HEAD_DIMS}")
     _require(n_heads % n_kv == 0, f"{n_heads} query heads over {n_kv} KV heads")
-    _require(q.dtype in _DTYPES and k_pages.dtype in _DTYPES and v_pages.dtype == k_pages.dtype,
-             f"dtypes q={q.dtype} pools={k_pages.dtype}/{v_pages.dtype}; want f32 or bf16")
+    _check_dtypes(q, k_pages, v_pages)
     for t in (block_tables, chunk_start, num_valid):
         _require(t.dtype == torch.int32 and t.is_contiguous() and t.device == q.device,
                  "block_tables, chunk_start and num_valid must be contiguous int32 on q's device")
@@ -380,12 +361,12 @@ def paged_prefill_attention_cuda(
     code = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
         chunk_start.data_ptr(), num_valid.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype],
         B, C, n_heads, n_kv, d, P, page_size, block_tables.shape[1], int(layer),
         *q.stride()[:3], _window(sliding_window), float(scale), _softcap(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check("paged_prefill", code)
+    _build.check("paged_prefill", code)
     paged_prefill_attention_cuda.launches += 1
     return out
 

@@ -1,30 +1,36 @@
-"""Attention dispatch: the CUDA kernels for CUDA tensors, the plain
-PyTorch versions for CPU tensors.
+"""Kernel dispatch: the CUDA kernels for CUDA tensors, the plain PyTorch
+versions for CPU tensors.
 
 Port of ``llmq_tpu/ops/dispatch.py`` (``prefill_attention`` :67,
 ``chunked_prefill_attention`` :119, ``decode_kernel_plan`` :193,
-``decode_attention_fused_write`` :322, ``decode_attention`` :381). The
-model calls these functions, and this is the one place where a kernel or
-its plain version is chosen: by the device of the tensors and by nothing
-else (no fallback). A CUDA tensor goes to the wrapper in
-``ops/cuda_attention``, which launches its kernel or raises; a CPU tensor
-goes to the plain version in ``ops/attention``.
+``decode_attention_fused_write`` :322, ``decode_attention`` :381), plus
+the weight-only matmuls that ``llmq_tpu/models/quant.py::matmul`` sends
+to ``ops/pallas_matmul.py``. The model calls these functions, and this
+is the one place where a kernel or its plain version is chosen: by the
+device of the tensors and by nothing else (no fallback). A CUDA tensor
+goes to the wrapper in ``ops/cuda_attention`` or ``ops/cuda_matmul``,
+which launches its kernel or raises; a CPU tensor goes to the plain
+version in ``ops/attention`` or ``ops/matmul``.
 
 Which decode kernel runs on the card is ``LLMQ_DECODE_KERNEL`` (v1 = K1,
 v2 = K5, v3 = K4 with the fused KV write), read once by
 :func:`resolve_decode_kernel` when the model is built, as the JAX package
-resolves it once at trace time. Tensor parallelism (the JAX
+resolves it once at trace time. Whether a 2-D quantized weight goes
+through its kernel at all is ``LLMQ_INT8_MATMUL`` / ``LLMQ_INT4_MATMUL``
+(``pallas``, the JAX package's value), read once by
+:func:`resolve_quant_matmul`. Tensor parallelism (the JAX
 ``shard_map`` over heads) comes with ROADMAP M13.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import FrozenSet, Optional, Tuple
 
 import torch
 
 from llmq_tpu_torch.ops import attention as plain
+from llmq_tpu_torch.ops import matmul as plain_matmul
 from llmq_tpu_torch.ops.cuda_attention import (
     flash_prefill_attention_cuda,
     paged_decode_attention_cuda,
@@ -32,8 +38,11 @@ from llmq_tpu_torch.ops.cuda_attention import (
     paged_decode_attention_v3_cuda,
     paged_prefill_attention_cuda,
 )
+from llmq_tpu_torch.ops.cuda_matmul import int4_matmul_cuda, int8_matmul_cuda
 
 DECODE_KERNELS = ("v1", "v2", "v3")
+#: weight-only rung -> the variable that sends its products to the kernel
+QUANT_MATMUL_ENV = {"int8": "LLMQ_INT8_MATMUL", "int4": "LLMQ_INT4_MATMUL"}
 
 
 def prefill_attention(
@@ -152,3 +161,26 @@ def decode_attention(
         attend = paged_decode_attention_v2_cuda
     return attend(q, k_pages, v_pages, block_tables, context_lens, scale=scale, layer=layer,
                   sliding_window=sliding_window, softcap=softcap)
+
+
+def resolve_quant_matmul() -> FrozenSet[str]:
+    """The rungs ("int8", "int4") whose variable in :data:`QUANT_MATMUL_ENV`
+    is ``pallas``: their 2-D products go through K6 / K7 (on the card) or
+    the kernels' plain versions (on the CPU). Any other value leaves the
+    dequantize-then-matmul path, as in the JAX package."""
+    return frozenset(rung for rung, var in QUANT_MATMUL_ENV.items()
+                     if os.environ.get(var, "").lower() == "pallas")
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``(x[M, K] @ q[K, N]) * scale[N]``: K6 on the card."""
+    mm = int8_matmul_cuda if x.is_cuda else plain_matmul.int8_matmul
+    return mm(x.contiguous(), q, scale)
+
+
+def int4_matmul(
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor
+) -> torch.Tensor:
+    """``x[M, K] @ dequant(q, scale, zero)``: K7 on the card."""
+    mm = int4_matmul_cuda if x.is_cuda else plain_matmul.int4_matmul
+    return mm(x.contiguous(), q, scale, zero)

@@ -3,14 +3,21 @@
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card
 and skips without one (so on a CPU-only machine these count as skipped).
 On a GPU machine: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-Tolerances: 2e-5 in f32, 3e-2 in bf16, as for the Pallas kernels.
+Tolerances: 2e-5 in f32, 3e-2 in bf16, as for the Pallas kernels; the
+weight-only matmuls (K6, K7) in f32 within 1e-5 / 1e-4 (K6) and 1e-4
+(K7) of the f64 product, in bf16 within 2e-2 of the plain version, as
+``tests/test_pallas_matmul.py`` holds the TPU kernels.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from llmq_tpu_torch.models import quant as qm
+from llmq_tpu_torch.models.config import ModelConfig
+from llmq_tpu_torch.models.transformer import Transformer, init_params, make_kv_pages
 from llmq_tpu_torch.ops import attention as plain
+from llmq_tpu_torch.ops import matmul as plain_mm
 from llmq_tpu_torch.ops.cuda_attention import (
     flash_prefill_attention_cuda,
     paged_decode_attention_cuda,
@@ -18,6 +25,7 @@ from llmq_tpu_torch.ops.cuda_attention import (
     paged_decode_attention_v3_cuda,
     paged_prefill_attention_cuda,
 )
+from llmq_tpu_torch.ops.cuda_matmul import int4_matmul_cuda, int8_matmul_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -249,3 +257,182 @@ def test_paged_decode_v3_fused_write(cuda_device, dtype, n_heads, n_kv, d, windo
                                atol=TOL[dtype])
     assert (out[~live] == 0).all()
     assert torch.equal(kp[:, 1:], kp_ref[:, 1:]) and torch.equal(vp[:, 1:], vp_ref[:, 1:])
+
+
+# --- fp8 (float8_e5m2) pools in the pool-reading kernels ----------------------
+
+FP8 = torch.float8_e5m2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["v1", "v2", "chunk"])
+def test_kernels_read_fp8_pools_as_the_plain_versions(cuda_device, dtype, variant):
+    """K1, K5 and K3 over one e5m2 pool against the plain versions on the
+    same pool (each element widens exactly to the query dtype)."""
+    rng = np.random.default_rng(3)
+    S, n_heads, n_kv, d, page, pps, L = 4, 8, 2, 128, 16, 6, 2
+    q, kp, vp, bt = _decode_inputs(rng, cuda_device, dtype, S=S, n_heads=n_heads, n_kv=n_kv,
+                                   d=d, page=page, pps=pps, L=L)
+    kp, vp = kp.to(FP8), vp.to(FP8)
+    if variant == "chunk":
+        C, starts, valids = 40, [0, 9, 50, 0], [40, 40, 21, 0]
+        qc = _pool(rng, (S, C, n_heads, d), cuda_device, dtype)
+        positions = torch.full((S, C), -1, dtype=torch.int32)
+        for r, (s0, n) in enumerate(zip(starts, valids)):
+            positions[r, :n] = torch.arange(s0, s0 + n)
+        out = paged_prefill_attention_cuda(
+            qc, kp, vp, bt, torch.tensor(starts, dtype=torch.int32, device=cuda_device),
+            torch.tensor(valids, dtype=torch.int32, device=cuda_device), scale=d**-0.5,
+            layer=1, softcap=30.0)
+        ref = plain.paged_prefill_attention(qc, kp, vp, bt, positions.to(cuda_device),
+                                            scale=d**-0.5, layer=1, softcap=30.0)
+        for r, n in enumerate(valids):
+            torch.testing.assert_close(out[r, :n].float(), ref[r, :n].float(),
+                                       rtol=TOL[dtype], atol=TOL[dtype])
+        return
+    fn = paged_decode_attention_cuda if variant == "v1" else paged_decode_attention_v2_cuda
+    cl = torch.tensor([0, 5, 33, 96], dtype=torch.int32, device=cuda_device)
+    kw = dict(scale=d**-0.5, sliding_window=40, layer=1)
+    out = fn(q, kp, vp, bt, cl, **kw)
+    ref = plain.paged_decode_attention(q, kp, vp, bt, cl, **kw)
+    live = cl > 0
+    torch.testing.assert_close(out[live].float(), ref[live].float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert (out[~live] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_write_into_fp8_pool_rounds_like_the_plain_cast(cuda_device, dtype):
+    """K4 stores its new rows into an e5m2 pool bit for bit as
+    write_kv_pages does: round to nearest even, +-inf past the range (one
+    row runs 50,000-70,000, across 57,344 and the 61,440 midpoint)."""
+    rng = np.random.default_rng(4)
+    S, n_heads, n_kv, d, page, pps, L = 4, 8, 2, 64, 8, 4, 2
+    q, kp, vp, bt = _decode_inputs(rng, cuda_device, dtype, S=S, n_heads=n_heads, n_kv=n_kv,
+                                   d=d, page=page, pps=pps, L=L)
+    kp, vp = kp.to(FP8), vp.to(FP8)
+    k_new = _pool(rng, (S, n_kv, d), cuda_device, dtype)
+    v_new = _pool(rng, (S, n_kv, d), cuda_device, dtype)
+    big = torch.linspace(5.0e4, 7.0e4, n_kv * d, device=cuda_device).reshape(n_kv, d)
+    k_new[2], v_new[2] = big.to(dtype), (-big).to(dtype)
+    cl = torch.tensor([3, 0, 17, 30], dtype=torch.int32, device=cuda_device)
+    kw = dict(scale=d**-0.5, layer=1)
+    kp_ref, vp_ref = kp.clone(), vp.clone()
+    ref, _, _ = plain.paged_decode_attention_fused_write(q, kp_ref, vp_ref, k_new, v_new, bt,
+                                                         cl, **kw)
+    out, _, _ = paged_decode_attention_v3_cuda(q, kp, vp, k_new, v_new, bt, cl, **kw)
+    torch.cuda.synchronize()
+    as_bits = (lambda t: t[:, 1:].contiguous().view(torch.uint8))  # noqa: E731
+    assert torch.equal(as_bits(kp), as_bits(kp_ref)) and torch.equal(as_bits(vp), as_bits(vp_ref))
+    stored = kp.float()
+    assert torch.isinf(stored).any() and (stored == 57344.0).any()
+    rows = torch.tensor([True, False, False, True], device=cuda_device)  # row 2 meets inf
+    torch.testing.assert_close(out[rows].float(), ref[rows].float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+# --- K6 and K7: weight-only int8 / int4 matmuls -------------------------------
+
+
+def _quant_case(kind, M, K, N, dtype, device, group=128, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device=device) / K**0.5
+    x = torch.randn((M, K), generator=g, device=device).to(dtype)
+    if kind == "int8":
+        qt = qm.quantize_array(w.to(dtype), axis=-2, scale_dtype=dtype)
+        return x, qt, (qt["q"], qt["scale"])
+    qt = qm.quantize_array_int4(w.to(dtype), group_size=group, scale_dtype=dtype)
+    return x, qt, (qt["q"], qt["scale"], qt["zero"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,M,K,N,group", [
+    ("int8", 8, 32, 48, 0), ("int8", 5, 33, 47, 0), ("int8", 256, 512, 520, 0),
+    ("int8", 16, 2048, 256, 0), ("int8", 70, 1000, 100, 0),
+    ("int4", 8, 32, 48, 16), ("int4", 16, 128, 64, 128), ("int4", 64, 256, 136, 32),
+    ("int4", 16, 2048, 256, 128), ("int4", 33, 96, 30, 32),
+])
+def test_quant_matmul_kernels_match_f64_and_plain(cuda_device, dtype, kind, M, K, N, group):
+    """Ragged M, N and K (no tile divides them), N not a multiple of the
+    vector width, decode-sized M with split-K, groups below the tile."""
+    x, qt, parts = _quant_case(kind, M, K, N, dtype, cuda_device, group=group or 128, seed=M)
+    fn, plain_fn = ((int8_matmul_cuda, plain_mm.int8_matmul) if kind == "int8"
+                    else (int4_matmul_cuda, plain_mm.int4_matmul))
+    before = fn.launches
+    out = fn(x, *parts)
+    ref = plain_fn(x, *parts)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and out.dtype == dtype and out.shape == (M, N)
+    if dtype == torch.float32:
+        exact = (x.double() @ qt["q"].double()) * qt["scale"].double() if kind == "int8" \
+            else x.double() @ qm.dequantize(qt, torch.float32).double()
+        rtol, atol = (1e-5, 1e-4) if kind == "int8" else (1e-4, 1e-4)
+        torch.testing.assert_close(out.double(), exact, rtol=rtol, atol=atol)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_quant_matmul_kernels_read_layer_slices(cuda_device, kind):
+    """A layer's weight as a view into the stacked [L, K, N] tensor, at a
+    storage offset that breaks the vector loads' alignment."""
+    L, M, K, N = 3, 16, 64, 36
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    w = torch.randn((L, K, N), generator=g, device=cuda_device) / K**0.5
+    qt = (qm.quantize_array(w, axis=-2) if kind == "int8"
+          else qm.quantize_array_int4(w, group_size=32))
+    x = torch.randn((M, K), generator=g, device=cuda_device)
+    for li in range(L):
+        layer = {k: t[li] for k, t in qt.items()}
+        out = qm.matmul(x, layer, frozenset({kind}))
+        ref = plain_mm.int8_matmul(x, layer["q"], layer["scale"]) if kind == "int8" \
+            else plain_mm.int4_matmul(x, layer["q"], layer["scale"], layer["zero"])
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_quant_matmul_wrappers_raise_on_bad_inputs(cuda_device):
+    x = torch.zeros((4, 64), device=cuda_device)
+    q8 = torch.zeros((64, 32), dtype=torch.int8, device=cuda_device)
+    s = torch.ones(32, device=cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        int8_matmul_cuda(x, q8.float(), s)
+    with pytest.raises(ValueError, match="x"):
+        int8_matmul_cuda(x[:, :48].contiguous(), q8, s)
+    q4 = torch.zeros((32, 32), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="G"):
+        int4_matmul_cuda(x, q4, torch.ones((3, 32), device=cuda_device),
+                         torch.ones((3, 32), device=cuda_device))
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int4"])
+def test_quantized_model_on_card_matches_cpu(cuda_device, quantize, monkeypatch):
+    """A tiny quantized model, f32, both switches on: prefill and decode
+    logits on the card (K6 / K7, K2, K1) within 1e-4 of the CPU's (the
+    kernels' plain versions), every projection through its kernel."""
+    for var in ("LLMQ_INT8_MATMUL", "LLMQ_INT4_MATMUL"):
+        monkeypatch.setenv(var, "pallas")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig.tiny(vocab_size=128, hidden_size=256, num_layers=2, num_heads=4,
+                           num_kv_heads=2, intermediate_size=320, model_type="llama")
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32,
+                         quantize=quantize)
+    tokens = torch.randint(1, 128, (2, 16), generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    lengths = torch.tensor([16, 9], dtype=torch.int32)
+    bt = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
+    logits = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = Transformer(cfg, params).to(dev)
+        kp, vp = make_kv_pages(cfg, 10, 8, torch.float32, device=dev)
+        args = [t.to(dev) for t in (tokens, lengths, bt)]
+        before = (int8_matmul_cuda.launches, int4_matmul_cuda.launches)
+        pre = model.prefill(args[0], args[1], kp, vp, args[2])
+        dec = model.decode(pre.argmax(-1).to(torch.int32), args[1], kp, vp, args[2],
+                           torch.ones(2, dtype=torch.bool, device=dev))
+        launched = (int8_matmul_cuda.launches - before[0], int4_matmul_cuda.launches - before[1])
+        logits[dev.type] = (pre.cpu(), dec.cpu(), launched)
+    layers = 7 * cfg.num_layers * 2  # 7 projections per layer, prefill + decode
+    want = (layers + 2, 0) if quantize == "int8" else (2, layers)  # the head is int8 (K6)
+    assert logits["cuda"][2] == want and logits["cpu"][2] == (0, 0)
+    for i in (0, 1):
+        torch.testing.assert_close(logits["cuda"][i], logits["cpu"][i], rtol=1e-4, atol=1e-4)

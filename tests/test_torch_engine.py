@@ -3,8 +3,9 @@
 Both engines get one parameter tree (made with numpy in the layout of JAX
 ``init_params``, carried to torch by ``params_from_numpy``) and the same
 engine settings, on ``ModelConfig.tiny()`` and on the flagship-tiny qwen2 config of
-``__graft_entry__``. The request mix covers batching over more requests
-than slots, stop token ids, a stop string, ``min_tokens``,
+``__graft_entry__``, and on the tiny config with the JAX package's int8
+and int4 trees and with an fp8 KV pool. The request mix covers batching
+over more requests than slots, stop token ids, a stop string, ``min_tokens``,
 ``max_model_len`` truncation, and a pool tight enough to force
 recompute preemption. Each JAX engine costs seconds of compiles on one
 core, so the tests build few. The chunked-prefill tests add templated
@@ -29,6 +30,7 @@ from llmq_tpu_torch.engine import engine as tengine
 from llmq_tpu_torch.engine.sampling import SamplingParams as TParams
 from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
 from llmq_tpu_torch.models.config import ModelConfig as TConfig
+from llmq_tpu_torch.models import quant as tq
 from llmq_tpu_torch.models.convert import params_from_numpy
 from llmq_tpu_torch.models.transformer import init_params
 
@@ -40,11 +42,18 @@ ENGINE = dict(max_num_seqs=4, max_model_len=64, page_size=8, num_pages=40,
               kv_dtype="f32", min_prefill_bucket=32)
 
 
-def _cores(jcfg: JConfig, seed: int = 0, **overrides):
+def _cores(jcfg: JConfig, seed: int = 0, bits=None, **overrides):
+    """A JAX and a port engine over one tree; ``bits`` quantizes it first
+    (the port's ``quantize_params``, whose trees equal the JAX package's
+    bit for bit: ``tests/test_torch_quant.py``)."""
     tree = numpy_params(jcfg, seed)
+    if bits:
+        tree = jax.tree.map(lambda t: t.numpy(), tq.quantize_params(params_from_numpy(tree),
+                                                                     bits=bits))
+    jparams = jax.tree.map(jnp.asarray, tree)
     settings = {**ENGINE, **overrides}
     jcore = jengine.EngineCore(
-        jcfg, jax.tree.map(jnp.asarray, tree), JByteTokenizer(),
+        jcfg, jparams, JByteTokenizer(),
         mesh=make_mesh(tensor_parallel=1),
         engine_config=jengine.EngineConfig(**settings),
     )
@@ -153,6 +162,20 @@ def test_chunked_prefill_and_prefix_cache_match_jax_engine(chunk, prefix):
     assert cores[1].stats()["prefill_tokens"] == cores[0].stats()["prefill_tokens"]
 
 
+@pytest.mark.parametrize("mode", ["int8", "int4", "fp8"])
+def test_quantized_weights_and_fp8_pool_match_jax_engine(monkeypatch, mode):
+    """Greedy tokens equal the JAX engine's with int8 / int4 weights (one
+    quantized tree on both sides) and with a float8_e5m2 KV pool, f32
+    compute, the kernel switches off on both sides."""
+    for var in ("LLMQ_INT8_MATMUL", "LLMQ_INT4_MATMUL"):
+        monkeypatch.delenv(var, raising=False)
+    overrides = {"kv_dtype": "fp8"} if mode == "fp8" else {}
+    cores = _cores(JConfig.tiny(), bits={"int8": 8, "int4": 4}.get(mode), **overrides)
+    _both(cores, MIX[:4])
+    want = "float8_e5m2" if mode == "fp8" else "float32"
+    assert cores[1].stats()["kv_dtype"] == want == str(cores[0].k_pages.dtype)
+
+
 def test_engine_config_fields_and_unported_options():
     assert [f.name for f in dataclasses.fields(tengine.EngineConfig)] == [
         f.name for f in dataclasses.fields(jengine.EngineConfig)
@@ -172,8 +195,10 @@ def test_engine_config_fields_and_unported_options():
         with pytest.raises(NotImplementedError, match=item):
             tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
                                engine_config=tengine.EngineConfig(**{field: value}))
-    with pytest.raises(NotImplementedError, match="M9"):
-        tengine.EngineConfig(kv_dtype="fp8")
+    for name in ("fp8", "fp8_e5m2", "float8_e5m2"):  # JAX's name table (M9 is ported)
+        assert tengine.EngineConfig(kv_dtype=name).kv_dtype == torch.float8_e5m2
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tengine.EngineConfig(kv_dtype="int4")
     with pytest.raises(ValueError, match="prefill_chunk_size"):
         tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
                            engine_config=tengine.EngineConfig(enable_prefix_caching=True))

@@ -192,3 +192,32 @@ def test_moe_config_raises():
                        model_type="qwen2_moe")
     with pytest.raises(NotImplementedError, match="M14"):
         init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_params_from_numpy_carries_quantized_and_fp8_leaves():
+    """int8 and packed uint8 weights, bf16 scales and an e5m2 array (an
+    fp8 KV page) keep their bits, past e5m2's range included."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(2)
+    tree = {"layers": {"q_proj": {
+        "q": rng.integers(-127, 128, size=(2, 8, 6)).astype(np.int8),
+        "scale": rng.standard_normal((2, 6)).astype(ml_dtypes.bfloat16)}},
+        "packed": {"q": rng.integers(0, 256, size=(4, 6)).astype(np.uint8),
+                   "scale": rng.standard_normal((1, 6)).astype(np.float32),
+                   "zero": np.full((1, 6), 3.0, np.float32)},
+        "page": np.asarray([0.1, -2.5, 57344.0, 6.1e4, 1e5, -1e5],
+                           np.float32).astype(ml_dtypes.float8_e5m2)}
+    ours = params_from_numpy(tree)
+    expect = {"int8": torch.int8, "uint8": torch.uint8, "bfloat16": torch.bfloat16,
+              "float32": torch.float32, "float8_e5m2": torch.float8_e5m2}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        t = ours
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == expect[leaf.dtype.name] and tuple(t.shape) == leaf.shape
+        width = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.uint16),
+                 4: (torch.int32, np.uint32)}[leaf.dtype.itemsize]
+        np.testing.assert_array_equal(t.view(width[0]).numpy().view(width[1]),
+                                      leaf.view(width[1]))
+    assert torch.isinf(ours["page"].float()).sum() == 2

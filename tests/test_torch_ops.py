@@ -15,6 +15,7 @@ import torch
 from llmq_tpu.ops import attention as jref
 from llmq_tpu.ops import pallas_attention as pk
 from llmq_tpu.ops.dispatch import _WINDOW_DISABLED
+from llmq_tpu_torch.models.convert import tensor_from_numpy
 from llmq_tpu_torch.ops import attention as tops
 from llmq_tpu_torch.ops import dispatch as tdispatch
 from llmq_tpu_torch.ops.cuda_attention import (
@@ -238,3 +239,121 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_prefill_attention_cuda(qp, kq, vq, torch.full((2,), 16, dtype=torch.int32),
                                      scale=0.25)
     assert (paged_decode_attention_cuda.launches, flash_prefill_attention_cuda.launches) == before
+
+
+# --- fp8 (float8_e5m2) KV pools: the tests/test_kv_fp8.py case grid ----------
+
+FP8 = jnp.float8_e5m2
+
+
+def _fp8_pool(seed, shape):
+    """A pool made in f32 and cast to e5m2 once (numpy, ml_dtypes): both
+    sides get the same bits."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * 0.3).astype(np.float32).astype(FP8)
+
+
+def _t(a) -> torch.Tensor:
+    return tensor_from_numpy(np.asarray(a))
+
+
+def _pool_bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.uint8).numpy()
+
+
+@pytest.mark.parametrize("case", ["decode", "fused_write", "chunk_f32", "chunk_bf16"])
+def test_fp8_pool_attention_matches_jax(case):
+    """The plain ops read an e5m2 pool as the JAX references do (upcast to
+    the query dtype on load): 2e-5 in f32, 3e-2 with a bf16 query; the
+    fused write stores the new rows bit for bit as the JAX write does."""
+    n_heads, n_kv, d, page, pps, L = 4, 2, 16, 8, 3, 2
+    rng = np.random.default_rng(len(case))
+    if case in ("decode", "fused_write"):
+        ctx = [1, 9, 24] if case == "decode" else [1, 9, 0]
+        S = len(ctx)
+        kp = _fp8_pool(1, (L, 1 + S * pps, page, n_kv, d))
+        vp = _fp8_pool(2, kp.shape)
+        bt = np.arange(1, 1 + S * pps, dtype=np.int32).reshape(S, pps)
+        q = (rng.standard_normal((S, n_heads, d)) * 0.3).astype(np.float32)
+        cl = np.asarray(ctx, np.int32)
+        li, kw = 1, dict(scale=d**-0.5)
+        if case == "decode":
+            ours = tops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(cl),
+                                               layer=li, **kw)
+            ref = jref.paged_decode_attention(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                                              jnp.asarray(bt), jnp.asarray(cl),
+                                              layer=jnp.asarray(li, jnp.int32), **kw)
+            np.testing.assert_allclose(ours.numpy(), _np(ref), rtol=2e-5, atol=2e-5)
+            return
+        kn = (rng.standard_normal((S, n_kv, d)) * 0.3).astype(np.float32)
+        vn = (rng.standard_normal((S, n_kv, d)) * 0.3).astype(np.float32)
+        tk, tv = _t(kp), _t(vp)
+        ours, _, _ = tops.paged_decode_attention_fused_write(
+            _t(q), tk, tv, _t(kn), _t(vn), _t(bt), _t(cl), layer=li, **kw)
+        positions = jnp.where(jnp.asarray(cl) > 0, jnp.asarray(cl) - 1, -1)[:, None]
+        jk, jv = jref.write_kv_pages(jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(kn)[:, None],
+                                     jnp.asarray(vn)[:, None], jnp.asarray(bt), positions,
+                                     layer=jnp.asarray(li, jnp.int32))
+        ref = jref.paged_decode_attention(jnp.asarray(q), jk, jv, jnp.asarray(bt),
+                                          jnp.asarray(cl), layer=jnp.asarray(li, jnp.int32),
+                                          **kw)
+        live = cl > 0
+        np.testing.assert_allclose(ours.numpy()[live], _np(ref)[live], rtol=2e-5, atol=2e-5)
+        np.testing.assert_array_equal(_pool_bits(tk)[:, 1:], np.asarray(jk).view(np.uint8)[:, 1:])
+        np.testing.assert_array_equal(_pool_bits(tv)[:, 1:], np.asarray(jv).view(np.uint8)[:, 1:])
+        return
+    B, C = 2, 8
+    kp = _fp8_pool(3, (1 + B * pps, page, n_kv, d))
+    vp = _fp8_pool(4, kp.shape)
+    bt = np.arange(1, 1 + B * pps, dtype=np.int32).reshape(B, pps)
+    q = (rng.standard_normal((B, C, n_heads, d)) * 0.3).astype(np.float32)
+    pos = np.asarray([[4, 5, 6, 7, 8, 9, 10, 11], [0, 1, 2, 3, 4, 5, -1, -1]], np.int32)
+    bf16 = case == "chunk_bf16"
+    tq_ = _t(q).to(torch.bfloat16) if bf16 else _t(q)
+    jq_ = jnp.asarray(q).astype(jnp.bfloat16) if bf16 else jnp.asarray(q)
+    ours = tops.paged_prefill_attention(tq_, _t(kp), _t(vp), _t(bt), _t(pos), scale=d**-0.5)
+    assert ours.dtype == tq_.dtype
+    ref = jref.paged_prefill_attention(jq_, jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+                                       jnp.asarray(pos), scale=d**-0.5)
+    tol = 3e-2 if bf16 else 2e-5
+    valid = pos >= 0
+    np.testing.assert_allclose(ours.float().numpy()[valid], _np(ref)[valid], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("src", ["f32", "bf16"])
+def test_fp8_pool_writes_are_bit_exact_with_jax(src):
+    """Both write paths cast to e5m2 as JAX does, round to nearest even
+    and overflow to +-inf included (one row of each write is scaled past
+    e5m2's largest finite value, 57,344)."""
+    S, n_kv, d, page, pps, L = 2, 2, 16, 8, 2, 2
+    P = 1 + S * pps
+    bt = np.arange(1, P, dtype=np.int32).reshape(S, pps)
+    rng = np.random.default_rng(11)
+    big = np.linspace(5.0e4, 7.0e4, n_kv * d, dtype=np.float32).reshape(n_kv, d)
+
+    def rows(shape):
+        a = rng.standard_normal(shape).astype(np.float32)
+        a.reshape(-1, n_kv, d)[1] = big  # one row past the range
+        return a
+
+    cast_t = (lambda a: _t(a).to(torch.bfloat16)) if src == "bf16" else _t
+    cast_j = (lambda a: jnp.asarray(a).astype(jnp.bfloat16)) if src == "bf16" else jnp.asarray
+    zero = np.zeros((L, P, page, n_kv, d), np.float32).astype(FP8)
+    li = jnp.asarray(1, jnp.int32)
+    kn, vn = rows((S, 1, n_kv, d)), rows((S, 1, n_kv, d))
+    positions = np.asarray([[3], [7]], np.int32)
+    tk, tv = _t(zero), _t(zero)
+    tops.write_kv_pages(tk, tv, cast_t(kn), cast_t(vn), _t(bt), _t(positions), 1)
+    jk, jv = jref.write_kv_pages(jnp.asarray(zero), jnp.asarray(zero), cast_j(kn), cast_j(vn),
+                                 jnp.asarray(bt), jnp.asarray(positions), li)
+    assert tk.dtype == torch.float8_e5m2 and jk.dtype == FP8
+    np.testing.assert_array_equal(_pool_bits(tk)[:, 1:], np.asarray(jk).view(np.uint8)[:, 1:])
+    np.testing.assert_array_equal(_pool_bits(tv)[:, 1:], np.asarray(jv).view(np.uint8)[:, 1:])
+    assert torch.isinf(tk.float()).any() and (tk.float().abs() == 57344.0).any()
+    kb, vb = rows((S, page * pps, n_kv, d)), rows((S, page * pps, n_kv, d))
+    tk, tv = _t(zero), _t(zero)
+    tops.write_prompt_kv_pages(tk, tv, cast_t(kb), cast_t(vb), _t(bt), 1)
+    jk, jv = jref.write_prompt_kv_pages(jnp.asarray(zero), jnp.asarray(zero), cast_j(kb),
+                                        cast_j(vb), jnp.asarray(bt), li)
+    np.testing.assert_array_equal(_pool_bits(tk)[:, 1:], np.asarray(jk).view(np.uint8)[:, 1:])
+    np.testing.assert_array_equal(_pool_bits(tv)[:, 1:], np.asarray(jv).view(np.uint8)[:, 1:])

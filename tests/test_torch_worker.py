@@ -10,6 +10,7 @@ import asyncio
 import json
 
 import pytest
+import torch
 
 from llmq_tpu_torch.broker.base import make_broker
 from llmq_tpu_torch.broker.memory import reset_namespace
@@ -121,3 +122,38 @@ def test_worker_serves_templated_jobs_with_chunked_prefix_cache():
     assert all(r["usage"]["completion_tokens"] == 4 for r in results)
     stats = worker.engine.core.stats()
     assert stats["prefix_cache_hit_pages"] > 0 and stats["decode_kernel"] == "plain"
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [("int8", None), ("int4", "fp8")])
+def test_worker_serves_quantized_weights(monkeypatch, dtype, kv_dtype):
+    """``dtype="int8"|"int4"``: bf16 compute over weight-only quantized
+    weights, as the JAX worker's ``--dtype``; the pool follows the compute
+    dtype unless ``kv_dtype`` (or ``LLMQ_KV_DTYPE``) names one. With the
+    kernel switches on, the CPU runs the kernels' plain versions."""
+    from llmq_tpu_torch.cli.worker import resolve_pool_dtype
+    from llmq_tpu_torch.models import quant as qm
+
+    monkeypatch.delenv("LLMQ_KV_DTYPE", raising=False)
+    assert resolve_pool_dtype("float32") == "float32"
+    assert resolve_pool_dtype(dtype) == "bfloat16" and resolve_pool_dtype(dtype, "fp8") == "fp8"
+    monkeypatch.setenv("LLMQ_KV_DTYPE", "f32")
+    assert resolve_pool_dtype(dtype) == "f32"
+    monkeypatch.delenv("LLMQ_KV_DTYPE")
+    monkeypatch.setenv("LLMQ_INT8_MATMUL", "pallas")
+    monkeypatch.setenv("LLMQ_INT4_MATMUL", "pallas")
+    url = f"memory://torch-worker-{dtype}"
+    reset_namespace(url.split("://")[1])
+    jobs = [Job(id=f"{dtype}{i}", prompt=f"quantized job {i}", temperature=0.0, max_tokens=3,
+                ignore_eos=True) for i in range(2)]
+    asyncio.run(_submit([j.model_dump_json().encode() for j in jobs], url=url))
+    worker = run_torch_worker("preset://tiny", QUEUE, broker_url=url, max_jobs=2,
+                              **{**ENGINE, "dtype": dtype, "kv_dtype": kv_dtype})
+    results = [json.loads(b) for b in asyncio.run(_drain(QUEUE + ".results", url=url))]
+    assert sorted(r["id"] for r in results) == [j.id for j in jobs]
+    assert all(r["usage"]["completion_tokens"] == 3 for r in results)
+    core = worker.engine.core
+    assert core.stats()["kv_dtype"] == ("float8_e5m2" if kv_dtype else "bfloat16")
+    w = core.model.layer_params(0)["q_proj"]
+    assert qm.is_int4(w) == (dtype == "int4") and w["scale"].dtype == torch.bfloat16
+    assert core.model.top_params()["embed"]["q"].dtype == torch.int8
+    assert core.model.quant_kernels == frozenset({"int8", "int4"})

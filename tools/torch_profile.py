@@ -3,6 +3,7 @@
 
     python3 tools/torch_profile.py [--preset qwen2.5-3b] [--rows 16] [--steps 10]
     python3 tools/torch_profile.py --prefix [--decode-kernel v3]
+    python3 tools/torch_profile.py --dtype int8 | --dtype int4 --preset llama3.1-8b --kv-dtype fp8
 
 Builds the port's engine on ``cuda`` (random bf16 weights from a seeded
 generator), admits ``--rows`` greedy requests, runs a few decode steps to
@@ -19,6 +20,10 @@ tails (as ``chip_smoke.py``'s prefix-cache phase), and a second JSON line
 profiles one chunk dispatch of 4 x 256 positions at context 1,024
 (``chiprun_out/torch_profile_chunk.txt``). ``--decode-kernel`` sets
 ``LLMQ_DECODE_KERNEL`` for the engine (v1 = K1, v2 = K5, v3 = K4).
+``--dtype int8|int4`` serves weight-only quantized weights with bf16
+compute; unless ``LLMQ_INT8_MATMUL`` / ``LLMQ_INT4_MATMUL`` are set in the
+environment, the tool sets both to ``pallas``, so the projections run
+through K6 / K7. ``--kv-dtype fp8`` stores the KV pool as float8_e5m2.
 """
 
 from __future__ import annotations
@@ -47,9 +52,14 @@ def main() -> int:
     ap.add_argument("--prefix", action="store_true",
                     help="chunked prefill + prefix cache, templated ~1,124-token prompts")
     ap.add_argument("--decode-kernel", choices=("v1", "v2", "v3"), default=None)
+    ap.add_argument("--dtype", choices=("bfloat16", "int8", "int4"), default="bfloat16")
+    ap.add_argument("--kv-dtype", choices=("bf16", "fp8"), default=None)
     args = ap.parse_args()
     if args.decode_kernel:
         os.environ["LLMQ_DECODE_KERNEL"] = args.decode_kernel
+    if args.dtype != "bfloat16":
+        for var in ("LLMQ_INT8_MATMUL", "LLMQ_INT4_MATMUL"):
+            os.environ.setdefault(var, "pallas")
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -58,7 +68,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     chunk = 256 if args.prefix else None
-    engine = build_engine(f"preset://{args.preset}", device="cuda", dtype="bfloat16",
+    engine = build_engine(f"preset://{args.preset}", device="cuda", dtype=args.dtype,
+                          kv_dtype=args.kv_dtype,
                           max_num_seqs=args.rows, max_model_len=2048 if args.prefix else 512,
                           prefill_chunk_size=chunk, enable_prefix_caching=args.prefix)
     engine.shutdown()  # drive the core directly, on this thread
@@ -124,6 +135,8 @@ def report(what, prof, wall, steps, smi, args, core, table_name) -> None:
     print(json.dumps(dict(
         tool="torch_profile", what=what, card=smi, preset=args.preset, rows=args.rows,
         steps=steps, prefix=args.prefix, decode_kernel=core.stats()["decode_kernel"],
+        dtype=args.dtype, kv_dtype=core.stats()["kv_dtype"],
+        quant_kernels=sorted(core.model.quant_kernels),
         wall_ms_per_step=wall * 1e3 / steps,
         device_busy_ms_per_step=busy_us / 1e3 / steps,
         device_idle_share=max(0.0, 1 - busy_us / 1e6 / wall),
