@@ -12,7 +12,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    inputs, in f32 (tolerance 2e-5) and bf16 (3e-2), at the main paths'
    shapes (qwen2.5-3b) and at gemma2-2b shapes (head_dim 256, softcap 50,
    window 64): K1 paged decode, K2 flash prefill, K3 chunked prefill
-   (chunks of 256 at contexts 0 / 256 / 1040, a row with no valid query),
+   (chunks of 256 at contexts 0 / 256 / 1040, a row with no valid query;
+   K2 and K3 run bf16 on their tensor-core route and f32 on their exact
+   route, and each check asserts the route its launches took),
    K5 chunked decode and K4 fused-write decode (whose pools must equal
    ``write_kv_pages`` + the plain decode bit for bit on pages >= 1). The
    decode kernels, whose math is f32 as on the TPU, are also held within
@@ -34,19 +36,21 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    jobs of qwen2.5-3b (36 layers, random weights from a seeded
    generator) over ``memory://``, 128 tokens each. Every kernel launch
    counter is set to 0 just before and read just after: K1 must launch 36
-   times per decode step and K2 36 times per prefill dispatch.
+   times per decode step and K2 36 times per prefill dispatch, every K2
+   launch on the tensor-core route.
 4. The prefix-cache path at full width: the same model with
    ``LLMQ_DECODE_KERNEL=v3``, ``prefill_chunk_size=256`` and
    ``enable_prefix_caching=True`` serves 16 greedy jobs sharing a
    ~1,024-token template with distinct tails, 64 tokens each. Counters as
-   above: K3 launches 36 times per chunk dispatch, K4 36 times per decode
-   step, K1, K2 and K5 never; the prefix cache must hit.
+   above: K3 launches 36 times per chunk dispatch, all on the tensor-core
+   route, K4 36 times per decode step, K1, K2 and K5 never; the prefix
+   cache must hit.
 5. Quantized weights at full width, ``LLMQ_INT8_MATMUL=pallas
    LLMQ_INT4_MATMUL=pallas``: phase 3's workload served by qwen2.5-3b
    ``dtype="int8"`` (K6 launches 7 x 36 per dispatch) and by llama3.1-8b
    ``dtype="int4"`` with ``kv_dtype="fp8"`` (K7 7 x 32 per dispatch, K6
-   once per dispatch for the untied int8 head, K1 and K2 over the e5m2
-   pool), with step rates.
+   once per dispatch for the untied int8 head, K1 over the e5m2 pool),
+   with step rates; K2 on the tensor-core route in both.
 6. f32 parity, card against CPU, with TF32 off: the qwen2.5-3b widths at
    2 layers with the same numpy-made weights. The default path (bucketed
    prefill + K1) with f32 weights, with int8 and int4 weights (through K6
@@ -57,7 +61,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    request at temperature 0.8 through the threefry sampler) and
    prefix-cache counters; K5 is counted on the v2 run, the path it
    carries.
-7. ``{"kernels": [...]}``: one record per ported kernel.
+7. ``{"kernels": [...]}``: one record per ported kernel; K2's and K3's
+   carry the tensor-core route's bf16 time as ``ms`` and the exact
+   route's f32 time as ``exact_f32_ms``.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -322,7 +328,7 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
     given absolute starts, with num_valid valid queries each; the pools
     in ``kv_dtype`` (default: ``dtype``)."""
     from llmq_tpu_torch.ops import attention as plain
-    from llmq_tpu_torch.ops.cuda_attention import paged_prefill_attention_cuda
+    from llmq_tpu_torch.ops.cuda_attention import paged_prefill_attention_cuda, prefill_route
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -343,9 +349,12 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
     layer = L // 2
     scale = d ** -0.5
     kw = dict(scale=scale, sliding_window=window, softcap=softcap)
+    route = prefill_route(dtype, kv_dtype)
+    before = _route_counts(paged_prefill_attention_cuda)
     out = paged_prefill_attention_cuda(q, kp, vp, bt_t, start_t, nv_t, layer=layer, **kw)
     ref = plain.paged_prefill_attention(q, kp, vp, bt_t, pos_t, layer=layer, **kw)
     torch.cuda.synchronize()
+    route_ok = _route_counts(paged_prefill_attention_cuda)[route] == before[route] + 1
     # Query rows past num_valid are padding (zeros from the kernel, an
     # average from the plain version, never read): compare valid rows.
     err = max((out[b, :n].float() - ref[b, :n].float()).abs().max().item()
@@ -404,7 +413,7 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
     b_ms, b_by = bound(nbytes, ops, dtype)
     rec = dict(
         phase="kernel_check", kernel="paged_prefill", case=label, dtype=str(dtype)[6:],
-        kv_dtype=str(kv_dtype)[6:],
+        kv_dtype=str(kv_dtype)[6:], route=route, route_as_expected=route_ok,
         shape=dict(B=B, C=C, H=H, n_kv=n_kv, d=d, L=L, page=page, starts=list(starts),
                    valids=list(valids), window=window, softcap=softcap, layer=layer),
         max_abs_err=err, tolerance=TOLERANCE[dtype], padding_rows_zero=pad_zero,
@@ -412,15 +421,15 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
         bound_ms=b_ms, bound_by=b_by, timing="torch.profiler device time per call",
     )
     emit(rec)
-    if not (err <= TOLERANCE[dtype]) or not pad_zero:
+    if not (err <= TOLERANCE[dtype]) or not pad_zero or not route_ok:
         raise SystemExit(f"paged_prefill {label} {dtype}/{kv_dtype}: error {err}, "
-                         f"padding zero {pad_zero}")
+                         f"padding zero {pad_zero}, {route} route launched {route_ok}")
     return rec
 
 
 def check_prefill(label, *, B, T, H, n_kv, d, lengths, dtype, softcap, window, iters, seed):
     from llmq_tpu_torch.ops import attention as plain
-    from llmq_tpu_torch.ops.cuda_attention import flash_prefill_attention_cuda
+    from llmq_tpu_torch.ops.cuda_attention import flash_prefill_attention_cuda, prefill_route
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -430,13 +439,17 @@ def check_prefill(label, *, B, T, H, n_kv, d, lengths, dtype, softcap, window, i
     len_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
     scale = d ** -0.5
     kw = dict(scale=scale, sliding_window=window, softcap=softcap)
+    route = prefill_route(dtype, dtype)
+    before = _route_counts(flash_prefill_attention_cuda)
     out = flash_prefill_attention_cuda(q, k, v, len_t, **kw)
     ref = plain.full_prefill_attention(q, k, v, lengths=len_t, **kw)
     torch.cuda.synchronize()
-    # Rows past a row's length are padding (never read): compare valid rows.
+    route_ok = _route_counts(flash_prefill_attention_cuda)[route] == before[route] + 1
+    # Rows past a row's length are padding (zeros, never read): compare valid rows.
     err = max((out[b, :n].float() - ref[b, :n].float()).abs().max().item()
               for b, n in enumerate(lengths) if n)
     finite = bool(torch.isfinite(out.float()).all().item())
+    pad_zero = all(bool((out[b, n:] == 0).all()) for b, n in enumerate(lengths))
     def kernel(i):
         return flash_prefill_attention_cuda(q, k, v, len_t, **kw)
 
@@ -462,15 +475,17 @@ def check_prefill(label, *, B, T, H, n_kv, d, lengths, dtype, softcap, window, i
     b_ms, b_by = bound(nbytes, ops, dtype)
     rec = dict(
         phase="kernel_check", kernel="flash_prefill", case=label, dtype=str(dtype)[6:],
+        route=route, route_as_expected=route_ok,
         shape=dict(B=B, T=T, H=H, n_kv=n_kv, d=d, lengths=list(lengths),
                    window=window, softcap=softcap),
-        max_abs_err=err, tolerance=TOLERANCE[dtype], finite=finite,
+        max_abs_err=err, tolerance=TOLERANCE[dtype], finite=finite, padding_rows_zero=pad_zero,
         ms=ms, host_span_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=b_ms, bound_by=b_by, timing="torch.profiler device time per call",
     )
     emit(rec)
-    if not (err <= TOLERANCE[dtype]) or not finite:
-        raise SystemExit(f"flash_prefill {label} {dtype}: error {err}, finite {finite}")
+    if not (err <= TOLERANCE[dtype]) or not finite or not pad_zero or not route_ok:
+        raise SystemExit(f"flash_prefill {label} {dtype}: error {err}, finite {finite}, "
+                         f"padding zero {pad_zero}, {route} route launched {route_ok}")
     return rec
 
 
@@ -597,7 +612,8 @@ def phase_quant_kernels(iters: int) -> dict:
 
 def phase_kernels(iters: int) -> dict:
     """Every kernel in f32 and bf16; the bf16 record at qwen2.5-3b shapes
-    is the one the final kernels line reports."""
+    is the one the final kernels line reports (K2 and K3: the tensor-core
+    route's, with the exact route's f32 record beside it)."""
     main = {}
     qwen = dict(S=16, H=16, n_kv=2, d=128, L=36, page=32, max_ctx=1024, softcap=None,
                 window=None, iters=iters)
@@ -614,14 +630,12 @@ def phase_kernels(iters: int) -> dict:
         lengths = [224, 200, 151, 37]
         rec = check_prefill("qwen2.5-3b", B=4, T=224, H=16, n_kv=2, d=128, lengths=lengths,
                             dtype=dtype, softcap=None, window=None, iters=iters, seed=3)
-        if dtype == torch.bfloat16:
-            main["flash_prefill"] = rec
+        main[f"flash_prefill/{rec['route']}"] = rec
         check_prefill("window+softcap", B=4, T=224, H=16, n_kv=2, d=128, lengths=lengths,
                       dtype=dtype, softcap=50.0, window=64, iters=iters, seed=4)
         rec = check_paged_prefill("qwen2.5-3b", H=16, n_kv=2, d=128, L=36, dtype=dtype,
                                   softcap=None, window=None, seed=8, **chunk)
-        if dtype == torch.bfloat16:
-            main["paged_prefill"] = rec
+        main[f"paged_prefill/{rec['route']}"] = rec
         check_paged_prefill("gemma2-2b", H=8, n_kv=4, d=256, L=26, dtype=dtype, softcap=50.0,
                             window=64, seed=9, **chunk)
         # fp8 (float8_e5m2) pools: every pool-reading kernel on the same
@@ -655,13 +669,34 @@ def _wrapper(module: str, attr: str):
     return getattr(importlib.import_module(f"llmq_tpu_torch.ops.{module}"), attr)
 
 
+ROUTED = ("flash_prefill", "paged_prefill")  # kernels with a tensor-core and an exact route
+
+
+def _route_counts(wrapper) -> dict:
+    return {"tensor_core": wrapper.tensor_core_launches, "exact": wrapper.exact_launches}
+
+
 def reset_launches() -> None:
     for module, attr in KERNEL_COUNTERS.values():
         _wrapper(module, attr).launches = 0
+    for name in ROUTED:
+        w = _wrapper(*KERNEL_COUNTERS[name])
+        w.tensor_core_launches = w.exact_launches = 0
 
 
 def read_launches() -> dict:
     return {name: _wrapper(*where).launches for name, where in KERNEL_COUNTERS.items()}
+
+
+def read_routes() -> dict:
+    return {name: _route_counts(_wrapper(*KERNEL_COUNTERS[name])) for name in ROUTED}
+
+
+def route_problems(routes: dict, launches: dict) -> list:
+    """A bf16 serve must launch K2 and K3 only on their tensor-core route."""
+    return [f"{name}: {routes[name]['exact']} of {launches[name]} launches on the exact route"
+            for name in ROUTED
+            if routes[name]["exact"] or routes[name]["tensor_core"] != launches[name]]
 
 
 @contextlib.contextmanager
@@ -735,12 +770,12 @@ def phase_serve(smi: str) -> dict:
         )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches, routes = read_launches(), read_routes()
     results = asyncio.run(_receive(url, queue))
     core = worker.engine.core
     stats = core.stats()
     L = core.model_config.num_layers
-    problems = _check_results(results, n_jobs, gen)
+    problems = _check_results(results, n_jobs, gen) + route_problems(routes, launches)
     if launches["paged_decode"] <= 0 or launches["flash_prefill"] <= 0:
         problems.append(f"a kernel did not launch on the main path: {launches}")
     if launches["paged_decode"] != L * stats["decode_steps"]:
@@ -776,7 +811,7 @@ def phase_serve(smi: str) -> dict:
         decode_step_device_ms=dec_dev_ms, decode_idle_share=max(0.0, 1 - dec_dev_ms / dec_ms),
         prefill_tok_s=800 / (pre_ms / 1e3), prefill_4x200_ms=pre_ms,
         prefill_4x200_device_ms=pre_dev_ms,
-        launches=launches, decode_steps=stats["decode_steps"],
+        launches=launches, routes=routes, decode_steps=stats["decode_steps"],
         prefill_dispatches=stats["prefill_dispatches"], card=smi, problems=problems,
     )
     emit(rec)
@@ -809,7 +844,7 @@ def phase_quant(smi: str) -> dict:
             )
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counted = read_launches()
+        counted, routes = read_launches(), read_routes()
         results = asyncio.run(_receive(url, queue))
         core = worker.engine.core
         stats = core.stats()
@@ -820,8 +855,8 @@ def phase_quant(smi: str) -> dict:
                 "flash_prefill": L * stats["prefill_dispatches"]}
         if not core.model_config.tie_word_embeddings:  # the int8 head through K6
             want["int8_matmul"] = want.get("int8_matmul", 0) + dispatches
-        problems = _check_results(results, n_jobs, gen)
-        for name in ("int8_matmul", rung, "paged_decode"):
+        problems = _check_results(results, n_jobs, gen) + route_problems(routes, counted)
+        for name in ("int8_matmul", rung, "paged_decode", "flash_prefill"):
             if counted[name] <= 0:
                 problems.append(f"{name} did not launch on the {dtype} path: {counted}")
         for name, n in counted.items():
@@ -843,7 +878,8 @@ def phase_quant(smi: str) -> dict:
             decode_tok_s=16 / (dec_ms / 1e3), decode_step_ms=dec_ms,
             decode_step_device_ms=dec_dev_ms,
             decode_idle_share=max(0.0, 1 - dec_dev_ms / dec_ms),
-            launches=counted, expected_launches=want, decode_steps=stats["decode_steps"],
+            launches=counted, routes=routes, expected_launches=want,
+            decode_steps=stats["decode_steps"],
             prefill_dispatches=stats["prefill_dispatches"], card=smi, problems=problems, **head,
         )
         emit(rec)
@@ -940,12 +976,12 @@ def phase_prefix(smi: str) -> dict:
         )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches, routes = read_launches(), read_routes()
     results = asyncio.run(_receive(url, queue))
     core = worker.engine.core
     stats = core.stats()
     L = core.model_config.num_layers
-    problems = _check_results(results, n_jobs, gen)
+    problems = _check_results(results, n_jobs, gen) + route_problems(routes, launches)
     if stats.get("prefix_cache_hit_pages", 0) <= 0:
         problems.append(f"no prefix-cache hit: {stats.get('prefix_cache_hit_pages')}")
     if stats["decode_kernel"] != "v3":
@@ -994,7 +1030,7 @@ def phase_prefix(smi: str) -> dict:
         chunk_tok_s=B * chunk / (chunk_ms / 1e3), chunk_4x256_ms=chunk_ms,
         chunk_4x256_device_ms=chunk_dev_ms,
         chunk_idle_share=max(0.0, 1 - chunk_dev_ms / chunk_ms),
-        launches=launches, decode_steps=stats["decode_steps"],
+        launches=launches, routes=routes, decode_steps=stats["decode_steps"],
         chunk_dispatches=stats["prefill_dispatches"], card=smi, problems=problems,
     )
     emit(rec)
@@ -1317,9 +1353,9 @@ def main() -> int:
     for name, source, replaces in (
         ("paged_decode", "llmq_tpu_torch/ops/csrc/paged_decode.cu",
          "llmq_tpu/ops/pallas_attention.py:168"),
-        ("flash_prefill", "llmq_tpu_torch/ops/csrc/flash_prefill.cu",
+        ("flash_prefill", "llmq_tpu_torch/ops/csrc/flash_prefill_tc.cu",
          "llmq_tpu/ops/pallas_attention.py:1039"),
-        ("paged_prefill", "llmq_tpu_torch/ops/csrc/paged_prefill.cu",
+        ("paged_prefill", "llmq_tpu_torch/ops/csrc/paged_prefill_tc.cu",
          "llmq_tpu/ops/pallas_attention.py:830"),
         ("paged_decode_v3", "llmq_tpu_torch/ops/csrc/paged_decode_v2.cu",
          "llmq_tpu/ops/pallas_attention.py:575"),
@@ -1330,13 +1366,20 @@ def main() -> int:
         ("int4_matmul", "llmq_tpu_torch/ops/csrc/int4_matmul.cu",
          "llmq_tpu/ops/pallas_matmul.py:219"),
     ):
-        rec = main_recs.get(name, {})
-        kernels.append(dict(
+        routed = name in ROUTED
+        rec = main_recs.get(f"{name}/tensor_core" if routed else name, {})
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches.get(name), max_abs_err=rec.get("max_abs_err"),
             ms=rec.get("ms"), plain_ms=rec.get("plain_ms"), bound_ms=rec.get("bound_ms"),
             bound_by=rec.get("bound_by"), library_ms=rec.get("library_ms"),
-        ))
+        )
+        if routed:  # the exact route's f32 record beside the tensor-core one
+            exact = main_recs.get(f"{name}/exact", {})
+            entry.update(exact_source=source.replace("_tc.cu", ".cu"),
+                         exact_f32_ms=exact.get("ms"),
+                         exact_f32_max_abs_err=exact.get("max_abs_err"))
+        kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_prefill": "flash_prefill.cu",
+    "flash_prefill_tc": "flash_prefill_tc.cu",
     "paged_prefill": "paged_prefill.cu",
+    "paged_prefill_tc": "paged_prefill_tc.cu",
     "paged_decode_v2": "paged_decode_v2.cu",
     "int8_matmul": "int8_matmul.cu",
     "int4_matmul": "int4_matmul.cu",

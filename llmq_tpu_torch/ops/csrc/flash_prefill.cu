@@ -1,8 +1,12 @@
-// Flash prefill attention (K2) for Hopper, sm_90a.
+// Flash prefill attention (K2), exact route, for Hopper, sm_90a.
 //
 // Replaces: llmq_tpu/ops/pallas_attention.py, flash_prefill_attention_pallas
 // (kernel body _flash_prefill_kernel). Plain version:
-// llmq_tpu_torch/ops/attention.py, full_prefill_attention.
+// llmq_tpu_torch/ops/attention.py, full_prefill_attention. This source
+// serves f32 q/k/v, exactly (the f32 parity of the serving paths holds
+// logits within 1e-4, which bf16 or TF32 tensor cores cannot); bf16 runs
+// on the tensor cores in flash_prefill_tc.cu (cuda_attention.prefill_route
+// chooses by dtype).
 //
 // Contract: causal self-attention over a right-padded bucket. q is
 // [B, T, H, D], k and v are [B, T, n_kv, D], read through their batch,
@@ -22,8 +26,8 @@
 // At the main path's bucket (qwen2.5-3b, T = 224, four ragged prompts)
 // that is ~60 FLOP per byte of q, k, v and out, under the ~295 FLOP/byte
 // ridge of the bf16 tensor cores: the bytes bound it. Full rows past ~700
-// tokens make the bf16 FLOPs the bound. This first kernel does not reach
-// the tensor cores: it is a simple, exact tiled kernel on the CUDA cores.
+// tokens make the bf16 FLOPs the bound. This kernel does not reach the
+// tensor cores: it is a simple, exact tiled kernel on the CUDA cores.
 //   * grid (ceil(T/64), H, B); a 64-query tile stays in shared memory
 //     while a loop walks 64-key tiles, replacing the TPU grid's
 //     sequential kv axis;
@@ -32,7 +36,6 @@
 //     frontier cost nothing, and an all-padding query tile returns at once;
 //   * tiles are held as f32 with a row pitch of D + 1 words, so the
 //     16 distinct key rows a warp reads at one depth hit 16 banks.
-// Later work, not done here: mma.sync/wgmma tensor-core tiles fed by TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -289,11 +292,11 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k, const void* v
 
 extern "C" {
 
-// Returns a cudaError_t code (0 = success). is_bf16: 1 = bf16, 0 = f32.
+// Returns a cudaError_t code (0 = success). f32 q, k, v and out.
 // strides (elements): q (batch, time, head), k (...), v (...), out (...).
 // softcap <= 0 means no softcap. The launch is asynchronous on `stream`.
 int llmq_flash_prefill(const void* q, const void* k, const void* v, const void* lengths,
-                       void* out, int is_bf16, int batch, int seq_len, int n_heads,
+                       void* out, int batch, int seq_len, int n_heads,
                        int n_kv, int head_dim, long long q_sb, long long q_st,
                        long long q_sh, long long k_sb, long long k_st, long long k_sh,
                        long long v_sb, long long v_st, long long v_sh, long long o_sb,
@@ -305,12 +308,8 @@ int llmq_flash_prefill(const void* q, const void* k, const void* v, const void* 
                                  v_sb, v_st, v_sh, o_sb, o_st, o_sh};
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? launch_dim<__nv_bfloat16>(head_dim, q, k, v, len, out, batch, seq_len,
-                                          n_heads, n_kv, strides, window, scale, softcap, st)
-              : launch_dim<float>(head_dim, q, k, v, len, out, batch, seq_len, n_heads, n_kv,
-                                  strides, window, scale, softcap, st);
-  return (int)err;
+  return (int)launch_dim<float>(head_dim, q, k, v, len, out, batch, seq_len, n_heads, n_kv,
+                                strides, window, scale, softcap, st);
 }
 
 const char* llmq_cuda_error_string(int code) {

@@ -1,8 +1,12 @@
-// Paged chunked-prefill attention (K3) for Hopper, sm_90a.
+// Paged chunked-prefill attention (K3), exact route, for Hopper, sm_90a.
 //
 // Replaces: llmq_tpu/ops/pallas_attention.py, paged_prefill_attention_pallas
 // (kernel body _paged_prefill_kernel). Plain version:
-// llmq_tpu_torch/ops/attention.py, paged_prefill_attention.
+// llmq_tpu_torch/ops/attention.py, paged_prefill_attention. This source
+// serves f32 q over any pool and bf16 q over an f32 pool (the math
+// promotes to f32), exactly; bf16 q over a bf16 or e5m2 pool runs on the
+// tensor cores in paged_prefill_tc.cu (cuda_attention.prefill_route
+// chooses by dtype).
 //
 // Contract: C chunk queries per row, q [B, C, H, D] (read through its
 // batch, time and head strides; the head dimension contiguous), against
@@ -17,8 +21,8 @@
 // in the promoted dtype of q and the pool (_mul_dtype: an f32 pool
 // promotes, a float8_e5m2 pool widens exactly to q's dtype), summed in f32 (bf16 x bf16
 // products are exact in f32, as the TPU kernel's
-// preferred_element_type=f32); probabilities are rounded to the promoted
-// dtype before P.V, as the TPU kernel does. GQA: head h reads KV head
+// preferred_element_type=f32); probabilities stay in the promoted dtype,
+// f32 on this route, before P.V, as the TPU kernel does. GQA: head h reads KV head
 // h / (H / n_kv), no repeat. Query rows past num_valid are padding: the
 // kernel writes zeros there (the plain version leaves a finite average);
 // callers never read them. The output [B, C, H, D] is contiguous, in q's
@@ -30,7 +34,7 @@
 // over 2 KV heads, ~100-256 queries at contexts ~1,100) that is 400-700
 // FLOP per byte, above the ~295 FLOP/byte ridge of the bf16 tensor
 // cores: the operations bound it, the bytes only at short contexts. This
-// first kernel is K2's exact tiled design on the CUDA cores:
+// kernel is K2's exact tiled design on the CUDA cores:
 //   * grid (ceil(C/64), H, B); a 64-query tile stays in shared memory
 //     while a loop walks 64-key tiles of the paged cache (the TPU grid's
 //     page axis becomes this loop);
@@ -42,7 +46,6 @@
 //     aligned: after a prefix hit a chunk starts mid-page), then every
 //     thread loads contiguous head rows from those offsets;
 //   * tiles are held as f32 with a row pitch of D + 1 words.
-// Later work, not done here: mma.sync/wgmma tensor-core tiles fed by TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -50,8 +53,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -106,10 +107,6 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     TQ* __restrict__ out, int chunk, int n_heads, int n_kv, int num_pages, int page_size,
     int pages_per_seq, int layer, long long q_sb, long long q_st, long long q_sh,
     int window, float scale, float softcap) {
-  // Probabilities are rounded to the promoted dtype before P.V: bf16 when
-  // q is bf16 and the pool is not f32 (bf16, or fp8 widened to bf16).
-  constexpr bool kBf16Math =
-      std::is_same<TQ, __nv_bfloat16>::value && !std::is_same<TKV, float>::value;
   constexpr int LD = D + 1;    // tile row pitch (words)
   constexpr int LP = kBK + 1;  // score row pitch (words)
   constexpr int kCols = D / 16;
@@ -232,8 +229,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
       const float e0 = x0 == -INFINITY ? 0.f : expf(x0 - m_new);
       const float e1 = x1 == -INFINITY ? 0.f : expf(x1 - m_new);
       const float tot = warp_sum(e0 + e1);
-      p_s[r * LP + lane] = kBf16Math ? to_f32(__float2bfloat16(e0)) : e0;
-      p_s[r * LP + lane + 32] = kBf16Math ? to_f32(__float2bfloat16(e1)) : e1;
+      p_s[r * LP + lane] = e0;  // the promoted dtype is f32 on this route
+      p_s[r * LP + lane + 32] = e1;
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         a_s[r] = alpha;
@@ -333,7 +330,8 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k_pool, const vo
 extern "C" {
 
 // Returns a cudaError_t code (0 = success). q_bf16: 1 = bf16, 0 = f32;
-// kv_dtype: 0 = f32, 1 = bf16, 2 = float8_e5m2. q strides in elements
+// kv_dtype: 0 = f32, 1 = bf16, 2 = float8_e5m2; bf16 q takes only an f32
+// pool here (the tensor-core route takes the others). q strides in elements
 // (batch, time, head). softcap <= 0 means no softcap. The launch is
 // asynchronous on `stream`.
 int llmq_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
@@ -363,10 +361,10 @@ int llmq_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
       err = q_bf16 ? run(__nv_bfloat16(), float()) : run(float(), float());
       break;
     case 1:
-      err = q_bf16 ? run(__nv_bfloat16(), __nv_bfloat16()) : run(float(), __nv_bfloat16());
+      err = q_bf16 ? cudaErrorInvalidValue : run(float(), __nv_bfloat16());
       break;
     case 2:
-      err = q_bf16 ? run(__nv_bfloat16(), __nv_fp8_e5m2()) : run(float(), __nv_fp8_e5m2());
+      err = q_bf16 ? cudaErrorInvalidValue : run(float(), __nv_fp8_e5m2());
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -2,14 +2,22 @@
 
 - :func:`paged_decode_attention_cuda` — K1, ``csrc/paged_decode.cu``,
   the port of ``pallas_attention.py::paged_decode_attention_pallas``.
-- :func:`flash_prefill_attention_cuda` — K2, ``csrc/flash_prefill.cu``,
-  the port of ``pallas_attention.py::flash_prefill_attention_pallas``.
-- :func:`paged_prefill_attention_cuda` — K3, ``csrc/paged_prefill.cu``,
-  the port of ``pallas_attention.py::paged_prefill_attention_pallas``.
+- :func:`flash_prefill_attention_cuda` — K2, the port of
+  ``pallas_attention.py::flash_prefill_attention_pallas``.
+- :func:`paged_prefill_attention_cuda` — K3, the port of
+  ``pallas_attention.py::paged_prefill_attention_pallas``.
 - :func:`paged_decode_attention_v2_cuda` — K5, and
   :func:`paged_decode_attention_v3_cuda` — K4, both
   ``csrc/paged_decode_v2.cu``, the ports of
   ``pallas_attention.py::paged_decode_attention_pallas_v2`` / ``_v3``.
+
+K2 and K3 each have two routes, chosen by dtype alone in
+:func:`prefill_route`: bf16 queries over bf16 or float8_e5m2 K/V run on
+the tensor cores (``csrc/flash_prefill_tc.cu``, ``csrc/paged_prefill_tc.cu``
+over ``csrc/attn_tc.cuh``); f32 queries, or an f32 pool, run the exact
+CUDA-core kernels (``csrc/flash_prefill.cu``, ``csrc/paged_prefill.cu``).
+Each route counts its own launches (``tensor_core_launches``,
+``exact_launches``) beside the wrapper's ``launches``.
 
 Pools may be f32, bf16 or float8_e5m2 (K2 reads fresh K/V in the
 compute dtype and has no pool). The wrappers take CUDA tensors only: each launches its kernel on the
@@ -44,14 +52,53 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "paged_decode": ("llmq_paged_decode", [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P]),
-    "flash_prefill": ("llmq_flash_prefill", [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _F, _F, _P]),
+    "flash_prefill": ("llmq_flash_prefill", [_P] * 5 + [_I] * 5 + [_L] * 12 + [_I, _F, _F, _P]),
+    "flash_prefill_tc": ("llmq_flash_prefill_tc",
+                         [_P] * 5 + [_I] * 5 + [_L] * 12 + [_I, _F, _F, _P]),
     "paged_prefill": ("llmq_paged_prefill", [_P] * 7 + [_I] * 11 + [_L] * 3 + [_I, _F, _F, _P]),
+    "paged_prefill_tc": ("llmq_paged_prefill_tc",
+                         [_P] * 7 + [_I] * 10 + [_L] * 3 + [_I, _F, _F, _P]),
     "paged_decode_v2": ("llmq_paged_decode_v2", [_P] * 9 + [_I] * 13 + [_F, _F, _I, _P]),
 }
 
 
+#: prefill routes (:func:`prefill_route`)
+TENSOR_CORE, EXACT = "tensor_core", "exact"
+_TC_KV = (torch.bfloat16, torch.float8_e5m2)
+
+
 def _kernel(name: str):
     return _build.function(name, *_SIGNATURES[name])
+
+
+def prefill_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """The prefill kernels' route (K2, K3) for queries of ``q_dtype`` over
+    K/V of ``kv_dtype`` (K2: q's own dtype): :data:`TENSOR_CORE` for bf16
+    queries over bf16 or float8_e5m2 K/V (an e5m2 value widens exactly to
+    bf16), else :data:`EXACT`: f32 queries, or an f32 pool, which promotes
+    the math to f32 — a precision bf16 tensor cores cannot hold. A choice
+    by dtype, not a fallback: a tensor-core launch that fails raises."""
+    return TENSOR_CORE if q_dtype == torch.bfloat16 and kv_dtype in _TC_KV else EXACT
+
+
+def _check_rows_aligned(name: str, **tensors) -> None:
+    """The tensor-core kernels copy 16-byte words: each tensor's base and
+    its batch, time and head strides must be 16-byte aligned."""
+    for what, t in tensors.items():
+        item = t.element_size()
+        _require(t.data_ptr() % 16 == 0 and all(s * item % 16 == 0 for s in t.stride()[:3]),
+                 f"{name}: {what} rows must be 16-byte aligned for the tensor-core route "
+                 f"(data_ptr % 16 = {t.data_ptr() % 16}, strides {tuple(t.stride())} of "
+                 f"{item}-byte elements)")
+
+
+def _count(wrapper, route: str) -> None:
+    """One launch of ``wrapper`` on ``route``."""
+    wrapper.launches += 1
+    if route == TENSOR_CORE:
+        wrapper.tensor_core_launches += 1
+    else:
+        wrapper.exact_launches += 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -179,9 +226,10 @@ def flash_prefill_attention_cuda(
     sliding_window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """K2: causal flash attention over a right-padded prompt bucket.
-    Rows past a row's length come back as zeros on the card (the plain
-    version leaves finite garbage there); callers never read them."""
+    """K2: causal flash attention over a right-padded prompt bucket, on
+    the route :func:`prefill_route` gives q's dtype. Rows past a row's
+    length come back as zeros on the card (the plain version leaves
+    finite garbage there); callers never read them."""
     _require(q.is_cuda, "flash_prefill_attention_cuda takes CUDA tensors")
     B, T, n_heads, d = q.shape
     _require(k.shape[:2] == (B, T) and v.shape == k.shape and k.shape[3] == d,
@@ -197,21 +245,27 @@ def flash_prefill_attention_cuda(
         _require(t.device == q.device, "all tensors must be on q's device")
     for t in (q, k, v):
         _require(t.stride(3) == 1, "the head dimension must be contiguous")
-    fn = _kernel("flash_prefill")
+    route = prefill_route(q.dtype, k.dtype)
+    name = "flash_prefill_tc" if route == TENSOR_CORE else "flash_prefill"
+    if route == TENSOR_CORE:
+        _check_rows_aligned("flash_prefill_attention_cuda", q=q, k=k, v=v)
+    fn = _kernel(name)
     out = torch.empty((B, T, n_heads, d), dtype=q.dtype, device=q.device)
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, T, n_heads, n_kv, d,
+        B, T, n_heads, n_kv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         _window(sliding_window), float(scale), _softcap(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check("flash_prefill", code)
-    flash_prefill_attention_cuda.launches += 1
+    _build.check(name, code)
+    _count(flash_prefill_attention_cuda, route)
     return out
 
 
 flash_prefill_attention_cuda.launches = 0
+flash_prefill_attention_cuda.tensor_core_launches = 0
+flash_prefill_attention_cuda.exact_launches = 0
 
 
 def _paged_decode_v2(
@@ -336,7 +390,8 @@ def paged_prefill_attention_cuda(
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """K3: a chunk of queries per row against the paged cache, which
-    already holds the chunk's K/V. Query rows past ``num_valid`` come back
+    already holds the chunk's K/V, on the route :func:`prefill_route`
+    gives the q and pool dtypes. Query rows past ``num_valid`` come back
     as zeros (the plain version leaves a finite average); callers never
     read them."""
     _require(q.is_cuda, "paged_prefill_attention_cuda takes CUDA tensors")
@@ -356,19 +411,30 @@ def paged_prefill_attention_cuda(
         _require(t.device == q.device and t.is_contiguous(), "pools: contiguous, on q's device")
     _require(q.stride(3) == 1, "the head dimension must be contiguous")
     _require(0 <= int(layer) < L, f"layer {layer} outside the {L}-layer pool")
-    fn = _kernel("paged_prefill")
+    route = prefill_route(q.dtype, k_pages.dtype)
+    if route == TENSOR_CORE:
+        _check_rows_aligned("paged_prefill_attention_cuda", q=q, k_pages=k_pages,
+                            v_pages=v_pages)
+        _require(k_pages.numel() // d < 2**31,
+                 "paged_prefill_attention_cuda: the tensor-core route indexes pool rows "
+                 f"with 32-bit integers; this pool has {k_pages.numel() // d} rows")
+        name, dtypes = "paged_prefill_tc", (_KV_CODES[k_pages.dtype],)
+    else:
+        name, dtypes = "paged_prefill", (int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype])
+    fn = _kernel(name)
     out = torch.empty((B, C, n_heads, d), dtype=q.dtype, device=q.device)
     code = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        chunk_start.data_ptr(), num_valid.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype],
+        chunk_start.data_ptr(), num_valid.data_ptr(), out.data_ptr(), *dtypes,
         B, C, n_heads, n_kv, d, P, page_size, block_tables.shape[1], int(layer),
         *q.stride()[:3], _window(sliding_window), float(scale), _softcap(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check("paged_prefill", code)
-    paged_prefill_attention_cuda.launches += 1
+    _build.check(name, code)
+    _count(paged_prefill_attention_cuda, route)
     return out
 
 
 paged_prefill_attention_cuda.launches = 0
+paged_prefill_attention_cuda.tensor_core_launches = 0
+paged_prefill_attention_cuda.exact_launches = 0

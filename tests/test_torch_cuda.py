@@ -3,6 +3,8 @@
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card
 and skips without one (so on a CPU-only machine these count as skipped).
 On a GPU machine: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
+The prefill kernels (K2, K3) run bf16 on the tensor-core route and f32
+on the exact route; each test asserts the route its launch took.
 Tolerances: 2e-5 in f32, 3e-2 in bf16, as for the Pallas kernels; the
 weight-only matmuls (K6, K7) in f32 within 1e-5 / 1e-4 (K6) and 1e-4
 (K7) of the f64 product, in bf16 within 2e-2 of the plain version, as
@@ -30,6 +32,20 @@ from llmq_tpu_torch.ops.cuda_matmul import int4_matmul_cuda, int8_matmul_cuda
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _routes(wrapper):
+    return wrapper.tensor_core_launches, wrapper.exact_launches
+
+
+def _assert_launched_on(wrapper, before, route):
+    """One launch since ``before`` (from :func:`_routes`), on ``route``."""
+    tc, exact = before
+    assert _routes(wrapper) == ((tc + 1, exact) if route == "tensor_core" else (tc, exact + 1))
+
+
+def _route_of(dtype):
+    return "tensor_core" if dtype == torch.bfloat16 else "exact"
 
 
 @pytest.fixture
@@ -99,13 +115,46 @@ def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, n_heads, n_kv, d
     v = torch.randn((B, T, n_kv, d), generator=g, device=cuda_device).to(dtype)
     len_t = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
     kw = dict(scale=d**-0.5, sliding_window=window, softcap=softcap)
+    before = _routes(flash_prefill_attention_cuda)
     out = flash_prefill_attention_cuda(q, k, v, len_t, **kw)
     ref = plain.full_prefill_attention(q, k, v, lengths=len_t, **kw)
     torch.cuda.synchronize()
+    _assert_launched_on(flash_prefill_attention_cuda, before, _route_of(dtype))
     for b, n in enumerate(lengths):
         torch.testing.assert_close(out[b, :n].float(), ref[b, :n].float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
         assert (out[b, n:] == 0).all()  # padding rows: zeros
+
+
+@pytest.mark.parametrize(
+    "n_heads,n_kv,d,T,lengths,window,softcap",
+    [(8, 8, 128, 1, [1], None, None),  # one token; GQA ratio 1
+     (8, 4, 64, 97, [97, 1, 64], None, None),  # ratio 2, T % 64 != 0
+     (16, 2, 128, 200, [200, 129, 1], None, None),  # ratio 8 (qwen2.5-3b heads)
+     (8, 1, 128, 300, [300, 171], 100, None),  # window frontier crosses key tiles
+     (8, 4, 256, 150, [150, 65, 2], 64, 50.0)],  # gemma2: d 256, window 64, softcap 50
+    ids=["len1-gqa1", "gqa2-d64", "gqa8", "window100", "d256-window-softcap"],
+)
+def test_flash_prefill_tensor_core_edges(cuda_device, n_heads, n_kv, d, T, lengths, window,
+                                         softcap):
+    """bf16 K2 on the tensor cores at its design's edges: ragged T and
+    lengths against the 64-row tiles, GQA 1 / 2 / 8, d = 256 (32-key
+    tiles), and frontiers that cross several key tiles."""
+    g = torch.Generator(device=cuda_device).manual_seed(T + d)
+    B = len(lengths)
+    q, k, v = (torch.randn((B, T, h, d), generator=g, device=cuda_device).bfloat16()
+               for h in (n_heads, n_kv, n_kv))
+    len_t = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    kw = dict(scale=d**-0.5, sliding_window=window, softcap=softcap)
+    before = _routes(flash_prefill_attention_cuda)
+    out = flash_prefill_attention_cuda(q, k, v, len_t, **kw)
+    ref = plain.full_prefill_attention(q, k, v, lengths=len_t, **kw)
+    torch.cuda.synchronize()
+    _assert_launched_on(flash_prefill_attention_cuda, before, "tensor_core")
+    for b, n in enumerate(lengths):
+        torch.testing.assert_close(out[b, :n].float(), ref[b, :n].float(), rtol=3e-2,
+                                   atol=3e-2)
+        assert (out[b, n:] == 0).all()
 
 
 def test_flash_prefill_kernel_reads_strided_inputs(cuda_device):
@@ -121,6 +170,42 @@ def test_flash_prefill_kernel_reads_strided_inputs(cuda_device):
     ref = plain.full_prefill_attention(q, k, v, scale=0.125, lengths=len_t)
     torch.testing.assert_close(out[0].float(), ref[0].float(), rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(out[1, :17], ref[1, :17], rtol=2e-5, atol=2e-5)
+    # the same views in bf16, on the tensor-core route
+    fused = fused.bfloat16()
+    q, k, v = (fused[..., a:b].view(B, T, -1, d)
+               for a, b in ((0, H * d), (H * d, (H + n_kv) * d), ((H + n_kv) * d, None)))
+    before = _routes(flash_prefill_attention_cuda)
+    out = flash_prefill_attention_cuda(q, k, v, len_t, scale=0.125)
+    ref = plain.full_prefill_attention(q, k, v, scale=0.125, lengths=len_t)
+    _assert_launched_on(flash_prefill_attention_cuda, before, "tensor_core")
+    torch.testing.assert_close(out[0].float(), ref[0].float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(out[1, :17].float(), ref[1, :17].float(), rtol=3e-2, atol=3e-2)
+
+
+def test_tensor_core_prefill_refuses_misaligned_rows(cuda_device):
+    """The tensor-core route copies 16-byte words: a base or a row stride
+    off 16 bytes raises ValueError, naming the case."""
+    B, T, H, n_kv, d = 2, 16, 4, 2, 64
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    wide = torch.randn((B, T, H * d + 3), generator=g, device=cuda_device)
+    q_stride = wide.bfloat16()[..., : H * d].view(B, T, H, d)  # time stride 518 bytes
+    flat = torch.randn(B * T * H * d + 4, generator=g, device=cuda_device).bfloat16()
+    q_base = flat[4:].view(B, T, H, d)  # base 8 bytes off
+    k = torch.randn((B, T, n_kv, d), generator=g, device=cuda_device).bfloat16()
+    len_t = torch.full((B,), T, dtype=torch.int32, device=cuda_device)
+    for q in (q_stride, q_base):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_prefill_attention_cuda(q, k, k, len_t, scale=0.125)
+    pool = torch.randn((1, 5, 8, n_kv, d), generator=g, device=cuda_device).bfloat16()
+    bt = torch.arange(1, 5, dtype=torch.int32, device=cuda_device).reshape(2, 2)
+    ints = torch.tensor([0, 3], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_prefill_attention_cuda(q_stride, pool, pool, bt, ints, ints, scale=0.125, layer=0)
+    # f32 takes the exact route, which reads any stride
+    q32 = wide[..., : H * d].view(B, T, H, d)
+    out = flash_prefill_attention_cuda(q32, k.float(), k.float(), len_t, scale=0.125)
+    ref = plain.full_prefill_attention(q32, k.float(), k.float(), scale=0.125, lengths=len_t)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
 
 
 def test_wrappers_raise_on_unsupported_shapes(cuda_device):
@@ -166,16 +251,56 @@ def test_paged_prefill_kernel_matches_plain(cuda_device, dtype, n_heads, n_kv, d
     bt, positions = bt.to(cuda_device), positions.to(cuda_device)
     kw = dict(scale=d**-0.5, sliding_window=window, softcap=softcap, layer=1)
     before = paged_prefill_attention_cuda.launches
+    routes = _routes(paged_prefill_attention_cuda)
     out = paged_prefill_attention_cuda(
         q, kp, vp, bt, torch.tensor(starts, dtype=torch.int32, device=cuda_device),
         torch.tensor(valids, dtype=torch.int32, device=cuda_device), **kw)
     ref = plain.paged_prefill_attention(q, kp, vp, bt, positions, **kw)
     torch.cuda.synchronize()
     assert paged_prefill_attention_cuda.launches == before + 1
+    _assert_launched_on(paged_prefill_attention_cuda, routes, _route_of(dtype))
     for r, n in enumerate(valids):
         torch.testing.assert_close(out[r, :n].float(), ref[r, :n].float(), rtol=TOL[dtype],
                                    atol=TOL[dtype])
         assert (out[r, n:] == 0).all()  # padding queries: zeros
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+@pytest.mark.parametrize(
+    "n_heads,n_kv,d,window,softcap,page,C,starts,valids",
+    [(16, 2, 128, None, None, 32, 160, [37, 300, 0], [150, 90, 1]),  # mid-page, GQA 8
+     (8, 4, 256, 64, 50.0, 16, 100, [75, 0, 200], [100, 33, 64]),  # gemma2 d 256, GQA 2
+     (4, 4, 64, 20, None, 8, 64, [5, 130, 0], [64, 1, 40])],  # GQA 1, window in a tile
+    ids=["midpage-gqa8", "d256-window-softcap", "gqa1-window20"],
+)
+def test_paged_prefill_tensor_core_edges(cuda_device, kv_dtype, n_heads, n_kv, d, window,
+                                         softcap, page, C, starts, valids):
+    """bf16 K3 on the tensor cores over bf16 and e5m2 pools: chunks that
+    start mid-page, C off the 64-row tile, causal and window frontiers
+    that cross several key tiles, a single valid query."""
+    rng = np.random.default_rng(C + d)
+    B, L = len(starts), 2
+    pps = -(-max(s0 + n for s0, n in zip(starts, valids)) // page)
+    q = _pool(rng, (B, C, n_heads, d), cuda_device, torch.bfloat16)
+    kp = _pool(rng, (L, 1 + B * pps, page, n_kv, d), cuda_device, torch.bfloat16).to(kv_dtype)
+    vp = _pool(rng, (L, 1 + B * pps, page, n_kv, d), cuda_device, torch.bfloat16).to(kv_dtype)
+    bt = torch.from_numpy((1 + rng.permutation(B * pps)).reshape(B, pps).astype(np.int32))
+    positions = torch.full((B, C), -1, dtype=torch.int32)
+    for r, (s0, n) in enumerate(zip(starts, valids)):
+        positions[r, :n] = torch.arange(s0, s0 + n)
+    bt, positions = bt.to(cuda_device), positions.to(cuda_device)
+    kw = dict(scale=d**-0.5, sliding_window=window, softcap=softcap, layer=1)
+    before = _routes(paged_prefill_attention_cuda)
+    out = paged_prefill_attention_cuda(
+        q, kp, vp, bt, torch.tensor(starts, dtype=torch.int32, device=cuda_device),
+        torch.tensor(valids, dtype=torch.int32, device=cuda_device), **kw)
+    ref = plain.paged_prefill_attention(q, kp, vp, bt, positions, **kw)
+    torch.cuda.synchronize()
+    _assert_launched_on(paged_prefill_attention_cuda, before, "tensor_core")
+    for r, n in enumerate(valids):
+        torch.testing.assert_close(out[r, :n].float(), ref[r, :n].float(), rtol=3e-2,
+                                   atol=3e-2)
+        assert (out[r, n:] == 0).all()
 
 
 # --- K5 and K4: chunked decode, and its fused KV write ------------------------
@@ -280,12 +405,14 @@ def test_kernels_read_fp8_pools_as_the_plain_versions(cuda_device, dtype, varian
         positions = torch.full((S, C), -1, dtype=torch.int32)
         for r, (s0, n) in enumerate(zip(starts, valids)):
             positions[r, :n] = torch.arange(s0, s0 + n)
+        before = _routes(paged_prefill_attention_cuda)
         out = paged_prefill_attention_cuda(
             qc, kp, vp, bt, torch.tensor(starts, dtype=torch.int32, device=cuda_device),
             torch.tensor(valids, dtype=torch.int32, device=cuda_device), scale=d**-0.5,
             layer=1, softcap=30.0)
         ref = plain.paged_prefill_attention(qc, kp, vp, bt, positions.to(cuda_device),
                                             scale=d**-0.5, layer=1, softcap=30.0)
+        _assert_launched_on(paged_prefill_attention_cuda, before, _route_of(dtype))
         for r, n in enumerate(valids):
             torch.testing.assert_close(out[r, :n].float(), ref[r, :n].float(),
                                        rtol=TOL[dtype], atol=TOL[dtype])

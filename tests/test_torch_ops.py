@@ -21,6 +21,7 @@ from llmq_tpu_torch.ops import dispatch as tdispatch
 from llmq_tpu_torch.ops.cuda_attention import (
     flash_prefill_attention_cuda,
     paged_decode_attention_cuda,
+    prefill_route,
 )
 
 pytestmark = pytest.mark.unit
@@ -239,6 +240,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_prefill_attention_cuda(qp, kq, vq, torch.full((2,), 16, dtype=torch.int32),
                                      scale=0.25)
     assert (paged_decode_attention_cuda.launches, flash_prefill_attention_cuda.launches) == before
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,route", [
+    (torch.bfloat16, torch.bfloat16, "tensor_core"),
+    (torch.bfloat16, torch.float8_e5m2, "tensor_core"),  # e5m2 widens exactly to bf16
+    (torch.bfloat16, torch.float32, "exact"),  # an f32 pool promotes the math to f32
+    (torch.float32, torch.float32, "exact"),
+    (torch.float32, torch.bfloat16, "exact"),
+    (torch.float32, torch.float8_e5m2, "exact"),
+])
+def test_prefill_route_is_a_function_of_dtypes(q_dtype, kv_dtype, route):
+    """K2 / K3 run bf16 queries over bf16 or e5m2 K/V on the tensor cores
+    and everything that computes in f32 on the exact kernels."""
+    assert prefill_route(q_dtype, kv_dtype) == route
 
 
 # --- fp8 (float8_e5m2) KV pools: the tests/test_kv_fp8.py case grid ----------

@@ -18,7 +18,10 @@ The default requests are ~200-token prompts on the bucketed path. With
 prefix cache, the requests share a 1,024-token template with distinct
 tails (as ``chip_smoke.py``'s prefix-cache phase), and a second JSON line
 profiles one chunk dispatch of 4 x 256 positions at context 1,024
-(``chiprun_out/torch_profile_chunk.txt``). ``--decode-kernel`` sets
+(``chiprun_out/torch_profile_chunk.txt``); without it, the second line
+profiles one bucketed prefill dispatch of 4 x 200-token prompts in a
+224-token bucket (``chiprun_out/torch_profile_prefill.txt``), the step
+``chip_smoke.py``'s serve phase times. ``--decode-kernel`` sets
 ``LLMQ_DECODE_KERNEL`` for the engine (v1 = K1, v2 = K5, v3 = K4).
 ``--dtype int8|int4`` serves weight-only quantized weights with bf16
 compute; unless ``LLMQ_INT8_MATMUL`` / ``LLMQ_INT4_MATMUL`` are set in the
@@ -93,28 +96,38 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report("decode_step", prof, wall, args.steps, smi, args, core, "torch_profile.txt")
+    B, dev = 4, core.device
     if args.prefix:
-        B, dev = 4, core.device
         n_pages = (1024 + chunk) // core.cfg.page_size
-        bt = torch.arange(1, 1 + B * n_pages, device=dev, dtype=torch.int32).reshape(B, -1)
-        bt = torch.nn.functional.pad(bt, (0, core._pages_per_seq - n_pages))
         tok = torch.randint(1, 257, (B, chunk), device=dev, dtype=torch.int32)
         pos = torch.arange(1024, 1024 + chunk, device=dev, dtype=torch.int32).repeat(B, 1)
         last = torch.full((B,), chunk - 1, device=dev, dtype=torch.int32)
+    else:
+        n_pages = 8
+        tok = torch.randint(1, 257, (B, 224), device=dev, dtype=torch.int32)
+        lengths = torch.full((B,), 200, device=dev, dtype=torch.int32)
+    bt = torch.arange(1, 1 + B * n_pages, device=dev, dtype=torch.int32).reshape(B, -1)
+    bt = torch.nn.functional.pad(bt, (0, core._pages_per_seq - n_pages))
 
-        def chunk_step():
+    def dispatch():
+        if args.prefix:
             return core.model.prefill_chunk(tok, pos, core.k_pages, core.v_pages, bt, last)
+        return core.model.prefill(tok, lengths, core.k_pages, core.v_pages, bt)
 
-        chunk_step()
+    dispatch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            dispatch()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.steps):
-                chunk_step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+    if args.prefix:
         report("chunk_dispatch_4x256_at_1024", prof, wall, args.steps, smi, args, core,
                "torch_profile_chunk.txt")
+    else:
+        report("prefill_dispatch_4x200", prof, wall, args.steps, smi, args, core,
+               "torch_profile_prefill.txt")
     return 0
 
 
