@@ -13,8 +13,8 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    shapes (qwen2.5-3b) and at gemma2-2b shapes (head_dim 256, softcap 50,
    window 64): K1 paged decode, K2 flash prefill, K3 chunked prefill
    (chunks of 256 at contexts 0 / 256 / 1040, a row with no valid query;
-   K2 and K3 run bf16 on their tensor-core route and f32 on their exact
-   route, and each check asserts the route its launches took),
+   K1, K2, K3 and K7 run bf16 on their tensor-core route and f32 on their
+   exact route, and each check asserts the route its launch took),
    K5 chunked decode and K4 fused-write decode (whose pools must equal
    ``write_kv_pages`` + the plain decode bit for bit on pages >= 1). The
    decode kernels, whose math is f32 as on the TPU, are also held within
@@ -36,8 +36,8 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    jobs of qwen2.5-3b (36 layers, random weights from a seeded
    generator) over ``memory://``, 128 tokens each. Every kernel launch
    counter is set to 0 just before and read just after: K1 must launch 36
-   times per decode step and K2 36 times per prefill dispatch, every K2
-   launch on the tensor-core route.
+   times per decode step and K2 36 times per prefill dispatch, every K1
+   and K2 launch on the tensor-core route.
 4. The prefix-cache path at full width: the same model with
    ``LLMQ_DECODE_KERNEL=v3``, ``prefill_chunk_size=256`` and
    ``enable_prefix_caching=True`` serves 16 greedy jobs sharing a
@@ -50,20 +50,22 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    ``dtype="int8"`` (K6 launches 7 x 36 per dispatch) and by llama3.1-8b
    ``dtype="int4"`` with ``kv_dtype="fp8"`` (K7 7 x 32 per dispatch, K6
    once per dispatch for the untied int8 head, K1 over the e5m2 pool),
-   with step rates; K2 on the tensor-core route in both.
+   with step rates; K1, K2 and K7 on the tensor-core route only.
 6. f32 parity, card against CPU, with TF32 off: the qwen2.5-3b widths at
    2 layers with the same numpy-made weights. The default path (bucketed
    prefill + K1) with f32 weights, with int8 and int4 weights (through K6
    / K7 on the card) and with an fp8 KV pool: logits within 1e-4 and
-   identical greedy tokens over 32 steps. Then the chunked + prefix-cache
+   identical greedy tokens over 32 steps, K1 and K7 on their exact route
+   only. Then the chunked + prefix-cache
    path under each of ``LLMQ_DECODE_KERNEL`` v1, v2 and v3: chunk and
    decode logits within 1e-4, identical tokens (greedy, and one seeded
    request at temperature 0.8 through the threefry sampler) and
    prefix-cache counters; K5 is counted on the v2 run, the path it
    carries.
-7. ``{"kernels": [...]}``: one record per ported kernel; K2's and K3's
-   carry the tensor-core route's bf16 time as ``ms`` and the exact
-   route's f32 time as ``exact_f32_ms``.
+7. ``{"kernels": [...]}``: one record per ported kernel; K1's, K2's,
+   K3's and K7's carry the tensor-core route's bf16 time as ``ms`` and
+   the exact route's f32 time as ``exact_f32_ms``; K7's also its M =
+   1,024 time, library time and bound (``m1024_*``).
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -183,9 +185,11 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
     one row of values past e5m2's range (50,000-70,000): the pools must
     hold +-57,344 and +-inf where the plain cast puts them."""
     from llmq_tpu_torch.ops import attention as plain
+    from llmq_tpu_torch.ops.cuda_attention import attention_route
 
     name, fn = _decode_kernels()[variant]
     fused = variant == "v3"
+    routed = name in ROUTED
     kv_dtype = kv_dtype or dtype
     overflow_row = 1 if fused and kv_dtype == torch.float8_e5m2 else None
     dev = torch.device("cuda")
@@ -226,9 +230,12 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
                             max_finite=int((stored.abs() == 57344.0).sum()))
         del kp_p, vp_p
     else:
+        before = _route_counts(fn) if routed else None
         out = fn(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
         ref = plain.paged_decode_attention(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
     torch.cuda.synchronize()
+    route = attention_route(dtype, kv_dtype) if routed else None
+    route_ok = _route_counts(fn)[route] == before[route] + 1 if routed else None
     # A ctx == 0 row is inactive: the kernel writes exact zeros, the plain
     # version a finite average (both never read). Compare the live rows.
     live_rows = ctx_t > 0
@@ -302,7 +309,7 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
     b_ms, b_by = bound(nbytes, ops, dtype)
     rec = dict(
         phase="kernel_check", kernel=name, case=label, dtype=str(dtype)[6:],
-        kv_dtype=str(kv_dtype)[6:],
+        kv_dtype=str(kv_dtype)[6:], route=route, route_as_expected=route_ok,
         shape=dict(S=S, H=H, n_kv=n_kv, d=d, L=L, page=page, max_ctx=max_ctx,
                    window=window, softcap=softcap, layer=layer),
         max_abs_err=err, tolerance=TOLERANCE[dtype], ctx0_row_max=zero_row,
@@ -315,10 +322,11 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
     emit(rec)
     if (not (err <= TOLERANCE[dtype]) or zero_row != 0.0 or pools_equal is False
             or not (f32_math_err is None or f32_math_err <= DECODE_F32_MATH_TOLERANCE)
-            or (overflow is not None and not (overflow["inf"] and overflow["max_finite"]))):
+            or (overflow is not None and not (overflow["inf"] and overflow["max_finite"]))
+            or route_ok is False):
         raise SystemExit(f"{name} {label} {dtype}/{kv_dtype}: error {err}, against f32 math "
                          f"{f32_math_err}, ctx=0 row {zero_row}, pools equal {pools_equal}, "
-                         f"overflow row {overflow}")
+                         f"overflow row {overflow}, {route} route launched {route_ok}")
     return rec
 
 
@@ -328,7 +336,7 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
     given absolute starts, with num_valid valid queries each; the pools
     in ``kv_dtype`` (default: ``dtype``)."""
     from llmq_tpu_torch.ops import attention as plain
-    from llmq_tpu_torch.ops.cuda_attention import paged_prefill_attention_cuda, prefill_route
+    from llmq_tpu_torch.ops.cuda_attention import attention_route, paged_prefill_attention_cuda
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -349,7 +357,7 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
     layer = L // 2
     scale = d ** -0.5
     kw = dict(scale=scale, sliding_window=window, softcap=softcap)
-    route = prefill_route(dtype, kv_dtype)
+    route = attention_route(dtype, kv_dtype)
     before = _route_counts(paged_prefill_attention_cuda)
     out = paged_prefill_attention_cuda(q, kp, vp, bt_t, start_t, nv_t, layer=layer, **kw)
     ref = plain.paged_prefill_attention(q, kp, vp, bt_t, pos_t, layer=layer, **kw)
@@ -429,7 +437,7 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
 
 def check_prefill(label, *, B, T, H, n_kv, d, lengths, dtype, softcap, window, iters, seed):
     from llmq_tpu_torch.ops import attention as plain
-    from llmq_tpu_torch.ops.cuda_attention import flash_prefill_attention_cuda, prefill_route
+    from llmq_tpu_torch.ops.cuda_attention import attention_route, flash_prefill_attention_cuda
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -439,7 +447,7 @@ def check_prefill(label, *, B, T, H, n_kv, d, lengths, dtype, softcap, window, i
     len_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
     scale = d ** -0.5
     kw = dict(scale=scale, sliding_window=window, softcap=softcap)
-    route = prefill_route(dtype, dtype)
+    route = attention_route(dtype, dtype)
     before = _route_counts(flash_prefill_attention_cuda)
     out = flash_prefill_attention_cuda(q, k, v, len_t, **kw)
     ref = plain.full_prefill_attention(q, k, v, lengths=len_t, **kw)
@@ -496,15 +504,17 @@ QUANT_F64_TOLERANCE = {"int8": (1e-5, 1e-4), "int4": (1e-4, 1e-4)}  # (rtol, ato
 QUANT_BF16_TOLERANCE = 2e-2  # rtol and atol
 
 
-def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed):
+def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed, timed_kernel=False):
     """K6 (``kind="int8"``) or K7 (``"int4"``) against its plain version on
     one weight quantized from seeded normals, scales in the activation
     dtype as the serving path makes them. f32: both held against the f64
     product at the TPU kernel tests' tolerances; bf16: the kernel against
-    the plain version. ``timed`` adds device times and the bound."""
+    the plain version. K7 asserts the route its launch took. ``timed``
+    adds device times and the bound; ``timed_kernel`` the kernel's time
+    alone."""
     from llmq_tpu_torch.models import quant as qm
     from llmq_tpu_torch.ops import matmul as plain
-    from llmq_tpu_torch.ops.cuda_matmul import int4_matmul_cuda, int8_matmul_cuda
+    from llmq_tpu_torch.ops.cuda_matmul import int4_matmul_cuda, int4_route, int8_matmul_cuda
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -519,11 +529,16 @@ def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed):
         parts = (qt["q"], qt["scale"], qt["zero"])
         fn, plain_fn = int4_matmul_cuda, plain.int4_matmul
     del w
+    routed = kind == "int4"
+    before = _route_counts(fn) if routed else None
     out = fn(x, *parts)
     ref = plain_fn(x, *parts)
     torch.cuda.synchronize()
+    route = int4_route(dtype) if routed else None
+    route_ok = _route_counts(fn)[route] == before[route] + 1 if routed else None
     err = (out.float() - ref.float()).abs().max().item()
     rec = dict(phase="kernel_check", kernel=f"{kind}_matmul", case=label, dtype=str(dtype)[6:],
+               route=route, route_as_expected=route_ok,
                shape=dict(M=M, K=K, N=N), max_abs_err=err)
     if dtype == torch.float32:
         if kind == "int8":
@@ -540,7 +555,10 @@ def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed):
         excess = excess.max().item()
         ok = excess <= QUANT_BF16_TOLERANCE
         rec.update(excess_over_rtol=excess, rtol=QUANT_BF16_TOLERANCE, atol=QUANT_BF16_TOLERANCE)
-    ok = ok and bool(torch.isfinite(out.float()).all())
+    ok = ok and bool(torch.isfinite(out.float()).all()) and route_ok is not False
+    if timed_kernel and not timed:
+        rec.update(ms=device_ms(lambda i: fn(x, *parts), iters),
+                   timing="torch.profiler device time per call")
     if timed:
         w_deq = qm.dequantize(qt, dtype)  # the library yardstick's weight, made once
         rec.update(
@@ -583,16 +601,22 @@ def phase_quant_kernels(iters: int) -> dict:
     """K6 and K7 at every shape, M = 16 (decode) and 1,024 (prefill), f32
     and bf16; per-layer sums of the bf16 qwen2.5-3b times. Returns the
     kernels line's records: K6 at qwen2.5-3b gate/up_proj, K7 at
-    llama3.1-8b down_proj, both bf16 at M = 16."""
+    llama3.1-8b down_proj, both bf16 at M = 16 (K7 also f32 on its exact
+    route and bf16 at M = 1,024)."""
     main, layer = {}, {}
     for kind in ("int8", "int4"):
         for M in (16, 1024):
             for i, (label, K, N) in enumerate(QUANT_SHAPES):
+                headline = ("qwen2.5-3b gate/up_proj" if kind == "int8"
+                            else "llama3.1-8b down_proj")
                 for dtype in (torch.float32, torch.bfloat16):
-                    rec = check_quant_matmul(label, kind=kind, M=M, K=K, N=N, dtype=dtype,
-                                             iters=iters, seed=20 + i,
-                                             timed=dtype == torch.bfloat16)
+                    rec = check_quant_matmul(
+                        label, kind=kind, M=M, K=K, N=N, dtype=dtype, iters=iters, seed=20 + i,
+                        timed=dtype == torch.bfloat16,
+                        timed_kernel=kind == "int4" and M == 16 and label == headline)
                     if dtype != torch.bfloat16:
+                        if rec.get("ms") is not None:  # K7's exact route in f32
+                            main["int4_matmul/exact"] = rec
                         continue
                     n = QWEN_LAYER_COUNT.get(label, 0)
                     if n:
@@ -600,10 +624,12 @@ def phase_quant_kernels(iters: int) -> dict:
                                                                library_ms=0.0, bound_ms=0.0))
                         for key in acc:
                             acc[key] += n * rec[key]
-                    headline = ("qwen2.5-3b gate/up_proj" if kind == "int8"
-                                else "llama3.1-8b down_proj")
-                    if M == 16 and label == headline:
+                    if label != headline:
+                        continue
+                    if M == 16:
                         main[f"{kind}_matmul"] = rec
+                    elif kind == "int4":
+                        main["int4_matmul/m1024"] = rec
     for (kind, M), acc in layer.items():
         emit(dict(phase="kernel_layer_sum", kernel=f"{kind}_matmul", model="qwen2.5-3b",
                   M=M, dtype="bfloat16", projections=7, **acc))
@@ -612,8 +638,8 @@ def phase_quant_kernels(iters: int) -> dict:
 
 def phase_kernels(iters: int) -> dict:
     """Every kernel in f32 and bf16; the bf16 record at qwen2.5-3b shapes
-    is the one the final kernels line reports (K2 and K3: the tensor-core
-    route's, with the exact route's f32 record beside it)."""
+    is the one the final kernels line reports (K1, K2, K3 and K7: the
+    tensor-core route's, with the exact route's f32 record beside it)."""
     main = {}
     qwen = dict(S=16, H=16, n_kv=2, d=128, L=36, page=32, max_ctx=1024, softcap=None,
                 window=None, iters=iters)
@@ -624,7 +650,9 @@ def phase_kernels(iters: int) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for variant in ("v1", "v2", "v3"):  # the same inputs for the three
             rec = check_decode("qwen2.5-3b", variant=variant, dtype=dtype, seed=1, **qwen)
-            if dtype == torch.bfloat16:
+            if rec["route"] is not None:
+                main[f"{rec['kernel']}/{rec['route']}"] = rec
+            elif dtype == torch.bfloat16:
                 main[rec["kernel"]] = rec
             check_decode("gemma2-2b", variant=variant, dtype=dtype, seed=2, **gemma)
         lengths = [224, 200, 151, 37]
@@ -669,7 +697,8 @@ def _wrapper(module: str, attr: str):
     return getattr(importlib.import_module(f"llmq_tpu_torch.ops.{module}"), attr)
 
 
-ROUTED = ("flash_prefill", "paged_prefill")  # kernels with a tensor-core and an exact route
+# kernels with a tensor-core and an exact route
+ROUTED = ("paged_decode", "flash_prefill", "paged_prefill", "int4_matmul")
 
 
 def _route_counts(wrapper) -> dict:
@@ -692,11 +721,13 @@ def read_routes() -> dict:
     return {name: _route_counts(_wrapper(*KERNEL_COUNTERS[name])) for name in ROUTED}
 
 
-def route_problems(routes: dict, launches: dict) -> list:
-    """A bf16 serve must launch K2 and K3 only on their tensor-core route."""
-    return [f"{name}: {routes[name]['exact']} of {launches[name]} launches on the exact route"
+def route_problems(routes: dict, launches: dict, route: str = "tensor_core") -> list:
+    """A bf16 serve must launch K1, K2, K3 and K7 only on their tensor-core
+    route; an f32 run (``route="exact"``) only on their exact route."""
+    other = "exact" if route == "tensor_core" else "tensor_core"
+    return [f"{name}: {routes[name][other]} of {launches[name]} launches on the {other} route"
             for name in ROUTED
-            if routes[name]["exact"] or routes[name]["tensor_core"] != launches[name]]
+            if routes[name][other] or routes[name][route] != launches[name]]
 
 
 @contextlib.contextmanager
@@ -1171,16 +1202,18 @@ def phase_parity(variant: str = "f32") -> dict:
         core.v_pages.view(torch.uint8).zero_()
         outs[dev] = _generate(core, prompts, 32)
         if dev == "cuda":
-            counted = read_launches()
+            counted, routes = read_launches(), read_routes()
         del core
     err_pre = (logits["cuda"][0] - logits["cpu"][0]).abs().max().item()
     err_dec = (logits["cuda"][1] - logits["cpu"][1]).abs().max().item()
     same = outs["cuda"] == outs["cpu"] and all(len(v) == 32 for v in outs["cuda"].values())
     rung = f"{variant}_matmul"
-    launch_ok = counted["paged_decode"] > 0 and counted.get(rung, 1) > 0
+    route_errs = route_problems(routes, counted, route="exact")
+    launch_ok = counted["paged_decode"] > 0 and counted.get(rung, 1) > 0 and not route_errs
     rec = dict(
         phase="parity_f32", config="qwen2.5-3b widths, 2 layers", path="bucketed prefill, v1",
-        variant=variant, kv_dtype=ecfg["kv_dtype"], card_launches=counted,
+        variant=variant, kv_dtype=ecfg["kv_dtype"], card_launches=counted, routes=routes,
+        route_problems=route_errs,
         prefill_pool_elements_stored_apart=pool_split,
         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
@@ -1265,7 +1298,7 @@ def phase_chunk_parity() -> dict:
         with env(LLMQ_DECODE_KERNEL=kernel):
             (chunk_l, dec_l), tokens, stats = run("cuda")
         torch.cuda.synchronize()
-        counted = read_launches()
+        counted, routes = read_launches(), read_routes()
         err_chunk = (chunk_l - ref_logits[0]).abs().max().item()
         err_dec = (dec_l - ref_logits[1]).abs().max().item()
         same = tokens == ref_tokens and all(len(v) == 24 for v in tokens.values())
@@ -1278,7 +1311,8 @@ def phase_chunk_parity() -> dict:
         want_decode = 2 * (stats["decode_steps"] + 1)
         want_chunk = 2 * (stats["prefill_dispatches"] + 2)
         launch_ok = (counted[decode_name] == want_decode and counted["paged_prefill"] == want_chunk
-                     and sum(counted.values()) == want_decode + want_chunk)
+                     and sum(counted.values()) == want_decode + want_chunk
+                     and not route_problems(routes, counted, route="exact"))
         rec = dict(
             phase="parity_f32", config="qwen2.5-3b widths, 2 layers",
             path=f"chunked prefill {C} + prefix cache, {kernel}",
@@ -1287,7 +1321,7 @@ def phase_chunk_parity() -> dict:
             tolerance=1e-4, tokens_identical=same, seeded_requests=1,
             tokens_compared=sum(len(v) for v in tokens.values()),
             prefix_counters=counters, prefix_counters_equal=counters_equal,
-            launches=counted, launches_as_expected=launch_ok,
+            launches=counted, routes=routes, launches_as_expected=launch_ok,
         )
         emit(rec)
         recs.append(rec)
@@ -1351,7 +1385,7 @@ def main() -> int:
         return 0
     kernels = []
     for name, source, replaces in (
-        ("paged_decode", "llmq_tpu_torch/ops/csrc/paged_decode.cu",
+        ("paged_decode", "llmq_tpu_torch/ops/csrc/paged_decode_tc.cu",
          "llmq_tpu/ops/pallas_attention.py:168"),
         ("flash_prefill", "llmq_tpu_torch/ops/csrc/flash_prefill_tc.cu",
          "llmq_tpu/ops/pallas_attention.py:1039"),
@@ -1363,11 +1397,12 @@ def main() -> int:
          "llmq_tpu/ops/pallas_attention.py:487"),
         ("int8_matmul", "llmq_tpu_torch/ops/csrc/int8_matmul.cu",
          "llmq_tpu/ops/pallas_matmul.py:145"),
-        ("int4_matmul", "llmq_tpu_torch/ops/csrc/int4_matmul.cu",
+        ("int4_matmul", "llmq_tpu_torch/ops/csrc/int4_matmul_tc.cu",
          "llmq_tpu/ops/pallas_matmul.py:219"),
     ):
         routed = name in ROUTED
-        rec = main_recs.get(f"{name}/tensor_core" if routed else name, {})
+        rec = main_recs.get(f"{name}/tensor_core" if routed and name != "int4_matmul" else name,
+                            {})
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches.get(name), max_abs_err=rec.get("max_abs_err"),
@@ -1379,6 +1414,10 @@ def main() -> int:
             entry.update(exact_source=source.replace("_tc.cu", ".cu"),
                          exact_f32_ms=exact.get("ms"),
                          exact_f32_max_abs_err=exact.get("max_abs_err"))
+        if name == "int4_matmul":
+            big = main_recs.get("int4_matmul/m1024", {})
+            entry.update({f"m1024_{k}": big.get(k) for k in ("ms", "library_ms", "bound_ms",
+                                                              "bound_by")})
         kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})

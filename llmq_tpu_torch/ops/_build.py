@@ -28,6 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {
     "paged_decode": "paged_decode.cu",
+    "paged_decode_tc": "paged_decode_tc.cu",
     "flash_prefill": "flash_prefill.cu",
     "flash_prefill_tc": "flash_prefill_tc.cu",
     "paged_prefill": "paged_prefill.cu",
@@ -35,6 +36,7 @@ SOURCES = {
     "paged_decode_v2": "paged_decode_v2.cu",
     "int8_matmul": "int8_matmul.cu",
     "int4_matmul": "int4_matmul.cu",
+    "int4_matmul_tc": "int4_matmul_tc.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -139,6 +141,17 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = _errs[name](code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+
+
+def split_count(units: int, target: int, max_splits: int) -> int:
+    """Runs of whole ``units`` (key tiles, k-tiles) to cut a loop into:
+    as many as ``target`` and ``max_splits`` allow, never more (an SM's
+    blocks share it, so one SM holding an extra block sets the time), all
+    of one length but the last, none empty."""
+    if units <= 0:
+        return 1
+    per = -(-units // max(1, min(target, max_splits, units)))
+    return -(-units // per)
 
 
 def sm_count(device) -> int:

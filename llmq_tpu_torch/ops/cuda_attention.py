@@ -1,7 +1,7 @@
 """Wrappers of the hand-written CUDA attention kernels (``ops/csrc``).
 
-- :func:`paged_decode_attention_cuda` — K1, ``csrc/paged_decode.cu``,
-  the port of ``pallas_attention.py::paged_decode_attention_pallas``.
+- :func:`paged_decode_attention_cuda` — K1, the port of
+  ``pallas_attention.py::paged_decode_attention_pallas``.
 - :func:`flash_prefill_attention_cuda` — K2, the port of
   ``pallas_attention.py::flash_prefill_attention_pallas``.
 - :func:`paged_prefill_attention_cuda` — K3, the port of
@@ -11,11 +11,13 @@
   ``csrc/paged_decode_v2.cu``, the ports of
   ``pallas_attention.py::paged_decode_attention_pallas_v2`` / ``_v3``.
 
-K2 and K3 each have two routes, chosen by dtype alone in
-:func:`prefill_route`: bf16 queries over bf16 or float8_e5m2 K/V run on
-the tensor cores (``csrc/flash_prefill_tc.cu``, ``csrc/paged_prefill_tc.cu``
-over ``csrc/attn_tc.cuh``); f32 queries, or an f32 pool, run the exact
-CUDA-core kernels (``csrc/flash_prefill.cu``, ``csrc/paged_prefill.cu``).
+K1, K2 and K3 each have two routes, chosen by dtype alone in
+:func:`attention_route`: bf16 queries over bf16 or float8_e5m2 K/V run on the tensor
+cores (``csrc/paged_decode_tc.cu``, launch plan from
+:func:`decode_tc_plan`; ``csrc/flash_prefill_tc.cu`` and
+``csrc/paged_prefill_tc.cu`` over ``csrc/attn_tc.cuh``); f32 queries, or
+an f32 pool, run the exact CUDA-core kernels (``csrc/paged_decode.cu``,
+``csrc/flash_prefill.cu``, ``csrc/paged_prefill.cu``).
 Each route counts its own launches (``tensor_core_launches``,
 ``exact_launches``) beside the wrapper's ``launches``.
 
@@ -32,7 +34,7 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -52,6 +54,7 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "paged_decode": ("llmq_paged_decode", [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P]),
+    "paged_decode_tc": ("llmq_paged_decode_tc", [_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _P]),
     "flash_prefill": ("llmq_flash_prefill", [_P] * 5 + [_I] * 5 + [_L] * 12 + [_I, _F, _F, _P]),
     "flash_prefill_tc": ("llmq_flash_prefill_tc",
                          [_P] * 5 + [_I] * 5 + [_L] * 12 + [_I, _F, _F, _P]),
@@ -62,22 +65,46 @@ _SIGNATURES = {
 }
 
 
-#: prefill routes (:func:`prefill_route`)
+#: routes of K1, K2 and K3 (:func:`attention_route`)
 TENSOR_CORE, EXACT = "tensor_core", "exact"
 _TC_KV = (torch.bfloat16, torch.float8_e5m2)
+
+# K1's tensor-core route (csrc/paged_decode_tc.cu): 4 warps a block, each
+# walking every fourth 16-key tile of the block's span through its own
+# ring of raw K/V rows, 1 to 3 stages deep.
+DECODE_TC_TILE = 16
+DECODE_TC_WARPS = 4
+DECODE_TC_STAGES = (1, 2, 3)  # ring depths the kernel is built for
 
 
 def _kernel(name: str):
     return _build.function(name, *_SIGNATURES[name])
 
 
-def prefill_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
-    """The prefill kernels' route (K2, K3) for queries of ``q_dtype`` over
-    K/V of ``kv_dtype`` (K2: q's own dtype): :data:`TENSOR_CORE` for bf16
-    queries over bf16 or float8_e5m2 K/V (an e5m2 value widens exactly to
-    bf16), else :data:`EXACT`: f32 queries, or an f32 pool, which promotes
-    the math to f32 — a precision bf16 tensor cores cannot hold. A choice
-    by dtype, not a fallback: a tensor-core launch that fails raises."""
+_counters: Dict[Optional[int], torch.Tensor] = {}
+
+
+def _split_counters(n: int, device: torch.device) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device`` for K1's tensor-core route:
+    its spans count themselves in, and the last one resets its counter, so
+    the buffer is zero again after every launch and is kept per device."""
+    buf = _counters.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = _counters[device.index] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                    device=device)
+    return buf
+
+
+
+
+def attention_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """The route of the attention kernels K1, K2 and K3 for queries of
+    ``q_dtype`` over K/V of ``kv_dtype`` (K2: q's own dtype):
+    :data:`TENSOR_CORE` for bf16 queries over bf16 or float8_e5m2 K/V (an
+    e5m2 value widens exactly to bf16), else :data:`EXACT`: f32 queries,
+    or an f32 pool, which promotes the math to f32 — a precision bf16
+    tensor cores cannot hold. A choice by dtype, not a fallback: a
+    tensor-core launch that fails raises."""
     return TENSOR_CORE if q_dtype == torch.bfloat16 and kv_dtype in _TC_KV else EXACT
 
 
@@ -114,6 +141,15 @@ def _softcap(softcap: Optional[float]) -> float:
     return 0.0 if softcap is None else float(softcap)
 
 
+
+
+def _tc_split_target(num_seqs: int, n_kv: int, max_ctx: int, sms: int) -> int:
+    """K1's tensor-core route: spans of at least one 16-key tile for each
+    of its 4 warps, and no more blocks than two per SM."""
+    want = max(1, 2 * sms // max(1, num_seqs * n_kv))
+    return max(1, min(want, -(-max_ctx // (DECODE_TC_TILE * DECODE_TC_WARPS))))
+
+
 def decode_splits(
     num_seqs: int, n_kv: int, max_ctx: int, device: torch.device, tile: int = DECODE_TILE
 ) -> int:
@@ -124,6 +160,37 @@ def decode_splits(
     sms = _build.sm_count(device)
     want = -(-2 * sms // max(1, num_seqs * n_kv))
     return max(1, min(want, -(-max_ctx // tile), MAX_SPLITS))
+
+
+def decode_tc_smem(head_dim: int, kv_itemsize: int, stages: int) -> int:
+    """Shared bytes of a K1 tensor-core block (csrc Layout): the group's
+    16 bf16 query rows, then the larger of the warps' rings (raw K and V
+    tiles of 16 rows) and the end-of-loop merge (each warp's f32 acc and
+    (m, l) per row, and per row the warps' weights and sum), and a flag."""
+    ring = DECODE_TC_WARPS * stages * 2 * DECODE_TC_TILE * head_dim * kv_itemsize
+    merge = 4 * (DECODE_TC_WARPS * MAX_GROUP * (head_dim + 2) + MAX_GROUP * (DECODE_TC_WARPS + 1))
+    return MAX_GROUP * head_dim * 2 + max(ring, merge) + 16  # + the last-span flag
+
+
+def decode_tc_plan(num_seqs: int, n_kv: int, max_ctx: int, head_dim: int, kv_itemsize: int,
+                   sms: int) -> dict:
+    """Launch plan of K1's tensor-core route, a function of shapes and the
+    SM count only: ``splits`` (spans of at least one 16-key tile for each
+    of the 4 warps, no more blocks than two per SM, none empty for a row
+    that fills the page map) and ``stages`` (the per-warp ring depth: one
+    more than a warp's tiles, at most 3, cut while the grid's blocks per
+    SM do not fit its shared memory together; ``smem`` its bytes a
+    block)."""
+    tiles = max(1, -(-max_ctx // DECODE_TC_TILE))
+    splits = _build.split_count(tiles, _tc_split_target(num_seqs, n_kv, max_ctx, sms),
+                                MAX_SPLITS)
+    warp_tiles = -(-(-(-tiles // splits)) // DECODE_TC_WARPS)
+    resident = min(3, max(1, -(-num_seqs * n_kv * splits // sms)))
+    stages = min(warp_tiles + 1, DECODE_TC_STAGES[-1])
+    while stages > 1 and resident * (decode_tc_smem(head_dim, kv_itemsize, stages) + 1024) > (
+            SM_SHARED_BYTES):
+        stages -= 1
+    return dict(splits=splits, stages=stages, smem=decode_tc_smem(head_dim, kv_itemsize, stages))
 
 
 def pages_per_chunk(page_size: int, head_dim: int, kv_itemsize: int, blocks_per_sm: int) -> int:
@@ -187,33 +254,49 @@ def paged_decode_attention_cuda(
     sliding_window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """K1: paged decode attention over a layer-stacked page pool."""
+    """K1: paged decode attention over a layer-stacked page pool, on the
+    route :func:`attention_route` gives the q and pool dtypes."""
     _check_decode("paged_decode_attention_cuda", q, k_pages, v_pages, block_tables,
                   context_lens, layer)
     S, n_heads, d = q.shape
     _, P, page_size, n_kv, _ = k_pages.shape
-    fn = _kernel("paged_decode")
+    pps = block_tables.shape[1]
+    route = attention_route(q.dtype, k_pages.dtype)
+    if route == TENSOR_CORE:
+        _require(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+                 "paged_decode_attention_cuda: the tensor-core route copies 16-byte words; "
+                 "q and the pools must be 16-byte aligned")
+        plan = decode_tc_plan(S, n_kv, pps * page_size, d, k_pages.element_size(),
+                              _build.sm_count(q.device))
+        name, splits = "paged_decode_tc", plan["splits"]
+        counters = _split_counters(S * n_kv, q.device).data_ptr() if splits > 1 else None
+        dtypes, tail = (counters, _KV_CODES[k_pages.dtype]), (splits, plan["stages"])
+    else:
+        name, splits = "paged_decode", decode_splits(S, n_kv, pps * page_size, q.device)
+        dtypes, tail = (int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype]), (splits,)
+    fn = _kernel(name)
     out = torch.empty_like(q)
-    splits = decode_splits(S, n_kv, block_tables.shape[1] * page_size, q.device)
+    row = d + (4 if route == TENSOR_CORE else 2)  # a partial: acc, m and l (padded to 16 bytes)
     part = (
-        torch.empty(S * n_heads * splits * (d + 2), dtype=torch.float32, device=q.device)
+        torch.empty(S * n_heads * splits * row, dtype=torch.float32, device=q.device)
         if splits > 1 else None
     )
     code = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(),
-        int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype],
-        S, n_heads, n_kv, d, P, page_size, block_tables.shape[1], int(layer),
-        _window(sliding_window), float(scale), _softcap(softcap), splits,
+        None if part is None else part.data_ptr(), *dtypes,
+        S, n_heads, n_kv, d, P, page_size, pps, int(layer),
+        _window(sliding_window), float(scale), _softcap(softcap), *tail,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check("paged_decode", code)
-    paged_decode_attention_cuda.launches += 1
+    _build.check(name, code)
+    _count(paged_decode_attention_cuda, route)
     return out
 
 
 paged_decode_attention_cuda.launches = 0
+paged_decode_attention_cuda.tensor_core_launches = 0
+paged_decode_attention_cuda.exact_launches = 0
 
 
 def flash_prefill_attention_cuda(
@@ -227,7 +310,7 @@ def flash_prefill_attention_cuda(
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """K2: causal flash attention over a right-padded prompt bucket, on
-    the route :func:`prefill_route` gives q's dtype. Rows past a row's
+    the route :func:`attention_route` gives q's dtype. Rows past a row's
     length come back as zeros on the card (the plain version leaves
     finite garbage there); callers never read them."""
     _require(q.is_cuda, "flash_prefill_attention_cuda takes CUDA tensors")
@@ -245,7 +328,7 @@ def flash_prefill_attention_cuda(
         _require(t.device == q.device, "all tensors must be on q's device")
     for t in (q, k, v):
         _require(t.stride(3) == 1, "the head dimension must be contiguous")
-    route = prefill_route(q.dtype, k.dtype)
+    route = attention_route(q.dtype, k.dtype)
     name = "flash_prefill_tc" if route == TENSOR_CORE else "flash_prefill"
     if route == TENSOR_CORE:
         _check_rows_aligned("flash_prefill_attention_cuda", q=q, k=k, v=v)
@@ -390,7 +473,7 @@ def paged_prefill_attention_cuda(
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """K3: a chunk of queries per row against the paged cache, which
-    already holds the chunk's K/V, on the route :func:`prefill_route`
+    already holds the chunk's K/V, on the route :func:`attention_route`
     gives the q and pool dtypes. Query rows past ``num_valid`` come back
     as zeros (the plain version leaves a finite average); callers never
     read them."""
@@ -411,7 +494,7 @@ def paged_prefill_attention_cuda(
         _require(t.device == q.device and t.is_contiguous(), "pools: contiguous, on q's device")
     _require(q.stride(3) == 1, "the head dimension must be contiguous")
     _require(0 <= int(layer) < L, f"layer {layer} outside the {L}-layer pool")
-    route = prefill_route(q.dtype, k_pages.dtype)
+    route = attention_route(q.dtype, k_pages.dtype)
     if route == TENSOR_CORE:
         _check_rows_aligned("paged_prefill_attention_cuda", q=q, k_pages=k_pages,
                             v_pages=v_pages)

@@ -2,8 +2,17 @@
 
 - :func:`int8_matmul_cuda` — K6, ``csrc/int8_matmul.cu``, the port of
   ``pallas_matmul.py::int8_matmul_pallas``;
-- :func:`int4_matmul_cuda` — K7, ``csrc/int4_matmul.cu``, the port of
+- :func:`int4_matmul_cuda` — K7, the port of
   ``pallas_matmul.py::int4_matmul_pallas``.
+
+K7 has two routes, chosen by the activation dtype alone in
+:func:`int4_route`: bf16 activations (whatever the scales' dtype) run on
+the tensor cores (``csrc/int4_matmul_tc.cu``, launch plan from
+:func:`int4_tc_plan`); f32 activations run the exact CUDA-core kernel
+(``csrc/int4_matmul.cu`` over ``csrc/quant_matmul.cuh``), which the f32
+parity checks need. K7 counts each route's launches
+(``tensor_core_launches``, ``exact_launches``) beside ``launches``. K6
+keeps its one CUDA-core route.
 
 As in ``ops/cuda_attention.py``: CUDA tensors only, each wrapper launches
 its kernel on the current stream or raises (no fallback), the choice
@@ -29,6 +38,81 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _INT8 = ("int8_matmul", "llmq_int8_matmul", [_P] * 5 + [_I] * 6 + [_P])
 _INT4 = ("int4_matmul", "llmq_int4_matmul", [_P] * 6 + [_I] * 7 + [_P])
+_INT4_TC = ("int4_matmul_tc", "llmq_int4_matmul_tc", [_P] * 6 + [_I] * 8 + [_P])
+
+#: K7 routes (:func:`int4_route`)
+TENSOR_CORE, EXACT = "tensor_core", "exact"
+
+# The tensor-core route's tiles (csrc/int4_matmul_tc.cu): 64-row k-tiles;
+# int4_decode (kind 0) 16 x 256 output tiles of 256 threads, two blocks an
+# SM; int4_prefill (kind 1) 128 x 128 tiles of two warpgroups (wgmma), one
+# block an SM (its registers).
+TC_TILE_K = 64
+TC_DECODE_M, TC_DECODE_N = 16, 256
+TC_PREFILL_M, TC_PREFILL_N = 128, 128
+TC_DECODE_STAGES = (6, 4, 3, 2)  # ring depths int4_decode is built for, deepest first
+TC_PREFILL_STAGES = 6
+SM_SHARED_BYTES = 227 * 1024  # what one Hopper SM gives its blocks
+# A block's first copies take ~1 us to land: a split of one k-tile spends
+# more time waiting than working (q/o_proj: 32 one-tile splits ran slower
+# than 16 of two on the H100).
+TC_MIN_TILES_PER_SPLIT = 2
+
+
+def _tc_decode_stage_bytes(scale_itemsize: int) -> int:
+    """Shared bytes of one int4_decode ring stage: 32 packed rows of the
+    256-column tile at a 288-byte pitch, the 16 x 64 bf16 x tile, four
+    scale rows and four zero rows (csrc DecLayout)."""
+    return (32 * (TC_DECODE_N + 32) + TC_DECODE_M * TC_TILE_K * 2
+            + 2 * 4 * TC_DECODE_N * scale_itemsize)
+
+
+def tc_prefill_smem() -> int:
+    """Shared bytes of an int4_prefill block (csrc PreLayout): two decoded
+    64 x 128 bf16 weight tiles, six ring stages of the 128 x 64 bf16 x
+    tile, the 32 packed rows (padded to 5 KB) and four scale / zero rows
+    (4 KB), and 1 KB to align the tiles to wgmma's 1,024-byte swizzle."""
+    frag = TC_TILE_K * TC_PREFILL_N * 2
+    stage = TC_PREFILL_M * TC_TILE_K * 2 + 5 * 1024 + 4096
+    return 2 * frag + TC_PREFILL_STAGES * stage + 1024
+
+
+def int4_route(x_dtype: torch.dtype) -> str:
+    """K7's route for activations of ``x_dtype``: :data:`TENSOR_CORE` for
+    bf16 (the weights are rebuilt in f32 and rounded to bf16 either way,
+    so the tensor cores multiply the plain version's values), else
+    :data:`EXACT`. A choice by dtype, not a fallback: a tensor-core launch
+    that fails raises."""
+    return TENSOR_CORE if x_dtype == torch.bfloat16 else EXACT
+
+
+def int4_tc_plan(M: int, N: int, K: int, sms: int, scale_itemsize: int = 2) -> dict:
+    """Launch plan of K7's tensor-core route, a function of shapes and the
+    SM count only: ``kind`` (0 = int4_decode for M <= 16, 1 =
+    int4_prefill), ``splits`` (K runs of whole 64-row tiles, none empty,
+    each at least two tiles long where K has them, as many as keep the
+    grid within two decode blocks or one prefill block per SM) and
+    ``stages`` (int4_decode's ring depth: the deepest whose blocks all fit
+    an SM's shared memory together, no deeper than a split's tiles need;
+    ``smem`` its bytes a block)."""
+    kind = 0 if M <= TC_DECODE_M else 1
+    bm, bn = (TC_DECODE_M, TC_DECODE_N) if kind == 0 else (TC_PREFILL_M, TC_PREFILL_N)
+    blocks = -(-N // bn) * -(-M // bm)
+    tiles = -(-K // TC_TILE_K)
+    per_sm = 2 if kind == 0 else 1
+    want = max(1, min(per_sm * sms // max(1, blocks), tiles // TC_MIN_TILES_PER_SPLIT))
+    splits = _build.split_count(tiles, want, MAX_SPLITS)
+    per_split = -(-tiles // splits) if tiles else 0
+    if kind == 1:
+        return dict(kind=1, splits=splits, stages=TC_PREFILL_STAGES, smem=tc_prefill_smem())
+    resident = min(2, max(1, -(-blocks * splits // sms)))
+    stage = _tc_decode_stage_bytes(scale_itemsize)
+    stages = TC_DECODE_STAGES[-1]
+    for s in TC_DECODE_STAGES:
+        if resident * s * stage <= SM_SHARED_BYTES and s <= max(2, per_split + 1):
+            stages = s
+            break
+    return dict(kind=0, splits=splits, stages=stages, smem=stages * stage)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -97,7 +181,8 @@ def int4_matmul_cuda(
 ) -> torch.Tensor:
     """K7: ``x[M, K] @ ((unpack(q) - zero) * scale)`` in ``x.dtype``; q
     uint8 ``[K/2, N]``, scale and zero ``[G, N]`` in one dtype, f32 or
-    bf16, with ``G`` dividing ``K``."""
+    bf16, with ``G`` dividing ``K``; on the route :func:`int4_route` gives
+    x's dtype. Any shape, group and storage offset the exact route takes."""
     _require(q.dim() == 2 and q.dtype == torch.uint8,
              f"q {tuple(q.shape)} {q.dtype}; want packed uint8 [K/2, N]")
     K, N = 2 * q.shape[0], q.shape[1]
@@ -111,19 +196,38 @@ def int4_matmul_cuda(
     for t in (q, scale, zero):
         _require(t.device == x.device and t.is_contiguous(),
                  "q, scale, zero: contiguous, on x's device")
-    fn = _build.function(*_INT4)
+    route = int4_route(x.dtype)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    splits = matmul_splits(M, N, K, x.device)
-    part = _scratch(splits, M, N, x.device)
-    code = fn(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(),
-        int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16), M, N, K, K // G,
-        splits, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check("int4_matmul", code)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == TENSOR_CORE:
+        fn = _build.function(*_INT4_TC)
+        plan = int4_tc_plan(M, N, K, _build.sm_count(x.device), scale.element_size())
+        part = _scratch(plan["splits"], M, N, x.device)
+        code = fn(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), int(scale.dtype == torch.bfloat16),
+            plan["kind"], M, N, K, K // G, plan["splits"], plan["stages"], stream,
+        )
+        _build.check(_INT4_TC[0], code)
+    else:
+        fn = _build.function(*_INT4)
+        splits = matmul_splits(M, N, K, x.device)
+        part = _scratch(splits, M, N, x.device)
+        code = fn(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16), M, N, K, K // G,
+            splits, stream,
+        )
+        _build.check(_INT4[0], code)
     int4_matmul_cuda.launches += 1
+    if route == TENSOR_CORE:
+        int4_matmul_cuda.tensor_core_launches += 1
+    else:
+        int4_matmul_cuda.exact_launches += 1
     return out
 
 
 int4_matmul_cuda.launches = 0
+int4_matmul_cuda.tensor_core_launches = 0
+int4_matmul_cuda.exact_launches = 0

@@ -3,8 +3,8 @@
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card
 and skips without one (so on a CPU-only machine these count as skipped).
 On a GPU machine: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-The prefill kernels (K2, K3) run bf16 on the tensor-core route and f32
-on the exact route; each test asserts the route its launch took.
+K1, K2, K3 and K7 run bf16 on their tensor-core route and f32 on their
+exact route; each test asserts the route its launch took.
 Tolerances: 2e-5 in f32, 3e-2 in bf16, as for the Pallas kernels; the
 weight-only matmuls (K6, K7) in f32 within 1e-5 / 1e-4 (K6) and 1e-4
 (K7) of the f64 product, in bf16 within 2e-2 of the plain version, as
@@ -563,3 +563,143 @@ def test_quantized_model_on_card_matches_cpu(cuda_device, quantize, monkeypatch)
     assert logits["cuda"][2] == want and logits["cpu"][2] == (0, 0)
     for i in (0, 1):
         torch.testing.assert_close(logits["cuda"][i], logits["cpu"][i], rtol=1e-4, atol=1e-4)
+
+
+# --- K1 and K7 on their tensor-core routes ------------------------------------
+
+
+def _decode_tc_case(device, *, S, H, n_kv, d, page, pps, L, ctx, kv_dtype, seed,
+                    reverse_pages=False):
+    rng = np.random.default_rng(seed)
+    P = 1 + S * pps
+    if reverse_pages:  # each row's pages in descending pool order
+        bt = (P - 1 - np.arange(S * pps)).reshape(S, pps)
+    else:
+        bt = (1 + rng.permutation(S * pps)).reshape(S, pps)
+    q = torch.from_numpy(rng.standard_normal((S, H, d)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((L, P, page, n_kv, d)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((L, P, page, n_kv, d)).astype(np.float32))
+    return (q.to(device, torch.bfloat16), kp.to(device).to(kv_dtype), vp.to(device).to(kv_dtype),
+            torch.from_numpy(bt.astype(np.int32)).to(device),
+            torch.tensor(ctx, dtype=torch.int32, device=device))
+
+
+def _check_decode_tc(q, kp, vp, bt, ctx, **kw):
+    """K1 on the tensor-core route against the plain version on the same
+    bf16 values, in bf16 (3e-2) and in f32 math (1e-2, chip_smoke.py's
+    DECODE_F32_MATH_TOLERANCE); rows with ctx == 0 are exact zeros."""
+    before = _routes(paged_decode_attention_cuda)
+    out = paged_decode_attention_cuda(q, kp, vp, bt, ctx, **kw)
+    ref = plain.paged_decode_attention(q, kp, vp, bt, ctx, **kw)
+    layer = kw.pop("layer")
+    ref32 = plain.paged_decode_attention(q.float(), kp[layer:layer + 1].float(),
+                                         vp[layer:layer + 1].float(), bt, ctx, layer=0, **kw)
+    torch.cuda.synchronize()
+    _assert_launched_on(paged_decode_attention_cuda, before, "tensor_core")
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    live = ctx > 0
+    assert (out[~live] == 0).all()
+    torch.testing.assert_close(out[live].float(), ref[live].float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(out[live].float(), ref32[live], rtol=1e-2, atol=1e-2)
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("n_heads,n_kv", [(2, 2), (4, 2), (8, 2), (14, 2), (16, 2), (32, 2)],
+                         ids=["g1", "g2", "g4", "g7", "g8", "g16"])
+def test_paged_decode_tensor_core_groups_dims_and_edges(cuda_device, n_heads, n_kv, d):
+    """Groups 1-16, every head_dim, and contexts 0, 1, page - 1, page,
+    page + 1 beside a longer row."""
+    page = 16
+    case = _decode_tc_case(cuda_device, S=6, H=n_heads, n_kv=n_kv, d=d, page=page, pps=8, L=2,
+                           ctx=[0, 1, page - 1, page, page + 1, 101], kv_dtype=torch.bfloat16,
+                           seed=n_heads * d)
+    _check_decode_tc(*case, scale=d**-0.5, layer=1)
+
+
+@pytest.mark.parametrize("d,n_heads,n_kv,window,softcap", [
+    (128, 16, 2, None, None), (128, 8, 2, 13, 30.0), (256, 8, 4, 64, 50.0), (64, 14, 2, 7, None),
+])
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+def test_paged_decode_tensor_core_window_softcap_fp8(cuda_device, kv_dtype, d, n_heads, n_kv,
+                                                      window, softcap):
+    case = _decode_tc_case(cuda_device, S=5, H=n_heads, n_kv=n_kv, d=d, page=32, pps=6, L=3,
+                           ctx=[0, 1, 31, 90, 192], kv_dtype=kv_dtype, seed=d + n_heads)
+    _check_decode_tc(*case, scale=d**-0.5, sliding_window=window, softcap=softcap, layer=2)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+def test_paged_decode_tensor_core_long_row_reversed_pages(cuda_device, kv_dtype):
+    """A row of 8,192 keys (the split count at its cap) beside short
+    ones, each row's pages in descending pool order."""
+    case = _decode_tc_case(cuda_device, S=3, H=16, n_kv=2, d=128, page=32, pps=256, L=1,
+                           ctx=[8192, 5000, 3], kv_dtype=kv_dtype, seed=3, reverse_pages=True)
+    _check_decode_tc(*case, scale=128**-0.5, layer=0)
+
+
+def test_paged_decode_tensor_core_is_deterministic(cuda_device):
+    """The same launch twice gives the same bits (no atomics, fixed order)."""
+    q, kp, vp, bt, ctx = _decode_tc_case(cuda_device, S=16, H=16, n_kv=2, d=128, page=32,
+                                         pps=32, L=2, ctx=list(range(60, 1000, 60)),
+                                         kv_dtype=torch.bfloat16, seed=11)
+    kw = dict(scale=128**-0.5, layer=1)
+    a = paged_decode_attention_cuda(q, kp, vp, bt, ctx, **kw)
+    b = paged_decode_attention_cuda(q, kp, vp, bt, ctx, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _check_int4_tc(x, q, scale, zero):
+    before = _routes(int4_matmul_cuda)
+    out = int4_matmul_cuda(x, q, scale, zero)
+    ref = plain_mm.int4_matmul(x, q, scale, zero)
+    torch.cuda.synchronize()
+    _assert_launched_on(int4_matmul_cuda, before, "tensor_core")
+    assert out.dtype == torch.bfloat16 and out.shape == (x.shape[0], q.shape[1])
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("M", [1, 5, 16, 17, 64, 200, 1024])
+@pytest.mark.parametrize("K,N,group", [
+    (256, 136, 32), (2048, 256, 128), (96, 30, 32), (1024, 1000, 16), (200, 72, 8),
+])
+def test_int4_matmul_tensor_core_shapes(cuda_device, M, K, N, group):
+    """Every M band (decode kernel up to 16 rows, prefill kernel above),
+    ragged N (30, 136, 1,000) and K (96, 200), groups 8 (not a multiple of
+    16: the slow scale path), 16, 32 and 128, with split-K."""
+    x, _, parts = _quant_case("int4", M, K, N, torch.bfloat16, cuda_device, group=group, seed=M)
+    _check_int4_tc(x, *parts)
+
+
+@pytest.mark.parametrize("M", [16, 300])
+def test_int4_matmul_tensor_core_f32_scales(cuda_device, M):
+    """bf16 activations over f32 scales and zeros stay on the tensor cores."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    w = torch.randn((512, 264), generator=g, device=cuda_device) / 512**0.5
+    qt = qm.quantize_array_int4(w, group_size=128, scale_dtype=torch.float32)
+    x = torch.randn((M, 512), generator=g, device=cuda_device).bfloat16()
+    _check_int4_tc(x, qt["q"], qt["scale"], qt["zero"])
+
+
+@pytest.mark.parametrize("K,N,group_size", [(48, 37, 16), (40, 42, 32), (256, 37, 128)])
+@pytest.mark.parametrize("M", [16, 100])
+def test_int4_matmul_tensor_core_reads_layer_slices(cuda_device, M, K, N, group_size):
+    """The bf16 form of test_quant_matmul_kernels_read_layer_slices: each
+    layer's q, scale and zero are views into stacked tensors at storage
+    offsets that are not 16-byte aligned (odd N, K / 2 * N not a multiple
+    of 16), through the model's quantized matmul."""
+    L = 3
+    g = torch.Generator(device=cuda_device).manual_seed(K + N)
+    w = torch.randn((L, K, N), generator=g, device=cuda_device) / K**0.5
+    qt = qm.quantize_array_int4(w.bfloat16(), group_size=group_size, scale_dtype=torch.bfloat16)
+    x = torch.randn((M, K), generator=g, device=cuda_device).bfloat16()
+    assert any(t[li].data_ptr() % 16 for t in qt.values() for li in range(L))
+    for li in range(L):
+        layer = {k: t[li] for k, t in qt.items()}
+        before = _routes(int4_matmul_cuda)
+        out = qm.matmul(x, layer, frozenset({"int4"}))
+        ref = plain_mm.int4_matmul(x, layer["q"], layer["scale"], layer["zero"])
+        torch.cuda.synchronize()
+        _assert_launched_on(int4_matmul_cuda, before, "tensor_core")
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)

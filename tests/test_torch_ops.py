@@ -19,9 +19,9 @@ from llmq_tpu_torch.models.convert import tensor_from_numpy
 from llmq_tpu_torch.ops import attention as tops
 from llmq_tpu_torch.ops import dispatch as tdispatch
 from llmq_tpu_torch.ops.cuda_attention import (
+    attention_route,
     flash_prefill_attention_cuda,
     paged_decode_attention_cuda,
-    prefill_route,
 )
 
 pytestmark = pytest.mark.unit
@@ -251,9 +251,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     (torch.float32, torch.float8_e5m2, "exact"),
 ])
 def test_prefill_route_is_a_function_of_dtypes(q_dtype, kv_dtype, route):
-    """K2 / K3 run bf16 queries over bf16 or e5m2 K/V on the tensor cores
-    and everything that computes in f32 on the exact kernels."""
-    assert prefill_route(q_dtype, kv_dtype) == route
+    """K1, K2 and K3 run bf16 queries over bf16 or e5m2 K/V on the tensor
+    cores and everything that computes in f32 on the exact kernels."""
+    assert attention_route(q_dtype, kv_dtype) == route
 
 
 # --- fp8 (float8_e5m2) KV pools: the tests/test_kv_fp8.py case grid ----------

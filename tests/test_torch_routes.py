@@ -1,0 +1,103 @@
+"""Route rules and launch plans of the port's two-route kernels (K1, K2,
+K3 in ``ops/cuda_attention.py``; K7 in ``ops/cuda_matmul.py``).
+
+The routes are chosen by dtype alone, and the tensor-core routes' launch
+plans are pure functions of shapes and the SM count, so both are checked
+here on the CPU, over grids of shapes: no empty split, k-tiles that never
+straddle an int4 group, grids within two blocks an SM that still fill the
+card where the shape allows, shared memory within a Hopper SM's 227 KB.
+The kernels themselves run in ``tests/test_torch_cuda.py`` on a card.
+"""
+
+import itertools
+
+import pytest
+import torch
+
+from llmq_tpu_torch.ops import _build
+from llmq_tpu_torch.ops import cuda_attention as ca
+from llmq_tpu_torch.ops import cuda_matmul as cm
+
+pytestmark = pytest.mark.unit
+
+SM_SMEM = 227 * 1024  # shared memory one Hopper SM gives its blocks
+SMS = (132, 114, 8)  # an H100 SXM, an H100 PCIe, a small part
+
+
+@pytest.mark.parametrize("x_dtype,route", [
+    (torch.bfloat16, "tensor_core"), (torch.float32, "exact"),
+])
+def test_int4_route_is_a_function_of_the_activation_dtype(x_dtype, route):
+    assert cm.int4_route(x_dtype) == route
+
+
+def test_split_count_never_exceeds_its_target_and_leaves_no_run_empty():
+    for units, target, cap in itertools.product(range(0, 130), (1, 2, 3, 7, 9, 16, 33, 264),
+                                                (8, 32)):
+        n = _build.split_count(units, target, cap)
+        assert 1 <= n <= max(1, min(target, cap, units))
+        if units:
+            per = -(-units // n)
+            assert (n - 1) * per < units  # the last run holds at least one unit
+            # at least half the target where there are units enough
+            assert 2 * n >= min(target, cap, units)
+
+
+def test_decode_tc_plan_invariants():
+    for S, n_kv, max_ctx, d, item, sms in itertools.product(
+            (1, 3, 16, 64), (1, 2, 4, 8), (16, 100, 1024, 8192, 32768), (64, 128, 256), (1, 2),
+            SMS):
+        plan = ca.decode_tc_plan(S, n_kv, max_ctx, d, item, sms)
+        splits, stages = plan["splits"], plan["stages"]
+        assert 1 <= splits <= ca.MAX_SPLITS and stages in ca.DECODE_TC_STAGES
+        # the kernel's span for a row that fills the page map: whole 16-key
+        # tiles, no split empty, at least one tile for each of the 4 warps
+        span = ca.DECODE_TC_TILE * -(-(-(-max_ctx // ca.DECODE_TC_TILE)) // splits)
+        assert (splits - 1) * span < max_ctx
+        assert splits <= max(1, -(-max_ctx // (ca.DECODE_TC_TILE * ca.DECODE_TC_WARPS)))
+        rows = S * n_kv
+        blocks = rows * splits
+        assert blocks <= max(2 * sms, rows)  # no SM holds a third block on average
+        cap = min(ca.MAX_SPLITS, -(-max_ctx // (ca.DECODE_TC_TILE * ca.DECODE_TC_WARPS)))
+        assert 2 * blocks >= min(2 * sms, rows * cap)  # fills the card where it can
+        assert plan["smem"] == ca.decode_tc_smem(d, item, stages)
+        assert plan["smem"] + 1024 <= SM_SMEM
+        resident = min(2, -(-blocks // sms))
+        assert stages == 1 or resident * (plan["smem"] + 1024) <= SM_SMEM
+
+
+def test_int4_tc_plan_invariants():
+    for M, N, K, item, sms in itertools.product(
+            (1, 5, 16, 17, 64, 200, 1024), (30, 256, 2048, 4096, 11008),
+            (32, 96, 200, 2048, 11008, 14336), (2, 4), SMS):
+        plan = cm.int4_tc_plan(M, N, K, sms, item)
+        kind, splits = plan["kind"], plan["splits"]
+        assert kind == (0 if M <= cm.TC_DECODE_M else 1)
+        tiles = -(-K // cm.TC_TILE_K)
+        per = -(-tiles // splits)
+        assert 1 <= splits <= cm.MAX_SPLITS and (splits - 1) * per < tiles  # none empty
+        if tiles >= 2 * cm.TC_MIN_TILES_PER_SPLIT:
+            assert per >= cm.TC_MIN_TILES_PER_SPLIT
+        # runs of whole 64-row k-tiles: a group of 16, 32, 64 or 128 rows
+        # never straddles a tile or a split boundary
+        for g in (16, 32, 64, 128):
+            assert all((s * per * cm.TC_TILE_K) % min(g, cm.TC_TILE_K) == 0
+                       for s in range(splits))
+        bm, bn = ((cm.TC_DECODE_M, cm.TC_DECODE_N) if kind == 0
+                  else (cm.TC_PREFILL_M, cm.TC_PREFILL_N))
+        mn = -(-M // bm) * -(-N // bn)
+        per_sm = 2 if kind == 0 else 1
+        assert mn * splits <= max(per_sm * sms, mn)
+        assert plan["smem"] + 1024 <= SM_SMEM
+        if kind == 0:
+            assert plan["stages"] in cm.TC_DECODE_STAGES
+            assert plan["stages"] <= max(2, per + 1)
+            resident = min(2, -(-mn * splits // sms))
+            assert resident * plan["smem"] <= SM_SMEM
+
+
+def test_tensor_core_wrappers_count_their_routes():
+    """The two-route wrappers carry a counter per route beside launches."""
+    for fn in (ca.paged_decode_attention_cuda, ca.flash_prefill_attention_cuda,
+               ca.paged_prefill_attention_cuda, cm.int4_matmul_cuda):
+        assert isinstance(fn.tensor_core_launches, int) and isinstance(fn.exact_launches, int)
