@@ -13,8 +13,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    shapes (qwen2.5-3b) and at gemma2-2b shapes (head_dim 256, softcap 50,
    window 64): K1 paged decode, K2 flash prefill, K3 chunked prefill
    (chunks of 256 at contexts 0 / 256 / 1040, a row with no valid query;
-   K1, K2, K3 and K7 run bf16 on their tensor-core route and f32 on their
-   exact route, and each check asserts the route its launch took),
+   K1, K2, K3, K4, K6 and K7 run bf16 on their tensor-core route and f32
+   on their exact route, and each check asserts the route its launch
+   took),
    K5 chunked decode and K4 fused-write decode (whose pools must equal
    ``write_kv_pages`` + the plain decode bit for bit on pages >= 1). The
    decode kernels, whose math is f32 as on the TPU, are also held within
@@ -23,7 +24,8 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    pool; K4 stores one row past e5m2's range, which must give +-57,344
    and +-inf exactly as the plain cast does). K6 (int8) and K7 (int4)
    weight-only matmuls at qwen2.5-3b's projection shapes and
-   llama3.1-8b's down_proj, M = 16 and 1,024: in f32 both the kernel and
+   llama3.1-8b's down_proj, M = 16 and 1,024, and K6 at llama3.1-8b's
+   untied head (M = 16, K 4,096, N 128,256): in f32 both the kernel and
    the plain version within 1e-5 / 1e-4 (K6) and 1e-4 (K7) of the f64
    product, in bf16 the kernel within 2e-2 of the plain version. Times:
    the kernel's, the plain version's and one PyTorch library call's
@@ -42,30 +44,31 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    ``LLMQ_DECODE_KERNEL=v3``, ``prefill_chunk_size=256`` and
    ``enable_prefix_caching=True`` serves 16 greedy jobs sharing a
    ~1,024-token template with distinct tails, 64 tokens each. Counters as
-   above: K3 launches 36 times per chunk dispatch, all on the tensor-core
-   route, K4 36 times per decode step, K1, K2 and K5 never; the prefix
-   cache must hit.
+   above: K3 launches 36 times per chunk dispatch and K4 36 times per
+   decode step, all on the tensor-core route, K1, K2 and K5 never; the
+   prefix cache must hit.
 5. Quantized weights at full width, ``LLMQ_INT8_MATMUL=pallas
    LLMQ_INT4_MATMUL=pallas``: phase 3's workload served by qwen2.5-3b
    ``dtype="int8"`` (K6 launches 7 x 36 per dispatch) and by llama3.1-8b
    ``dtype="int4"`` with ``kv_dtype="fp8"`` (K7 7 x 32 per dispatch, K6
    once per dispatch for the untied int8 head, K1 over the e5m2 pool),
-   with step rates; K1, K2 and K7 on the tensor-core route only.
+   with step rates; K1, K2, K6 and K7 on the tensor-core route only.
 6. f32 parity, card against CPU, with TF32 off: the qwen2.5-3b widths at
    2 layers with the same numpy-made weights. The default path (bucketed
    prefill + K1) with f32 weights, with int8 and int4 weights (through K6
    / K7 on the card) and with an fp8 KV pool: logits within 1e-4 and
-   identical greedy tokens over 32 steps, K1 and K7 on their exact route
-   only. Then the chunked + prefix-cache
+   identical greedy tokens over 32 steps, K1, K6 and K7 on their exact
+   route only. Then the chunked + prefix-cache
    path under each of ``LLMQ_DECODE_KERNEL`` v1, v2 and v3: chunk and
    decode logits within 1e-4, identical tokens (greedy, and one seeded
    request at temperature 0.8 through the threefry sampler) and
-   prefix-cache counters; K5 is counted on the v2 run, the path it
-   carries.
+   prefix-cache counters, every K4 launch on its exact route; K5 is
+   counted on the v2 run, the path it carries.
 7. ``{"kernels": [...]}``: one record per ported kernel; K1's, K2's,
-   K3's and K7's carry the tensor-core route's bf16 time as ``ms`` and
-   the exact route's f32 time as ``exact_f32_ms``; K7's also its M =
-   1,024 time, library time and bound (``m1024_*``).
+   K3's, K4's, K6's and K7's carry the tensor-core route's bf16 time as
+   ``ms`` and the exact route's f32 time as ``exact_f32_ms``; K6's and
+   K7's also their M = 1,024 time, library time and bound
+   (``m1024_*``).
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -216,6 +219,7 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
     scale = d ** -0.5
     kw = dict(scale=scale, sliding_window=window, softcap=softcap)
     pools_equal = overflow = None
+    before = _route_counts(fn) if routed else None
     if fused:
         kp_p, vp_p = kp.clone(), vp.clone()  # the plain write goes here
         out, _, _ = fn(q, kp, vp, k_new, v_new, bt_t, ctx_t, layer=layer, **kw)
@@ -230,7 +234,6 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
                             max_finite=int((stored.abs() == 57344.0).sum()))
         del kp_p, vp_p
     else:
-        before = _route_counts(fn) if routed else None
         out = fn(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
         ref = plain.paged_decode_attention(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
     torch.cuda.synchronize()
@@ -509,12 +512,13 @@ def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed, timed
     one weight quantized from seeded normals, scales in the activation
     dtype as the serving path makes them. f32: both held against the f64
     product at the TPU kernel tests' tolerances; bf16: the kernel against
-    the plain version. K7 asserts the route its launch took. ``timed``
+    the plain version. Each check asserts the route its launch took. ``timed``
     adds device times and the bound; ``timed_kernel`` the kernel's time
     alone."""
     from llmq_tpu_torch.models import quant as qm
     from llmq_tpu_torch.ops import matmul as plain
-    from llmq_tpu_torch.ops.cuda_matmul import int4_matmul_cuda, int4_route, int8_matmul_cuda
+    from llmq_tpu_torch.ops.cuda_matmul import (int4_matmul_cuda, int4_route, int8_matmul_cuda,
+                                                int8_route)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -523,19 +527,17 @@ def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed, timed
     if kind == "int8":
         qt = qm.quantize_array(w.to(dtype), axis=-2, scale_dtype=dtype)
         parts = (qt["q"], qt["scale"])
-        fn, plain_fn = int8_matmul_cuda, plain.int8_matmul
+        fn, plain_fn, route = int8_matmul_cuda, plain.int8_matmul, int8_route(dtype)
     else:
         qt = qm.quantize_array_int4(w.to(dtype), scale_dtype=dtype)
         parts = (qt["q"], qt["scale"], qt["zero"])
-        fn, plain_fn = int4_matmul_cuda, plain.int4_matmul
+        fn, plain_fn, route = int4_matmul_cuda, plain.int4_matmul, int4_route(dtype)
     del w
-    routed = kind == "int4"
-    before = _route_counts(fn) if routed else None
+    before = _route_counts(fn)
     out = fn(x, *parts)
     ref = plain_fn(x, *parts)
     torch.cuda.synchronize()
-    route = int4_route(dtype) if routed else None
-    route_ok = _route_counts(fn)[route] == before[route] + 1 if routed else None
+    route_ok = _route_counts(fn)[route] == before[route] + 1
     err = (out.float() - ref.float()).abs().max().item()
     rec = dict(phase="kernel_check", kernel=f"{kind}_matmul", case=label, dtype=str(dtype)[6:],
                route=route, route_as_expected=route_ok,
@@ -555,7 +557,7 @@ def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed, timed
         excess = excess.max().item()
         ok = excess <= QUANT_BF16_TOLERANCE
         rec.update(excess_over_rtol=excess, rtol=QUANT_BF16_TOLERANCE, atol=QUANT_BF16_TOLERANCE)
-    ok = ok and bool(torch.isfinite(out.float()).all()) and route_ok is not False
+    ok = ok and bool(torch.isfinite(out.float()).all()) and route_ok
     if timed_kernel and not timed:
         rec.update(ms=device_ms(lambda i: fn(x, *parts), iters),
                    timing="torch.profiler device time per call")
@@ -592,6 +594,8 @@ QUANT_SHAPES = (
     ("qwen2.5-3b down_proj", 11008, 2048),
     ("llama3.1-8b down_proj", 14336, 4096),
 )
+# llama3.1-8b's untied int8 head (4096 -> 128,256), K6 at a decode step.
+LLAMA_HEAD = ("llama3.1-8b lm_head", 4096, 128256)
 # Projections of one qwen2.5-3b layer per QUANT_SHAPES entry.
 QWEN_LAYER_COUNT = {"qwen2.5-3b q/o_proj": 2, "qwen2.5-3b k/v_proj": 2,
                     "qwen2.5-3b gate/up_proj": 2, "qwen2.5-3b down_proj": 1}
@@ -599,24 +603,24 @@ QWEN_LAYER_COUNT = {"qwen2.5-3b q/o_proj": 2, "qwen2.5-3b k/v_proj": 2,
 
 def phase_quant_kernels(iters: int) -> dict:
     """K6 and K7 at every shape, M = 16 (decode) and 1,024 (prefill), f32
-    and bf16; per-layer sums of the bf16 qwen2.5-3b times. Returns the
-    kernels line's records: K6 at qwen2.5-3b gate/up_proj, K7 at
-    llama3.1-8b down_proj, both bf16 at M = 16 (K7 also f32 on its exact
-    route and bf16 at M = 1,024)."""
+    and bf16, and K6 at llama3.1-8b's head (M = 16); per-layer sums of the
+    bf16 qwen2.5-3b times. Returns the kernels line's records: K6 at
+    qwen2.5-3b gate/up_proj, K7 at llama3.1-8b down_proj, each bf16 at M =
+    16 and 1,024 and f32 at M = 16 on its exact route, and K6 at the head."""
     main, layer = {}, {}
     for kind in ("int8", "int4"):
+        headline = "qwen2.5-3b gate/up_proj" if kind == "int8" else "llama3.1-8b down_proj"
         for M in (16, 1024):
-            for i, (label, K, N) in enumerate(QUANT_SHAPES):
-                headline = ("qwen2.5-3b gate/up_proj" if kind == "int8"
-                            else "llama3.1-8b down_proj")
+            shapes = QUANT_SHAPES + ((LLAMA_HEAD,) if kind == "int8" and M == 16 else ())
+            for i, (label, K, N) in enumerate(shapes):
                 for dtype in (torch.float32, torch.bfloat16):
                     rec = check_quant_matmul(
                         label, kind=kind, M=M, K=K, N=N, dtype=dtype, iters=iters, seed=20 + i,
                         timed=dtype == torch.bfloat16,
-                        timed_kernel=kind == "int4" and M == 16 and label == headline)
+                        timed_kernel=M == 16 and label == headline)
                     if dtype != torch.bfloat16:
-                        if rec.get("ms") is not None:  # K7's exact route in f32
-                            main["int4_matmul/exact"] = rec
+                        if rec.get("ms") is not None:  # the exact route in f32
+                            main[f"{kind}_matmul/exact"] = rec
                         continue
                     n = QWEN_LAYER_COUNT.get(label, 0)
                     if n:
@@ -624,12 +628,11 @@ def phase_quant_kernels(iters: int) -> dict:
                                                                library_ms=0.0, bound_ms=0.0))
                         for key in acc:
                             acc[key] += n * rec[key]
+                    if label == LLAMA_HEAD[0]:
+                        main["int8_matmul/head"] = rec
                     if label != headline:
                         continue
-                    if M == 16:
-                        main[f"{kind}_matmul"] = rec
-                    elif kind == "int4":
-                        main["int4_matmul/m1024"] = rec
+                    main[f"{kind}_matmul" if M == 16 else f"{kind}_matmul/m1024"] = rec
     for (kind, M), acc in layer.items():
         emit(dict(phase="kernel_layer_sum", kernel=f"{kind}_matmul", model="qwen2.5-3b",
                   M=M, dtype="bfloat16", projections=7, **acc))
@@ -698,7 +701,8 @@ def _wrapper(module: str, attr: str):
 
 
 # kernels with a tensor-core and an exact route
-ROUTED = ("paged_decode", "flash_prefill", "paged_prefill", "int4_matmul")
+ROUTED = ("paged_decode", "flash_prefill", "paged_prefill", "paged_decode_v3", "int8_matmul",
+          "int4_matmul")
 
 
 def _route_counts(wrapper) -> dict:
@@ -722,8 +726,9 @@ def read_routes() -> dict:
 
 
 def route_problems(routes: dict, launches: dict, route: str = "tensor_core") -> list:
-    """A bf16 serve must launch K1, K2, K3 and K7 only on their tensor-core
-    route; an f32 run (``route="exact"``) only on their exact route."""
+    """A bf16 serve must launch K1, K2, K3, K4, K6 and K7 only on their
+    tensor-core route; an f32 run (``route="exact"``) only on their exact
+    route."""
     other = "exact" if route == "tensor_core" else "tensor_core"
     return [f"{name}: {routes[name][other]} of {launches[name]} launches on the {other} route"
             for name in ROUTED
@@ -1384,40 +1389,38 @@ def main() -> int:
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
     kernels = []
-    for name, source, replaces in (
-        ("paged_decode", "llmq_tpu_torch/ops/csrc/paged_decode_tc.cu",
-         "llmq_tpu/ops/pallas_attention.py:168"),
-        ("flash_prefill", "llmq_tpu_torch/ops/csrc/flash_prefill_tc.cu",
-         "llmq_tpu/ops/pallas_attention.py:1039"),
-        ("paged_prefill", "llmq_tpu_torch/ops/csrc/paged_prefill_tc.cu",
-         "llmq_tpu/ops/pallas_attention.py:830"),
-        ("paged_decode_v3", "llmq_tpu_torch/ops/csrc/paged_decode_v2.cu",
-         "llmq_tpu/ops/pallas_attention.py:575"),
-        ("paged_decode_v2", "llmq_tpu_torch/ops/csrc/paged_decode_v2.cu",
-         "llmq_tpu/ops/pallas_attention.py:487"),
-        ("int8_matmul", "llmq_tpu_torch/ops/csrc/int8_matmul.cu",
-         "llmq_tpu/ops/pallas_matmul.py:145"),
-        ("int4_matmul", "llmq_tpu_torch/ops/csrc/int4_matmul_tc.cu",
-         "llmq_tpu/ops/pallas_matmul.py:219"),
+    for name, source, exact_source, replaces in (
+        ("paged_decode", "paged_decode_tc.cu", "paged_decode.cu", "pallas_attention.py:168"),
+        ("flash_prefill", "flash_prefill_tc.cu", "flash_prefill.cu", "pallas_attention.py:1039"),
+        ("paged_prefill", "paged_prefill_tc.cu", "paged_prefill.cu", "pallas_attention.py:830"),
+        ("paged_decode_v3", "paged_decode_tc.cu", "paged_decode_v2.cu",
+         "pallas_attention.py:575"),
+        ("paged_decode_v2", "paged_decode_v2.cu", None, "pallas_attention.py:487"),
+        ("int8_matmul", "int8_matmul_tc.cu", "int8_matmul.cu", "pallas_matmul.py:145"),
+        ("int4_matmul", "int4_matmul_tc.cu", "int4_matmul.cu", "pallas_matmul.py:219"),
     ):
-        routed = name in ROUTED
-        rec = main_recs.get(f"{name}/tensor_core" if routed and name != "int4_matmul" else name,
-                            {})
+        matmul = name.endswith("_matmul")
+        rec = main_recs.get(name if matmul or exact_source is None else f"{name}/tensor_core", {})
         entry = dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, route="cuda", source=f"llmq_tpu_torch/ops/csrc/{source}",
+            replaces=f"llmq_tpu/ops/{replaces}",
             launches=launches.get(name), max_abs_err=rec.get("max_abs_err"),
             ms=rec.get("ms"), plain_ms=rec.get("plain_ms"), bound_ms=rec.get("bound_ms"),
             bound_by=rec.get("bound_by"), library_ms=rec.get("library_ms"),
         )
-        if routed:  # the exact route's f32 record beside the tensor-core one
+        if exact_source is not None:  # the exact route's f32 record beside the tensor-core one
             exact = main_recs.get(f"{name}/exact", {})
-            entry.update(exact_source=source.replace("_tc.cu", ".cu"),
+            entry.update(exact_source=f"llmq_tpu_torch/ops/csrc/{exact_source}",
                          exact_f32_ms=exact.get("ms"),
                          exact_f32_max_abs_err=exact.get("max_abs_err"))
-        if name == "int4_matmul":
-            big = main_recs.get("int4_matmul/m1024", {})
+        if matmul:
+            big = main_recs.get(f"{name}/m1024", {})
             entry.update({f"m1024_{k}": big.get(k) for k in ("ms", "library_ms", "bound_ms",
                                                               "bound_by")})
+        if name == "int8_matmul":
+            head = main_recs.get("int8_matmul/head", {})
+            entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",
+                                                                    "bound_by")})
         kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})

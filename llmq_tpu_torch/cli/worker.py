@@ -7,23 +7,27 @@ model of a named preset on the device, wraps it in an engine and serves
 bfloat16, float32, or int8 / int4: weight-only quantization
 (``models/quant.py``) with bf16 compute, as the JAX worker's
 ``--dtype`` (``tpu_worker.py:351-374``). The KV pool takes ``kv_dtype``
-(bf16, f32, fp8), else ``LLMQ_KV_DTYPE``, else the compute dtype.
-Checkpoint loading and the click command come with the TCP broker
-client (ROADMAP M6).
+(bf16, f32, fp8), else ``LLMQ_KV_DTYPE`` / ``VLLM_KV_CACHE_DTYPE``, else
+the compute dtype. The engine config is resolved as the JAX worker's
+``_build_core`` (:333) resolves it (:func:`engine_config`): each argument over
+its variable in ``core/config.py``, ``max_model_len`` clamped to the
+model's ``max_position_embeddings``. Checkpoint loading and the click
+command come with the TCP broker client (ROADMAP M6).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
-import os
 from typing import Optional
 
 import torch
 
+from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.device import DeviceLike, resolve_device
 from llmq_tpu_torch.engine.engine import AsyncEngine, EngineConfig, EngineCore
 from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.models.presets import get_preset
 from llmq_tpu_torch.models.transformer import init_params
 from llmq_tpu_torch.workers.torch_worker import TorchWorker
@@ -37,14 +41,63 @@ _DTYPES = {"bfloat16": (torch.bfloat16, False), "bf16": (torch.bfloat16, False),
            "int8": (torch.bfloat16, "int8"), "int4": (torch.bfloat16, "int4")}
 
 
-def resolve_pool_dtype(dtype: str, kv_dtype: Optional[str] = None) -> str:
+# The JAX worker's pool dtype names (``_resolve_pool_dtype``, :314).
+_POOL_DTYPES = {"fp8": "float8_e5m2", "fp8_e5m2": "float8_e5m2", "float8_e5m2": "float8_e5m2",
+                "bf16": "bfloat16", "bfloat16": "bfloat16", "f32": "float32",
+                "float32": "float32"}
+DEFAULT_MAX_MODEL_LEN = 8192  # _build_core's default, before the clamp
+
+
+def resolve_pool_dtype(dtype: str, kv_dtype: Optional[str] = None,
+                       config: Optional[Config] = None) -> str:
     """The KV pool dtype, as the JAX worker's ``_resolve_pool_dtype``:
-    ``kv_dtype`` > ``LLMQ_KV_DTYPE`` > the compute dtype (float32 under
-    float32, else bfloat16: int8 and int4 compute in bf16)."""
-    kv = kv_dtype or os.environ.get("LLMQ_KV_DTYPE")
+    ``kv_dtype`` > ``LLMQ_KV_DTYPE`` / ``VLLM_KV_CACHE_DTYPE`` > the
+    compute dtype (float32 under float32, else bfloat16: int8 and int4
+    compute in bf16). A name outside its table is passed on, for
+    ``EngineConfig`` to refuse."""
+    kv = kv_dtype or (config or get_config()).kv_dtype
     if kv not in (None, "", "auto"):
-        return kv
+        return _POOL_DTYPES.get(str(kv).lower(), kv)
     return "float32" if _DTYPES[dtype][0] == torch.float32 else "bfloat16"
+
+
+def engine_config(
+    model_config: ModelConfig,
+    *,
+    dtype: str = "bfloat16",
+    max_num_seqs: Optional[int] = None,
+    max_model_len: Optional[int] = None,
+    kv_dtype: Optional[str] = None,
+    prefill_chunk_size: Optional[int] = None,
+    enable_prefix_caching: bool = False,
+    config: Optional[Config] = None,
+) -> EngineConfig:
+    """The worker's ``EngineConfig``, field for field as ``_build_core``
+    builds it: an argument wins over its variable (``config``, by default
+    read from the environment now); ``max_model_len`` is ``min(argument
+    or variable or 8192, max_position_embeddings)``. Decode blocks, spec
+    tokens, tp overlap and mixed steps are passed on when a variable turns
+    them on, so the engine refuses them with their ROADMAP.md item."""
+    cfg = config or get_config()
+    overrides = {}
+    if max_num_seqs or cfg.max_num_seqs:
+        overrides["max_num_seqs"] = max_num_seqs or cfg.max_num_seqs
+    overrides["max_model_len"] = min(max_model_len or cfg.max_model_len or DEFAULT_MAX_MODEL_LEN,
+                                     model_config.max_position_embeddings)
+    chunk = prefill_chunk_size or cfg.prefill_chunk_size
+    if chunk:
+        overrides["prefill_chunk_size"] = chunk
+    if enable_prefix_caching or cfg.enable_prefix_caching:
+        overrides["enable_prefix_caching"] = True
+    if cfg.decode_block and cfg.decode_block > 1:
+        overrides["decode_block"] = cfg.decode_block
+    if cfg.spec_tokens and cfg.spec_tokens > 0:
+        overrides["spec_tokens"] = cfg.spec_tokens
+    for name in ("tp_overlap", "mixed_step"):
+        if getattr(cfg, name) != "off":
+            overrides[name] = getattr(cfg, name)
+    return EngineConfig(hbm_utilization=cfg.hbm_utilization,
+                        kv_dtype=resolve_pool_dtype(dtype, kv_dtype, cfg), **overrides)
 
 
 def build_engine(
@@ -60,7 +113,8 @@ def build_engine(
     seed: int = 0,
 ) -> AsyncEngine:
     """An engine over a ``preset://NAME`` model with random weights drawn
-    from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    from a ``torch.Generator`` seeded with ``seed`` on ``device``, under
+    :func:`engine_config`."""
     if not model.startswith(PRESET_SCHEMES):
         raise NotImplementedError(
             f"model {model!r}: checkpoint loading is not ported yet "
@@ -70,21 +124,15 @@ def build_engine(
     if dtype not in _DTYPES:
         raise ValueError(f"dtype={dtype!r} (want one of {sorted(_DTYPES)})")
     config = get_preset(model.split("://", 1)[1] or "tiny")
+    ecfg = engine_config(
+        config, dtype=dtype, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
+        kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,
+        enable_prefix_caching=enable_prefix_caching,
+    )
     generator = torch.Generator(device=dev).manual_seed(seed)
     compute, quantize = _DTYPES[dtype]
     params = init_params(config, generator, compute, device=dev, quantize=quantize)
-    overrides = {"kv_dtype": resolve_pool_dtype(dtype, kv_dtype)}
-    if max_num_seqs:
-        overrides["max_num_seqs"] = max_num_seqs
-    if max_model_len:
-        overrides["max_model_len"] = max_model_len
-    if prefill_chunk_size:
-        overrides["prefill_chunk_size"] = prefill_chunk_size
-    if enable_prefix_caching:
-        overrides["enable_prefix_caching"] = True
-    core = EngineCore(
-        config, params, ByteTokenizer(), engine_config=EngineConfig(**overrides), device=dev
-    )
+    core = EngineCore(config, params, ByteTokenizer(), engine_config=ecfg, device=dev)
     return AsyncEngine(core)
 
 

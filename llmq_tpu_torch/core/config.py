@@ -1,0 +1,88 @@
+"""Environment-driven engine configuration of the port.
+
+The port's own copy of the engine section of ``llmq_tpu/core/config.py``
+``Config`` (:115-195): the same variables, read with the same precedence
+(the ``LLMQ_*`` / ``TPU_*`` name first, the reference's ``VLLM_*`` alias
+after it), re-read on every ``get_config()`` call so tests can
+monkeypatch the environment. The broker, affinity and disaggregation
+sections come with the modules that read them (ROADMAP.md queue 1, M6
+and M11), as does the ``.env`` autoload.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from pydantic import BaseModel, Field
+
+
+def _env(name: str, *aliases: str) -> Optional[str]:
+    for key in (name, *aliases):
+        value = os.getenv(key)
+        if value is not None:
+            return value
+    return None
+
+
+def _env_int(name: str, *aliases: str, default: Optional[int] = None) -> Optional[int]:
+    value = _env(name, *aliases)
+    return int(value) if value not in (None, "") else default
+
+
+def _env_float(name: str, *aliases: str, default: Optional[float] = None) -> Optional[float]:
+    value = _env(name, *aliases)
+    return float(value) if value not in (None, "") else default
+
+
+class Config(BaseModel):
+    """Engine configuration snapshot (one env read per instantiation)."""
+
+    hbm_utilization: float = Field(
+        default_factory=lambda: _env_float(
+            "TPU_HBM_UTILIZATION", "VLLM_GPU_MEMORY_UTILIZATION", default=0.9
+        ),
+        description="Fraction of device memory the engine may claim for the KV cache.",
+    )
+    max_num_seqs: Optional[int] = Field(
+        default_factory=lambda: _env_int("LLMQ_MAX_NUM_SEQS", "VLLM_MAX_NUM_SEQS"),
+        description="Max sequences resident in one continuous-batching step.",
+    )
+    max_model_len: Optional[int] = Field(
+        default_factory=lambda: _env_int("LLMQ_MAX_MODEL_LEN", "VLLM_MAX_MODEL_LEN"),
+        description="Context-window cap (prompt + generation).",
+    )
+    prefill_chunk_size: Optional[int] = Field(
+        default_factory=lambda: _env_int("LLMQ_PREFILL_CHUNK"),
+        description="Chunked prefill: positions per chunk (None = bucketed).",
+    )
+    kv_dtype: Optional[str] = Field(
+        default_factory=lambda: _env("LLMQ_KV_DTYPE", "VLLM_KV_CACHE_DTYPE"),
+        description="KV cache storage dtype (fp8 = float8_e5m2).",
+    )
+    enable_prefix_caching: bool = Field(
+        default_factory=lambda: (_env("LLMQ_PREFIX_CACHING") or "").lower()
+        in ("1", "true", "yes"),
+        description="Reuse cached KV for shared prompt prefixes (needs prefill_chunk_size).",
+    )
+    decode_block: int = Field(
+        default_factory=lambda: _env_int("LLMQ_DECODE_BLOCK", default=1),
+        description="Fused multi-step decode: device iterations per dispatch (1 = off).",
+    )
+    spec_tokens: int = Field(
+        default_factory=lambda: _env_int("LLMQ_SPEC_TOKENS", default=0),
+        description="Speculative decoding: draft tokens verified per step (0 = off).",
+    )
+    tp_overlap: str = Field(
+        default_factory=lambda: (_env("LLMQ_TP_OVERLAP") or "off").lower(),
+        description="Tensor-parallel collective overlap: on, auto or off.",
+    )
+    mixed_step: str = Field(
+        default_factory=lambda: (_env("LLMQ_MIXED_STEP") or "off").lower(),
+        description="Piggyback scheduling of prefill chunks into decode: on or off.",
+    )
+
+
+def get_config() -> Config:
+    """A fresh config (the environment is re-read on each call)."""
+    return Config()

@@ -23,8 +23,9 @@ Config. The engine honours ``max_num_seqs``, ``max_model_len``,
 f32 or fp8 = float8_e5m2), ``min_prefill_bucket``, ``max_prefill_batch``,
 ``prefill_chunk_size``, ``enable_prefix_caching`` (chunked prefill only,
 as in JAX), ``admit_max_wait_s``, ``runahead`` and ``stop_id_capacity``.
-Any other field set away from its default raises ``NotImplementedError``
-naming its ROADMAP.md item.
+Any other field set away from its default, or ``LLMQ_MIXED_STEP`` /
+``LLMQ_PREFIX_HOST_GB`` set to turn their feature on, raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -172,6 +174,14 @@ _UNPORTED_FIELDS = {
 }
 
 
+#: Variables the JAX engine resolves over its own config (``engine.py``
+#: :733, :779) -> whether a value turns the feature on, and the field.
+_UNPORTED_ENV = {
+    "LLMQ_MIXED_STEP": (lambda v: v.strip().lower() not in ("", "off"), "mixed_step"),
+    "LLMQ_PREFIX_HOST_GB": (lambda v: bool(v.strip()) and float(v) > 0, "prefix_host_gb"),
+}
+
+
 def _check_ported(cfg: EngineConfig) -> None:
     defaults = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
     for name, item in _UNPORTED_FIELDS.items():
@@ -180,6 +190,13 @@ def _check_ported(cfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={value!r} is not ported yet "
                 f"(ROADMAP.md queue 1, {item})"
+            )
+    for var, (turns_on, name) in _UNPORTED_ENV.items():
+        value = os.environ.get(var, "")
+        if turns_on(value):
+            raise NotImplementedError(
+                f"{var}={value!r} turns on {name}, which is not ported yet "
+                f"(ROADMAP.md queue 1, {_UNPORTED_FIELDS[name]})"
             )
 
 

@@ -35,6 +35,7 @@ SOURCES = {
     "paged_prefill_tc": "paged_prefill_tc.cu",
     "paged_decode_v2": "paged_decode_v2.cu",
     "int8_matmul": "int8_matmul.cu",
+    "int8_matmul_tc": "int8_matmul_tc.cu",
     "int4_matmul": "int4_matmul.cu",
     "int4_matmul_tc": "int4_matmul_tc.cu",
 }
@@ -141,6 +142,17 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = _errs[name](code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+
+
+def count_launch(wrapper, route: str) -> None:
+    """One launch of a two-route kernel ``wrapper`` on ``route``
+    (``"tensor_core"`` or ``"exact"``): its ``launches`` and that route's
+    counter go up by one."""
+    wrapper.launches += 1
+    if route == "tensor_core":
+        wrapper.tensor_core_launches += 1
+    else:
+        wrapper.exact_launches += 1
 
 
 def split_count(units: int, target: int, max_splits: int) -> int:

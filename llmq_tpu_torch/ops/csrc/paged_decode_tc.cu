@@ -1,11 +1,16 @@
-// Paged decode attention (K1), tensor-core route, for Hopper (sm_90a).
+// Paged decode attention (K1) and its fused-KV-write form (K4), tensor-core
+// route, for Hopper (sm_90a): one kernel, templated on FUSED_WRITE.
 //
-// Replaces: llmq_tpu/ops/pallas_attention.py, paged_decode_attention_pallas
-// (kernel body _paged_decode_kernel). Plain version:
-// llmq_tpu_torch/ops/attention.py, paged_decode_attention. This source
-// serves bf16 q over a bf16 or float8_e5m2 pool; f32 q, or an f32 pool
-// (which promotes the math to f32), stays on the exact CUDA-core kernel in
-// paged_decode.cu (cuda_attention.attention_route chooses by dtype).
+// Replaces: llmq_tpu/ops/pallas_attention.py,
+//   K1: paged_decode_attention_pallas (kernel body _paged_decode_kernel),
+//   K4: paged_decode_attention_pallas_v3 (_paged_decode_kernel_v2 with
+//       fused_write=True).
+// Plain versions: llmq_tpu_torch/ops/attention.py, paged_decode_attention
+// (K1) and paged_decode_attention_fused_write (K4). This source serves bf16
+// q over a bf16 or float8_e5m2 pool; f32 q, or an f32 pool (which promotes
+// the math to f32), stays on the exact CUDA-core kernels in paged_decode.cu
+// (K1) and paged_decode_v2.cu (K4) (cuda_attention.attention_route chooses
+// by dtype).
 //
 // Contract (the same as paged_decode.cu): one query row per sequence,
 // q [S, H, D], against that sequence's pages of the layer-stacked pool
@@ -17,6 +22,22 @@
 // group = H / n_kv <= 16 query heads of one KV head share its rows. An
 // e5m2 pool widens exactly to bf16. A row with ctx == 0 writes exact
 // zeros. D is 64, 128 or 256. The output is bf16.
+//
+// K4 (FUSED_WRITE) also stores the step's new rows k_new / v_new
+// [S, n_kv, D] (bf16) at position ctx - 1: page
+// block_tables[s, (ctx - 1) / page], slot (ctx - 1) % page, cast to the
+// pool's dtype with round to nearest even (an e5m2 pool takes +-inf past
+// its range, as the plain cast does, where the hardware conversion would
+// saturate). The new row stands in for the pool's
+// copy of that key in this step's attention. Rows with ctx == 0, or whose
+// position lies past the page map, write nothing. The one warp whose tile
+// holds ctx - 1 (one block of the launch, one per sequence and KV head)
+// issues no copy for that row: after its ring wait it writes the converted
+// row into its ring slot and into both pools. No block reads that position
+// from the pool, so the launch has no race, and the pools equal
+// write_kv_pages + K1 bit for bit (page 0 aside, which the plain scatter
+// dirties with inactive rows). The store costs one row a (sequence, KV
+// head); the bound and the design below are K1's.
 //
 // Bound on the H100: the KV bytes, read once per (sequence, KV head) for
 // the whole group. The CUDA-core kernel kept one load in flight per thread
@@ -61,6 +82,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -127,6 +149,35 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w) {
 constexpr uint32_t kBytes01 = 0x1404u, kBytes23 = 0x3424u;  // [0, b0, 0, b1], [0, b2, 0, b3]
 constexpr uint32_t kBytes02 = 0x2404u, kBytes13 = 0x3414u;  // [0, b0, 0, b2], [0, b1, 0, b3]
 
+// Two floats -> two e5m2 bytes (lo in the low byte), rounded to nearest
+// even as the plain cast rounds: the hardware conversion saturates
+// (cvt.rn.satfinite), so a value that rounds past the range (|v| >=
+// 61,440, where the tie goes to the even infinity) is set to +-inf.
+__device__ __forceinline__ uint32_t e5m2x2(float lo, float hi) {
+  uint32_t r = __nv_cvt_float2_to_fp8x2(make_float2(lo, hi), __NV_SATFINITE, __NV_E5M2);
+  if (fabsf(lo) >= 61440.f) r = (r & 0xFF00u) | (lo < 0.f ? 0xFCu : 0x7Cu);
+  if (fabsf(hi) >= 61440.f) r = (r & 0x00FFu) | ((hi < 0.f ? 0xFCu : 0x7Cu) << 8);
+  return r;
+}
+
+// 16 bytes of a row in the pool's dtype from the bf16 row `src` (chunk
+// `chunk` of the pool row): bf16 as it is; e5m2 rounded as e5m2x2 rounds.
+__device__ __forceinline__ uint4 pool_chunk(const bf16* src, int chunk, const bf16*) {
+  return reinterpret_cast<const uint4*>(src)[chunk];
+}
+__device__ __forceinline__ uint4 pool_chunk(const bf16* src, int chunk, const uint8_t*) {
+  const uint4 h[2] = {reinterpret_cast<const uint4*>(src)[2 * chunk],
+                      reinterpret_cast<const uint4*>(src)[2 * chunk + 1]};
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(h);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = __bfloat1622float2(v[2 * i]), b = __bfloat1622float2(v[2 * i + 1]);
+    w[i] = e5m2x2(a.x, a.y) | (e5m2x2(b.x, b.y) << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // Chunk position of 16-byte chunk c in row r of a tile with CPR chunks a
 // row. CPR >= 8: eight consecutive rows get eight distinct banks groups
 // (ldmatrix), and rows 2i, 2i + 1 put chunks 4p .. 4p + 3 in opposite
@@ -160,10 +211,11 @@ constexpr int kMaxSplits = 32;
 // Grid (S, n_kv, num_splits), 128 threads; 3 blocks an SM at D <= 128.
 // With one split the block writes the output; with more, its
 // unnormalised (acc, m, l) partials, and the last of them the output.
-template <typename TKV, int D, int STAGES>
+template <typename TKV, int D, int STAGES, bool FUSED_WRITE>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_kernel(
-    const bf16* __restrict__ q, const TKV* __restrict__ k_pool,
-    const TKV* __restrict__ v_pool, const int* __restrict__ block_tables,
+    const bf16* __restrict__ q, TKV* __restrict__ k_pool, TKV* __restrict__ v_pool,
+    const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
+    const int* __restrict__ block_tables,
     const int* __restrict__ context_lens, bf16* __restrict__ out, float* __restrict__ part,
     int* __restrict__ counters, int n_heads, int n_kv, int num_pages, int page_size,
     int pages_per_seq, int layer, int window, float scale, float softcap) {
@@ -193,6 +245,8 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_ke
   const long long hi = lo + span < hi_row ? lo + span : hi_row;
   const int n_t = hi > lo ? (int)((hi - lo + kTK - 1) / kTK) : 0;
   const int my_n = n_t > warp ? (n_t - warp + kWarps - 1) / kWarps : 0;
+  // K4: the new key, stored from k_new / v_new and never copied from the pool.
+  const long long p_new = FUSED_WRITE && ctx > 0 && ctx <= max_ctx ? ctx - 1 : -1;
 
   const long long q_row0 = (long long)s * n_heads + (long long)kvh * group;
   for (int i = tid; i < kMaxGroup * kQC; i += kThreads) {
@@ -216,7 +270,9 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_ke
     char* st = stage(j);
     const long long key = tile_base(j) + (lane & (kTK - 1));
     const long long row =
-        page >= 0 ? (((layer_base + page) * page_size + key % page_size) * n_kv + kvh) * kRB : -1;
+        page >= 0 && key != p_new
+            ? (((layer_base + page) * page_size + key % page_size) * n_kv + kvh) * kRB
+            : -1;
 #pragma unroll
     for (int i = lane; i < kTK * kCPR; i += 32) {
       const int r = i / kCPR, c = i % kCPR;
@@ -270,6 +326,25 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_ke
     const char* kt = stage(j);
     const char* vt = kt + Lay::kTile;
     const long long base = tile_base(j);
+    if (FUSED_WRITE && p_new >= base && p_new < base + kTK) {
+      // K4: the new row into its ring slot (zero-filled by the copy) and
+      // into both pools, one 16-byte chunk a lane.
+      const int r = (int)(p_new - base);
+      if (lane < kCPR) {
+        const long long src = ((long long)s * n_kv + kvh) * D;
+        const uint4 kc = pool_chunk(k_new + src, lane, k_pool);
+        const uint4 vc = pool_chunk(v_new + src, lane, v_pool);
+        const int at = r * kRB + 16 * swz<kCPR>(r, lane);
+        *reinterpret_cast<uint4*>(stage(j) + at) = kc;
+        *reinterpret_cast<uint4*>(stage(j) + Lay::kTile + at) = vc;
+        const long long row =
+            (((layer_base + bt[p_new / page_size]) * page_size + p_new % page_size) * n_kv + kvh) *
+                kRB + 16 * lane;
+        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(k_pool) + row) = kc;
+        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(v_pool) + row) = vc;
+      }
+      __syncwarp();
+    }
 
     // S = Q K^T: 16 heads x 16 keys (n-block nb: keys 8 nb .. 8 nb + 7).
     float sc[2][4];
@@ -536,61 +611,74 @@ struct Args {
   int num_splits;
 };
 
-template <typename TKV, int D, int STAGES>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const int* bt,
-                   const int* ctx, void* out, float* part, int* counters, const Args& a,
-                   cudaStream_t stream) {
+// The launch's data pointers.
+struct Ptrs {
+  const void* q;
+  void* k_pool;
+  void* v_pool;
+  const void* k_new;  // K4 only
+  const void* v_new;
+  const int* bt;
+  const int* ctx;
+  void* out;
+  float* part;
+  int* counters;
+};
+
+template <typename TKV, int D, int STAGES, bool FUSED_WRITE>
+cudaError_t launch(const Ptrs& p, const Args& a, cudaStream_t stream) {
   constexpr int smem = Layout<TKV, D, STAGES>::kBytes;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_tc_kernel<TKV, D, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(paged_decode_tc_kernel<TKV, D, STAGES, FUSED_WRITE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid(a.num_seqs, a.n_kv, a.num_splits);
-  paged_decode_tc_kernel<TKV, D, STAGES><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const TKV*>(k_pool),
-      static_cast<const TKV*>(v_pool), bt, ctx, static_cast<bf16*>(out), part, counters,
-      a.n_heads, a.n_kv, a.num_pages, a.page_size, a.pages_per_seq, a.layer, a.window, a.scale,
-      a.softcap);
+  paged_decode_tc_kernel<TKV, D, STAGES, FUSED_WRITE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(p.q), static_cast<TKV*>(p.k_pool), static_cast<TKV*>(p.v_pool),
+      static_cast<const bf16*>(p.k_new), static_cast<const bf16*>(p.v_new), p.bt, p.ctx,
+      static_cast<bf16*>(p.out), p.part, p.counters, a.n_heads, a.n_kv, a.num_pages,
+      a.page_size, a.pages_per_seq, a.layer, a.window, a.scale, a.softcap);
   return cudaGetLastError();
 }
 
-template <typename TKV, int D>
-cudaError_t launch_stages(int stages, const void* q, const void* k_pool, const void* v_pool,
-                          const int* bt, const int* ctx, void* out, float* part,
-                          int* counters, const Args& a, cudaStream_t stream) {
+template <typename TKV, int D, bool FUSED_WRITE>
+cudaError_t launch_stages(int stages, const Ptrs& p, const Args& a, cudaStream_t stream) {
   switch (stages) {
     case 1:
-      return launch<TKV, D, 1>(q, k_pool, v_pool, bt, ctx, out, part, counters, a, stream);
+      return launch<TKV, D, 1, FUSED_WRITE>(p, a, stream);
     case 2:
-      return launch<TKV, D, 2>(q, k_pool, v_pool, bt, ctx, out, part, counters, a, stream);
+      return launch<TKV, D, 2, FUSED_WRITE>(p, a, stream);
     case 3:
-      return launch<TKV, D, 3>(q, k_pool, v_pool, bt, ctx, out, part, counters, a, stream);
+      return launch<TKV, D, 3, FUSED_WRITE>(p, a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TKV, bool FUSED_WRITE>
+cudaError_t launch_dim(int head_dim, int stages, const Ptrs& p, const Args& a,
+                       cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_stages<TKV, 64, FUSED_WRITE>(stages, p, a, stream);
+    case 128:
+      return launch_stages<TKV, 128, FUSED_WRITE>(stages, p, a, stream);
+    case 256:
+      return launch_stages<TKV, 256, FUSED_WRITE>(stages, p, a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <typename TKV>
-cudaError_t launch_dim(int head_dim, int stages, const void* q, const void* k_pool,
-                       const void* v_pool, const int* bt, const int* ctx, void* out,
-                       float* part, int* counters, const Args& a, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch_stages<TKV, 64>(stages, q, k_pool, v_pool, bt, ctx, out, part,
-                                    counters, a, stream);
-    case 128:
-      return launch_stages<TKV, 128>(stages, q, k_pool, v_pool, bt, ctx, out, part,
-                                     counters, a, stream);
-    case 256:
-      return launch_stages<TKV, 256>(stages, q, k_pool, v_pool, bt, ctx, out, part,
-                                     counters, a, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_kv(int head_dim, int stages, const Ptrs& p, const Args& a,
+                      cudaStream_t stream) {
+  return p.k_new != nullptr ? launch_dim<TKV, true>(head_dim, stages, p, a, stream)
+                            : launch_dim<TKV, false>(head_dim, stages, p, a, stream);
 }
 
 }  // namespace
@@ -598,15 +686,18 @@ cudaError_t launch_dim(int head_dim, int stages, const void* q, const void* k_po
 extern "C" {
 
 // Returns a cudaError_t code (0 = success). bf16 q and out; kv_dtype:
-// 1 = bf16, 2 = float8_e5m2 pools (16-byte aligned). stages: the
+// 1 = bf16, 2 = float8_e5m2 pools (16-byte aligned). k_new / v_new: null
+// launches K1; given (bf16 [S, n_kv, D], 16-byte aligned), K4, which
+// writes them into the pools at ctx - 1. stages: the
 // per-warp ring depth, 1, 2 or 3 (1: each tile is copied, then used).
 // softcap <= 0 means no softcap. num_splits (<= 32) > 1 splits each
 // row's keys over that many blocks and needs `partials`, f32 scratch of
 // num_seqs * n_heads * num_splits * (head_dim + 4) values, and
 // `counters`, num_seqs * n_kv int32 zeros (left zero after the launch).
 // The launch is asynchronous on `stream`.
-int llmq_paged_decode_tc(const void* q, const void* k_pool, const void* v_pool,
-                         const void* block_tables, const void* context_lens, void* out,
+int llmq_paged_decode_tc(const void* q, void* k_pool, void* v_pool, const void* k_new,
+                         const void* v_new, const void* block_tables,
+                         const void* context_lens, void* out,
                          void* partials, void* counters, int kv_dtype, int num_seqs,
                          int n_heads, int n_kv, int head_dim, int num_pages, int page_size,
                          int pages_per_seq, int layer, int window, float scale, float softcap,
@@ -614,24 +705,22 @@ int llmq_paged_decode_tc(const void* q, const void* k_pool, const void* v_pool,
   if (num_seqs == 0) return 0;
   if (n_kv <= 0 || n_heads % n_kv != 0 || n_heads / n_kv > kMaxGroup || num_splits < 1 ||
       num_splits > kMaxSplits || page_size < 1 ||
-      (num_splits > 1 && (partials == nullptr || counters == nullptr)))
+      (num_splits > 1 && (partials == nullptr || counters == nullptr)) ||
+      ((k_new == nullptr) != (v_new == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{num_seqs, n_heads, n_kv, num_pages, page_size, pages_per_seq, layer, window,
                scale, softcap, num_splits};
-  float* part = static_cast<float*>(partials);
-  int* cnt = static_cast<int*>(counters);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* ctx = static_cast<const int*>(context_lens);
+  const Ptrs p{q, k_pool, v_pool, k_new, v_new, static_cast<const int*>(block_tables),
+               static_cast<const int*>(context_lens), out, static_cast<float*>(partials),
+               static_cast<int*>(counters)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (kv_dtype) {
     case 1:
-      err = launch_dim<bf16>(head_dim, stages, q, k_pool, v_pool, bt, ctx, out, part, cnt, a,
-                             st);
+      err = launch_kv<bf16>(head_dim, stages, p, a, st);
       break;
     case 2:
-      err = launch_dim<uint8_t>(head_dim, stages, q, k_pool, v_pool, bt, ctx, out, part, cnt,
-                                a, st);
+      err = launch_kv<uint8_t>(head_dim, stages, p, a, st);
       break;
     default:
       err = cudaErrorInvalidValue;

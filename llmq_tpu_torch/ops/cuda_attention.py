@@ -6,18 +6,18 @@
   ``pallas_attention.py::flash_prefill_attention_pallas``.
 - :func:`paged_prefill_attention_cuda` — K3, the port of
   ``pallas_attention.py::paged_prefill_attention_pallas``.
-- :func:`paged_decode_attention_v2_cuda` — K5, and
-  :func:`paged_decode_attention_v3_cuda` — K4, both
-  ``csrc/paged_decode_v2.cu``, the ports of
+- :func:`paged_decode_attention_v2_cuda` — K5, ``csrc/paged_decode_v2.cu``,
+  and :func:`paged_decode_attention_v3_cuda` — K4, the ports of
   ``pallas_attention.py::paged_decode_attention_pallas_v2`` / ``_v3``.
 
-K1, K2 and K3 each have two routes, chosen by dtype alone in
+K1, K2, K3 and K4 each have two routes, chosen by dtype alone in
 :func:`attention_route`: bf16 queries over bf16 or float8_e5m2 K/V run on the tensor
-cores (``csrc/paged_decode_tc.cu``, launch plan from
-:func:`decode_tc_plan`; ``csrc/flash_prefill_tc.cu`` and
+cores (``csrc/paged_decode_tc.cu`` for K1 and, with its fused write, K4,
+launch plan from :func:`decode_tc_plan`; ``csrc/flash_prefill_tc.cu`` and
 ``csrc/paged_prefill_tc.cu`` over ``csrc/attn_tc.cuh``); f32 queries, or
 an f32 pool, run the exact CUDA-core kernels (``csrc/paged_decode.cu``,
-``csrc/flash_prefill.cu``, ``csrc/paged_prefill.cu``).
+``csrc/flash_prefill.cu``, ``csrc/paged_prefill.cu``,
+``csrc/paged_decode_v2.cu``). K5 keeps its one CUDA-core kernel.
 Each route counts its own launches (``tensor_core_launches``,
 ``exact_launches``) beside the wrapper's ``launches``.
 
@@ -54,7 +54,7 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "paged_decode": ("llmq_paged_decode", [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P]),
-    "paged_decode_tc": ("llmq_paged_decode_tc", [_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _P]),
+    "paged_decode_tc": ("llmq_paged_decode_tc", [_P] * 10 + [_I] * 10 + [_F, _F, _I, _I, _P]),
     "flash_prefill": ("llmq_flash_prefill", [_P] * 5 + [_I] * 5 + [_L] * 12 + [_I, _F, _F, _P]),
     "flash_prefill_tc": ("llmq_flash_prefill_tc",
                          [_P] * 5 + [_I] * 5 + [_L] * 12 + [_I, _F, _F, _P]),
@@ -65,11 +65,11 @@ _SIGNATURES = {
 }
 
 
-#: routes of K1, K2 and K3 (:func:`attention_route`)
+#: routes of K1, K2, K3 and K4 (:func:`attention_route`)
 TENSOR_CORE, EXACT = "tensor_core", "exact"
 _TC_KV = (torch.bfloat16, torch.float8_e5m2)
 
-# K1's tensor-core route (csrc/paged_decode_tc.cu): 4 warps a block, each
+# K1's and K4's tensor-core route (csrc/paged_decode_tc.cu): 4 warps a block, each
 # walking every fourth 16-key tile of the block's span through its own
 # ring of raw K/V rows, 1 to 3 stages deep.
 DECODE_TC_TILE = 16
@@ -98,7 +98,7 @@ def _split_counters(n: int, device: torch.device) -> torch.Tensor:
 
 
 def attention_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
-    """The route of the attention kernels K1, K2 and K3 for queries of
+    """The route of the attention kernels K1, K2, K3 and K4 for queries of
     ``q_dtype`` over K/V of ``kv_dtype`` (K2: q's own dtype):
     :data:`TENSOR_CORE` for bf16 queries over bf16 or float8_e5m2 K/V (an
     e5m2 value widens exactly to bf16), else :data:`EXACT`: f32 queries,
@@ -117,15 +117,6 @@ def _check_rows_aligned(name: str, **tensors) -> None:
                  f"{name}: {what} rows must be 16-byte aligned for the tensor-core route "
                  f"(data_ptr % 16 = {t.data_ptr() % 16}, strides {tuple(t.stride())} of "
                  f"{item}-byte elements)")
-
-
-def _count(wrapper, route: str) -> None:
-    """One launch of ``wrapper`` on ``route``."""
-    wrapper.launches += 1
-    if route == TENSOR_CORE:
-        wrapper.tensor_core_launches += 1
-    else:
-        wrapper.exact_launches += 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -242,6 +233,64 @@ def _check_decode(
     _require(0 <= int(layer) < L, f"layer {layer} outside the {L}-layer pool")
 
 
+def _decode_tc(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: Optional[torch.Tensor],
+    v_new: Optional[torch.Tensor],
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    scale: float,
+    layer: int,
+    sliding_window: Optional[int],
+    softcap: Optional[float],
+) -> torch.Tensor:
+    """Launch of ``csrc/paged_decode_tc.cu``: K1, or K4 when ``k_new`` is
+    given (the pools are written in place)."""
+    S, n_heads, d = q.shape
+    _, P, page_size, n_kv, _ = k_pages.shape
+    pps = block_tables.shape[1]
+    rows = (q, k_pages, v_pages) + ((k_new, v_new) if k_new is not None else ())
+    _require(all(t.data_ptr() % 16 == 0 for t in rows),
+             "the tensor-core decode route copies 16-byte words; q, the pools and the new "
+             "K/V rows must be 16-byte aligned")
+    plan = decode_tc_plan(S, n_kv, pps * page_size, d, k_pages.element_size(),
+                          _build.sm_count(q.device))
+    splits = plan["splits"]
+    fn = _kernel("paged_decode_tc")
+    out = torch.empty_like(q)
+    part = (  # a partial row: acc, m and l, padded to 16 bytes
+        torch.empty(S * n_heads * splits * (d + 4), dtype=torch.float32, device=q.device)
+        if splits > 1 else None
+    )
+    code = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if k_new is None else k_new.data_ptr(), None if v_new is None else v_new.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        _split_counters(S * n_kv, q.device).data_ptr() if splits > 1 else None,
+        _KV_CODES[k_pages.dtype], S, n_heads, n_kv, d, P, page_size, pps, int(layer),
+        _window(sliding_window), float(scale), _softcap(softcap), splits, plan["stages"],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check("paged_decode_tc", code)
+    return out
+
+
+def _check_new_rows(name: str, q: torch.Tensor, k_pages: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor) -> None:
+    """K4's new rows: contiguous ``[S, n_kv, d]`` in q's dtype on q's device."""
+    S, _, d = q.shape
+    n_kv = k_pages.shape[3]
+    for t in (k_new, v_new):
+        _require(t.shape == (S, n_kv, d) and t.dtype == q.dtype and t.device == q.device
+                 and t.is_contiguous(),
+                 f"{name}: k_new/v_new must be contiguous [{S}, {n_kv}, {d}] {q.dtype} on q's "
+                 "device")
+
+
 def paged_decode_attention_cuda(
     q: torch.Tensor,  # [S, n_heads, d]
     k_pages: torch.Tensor,  # [L, P, page_size, n_kv, d]
@@ -258,39 +307,34 @@ def paged_decode_attention_cuda(
     route :func:`attention_route` gives the q and pool dtypes."""
     _check_decode("paged_decode_attention_cuda", q, k_pages, v_pages, block_tables,
                   context_lens, layer)
+    route = attention_route(q.dtype, k_pages.dtype)
+    if route == TENSOR_CORE:
+        out = _decode_tc(q, k_pages, v_pages, None, None, block_tables, context_lens,
+                         scale=scale, layer=layer, sliding_window=sliding_window,
+                         softcap=softcap)
+        _build.count_launch(paged_decode_attention_cuda, route)
+        return out
     S, n_heads, d = q.shape
     _, P, page_size, n_kv, _ = k_pages.shape
     pps = block_tables.shape[1]
-    route = attention_route(q.dtype, k_pages.dtype)
-    if route == TENSOR_CORE:
-        _require(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
-                 "paged_decode_attention_cuda: the tensor-core route copies 16-byte words; "
-                 "q and the pools must be 16-byte aligned")
-        plan = decode_tc_plan(S, n_kv, pps * page_size, d, k_pages.element_size(),
-                              _build.sm_count(q.device))
-        name, splits = "paged_decode_tc", plan["splits"]
-        counters = _split_counters(S * n_kv, q.device).data_ptr() if splits > 1 else None
-        dtypes, tail = (counters, _KV_CODES[k_pages.dtype]), (splits, plan["stages"])
-    else:
-        name, splits = "paged_decode", decode_splits(S, n_kv, pps * page_size, q.device)
-        dtypes, tail = (int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype]), (splits,)
-    fn = _kernel(name)
+    splits = decode_splits(S, n_kv, pps * page_size, q.device)
+    fn = _kernel("paged_decode")
     out = torch.empty_like(q)
-    row = d + (4 if route == TENSOR_CORE else 2)  # a partial: acc, m and l (padded to 16 bytes)
-    part = (
-        torch.empty(S * n_heads * splits * row, dtype=torch.float32, device=q.device)
+    part = (  # a partial row: acc, m and l
+        torch.empty(S * n_heads * splits * (d + 2), dtype=torch.float32, device=q.device)
         if splits > 1 else None
     )
     code = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), *dtypes,
+        None if part is None else part.data_ptr(),
+        int(q.dtype == torch.bfloat16), _KV_CODES[k_pages.dtype],
         S, n_heads, n_kv, d, P, page_size, pps, int(layer),
-        _window(sliding_window), float(scale), _softcap(softcap), *tail,
+        _window(sliding_window), float(scale), _softcap(softcap), splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(name, code)
-    _count(paged_decode_attention_cuda, route)
+    _build.check("paged_decode", code)
+    _build.count_launch(paged_decode_attention_cuda, route)
     return out
 
 
@@ -342,7 +386,7 @@ def flash_prefill_attention_cuda(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(name, code)
-    _count(flash_prefill_attention_cuda, route)
+    _build.count_launch(flash_prefill_attention_cuda, route)
     return out
 
 
@@ -375,10 +419,7 @@ def _paged_decode_v2(
              "the v2/v3 decode kernels stage 16-byte rows: pools must be 16-byte aligned")
     fused = k_new is not None
     if fused:
-        for t in (k_new, v_new):
-            _require(t.shape == (S, n_kv, d) and t.dtype == q.dtype and t.device == q.device
-                     and t.is_contiguous(),
-                     f"k_new/v_new must be contiguous [{S}, {n_kv}, {d}] {q.dtype} on q's device")
+        _check_new_rows(name, q, k_pages, k_new, v_new)
     fn = _kernel("paged_decode_v2")
     pps = block_tables.shape[1]
     # The grid at one page per chunk sets the blocks an SM must hold; the
@@ -445,18 +486,28 @@ def paged_decode_attention_v3_cuda(
     sliding_window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4: K5 plus the store of each active row's new K/V at position
-    ``ctx − 1`` (the caller must not have written it). Returns (out,
-    k_pages, v_pages), the pools updated in place."""
-    out = _paged_decode_v2(
-        "paged_decode_attention_v3_cuda", q, k_pages, v_pages, k_new, v_new, block_tables,
-        context_lens, scale=scale, layer=layer, sliding_window=sliding_window, softcap=softcap,
-    )
-    paged_decode_attention_v3_cuda.launches += 1
+    """K4: K1's contract plus the store of each active row's new K/V at
+    position ``ctx − 1`` (the caller must not have written it), on the
+    route :func:`attention_route` gives the q and pool dtypes (tensor
+    cores: ``csrc/paged_decode_tc.cu``; exact: ``csrc/paged_decode_v2.cu``).
+    Returns (out, k_pages, v_pages), the pools updated in place."""
+    kw = dict(scale=scale, layer=layer, sliding_window=sliding_window, softcap=softcap)
+    route = attention_route(q.dtype, k_pages.dtype)
+    if route == TENSOR_CORE:
+        name = "paged_decode_attention_v3_cuda"
+        _check_decode(name, q, k_pages, v_pages, block_tables, context_lens, layer)
+        _check_new_rows(name, q, k_pages, k_new, v_new)
+        out = _decode_tc(q, k_pages, v_pages, k_new, v_new, block_tables, context_lens, **kw)
+    else:
+        out = _paged_decode_v2("paged_decode_attention_v3_cuda", q, k_pages, v_pages, k_new,
+                               v_new, block_tables, context_lens, **kw)
+    _build.count_launch(paged_decode_attention_v3_cuda, route)
     return out, k_pages, v_pages
 
 
 paged_decode_attention_v3_cuda.launches = 0
+paged_decode_attention_v3_cuda.tensor_core_launches = 0
+paged_decode_attention_v3_cuda.exact_launches = 0
 
 
 def paged_prefill_attention_cuda(
@@ -514,7 +565,7 @@ def paged_prefill_attention_cuda(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(name, code)
-    _count(paged_prefill_attention_cuda, route)
+    _build.count_launch(paged_prefill_attention_cuda, route)
     return out
 
 

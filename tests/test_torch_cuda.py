@@ -3,8 +3,8 @@
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card
 and skips without one (so on a CPU-only machine these count as skipped).
 On a GPU machine: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-K1, K2, K3 and K7 run bf16 on their tensor-core route and f32 on their
-exact route; each test asserts the route its launch took.
+K1, K2, K3, K4, K6 and K7 run bf16 on their tensor-core route and f32 on
+their exact route; each test asserts the route its launch took.
 Tolerances: 2e-5 in f32, 3e-2 in bf16, as for the Pallas kernels; the
 weight-only matmuls (K6, K7) in f32 within 1e-5 / 1e-4 (K6) and 1e-4
 (K7) of the f64 product, in bf16 within 2e-2 of the plain version, as
@@ -372,10 +372,11 @@ def test_paged_decode_v3_fused_write(cuda_device, dtype, n_heads, n_kv, d, windo
     kp_ref, vp_ref = kp.clone(), vp.clone()
     ref, _, _ = plain.paged_decode_attention_fused_write(q, kp_ref, vp_ref, k_new, v_new, bt,
                                                          cl, **kw)
-    before = paged_decode_attention_v3_cuda.launches
+    before, routes = paged_decode_attention_v3_cuda.launches, _routes(paged_decode_attention_v3_cuda)
     out, k_out, v_out = paged_decode_attention_v3_cuda(q, kp, vp, k_new, v_new, bt, cl, **kw)
     torch.cuda.synchronize()
     assert paged_decode_attention_v3_cuda.launches == before + 1
+    _assert_launched_on(paged_decode_attention_v3_cuda, routes, _route_of(dtype))
     assert k_out is kp and v_out is vp
     live = cl > 0
     torch.testing.assert_close(out[live].float(), ref[live].float(), rtol=TOL[dtype],
@@ -447,8 +448,10 @@ def test_fused_write_into_fp8_pool_rounds_like_the_plain_cast(cuda_device, dtype
     kp_ref, vp_ref = kp.clone(), vp.clone()
     ref, _, _ = plain.paged_decode_attention_fused_write(q, kp_ref, vp_ref, k_new, v_new, bt,
                                                          cl, **kw)
+    routes = _routes(paged_decode_attention_v3_cuda)
     out, _, _ = paged_decode_attention_v3_cuda(q, kp, vp, k_new, v_new, bt, cl, **kw)
     torch.cuda.synchronize()
+    _assert_launched_on(paged_decode_attention_v3_cuda, routes, _route_of(dtype))
     as_bits = (lambda t: t[:, 1:].contiguous().view(torch.uint8))  # noqa: E731
     assert torch.equal(as_bits(kp), as_bits(kp_ref)) and torch.equal(as_bits(vp), as_bits(vp_ref))
     stored = kp.float()
@@ -485,11 +488,12 @@ def test_quant_matmul_kernels_match_f64_and_plain(cuda_device, dtype, kind, M, K
     x, qt, parts = _quant_case(kind, M, K, N, dtype, cuda_device, group=group or 128, seed=M)
     fn, plain_fn = ((int8_matmul_cuda, plain_mm.int8_matmul) if kind == "int8"
                     else (int4_matmul_cuda, plain_mm.int4_matmul))
-    before = fn.launches
+    before, routes = fn.launches, _routes(fn)
     out = fn(x, *parts)
     ref = plain_fn(x, *parts)
     torch.cuda.synchronize()
     assert fn.launches == before + 1 and out.dtype == dtype and out.shape == (M, N)
+    _assert_launched_on(fn, routes, _route_of(dtype))
     if dtype == torch.float32:
         exact = (x.double() @ qt["q"].double()) * qt["scale"].double() if kind == "int8" \
             else x.double() @ qm.dequantize(qt, torch.float32).double()
@@ -703,3 +707,166 @@ def test_int4_matmul_tensor_core_reads_layer_slices(cuda_device, M, K, N, group_
         torch.cuda.synchronize()
         _assert_launched_on(int4_matmul_cuda, before, "tensor_core")
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+# --- K4 and K6 on their tensor-core routes ------------------------------------
+
+
+def _check_v3_tc(q, kp, vp, k_new, v_new, bt, ctx, **kw):
+    """K4 on the tensor-core route against write_kv_pages + the plain
+    decode on the same bf16 values: outputs within 3e-2, and within 1e-2
+    of the plain version in f32 math over the pools the kernel left; pools
+    bit-exact on every page but the scratch page 0; ctx == 0 rows zeros."""
+    kp_ref, vp_ref = kp.clone(), vp.clone()
+    ref, _, _ = plain.paged_decode_attention_fused_write(q, kp_ref, vp_ref, k_new, v_new, bt,
+                                                         ctx, **kw)
+    before = _routes(paged_decode_attention_v3_cuda)
+    out, _, _ = paged_decode_attention_v3_cuda(q, kp, vp, k_new, v_new, bt, ctx, **kw)
+    layer = kw.pop("layer")
+    ref32 = plain.paged_decode_attention(q.float(), kp[layer:layer + 1].float(),
+                                         vp[layer:layer + 1].float(), bt, ctx, layer=0, **kw)
+    torch.cuda.synchronize()
+    _assert_launched_on(paged_decode_attention_v3_cuda, before, "tensor_core")
+    as_bits = (lambda t: t[:, 1:].contiguous().view(torch.uint8))  # noqa: E731
+    assert torch.equal(as_bits(kp), as_bits(kp_ref)) and torch.equal(as_bits(vp), as_bits(vp_ref))
+    live = ctx > 0
+    assert (out[~live] == 0).all()
+    torch.testing.assert_close(out[live].float(), ref[live].float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(out[live].float(), ref32[live], rtol=1e-2, atol=1e-2)
+    return out
+
+
+def _new_rows(rng, device, S, n_kv, d):
+    return tuple(torch.from_numpy(rng.standard_normal((S, n_kv, d)).astype(np.float32))
+                 .to(device, torch.bfloat16) for _ in range(2))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+@pytest.mark.parametrize("page,pps,ctx", [
+    (8, 5, [3, 8, 27, 40]),  # the last page of the map partial, a full row
+    (16, 7, [0, 1, 16, 112]),  # an inactive row, a full row
+])
+def test_paged_decode_v3_tensor_core_chunk_padding(cuda_device, kv_dtype, page, pps, ctx):
+    """test_paged_decode_v2_chunk_padding on K4's tensor-core route: the
+    new row at every tile position, a full page map."""
+    n_kv, d = 2, 128
+    q, kp, vp, bt, cl = _decode_tc_case(cuda_device, S=len(ctx), H=8, n_kv=n_kv, d=d, page=page,
+                                        pps=pps, L=2, ctx=ctx, kv_dtype=kv_dtype, seed=page)
+    k_new, v_new = _new_rows(np.random.default_rng(page + 1), cuda_device, len(ctx), n_kv, d)
+    _check_v3_tc(q, kp, vp, k_new, v_new, bt, cl, scale=d**-0.5, layer=1)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+def test_paged_decode_v3_tensor_core_dead_chunk_then_live(cuda_device, kv_dtype):
+    """test_paged_decode_v2_dead_chunk_then_live on K4's tensor-core route:
+    a narrow window leaves the leading tiles dead; a short row leaves the
+    trailing ones dead."""
+    n_kv, d = 2, 64
+    q, kp, vp, bt, cl = _decode_tc_case(cuda_device, S=3, H=4, n_kv=n_kv, d=d, page=8, pps=32,
+                                        L=1, ctx=[250, 20, 9], kv_dtype=kv_dtype, seed=6)
+    k_new, v_new = _new_rows(np.random.default_rng(7), cuda_device, 3, n_kv, d)
+    _check_v3_tc(q, kp, vp, k_new, v_new, bt, cl, scale=d**-0.5, sliding_window=10, layer=0)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+@pytest.mark.parametrize("n_heads,n_kv,d,window,softcap", [
+    (4, 4, 64, None, None), (16, 2, 128, 13, None), (6, 3, 64, 7, 20.0), (8, 4, 256, 64, 50.0),
+    (32, 2, 128, None, None),
+])
+def test_paged_decode_v3_tensor_core_fused_write(cuda_device, kv_dtype, n_heads, n_kv, d, window,
+                                                 softcap):
+    """test_paged_decode_v3_fused_write on the tensor-core route, over bf16
+    and e5m2 pools, groups 1-16, every head_dim, and a row of 8,192 keys
+    (split-KV at its cap: the new row lands in the last span)."""
+    ctx = [1, 7, 8, 23, 0, 8192]
+    q, kp, vp, bt, cl = _decode_tc_case(cuda_device, S=6, H=n_heads, n_kv=n_kv, d=d, page=32,
+                                        pps=256, L=2, ctx=ctx, kv_dtype=kv_dtype, seed=n_heads + d)
+    k_new, v_new = _new_rows(np.random.default_rng(d), cuda_device, 6, n_kv, d)
+    _check_v3_tc(q, kp, vp, k_new, v_new, bt, cl, scale=d**-0.5, sliding_window=window,
+                 softcap=softcap, layer=1)
+
+
+def test_paged_decode_v3_tensor_core_is_deterministic(cuda_device):
+    """The same K4 launch twice, on two copies of the pools, gives the
+    same output and pools bit for bit."""
+    q, kp, vp, bt, ctx = _decode_tc_case(cuda_device, S=16, H=16, n_kv=2, d=128, page=32,
+                                         pps=32, L=2, ctx=list(range(60, 1000, 60)),
+                                         kv_dtype=torch.bfloat16, seed=12)
+    k_new, v_new = _new_rows(np.random.default_rng(13), cuda_device, 16, 2, 128)
+    kw = dict(scale=128**-0.5, layer=1)
+    kp2, vp2 = kp.clone(), vp.clone()
+    a, _, _ = paged_decode_attention_v3_cuda(q, kp, vp, k_new, v_new, bt, ctx, **kw)
+    b, _, _ = paged_decode_attention_v3_cuda(q, kp2, vp2, k_new, v_new, bt, ctx, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+
+
+def _check_int8_tc(x, q, scale):
+    before = _routes(int8_matmul_cuda)
+    out = int8_matmul_cuda(x, q, scale)
+    ref = plain_mm.int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    _assert_launched_on(int8_matmul_cuda, before, "tensor_core")
+    assert out.dtype == torch.bfloat16 and out.shape == (x.shape[0], q.shape[1])
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("M", [1, 5, 16, 17, 64, 200, 1024])
+@pytest.mark.parametrize("K,N", [(256, 136), (2048, 256), (96, 30), (1000, 1000), (200, 72)])
+def test_int8_matmul_tensor_core_shapes(cuda_device, M, K, N):
+    """Every M band (decode kernel up to 16 rows, prefill kernel above),
+    ragged N (30, 72, 136, 1,000: the plain-load path where N % 16 != 0)
+    and K (96, 200, 1,000), split-K at decode and prefill sizes."""
+    x, _, parts = _quant_case("int8", M, K, N, torch.bfloat16, cuda_device, seed=M)
+    _check_int8_tc(x, *parts)
+
+
+@pytest.mark.parametrize("M", [16, 300])
+def test_int8_matmul_tensor_core_f32_scales(cuda_device, M):
+    """bf16 activations over f32 scales stay on the tensor cores."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    w = torch.randn((512, 264), generator=g, device=cuda_device) / 512**0.5
+    qt = qm.quantize_array(w, axis=-2, scale_dtype=torch.float32)
+    x = torch.randn((M, 512), generator=g, device=cuda_device).bfloat16()
+    _check_int8_tc(x, qt["q"], qt["scale"])
+
+
+@pytest.mark.parametrize("K,N", [(48, 37), (40, 42), (256, 264)])
+@pytest.mark.parametrize("M", [16, 100])
+def test_int8_matmul_tensor_core_reads_layer_slices(cuda_device, M, K, N):
+    """The bf16 form of test_quant_matmul_kernels_read_layer_slices for K6:
+    each layer's q and scale are views into stacked tensors, at offsets
+    that are not 16-byte aligned where K * N or N is not a multiple of 16
+    (the plain-load path), aligned for (256, 264) at M = 100 (TMA)."""
+    L = 3
+    g = torch.Generator(device=cuda_device).manual_seed(K + N)
+    w = torch.randn((L, K, N), generator=g, device=cuda_device) / K**0.5
+    qt = qm.quantize_array(w.bfloat16(), axis=-2, scale_dtype=torch.bfloat16)
+    x = torch.randn((M, K), generator=g, device=cuda_device).bfloat16()
+    for li in range(L):
+        layer = {k: t[li] for k, t in qt.items()}
+        before = _routes(int8_matmul_cuda)
+        out = qm.matmul(x, layer, frozenset({"int8"}))
+        ref = plain_mm.int8_matmul(x, layer["q"], layer["scale"])
+        torch.cuda.synchronize()
+        _assert_launched_on(int8_matmul_cuda, before, "tensor_core")
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_int8_matmul_tensor_core_llama_head(cuda_device):
+    """llama3.1-8b's untied int8 head at a decode step: K 4,096, N 128,256."""
+    x, _, parts = _quant_case("int8", 16, 4096, 128256, torch.bfloat16, cuda_device, seed=8)
+    _check_int8_tc(x, *parts)
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 2048, 11008), (1024, 14336, 4096)])
+def test_int8_matmul_tensor_core_is_deterministic(cuda_device, M, K, N):
+    """The same K6 launch three times gives the same bits, at a decode
+    shape (split-K, combined in order) and a long prefill contraction
+    (224 k-tiles through the TMA ring and the queued wgmma)."""
+    x, _, parts = _quant_case("int8", M, K, N, torch.bfloat16, cuda_device, seed=9)
+    outs = [int8_matmul_cuda(x, *parts) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o.view(torch.int16), outs[0].view(torch.int16)) for o in outs[1:])

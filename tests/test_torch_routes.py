@@ -1,5 +1,5 @@
 """Route rules and launch plans of the port's two-route kernels (K1, K2,
-K3 in ``ops/cuda_attention.py``; K7 in ``ops/cuda_matmul.py``).
+K3, K4 in ``ops/cuda_attention.py``; K6, K7 in ``ops/cuda_matmul.py``).
 
 The routes are chosen by dtype alone, and the tensor-core routes' launch
 plans are pure functions of shapes and the SM count, so both are checked
@@ -29,6 +29,37 @@ SMS = (132, 114, 8)  # an H100 SXM, an H100 PCIe, a small part
 ])
 def test_int4_route_is_a_function_of_the_activation_dtype(x_dtype, route):
     assert cm.int4_route(x_dtype) == route
+
+
+@pytest.mark.parametrize("x_dtype,route", [
+    (torch.bfloat16, "tensor_core"), (torch.float32, "exact"),
+])
+def test_int8_route_is_a_function_of_the_activation_dtype(x_dtype, route):
+    assert cm.int8_route(x_dtype) == route
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (q, kv) for q in (torch.float32, torch.bfloat16)
+    for kv in (torch.float32, torch.bfloat16, torch.float8_e5m2)
+])
+def test_fused_write_decode_takes_the_attention_route(monkeypatch, q_dtype, kv_dtype):
+    """K4 launches the tensor-core kernel exactly where attention_route
+    says so (bf16 q over a bf16 or e5m2 pool), else the exact one."""
+    launched = []
+    monkeypatch.setattr(ca, "_decode_tc", lambda *a, **k: launched.append("tensor_core"))
+    monkeypatch.setattr(ca, "_paged_decode_v2", lambda *a, **k: launched.append("exact"))
+    monkeypatch.setattr(ca, "_check_decode", lambda *a, **k: None)
+    q = torch.zeros((2, 4, 64), dtype=q_dtype)
+    pool = torch.zeros((1, 3, 8, 2, 64), dtype=kv_dtype)
+    new = torch.zeros((2, 2, 64), dtype=q_dtype)
+    table, ctx = torch.zeros((2, 1), dtype=torch.int32), torch.ones(2, dtype=torch.int32)
+    fn = ca.paged_decode_attention_v3_cuda
+    before = {"tensor_core": fn.tensor_core_launches, "exact": fn.exact_launches}
+    fn(q, pool, pool, new, new, table, ctx, scale=1.0, layer=0)
+    route = ca.attention_route(q_dtype, kv_dtype)
+    assert launched == [route]
+    after = {"tensor_core": fn.tensor_core_launches, "exact": fn.exact_launches}
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == route) for k in after}
 
 
 def test_split_count_never_exceeds_its_target_and_leaves_no_run_empty():
@@ -96,8 +127,41 @@ def test_int4_tc_plan_invariants():
             assert resident * plan["smem"] <= SM_SMEM
 
 
+def test_int8_tc_plan_invariants():
+    """K6's plan by K7's rules: splits never empty, decode rings deeper only
+    where a split's tiles need them, every block's shared memory (twice K7's
+    weight bytes a decode stage, none for scales) within an SM's 227 KB
+    with the blocks an SM holds, and a pure function of its inputs."""
+    for M, N, K, sms in itertools.product(
+            (1, 5, 16, 17, 64, 200, 1024), (30, 256, 2048, 11008, 128256),
+            (32, 96, 200, 2048, 4096, 11008, 14336), SMS):
+        plan = cm.int8_tc_plan(M, N, K, sms)
+        assert plan == cm.int8_tc_plan(M, N, K, sms)
+        kind, splits = plan["kind"], plan["splits"]
+        assert kind == (0 if M <= cm.TC_DECODE_M else 1)
+        tiles = -(-K // cm.TC_TILE_K)
+        per = -(-tiles // splits)
+        assert 1 <= splits <= cm.MAX_SPLITS and (splits - 1) * per < tiles  # none empty
+        if tiles >= 2 * cm.TC_MIN_TILES_PER_SPLIT:
+            assert per >= cm.TC_MIN_TILES_PER_SPLIT
+        bm, bn = ((cm.TC_DECODE_M, cm.TC_DECODE_N) if kind == 0
+                  else (cm.TC_PREFILL_M, cm.TC_PREFILL_N))
+        mn = -(-M // bm) * -(-N // bn)
+        assert mn * splits <= max((2 if kind == 0 else 1) * sms, mn)
+        assert plan["smem"] + 1024 <= SM_SMEM
+        if kind == 0:
+            assert plan["stages"] in cm.TC_DECODE_STAGES
+            assert plan["stages"] <= max(2, per + 1)
+            assert plan["smem"] == cm.tc8_decode_smem(plan["stages"])
+            resident = min(2, -(-mn * splits // sms))
+            assert resident * plan["smem"] <= SM_SMEM
+        else:
+            assert plan["smem"] == cm.tc8_prefill_smem()
+
+
 def test_tensor_core_wrappers_count_their_routes():
     """The two-route wrappers carry a counter per route beside launches."""
     for fn in (ca.paged_decode_attention_cuda, ca.flash_prefill_attention_cuda,
-               ca.paged_prefill_attention_cuda, cm.int4_matmul_cuda):
+               ca.paged_prefill_attention_cuda, ca.paged_decode_attention_v3_cuda,
+               cm.int8_matmul_cuda, cm.int4_matmul_cuda):
         assert isinstance(fn.tensor_core_launches, int) and isinstance(fn.exact_launches, int)

@@ -3,7 +3,9 @@
 Drives ``run_torch_worker`` on the CPU with the tiny preset and checks
 ids, ``usage.completion_tokens``, extra-field passthrough, and that each
 result's text equals ``generate_sync`` of an engine with the same seeded
-weights.
+weights. The worker's resolved ``EngineConfig`` is held against the JAX
+worker's (``llmq_tpu/workers/tpu_worker.py::_build_core``) for the same
+arguments and environment.
 """
 
 import asyncio
@@ -14,9 +16,10 @@ import torch
 
 from llmq_tpu_torch.broker.base import make_broker
 from llmq_tpu_torch.broker.memory import reset_namespace
-from llmq_tpu_torch.cli.worker import build_engine, run_torch_worker
+from llmq_tpu_torch.cli.worker import build_engine, engine_config, run_torch_worker
 from llmq_tpu_torch.core.models import Job
 from llmq_tpu_torch.engine.sampling import SamplingParams
+from llmq_tpu_torch.models.presets import get_preset
 from llmq_tpu_torch.workers.torch_worker import TorchWorker
 
 pytestmark = pytest.mark.unit
@@ -135,9 +138,10 @@ def test_worker_serves_quantized_weights(monkeypatch, dtype, kv_dtype):
 
     monkeypatch.delenv("LLMQ_KV_DTYPE", raising=False)
     assert resolve_pool_dtype("float32") == "float32"
-    assert resolve_pool_dtype(dtype) == "bfloat16" and resolve_pool_dtype(dtype, "fp8") == "fp8"
+    assert (resolve_pool_dtype(dtype) == "bfloat16"
+            and resolve_pool_dtype(dtype, "fp8") == "float8_e5m2")
     monkeypatch.setenv("LLMQ_KV_DTYPE", "f32")
-    assert resolve_pool_dtype(dtype) == "f32"
+    assert resolve_pool_dtype(dtype) == "float32"
     monkeypatch.delenv("LLMQ_KV_DTYPE")
     monkeypatch.setenv("LLMQ_INT8_MATMUL", "pallas")
     monkeypatch.setenv("LLMQ_INT4_MATMUL", "pallas")
@@ -157,3 +161,94 @@ def test_worker_serves_quantized_weights(monkeypatch, dtype, kv_dtype):
     assert qm.is_int4(w) == (dtype == "int4") and w["scale"].dtype == torch.bfloat16
     assert core.model.top_params()["embed"]["q"].dtype == torch.int8
     assert core.model.quant_kernels == frozenset({"int8", "int4"})
+
+
+# Every variable either worker's engine config reads (core/config.py).
+ENGINE_VARS = (
+    "LLMQ_MAX_NUM_SEQS", "VLLM_MAX_NUM_SEQS", "LLMQ_MAX_MODEL_LEN", "VLLM_MAX_MODEL_LEN",
+    "LLMQ_PREFILL_CHUNK", "LLMQ_PREFIX_CACHING", "LLMQ_KV_DTYPE", "VLLM_KV_CACHE_DTYPE",
+    "TPU_HBM_UTILIZATION", "VLLM_GPU_MEMORY_UTILIZATION", "LLMQ_DECODE_BLOCK",
+    "LLMQ_SPEC_TOKENS", "LLMQ_TP_OVERLAP", "LLMQ_MIXED_STEP", "LLMQ_PREFIX_HOST_GB",
+)
+COMPARED = ("max_model_len", "max_num_seqs", "kv_dtype", "prefill_chunk_size",
+            "enable_prefix_caching", "hbm_utilization")
+
+
+def _jax_worker_engine_config(monkeypatch, model: str, **flags):
+    """The ``EngineConfig`` the JAX worker's ``_build_core`` hands its
+    engine, captured without building the engine or its weights."""
+    import llmq_tpu.engine.engine as jax_engine
+    import llmq_tpu.models.transformer as jax_transformer
+    from llmq_tpu.workers.tpu_worker import TPUWorker
+
+    captured = {}
+
+    def capture(model_config, params, tokenizer, **kw):
+        captured["cfg"] = kw["engine_config"]
+
+    monkeypatch.setattr(jax_engine, "EngineCore", capture)
+    monkeypatch.setattr(jax_transformer, "init_params", lambda *a, **k: None)
+    TPUWorker("config-parity", model=model, tensor_parallel=1, **flags)._build_core()
+    return captured["cfg"]
+
+
+def _fields(cfg) -> dict:
+    import numpy as np
+
+    out = {name: getattr(cfg, name) for name in COMPARED}
+    kv = out["kv_dtype"]
+    out["kv_dtype"] = (str(kv).replace("torch.", "") if isinstance(kv, torch.dtype)
+                       else np.dtype(kv).name)
+    return out
+
+
+@pytest.mark.parametrize("env,flags", [
+    ({}, {}),  # ROADMAP queue 3 item 3: 8,192, clamped to the model
+    ({}, {"dtype": "float32"}),
+    ({"LLMQ_MAX_NUM_SEQS": "8"}, {}),
+    ({"VLLM_MAX_NUM_SEQS": "12"}, {}),
+    ({"LLMQ_MAX_MODEL_LEN": "1000"}, {}),
+    ({"VLLM_MAX_MODEL_LEN": "200000"}, {}),  # past max_position_embeddings: clamped
+    ({"LLMQ_PREFILL_CHUNK": "64"}, {}),
+    ({"LLMQ_PREFIX_CACHING": "1"}, {"prefill_chunk_size": 32}),  # needs a chunk in both
+    ({"LLMQ_KV_DTYPE": "fp8"}, {}),
+    ({"VLLM_KV_CACHE_DTYPE": "fp8_e5m2"}, {}),  # queue 3 item 4
+    ({"TPU_HBM_UTILIZATION": "0.5"}, {}),
+    ({"VLLM_GPU_MEMORY_UTILIZATION": "0.7"}, {}),
+    ({"LLMQ_MAX_MODEL_LEN": "1000"}, {"max_model_len": 300}),  # a flag over a variable
+    ({"VLLM_MAX_NUM_SEQS": "12", "LLMQ_MAX_NUM_SEQS": "6"}, {"max_num_seqs": 3}),
+    ({"VLLM_KV_CACHE_DTYPE": "fp8"}, {"kv_dtype": "bf16"}),
+    ({"LLMQ_PREFILL_CHUNK": "64"}, {"prefill_chunk_size": 32}),
+    ({}, {"max_model_len": 1_000_000}),  # a flag is clamped too
+])
+def test_worker_engine_config_matches_the_jax_worker(monkeypatch, env, flags):
+    """Both workers resolve the same EngineConfig fields from the same
+    arguments and environment (ROADMAP.md queue 3 items 3 and 4)."""
+    for var in ENGINE_VARS:
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    model = "preset://qwen2.5-0.5b"  # max_position_embeddings 32,768
+    want = _fields(_jax_worker_engine_config(monkeypatch, model, **flags))
+    got = _fields(engine_config(get_preset(model.split("://")[1]), **flags))
+    assert got == want
+
+
+@pytest.mark.parametrize("var,value,item", [
+    ("LLMQ_DECODE_BLOCK", "4", "M10"),
+    ("LLMQ_SPEC_TOKENS", "2", "M10"),
+    ("LLMQ_MIXED_STEP", "on", "M10"),
+    ("LLMQ_TP_OVERLAP", "on", "M13"),
+    ("LLMQ_PREFIX_HOST_GB", "1", "M11"),
+])
+def test_worker_refuses_unported_env_features(monkeypatch, var, value, item):
+    """A variable that turns on a feature the port lacks is refused with
+    its ROADMAP.md item, never ignored; set to its "off" value it is not."""
+    for name in ENGINE_VARS:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv(var, value)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+        build_engine("preset://tiny", **ENGINE)
+    monkeypatch.setenv(var, {"LLMQ_DECODE_BLOCK": "1", "LLMQ_SPEC_TOKENS": "0",
+                             "LLMQ_PREFIX_HOST_GB": "0"}.get(var, "off"))
+    build_engine("preset://tiny", **ENGINE).shutdown()
