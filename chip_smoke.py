@@ -13,10 +13,11 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    shapes (qwen2.5-3b) and at gemma2-2b shapes (head_dim 256, softcap 50,
    window 64): K1 paged decode, K2 flash prefill, K3 chunked prefill
    (chunks of 256 at contexts 0 / 256 / 1040, a row with no valid query;
-   K1, K2, K3, K4, K6 and K7 run bf16 on their tensor-core route and f32
-   on their exact route, and each check asserts the route its launch
-   took),
-   K5 chunked decode and K4 fused-write decode (whose pools must equal
+   every kernel runs bf16 on its tensor-core route and f32 on its exact
+   route, and each check asserts the route its launch took),
+   K5 chunked decode (whose bf16 output must equal K1's bit for bit on
+   the same inputs, over bf16 and e5m2 pools) and K4 fused-write decode
+   (whose pools must equal
    ``write_kv_pages`` + the plain decode bit for bit on pages >= 1). The
    decode kernels, whose math is f32 as on the TPU, are also held within
    1e-2 of the plain version run in f32 on the same bf16 values. K1, K3,
@@ -62,13 +63,31 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    path under each of ``LLMQ_DECODE_KERNEL`` v1, v2 and v3: chunk and
    decode logits within 1e-4, identical tokens (greedy, and one seeded
    request at temperature 0.8 through the threefry sampler) and
-   prefix-cache counters, every K4 launch on its exact route; K5 is
-   counted on the v2 run, the path it carries.
-7. ``{"kernels": [...]}``: one record per ported kernel; K1's, K2's,
-   K3's, K4's, K6's and K7's carry the tensor-core route's bf16 time as
-   ``ms`` and the exact route's f32 time as ``exact_f32_ms``; K6's and
-   K7's also their M = 1,024 time, library time and bound
-   (``m1024_*``).
+   prefix-cache counters, every K4 and K5 launch on its exact route.
+7. ``{"kernels": [...]}``: one record per ported kernel, each with the
+   tensor-core route's bf16 time as ``ms`` and the exact route's f32
+   time as ``exact_f32_ms``; K6's and K7's also their M = 1,024 time,
+   library time and bound (``m1024_*``). K5's launches are phase 8's.
+   Printed last, after phases 8 and 9.
+8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
+   same seed) written as an HF checkpoint (config.json, two safetensors
+   shards and their index, HF names, [out, in] weights) under ``build/``
+   and removed after; ``engine/weights.load_checkpoint`` must give
+   ``ModelConfig.from_pretrained`` equal to the preset and every leaf
+   bit for bit, and with ``quantize="int8"`` / ``"int4"`` the loader's
+   block quantization applied to the whole tensors (load time, GB/s and
+   the host's peak RSS growth printed). Phase 3's 16 jobs, 32 new tokens,
+   served from the loaded tree through ``EngineCore`` under
+   ``LLMQ_DECODE_KERNEL=v2``: K5 launches 36 times per decode step, all
+   on the tensor-core route, K1 never; the tokens equal the first 32 of
+   phase 3's.
+9. tcp:// and the command line at full width: the port's
+   ``BrokerServer`` in a process of its own on a free local port, phase
+   3's 16 jobs (32 new tokens) published to it, ``python -m
+   llmq_tpu_torch worker run preset://qwen2.5-3b`` in another process
+   with ``LLMQ_BROKER_URL`` set; once the 16 results are read the worker
+   gets SIGTERM and must exit 0; ids, ``usage.completion_tokens``, extras
+   and text must match phase 3's first 32 tokens.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -82,11 +101,15 @@ import argparse
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -97,7 +120,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
-ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity")
+ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -181,12 +204,13 @@ def _dense(pool: torch.Tensor, idx: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, softcap, window,
-                 iters, seed, kv_dtype=None):
+                 iters, seed, kv_dtype=None, outputs=None):
     """K1 (v1), K5 (v2) or K4 (v3, with the fused write of the new rows)
     against the plain version on the same inputs; ``kv_dtype`` is the
     pools' dtype (default: ``dtype``). On an fp8 pool K4's check writes
     one row of values past e5m2's range (50,000-70,000): the pools must
-    hold +-57,344 and +-inf where the plain cast puts them."""
+    hold +-57,344 and +-inf where the plain cast puts them. The kernel's
+    output goes into ``outputs[variant]`` where that dict is given."""
     from llmq_tpu_torch.ops import attention as plain
     from llmq_tpu_torch.ops.cuda_attention import attention_route
 
@@ -237,6 +261,8 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
         out = fn(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
         ref = plain.paged_decode_attention(q, kp, vp, bt_t, ctx_t, layer=layer, **kw)
     torch.cuda.synchronize()
+    if outputs is not None:
+        outputs[variant] = out.clone()
     route = attention_route(dtype, kv_dtype) if routed else None
     route_ok = _route_counts(fn)[route] == before[route] + 1 if routed else None
     # A ctx == 0 row is inactive: the kernel writes exact zeros, the plain
@@ -331,6 +357,19 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
                          f"{f32_math_err}, ctx=0 row {zero_row}, pools equal {pools_equal}, "
                          f"overflow row {overflow}, {route} route launched {route_ok}")
     return rec
+
+
+def check_k5_equals_k1(outs: dict, *, kv_dtype) -> None:
+    """K5 on the tensor-core route stages a chunk of pages a ring stage
+    but keeps K1's split plan and order of arithmetic: its bf16 output on
+    the same inputs must equal K1's bit for bit."""
+    for label, by_variant in outs.items():
+        same = _same_bits(by_variant["v2"], by_variant["v1"])
+        emit(dict(phase="kernel_check", kernel="paged_decode_v2", case=label,
+                  kv_dtype=str(kv_dtype)[6:], check="bf16 output equals K1's bit for bit",
+                  bit_exact=same))
+        if not same:
+            raise SystemExit(f"paged_decode_v2 {label}: bf16 output differs from K1's")
 
 
 def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dtype, softcap,
@@ -651,13 +690,15 @@ def phase_kernels(iters: int) -> dict:
     chunk = dict(B=4, C=256, page=32, starts=[0, 256, 1040, 512], valids=[256, 256, 200, 0],
                  iters=iters)
     for dtype in (torch.float32, torch.bfloat16):
+        outs = {"qwen2.5-3b": {}, "gemma2-2b": {}}
         for variant in ("v1", "v2", "v3"):  # the same inputs for the three
-            rec = check_decode("qwen2.5-3b", variant=variant, dtype=dtype, seed=1, **qwen)
-            if rec["route"] is not None:
-                main[f"{rec['kernel']}/{rec['route']}"] = rec
-            elif dtype == torch.bfloat16:
-                main[rec["kernel"]] = rec
-            check_decode("gemma2-2b", variant=variant, dtype=dtype, seed=2, **gemma)
+            rec = check_decode("qwen2.5-3b", variant=variant, dtype=dtype, seed=1,
+                               outputs=outs["qwen2.5-3b"], **qwen)
+            main[f"{rec['kernel']}/{rec['route']}"] = rec
+            check_decode("gemma2-2b", variant=variant, dtype=dtype, seed=2,
+                         outputs=outs["gemma2-2b"], **gemma)
+        if dtype == torch.bfloat16:
+            check_k5_equals_k1(outs, kv_dtype=dtype)
         lengths = [224, 200, 151, 37]
         rec = check_prefill("qwen2.5-3b", B=4, T=224, H=16, n_kv=2, d=128, lengths=lengths,
                             dtype=dtype, softcap=None, window=None, iters=iters, seed=3)
@@ -672,9 +713,12 @@ def phase_kernels(iters: int) -> dict:
         # fp8 (float8_e5m2) pools: every pool-reading kernel on the same
         # e5m2 pool as its plain version, at the f32 / bf16 tolerances.
         fp8 = torch.float8_e5m2
+        outs = {"qwen2.5-3b fp8 pool": {}}
         for variant in ("v1", "v2", "v3"):
             check_decode("qwen2.5-3b fp8 pool", variant=variant, dtype=dtype, kv_dtype=fp8,
-                         seed=5, **qwen)
+                         seed=5, outputs=outs["qwen2.5-3b fp8 pool"], **qwen)
+        if dtype == torch.bfloat16:
+            check_k5_equals_k1(outs, kv_dtype=fp8)
         check_paged_prefill("qwen2.5-3b fp8 pool", H=16, n_kv=2, d=128, L=36, dtype=dtype,
                             kv_dtype=fp8, softcap=None, window=None, seed=10, **chunk)
     main.update(phase_quant_kernels(iters))
@@ -701,8 +745,8 @@ def _wrapper(module: str, attr: str):
 
 
 # kernels with a tensor-core and an exact route
-ROUTED = ("paged_decode", "flash_prefill", "paged_prefill", "paged_decode_v3", "int8_matmul",
-          "int4_matmul")
+ROUTED = ("paged_decode", "flash_prefill", "paged_prefill", "paged_decode_v3", "paged_decode_v2",
+          "int8_matmul", "int4_matmul")
 
 
 def _route_counts(wrapper) -> dict:
@@ -792,14 +836,33 @@ def _default_jobs(n_jobs: int, gen: int) -> list:
     ]
 
 
-def phase_serve(smi: str) -> dict:
+@contextlib.contextmanager
+def recording_tokens(tokens: dict):
+    """The token ids of each job a ``TorchWorker`` answers, by job id."""
+    from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+    build = TorchWorker._build_result
+
+    def record(self, job, out, duration_ms):
+        tokens[job.id] = list(out.token_ids)
+        return build(self, job, out, duration_ms)
+
+    TorchWorker._build_result = record
+    try:
+        yield tokens
+    finally:
+        TorchWorker._build_result = build
+
+
+def phase_serve(smi: str) -> tuple:
+    """Phase 3; returns the launch counts and each job's token ids."""
     from llmq_tpu_torch.cli.worker import run_torch_worker
 
     n_jobs, gen, url, queue = 16, 128, "memory://chip-smoke", "smoke"
     asyncio.run(_submit(url, queue, _default_jobs(n_jobs, gen)))
     reset_launches()
     t0 = time.perf_counter()
-    with env(LLMQ_DECODE_KERNEL="v1"):
+    with env(LLMQ_DECODE_KERNEL="v1"), recording_tokens({}) as tokens:
         worker = run_torch_worker(
             "preset://qwen2.5-3b", queue, device="cuda", dtype="bfloat16",
             max_num_seqs=16, max_model_len=512, broker_url=url, max_jobs=n_jobs,
@@ -854,7 +917,7 @@ def phase_serve(smi: str) -> dict:
     if problems:
         raise SystemExit("serve phase failed: " + "; ".join(problems[:5]))
     worker.engine.core.model = None  # free the 3B weights before the next phase
-    return launches
+    return launches, tokens
 
 
 def phase_quant(smi: str) -> dict:
@@ -1337,6 +1400,394 @@ def phase_chunk_parity() -> dict:
             launches["paged_decode_v2"] = counted["paged_decode_v2"]
     return launches
 
+# --- phase 8: the checkpoint path at full width ------------------------------
+
+#: ours -> HF name of a layer tensor (qwen2: biases, no gemma2 norms)
+HF_LAYER_NAMES = {
+    "ln1": "input_layernorm.weight", "ln2": "post_attention_layernorm.weight",
+    "q_proj": "self_attn.q_proj.weight", "k_proj": "self_attn.k_proj.weight",
+    "v_proj": "self_attn.v_proj.weight", "o_proj": "self_attn.o_proj.weight",
+    "q_bias": "self_attn.q_proj.bias", "k_bias": "self_attn.k_proj.bias",
+    "v_bias": "self_attn.v_proj.bias", "gate_proj": "mlp.gate_proj.weight",
+    "up_proj": "mlp.up_proj.weight", "down_proj": "mlp.down_proj.weight",
+}
+_ST_TAGS = {torch.bfloat16: "BF16", torch.float32: "F32"}
+
+
+def write_hf_checkpoint(cfg, params: dict, out_dir: str, shards: int = 2) -> int:
+    """A qwen2 HF checkpoint of ``params``: config.json, ``shards``
+    safetensors files and their index, HF names, linear weights [out, in].
+    Written tensor by tensor from the card; returns the bytes written."""
+    hf = dict(model_type="qwen2", vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+              num_hidden_layers=cfg.num_layers, num_attention_heads=cfg.num_heads,
+              num_key_value_heads=cfg.num_kv_heads, intermediate_size=cfg.intermediate_size,
+              max_position_embeddings=cfg.max_position_embeddings, rope_theta=cfg.rope_theta,
+              rms_norm_eps=cfg.rms_norm_eps, tie_word_embeddings=cfg.tie_word_embeddings)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf, f)
+    names = [("model.embed_tokens.weight", lambda: params["embed"])]
+    for i in range(cfg.num_layers):
+        for ours, theirs in HF_LAYER_NAMES.items():
+            t = params["layers"][ours]
+            names.append((f"model.layers.{i}.{theirs}",
+                          lambda t=t, i=i: t[i].T if t.dim() == 3 else t[i]))
+    names.append(("model.norm.weight", lambda: params["final_norm"]))
+    if "lm_head" in params:
+        names.append(("lm_head.weight", lambda: params["lm_head"].T))
+    per = -(-len(names) // shards)
+    weight_map, total = {}, 0
+    for k in range(shards):
+        fname = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        part, header, at = names[k * per:(k + 1) * per], {}, 0
+        for name, get in part:
+            t = get()
+            n = t.numel() * t.element_size()
+            header[name] = dict(dtype=_ST_TAGS[t.dtype], shape=list(t.shape),
+                                data_offsets=[at, at + n])
+            at += n
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(out_dir, fname), "wb") as f:
+            f.write(len(raw).to_bytes(8, "little") + raw)
+            for name, get in part:
+                f.write(get().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+                weight_map[name] = fname
+        total += at
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return total
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+class _RssPeak:
+    """The host's resident set (``/proc/self/statm``), sampled every 5 ms
+    while in the block: its growth over the start, at the peak."""
+
+    def __enter__(self):
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        self.growth_gb = (self.peak - self.start) / 1e9
+
+
+def _quantized_reference(loaded_bf16: dict, mode: str) -> dict:
+    """The loader's block quantization (``engine/weights.py``) applied to
+    the whole in-memory tensors: what streaming must reproduce."""
+    from llmq_tpu_torch.engine import weights as tw
+    from llmq_tpu_torch.models import quant as qm
+
+    out = {}
+    for name, t in _leaves(loaded_bf16):
+        key = name.split(".")[-1]
+        if name == "embed":
+            q, s = tw._quant_int8(t.float(), axis=1)
+            out.update({"embed.q": q, "embed.scale": s.to(t.dtype)})
+        elif key in qm.QUANTIZED_LAYER_KEYS:
+            for li in range(t.shape[0]):  # one layer at a time: the f32 copy stays small
+                w = t[li].float()
+                parts = (dict(zip(("q", "scale", "zero"), tw._quant_int4(w))) if mode == "int4"
+                         else dict(zip(("q", "scale"), tw._quant_int8(w, axis=-2))))
+                for p, v in parts.items():
+                    v = v if p == "q" else v.to(t.dtype)
+                    out.setdefault(f"{name}.{p}", torch.empty((t.shape[0], *v.shape),
+                                                              dtype=v.dtype, device=v.device))
+                    out[f"{name}.{p}"][li] = v
+        else:
+            out[name] = t
+    return out
+
+
+def _np_quant(a32: np.ndarray, axis: int):
+    """The reference loader's host int8 quantization of one block
+    (``llmq_tpu/engine/weights.py::_np_quant``), in numpy."""
+    amax = np.abs(a32).max(axis=axis)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.rint(a32 / np.expand_dims(scale, axis)), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _np_quant_int4(a32: np.ndarray, group: int):
+    """The reference loader's host int4 quantization of one [K, N] block
+    (``_np_quant_int4``), in numpy: packed codes, f32 scale and zero."""
+    k, n = a32.shape
+    ag = a32.reshape(k // group, group, n)
+    amin, amax = ag.min(axis=-2), ag.max(axis=-2)
+    scale = np.where(amax > amin, (amax - amin) / 15.0, 1.0).astype(np.float32)
+    zero = np.rint(-amin / scale).astype(np.float32)
+    q = np.clip(np.rint(ag / scale[:, None, :] + zero[:, None, :]), 0, 15).astype(np.uint8)
+    q = q.reshape(k, n)
+    return q[0::2] | (q[1::2] << 4), scale, zero
+
+
+def _host_quant_mismatches(loaded: dict, quant: dict, mode: str) -> list:
+    """Layers 0 and L - 1 of q_proj and down_proj, and the embedding's
+    first 4,096 rows, quantized on the card against the reference loader's
+    numpy arithmetic on the host (the scales compared in f32, then cast)."""
+    from llmq_tpu_torch.models import quant as qm
+
+    bad = []
+    L = loaded["layers"]["q_proj"].shape[0]
+    for key in ("q_proj", "down_proj"):
+        for li in (0, L - 1):
+            w = loaded["layers"][key][li].float().cpu().numpy()
+            got = {k: v[li].cpu() for k, v in quant["layers"][key].items()}
+            if mode == "int4":
+                q, scale, zero = _np_quant_int4(w, qm.int4_group(w.shape[0]))
+                want = {"q": q, "scale": scale, "zero": zero}
+            else:
+                q, scale = _np_quant(w, axis=-2)
+                want = {"q": q, "scale": scale}
+            for part, ref in want.items():
+                ref_t = torch.from_numpy(ref)
+                if part != "q":
+                    ref_t = ref_t.to(got[part].dtype)
+                if not _same_bits(ref_t, got[part]):
+                    bad.append(f"{key}[{li}].{part}")
+    e = loaded["embed"][:4096].float().cpu().numpy()
+    q, scale = _np_quant(e, axis=1)
+    if not (_same_bits(torch.from_numpy(q), quant["embed"]["q"][:4096].cpu())
+            and _same_bits(torch.from_numpy(scale).to(quant["embed"]["scale"].dtype),
+                           quant["embed"]["scale"][:4096].cpu())):
+        bad.append("embed[:4096]")
+    return bad
+
+
+def phase_checkpoint(smi: str, serve_tokens: dict) -> int:
+    """Phase 8: phase 3's qwen2.5-3b weights (the same seed) written as an
+    HF checkpoint, loaded back bf16 (bit for bit), int8 and int4 (the
+    loader's block quantization, against the same applied to whole
+    tensors), and phase 3's jobs served from the loaded tree under
+    ``LLMQ_DECODE_KERNEL=v2``: K5 on the tensor-core route, tokens equal
+    to the first 32 of phase 3's. Returns K5's launches."""
+    import tempfile
+
+    from llmq_tpu_torch.cli.worker import engine_config
+    from llmq_tpu_torch.engine.engine import EngineCore
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.engine.weights import load_checkpoint
+    from llmq_tpu_torch.models import quant as qm
+    from llmq_tpu_torch.models.config import ModelConfig
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    dev = torch.device("cuda")
+    cfg = get_preset("qwen2.5-3b")
+    # build_engine's draw for preset://qwen2.5-3b at seed 0: phase 3's weights
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16,
+                         device=dev)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    free_gb = shutil.disk_usage(build_dir).free / 1e9
+    ckpt = tempfile.mkdtemp(prefix="hf-qwen2.5-3b-", dir=build_dir)
+    problems, rec = [], dict(phase="checkpoint", model="qwen2.5-3b", layers=cfg.num_layers,
+                             disk_free_gb_before=free_gb, card=smi)
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(cfg, params, ckpt)
+        rec.update(checkpoint_gb=nbytes / 1e9, write_s=time.perf_counter() - t0)
+        if ModelConfig.from_pretrained(ckpt) != cfg:
+            problems.append("ModelConfig.from_pretrained differs from the preset")
+        torch.cuda.synchronize()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            loaded = load_checkpoint(ckpt, cfg, dtype=torch.bfloat16, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        want, got = dict(_leaves(params)), dict(_leaves(loaded))
+        bad = [n for n in want if n not in got or not _same_bits(want[n], got[n])]
+        if sorted(want) != sorted(got) or bad:
+            problems.append(f"bf16 load differs from the in-memory weights: {bad[:5]}")
+        rec.update(load_bf16_s=load_s, load_bf16_gb_s=nbytes / 1e9 / load_s,
+                   load_bf16_host_rss_growth_gb=rss.growth_gb, bf16_leaves=len(want),
+                   bf16_bit_exact=not bad)
+        del params, want
+        for mode in ("int8", "int4"):
+            with _RssPeak() as rss:
+                t0 = time.perf_counter()
+                quant = load_checkpoint(ckpt, cfg, dtype=torch.bfloat16, device="cuda",
+                                        quantize=mode)
+                torch.cuda.synchronize()
+                q_s = time.perf_counter() - t0
+            ref = _quantized_reference(loaded, mode)
+            mine = dict(_leaves(quant))
+            bad = [n for n in ref if n not in mine or not _same_bits(ref[n], mine[n])]
+            if sorted(ref) != sorted(mine) or bad:
+                problems.append(f"{mode} load differs from whole-tensor quantization: {bad[:5]}")
+            host_bad = _host_quant_mismatches(loaded, quant, mode)
+            if host_bad:
+                problems.append(f"{mode} load differs from the reference's numpy arithmetic: "
+                                f"{host_bad}")
+            # Where quantize_params (XLA's reciprocal product, the preset
+            # path's quantizer) would put other codes or scales: counted.
+            whole = dict(_leaves(qm.quantize_params(loaded, scale_dtype=torch.bfloat16,
+                                                    bits=4 if mode == "int4" else 8)))
+            differ = {n: int((whole[n] != mine[n]).sum()) for n in whole
+                      if n.rsplit(".", 1)[-1] in ("q", "scale", "zero")}
+            rec.update({f"load_{mode}_s": q_s, f"load_{mode}_gb_s": nbytes / 1e9 / q_s,
+                        f"load_{mode}_host_rss_growth_gb": rss.growth_gb,
+                        f"{mode}_bit_exact_vs_whole_tensor": not bad,
+                        f"{mode}_bit_exact_vs_reference_numpy_sample": not host_bad,
+                        f"{mode}_elements_unlike_quantize_params":
+                            {n: c for n, c in differ.items() if c}})
+            del quant, ref, mine, whole
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # Phase 3's jobs from the loaded tree, under v2 (K5), 32 new tokens each.
+    gen = 32
+    jobs = _default_jobs(16, gen)
+    with env(LLMQ_DECODE_KERNEL="v2"):
+        core = EngineCore(cfg, loaded, ByteTokenizer(), device=dev, engine_config=engine_config(
+            cfg, dtype="bfloat16", max_num_seqs=16, max_model_len=512))
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = _generate(core, [j.get_formatted_prompt() for j in jobs], gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = read_launches(), read_routes()
+    stats = core.stats()
+    L = cfg.num_layers
+    same = all(tokens[f"r{i}"] == serve_tokens[j.id][:gen] for i, j in enumerate(jobs))
+    if not same:
+        problems.append("tokens differ from the first 32 of phase 3's")
+    if launches["paged_decode_v2"] != L * stats["decode_steps"] or launches["paged_decode"]:
+        problems.append(f"K5 {launches['paged_decode_v2']} launches for "
+                        f"{stats['decode_steps']} decode steps, K1 {launches['paged_decode']}")
+    problems += route_problems(routes, launches)
+    rec.update(decode_kernel=stats["decode_kernel"], serve_wall_s=wall,
+               serve_completion_tok_s=16 * gen / wall, tokens_equal_phase3_first_32=same,
+               decode_steps=stats["decode_steps"], launches=launches, routes=routes,
+               problems=problems)
+    emit(rec)
+    if problems or stats["decode_kernel"] != "v2":
+        raise SystemExit("checkpoint phase failed: " + "; ".join(problems[:5]))
+    del core, loaded
+    return launches["paged_decode_v2"]
+
+
+# --- phase 9: tcp:// and the command line at full width ----------------------
+
+_SERVER = """import asyncio, sys
+from llmq_tpu_torch.broker.tcp import BrokerServer
+
+async def main():
+    srv = BrokerServer("127.0.0.1", 0)
+    await srv.start()
+    print(srv._server.sockets[0].getsockname()[1], flush=True)
+    await asyncio.Event().wait()
+
+asyncio.run(main())
+"""
+
+
+def _stop(proc: subprocess.Popen, sig=signal.SIGTERM, timeout: float = 60) -> int:
+    if proc.poll() is None:
+        proc.send_signal(sig)
+        try:
+            proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return proc.returncode
+
+
+def phase_tcp_cli(smi: str, serve_tokens: dict) -> None:
+    """Phase 9: the port's ``BrokerServer`` in a process of its own,
+    phase 3's jobs (32 new tokens) published to it over tcp://, served by
+    ``python -m llmq_tpu_torch worker run preset://qwen2.5-3b`` in another
+    process, which SIGTERM stops with exit code 0."""
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_jobs, gen, queue = 16, 32, "smoke-tcp"
+    penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    server = subprocess.Popen([sys.executable, "-c", _SERVER], cwd=root, env=penv,
+                              stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    worker = None
+    problems = []
+    try:
+        url = f"tcp://127.0.0.1:{int(server.stdout.readline())}"
+        jobs = _default_jobs(n_jobs, gen)
+        asyncio.run(_submit(url, queue, jobs))
+        log_path = os.path.join(OUT_DIR, "tcp_worker.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "llmq_tpu_torch", "worker", "run",
+                 "preset://qwen2.5-3b", queue, "--max-num-seqs", "16", "--max-model-len", "512",
+                 "--dtype", "bfloat16"],
+                cwd=root, env=dict(penv, LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1"),
+                stdout=log, stderr=subprocess.STDOUT)
+            results = asyncio.run(_receive_n(url, queue, n_jobs, worker, timeout=600))
+            wall = time.perf_counter() - t0
+            rc = _stop(worker)
+        if rc != 0:
+            problems.append(f"worker exited {rc} on SIGTERM")
+        problems += _check_results(results, n_jobs, gen)
+        tok = ByteTokenizer()
+        for r in results:
+            want = serve_tokens.get(r["id"], [])[:gen]
+            if r["result"] != tok.decode(want):
+                problems.append(f"{r['id']}: text differs from phase 3's first {gen} tokens")
+        gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
+        emit(dict(phase="tcp_cli", model="preset://qwen2.5-3b", broker=url, jobs=len(results),
+                  gen_tokens=gen_tokens, wall_s=wall, serve_completion_tok_s=gen_tokens / wall,
+                  timing="from the worker process's start, its engine build included",
+                  worker_exit_code=rc, card=smi, problems=problems))
+    finally:
+        if worker is not None:
+            _stop(worker, signal.SIGKILL, 10)
+        _stop(server, signal.SIGTERM, 10)
+    if problems:
+        raise SystemExit("tcp/cli phase failed: " + "; ".join(problems[:5]))
+
+
+async def _receive_n(url: str, queue: str, n: int, proc, timeout: float) -> list:
+    """``n`` results off ``<queue>.results``, acked, while ``proc`` lives."""
+    from llmq_tpu_torch.broker.base import make_broker
+
+    broker = make_broker(url)
+    await broker.connect()
+    results, deadline = [], time.monotonic() + timeout
+    try:
+        while len(results) < n:
+            if time.monotonic() > deadline or proc.poll() is not None:
+                raise SystemExit(f"tcp/cli phase: {len(results)} of {n} results, worker exit "
+                                 f"code {proc.poll()} (log: tcp_worker.log in {OUT_DIR})")
+            msg = await broker.get(queue + ".results")
+            if msg is None:
+                await asyncio.sleep(0.1)
+                continue
+            results.append(json.loads(msg.body))
+            await msg.ack()
+    finally:
+        await broker.close()
+    return results
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1371,8 +1822,10 @@ def main() -> int:
     main_recs, launches = {}, {}
     if "kernels" in phases:
         main_recs = phase_kernels(args.iters)
+    serve_tokens = None
     if "serve" in phases:
-        launches.update(phase_serve(smi))
+        served, serve_tokens = phase_serve(smi)
+        launches.update(served)
         torch.cuda.empty_cache()
     if "prefix" in phases:
         prefix = phase_prefix(smi)
@@ -1385,6 +1838,17 @@ def main() -> int:
         for variant in ("f32", "int8", "int4", "fp8"):
             phase_parity(variant)
         launches.update(phase_chunk_parity())
+    if "checkpoint" in phases or "tcp" in phases:
+        if serve_tokens is None:
+            raise SystemExit("phases checkpoint and tcp compare with the serve phase's tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "checkpoint" in phases:
+        launches["paged_decode_v2"] = phase_checkpoint(smi, serve_tokens)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "tcp" in phases:
+        phase_tcp_cli(smi, serve_tokens)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -1395,7 +1859,7 @@ def main() -> int:
         ("paged_prefill", "paged_prefill_tc.cu", "paged_prefill.cu", "pallas_attention.py:830"),
         ("paged_decode_v3", "paged_decode_tc.cu", "paged_decode_v2.cu",
          "pallas_attention.py:575"),
-        ("paged_decode_v2", "paged_decode_v2.cu", None, "pallas_attention.py:487"),
+        ("paged_decode_v2", "paged_decode_tc.cu", "paged_decode_v2.cu", "pallas_attention.py:487"),
         ("int8_matmul", "int8_matmul_tc.cu", "int8_matmul.cu", "pallas_matmul.py:145"),
         ("int4_matmul", "int4_matmul_tc.cu", "int4_matmul.cu", "pallas_matmul.py:219"),
     ):

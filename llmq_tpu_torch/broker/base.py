@@ -1,6 +1,7 @@
 """Abstract broker interface + message envelope (port of
-``llmq_tpu/broker/base.py``; this slice ships the ``memory://`` broker
-only — the TCP and AMQP clients come with a later slice).
+``llmq_tpu/broker/base.py``; the port ships the ``memory://`` broker and
+the ``tcp://`` daemon and client, ``broker/tcp.py`` — the AMQP client
+comes with a later slice).
 
 Semantics contract (what every implementation must honor — mirrors what the
 reference relies on from RabbitMQ, SURVEY.md §1 L0):
@@ -22,6 +23,7 @@ reference relies on from RabbitMQ, SURVEY.md §1 L0):
 from __future__ import annotations
 
 import abc
+import base64
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable, Dict, Optional
@@ -32,6 +34,22 @@ from llmq_tpu_torch.utils import clock
 
 def new_message_id() -> str:
     return uuid.uuid4().hex
+
+
+def encode_body(body: bytes) -> Dict[str, Any]:
+    """Encode a payload for a JSON envelope. Payloads are normally UTF-8
+    JSON (Job/Result), but the Broker contract accepts arbitrary bytes —
+    non-UTF-8 bodies ride as base64 with an ``enc`` marker."""
+    try:
+        return {"body": body.decode("utf-8")}
+    except UnicodeDecodeError:
+        return {"body": base64.b64encode(body).decode("ascii"), "enc": "b64"}
+
+
+def decode_body(envelope: Dict[str, Any]) -> bytes:
+    if envelope.get("enc") == "b64":
+        return base64.b64decode(envelope["body"])
+    return envelope["body"].encode("utf-8")
 
 
 @dataclass
@@ -91,7 +109,30 @@ MessageHandler = Callable[[DeliveredMessage], Awaitable[None]]
 
 
 class Broker(abc.ABC):
-    """Transport-level broker API (one connection)."""
+    """Transport-level broker API (one connection).
+
+    Transports that can lose their connection (tcp) call
+    ``_notify_connection_lost`` when it happens; a session layer installs
+    the ``on_connection_lost`` callback to re-dial promptly instead of
+    waiting for the next operation to fail. Implementations that cannot
+    lose a connection (memory) never fire it.
+    """
+
+    #: Optional callback fired once per detected transport loss.
+    on_connection_lost: Optional[Callable[[], None]] = None
+
+    @property
+    def is_connected(self) -> bool:
+        """Best-effort transport liveness (True when unknowable)."""
+        return True
+
+    def _notify_connection_lost(self) -> None:
+        cb = self.on_connection_lost
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — observer must not kill transport
+                pass
 
     @abc.abstractmethod
     async def connect(self) -> None: ...
@@ -165,7 +206,15 @@ def make_broker(url: str) -> Broker:
         from llmq_tpu_torch.broker.memory import MemoryBroker
 
         return MemoryBroker(url)
-    raise ValueError(
-        f"Unsupported broker URL scheme: {url!r} (this slice of the port "
-        "ships memory:// only; tcp:// and amqp:// come with a later slice)"
-    )
+    if scheme == "tcp":
+        from llmq_tpu_torch.broker.tcp import TcpBroker
+
+        return TcpBroker(url)
+    if scheme in ("amqp", "amqps"):
+        raise NotImplementedError(
+            f"{url!r}: the port has no AMQP client yet (ROADMAP queue 1, M6: it needs "
+            "aio_pika, which the GPU machine does not have); use tcp:// against the "
+            "llmq broker daemon"
+        )
+    raise ValueError(f"Unsupported broker URL scheme: {url!r} (the port ships memory:// "
+                     "and tcp://)")

@@ -14,7 +14,7 @@ from __future__ import annotations
 import asyncio
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, Optional, Tuple
+from typing import Callable, Deque, Dict, Optional, Tuple
 
 from llmq_tpu_torch.broker.base import (
     Broker,
@@ -73,10 +73,17 @@ class QueueCore:
 
 
 class BrokerCore:
-    """Queue registry + dispatch engine of one ``memory://`` namespace."""
+    """Shared queue registry + dispatch engine (used by memory and TCP).
+
+    ``on_dead_letter``/``on_redeliver`` are sync hooks the TCP server uses to
+    keep its journal consistent with in-memory state transitions that happen
+    inside the core (dead-lettering, redelivery-count bumps).
+    """
 
     def __init__(self) -> None:
         self.queues: Dict[str, QueueCore] = {}
+        self.on_dead_letter: Optional[Callable[[str, StoredMessage], None]] = None
+        self.on_redeliver: Optional[Callable[[str, StoredMessage], None]] = None
         self._dispatch_scheduled: set[str] = set()
         # Strong refs to in-flight handler tasks (the event loop holds only
         # weak ones); tasks remove themselves on completion via spawn().
@@ -199,10 +206,14 @@ class BrokerCore:
                 if msg.delivery_count > q.max_redeliveries:
                     self._dead_letter(queue, msg)
                 else:
+                    if self.on_redeliver is not None:
+                        self.on_redeliver(queue, msg)
                     q.ready.appendleft(msg)  # redelivery keeps rough ordering
         self._schedule_dispatch(queue)
 
     def _dead_letter(self, queue: str, msg: StoredMessage) -> None:
+        if self.on_dead_letter is not None:
+            self.on_dead_letter(queue, msg)
         headers = dict(msg.headers)
         headers["x-death-queue"] = queue
         headers["x-delivery-count"] = msg.delivery_count
@@ -246,6 +257,8 @@ class BrokerCore:
                     ):
                         self._dead_letter(q.name, msg)
                     else:
+                        if self.on_redeliver is not None:
+                            self.on_redeliver(q.name, msg)
                         q.ready.appendleft(msg)
                 if stale:
                     self._schedule_dispatch(q.name)
@@ -292,14 +305,30 @@ class BrokerCore:
             stats_source="broker_core",
         )
 
-    def purge(self, queue: str) -> int:
-        """Drop all ready messages; returns how many."""
+    def purge(self, queue: str) -> list:
+        """Drop all ready messages; returns their ids (for journaling)."""
         q = self.queues.get(queue)
         if q is None:
-            return 0
-        n = len(q.ready)
+            return []
+        ids = [m.message_id for m in q.ready]
         q.ready.clear()
-        return n
+        return ids
+
+    def delete(self, queue: str) -> list:
+        """Unregister a queue outright, dropping whatever it still holds
+        (ready AND unacked — callers drain/republish first). Returns the
+        dropped message ids for journaling. Distinct from purge: the
+        queue stops existing, so nothing can strand on it."""
+        q = self.queues.pop(queue, None)
+        if q is None:
+            return []
+        ids = [m.message_id for m in q.ready]
+        ids.extend(q.unacked.keys())
+        q.ready.clear()
+        q.unacked.clear()
+        q.consumers.clear()
+        self._dispatch_scheduled.discard(queue)
+        return ids
 
 
 # Placeholder handler for get_one's transient consumer: the caller of get()
@@ -404,4 +433,4 @@ class MemoryBroker(Broker):
         return self.core.stats(queue)
 
     async def purge(self, queue: str) -> int:
-        return self.core.purge(queue)
+        return len(self.core.purge(queue))

@@ -1,9 +1,15 @@
 """Worker launcher of the port (counterpart of ``llmq_tpu/cli/worker.py``
 ``run_tpu_worker`` :15).
 
-``run_torch_worker("preset://NAME", queue, ...)`` builds a random-weight
-model of a named preset on the device, wraps it in an engine and serves
-``queue`` until ``max_jobs`` jobs are settled (or forever). ``dtype`` is
+``run_torch_worker(MODEL, queue, ...)`` builds the model on the device,
+wraps it in an engine and serves ``queue`` from the broker at
+``broker_url`` (by default ``LLMQ_BROKER_URL``, ``core/config.py``) until
+``max_jobs`` jobs are settled, a signal stops it, or forever. MODEL is
+``preset://NAME`` (random weights from a seeded generator, the byte
+tokenizer) or an HF checkpoint directory, loaded as the JAX worker's
+``_build_core`` (:365-397) loads it: ``ModelConfig.from_pretrained``,
+``engine/weights.load_checkpoint`` with the worker's dtype and quantize
+mode, ``HFTokenizer``. ``dtype`` is
 bfloat16, float32, or int8 / int4: weight-only quantization
 (``models/quant.py``) with bf16 compute, as the JAX worker's
 ``--dtype`` (``tpu_worker.py:351-374``). The KV pool takes ``kv_dtype``
@@ -11,14 +17,15 @@ bfloat16, float32, or int8 / int4: weight-only quantization
 the compute dtype. The engine config is resolved as the JAX worker's
 ``_build_core`` (:333) resolves it (:func:`engine_config`): each argument over
 its variable in ``core/config.py``, ``max_model_len`` clamped to the
-model's ``max_position_embeddings``. Checkpoint loading and the click
-command come with the TCP broker client (ROADMAP M6).
+model's ``max_position_embeddings``. The command line is
+``python -m llmq_tpu_torch worker run MODEL QUEUE`` (``cli/main.py``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -26,7 +33,8 @@ import torch
 from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.device import DeviceLike, resolve_device
 from llmq_tpu_torch.engine.engine import AsyncEngine, EngineConfig, EngineCore
-from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+from llmq_tpu_torch.engine.tokenizer import ByteTokenizer, HFTokenizer
+from llmq_tpu_torch.engine.weights import load_checkpoint
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.models.presets import get_preset
 from llmq_tpu_torch.models.transformer import init_params
@@ -112,27 +120,32 @@ def build_engine(
     enable_prefix_caching: bool = False,
     seed: int = 0,
 ) -> AsyncEngine:
-    """An engine over a ``preset://NAME`` model with random weights drawn
-    from a ``torch.Generator`` seeded with ``seed`` on ``device``, under
-    :func:`engine_config`."""
-    if not model.startswith(PRESET_SCHEMES):
-        raise NotImplementedError(
-            f"model {model!r}: checkpoint loading is not ported yet "
-            "(ROADMAP.md queue 1, M6); use preset://NAME"
-        )
+    """An engine on ``device`` under :func:`engine_config`, over a
+    ``preset://NAME`` model with random weights drawn from a
+    ``torch.Generator`` seeded with ``seed`` (byte tokenizer), or over the
+    HF checkpoint directory ``model`` (its tokenizer)."""
     dev = resolve_device(device)
     if dtype not in _DTYPES:
         raise ValueError(f"dtype={dtype!r} (want one of {sorted(_DTYPES)})")
-    config = get_preset(model.split("://", 1)[1] or "tiny")
+    preset = model.startswith(PRESET_SCHEMES)
+    if preset:
+        config = get_preset(model.split("://", 1)[1] or "tiny")
+    else:
+        config = ModelConfig.from_pretrained(Path(model))
     ecfg = engine_config(
         config, dtype=dtype, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
         kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,
         enable_prefix_caching=enable_prefix_caching,
     )
-    generator = torch.Generator(device=dev).manual_seed(seed)
     compute, quantize = _DTYPES[dtype]
-    params = init_params(config, generator, compute, device=dev, quantize=quantize)
-    core = EngineCore(config, params, ByteTokenizer(), engine_config=ecfg, device=dev)
+    if preset:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(config, generator, compute, device=dev, quantize=quantize)
+        tokenizer = ByteTokenizer()
+    else:
+        params = load_checkpoint(model, config, dtype=compute, device=dev, quantize=quantize)
+        tokenizer = HFTokenizer(model)
+    core = EngineCore(config, params, tokenizer, engine_config=ecfg, device=dev)
     return AsyncEngine(core)
 
 
@@ -147,16 +160,17 @@ def run_torch_worker(
     kv_dtype: Optional[str] = None,
     prefill_chunk_size: Optional[int] = None,
     enable_prefix_caching: bool = False,
-    broker_url: str = "memory://default",
+    broker_url: Optional[str] = None,
     concurrency: Optional[int] = None,
     max_jobs: Optional[int] = None,
     seed: int = 0,
 ) -> TorchWorker:
-    """Serve ``queue`` from ``broker_url`` with a preset model; returns the
-    worker (its engine shut down) once ``max_jobs`` jobs are settled.
-    ``prefill_chunk_size`` and ``enable_prefix_caching`` select chunked
-    prefill and the prefix cache, as ``llmq_tpu``'s ``run_tpu_worker``
-    does."""
+    """Serve ``queue`` from ``broker_url`` (default: ``Config.broker_url``)
+    with a preset or checkpoint model; returns the worker (its engine shut
+    down) once ``max_jobs`` jobs are settled or a SIGINT / SIGTERM has
+    stopped it. ``prefill_chunk_size`` and ``enable_prefix_caching``
+    select chunked prefill and the prefix cache, as ``llmq_tpu``'s
+    ``run_tpu_worker`` does."""
     engine = build_engine(
         model, device=device, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
         dtype=dtype, kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,

@@ -1,12 +1,15 @@
-"""Environment-driven engine configuration of the port.
+"""Environment-driven configuration of the port's worker.
 
-The port's own copy of the engine section of ``llmq_tpu/core/config.py``
-``Config`` (:115-195): the same variables, read with the same precedence
-(the ``LLMQ_*`` / ``TPU_*`` name first, the reference's ``VLLM_*`` alias
-after it), re-read on every ``get_config()`` call so tests can
-monkeypatch the environment. The broker, affinity and disaggregation
-sections come with the modules that read them (ROADMAP.md queue 1, M6
-and M11), as does the ``.env`` autoload.
+The port's own copy of the broker and engine sections of
+``llmq_tpu/core/config.py`` ``Config`` (:76-195): the same variables,
+read with the same precedence (the ``LLMQ_*`` / ``TPU_*`` name first, the
+reference's ``VLLM_*`` / ``BROKER_URL`` / ``RABBITMQ_URL`` aliases after
+it), re-read on every ``get_config()`` call so tests can monkeypatch the
+environment. Of the broker section it keeps what the worker reads
+(``broker_url``, ``queue_prefetch``; ``max_tokens`` of the engine
+section); the reconnect and outbox settings of the resilient session and
+the affinity and disaggregation sections come with the modules that read
+them (ROADMAP.md queue 1, M6 and M11), as does the ``.env`` autoload.
 """
 
 from __future__ import annotations
@@ -36,8 +39,22 @@ def _env_float(name: str, *aliases: str, default: Optional[float] = None) -> Opt
 
 
 class Config(BaseModel):
-    """Engine configuration snapshot (one env read per instantiation)."""
+    """Worker configuration snapshot (one env read per instantiation)."""
 
+    # --- broker -----------------------------------------------------------
+    broker_url: str = Field(
+        default_factory=lambda: _env("LLMQ_BROKER_URL", "BROKER_URL", "RABBITMQ_URL")
+        or "tcp://127.0.0.1:5672/",
+        description="Broker endpoint: memory:// (in-process) or tcp://host:port/ (the llmq "
+        "broker daemon).",
+    )
+    queue_prefetch: int = Field(
+        default_factory=lambda: _env_int("LLMQ_QUEUE_PREFETCH", "VLLM_QUEUE_PREFETCH",
+                                         default=100),
+        description="Messages prefetched (in flight) per worker consumer.",
+    )
+
+    # --- engine -----------------------------------------------------------
     hbm_utilization: float = Field(
         default_factory=lambda: _env_float(
             "TPU_HBM_UTILIZATION", "VLLM_GPU_MEMORY_UTILIZATION", default=0.9
@@ -51,6 +68,10 @@ class Config(BaseModel):
     max_model_len: Optional[int] = Field(
         default_factory=lambda: _env_int("LLMQ_MAX_MODEL_LEN", "VLLM_MAX_MODEL_LEN"),
         description="Context-window cap (prompt + generation).",
+    )
+    max_tokens: int = Field(
+        default_factory=lambda: _env_int("LLMQ_MAX_TOKENS", "VLLM_MAX_TOKENS", default=8192),
+        description="Default max new tokens per request (per-job override allowed).",
     )
     prefill_chunk_size: Optional[int] = Field(
         default_factory=lambda: _env_int("LLMQ_PREFILL_CHUNK"),

@@ -1,16 +1,18 @@
-// Paged decode attention (K1) and its fused-KV-write form (K4), tensor-core
-// route, for Hopper (sm_90a): one kernel, templated on FUSED_WRITE.
+// Paged decode attention (K1), its fused-KV-write form (K4) and its
+// chunked form (K5), tensor-core route, for Hopper (sm_90a): one kernel,
+// templated on FUSED_WRITE and on the tiles a ring stage holds (TPS).
 //
 // Replaces: llmq_tpu/ops/pallas_attention.py,
 //   K1: paged_decode_attention_pallas (kernel body _paged_decode_kernel),
 //   K4: paged_decode_attention_pallas_v3 (_paged_decode_kernel_v2 with
-//       fused_write=True).
+//       fused_write=True),
+//   K5: paged_decode_attention_pallas_v2 (_paged_decode_kernel_v2).
 // Plain versions: llmq_tpu_torch/ops/attention.py, paged_decode_attention
-// (K1) and paged_decode_attention_fused_write (K4). This source serves bf16
-// q over a bf16 or float8_e5m2 pool; f32 q, or an f32 pool (which promotes
-// the math to f32), stays on the exact CUDA-core kernels in paged_decode.cu
-// (K1) and paged_decode_v2.cu (K4) (cuda_attention.attention_route chooses
-// by dtype).
+// (K1, K5) and paged_decode_attention_fused_write (K4). This source serves
+// bf16 q over a bf16 or float8_e5m2 pool; f32 q, or an f32 pool (which
+// promotes the math to f32), stays on the exact CUDA-core kernels in
+// paged_decode.cu (K1) and paged_decode_v2.cu (K4, K5)
+// (cuda_attention.attention_route chooses by dtype).
 //
 // Contract (the same as paged_decode.cu): one query row per sequence,
 // q [S, H, D], against that sequence's pages of the layer-stacked pool
@@ -38,6 +40,18 @@
 // write_kv_pages + K1 bit for bit (page 0 aside, which the plain scatter
 // dirties with inactive rows). The store costs one row a (sequence, KV
 // head); the bound and the design below are K1's.
+//
+// K5 (TPS = 2) keeps what defines its TPU kernel, a chunk of whole pages
+// staged a step: a warp's ring stage holds TPS of its tiles, so the four
+// warps' stage j together hold the span's keys [128 j, 128 j + 128), four
+// pages of 32. ops/cuda_attention.decode_tc_tiles_per_stage sizes it from
+// pages_per_chunk and takes it only where a double buffer of such stages
+// fits beside the SM's other blocks; elsewhere (bf16 rows at the main
+// path's grid) K5 launches with TPS = 1, K1's plan, which the H100 ran
+// faster than a single-buffered chunk (PERF.md §6). Each warp still
+// takes the same tiles in the same order and the merge is the same, so at
+// the same split plan K5's output equals K1's bit for bit; only the grain
+// of the copies and waits differs.
 //
 // Bound on the H100: the KV bytes, read once per (sequence, KV head) for
 // the whole group. The CUDA-core kernel kept one load in flight per thread
@@ -192,12 +206,12 @@ __device__ __forceinline__ int swz(int r, int c) {
   }
 }
 
-template <typename TKV, int D, int STAGES>
+template <typename TKV, int D, int STAGES, int TPS>
 struct Layout {
   static constexpr int kRB = D * (int)sizeof(TKV);  // bytes of a K or V row
   static constexpr int kCPR = kRB / 16;
   static constexpr int kTile = kTK * kRB;
-  static constexpr int kStage = 2 * kTile;  // K then V
+  static constexpr int kStage = TPS * 2 * kTile;  // per tile: K then V
   static constexpr int kQ = kMaxGroup * D * 2;
   static constexpr int kRing = kWarps * STAGES * kStage;
   // The end-of-loop merge reuses the ring: per warp its [16][D] f32 acc
@@ -211,7 +225,7 @@ constexpr int kMaxSplits = 32;
 // Grid (S, n_kv, num_splits), 128 threads; 3 blocks an SM at D <= 128.
 // With one split the block writes the output; with more, its
 // unnormalised (acc, m, l) partials, and the last of them the output.
-template <typename TKV, int D, int STAGES, bool FUSED_WRITE>
+template <typename TKV, int D, int STAGES, bool FUSED_WRITE, int TPS>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_kernel(
     const bf16* __restrict__ q, TKV* __restrict__ k_pool, TKV* __restrict__ v_pool,
     const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
@@ -219,7 +233,9 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_ke
     const int* __restrict__ context_lens, bf16* __restrict__ out, float* __restrict__ part,
     int* __restrict__ counters, int n_heads, int n_kv, int num_pages, int page_size,
     int pages_per_seq, int layer, int window, float scale, float softcap) {
-  using Lay = Layout<TKV, D, STAGES>;
+  using Lay = Layout<TKV, D, STAGES, TPS>;
+  constexpr int kKeys = TPS * kTK;  // keys of a warp's ring stage
+  static_assert(kKeys <= 32, "a stage's page lookups take one lane a key");
   constexpr bool kFp8 = sizeof(TKV) == 1;
   constexpr int kRB = Lay::kRB, kCPR = Lay::kCPR;
   constexpr int kQC = D * 2 / 16;  // chunks of a bf16 q row
@@ -245,6 +261,7 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_ke
   const long long hi = lo + span < hi_row ? lo + span : hi_row;
   const int n_t = hi > lo ? (int)((hi - lo + kTK - 1) / kTK) : 0;
   const int my_n = n_t > warp ? (n_t - warp + kWarps - 1) / kWarps : 0;
+  const int my_st = (my_n + TPS - 1) / TPS;  // this warp's ring stages
   // K4: the new key, stored from k_new / v_new and never copied from the pool.
   const long long p_new = FUSED_WRITE && ctx > 0 && ctx <= max_ctx ? ctx - 1 : -1;
 
@@ -259,27 +276,31 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_ke
   const int* bt = block_tables + (long long)s * pages_per_seq;
   const long long layer_base = (long long)layer * num_pages;
   auto tile_base = [&](int j) { return lo + (long long)(warp + j * kWarps) * kTK; };
-  // Page of this lane's key of warp tile j (lanes 0-15), -1 for none.
-  auto lookup = [&](int j) -> int {
-    if (j >= my_n || lane >= kTK) return -1;
-    const long long key = tile_base(j) + lane;
+  // Key of lane l < kKeys in this warp's ring stage js: key l % 16 of the
+  // warp's tile TPS js + l / 16.
+  auto stage_key = [&](int js, int l) { return tile_base(js * TPS + l / kTK) + l % kTK; };
+  // Page of this lane's key of stage js (lanes 0 .. kKeys - 1), -1 for none.
+  auto lookup = [&](int js) -> int {
+    if (lane >= kKeys || js * TPS + lane / kTK >= my_n) return -1;
+    const long long key = stage_key(js, lane);
     return key < hi ? bt[key / page_size] : -1;
   };
-  auto stage = [&](int j) { return ring + (warp * STAGES + j % STAGES) * Lay::kStage; };
-  auto issue = [&](int j, int page) {
-    char* st = stage(j);
-    const long long key = tile_base(j) + (lane & (kTK - 1));
+  auto stage = [&](int js) { return ring + (warp * STAGES + js % STAGES) * Lay::kStage; };
+  auto issue = [&](int js, int page) {
+    char* st = stage(js);
+    const long long key = stage_key(js, lane & (kKeys - 1));
     const long long row =
         page >= 0 && key != p_new
             ? (((layer_base + page) * page_size + key % page_size) * n_kv + kvh) * kRB
             : -1;
 #pragma unroll
-    for (int i = lane; i < kTK * kCPR; i += 32) {
+    for (int i = lane; i < kKeys * kCPR; i += 32) {
       const int r = i / kCPR, c = i % kCPR;
       const long long at_row = __shfl_sync(kFull, row, r);
       const bool ok = at_row >= 0;
       const long long src = ok ? at_row + 16 * c : 0;
-      const int at = r * kRB + 16 * swz<kCPR>(r, c);
+      const int tr = r % kTK;  // row r of the stage: row tr of its tile r / 16
+      const int at = (r / kTK) * 2 * Lay::kTile + tr * kRB + 16 * swz<kCPR>(tr, c);
       cp_async16(st + at, reinterpret_cast<const char*>(k_pool) + src, ok);
       cp_async16(st + Lay::kTile + at, reinterpret_cast<const char*>(v_pool) + src, ok);
     }
@@ -290,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_ke
   for (int j = 0; j < STAGES; ++j) pgs[j] = lookup(j);
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < my_n) issue(j, pgs[j]);
+    if (j < my_st) issue(j, pgs[j]);
     cp_async_commit();
   }
   int pg = pgs[STAGES - 1];
@@ -317,149 +338,154 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 3 : 2) paged_decode_tc_ke
   float m0 = kNegInf, m1 = kNegInf;  // rows g and g + 8
   float l0 = 0.f, l1 = 0.f;           // this thread's share of their sums
 
-  for (int j = 0; j < my_n; ++j) {
-    if (j + STAGES - 1 < my_n) issue(j + STAGES - 1, pg);
+  for (int js = 0; js < my_st; ++js) {
+    if (js + STAGES - 1 < my_st) issue(js + STAGES - 1, pg);
     cp_async_commit();
-    pg = lookup(j + STAGES);
-    cp_async_wait<STAGES - 1>();  // tile j
+    pg = lookup(js + STAGES);
+    cp_async_wait<STAGES - 1>();  // stage js
     __syncwarp();
-    const char* kt = stage(j);
-    const char* vt = kt + Lay::kTile;
-    const long long base = tile_base(j);
-    if (FUSED_WRITE && p_new >= base && p_new < base + kTK) {
-      // K4: the new row into its ring slot (zero-filled by the copy) and
-      // into both pools, one 16-byte chunk a lane.
-      const int r = (int)(p_new - base);
-      if (lane < kCPR) {
-        const long long src = ((long long)s * n_kv + kvh) * D;
-        const uint4 kc = pool_chunk(k_new + src, lane, k_pool);
-        const uint4 vc = pool_chunk(v_new + src, lane, v_pool);
-        const int at = r * kRB + 16 * swz<kCPR>(r, lane);
-        *reinterpret_cast<uint4*>(stage(j) + at) = kc;
-        *reinterpret_cast<uint4*>(stage(j) + Lay::kTile + at) = vc;
-        const long long row =
-            (((layer_base + bt[p_new / page_size]) * page_size + p_new % page_size) * n_kv + kvh) *
-                kRB + 16 * lane;
-        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(k_pool) + row) = kc;
-        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(v_pool) + row) = vc;
-      }
-      __syncwarp();
-    }
-
-    // S = Q K^T: 16 heads x 16 keys (n-block nb: keys 8 nb .. 8 nb + 7).
-    float sc[2][4];
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb) sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-#pragma unroll
-    for (int p = 0; p < D / 32; ++p) {
-      uint32_t a0[4], a1[4];
-      if constexpr (kQRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          a0[e] = qa[p][0][e];
-          a1[e] = qa[p][1][e];
+    for (int t = 0; t < TPS; ++t) {
+      const int j = js * TPS + t;
+      if (j >= my_n) break;
+      char* kt = stage(js) + t * 2 * Lay::kTile;
+      const char* vt = kt + Lay::kTile;
+      const long long base = tile_base(j);
+      if (FUSED_WRITE && p_new >= base && p_new < base + kTK) {
+        // K4: the new row into its ring slot (zero-filled by the copy) and
+        // into both pools, one 16-byte chunk a lane.
+        const int r = (int)(p_new - base);
+        if (lane < kCPR) {
+          const long long src = ((long long)s * n_kv + kvh) * D;
+          const uint4 kc = pool_chunk(k_new + src, lane, k_pool);
+          const uint4 vc = pool_chunk(v_new + src, lane, v_pool);
+          const int at = r * kRB + 16 * swz<kCPR>(r, lane);
+          *reinterpret_cast<uint4*>(kt + at) = kc;
+          *reinterpret_cast<uint4*>(kt + Lay::kTile + at) = vc;
+          const long long page = layer_base + bt[p_new / page_size];
+          const long long row =
+              ((page * page_size + p_new % page_size) * n_kv + kvh) * kRB + 16 * lane;
+          *reinterpret_cast<uint4*>(reinterpret_cast<char*>(k_pool) + row) = kc;
+          *reinterpret_cast<uint4*>(reinterpret_cast<char*>(v_pool) + row) = vc;
         }
-      } else {
-        load_q(p, a0, a1);
+        __syncwarp();
       }
+
+      // S = Q K^T: 16 heads x 16 keys (n-block nb: keys 8 nb .. 8 nb + 7).
+      float sc[2][4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
+#pragma unroll
+      for (int p = 0; p < D / 32; ++p) {
+        uint32_t a0[4], a1[4];
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a0[e] = qa[p][0][e];
+            a1[e] = qa[p][1][e];
+          }
+        } else {
+          load_q(p, a0, a1);
+        }
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const int r = nb * 8 + g;
+          uint32_t b[4];
+          if constexpr (kFp8) {
+            const uint2 u = *reinterpret_cast<const uint2*>(
+                kt + r * kRB + 16 * swz<kCPR>(r, 2 * p + (t4 >> 1)) + 8 * (t4 & 1));
+            b[0] = widen2<kBytes01>(u.x);
+            b[1] = widen2<kBytes23>(u.x);
+            b[2] = widen2<kBytes01>(u.y);
+            b[3] = widen2<kBytes23>(u.y);
+          } else {
+            const uint4 u =
+                *reinterpret_cast<const uint4*>(kt + r * kRB + 16 * swz<kCPR>(r, 4 * p + t4));
+            b[0] = u.x; b[1] = u.y; b[2] = u.z; b[3] = u.w;
+          }
+          mma16816(sc[nb], a0, b[0], b[1]);
+          mma16816(sc[nb], a1, b[2], b[3]);
+        }
+      }
+
+      // Scale, softcap, mask (the span's last tile only), online softmax.
+      const bool edge = base + kTK > hi;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
-        const int r = nb * 8 + g;
-        uint32_t b[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[nb][e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);  // before the mask
+          if (edge && base + nb * 8 + 2 * t4 + (e & 1) >= hi) x = -INFINITY;
+          sc[nb][e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[nb][0], sc[nb][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[nb][2], sc[nb][3]));
+      }
+#pragma unroll
+      for (int w = 1; w < 4; w <<= 1) {  // the quad shares a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, w));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, w));
+      }
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2f((m0 - n0) * kLog2e), alpha1 = exp2f((m1 - n1) * kLog2e);
+      m0 = n0;
+      m1 = n1;
+      const float b0 = n0 * kLog2e, b1 = n1 * kLog2e;
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        sc[nb][0] = exp2f(fmaf(sc[nb][0], kLog2e, -b0));
+        sc[nb][1] = exp2f(fmaf(sc[nb][1], kLog2e, -b0));
+        sc[nb][2] = exp2f(fmaf(sc[nb][2], kLog2e, -b1));
+        sc[nb][3] = exp2f(fmaf(sc[nb][3], kLog2e, -b1));
+        ls0 += sc[nb][0] + sc[nb][1];
+        ls1 += sc[nb][2] + sc[nb][3];
+      }
+      l0 = l0 * alpha0 + ls0;
+      l1 = l1 * alpha1 + ls1;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[i][0] *= alpha0;
+        o[i][1] *= alpha0;
+        o[i][2] *= alpha1;
+        o[i][3] *= alpha1;
+      }
+
+      // O += P V with P = hi + lo (bf16 each). The S accumulators of
+      // n-blocks 0 and 1 are the A fragment of the tile's one key step.
+      uint32_t ph[4], pl[4];
+      split_bf16(sc[0][0], sc[0][1], ph[0], pl[0]);
+      split_bf16(sc[0][2], sc[0][3], ph[1], pl[1]);
+      split_bf16(sc[1][0], sc[1][1], ph[2], pl[2]);
+      split_bf16(sc[1][2], sc[1][3], ph[3], pl[3]);
+      const int vr = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row: key
+#pragma unroll
+      for (int cc = 0; cc < kCPR / 2; ++cc) {
+        const int c = 2 * cc + (lane >> 4);
+        uint32_t v[4];
+        ldmatrix_x4_trans(v, vt + vr * kRB + 16 * swz<kCPR>(vr, c));
         if constexpr (kFp8) {
-          const uint2 u = *reinterpret_cast<const uint2*>(
-              kt + r * kRB + 16 * swz<kCPR>(r, 2 * p + (t4 >> 1)) + 8 * (t4 & 1));
-          b[0] = widen2<kBytes01>(u.x);
-          b[1] = widen2<kBytes23>(u.x);
-          b[2] = widen2<kBytes01>(u.y);
-          b[3] = widen2<kBytes23>(u.y);
+          // v[0] / v[1]: keys 0-7 / 8-15 at chunk 2cc, v[2] / v[3] at 2cc + 1;
+          // each holds d = 16c + 2g (bytes 0, 2) and 16c + 2g + 1 (1, 3).
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t e0 = widen2<kBytes02>(v[2 * h]), e1 = widen2<kBytes02>(v[2 * h + 1]);
+            const uint32_t d0 = widen2<kBytes13>(v[2 * h]), d1 = widen2<kBytes13>(v[2 * h + 1]);
+            float(&oe)[4] = o[4 * cc + 2 * h];
+            float(&od)[4] = o[4 * cc + 2 * h + 1];
+            mma16816(oe, ph, e0, e1);
+            mma16816(oe, pl, e0, e1);
+            mma16816(od, ph, d0, d1);
+            mma16816(od, pl, d0, d1);
+          }
         } else {
-          const uint4 u =
-              *reinterpret_cast<const uint4*>(kt + r * kRB + 16 * swz<kCPR>(r, 4 * p + t4));
-          b[0] = u.x; b[1] = u.y; b[2] = u.z; b[3] = u.w;
+          mma16816(o[2 * cc], ph, v[0], v[1]);
+          mma16816(o[2 * cc], pl, v[0], v[1]);
+          mma16816(o[2 * cc + 1], ph, v[2], v[3]);
+          mma16816(o[2 * cc + 1], pl, v[2], v[3]);
         }
-        mma16816(sc[nb], a0, b[0], b[1]);
-        mma16816(sc[nb], a1, b[2], b[3]);
-      }
-    }
-
-    // Scale, softcap, mask (the span's last tile only), online softmax.
-    const bool edge = base + kTK > hi;
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[nb][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);  // before the mask
-        if (edge && base + nb * 8 + 2 * t4 + (e & 1) >= hi) x = -INFINITY;
-        sc[nb][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(sc[nb][0], sc[nb][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[nb][2], sc[nb][3]));
-    }
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {  // the quad shares a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, w));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, w));
-    }
-    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f((m0 - n0) * kLog2e), alpha1 = exp2f((m1 - n1) * kLog2e);
-    m0 = n0;
-    m1 = n1;
-    const float b0 = n0 * kLog2e, b1 = n1 * kLog2e;
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb) {
-      sc[nb][0] = exp2f(fmaf(sc[nb][0], kLog2e, -b0));
-      sc[nb][1] = exp2f(fmaf(sc[nb][1], kLog2e, -b0));
-      sc[nb][2] = exp2f(fmaf(sc[nb][2], kLog2e, -b1));
-      sc[nb][3] = exp2f(fmaf(sc[nb][3], kLog2e, -b1));
-      ls0 += sc[nb][0] + sc[nb][1];
-      ls1 += sc[nb][2] + sc[nb][3];
-    }
-    l0 = l0 * alpha0 + ls0;
-    l1 = l1 * alpha1 + ls1;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      o[i][0] *= alpha0;
-      o[i][1] *= alpha0;
-      o[i][2] *= alpha1;
-      o[i][3] *= alpha1;
-    }
-
-    // O += P V with P = hi + lo (bf16 each). The S accumulators of
-    // n-blocks 0 and 1 are the A fragment of the tile's one key step.
-    uint32_t ph[4], pl[4];
-    split_bf16(sc[0][0], sc[0][1], ph[0], pl[0]);
-    split_bf16(sc[0][2], sc[0][3], ph[1], pl[1]);
-    split_bf16(sc[1][0], sc[1][1], ph[2], pl[2]);
-    split_bf16(sc[1][2], sc[1][3], ph[3], pl[3]);
-    const int vr = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row: key
-#pragma unroll
-    for (int cc = 0; cc < kCPR / 2; ++cc) {
-      const int c = 2 * cc + (lane >> 4);
-      uint32_t v[4];
-      ldmatrix_x4_trans(v, vt + vr * kRB + 16 * swz<kCPR>(vr, c));
-      if constexpr (kFp8) {
-        // v[0] / v[1]: keys 0-7 / 8-15 at chunk 2cc, v[2] / v[3] at 2cc + 1;
-        // each holds d = 16c + 2g (bytes 0, 2) and 16c + 2g + 1 (1, 3).
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t e0 = widen2<kBytes02>(v[2 * h]), e1 = widen2<kBytes02>(v[2 * h + 1]);
-          const uint32_t d0 = widen2<kBytes13>(v[2 * h]), d1 = widen2<kBytes13>(v[2 * h + 1]);
-          float(&oe)[4] = o[4 * cc + 2 * h];
-          float(&od)[4] = o[4 * cc + 2 * h + 1];
-          mma16816(oe, ph, e0, e1);
-          mma16816(oe, pl, e0, e1);
-          mma16816(od, ph, d0, d1);
-          mma16816(od, pl, d0, d1);
-        }
-      } else {
-        mma16816(o[2 * cc], ph, v[0], v[1]);
-        mma16816(o[2 * cc], pl, v[0], v[1]);
-        mma16816(o[2 * cc + 1], ph, v[2], v[3]);
-        mma16816(o[2 * cc + 1], pl, v[2], v[3]);
       }
     }
     __syncwarp();  // this stage's reads are done before it is refilled
@@ -625,19 +651,19 @@ struct Ptrs {
   int* counters;
 };
 
-template <typename TKV, int D, int STAGES, bool FUSED_WRITE>
+template <typename TKV, int D, int STAGES, bool FUSED_WRITE, int TPS>
 cudaError_t launch(const Ptrs& p, const Args& a, cudaStream_t stream) {
-  constexpr int smem = Layout<TKV, D, STAGES>::kBytes;
+  constexpr int smem = Layout<TKV, D, STAGES, TPS>::kBytes;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t err =
-        cudaFuncSetAttribute(paged_decode_tc_kernel<TKV, D, STAGES, FUSED_WRITE>,
+        cudaFuncSetAttribute(paged_decode_tc_kernel<TKV, D, STAGES, FUSED_WRITE, TPS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid(a.num_seqs, a.n_kv, a.num_splits);
-  paged_decode_tc_kernel<TKV, D, STAGES, FUSED_WRITE><<<grid, kThreads, smem, stream>>>(
+  paged_decode_tc_kernel<TKV, D, STAGES, FUSED_WRITE, TPS><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(p.q), static_cast<TKV*>(p.k_pool), static_cast<TKV*>(p.v_pool),
       static_cast<const bf16*>(p.k_new), static_cast<const bf16*>(p.v_new), p.bt, p.ctx,
       static_cast<bf16*>(p.out), p.part, p.counters, a.n_heads, a.n_kv, a.num_pages,
@@ -645,40 +671,50 @@ cudaError_t launch(const Ptrs& p, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TKV, int D, bool FUSED_WRITE>
+template <typename TKV, int D, bool FUSED_WRITE, int TPS>
 cudaError_t launch_stages(int stages, const Ptrs& p, const Args& a, cudaStream_t stream) {
   switch (stages) {
     case 1:
-      return launch<TKV, D, 1, FUSED_WRITE>(p, a, stream);
+      return launch<TKV, D, 1, FUSED_WRITE, TPS>(p, a, stream);
     case 2:
-      return launch<TKV, D, 2, FUSED_WRITE>(p, a, stream);
+      return launch<TKV, D, 2, FUSED_WRITE, TPS>(p, a, stream);
     case 3:
-      return launch<TKV, D, 3, FUSED_WRITE>(p, a, stream);
+      return launch<TKV, D, 3, FUSED_WRITE, TPS>(p, a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename TKV, bool FUSED_WRITE>
+template <typename TKV, bool FUSED_WRITE, int TPS>
 cudaError_t launch_dim(int head_dim, int stages, const Ptrs& p, const Args& a,
                        cudaStream_t stream) {
   switch (head_dim) {
     case 64:
-      return launch_stages<TKV, 64, FUSED_WRITE>(stages, p, a, stream);
+      return launch_stages<TKV, 64, FUSED_WRITE, TPS>(stages, p, a, stream);
     case 128:
-      return launch_stages<TKV, 128, FUSED_WRITE>(stages, p, a, stream);
+      return launch_stages<TKV, 128, FUSED_WRITE, TPS>(stages, p, a, stream);
     case 256:
-      return launch_stages<TKV, 256, FUSED_WRITE>(stages, p, a, stream);
+      return launch_stages<TKV, 256, FUSED_WRITE, TPS>(stages, p, a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// K4 (new rows given) stages one tile a warp stage; K1 and K5 one or two.
 template <typename TKV>
-cudaError_t launch_kv(int head_dim, int stages, const Ptrs& p, const Args& a,
-                      cudaStream_t stream) {
-  return p.k_new != nullptr ? launch_dim<TKV, true>(head_dim, stages, p, a, stream)
-                            : launch_dim<TKV, false>(head_dim, stages, p, a, stream);
+cudaError_t launch_kv(int head_dim, int stages, int tiles_per_stage, const Ptrs& p,
+                      const Args& a, cudaStream_t stream) {
+  if (p.k_new != nullptr)
+    return tiles_per_stage == 1 ? launch_dim<TKV, true, 1>(head_dim, stages, p, a, stream)
+                                : cudaErrorInvalidValue;
+  switch (tiles_per_stage) {
+    case 1:
+      return launch_dim<TKV, false, 1>(head_dim, stages, p, a, stream);
+    case 2:
+      return launch_dim<TKV, false, 2>(head_dim, stages, p, a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -687,9 +723,11 @@ extern "C" {
 
 // Returns a cudaError_t code (0 = success). bf16 q and out; kv_dtype:
 // 1 = bf16, 2 = float8_e5m2 pools (16-byte aligned). k_new / v_new: null
-// launches K1; given (bf16 [S, n_kv, D], 16-byte aligned), K4, which
-// writes them into the pools at ctx - 1. stages: the
-// per-warp ring depth, 1, 2 or 3 (1: each tile is copied, then used).
+// launches K1 (or K5); given (bf16 [S, n_kv, D], 16-byte aligned), K4,
+// which writes them into the pools at ctx - 1. stages: the per-warp ring
+// depth, 1, 2 or 3 (1: each stage is copied, then used);
+// tiles_per_stage: 16-key tiles a warp's stage holds, 1 (K1, K4) or 2
+// (K5: a block's stage is 128 keys).
 // softcap <= 0 means no softcap. num_splits (<= 32) > 1 splits each
 // row's keys over that many blocks and needs `partials`, f32 scratch of
 // num_seqs * n_heads * num_splits * (head_dim + 4) values, and
@@ -701,7 +739,7 @@ int llmq_paged_decode_tc(const void* q, void* k_pool, void* v_pool, const void* 
                          void* partials, void* counters, int kv_dtype, int num_seqs,
                          int n_heads, int n_kv, int head_dim, int num_pages, int page_size,
                          int pages_per_seq, int layer, int window, float scale, float softcap,
-                         int num_splits, int stages, void* stream) {
+                         int num_splits, int stages, int tiles_per_stage, void* stream) {
   if (num_seqs == 0) return 0;
   if (n_kv <= 0 || n_heads % n_kv != 0 || n_heads / n_kv > kMaxGroup || num_splits < 1 ||
       num_splits > kMaxSplits || page_size < 1 ||
@@ -717,10 +755,10 @@ int llmq_paged_decode_tc(const void* q, void* k_pool, void* v_pool, const void* 
   cudaError_t err;
   switch (kv_dtype) {
     case 1:
-      err = launch_kv<bf16>(head_dim, stages, p, a, st);
+      err = launch_kv<bf16>(head_dim, stages, tiles_per_stage, p, a, st);
       break;
     case 2:
-      err = launch_kv<uint8_t>(head_dim, stages, p, a, st);
+      err = launch_kv<uint8_t>(head_dim, stages, tiles_per_stage, p, a, st);
       break;
     default:
       err = cudaErrorInvalidValue;

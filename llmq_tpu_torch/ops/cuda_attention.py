@@ -6,18 +6,19 @@
   ``pallas_attention.py::flash_prefill_attention_pallas``.
 - :func:`paged_prefill_attention_cuda` — K3, the port of
   ``pallas_attention.py::paged_prefill_attention_pallas``.
-- :func:`paged_decode_attention_v2_cuda` — K5, ``csrc/paged_decode_v2.cu``,
-  and :func:`paged_decode_attention_v3_cuda` — K4, the ports of
+- :func:`paged_decode_attention_v2_cuda` — K5, and
+  :func:`paged_decode_attention_v3_cuda` — K4, the ports of
   ``pallas_attention.py::paged_decode_attention_pallas_v2`` / ``_v3``.
 
-K1, K2, K3 and K4 each have two routes, chosen by dtype alone in
+Every kernel has two routes, chosen by dtype alone in
 :func:`attention_route`: bf16 queries over bf16 or float8_e5m2 K/V run on the tensor
-cores (``csrc/paged_decode_tc.cu`` for K1 and, with its fused write, K4,
-launch plan from :func:`decode_tc_plan`; ``csrc/flash_prefill_tc.cu`` and
+cores (``csrc/paged_decode_tc.cu`` for K1, for K4 with its fused write
+and for K5 with a chunk of pages a ring stage, launch plan from
+:func:`decode_tc_plan`; ``csrc/flash_prefill_tc.cu`` and
 ``csrc/paged_prefill_tc.cu`` over ``csrc/attn_tc.cuh``); f32 queries, or
 an f32 pool, run the exact CUDA-core kernels (``csrc/paged_decode.cu``,
 ``csrc/flash_prefill.cu``, ``csrc/paged_prefill.cu``,
-``csrc/paged_decode_v2.cu``). K5 keeps its one CUDA-core kernel.
+``csrc/paged_decode_v2.cu`` for K4 and K5).
 Each route counts its own launches (``tensor_core_launches``,
 ``exact_launches``) beside the wrapper's ``launches``.
 
@@ -54,7 +55,8 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "paged_decode": ("llmq_paged_decode", [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P]),
-    "paged_decode_tc": ("llmq_paged_decode_tc", [_P] * 10 + [_I] * 10 + [_F, _F, _I, _I, _P]),
+    "paged_decode_tc": ("llmq_paged_decode_tc",
+                        [_P] * 10 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]),
     "flash_prefill": ("llmq_flash_prefill", [_P] * 5 + [_I] * 5 + [_L] * 12 + [_I, _F, _F, _P]),
     "flash_prefill_tc": ("llmq_flash_prefill_tc",
                          [_P] * 5 + [_I] * 5 + [_L] * 12 + [_I, _F, _F, _P]),
@@ -65,16 +67,18 @@ _SIGNATURES = {
 }
 
 
-#: routes of K1, K2, K3 and K4 (:func:`attention_route`)
+#: routes of the attention kernels (:func:`attention_route`)
 TENSOR_CORE, EXACT = "tensor_core", "exact"
 _TC_KV = (torch.bfloat16, torch.float8_e5m2)
 
-# K1's and K4's tensor-core route (csrc/paged_decode_tc.cu): 4 warps a block, each
-# walking every fourth 16-key tile of the block's span through its own
-# ring of raw K/V rows, 1 to 3 stages deep.
+# K1's, K4's and K5's tensor-core route (csrc/paged_decode_tc.cu): 4 warps a
+# block, each walking every fourth 16-key tile of the block's span through
+# its own ring of raw K/V rows, 1 to 3 stages deep, a stage 1 tile (K1, K4)
+# or 1-2 (K5).
 DECODE_TC_TILE = 16
 DECODE_TC_WARPS = 4
 DECODE_TC_STAGES = (1, 2, 3)  # ring depths the kernel is built for
+DECODE_TC_MAX_TPS = 2  # tiles a warp's stage may hold (a stage's lookups: one lane a key)
 
 
 def _kernel(name: str):
@@ -98,7 +102,7 @@ def _split_counters(n: int, device: torch.device) -> torch.Tensor:
 
 
 def attention_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
-    """The route of the attention kernels K1, K2, K3 and K4 for queries of
+    """The route of the attention kernels K1-K5 for queries of
     ``q_dtype`` over K/V of ``kv_dtype`` (K2: q's own dtype):
     :data:`TENSOR_CORE` for bf16 queries over bf16 or float8_e5m2 K/V (an
     e5m2 value widens exactly to bf16), else :data:`EXACT`: f32 queries,
@@ -153,46 +157,78 @@ def decode_splits(
     return max(1, min(want, -(-max_ctx // tile), MAX_SPLITS))
 
 
-def decode_tc_smem(head_dim: int, kv_itemsize: int, stages: int) -> int:
-    """Shared bytes of a K1 tensor-core block (csrc Layout): the group's
-    16 bf16 query rows, then the larger of the warps' rings (raw K and V
-    tiles of 16 rows) and the end-of-loop merge (each warp's f32 acc and
-    (m, l) per row, and per row the warps' weights and sum), and a flag."""
-    ring = DECODE_TC_WARPS * stages * 2 * DECODE_TC_TILE * head_dim * kv_itemsize
+def decode_tc_smem(head_dim: int, kv_itemsize: int, stages: int, tiles_per_stage: int = 1) -> int:
+    """Shared bytes of a tensor-core decode block (csrc Layout): the
+    group's 16 bf16 query rows, then the larger of the warps' rings (per
+    stage ``tiles_per_stage`` raw K and V tiles of 16 rows) and the
+    end-of-loop merge (each warp's f32 acc and (m, l) per row, and per row
+    the warps' weights and sum), and a flag."""
+    ring = (DECODE_TC_WARPS * stages * tiles_per_stage * 2 * DECODE_TC_TILE * head_dim
+            * kv_itemsize)
     merge = 4 * (DECODE_TC_WARPS * MAX_GROUP * (head_dim + 2) + MAX_GROUP * (DECODE_TC_WARPS + 1))
     return MAX_GROUP * head_dim * 2 + max(ring, merge) + 16  # + the last-span flag
 
 
 def decode_tc_plan(num_seqs: int, n_kv: int, max_ctx: int, head_dim: int, kv_itemsize: int,
-                   sms: int) -> dict:
-    """Launch plan of K1's tensor-core route, a function of shapes and the
-    SM count only: ``splits`` (spans of at least one 16-key tile for each
-    of the 4 warps, no more blocks than two per SM, none empty for a row
-    that fills the page map) and ``stages`` (the per-warp ring depth: one
-    more than a warp's tiles, at most 3, cut while the grid's blocks per
-    SM do not fit its shared memory together; ``smem`` its bytes a
-    block)."""
+                   sms: int, tiles_per_stage: int = 1) -> dict:
+    """Launch plan of the tensor-core decode route, a function of shapes,
+    the SM count and the tiles a ring stage holds only: ``splits`` (spans
+    of at least one 16-key tile for each of the 4 warps, no more blocks
+    than two per SM, none empty for a row that fills the page map; the
+    same for every ``tiles_per_stage``) and ``stages`` (the per-warp ring
+    depth: one more than a warp's stages, at most 3, cut while the grid's
+    blocks per SM do not fit its shared memory together; ``smem`` its
+    bytes a block)."""
     tiles = max(1, -(-max_ctx // DECODE_TC_TILE))
     splits = _build.split_count(tiles, _tc_split_target(num_seqs, n_kv, max_ctx, sms),
                                 MAX_SPLITS)
     warp_tiles = -(-(-(-tiles // splits)) // DECODE_TC_WARPS)
+    warp_stages = -(-warp_tiles // tiles_per_stage)
     resident = min(3, max(1, -(-num_seqs * n_kv * splits // sms)))
-    stages = min(warp_tiles + 1, DECODE_TC_STAGES[-1])
-    while stages > 1 and resident * (decode_tc_smem(head_dim, kv_itemsize, stages) + 1024) > (
-            SM_SHARED_BYTES):
+    stages = min(warp_stages + 1, DECODE_TC_STAGES[-1])
+
+    def smem(n: int) -> int:
+        return decode_tc_smem(head_dim, kv_itemsize, n, tiles_per_stage)
+
+    while stages > 1 and resident * (smem(stages) + 1024) > SM_SHARED_BYTES:
         stages -= 1
-    return dict(splits=splits, stages=stages, smem=decode_tc_smem(head_dim, kv_itemsize, stages))
+    return dict(splits=splits, stages=stages, smem=smem(stages), tiles_per_stage=tiles_per_stage)
 
 
-def pages_per_chunk(page_size: int, head_dim: int, kv_itemsize: int, blocks_per_sm: int) -> int:
+def decode_tc_tiles_per_stage(num_seqs: int, n_kv: int, page_size: int, pages_per_seq: int,
+                              head_dim: int, kv_itemsize: int, sms: int) -> int:
+    """K5's ring stage on the tensor-core route: 16-key tiles a warp's
+    stage holds, so that the 4 warps' stage together is the chunk of
+    whole pages, ``pages_per_chunk`` of them (sized to the blocks an SM
+    must hold at K1's split plan, each with a double buffer of chunks), at
+    most :data:`DECODE_TC_MAX_TPS` tiles. Where no double buffer of 128
+    keys fits (bf16 rows of 256 bytes beside another block, the main
+    path's shape), that is 1: K1's plan, which the H100 ran faster than a
+    single-buffered chunk (PERF.md §6)."""
+    splits = decode_tc_plan(num_seqs, n_kv, pages_per_seq * page_size, head_dim, kv_itemsize,
+                            sms)["splits"]
+    resident = -(-num_seqs * n_kv * splits // sms)
+    ppc = pages_per_chunk(page_size, head_dim, kv_itemsize, resident, tensor_core=True)
+    block_tiles = ppc * page_size // DECODE_TC_TILE
+    return max(1, min(DECODE_TC_MAX_TPS, block_tiles // DECODE_TC_WARPS))
+
+
+def pages_per_chunk(page_size: int, head_dim: int, kv_itemsize: int, blocks_per_sm: int,
+                    tensor_core: bool = False) -> int:
     """Pages the v2/v3 decode kernel stages per step: as many (1 to the TPU
     kernel's 4) as let ``blocks_per_sm`` blocks share one SM's shared
-    memory, so a grid of that many blocks per SM runs in one wave. A
-    block holds its f32 query rows and softmax state, then per staged key
-    two stages of K and V rows (pitch head_dim + 16 bytes) and one f32
-    score per query head."""
-    fixed = 4 * MAX_GROUP * (head_dim + 3) + 1024
-    per_page = page_size * (4 * (head_dim * kv_itemsize + 16) + 4 * MAX_GROUP)
+    memory, so a grid of that many blocks per SM runs in one wave. On the
+    exact route a block holds its f32 query rows and softmax state, then
+    per staged key two stages of K and V rows (pitch head_dim + 16 bytes)
+    and one f32 score per query head; on the tensor-core route its bf16
+    query rows, then per staged key two stages (the TPU kernel's double
+    buffer) of one K and one V row of the pool."""
+    if tensor_core:
+        fixed = MAX_GROUP * head_dim * 2 + 16 + 1024
+        per_page = page_size * 2 * 2 * head_dim * kv_itemsize
+    else:
+        fixed = 4 * MAX_GROUP * (head_dim + 3) + 1024
+        per_page = page_size * (4 * (head_dim * kv_itemsize + 16) + 4 * MAX_GROUP)
     budget = SM_SHARED_BYTES // max(1, blocks_per_sm) - fixed
     return max(1, min(MAX_PAGES_PER_CHUNK, budget // per_page))
 
@@ -246,9 +282,11 @@ def _decode_tc(
     layer: int,
     sliding_window: Optional[int],
     softcap: Optional[float],
+    tiles_per_stage: int = 1,
 ) -> torch.Tensor:
     """Launch of ``csrc/paged_decode_tc.cu``: K1, or K4 when ``k_new`` is
-    given (the pools are written in place)."""
+    given (the pools are written in place), or K5 with ``tiles_per_stage``
+    > 1 (the same arithmetic as K1's at the same plan)."""
     S, n_heads, d = q.shape
     _, P, page_size, n_kv, _ = k_pages.shape
     pps = block_tables.shape[1]
@@ -257,7 +295,7 @@ def _decode_tc(
              "the tensor-core decode route copies 16-byte words; q, the pools and the new "
              "K/V rows must be 16-byte aligned")
     plan = decode_tc_plan(S, n_kv, pps * page_size, d, k_pages.element_size(),
-                          _build.sm_count(q.device))
+                          _build.sm_count(q.device), tiles_per_stage)
     splits = plan["splits"]
     fn = _kernel("paged_decode_tc")
     out = torch.empty_like(q)
@@ -273,7 +311,7 @@ def _decode_tc(
         _split_counters(S * n_kv, q.device).data_ptr() if splits > 1 else None,
         _KV_CODES[k_pages.dtype], S, n_heads, n_kv, d, P, page_size, pps, int(layer),
         _window(sliding_window), float(scale), _softcap(softcap), splits, plan["stages"],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        tiles_per_stage, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("paged_decode_tc", code)
     return out
@@ -410,8 +448,8 @@ def _paged_decode_v2(
     sliding_window: Optional[int],
     softcap: Optional[float],
 ) -> torch.Tensor:
-    """Checks and launch of ``csrc/paged_decode_v2.cu``: K4 when ``k_new``
-    is given (the pools are written in place), K5 otherwise."""
+    """Checks and launch of ``csrc/paged_decode_v2.cu``, the exact route
+    of K4 (``k_new`` given: the pools are written in place) and K5."""
     _check_decode(name, q, k_pages, v_pages, block_tables, context_lens, layer)
     S, n_heads, d = q.shape
     _, P, page_size, n_kv, _ = k_pages.shape
@@ -459,17 +497,32 @@ def paged_decode_attention_v2_cuda(
     sliding_window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """K5: K1's contract, staged ``pages_per_chunk`` pages at a time
-    through a cp.async double buffer."""
-    out = _paged_decode_v2(
-        "paged_decode_attention_v2_cuda", q, k_pages, v_pages, None, None, block_tables,
-        context_lens, scale=scale, layer=layer, sliding_window=sliding_window, softcap=softcap,
-    )
-    paged_decode_attention_v2_cuda.launches += 1
+    """K5: K1's contract, staged a chunk of ``pages_per_chunk`` pages at a
+    time, on the route :func:`attention_route` gives the q and pool dtypes
+    (tensor cores: ``csrc/paged_decode_tc.cu``, a ring stage of the block
+    a chunk of pages, :func:`decode_tc_tiles_per_stage`; exact:
+    ``csrc/paged_decode_v2.cu``, a cp.async double buffer of chunks)."""
+    name = "paged_decode_attention_v2_cuda"
+    kw = dict(scale=scale, layer=layer, sliding_window=sliding_window, softcap=softcap)
+    route = attention_route(q.dtype, k_pages.dtype)
+    if route == TENSOR_CORE:
+        _check_decode(name, q, k_pages, v_pages, block_tables, context_lens, layer)
+        S, _, d = q.shape
+        page_size, n_kv = k_pages.shape[2], k_pages.shape[3]
+        tps = decode_tc_tiles_per_stage(S, n_kv, page_size, block_tables.shape[1], d,
+                                        k_pages.element_size(), _build.sm_count(q.device))
+        out = _decode_tc(q, k_pages, v_pages, None, None, block_tables, context_lens,
+                         tiles_per_stage=tps, **kw)
+    else:
+        out = _paged_decode_v2(name, q, k_pages, v_pages, None, None, block_tables,
+                               context_lens, **kw)
+    _build.count_launch(paged_decode_attention_v2_cuda, route)
     return out
 
 
 paged_decode_attention_v2_cuda.launches = 0
+paged_decode_attention_v2_cuda.tensor_core_launches = 0
+paged_decode_attention_v2_cuda.exact_launches = 0
 
 
 def paged_decode_attention_v3_cuda(

@@ -1,16 +1,18 @@
-"""Asyncio task hygiene for the broker's dispatch loop.
+"""Asyncio task hygiene for the broker's dispatch loop and transports.
 
 ``spawn`` replaces naked ``asyncio.ensure_future(...)`` fire-and-forget:
 the task is parked in a registry set (a strong reference — the loop
 itself only keeps a weak one) and a done-callback logs any
-non-cancellation exception instead of letting it vanish.
+non-cancellation exception instead of letting it vanish. ``reap`` /
+``reap_all`` cancel and await tasks at teardown without swallowing the
+reaper's own cancellation.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
-from typing import Callable, Coroutine, Optional, Set
+from typing import Callable, Coroutine, Iterable, Optional, Set
 
 logger = logging.getLogger(__name__)
 
@@ -51,3 +53,29 @@ def spawn(
 
     task.add_done_callback(_done)
     return task
+
+
+async def reap(task: Optional["asyncio.Future"], *, label: str = "task") -> None:
+    """Cancel ``task`` and await it without swallowing our own cancellation.
+
+    Any exception the task dies with (other than the cancellation we just
+    requested) is logged: by the time a task is being reaped nobody is
+    left to consume its result.
+    """
+    if task is None or task.done() and task.cancelled():
+        return
+    task.cancel()
+    try:
+        await task
+    except asyncio.CancelledError:
+        if asyncio.current_task().cancelling():
+            raise  # the reaper itself was cancelled: propagate
+    except Exception:  # noqa: BLE001 — terminal: log, nobody else will
+        logger.exception("%s raised while being cancelled", label)
+
+
+async def reap_all(tasks: Iterable["asyncio.Future"], *, label: str = "tasks") -> None:
+    """Cancel-and-await a collection (snapshot first: reaping mutates
+    registries via done-callbacks)."""
+    for task in list(tasks):
+        await reap(task, label=label)

@@ -13,6 +13,12 @@ Port of the job path of ``llmq_tpu/workers/base.py`` (``_process_message``
   through, colliding names kept as ``job_<name>``) to
   ``<queue>.results``, then ack.
 
+The broker URL, the prefetch and the default ``max_tokens`` come from
+``core/config.py`` unless given, as ``BaseWorker`` / ``TPUWorker`` take
+them (``base.py:112-113``, ``tpu_worker.py:177-179``). SIGINT and SIGTERM
+stop the worker gracefully (``base.py:222-226``): it stops consuming,
+lets the jobs in flight settle, and :meth:`run` returns.
+
 An unparseable payload is dead-lettered to ``<queue>.failed``; a job the
 engine rejects as invalid (``ValueError``) is acked and dropped; any
 other failure rejects with requeue, so the broker redelivers it. A
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import signal
 import uuid
 from typing import Optional
 
@@ -37,6 +44,7 @@ from llmq_tpu_torch.broker.base import (
     make_broker,
     results_queue_name,
 )
+from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job, Result
 from llmq_tpu_torch.engine.engine import AsyncEngine, RequestOutput
 from llmq_tpu_torch.engine.sampling import SamplingParams
@@ -56,18 +64,22 @@ class TorchWorker:
         queue: str,
         engine: AsyncEngine,
         *,
-        broker_url: str = "memory://default",
+        broker_url: Optional[str] = None,
         concurrency: Optional[int] = None,
-        max_tokens: int = 8192,
+        max_tokens: Optional[int] = None,
         max_jobs: Optional[int] = None,
         worker_id: Optional[str] = None,
+        config: Optional[Config] = None,
     ) -> None:
+        cfg = config or get_config()
         self.queue = queue
         self.engine = engine
-        self.broker_url = broker_url
+        self.broker_url = broker_url or cfg.broker_url
+        # Prefetch above the batch's slots, or the engine starves: without
+        # an explicit concurrency, ~1.5x slots in flight (TPUWorker's rule).
         slots = engine.core.cfg.max_num_seqs
-        self.concurrency = concurrency or slots + slots // 2
-        self.max_tokens = max_tokens
+        self.concurrency = concurrency or max(cfg.queue_prefetch, slots + slots // 2)
+        self.max_tokens = max_tokens or cfg.max_tokens
         self.max_jobs = max_jobs
         self.worker_id = worker_id or f"torch-{uuid.uuid4().hex[:8]}"
         self.broker: Optional[Broker] = None
@@ -76,14 +88,30 @@ class TorchWorker:
         self._settled = 0
         self._stop: Optional[asyncio.Event] = None
         self._tag: Optional[str] = None
+        self._draining = False  # a signal asked for a graceful stop
+        self._in_flight = 0
+        self._idle: Optional[asyncio.Event] = None  # set while no job is in flight
         self.error: Optional[BaseException] = None  # the engine failure that stopped it
 
     def request_shutdown(self) -> None:
         if self._stop is not None:
             self._stop.set()
 
+    def _on_signal(self) -> None:
+        """SIGINT / SIGTERM: stop taking jobs, let those in flight settle."""
+        self._draining = True
+        self.request_shutdown()
+
     async def run(self) -> None:
         self._stop = asyncio.Event()
+        self._idle = asyncio.Event()
+        self._idle.set()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                loop.add_signal_handler(sig, self._on_signal)
+            except (NotImplementedError, RuntimeError):
+                pass  # non-main thread or platform without signal support
         self.broker = make_broker(self.broker_url)
         await self.broker.connect()
         try:
@@ -94,6 +122,13 @@ class TorchWorker:
             )
             logger.info("worker %s consuming %s", self.worker_id, self.queue)
             await self._stop.wait()
+            if self._draining and self.error is None:
+                # Deliveries stop; the jobs already delivered finish and
+                # settle before the connection closes.
+                await self.broker.cancel(self._tag, requeue=False)
+                await self._idle.wait()
+                logger.info("worker %s stopped by signal after settling its jobs",
+                            self.worker_id)
             await self.broker.cancel(self._tag)
         finally:
             await self.broker.close()
@@ -102,6 +137,16 @@ class TorchWorker:
 
     # --- the hot loop -----------------------------------------------------
     async def _process_message(self, message: DeliveredMessage) -> None:
+        self._in_flight += 1
+        self._idle.clear()
+        try:
+            await self._settle_message(message)
+        finally:
+            self._in_flight -= 1
+            if self._in_flight == 0:
+                self._idle.set()
+
+    async def _settle_message(self, message: DeliveredMessage) -> None:
         start = clock.monotonic()
         try:
             job = Job.model_validate_json(message.body)

@@ -3,8 +3,8 @@
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card
 and skips without one (so on a CPU-only machine these count as skipped).
 On a GPU machine: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
-K1, K2, K3, K4, K6 and K7 run bf16 on their tensor-core route and f32 on
-their exact route; each test asserts the route its launch took.
+Every kernel (K1-K7) runs bf16 on its tensor-core route and f32 on its
+exact route; each test asserts the route its launch took.
 Tolerances: 2e-5 in f32, 3e-2 in bf16, as for the Pallas kernels; the
 weight-only matmuls (K6, K7) in f32 within 1e-5 / 1e-4 (K6) and 1e-4
 (K7) of the f64 product, in bf16 within 2e-2 of the plain version, as
@@ -325,11 +325,13 @@ def test_paged_decode_v2_chunk_padding(cuda_device, dtype, page, pps, ctx):
     q, kp, vp, bt = _decode_inputs(rng, cuda_device, dtype, S=S, n_heads=n_heads, n_kv=n_kv,
                                    d=d, page=page, pps=pps, L=L)
     cl = torch.tensor(ctx, dtype=torch.int32, device=cuda_device)
-    before = paged_decode_attention_v2_cuda.launches
-    out = paged_decode_attention_v2_cuda(q, kp, vp, bt, cl, scale=d**-0.5, layer=1)
+    fn = paged_decode_attention_v2_cuda
+    before, routes = fn.launches, _routes(fn)
+    out = fn(q, kp, vp, bt, cl, scale=d**-0.5, layer=1)
     ref = plain.paged_decode_attention(q, kp, vp, bt, cl, scale=d**-0.5, layer=1)
     torch.cuda.synchronize()
-    assert paged_decode_attention_v2_cuda.launches == before + 1
+    assert fn.launches == before + 1
+    _assert_launched_on(fn, routes, _route_of(dtype))
     live = cl > 0
     torch.testing.assert_close(out[live].float(), ref[live].float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
@@ -346,8 +348,10 @@ def test_paged_decode_v2_dead_chunk_then_live(cuda_device, dtype):
                                    d=d, page=page, pps=pps, L=L)
     cl = torch.tensor([250, 20, 9], dtype=torch.int32, device=cuda_device)
     kw = dict(scale=d**-0.5, sliding_window=10, layer=0)
+    routes = _routes(paged_decode_attention_v2_cuda)
     out = paged_decode_attention_v2_cuda(q, kp, vp, bt, cl, **kw)
     ref = plain.paged_decode_attention(q, kp, vp, bt, cl, **kw)
+    _assert_launched_on(paged_decode_attention_v2_cuda, routes, _route_of(dtype))
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
@@ -588,18 +592,19 @@ def _decode_tc_case(device, *, S, H, n_kv, d, page, pps, L, ctx, kv_dtype, seed,
             torch.tensor(ctx, dtype=torch.int32, device=device))
 
 
-def _check_decode_tc(q, kp, vp, bt, ctx, **kw):
-    """K1 on the tensor-core route against the plain version on the same
-    bf16 values, in bf16 (3e-2) and in f32 math (1e-2, chip_smoke.py's
-    DECODE_F32_MATH_TOLERANCE); rows with ctx == 0 are exact zeros."""
-    before = _routes(paged_decode_attention_cuda)
-    out = paged_decode_attention_cuda(q, kp, vp, bt, ctx, **kw)
+def _check_decode_tc(q, kp, vp, bt, ctx, fn=paged_decode_attention_cuda, **kw):
+    """K1 (or K5, ``fn``) on the tensor-core route against the plain
+    version on the same bf16 values, in bf16 (3e-2) and in f32 math (1e-2,
+    chip_smoke.py's DECODE_F32_MATH_TOLERANCE); rows with ctx == 0 are
+    exact zeros."""
+    before = _routes(fn)
+    out = fn(q, kp, vp, bt, ctx, **kw)
     ref = plain.paged_decode_attention(q, kp, vp, bt, ctx, **kw)
     layer = kw.pop("layer")
     ref32 = plain.paged_decode_attention(q.float(), kp[layer:layer + 1].float(),
                                          vp[layer:layer + 1].float(), bt, ctx, layer=0, **kw)
     torch.cuda.synchronize()
-    _assert_launched_on(paged_decode_attention_cuda, before, "tensor_core")
+    _assert_launched_on(fn, before, "tensor_core")
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     live = ctx > 0
     assert (out[~live] == 0).all()
@@ -800,6 +805,79 @@ def test_paged_decode_v3_tensor_core_is_deterministic(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+
+
+# --- K5 on its tensor-core route -----------------------------------------------
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+@pytest.mark.parametrize("page,pps,ctx", [
+    (8, 5, [3, 8, 27, 40]),  # 5 pages per row: the last chunk is partial
+    (16, 7, [0, 1, 16, 112]),  # an inactive row, a full row
+    (32, 9, [0, 33, 200, 288]),  # chunks of four 32-key pages, the last partial
+])
+def test_paged_decode_v2_tensor_core_chunk_padding(cuda_device, kv_dtype, page, pps, ctx):
+    """test_paged_decode_v2_chunk_padding on K5's tensor-core route."""
+    d = 128
+    case = _decode_tc_case(cuda_device, S=len(ctx), H=8, n_kv=2, d=d, page=page, pps=pps, L=2,
+                           ctx=ctx, kv_dtype=kv_dtype, seed=page)
+    _check_decode_tc(*case, fn=paged_decode_attention_v2_cuda, scale=d**-0.5, layer=1)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+def test_paged_decode_v2_tensor_core_dead_chunk_then_live(cuda_device, kv_dtype):
+    """test_paged_decode_v2_dead_chunk_then_live on K5's tensor-core route:
+    a narrow window leaves the leading chunks dead; a short row leaves the
+    trailing ones dead."""
+    d = 64
+    case = _decode_tc_case(cuda_device, S=3, H=4, n_kv=2, d=d, page=8, pps=32, L=1,
+                           ctx=[250, 20, 9], kv_dtype=kv_dtype, seed=6)
+    _check_decode_tc(*case, fn=paged_decode_attention_v2_cuda, scale=d**-0.5, sliding_window=10,
+                     layer=0)
+
+
+def test_paged_decode_v2_tensor_core_is_deterministic(cuda_device):
+    """The same K5 launch twice gives the same bits."""
+    q, kp, vp, bt, ctx = _decode_tc_case(cuda_device, S=16, H=16, n_kv=2, d=128, page=32,
+                                         pps=32, L=2, ctx=list(range(60, 1000, 60)),
+                                         kv_dtype=torch.bfloat16, seed=14)
+    kw = dict(scale=128**-0.5, layer=1)
+    a = paged_decode_attention_v2_cuda(q, kp, vp, bt, ctx, **kw)
+    b = paged_decode_attention_v2_cuda(q, kp, vp, bt, ctx, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+@pytest.mark.parametrize("H,n_kv,d,page,pps,ctx,window,softcap", [
+    (16, 2, 128, 32, 32, list(range(60, 1000, 60)), None, None),  # qwen2.5-3b decode
+    (8, 4, 256, 32, 6, [0, 1, 31, 90, 192], 64, 50.0),  # gemma2-2b: window, softcap
+    (14, 2, 64, 16, 8, [0, 1, 15, 16, 17, 101], 7, None),
+    (16, 2, 128, 32, 256, [8192, 5000, 3], None, None),  # the split count at its cap
+])
+def test_paged_decode_v2_tensor_core_equals_k1_bit_for_bit(cuda_device, kv_dtype, H, n_kv, d,
+                                                           page, pps, ctx, window, softcap):
+    """K5's chunk staging (two tiles a warp's ring stage: a block's stage
+    is four 32-key pages) changes the grain of the copies, not the order
+    of arithmetic: at K1's split plan its output equals K1's bit for bit.
+    The wrapper, which sizes the stage from pages_per_chunk (two tiles on
+    the e5m2 qwen2.5-3b case), too."""
+    from llmq_tpu_torch.ops import _build
+    from llmq_tpu_torch.ops import cuda_attention as ca
+
+    q, kp, vp, bt, cl = _decode_tc_case(cuda_device, S=len(ctx), H=H, n_kv=n_kv, d=d, page=page,
+                                        pps=pps, L=2, ctx=ctx, kv_dtype=kv_dtype, seed=H + d)
+    kw = dict(scale=d**-0.5, layer=1, sliding_window=window, softcap=softcap)
+    k1 = paged_decode_attention_cuda(q, kp, vp, bt, cl, **kw)
+    chunked = ca._decode_tc(q, kp, vp, None, None, bt, cl, tiles_per_stage=2, **kw)
+    k5 = paged_decode_attention_v2_cuda(q, kp, vp, bt, cl, **kw)
+    torch.cuda.synchronize()
+    tps = ca.decode_tc_tiles_per_stage(len(ctx), n_kv, page, pps, d, kp.element_size(),
+                                       _build.sm_count(cuda_device))
+    if (H, d, pps) == (16, 128, 32):
+        assert tps == (2 if kv_dtype == torch.float8_e5m2 else 1)
+    assert torch.equal(chunked.view(torch.int16), k1.view(torch.int16))
+    assert torch.equal(k5.view(torch.int16), k1.view(torch.int16))
 
 
 def _check_int8_tc(x, q, scale):

@@ -2,8 +2,10 @@
 
 An AST scan finds no ``jax`` or ``llmq_tpu`` import in ``llmq_tpu_torch/``
 or ``chip_smoke.py``; a fresh interpreter that imports every port module
-loads neither; and the entry points default to CUDA, raising here where
-there is none.
+loads neither; the checkpoint loader, the broker and the command line
+need none of the packages the GPU machine lacks (``safetensors``,
+``transformers``, ``click``); and the entry points default to CUDA,
+raising here where there is none.
 """
 
 import ast
@@ -57,6 +59,35 @@ def test_importing_every_module_loads_no_jax():
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'llmq_tpu')]\n"
         "print(len(new), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: packages the GPU machine does not promise, and the modules that must do without
+OPTIONAL = ("safetensors", "transformers", "click", "aio_pika")
+WORKER_PATH = ("engine/weights.py", "broker/tcp.py", "cli/main.py", "cli/worker.py",
+               "__main__.py", "workers/torch_worker.py")
+
+
+def test_loader_broker_and_cli_need_no_optional_package():
+    for rel in WORKER_PATH:
+        path = PORT / rel
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            assert not [n for n in names if n.split(".")[0] in OPTIONAL], (rel, names)
+    code = (
+        "import sys\n"
+        "import llmq_tpu_torch.cli.main, llmq_tpu_torch.cli.worker, llmq_tpu_torch.broker.tcp\n"
+        "import llmq_tpu_torch.engine.weights\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {OPTIONAL!r}]\n"
+        "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

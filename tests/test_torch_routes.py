@@ -1,5 +1,5 @@
-"""Route rules and launch plans of the port's two-route kernels (K1, K2,
-K3, K4 in ``ops/cuda_attention.py``; K6, K7 in ``ops/cuda_matmul.py``).
+"""Route rules and launch plans of the port's two-route kernels (K1-K5 in
+``ops/cuda_attention.py``; K6, K7 in ``ops/cuda_matmul.py``).
 
 The routes are chosen by dtype alone, and the tensor-core routes' launch
 plans are pure functions of shapes and the SM count, so both are checked
@@ -60,6 +60,67 @@ def test_fused_write_decode_takes_the_attention_route(monkeypatch, q_dtype, kv_d
     assert launched == [route]
     after = {"tensor_core": fn.tensor_core_launches, "exact": fn.exact_launches}
     assert {k: after[k] - before[k] for k in after} == {k: int(k == route) for k in after}
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (q, kv) for q in (torch.float32, torch.bfloat16)
+    for kv in (torch.float32, torch.bfloat16, torch.float8_e5m2)
+])
+def test_chunked_decode_takes_the_attention_route(monkeypatch, q_dtype, kv_dtype):
+    """K5 launches the tensor-core kernel, with a chunk of pages a ring
+    stage, exactly where attention_route says so, else the exact one."""
+    launched = []
+    monkeypatch.setattr(ca, "_decode_tc", lambda *a, **k: launched.append(
+        ("tensor_core", k["tiles_per_stage"])))
+    monkeypatch.setattr(ca, "_paged_decode_v2", lambda *a, **k: launched.append(("exact", None)))
+    monkeypatch.setattr(ca, "_check_decode", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    q = torch.zeros((16, 16, 128), dtype=q_dtype)
+    pool = torch.zeros((1, 3, 32, 2, 128), dtype=kv_dtype)
+    table, ctx = torch.zeros((16, 32), dtype=torch.int32), torch.ones(16, dtype=torch.int32)
+    fn = ca.paged_decode_attention_v2_cuda
+    before = {"tensor_core": fn.tensor_core_launches, "exact": fn.exact_launches}
+    fn(q, pool, pool, table, ctx, scale=1.0, layer=0)
+    route = ca.attention_route(q_dtype, kv_dtype)
+    # qwen2.5-3b's decode shape: an e5m2 pool's double buffer of four
+    # 32-key pages fits beside a second block, a bf16 pool's does not.
+    tps = 2 if kv_dtype == torch.float8_e5m2 else 1
+    assert launched == [(route, tps if route == "tensor_core" else None)]
+    after = {"tensor_core": fn.tensor_core_launches, "exact": fn.exact_launches}
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == route) for k in after}
+
+
+@pytest.mark.parametrize("page,pps,item,tps", [
+    (32, 32, 1, 2), (32, 256, 1, 2), (32, 32, 2, 1), (16, 64, 1, 1), (8, 5, 1, 1),
+])
+def test_chunked_decode_stage_is_a_chunk_of_whole_pages(page, pps, item, tps):
+    """K5's tiles a warp's stage holds: the 4 warps' stage is
+    pages_per_chunk pages where that is 128 keys (2 tiles a warp) and a
+    double buffer of them fits, else one tile a warp (K1's plan); a
+    function of shapes and the SM count only."""
+    for S, n_kv, d, size, sms in itertools.product((1, 16, 64), (2, 8), (64, 128, 256), (1, 2),
+                                                   SMS):
+        got = ca.decode_tc_tiles_per_stage(S, n_kv, page, pps, d, size, sms)
+        assert 1 <= got <= ca.DECODE_TC_MAX_TPS
+        plan = ca.decode_tc_plan(S, n_kv, pps * page, d, size, sms)
+        ppc = ca.pages_per_chunk(page, d, size, -(-S * n_kv * plan["splits"] // sms),
+                                 tensor_core=True)
+        assert got == max(1, min(2, ppc * page // (ca.DECODE_TC_TILE * ca.DECODE_TC_WARPS)))
+    assert ca.decode_tc_tiles_per_stage(16, 2, page, pps, 128, item, 132) == tps
+
+
+def test_decode_tc_plan_with_chunk_stages_keeps_k1_splits():
+    """K5's plan (two tiles a stage) has K1's splits, so their outputs
+    agree bit for bit, and its ring still fits the SM's shared memory."""
+    for S, n_kv, max_ctx, d, item, sms in itertools.product(
+            (1, 16, 64), (1, 2, 8), (100, 1024, 8192, 32768), (64, 128, 256), (1, 2), SMS):
+        k1 = ca.decode_tc_plan(S, n_kv, max_ctx, d, item, sms)
+        k5 = ca.decode_tc_plan(S, n_kv, max_ctx, d, item, sms, tiles_per_stage=2)
+        assert k5["splits"] == k1["splits"] and k5["stages"] in ca.DECODE_TC_STAGES
+        assert k5["smem"] == ca.decode_tc_smem(d, item, k5["stages"], 2)
+        assert k5["smem"] + 1024 <= SM_SMEM
+        resident = min(2, -(-S * n_kv * k5["splits"] // sms))
+        assert k5["stages"] == 1 or resident * (k5["smem"] + 1024) <= SM_SMEM
 
 
 def test_split_count_never_exceeds_its_target_and_leaves_no_run_empty():
@@ -163,5 +224,5 @@ def test_tensor_core_wrappers_count_their_routes():
     """The two-route wrappers carry a counter per route beside launches."""
     for fn in (ca.paged_decode_attention_cuda, ca.flash_prefill_attention_cuda,
                ca.paged_prefill_attention_cuda, ca.paged_decode_attention_v3_cuda,
-               cm.int8_matmul_cuda, cm.int4_matmul_cuda):
+               ca.paged_decode_attention_v2_cuda, cm.int8_matmul_cuda, cm.int4_matmul_cuda):
         assert isinstance(fn.tensor_core_launches, int) and isinstance(fn.exact_launches, int)

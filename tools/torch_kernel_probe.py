@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""What bounds K6's and K4's tensor-core kernels on the card.
+"""What bounds K6's tensor-core kernels, and K4's and K5's against K1's, on the card.
 
-    python3 tools/torch_kernel_probe.py [--iters 50]
+    python3 tools/torch_kernel_probe.py [--iters 50] [--probes decode,int8]
 
 K6 (``llmq_tpu_torch/ops/csrc/int8_matmul_tc.cu``) is timed whole and
 with parts of its loop removed: each variant is the source with one text
@@ -11,9 +11,12 @@ keeps its launch, copies and barriers but for the removed part and
 computes garbage. The variants of one shape are timed in turns, at
 ``chip_smoke.py`` phase 2's shapes (bf16, scales bf16): qwen2.5-3b
 gate/up_proj and llama3.1-8b down_proj at M = 16 (decode kernel) and
-1,024 (prefill kernel). K4 (``paged_decode_tc.cu`` with its fused
-write) is timed against K1 at phase 2's qwen2.5-3b decode shape over a
-bf16 and an e5m2 pool, in turns. Times are ``torch.profiler`` device time
+1,024 (prefill kernel). The decode probe times, in turns, K1, K4
+(``paged_decode_tc.cu`` with its fused write), K5 with its chunk of
+pages a ring stage (``paged_decode_attention_v2_cuda``) and the same
+kernel at K1's one tile a stage, at phase 2's qwen2.5-3b decode shape
+(contexts up to 1,024) and at contexts up to 8,192, over a bf16 and an
+e5m2 pool. Times are ``torch.profiler`` device time
 per call, as in ``chip_smoke.py``. Prints one JSON line per measurement
 and writes them to ``chiprun_out/kernel_probe.jsonl``. Needs one CUDA
 card and ``nvcc``.
@@ -163,48 +166,67 @@ def probe_int8(fns: dict, iters: int) -> None:
                           ms=sum(times[n]) / 2, ms_turns=times[n]))
 
 
-def probe_fused_write(iters: int) -> None:
-    """K1 and K4 on the tensor-core route at phase 2's qwen2.5-3b shape."""
+def probe_decode(iters: int) -> None:
+    """K1, K4, K5 (a chunk of pages a ring stage) and K5 at K1's plan (one
+    tile a stage), all on the tensor-core route, at phase 2's qwen2.5-3b
+    decode shape and at contexts up to 8,192."""
     from llmq_tpu_torch.ops import cuda_attention as ca
 
     dev = torch.device("cuda")
-    S, H, n_kv, d, L, page, max_ctx = 16, 16, 2, 128, 36, 32, 1024
-    pps = max_ctx // page
-    g = torch.Generator(device=dev).manual_seed(1)
-    ctx = torch.linspace(1, max_ctx, S, device=dev).to(torch.int32)
-    bt = (1 + torch.randperm(S * pps, generator=g, device=dev)).reshape(S, pps).to(torch.int32)
-    q = torch.randn((S, H, d), generator=g, device=dev).bfloat16()
-    k_new = torch.randn((S, n_kv, d), generator=g, device=dev).bfloat16()
-    v_new = torch.randn((S, n_kv, d), generator=g, device=dev).bfloat16()
-    for kv_dtype in (torch.bfloat16, torch.float8_e5m2):
-        kp = torch.randn((L, 1 + S * pps, page, n_kv, d), generator=g, device=dev).to(kv_dtype)
-        vp = torch.randn((L, 1 + S * pps, page, n_kv, d), generator=g, device=dev).to(kv_dtype)
-        step = [0]
+    S, H, n_kv, d, L, page = 16, 16, 2, 128, 36, 32
+    kw = dict(scale=d**-0.5)
+    for max_ctx, layers in ((1024, L), (8192, 8)):
+        pps = max_ctx // page
+        g = torch.Generator(device=dev).manual_seed(1)
+        ctx = torch.linspace(1, max_ctx, S, device=dev).to(torch.int32)
+        bt = (1 + torch.randperm(S * pps, generator=g, device=dev)).reshape(S, pps).to(torch.int32)
+        q = torch.randn((S, H, d), generator=g, device=dev).bfloat16()
+        k_new = torch.randn((S, n_kv, d), generator=g, device=dev).bfloat16()
+        v_new = torch.randn((S, n_kv, d), generator=g, device=dev).bfloat16()
+        for kv_dtype in (torch.bfloat16, torch.float8_e5m2):
+            shape = (layers, 1 + S * pps, page, n_kv, d)
+            kp = torch.randn(shape, generator=g, device=dev).to(kv_dtype)
+            vp = torch.randn(shape, generator=g, device=dev).to(kv_dtype)
+            step = [0]
 
-        def k1():
-            step[0] += 1
-            ca.paged_decode_attention_cuda(q, kp, vp, bt, ctx, scale=d**-0.5,
-                                           layer=step[0] % L)
+            def layer():  # each launch reads another layer: no L2 reuse
+                step[0] += 1
+                return step[0] % layers
 
-        def k4():
-            step[0] += 1
-            ca.paged_decode_attention_v3_cuda(q, kp, vp, k_new, v_new, bt, ctx, scale=d**-0.5,
-                                              layer=step[0] % L)
-
-        times = {"paged_decode": [], "paged_decode_v3": []}
-        for turn in (("paged_decode", "paged_decode_v3"), ("paged_decode_v3", "paged_decode")):
-            for name in turn:
-                times[name].append(device_ms(k1 if name == "paged_decode" else k4, iters))
-        for name, ts in times.items():
-            emit(dict(kernel=name, case="qwen2.5-3b", kv_dtype=str(kv_dtype)[6:],
-                      route="tensor_core", ms=sum(ts) / 2, ms_turns=ts))
-        del kp, vp
+            calls = {
+                "paged_decode": lambda: ca.paged_decode_attention_cuda(
+                    q, kp, vp, bt, ctx, layer=layer(), **kw),
+                "paged_decode_v3": lambda: ca.paged_decode_attention_v3_cuda(
+                    q, kp, vp, k_new, v_new, bt, ctx, layer=layer(), **kw),
+                "paged_decode_v2": lambda: ca.paged_decode_attention_v2_cuda(
+                    q, kp, vp, bt, ctx, layer=layer(), **kw),
+                "paged_decode_v2_k1_plan": lambda: ca._decode_tc(
+                    q, kp, vp, None, None, bt, ctx, layer=layer(), sliding_window=None,
+                    softcap=None, tiles_per_stage=1, **kw),
+            }
+            tps = ca.decode_tc_tiles_per_stage(S, n_kv, page, pps, d, kp.element_size(),
+                                               _build.sm_count(dev))
+            plans = {"tiles_per_stage": tps, "k5": ca.decode_tc_plan(
+                S, n_kv, max_ctx, d, kp.element_size(), _build.sm_count(dev), tps),
+                "k1": ca.decode_tc_plan(S, n_kv, max_ctx, d, kp.element_size(),
+                                        _build.sm_count(dev))}
+            times = {name: [] for name in calls}
+            for turn in (list(calls), list(calls)[::-1]):
+                for name in turn:
+                    times[name].append(device_ms(calls[name], iters))
+            for name, ts in times.items():
+                emit(dict(kernel=name, case="qwen2.5-3b", max_ctx=max_ctx,
+                          kv_dtype=str(kv_dtype)[6:], route="tensor_core", plans=plans,
+                          ms=sum(ts) / 2, ms_turns=ts))
+            del kp, vp
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=50, help="timed launches per measurement")
+    ap.add_argument("--probes", default="decode,int8", help="comma list: decode, int8")
     args = ap.parse_args()
+    probes = set(args.probes.split(","))
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
         return 2
@@ -213,8 +235,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     emit(dict(card=smi.splitlines()[0]))
-    probe_fused_write(args.iters)
-    probe_int8(build_variants(), args.iters)
+    if "decode" in probes:
+        probe_decode(args.iters)
+    if "int8" in probes:
+        probe_int8(build_variants(), args.iters)
     return 0
 
 
