@@ -26,7 +26,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    and +-inf exactly as the plain cast does). K6 (int8) and K7 (int4)
    weight-only matmuls at qwen2.5-3b's projection shapes and
    llama3.1-8b's down_proj, M = 16 and 1,024, and K6 at llama3.1-8b's
-   untied head (M = 16, K 4,096, N 128,256): in f32 both the kernel and
+   untied head (M = 16, K 4,096, N 128,256), and K3 at the speculative
+   verify step's shape (16 rows of Q = 4 queries at contexts ~300-360)
+   beside K1 at the same contexts: in f32 both the kernel and
    the plain version within 1e-5 / 1e-4 (K6) and 1e-4 (K7) of the f64
    product, in bf16 the kernel within 2e-2 of the plain version. Times:
    the kernel's, the plain version's and one PyTorch library call's
@@ -40,7 +42,15 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    generator) over ``memory://``, 128 tokens each. Every kernel launch
    counter is set to 0 just before and read just after: K1 must launch 36
    times per decode step and K2 36 times per prefill dispatch, every K1
-   and K2 launch on the tensor-core route.
+   and K2 launch on the tensor-core route. Every decode-type dispatch of
+   phases 3-5 and 8-10 is a replay of a captured CUDA graph (the engine's
+   count of replays must equal its dispatches); a replay adds the
+   launches its graph's capture counted, and the decode iterations run
+   eagerly on inactive rows before each capture (``warmup_steps``) count
+   as steps. After the counted run each serve phase times one decode
+   dispatch both ways: the model's eager decode step, and the engine's
+   captured graph replayed (``captured_*``: host span, device time, idle
+   share).
 4. The prefix-cache path at full width: the same model with
    ``LLMQ_DECODE_KERNEL=v3``, ``prefill_chunk_size=256`` and
    ``enable_prefix_caching=True`` serves 16 greedy jobs sharing a
@@ -64,11 +74,18 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    decode logits within 1e-4, identical tokens (greedy, and one seeded
    request at temperature 0.8 through the threefry sampler) and
    prefix-cache counters, every K4 and K5 launch on its exact route.
+   Then the fused dispatch modes (``decode_block`` 4, ``spec_tokens`` 2,
+   ``mixed_step`` on): verify and mixed-step logits within 1e-4, greedy
+   tokens identical to the CPU's and to the mode's "off" run, a seeded
+   request at temperature 0.8 identical to the CPU's, K3 on its exact
+   route.
 7. ``{"kernels": [...]}``: one record per ported kernel, each with the
    tensor-core route's bf16 time as ``ms`` and the exact route's f32
    time as ``exact_f32_ms``; K6's and K7's also their M = 1,024 time,
-   library time and bound (``m1024_*``). K5's launches are phase 8's.
-   Printed last, after phases 8 and 9.
+   library time and bound (``m1024_*``). K5's launches are phase 8's;
+   K3's record adds its launches on phase 10's verify and mixed paths
+   and its verify-shape times (``verify_shape_*``). Printed last, after
+   phases 8-10.
 8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
    same seed) written as an HF checkpoint (config.json, two safetensors
    shards and their index, HF names, [out, in] weights) under ``build/``
@@ -88,6 +105,17 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    with ``LLMQ_BROKER_URL`` set; once the 16 results are read the worker
    gets SIGTERM and must exit 0; ids, ``usage.completion_tokens``, extras
    and text must match phase 3's first 32 tokens.
+10. The fused dispatch modes at full width (qwen2.5-3b, 36 layers, bf16,
+   phase 3's seeded weights, 16 jobs a serve through ``EngineCore``):
+   phase 3's workload eagerly (``cuda_graphs=False``), tokens bit for bit
+   phase 3's captured run's; ``decode_block=4``, tokens equal phase 3's
+   and K1 4 x 36 launches a dispatch (plus its captured step times);
+   ``spec_tokens=3`` (``spec_ngram=2``), drafts accepted, K3 36 launches
+   a verify iteration and K1 none, jobs equal to phase 3's printed (K3's
+   bf16 arithmetic is not K1's); ``mixed_step="on"`` with chunks of 256
+   on phase 4's workload and settings, mixed steps taken, K3 and K4
+   launches counted, jobs equal to phase 4's printed. All on the
+   tensor-core routes.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -120,7 +148,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
-ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp")
+ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
+              "fused")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -153,13 +182,14 @@ def span_ms(fn, iters: int, warmup: int = 2) -> float:
 PROFILE_ATTEMPTS = 3  # a trace that records no device activity is taken again
 
 
-def device_ms(fn, iters: int, warmup: int = 2) -> float:
+def device_ms(fn, iters: int, warmup: int = 2, required: bool = True):
     """Device time per call of ``fn(i)``: the summed self device time of
     every kernel, copy and fill that ``iters`` calls put on the card, as
     ``torch.profiler`` traces them. The gaps in which the card waits for
     the host are left out. Now and then a trace comes back without any
     device activity (seen once in a few hundred traces on the H100); the
-    window is then traced again, up to ``PROFILE_ATTEMPTS`` times."""
+    window is then traced again, up to ``PROFILE_ATTEMPTS`` times, and
+    then this fails, or returns None where not ``required``."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -172,6 +202,8 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
                       if e.device_type == torch.autograd.DeviceType.CUDA)
         if busy_us > 0:
             return busy_us / 1e3 / iters
+    if not required:
+        return None
     raise SystemExit(f"torch.profiler traced no device time in {PROFILE_ATTEMPTS} attempts")
 
 
@@ -721,8 +753,41 @@ def phase_kernels(iters: int) -> dict:
             check_k5_equals_k1(outs, kv_dtype=fp8)
         check_paged_prefill("qwen2.5-3b fp8 pool", H=16, n_kv=2, d=128, L=36, dtype=dtype,
                             kv_dtype=fp8, softcap=None, window=None, seed=10, **chunk)
+    main["paged_prefill/verify"] = check_verify_shape(iters)
     main.update(phase_quant_kernels(iters))
     return main
+
+
+def check_verify_shape(iters: int) -> dict:
+    """K3 at the speculative verify step's shape (phase 10's spec serve:
+    16 rows of Q = spec_tokens + 1 = 4 queries at contexts ~300-360,
+    qwen2.5-3b's heads, bf16) against its plain version and SDPA, beside
+    K1 on pools of the same shape at the same contexts (one query a row,
+    as a non-speculative step), to set K3's time per emitted token
+    against K1's."""
+    from llmq_tpu_torch.ops.cuda_attention import paged_decode_attention_cuda
+
+    S, Q, H, n_kv, d, L, page = 16, 4, 16, 2, 128, 36, 32
+    starts = [300 + 4 * i for i in range(S)]
+    rec = check_paged_prefill("qwen2.5-3b verify, Q = 4", B=S, C=Q, H=H, n_kv=n_kv, d=d, L=L,
+                              page=page, starts=starts, valids=[Q] * S, dtype=torch.bfloat16,
+                              softcap=None, window=None, iters=iters, seed=12)
+    dev = torch.device("cuda")
+    pps = -(-(starts[-1] + Q) // page)
+    g = torch.Generator(device=dev).manual_seed(13)
+    kp = torch.randn((L, 1 + S * pps, page, n_kv, d), generator=g, device=dev).bfloat16()
+    vp = torch.randn_like(kp)
+    q = torch.randn((S, H, d), generator=g, device=dev).bfloat16()
+    bt = torch.arange(1, 1 + S * pps, dtype=torch.int32, device=dev).reshape(S, pps)
+    ctx = torch.tensor(starts, dtype=torch.int32, device=dev) + 1
+    k1_ms = device_ms(lambda i: paged_decode_attention_cuda(q, kp, vp, bt, ctx, scale=d ** -0.5,
+                                                            layer=i % L), iters)
+    out = dict(rec, k1_same_contexts_ms=k1_ms)
+    emit(dict(phase="verify_shape", k3_ms=rec["ms"], k3_library_ms=rec["library_ms"],
+              k3_bound_ms=rec["bound_ms"], k1_same_contexts_ms=k1_ms,
+              note="per emitted token: k3_ms / (tokens a row emits per verify iteration, "
+                   "phase 10) against k1_ms"))
+    return out
 
 
 # --- phases 3 and 4: the serving paths at full width -------------------------
@@ -777,6 +842,59 @@ def route_problems(routes: dict, launches: dict, route: str = "tensor_core") -> 
     return [f"{name}: {routes[name][other]} of {launches[name]} launches on the {other} route"
             for name in ROUTED
             if routes[name][other] or routes[name][route] != launches[name]]
+
+
+def _warm(stats: dict, kind: str = "decode") -> int:
+    """Iterations of ``kind`` the engine ran eagerly on inactive rows
+    before capturing its graphs (``engine/graphs.py``): real launches,
+    counted like any other."""
+    return ((stats.get("cuda_graphs") or {}).get("warmup_steps") or {}).get(kind, 0)
+
+
+def graph_problems(stats: dict) -> list:
+    """On the card every decode-type dispatch must be a graph replay."""
+    graphs = stats.get("cuda_graphs")
+    if graphs is None:
+        return ["the engine dispatched decode steps eagerly, not as CUDA graphs"]
+    if graphs["replays"] != stats["decode_dispatches"]:
+        return [f"{graphs['replays']} graph replays for {stats['decode_dispatches']} decode-type "
+                "dispatches"]
+    return []
+
+
+def captured_rates(core, *, S: int, ctx: int) -> dict:
+    """Host span, device time and idle share of one decode-type dispatch
+    (``decode_block`` iterations) as the engine runs it: a replay of its
+    captured graph through its own ``_dispatch_block``, ``S`` rows active
+    from context ``ctx`` (their tables over fresh pages, greedy, no limit),
+    after the counted run."""
+    st, K = core._dev_state, core.cfg.decode_block
+    kind = "verify" if core.cfg.spec_tokens else "decode"
+    page = core.cfg.page_size
+    n_pages = -(-(ctx + 24 * K * (core.cfg.spec_tokens + 1) + 1) // page)  # the timed replays'
+    if 1 + S * n_pages > core.k_pages.shape[1] or n_pages > core._pages_per_seq:
+        raise SystemExit(f"captured_rates: {S} x {n_pages} pages do not fit the engine's pool")
+    values = {
+        0: torch.randint(1, 257, (S,)), 1: torch.full((S,), ctx), 3: torch.ones(S, dtype=torch.bool),
+        4: torch.zeros((S, 2)), 5: torch.zeros(S), 6: torch.zeros(S), 7: torch.zeros(S),
+        8: torch.ones(S), 9: torch.full((S,), 1 << 30), 10: torch.zeros(S),
+        11: torch.full(st[11].shape, -1),
+    }
+    for i, v in values.items():
+        st[i].copy_(v.to(st[i].dtype))
+    st[2].zero_()
+    st[2][:, :n_pages] = torch.arange(1, 1 + S * n_pages, dtype=torch.int32).reshape(S, n_pages)
+    core._mode, core._suppress = "greedy", False
+
+    def dispatch(i):
+        return core._dispatch_block(kind)
+
+    span = span_ms(dispatch, 10)
+    dev = device_ms(dispatch, 5, required=False)
+    return dict(captured_step_ms=span, captured_step_device_ms=dev, captured_block=K,
+                captured_idle_share=None if dev is None else max(0.0, 1 - dev / span),
+                captured_timing="back-to-back replays of the engine's graph: span between "
+                                "CUDA events, device time from torch.profiler")
 
 
 @contextlib.contextmanager
@@ -877,9 +995,10 @@ def phase_serve(smi: str) -> tuple:
     problems = _check_results(results, n_jobs, gen) + route_problems(routes, launches)
     if launches["paged_decode"] <= 0 or launches["flash_prefill"] <= 0:
         problems.append(f"a kernel did not launch on the main path: {launches}")
-    if launches["paged_decode"] != L * stats["decode_steps"]:
+    problems += graph_problems(stats)
+    if launches["paged_decode"] != L * (stats["decode_steps"] + _warm(stats)):
         problems.append(f"decode launches {launches['paged_decode']} != {L} x "
-                        f"{stats['decode_steps']} decode steps")
+                        f"({stats['decode_steps']} decode steps + {_warm(stats)} warm-ups)")
     if launches["flash_prefill"] != L * stats["prefill_dispatches"]:
         problems.append(f"prefill launches {launches['flash_prefill']} != {L} x "
                         f"{stats['prefill_dispatches']} prefill dispatches")
@@ -900,9 +1019,11 @@ def phase_serve(smi: str) -> tuple:
 
     pre_ms, pre_dev_ms = span_ms(prefill, 5), device_ms(prefill, 3)
     dec_ms, dec_dev_ms = _decode_rates(core, S=16, ctx=330)
+    captured = captured_rates(core, S=16, ctx=330)
     gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
     prompt_tokens = sum(r["usage"]["prompt_tokens"] for r in results)
     rec = dict(
+        **captured, cuda_graphs=stats["cuda_graphs"],
         phase="serve", model="preset://qwen2.5-3b", layers=L, decode_kernel=stats["decode_kernel"],
         jobs=len(results), gen_tokens=gen_tokens, prompt_tokens=prompt_tokens, wall_s=wall,
         serve_completion_tok_s=gen_tokens / wall,
@@ -948,13 +1069,15 @@ def phase_quant(smi: str) -> dict:
         core = worker.engine.core
         stats = core.stats()
         L = core.model_config.num_layers
-        dispatches = stats["decode_steps"] + stats["prefill_dispatches"]
+        steps = stats["decode_steps"] + _warm(stats)
+        dispatches = steps + stats["prefill_dispatches"]
         rung = f"{dtype}_matmul"
-        want = {rung: 7 * L * dispatches, "paged_decode": L * stats["decode_steps"],
+        want = {rung: 7 * L * dispatches, "paged_decode": L * steps,
                 "flash_prefill": L * stats["prefill_dispatches"]}
         if not core.model_config.tie_word_embeddings:  # the int8 head through K6
             want["int8_matmul"] = want.get("int8_matmul", 0) + dispatches
-        problems = _check_results(results, n_jobs, gen) + route_problems(routes, counted)
+        problems = (_check_results(results, n_jobs, gen) + route_problems(routes, counted)
+                    + graph_problems(stats))
         for name in ("int8_matmul", rung, "paged_decode", "flash_prefill"):
             if counted[name] <= 0:
                 problems.append(f"{name} did not launch on the {dtype} path: {counted}")
@@ -965,11 +1088,13 @@ def phase_quant(smi: str) -> dict:
         if stats["kv_dtype"] != want_kv:
             problems.append(f"kv_dtype {stats['kv_dtype']}, want {want_kv}")
         dec_ms, dec_dev_ms = _decode_rates(core, S=16, ctx=330)
+        captured = captured_rates(core, S=16, ctx=330)
         head = {}
         if core.model_config.tie_word_embeddings:
             head = _tied_head_cost(core)
         gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
         rec = dict(
+            **captured, cuda_graphs=stats["cuda_graphs"],
             phase="quant_serve", model=f"preset://{model}", layers=L, dtype=dtype,
             kv_dtype=stats["kv_dtype"], quant_kernels=sorted(core.model.quant_kernels),
             jobs=len(results), gen_tokens=gen_tokens, wall_s=wall,
@@ -1050,24 +1175,31 @@ PREFIX_TEMPLATE = (
 )
 
 
-def phase_prefix(smi: str) -> dict:
-    """The chunked-prefill + prefix-cache path with the fused-write decode
-    kernel, at full width."""
-    from llmq_tpu_torch.cli.worker import run_torch_worker
+def _prefix_jobs(n_jobs: int, gen: int) -> list:
+    """Phase 4's workload: a ~1,024-token template with distinct tails."""
     from llmq_tpu_torch.core.models import Job
 
-    n_jobs, gen, chunk, url, queue = 16, 64, 256, "memory://chip-smoke-prefix", "prefix"
     template = (PREFIX_TEMPLATE * 3)[:1024]  # ByteTokenizer: 1,024 tokens = 32 pages of 32
-    jobs = [
+    return [
         Job(id=f"pfx-{i:02d}", prompt=template + f" Ticket {i}: my parcel {1000 + 37 * i} "
             "arrived damaged and the box was open; I would like a replacement soon.",
             temperature=0.0, max_tokens=gen, ignore_eos=True, row=i, lang="fr")
         for i in range(n_jobs)
     ]
+
+
+def phase_prefix(smi: str) -> tuple:
+    """The chunked-prefill + prefix-cache path with the fused-write decode
+    kernel, at full width; returns the launch counts and each job's token
+    ids."""
+    from llmq_tpu_torch.cli.worker import run_torch_worker
+
+    n_jobs, gen, chunk, url, queue = 16, 64, 256, "memory://chip-smoke-prefix", "prefix"
+    jobs = _prefix_jobs(n_jobs, gen)
     asyncio.run(_submit(url, queue, jobs))
     reset_launches()
     t0 = time.perf_counter()
-    with env(LLMQ_DECODE_KERNEL="v3"):
+    with env(LLMQ_DECODE_KERNEL="v3"), recording_tokens({}) as tokens:
         worker = run_torch_worker(
             "preset://qwen2.5-3b", queue, device="cuda", dtype="bfloat16",
             max_num_seqs=16, max_model_len=2048, prefill_chunk_size=chunk,
@@ -1090,9 +1222,10 @@ def phase_prefix(smi: str) -> dict:
     if launches["paged_prefill"] != L * stats["prefill_dispatches"]:
         problems.append(f"chunk launches {launches['paged_prefill']} != {L} x "
                         f"{stats['prefill_dispatches']} chunk dispatches")
-    if launches["paged_decode_v3"] != L * stats["decode_steps"]:
+    problems += graph_problems(stats)
+    if launches["paged_decode_v3"] != L * (stats["decode_steps"] + _warm(stats)):
         problems.append(f"fused-write decode launches {launches['paged_decode_v3']} != {L} x "
-                        f"{stats['decode_steps']} decode steps")
+                        f"({stats['decode_steps']} decode steps + {_warm(stats)} warm-ups)")
     off_path = {k: launches[k] for k in ("paged_decode", "flash_prefill", "paged_decode_v2")}
     if any(off_path.values()):
         problems.append(f"kernels off the prefix-cache path launched: {off_path}")
@@ -1113,9 +1246,11 @@ def phase_prefix(smi: str) -> dict:
 
     chunk_ms, chunk_dev_ms = span_ms(chunk_step, 5), device_ms(chunk_step, 3)
     dec_ms, dec_dev_ms = _decode_rates(core, S=16, ctx=1100)
+    captured = captured_rates(core, S=16, ctx=1100)
     gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
     prompt_tokens = sum(r["usage"]["prompt_tokens"] for r in results)
     rec = dict(
+        **captured, cuda_graphs=stats["cuda_graphs"],
         phase="prefix_serve", model="preset://qwen2.5-3b", layers=L,
         decode_kernel=stats["decode_kernel"], prefill_chunk_size=chunk,
         jobs=len(results), gen_tokens=gen_tokens, prompt_tokens=prompt_tokens,
@@ -1136,7 +1271,7 @@ def phase_prefix(smi: str) -> dict:
     if problems:
         raise SystemExit("prefix-cache serve phase failed: " + "; ".join(problems[:5]))
     worker.engine.core.model = None
-    return launches
+    return launches, tokens
 
 
 # --- phase 4: f32 parity of the slice, card against CPU ---------------------
@@ -1376,7 +1511,7 @@ def phase_chunk_parity() -> dict:
                        "v3": "paged_decode_v3"}[kernel]
         # Two chunk dispatches and one decode step of the logits check, plus
         # the engine's own.
-        want_decode = 2 * (stats["decode_steps"] + 1)
+        want_decode = 2 * (stats["decode_steps"] + _warm(stats) + 1)
         want_chunk = 2 * (stats["prefill_dispatches"] + 2)
         launch_ok = (counted[decode_name] == want_decode and counted["paged_prefill"] == want_chunk
                      and sum(counted.values()) == want_decode + want_chunk
@@ -1399,6 +1534,227 @@ def phase_chunk_parity() -> dict:
         if kernel == "v2":
             launches["paged_decode_v2"] = counted["paged_decode_v2"]
     return launches
+
+FUSED_MODES = {  # phase 6's and phase 10's fused dispatch modes
+    "decode_block": dict(decode_block=4),
+    "spec_tokens": dict(spec_tokens=2),
+    "mixed_step": dict(mixed_step="on", prefill_chunk_size=64),
+}
+
+
+def phase_fused_parity() -> dict:
+    """Phase 6's f32 parity for the fused dispatch modes (decode_block 4,
+    spec_tokens 2, mixed_step on), card (exact routes) against the CPU at
+    qwen2.5-3b's widths, 2 layers: verify logits (Q = 3 candidates a row)
+    and mixed-step logits (three decode rows and a piggy segment) within
+    1e-4; in each mode greedy tokens identical to the CPU's and to the
+    mode's "off" run, and one seeded request at temperature 0.8 identical
+    to the CPU's. Returns K3's launches on the card."""
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.ops.attention import mixed_query_grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, tree = _parity_config()
+    C = 64
+    prompts = [CHUNK_PARITY_HEAD + t for t in ("Name the harbour.", "Who wrote it?",
+                                                "How long is it?", "abcabcabcabcabc")]
+    ids = [ByteTokenizer().encode(p) for p in prompts]
+    base = dict(max_num_seqs=4, max_model_len=256, page_size=32, num_pages=64, kv_dtype="f32")
+    gen = 16
+
+    def logits_on(dev):
+        core = _engine(cfg, tree, dev, **base, prefill_chunk_size=C)
+        _chunk_logits(core, ids, C)  # fills each row's pages, then one decode step
+        d = core.device
+        bt = torch.arange(1, 1 + 4 * core._pages_per_seq, dtype=torch.int32,
+                          device=d).reshape(4, -1)
+        lengths = torch.tensor([len(r) for r in ids], dtype=torch.int32, device=d)
+        g = torch.Generator().manual_seed(3)
+        qtok = torch.randint(1, 250, (4, 3), generator=g, dtype=torch.int32).to(d)
+        qpos = lengths[:, None] + 1 + torch.arange(3, dtype=torch.int32, device=d)[None, :]
+        verify = core.model.verify(qtok, qpos, core.k_pages, core.v_pages, bt)
+        active = torch.tensor([True, True, True, False], device=d)
+        seg_tok = torch.randint(1, 250, (C,), generator=g, dtype=torch.int32).to(d)
+        seg_pos = torch.full((C,), -1, dtype=torch.int32, device=d)
+        seg_pos[:20] = lengths[3] + 4 + torch.arange(20, dtype=torch.int32, device=d)
+        qt, qp, is_chunk = mixed_query_grid(qtok[:, 0], lengths + 4, active, seg_tok, seg_pos,
+                                            torch.tensor(3, device=d), core._pages_per_seq * 32)
+        gather = torch.where(is_chunk, 19, 0)
+        mixed = core.model.mixed(qt, qp, core.k_pages, core.v_pages, bt, gather)
+        del core
+        return verify.cpu(), mixed.cpu()
+
+    def tokens_on(dev, fields):
+        core = _engine(cfg, tree, dev, **base, **fields)
+        out = _generate(core, prompts, gen)
+        out.update({f"seeded-{k}": v for k, v in _generate(
+            core, prompts[3:], gen, temperature=0.8, seed=7).items()})
+        stats = core.stats()
+        del core
+        return out, stats
+
+    cpu_l = logits_on("cpu")
+    reset_launches()
+    card_l = logits_on("cuda")
+    err = [(a - b).abs().max().item() for a, b in zip(card_l, cpu_l)]
+    problems = [f"{what} logits differ by {e}" for what, e in zip(("verify", "mixed"), err)
+                if not e <= 1e-4]
+    off = {"bucketed": tokens_on("cpu", {})[0],
+           "chunked": tokens_on("cpu", dict(prefill_chunk_size=C))[0]}
+    modes = {}
+    for name, fields in FUSED_MODES.items():
+        cpu_tokens, cpu_stats = tokens_on("cpu", fields)
+        card_tokens, card_stats = tokens_on("cuda", fields)
+        ref = off["chunked" if "prefill_chunk_size" in fields else "bucketed"]
+        greedy_off = all(card_tokens[k] == ref[k] for k in ref if not k.startswith("seeded"))
+        modes[name] = dict(tokens_equal_cpu=card_tokens == cpu_tokens,
+                           greedy_equal_off=greedy_off,
+                           spec_accepted=card_stats["spec_accepted"],
+                           mixed_steps=card_stats["mixed_steps"])
+        if card_tokens != cpu_tokens or not greedy_off:
+            problems.append(f"{name}: tokens differ (cpu {card_tokens == cpu_tokens}, "
+                            f"off {greedy_off})")
+        if name == "mixed_step" and card_stats["mixed_steps"] <= 0:
+            problems.append("no mixed step on the card")
+    torch.cuda.synchronize()
+    counted, routes = read_launches(), read_routes()
+    problems += route_problems(routes, counted, route="exact")
+    if counted["paged_prefill"] <= 0:
+        problems.append(f"K3 did not launch: {counted}")
+    rec = dict(phase="parity_f32", config="qwen2.5-3b widths, 2 layers",
+               path="fused dispatch modes: decode_block 4, spec_tokens 2, mixed_step on",
+               verify_logits_max_abs_err=err[0], mixed_logits_max_abs_err=err[1],
+               tolerance=1e-4, modes=modes, tokens_compared=gen * 5 * len(FUSED_MODES),
+               launches=counted, routes=routes, problems=problems)
+    emit(rec)
+    if problems:
+        raise SystemExit("fused f32 parity failed: " + "; ".join(problems[:5]))
+    return counted
+
+
+# --- phase 10: the fused dispatch modes at full width -------------------------
+
+
+def phase_fused(smi: str, serve_tokens: dict, prefix_tokens: dict) -> dict:
+    """Phase 10: qwen2.5-3b (36 layers, bf16, phase 3's seeded weights)
+    through ``EngineCore``, 16 jobs a serve: (a) phase 3's workload with
+    ``cuda_graphs=False`` (eager), tokens bit for bit phase 3's captured
+    run's; (b) ``decode_block=4``, tokens equal phase 3's, K1 4 x 36
+    launches a dispatch; (c) ``spec_tokens=3``, ``spec_ngram=2``: drafts
+    accepted, K3 36 launches a verify iteration and K1 none; (d)
+    ``mixed_step="on"`` with chunks of 256 on phase 4's template workload
+    under phase 4's settings (v3, prefix cache): mixed steps taken, K3's
+    launches counted. Every launch on the tensor-core route. Returns K3's
+    launches on the verify and mixed paths."""
+    from llmq_tpu_torch.cli.worker import engine_config
+    from llmq_tpu_torch.engine.engine import EngineCore
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    dev = torch.device("cuda")
+    cfg = get_preset("qwen2.5-3b")
+    L = cfg.num_layers
+    # run_torch_worker's draw for preset://qwen2.5-3b at seed 0: phase 3's weights
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16,
+                         device=dev)
+    jobs, pjobs = _default_jobs(16, 128), _prefix_jobs(16, 64)
+
+    def serve(jobs, gen, *, graphs=True, kernel="v1", max_model_len=512, **fields):
+        with env(LLMQ_DECODE_KERNEL=kernel):
+            core = EngineCore(cfg, params, ByteTokenizer(), device=dev, cuda_graphs=graphs,
+                              engine_config=engine_config(cfg, dtype="bfloat16", max_num_seqs=16,
+                                                          max_model_len=max_model_len, **fields))
+        reset_launches()
+        t0 = time.perf_counter()
+        tokens = _generate(core, [j.get_formatted_prompt() for j in jobs], gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = {j.id: tokens[f"r{i}"] for i, j in enumerate(jobs)}
+        return core, tokens, read_launches(), read_routes(), core.stats(), wall
+
+    def finish(label, core, launches, routes, stats, wall, tokens, want, problems, **extra):
+        equal = sum(tokens[k] == want[k] for k in want)
+        rec = dict(phase="fused_serve", serve=label, model="preset://qwen2.5-3b", layers=L,
+                   jobs=len(tokens), jobs_equal_reference=equal, wall_s=wall,
+                   serve_completion_tok_s=sum(map(len, tokens.values())) / wall,
+                   decode_steps=stats["decode_steps"],
+                   decode_dispatches=stats["decode_dispatches"],
+                   prefill_dispatches=stats["prefill_dispatches"],
+                   cuda_graphs=stats["cuda_graphs"], launches=launches, routes=routes,
+                   card=smi, **extra)
+        problems += route_problems(routes, launches)
+        rec["problems"] = problems
+        emit(rec)
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+        if problems:
+            raise SystemExit(f"fused phase ({label}) failed: " + "; ".join(problems[:5]))
+        return rec
+
+    out = {}
+    # (a) eager against phase 3's captured run
+    core, tokens, launches, routes, stats, wall = serve(jobs, 128, graphs=False)
+    problems = [] if tokens == serve_tokens else ["eager tokens differ from phase 3's captured run"]
+    if stats["cuda_graphs"] is not None or launches["paged_decode"] != L * stats["decode_steps"]:
+        problems.append(f"eager run: graphs {stats['cuda_graphs']}, K1 {launches['paged_decode']}")
+    finish("eager (cuda_graphs=False)", core, launches, routes, stats, wall, tokens,
+           serve_tokens, problems)
+
+    # (b) decode_block=4
+    core, tokens, launches, routes, stats, wall = serve(jobs, 128, decode_block=4)
+    problems = graph_problems(stats)
+    if tokens != serve_tokens:
+        problems.append("decode_block=4 tokens differ from phase 3's")
+    k1 = L * (stats["decode_steps"] + _warm(stats))
+    if launches["paged_decode"] != k1 or stats["decode_steps"] != 4 * stats["decode_dispatches"]:
+        problems.append(f"K1 {launches['paged_decode']} launches, want {k1} (4 x {L} a dispatch)")
+    captured = captured_rates(core, S=16, ctx=330)
+    finish("decode_block=4", core, launches, routes, stats, wall, tokens, serve_tokens,
+           problems, **captured)
+
+    # (c) spec_tokens=3, spec_ngram=2
+    core, tokens, launches, routes, stats, wall = serve(jobs, 128, spec_tokens=3)
+    problems = graph_problems(stats)
+    iters = stats["decode_steps"] + _warm(stats, "verify")
+    if launches["paged_prefill"] != L * iters or launches["paged_decode"]:
+        problems.append(f"K3 {launches['paged_prefill']} launches, want {L} x {iters}; "
+                        f"K1 {launches['paged_decode']}")
+    if not stats["acceptance_rate"] > 0:
+        problems.append(f"no draft accepted: {stats['spec_accepted']} of {stats['spec_proposed']}")
+    row_iters = stats["spec_proposed"] / 3
+    finish("spec_tokens=3", core, launches, routes, stats, wall, tokens, serve_tokens, problems,
+           acceptance_rate=stats["acceptance_rate"], spec_proposed=stats["spec_proposed"],
+           spec_accepted=stats["spec_accepted"], verify_iterations=stats["decode_steps"],
+           tokens_per_row_verify_iteration=1 + stats["spec_accepted"] / max(row_iters, 1),
+           note="jobs_equal_reference is printed, not asserted: K3's bf16 arithmetic is "
+                "not K1's")
+    out["verify"] = launches["paged_prefill"]
+
+    # (d) mixed steps on phase 4's workload
+    core, tokens, launches, routes, stats, wall = serve(
+        pjobs, 64, kernel="v3", max_model_len=2048, mixed_step="on", prefill_chunk_size=256,
+        enable_prefix_caching=True)
+    problems = graph_problems(stats)
+    K = 1
+    k3 = L * (stats["prefill_dispatches"] + K * stats["mixed_steps"] + _warm(stats, "mixed"))
+    k4 = L * (stats["decode_steps"] - K * stats["mixed_steps"] + _warm(stats))
+    if stats["mixed_steps"] <= 0:
+        problems.append("no mixed step")
+    if launches["paged_prefill"] != k3 or launches["paged_decode_v3"] != k4:
+        problems.append(f"K3 {launches['paged_prefill']} (want {k3}), K4 "
+                        f"{launches['paged_decode_v3']} (want {k4})")
+    finish("mixed_step=on", core, launches, routes, stats, wall, tokens, prefix_tokens,
+           problems, mixed_steps=stats["mixed_steps"],
+           mixed_prefill_tokens=stats["mixed_prefill_tokens"],
+           note="jobs_equal_reference (phase 4's tokens) is printed, not asserted: the mixed "
+                "grid's decode rows go through K3, not K4")
+    out["mixed"] = launches["paged_prefill"]
+    del params
+    return out
+
 
 # --- phase 8: the checkpoint path at full width ------------------------------
 
@@ -1674,10 +2030,12 @@ def phase_checkpoint(smi: str, serve_tokens: dict) -> int:
     same = all(tokens[f"r{i}"] == serve_tokens[j.id][:gen] for i, j in enumerate(jobs))
     if not same:
         problems.append("tokens differ from the first 32 of phase 3's")
-    if launches["paged_decode_v2"] != L * stats["decode_steps"] or launches["paged_decode"]:
+    if (launches["paged_decode_v2"] != L * (stats["decode_steps"] + _warm(stats))
+            or launches["paged_decode"]):
         problems.append(f"K5 {launches['paged_decode_v2']} launches for "
-                        f"{stats['decode_steps']} decode steps, K1 {launches['paged_decode']}")
-    problems += route_problems(routes, launches)
+                        f"{stats['decode_steps']} decode steps + {_warm(stats)} warm-ups, K1 "
+                        f"{launches['paged_decode']}")
+    problems += route_problems(routes, launches) + graph_problems(stats)
     rec.update(decode_kernel=stats["decode_kernel"], serve_wall_s=wall,
                serve_completion_tok_s=16 * gen / wall, tokens_equal_phase3_first_32=same,
                decode_steps=stats["decode_steps"], launches=launches, routes=routes,
@@ -1827,8 +2185,9 @@ def main() -> int:
         served, serve_tokens = phase_serve(smi)
         launches.update(served)
         torch.cuda.empty_cache()
+    prefix_tokens = None
     if "prefix" in phases:
-        prefix = phase_prefix(smi)
+        prefix, prefix_tokens = phase_prefix(smi)
         launches.update(paged_prefill=prefix["paged_prefill"],
                         paged_decode_v3=prefix["paged_decode_v3"])
         torch.cuda.empty_cache()
@@ -1838,6 +2197,7 @@ def main() -> int:
         for variant in ("f32", "int8", "int4", "fp8"):
             phase_parity(variant)
         launches.update(phase_chunk_parity())
+        phase_fused_parity()
     if "checkpoint" in phases or "tcp" in phases:
         if serve_tokens is None:
             raise SystemExit("phases checkpoint and tcp compare with the serve phase's tokens")
@@ -1849,6 +2209,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "tcp" in phases:
         phase_tcp_cli(smi, serve_tokens)
+    fused_launches = {}
+    if "fused" in phases:
+        if serve_tokens is None or prefix_tokens is None:
+            raise SystemExit("phase fused compares with the serve and prefix phases' tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fused_launches = phase_fused(smi, serve_tokens, prefix_tokens)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -1881,6 +2248,13 @@ def main() -> int:
             big = main_recs.get(f"{name}/m1024", {})
             entry.update({f"m1024_{k}": big.get(k) for k in ("ms", "library_ms", "bound_ms",
                                                               "bound_by")})
+        if name == "paged_prefill":  # K3 on the verify and mixed paths (phase 10)
+            verify = main_recs.get("paged_prefill/verify", {})
+            entry.update(verify_launches=fused_launches.get("verify"),
+                         mixed_launches=fused_launches.get("mixed"),
+                         **{f"verify_shape_{k}": verify.get(k) for k in (
+                             "ms", "library_ms", "bound_ms", "bound_by", "plain_ms",
+                             "k1_same_contexts_ms")})
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",

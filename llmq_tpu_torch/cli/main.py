@@ -13,7 +13,8 @@ package beyond torch, numpy and pydantic.
 The options of the reference's ``worker run`` (:336-412) that the port
 serves keep their names: ``-c/--concurrency``, ``--max-num-seqs``,
 ``--max-model-len``, ``--dtype``, ``--kv-dtype``, ``--prefill-chunk``,
-``--prefix-caching``. The others are accepted and, set to anything but
+``--prefix-caching``, ``--decode-block``, ``--spec-tokens``,
+``--mixed-step``. The others are accepted and, set to anything but
 their default, raise ``NotImplementedError`` with their ROADMAP item. One
 option is the port's own: ``--device`` (default ``cuda``; ``cpu`` runs
 the plain PyTorch path).
@@ -32,10 +33,7 @@ UNPORTED_OPTIONS = {
     "data_parallel": (lambda v: v > 1, "M13"),
     "sequence_parallel": (lambda v: v > 1, "M13"),
     "prefix_host_gb": (lambda v: v is not None and v > 0, "M11"),
-    "decode_block": (lambda v: v is not None and v > 1, "M10"),
-    "spec_tokens": (lambda v: v is not None and v > 0, "M10"),
     "tp_overlap": (lambda v: v not in (None, "off"), "M13"),
-    "mixed_step": (lambda v: v not in (None, "off"), "M10"),
     "role": (lambda v: v not in (None, "unified"), "M11"),
 }
 
@@ -63,6 +61,13 @@ def build_parser() -> argparse.ArgumentParser:
                      help="Chunked prefill: positions per chunk")
     run.add_argument("--prefix-caching", action="store_true",
                      help="Reuse cached KV for shared prompt prefixes (needs --prefill-chunk)")
+    run.add_argument("--decode-block", type=int, default=None,
+                     help="Fused decode: device iterations per dispatch (LLMQ_DECODE_BLOCK)")
+    run.add_argument("--spec-tokens", type=int, default=None,
+                     help="Speculative decoding: draft tokens per step (LLMQ_SPEC_TOKENS)")
+    run.add_argument("--mixed-step", default=None, choices=["off", "on"],
+                     help="Piggyback prefill chunks into decode dispatches (needs "
+                          "--prefill-chunk; LLMQ_MIXED_STEP)")
     run.add_argument("--device", default="cuda",
                      help="cuda (default) or cpu (the plain PyTorch path)")
     # The reference's options that the port does not serve yet.
@@ -70,10 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("-dp", "--data-parallel", type=int, default=1)
     run.add_argument("-sp", "--sequence-parallel", type=int, default=1)
     run.add_argument("--prefix-host-gb", type=float, default=None)
-    run.add_argument("--decode-block", type=int, default=None)
-    run.add_argument("--spec-tokens", type=int, default=None)
     run.add_argument("--tp-overlap", default=None, choices=["off", "on", "auto"])
-    run.add_argument("--mixed-step", default=None, choices=["off", "on"])
     run.add_argument("--role", default=None, choices=["unified", "prefill", "decode", "auto"])
     return parser
 
@@ -91,6 +93,7 @@ def worker_run_kwargs(args: argparse.Namespace) -> dict:
         device=args.device, concurrency=args.concurrency, max_num_seqs=args.max_num_seqs,
         max_model_len=args.max_model_len, dtype=args.dtype, kv_dtype=args.kv_dtype,
         prefill_chunk_size=args.prefill_chunk, enable_prefix_caching=args.prefix_caching,
+        decode_block=args.decode_block, spec_tokens=args.spec_tokens, mixed_step=args.mixed_step,
     )
 
 

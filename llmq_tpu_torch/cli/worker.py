@@ -78,14 +78,19 @@ def engine_config(
     kv_dtype: Optional[str] = None,
     prefill_chunk_size: Optional[int] = None,
     enable_prefix_caching: bool = False,
+    decode_block: Optional[int] = None,
+    spec_tokens: Optional[int] = None,
+    mixed_step: Optional[str] = None,
     config: Optional[Config] = None,
 ) -> EngineConfig:
     """The worker's ``EngineConfig``, field for field as ``_build_core``
     builds it: an argument wins over its variable (``config``, by default
     read from the environment now); ``max_model_len`` is ``min(argument
-    or variable or 8192, max_position_embeddings)``. Decode blocks, spec
-    tokens, tp overlap and mixed steps are passed on when a variable turns
-    them on, so the engine refuses them with their ROADMAP.md item."""
+    or variable or 8192, max_position_embeddings)``. Decode blocks (K >
+    1), spec tokens (> 0) and mixed steps (not "off") are set when an
+    argument or variable turns them on; tp overlap is passed on when its
+    variable turns it on, so the engine refuses it with its ROADMAP.md
+    item."""
     cfg = config or get_config()
     overrides = {}
     if max_num_seqs or cfg.max_num_seqs:
@@ -97,13 +102,17 @@ def engine_config(
         overrides["prefill_chunk_size"] = chunk
     if enable_prefix_caching or cfg.enable_prefix_caching:
         overrides["enable_prefix_caching"] = True
-    if cfg.decode_block and cfg.decode_block > 1:
-        overrides["decode_block"] = cfg.decode_block
-    if cfg.spec_tokens and cfg.spec_tokens > 0:
-        overrides["spec_tokens"] = cfg.spec_tokens
-    for name in ("tp_overlap", "mixed_step"):
-        if getattr(cfg, name) != "off":
-            overrides[name] = getattr(cfg, name)
+    block = decode_block or cfg.decode_block
+    if block and block > 1:
+        overrides["decode_block"] = block
+    spec = spec_tokens or cfg.spec_tokens
+    if spec and spec > 0:
+        overrides["spec_tokens"] = spec
+    if cfg.tp_overlap != "off":
+        overrides["tp_overlap"] = cfg.tp_overlap
+    mixed = (mixed_step or cfg.mixed_step or "off").lower()
+    if mixed != "off":
+        overrides["mixed_step"] = mixed
     return EngineConfig(hbm_utilization=cfg.hbm_utilization,
                         kv_dtype=resolve_pool_dtype(dtype, kv_dtype, cfg), **overrides)
 
@@ -118,6 +127,9 @@ def build_engine(
     kv_dtype: Optional[str] = None,
     prefill_chunk_size: Optional[int] = None,
     enable_prefix_caching: bool = False,
+    decode_block: Optional[int] = None,
+    spec_tokens: Optional[int] = None,
+    mixed_step: Optional[str] = None,
     seed: int = 0,
 ) -> AsyncEngine:
     """An engine on ``device`` under :func:`engine_config`, over a
@@ -135,7 +147,8 @@ def build_engine(
     ecfg = engine_config(
         config, dtype=dtype, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
         kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,
-        enable_prefix_caching=enable_prefix_caching,
+        enable_prefix_caching=enable_prefix_caching, decode_block=decode_block,
+        spec_tokens=spec_tokens, mixed_step=mixed_step,
     )
     compute, quantize = _DTYPES[dtype]
     if preset:
@@ -160,6 +173,9 @@ def run_torch_worker(
     kv_dtype: Optional[str] = None,
     prefill_chunk_size: Optional[int] = None,
     enable_prefix_caching: bool = False,
+    decode_block: Optional[int] = None,
+    spec_tokens: Optional[int] = None,
+    mixed_step: Optional[str] = None,
     broker_url: Optional[str] = None,
     concurrency: Optional[int] = None,
     max_jobs: Optional[int] = None,
@@ -169,12 +185,14 @@ def run_torch_worker(
     with a preset or checkpoint model; returns the worker (its engine shut
     down) once ``max_jobs`` jobs are settled or a SIGINT / SIGTERM has
     stopped it. ``prefill_chunk_size`` and ``enable_prefix_caching``
-    select chunked prefill and the prefix cache, as ``llmq_tpu``'s
-    ``run_tpu_worker`` does."""
+    select chunked prefill and the prefix cache, ``decode_block``,
+    ``spec_tokens`` and ``mixed_step`` the fused dispatch modes, as
+    ``llmq_tpu``'s ``run_tpu_worker`` does."""
     engine = build_engine(
         model, device=device, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
         dtype=dtype, kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,
-        enable_prefix_caching=enable_prefix_caching, seed=seed,
+        enable_prefix_caching=enable_prefix_caching, decode_block=decode_block,
+        spec_tokens=spec_tokens, mixed_step=mixed_step, seed=seed,
     )
     worker = TorchWorker(
         queue, engine, broker_url=broker_url, concurrency=concurrency, max_jobs=max_jobs

@@ -1,31 +1,47 @@
-"""Inference engine: continuous batching over eager PyTorch steps.
+"""Inference engine: continuous batching, decode dispatches as CUDA graphs.
 
 Port of ``llmq_tpu/engine/engine.py``: ``EngineConfig`` (:166),
 ``RequestOutput`` (:145), the ``EngineCore`` step loop (bucketed
 whole-prompt prefill padded to 1 or ``max_prefill_batch`` rows, or
 chunked prefill with an optional prefix cache (``_prefill_chunked``
-:3301); one decode step per dispatch, a run-ahead pipeline of
-``runahead`` dispatches with deferred page frees, device-side sampling
-and stopping plus host-side stop strings, recompute preemption) and
-``AsyncEngine`` with its engine thread.
+:3301); a run-ahead pipeline of ``runahead`` decode dispatches with
+deferred page frees, device-side sampling and stopping plus host-side
+stop strings, recompute preemption) and ``AsyncEngine`` with its engine
+thread. The fused dispatch modes (M10): ``decode_block`` K decode
+iterations a dispatch (``decode_block_step`` :1375), speculative decoding
+(``spec_tokens`` drafts from the on-device n-gram drafter
+:func:`draft_lookup`, verified K iterations a dispatch through K3:
+``verify_step`` :1445) and mixed steps (``mixed_step="on"``: a prompt's
+chunk segments ride in the decode dispatches, ``mixedfill_step`` :1666,
+``_prefill_mixed`` :3412), composed as the JAX engine composes them.
 
 Device decode state. The 12 leaves of the JAX state (:1300) live in
-device tensors — tokens, ctx, block tables, active, two-word threefry
-keys, steps, temps, top-k, top-p, limits, min-tokens, stop ids — and
-every decode step updates them on the device (``advance_state``), so
-steady-state decode ships nothing host→device. A step's sampled tokens
-go to pinned host memory with ``non_blocking=True`` and a
-``torch.cuda.Event``; the host reads them ``runahead`` dispatches later.
-On the CPU the same queue runs synchronously.
+static device tensors — tokens, ctx, block tables, active, two-word
+threefry keys, steps, temps, top-k, top-p, limits, min-tokens, stop ids,
+and with speculation a 13th, the history ``[S, max_model_len + 1]`` (the
+drafter's corpus; its last column takes the writes JAX drops) — written
+in place by every dispatch, by the prefill scatter and by the resync, so
+steady-state decode ships nothing host→device. On the card each
+decode-type dispatch is one replay of a captured CUDA graph
+(``engine/graphs.py``), one graph per (dispatch kind, sampling mode,
+stop suppression); ``EngineCore(cuda_graphs=False)`` dispatches eagerly
+instead, and the CPU always does. A dispatch's tokens go to pinned host
+memory with ``non_blocking=True`` and a ``torch.cuda.Event``; the host
+reads them ``runahead`` dispatches later. Prefill stays eager.
 
 Config. The engine honours ``max_num_seqs``, ``max_model_len``,
 ``page_size``, ``num_pages``, ``hbm_utilization``, ``kv_dtype`` (bf16,
 f32 or fp8 = float8_e5m2), ``min_prefill_bucket``, ``max_prefill_batch``,
 ``prefill_chunk_size``, ``enable_prefix_caching`` (chunked prefill only,
-as in JAX), ``admit_max_wait_s``, ``runahead`` and ``stop_id_capacity``.
-Any other field set away from its default, or ``LLMQ_MIXED_STEP`` /
-``LLMQ_PREFIX_HOST_GB`` set to turn their feature on, raises
-``NotImplementedError`` naming its ROADMAP.md item.
+as in JAX), ``admit_max_wait_s``, ``runahead``, ``decode_block``,
+``spec_tokens``, ``spec_ngram``, ``stop_id_capacity`` and ``mixed_step``
+(``LLMQ_MIXED_STEP`` pins over it; it needs ``prefill_chunk_size``). Any
+other field set away from its default, or ``LLMQ_PREFIX_HOST_GB`` /
+``LLMQ_INTERACTIVE_DECODE_BLOCK`` set to turn their feature on, raises
+``NotImplementedError`` naming its ROADMAP.md item. With no interactive
+rows (priority classes come with M11) the small-K interactive executable
+is never dispatched, so ``interactive_decode_block`` resolves to 0 as in
+the JAX engine without them (:774).
 """
 
 from __future__ import annotations
@@ -46,11 +62,13 @@ import torch
 
 from llmq_tpu_torch.device import DeviceLike, resolve_device
 from llmq_tpu_torch.engine import sampling as sampling_mod
+from llmq_tpu_torch.engine.graphs import DispatchGraphs
 from llmq_tpu_torch.engine.sampling import (
     SamplingParams,
     make_base_key,
     request_tag,
     sample_tokens,
+    spec_verify_tokens,
     step_gumbel,
 )
 from llmq_tpu_torch.engine.scheduler import (
@@ -58,11 +76,17 @@ from llmq_tpu_torch.engine.scheduler import (
     Scheduler,
     SchedulerConfig,
     Sequence,
+    mixed_token_budget,
 )
 from llmq_tpu_torch.engine.tokenizer import Tokenizer
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.models.transformer import Params, Transformer, make_kv_pages
-from llmq_tpu_torch.ops.dispatch import decode_kernel_plan
+from llmq_tpu_torch.ops.attention import mixed_query_grid
+from llmq_tpu_torch.ops.dispatch import (
+    decode_kernel_plan,
+    mixed_kernel_plan,
+    verify_kernel_plan,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -140,6 +164,15 @@ class EngineConfig:
     canary_every: float = 0.0
 
     def __post_init__(self):
+        # The JAX EngineConfig's checks of the fields this engine honours.
+        for name, lowest in (("decode_block", 1), ("spec_tokens", 0), ("spec_ngram", 1),
+                             ("interactive_decode_block", 0)):
+            setattr(self, name, int(getattr(self, name)))
+            if getattr(self, name) < lowest:
+                raise ValueError(f"{name}={getattr(self, name)} (want >= {lowest})")
+        self.mixed_step = str(self.mixed_step).lower()
+        if self.mixed_step not in ("off", "on"):
+            raise ValueError(f"mixed_step={self.mixed_step!r} (want off|on)")
         if isinstance(self.kv_dtype, str):
             try:
                 self.kv_dtype = _KV_DTYPES[self.kv_dtype.lower()]
@@ -155,11 +188,7 @@ class EngineConfig:
 #: queue 1 item that brings them.
 _UNPORTED_FIELDS = {
     "prefix_host_gb": "M11",
-    "decode_block": "M10",
-    "spec_tokens": "M10",
-    "spec_ngram": "M10",
-    "mixed_step": "M10",
-    "interactive_decode_block": "M10",
+    "interactive_decode_block": "M11",
     "preempt_mode": "M11",
     "priority_classes": "M11",
     "priority_preempt": "M11",
@@ -177,8 +206,9 @@ _UNPORTED_FIELDS = {
 #: Variables the JAX engine resolves over its own config (``engine.py``
 #: :733, :779) -> whether a value turns the feature on, and the field.
 _UNPORTED_ENV = {
-    "LLMQ_MIXED_STEP": (lambda v: v.strip().lower() not in ("", "off"), "mixed_step"),
     "LLMQ_PREFIX_HOST_GB": (lambda v: bool(v.strip()) and float(v) > 0, "prefix_host_gb"),
+    "LLMQ_INTERACTIVE_DECODE_BLOCK": (lambda v: bool(v.strip()) and int(v) > 0,
+                                      "interactive_decode_block"),
 }
 
 
@@ -217,14 +247,19 @@ def _prefill_buckets(cfg: EngineConfig) -> List[int]:
     return sorted(set(buckets))
 
 
-# Pipeline entry: (dispatch index, kind, host token buffer, copy-done event
-# or None, [(row, Sequence, epoch), ...]).
-_Pending = Tuple[int, str, torch.Tensor, Optional[Any], List[Tuple[int, Sequence, int]]]
+# Pipeline entry: (dispatch index, kind, host token buffers (a tensor, or a
+# tuple for verify), copy-done event or None, [(row, Sequence, epoch), ...],
+# per-row first valid iteration of a mixed block or None).
+_Pending = Tuple[int, str, Any, Optional[Any], List[Tuple[int, Sequence, int]],
+                 Optional[np.ndarray]]
+# Kinds that run decode iterations (each counts in the page lookahead).
+_DECODE_KINDS = ("decode", "verify", "mixed")
 
-# Device decode state, leaf order as in JAX (:1300).
+# Device decode state, leaf order as in JAX (:1300); speculation appends
+# "history".
 _STATE_LEAVES = (
     "tokens", "ctx", "bt", "active", "keys", "steps",
-    "temps", "topks", "topps", "limits", "mins", "stop_ids",
+    "temps", "topks", "topps", "limits", "mins", "stop_ids", "history",
 )
 
 
@@ -268,8 +303,43 @@ def suppress_stops(
     return torch.where(block, sampling_mod.NEG_INF, logits)
 
 
+def draft_lookup(history: torch.Tensor, ctx: torch.Tensor, n_draft: int,
+                 n_gram: int) -> torch.Tensor:
+    """On-device prompt-lookup drafter (JAX ``draft_lookup``, :1412): the
+    ``n_draft`` tokens that followed the most recent earlier occurrence of
+    the ``n_gram``-token suffix ending at ``history[ctx]``, per row of
+    ``history`` [S, M]; -1 where there is no match (or fewer than
+    ``n_gram`` tokens so far), which never equals an emitted token."""
+    S, M = history.shape
+    dev = history.device
+    sfx_pos = ctx[:, None] - (n_gram - 1) + torch.arange(n_gram, device=dev)
+    sfx = torch.gather(history, 1, sfx_pos.clamp(0, M - 1).long())  # [S, n_gram]
+    match = torch.ones((S, M), dtype=torch.bool, device=dev)
+    for t in range(n_gram):
+        # Shifted so position p asks whether the n-gram ENDING at p matches.
+        match &= torch.roll(history == sfx[:, t : t + 1], (n_gram - 1) - t, dims=1)
+    p_idx = torch.arange(M, device=dev)[None, :]
+    match &= (p_idx >= n_gram - 1) & (p_idx < ctx[:, None]) & (ctx[:, None] + 1 >= n_gram)
+    j = torch.where(match, p_idx, -1).amax(dim=1)  # [S]
+    d_pos = j[:, None] + 1 + torch.arange(n_draft, device=dev)[None, :]
+    drafts = torch.gather(history, 1, d_pos.clamp(0, M - 1).long())
+    return torch.where((j >= 0)[:, None], drafts, -1)
+
+
+def _assign(leaves, values) -> None:
+    """Write each new value into its static leaf (a leaf passed through
+    unchanged is left alone)."""
+    for leaf, value in zip(leaves, values):
+        if value is not leaf:
+            leaf.copy_(value)
+
+
 class EngineCore:
-    """Synchronous engine: owns the device state and the step loop body."""
+    """Synchronous engine: owns the device state and the step loop body.
+
+    ``cuda_graphs`` (on the card): each decode-type dispatch is one
+    captured CUDA graph's replay; False dispatches the same work eagerly.
+    The CPU always dispatches eagerly."""
 
     def __init__(
         self,
@@ -279,6 +349,7 @@ class EngineCore:
         *,
         engine_config: Optional[EngineConfig] = None,
         device: DeviceLike = "cuda",
+        cuda_graphs: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         self.model_config = model_config
@@ -291,6 +362,17 @@ class EngineCore:
                 "prefill can start mid-prompt (the bucketed prefill always computes "
                 "positions 0..T)"
             )
+        # The variable pins over the config, as in the JAX engine (:733).
+        mixed = os.environ.get("LLMQ_MIXED_STEP", "").strip().lower()
+        self.mixed_step = mixed if mixed in ("on", "off") else self.cfg.mixed_step
+        if self.mixed_step == "on" and not self.cfg.prefill_chunk_size:
+            raise ValueError(
+                "mixed_step=on requires prefill_chunk_size: the fused dispatch "
+                "piggybacks a prefill *chunk* onto the decode batch (bucketed "
+                "whole-prompt prefill has no chunks)"
+            )
+        self.interactive_decode_block = 0  # no interactive rows (M11)
+        self._spec = self.cfg.spec_tokens > 0
         self.model = Transformer(model_config, params).to(self.device)
         self._vocab = model_config.vocab_size
 
@@ -332,6 +414,14 @@ class EngineCore:
         self._h_limits = np.zeros((S,), np.int32)
         self._h_mins = np.zeros((S,), np.int32)
         self._h_stopids = np.full((S, self._stop_capacity), -1, np.int32)
+        # Speculation only: prompt + output tokens per slot, history[ctx] the
+        # current token; the last column takes the writes JAX drops.
+        self._h_history = (np.zeros((S, self.cfg.max_model_len + 1), np.int32)
+                           if self._spec else None)
+        self._max_kv_pos = self._pages_per_seq * self.cfg.page_size
+        self._mixed_in: Optional[Dict[str, torch.Tensor]] = None
+        self._graphs = (DispatchGraphs(self.device)
+                        if cuda_graphs and self.device.type == "cuda" else None)
 
         # Run-ahead pipeline state.
         self._pending: Deque[_Pending] = deque()
@@ -356,6 +446,10 @@ class EngineCore:
         self.prefill_dispatches = 0
         self.prefill_tokens = 0
         self.cancellations = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.mixed_steps = 0
+        self.mixed_prefill_tokens = 0
         self._started_at = time.monotonic()
 
         self._resync()
@@ -509,41 +603,71 @@ class EngineCore:
         self._flush_deferred()
 
     def _push_pending(
-        self, kind: str, out: torch.Tensor, snapshot: List[Tuple[int, Sequence]]
+        self, kind: str, out: Any, snapshot: List[Tuple[int, Sequence]],
+        starts: Optional[np.ndarray] = None,
     ) -> None:
-        """Start the device→host copy of a step's tokens and queue it."""
-        if out.is_cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
+        """Start the device→host copy of a dispatch's tokens (a tensor, or
+        a tuple of them) and queue it."""
+        outs = out if isinstance(out, tuple) else (out,)
+        if outs[0].is_cuda:
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs)
+            for h, t in zip(host, outs):
+                h.copy_(t, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         else:
-            host, event = out, None
+            host, event = outs, None
         self._dispatch_idx += 1
-        if kind == "decode":
+        if kind in _DECODE_KINDS:
             self._pending_decodes += 1
         # Epoch stamps: a row snapshotted before a preemption must not be
         # appended after the sequence is re-admitted.
         stamped = [(row, seq, seq.epoch) for row, seq in snapshot]
-        self._pending.append((self._dispatch_idx, kind, host, event, stamped))
+        self._pending.append((self._dispatch_idx, kind, host, event, stamped, starts))
+
+    def _live(self, seq: Sequence, epoch: int) -> bool:
+        """Still running in the epoch it was snapshotted in: a row that
+        finished or was preempted while its dispatch was in flight (or at
+        an earlier iteration of the same block) gets its lagged tokens
+        discarded."""
+        return (seq.finish_reason is None and seq.rid in self.scheduler.running
+                and seq.epoch == epoch)
 
     def _process_oldest(self, finished: List[RequestOutput]) -> None:
-        idx, kind, host, event, snapshot = self._pending.popleft()
-        if kind == "decode":
+        idx, kind, host, event, snapshot, starts = self._pending.popleft()
+        if kind in _DECODE_KINDS:
             self._pending_decodes -= 1
         if event is not None:
             event.synchronize()
-        tokens = host.numpy()
-        for row, seq, epoch in snapshot:
-            if (
-                seq.finish_reason is not None
-                or seq.rid not in self.scheduler.running
-                or seq.epoch != epoch
-            ):
-                # Finished or preempted while this step was in flight:
-                # its token is lagged garbage from abandoned device state.
-                continue
-            self._append_and_check(seq, int(tokens[row]), finished)
+        arrays = [h.numpy() for h in host]
+        if kind == "verify":
+            # ([K, S, Q] candidates, [K, S] emitted counts): per iteration
+            # and row the first count tokens are real, k-major so each
+            # token re-checks the row (a stop string at candidate i drops
+            # candidates i+1.. of the same row).
+            emit, counts = arrays
+            for k in range(emit.shape[0]):
+                for row, seq, epoch in snapshot:
+                    n = int(counts[k, row])
+                    if n <= 0 or not self._live(seq, epoch):
+                        continue
+                    self.spec_proposed += self.cfg.spec_tokens
+                    self.spec_accepted += n - 1
+                    for i in range(n):
+                        if not self._live(seq, epoch):
+                            break
+                        self._append_and_check(seq, int(emit[k, row, i]), finished)
+        else:
+            # A [K, rows] block (a prefill's [rows] is one iteration),
+            # k-major: every row's token k before any row's token k + 1.
+            tokens = arrays[0] if arrays[0].ndim == 2 else arrays[0][None]
+            for k, k_tokens in enumerate(tokens):
+                for row, seq, epoch in snapshot:
+                    # A mixed block's piggy row starts at its final segment.
+                    if starts is not None and k < starts[row]:
+                        continue
+                    if self._live(seq, epoch):
+                        self._append_and_check(seq, int(k_tokens[row]), finished)
         self._processed_idx = idx
 
     def _flush_deferred(self) -> None:
@@ -552,8 +676,9 @@ class EngineCore:
             self.scheduler.release_pages(pages, cacheable)
 
     def _resync(self) -> None:
-        """Rebuild the device decode state from scheduler truth. Only
-        valid after a full drain."""
+        """Rebuild the device decode state from scheduler truth, in place
+        (a leaf whose shape changed is made anew and the captured graphs
+        are dropped). Only valid after a full drain."""
         if self._pending:
             raise RuntimeError("resync with in-flight steps")
         fills = [
@@ -562,6 +687,8 @@ class EngineCore:
             (self._h_topp, 1.0), (self._h_keys, 0), (self._h_steps, 0),
             (self._h_limits, 0), (self._h_mins, 0), (self._h_stopids, -1),
         ]
+        if self._spec:
+            fills.append((self._h_history, 0))
         for arr, fill in fills:
             arr[...] = fill
         modes = []
@@ -581,6 +708,9 @@ class EngineCore:
             self._h_limits[i] = p.max_tokens
             self._h_mins[i] = p.min_tokens
             self._h_stopids[i] = self._stop_ids_for(seq)
+            if self._spec:
+                ids = seq.prompt_ids + seq.output_ids
+                self._h_history[i, : len(ids)] = ids
             modes.append(sampling_mod.required_mode(p))
         self._mode = sampling_mod.join_modes(modes) if modes else "greedy"
         self._suppress = bool((self._h_mins > 0).any())
@@ -588,14 +718,30 @@ class EngineCore:
             self._h_tokens, self._h_ctx, self._h_bt, self._h_active,
             self._h_keys, self._h_steps, self._h_temp, self._h_topk,
             self._h_topp, self._h_limits, self._h_mins, self._h_stopids,
-        )
-        self._dev_state = tuple(torch.from_numpy(a.copy()).to(self.device) for a in state)
+        ) + ((self._h_history,) if self._spec else ())
+        old = self._dev_state
+        if old is None or any(t.shape != a.shape for t, a in zip(old, state)):
+            self._dev_state = tuple(torch.from_numpy(a.copy()).to(self.device) for a in state)
+            if self._graphs is not None:
+                self._graphs.reset()
+        else:
+            for leaf, arr in zip(old, state):
+                leaf.copy_(torch.from_numpy(arr))
         self._dirty = False
+
+    def _upload(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Copy host ``arr`` into the static device tensor ``dst`` behind
+        the dispatches already queued, without waiting for them."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if dst.is_cuda:
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
 
     def _grow_stop_capacity(self, need: int) -> None:
         """Widen the per-slot stop-id arrays to the next power of two >=
         ``need``; the state is marked dirty, so the next dispatch drains
-        and resyncs at the new shape."""
+        and resyncs at the new shape (and captures its graphs anew)."""
         E = 1 << max(need - 1, 1).bit_length()
         self._stop_capacity = E
         self._h_stopids = np.full((self.cfg.max_num_seqs, E), -1, np.int32)
@@ -615,23 +761,154 @@ class EngineCore:
         gumbel = None if mode == "greedy" else step_gumbel(keys, steps, self._vocab)
         return sample_tokens(logits, gumbel, temps, topks, topps, mode=mode)
 
-    def _decode_fn(self, st: tuple, mode: str) -> Tuple[torch.Tensor, tuple]:
+    def _decode_iter(self, st: tuple, mode: str, suppress: bool) -> torch.Tensor:
+        """One decode iteration (JAX ``decode_step``, :1358) over the state
+        ``st``, updated in place; returns the step's tokens [S] int32."""
         (tokens, ctx, bt, active, keys, steps, temps, topks,
-         topps, _limits, mins, stop_ids) = st
+         topps, _limits, mins, stop_ids) = st[:12]
         logits = self.model.decode(tokens, ctx, self.k_pages, self.v_pages, bt, active)
-        if self._suppress:
+        if suppress:
             logits = suppress_stops(logits, stop_ids, steps, mins)
         next_tokens = self._sample(logits, keys, steps, temps, topks, topps, mode)
         out = torch.where(active, next_tokens, 0).to(torch.int32)
-        return out, advance_state(st, out, active)
+        _assign(st[:12], advance_state(st[:12], out, active))
+        return out
 
-    def _sample_and_scatter(
-        self, logits: torch.Tensor, args: Dict[str, torch.Tensor], rows, mode: str
-    ) -> torch.Tensor:
-        """Shared tail of both prefill paths: sample every row's first
-        token ([B] int32) and scatter ``rows`` (a slice or an index
-        tensor) into the decode state in place."""
-        if self._suppress:
+    def _verify_iter(self, st: tuple, mode: str, suppress: bool) -> Tuple[torch.Tensor, ...]:
+        """One speculative iteration (JAX ``verify_step``, :1445): draft,
+        score the Q = spec_tokens + 1 candidate positions in one model
+        call, accept the longest prefix the model itself emits, advance
+        each row by its count. Returns (emit [S, Q], count [S]), int32;
+        the host appends ``emit[row, :count]``."""
+        (tokens, ctx, bt, active, keys, steps, temps, topks,
+         topps, limits, mins, stop_ids, history) = st
+        S, dev = tokens.shape[0], tokens.device
+        M, Q = self.cfg.max_model_len, self.cfg.spec_tokens + 1
+        drafts = draft_lookup(history[:, :M], ctx, Q - 1, self.cfg.spec_ngram)
+        qtok = torch.cat([tokens[:, None], drafts.clamp(min=0)], dim=1)
+        pos_grid = ctx[:, None] + torch.arange(Q, dtype=ctx.dtype, device=dev)[None, :]
+        # Inactive rows and positions past the page map write the scratch
+        # page and attend nothing; the grid keeps K3's leading-run form.
+        qpos = torch.where(active[:, None] & (pos_grid < self._max_kv_pos), pos_grid, -1)
+        logits = self.model.verify(qtok, qpos, self.k_pages, self.v_pages, bt)
+        V = logits.shape[-1]
+        steps_grid = steps[:, None] + torch.arange(Q, dtype=steps.dtype, device=dev)[None, :]
+        if suppress:
+            logits = suppress_stops(
+                logits.reshape(S * Q, V), stop_ids.repeat_interleave(Q, dim=0),
+                steps_grid.reshape(-1), mins.repeat_interleave(Q),
+            ).reshape(S, Q, V)
+        emit = spec_verify_tokens(logits, drafts, keys, steps, temps, topks, topps,
+                                  mode=mode).to(torch.int32)
+        # Position i is reached iff every earlier draft was accepted.
+        accepted = (emit[:, :-1] == drafts).to(torch.int32).cumprod(dim=1).bool()
+        reached = torch.cat([torch.ones((S, 1), dtype=torch.bool, device=dev), accepted], 1)
+        # A stop or limit hit at position i emits i's token and cuts the rest.
+        new_steps_grid = steps_grid + 1
+        hit_stop = ((emit[:, :, None] == stop_ids[:, None, :]).any(dim=2)
+                    & (new_steps_grid > mins[:, None]))
+        stop_here = hit_stop | (new_steps_grid >= limits[:, None])
+        here = stop_here.to(torch.int32)
+        stopped_before = (here.cumsum(dim=1) - here) > 0
+        emitted = active[:, None] & reached & ~stopped_before  # [S, Q]
+        count = emitted.sum(dim=1).to(ctx.dtype)
+        new_tok = torch.gather(emit, 1, (count - 1).clamp(min=0)[:, None].long())[:, 0]
+        still = active & ~(emitted & stop_here).any(dim=1)
+        hist_pos = torch.where(emitted, pos_grid + 1, M)  # column M: dropped
+        history.scatter_(1, hist_pos.long(), emit)
+        _assign((tokens, ctx, active, steps),
+                (torch.where(count > 0, new_tok, tokens), ctx + count, still, steps + count))
+        return torch.where(emitted, emit, 0), count
+
+    def _mixed_iter(self, st: tuple, seg: Dict[str, torch.Tensor], k: int, mode: str,
+                    suppress: bool) -> torch.Tensor:
+        """One mixed iteration (the JAX ``mixedfill_step`` scan body,
+        :1690): decode every active row and prefill iteration ``k``'s
+        segment of the piggy sequence in one [S, C] grid through K3; the
+        decode rows' math is ``decode_step``'s. When the piggy's final
+        segment lands, its first token is sampled and its row scattered
+        into the state, so later iterations decode it. Returns the
+        iteration's tokens [S] int32."""
+        (tokens, ctx, bt, active, keys, steps, temps, topks,
+         topps, limits, mins, stop_ids) = st[:12]
+        S, dev = tokens.shape[0], tokens.device
+        slot = seg["slots"][0]
+        final = seg["final"][k]
+        qtok, qpos, is_chunk = mixed_query_grid(
+            tokens, ctx, active, seg["tokens"][k], seg["positions"][k], slot, self._max_kv_pos
+        )
+        gather = torch.where(is_chunk, seg["last"][k], 0)
+        # The piggy's block table rides in with the segment: its pages join
+        # the state only at the final segment's scatter.
+        row = slot.clamp(min=0).long().reshape(1)
+        bt_used = bt.clone()
+        bt_used[row] = seg["bt"]
+        logits = self.model.mixed(qtok, qpos, self.k_pages, self.v_pages, bt_used, gather)
+        d_logits = suppress_stops(logits, stop_ids, steps, mins) if suppress else logits
+        next_tokens = self._sample(d_logits, keys, steps, temps, topks, topps, mode)
+        out = torch.where(active, next_tokens, 0).to(torch.int32)
+        if self._spec:
+            # Drafting pauses in mixed dispatches; history[ctx] stays the
+            # current token for the next verify dispatch.
+            M = self.cfg.max_model_len
+            st[12].scatter_(1, torch.where(active, ctx + 1, M)[:, None].long(), out[:, None])
+        _assign(st[:12], advance_state(st[:12], out, active))
+        # The piggy's activation after the decode advance (JAX order).
+        valid = final & (seg["slots"][0] >= 0)
+        out1, values = self._first_tokens(logits.index_select(0, row), seg, mode, suppress)
+        for leaf, name in zip(st, _STATE_LEAVES):
+            leaf[row] = torch.where(valid, values[name], leaf[row])
+        return torch.where((torch.arange(S, device=dev) == slot) & final, out1[0], out)
+
+    def _block(self, kind: str, st: tuple, seg, mode: str, suppress: bool) -> Any:
+        """``decode_block`` iterations of ``kind`` over the state ``st``
+        (JAX ``decode_block_step`` :1375, ``verify_block_step`` :1549, the
+        mixed scan): a [K, S] token block, or ([K, S, Q], [K, S]) for
+        verify."""
+        outs = []
+        for k in range(self.cfg.decode_block):
+            if kind == "decode":
+                outs.append(self._decode_iter(st, mode, suppress))
+            elif kind == "verify":
+                outs.append(self._verify_iter(st, mode, suppress))
+            else:
+                outs.append(self._mixed_iter(st, seg, k, mode, suppress))
+        if kind == "verify":
+            return tuple(torch.stack(part) for part in zip(*outs))
+        return torch.stack(outs)
+
+    def _dispatch_block(self, kind: str, seg=None, mode: Optional[str] = None) -> Any:
+        """Run one decode-type dispatch in sampling ``mode`` (the state's
+        by default): on the card a replay of its captured graph (captured
+        on first use, after a warm-up on inactive copies of the state and
+        inputs), else eagerly."""
+        mode, suppress = mode or self._mode, self._suppress
+        if self._graphs is None:
+            return self._block(kind, self._dev_state, seg, mode, suppress)
+
+        def warm():
+            dead = tuple(t.clone() for t in self._dev_state)
+            dead[3].zero_()  # no active row: KV writes go to the scratch page
+            dead_seg = None
+            if seg is not None:
+                dead_seg = {name: t.clone() for name, t in seg.items()}
+                dead_seg["positions"].fill_(-1)
+                dead_seg["final"].zero_()
+            self._block(kind, dead, dead_seg, mode, suppress)
+
+        return self._graphs.run(
+            (kind, mode, suppress),
+            lambda: self._block(kind, self._dev_state, seg, mode, suppress),
+            warm, steps=self.cfg.decode_block,
+        )
+
+    def _first_tokens(
+        self, logits: torch.Tensor, args: Dict[str, torch.Tensor], mode: str, suppress: bool
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Shared tail of the prefill paths and the mixed step (JAX
+        ``sample_and_scatter``, :1583): each row's first token ([B] int32)
+        and the decode-state values of its row."""
+        if suppress:
             logits = suppress_stops(logits, args["stop_ids"], args["steps"], args["mins"])
         nt = self._sample(
             logits, args["keys"], args["steps"], args["temps"], args["topks"],
@@ -647,6 +924,22 @@ class EngineCore:
             "topks": args["topks"], "topps": args["topps"], "limits": args["limits"],
             "mins": args["mins"], "stop_ids": args["stop_ids"],
         }
+        if self._spec:
+            # The row's prompt + output and its fresh first sample at
+            # position lengths (the new ctx): history[ctx] == current token.
+            hist = torch.cat([args["history"], torch.zeros_like(args["history"][:, :1])], 1)
+            M = self.cfg.max_model_len
+            hist.scatter_(1, args["lengths"].clamp(max=M)[:, None].long(), out[:, None])
+            values["history"] = hist
+        return out, values
+
+    def _sample_and_scatter(
+        self, logits: torch.Tensor, args: Dict[str, torch.Tensor], rows, mode: str
+    ) -> torch.Tensor:
+        """Sample every prefill row's first token ([B] int32) and scatter
+        ``rows`` (a slice or an index tensor) into the decode state in
+        place."""
+        out, values = self._first_tokens(logits, args, mode, self._suppress)
         idx = args["slots"][rows].long()
         for leaf, name in zip(self._dev_state, _STATE_LEAVES):
             leaf[idx] = values[name][rows]
@@ -682,6 +975,13 @@ class EngineCore:
             host["limits"][r] = p.max_tokens
             host["mins"][r] = p.min_tokens
             host["stop_ids"][r] = self._stop_ids_for(seq)
+        if self._spec:
+            # The rows' prompt + output: the drafter's corpus (JAX
+            # _pack_history_rows, :3601).
+            host["history"] = np.zeros((B, self.cfg.max_model_len), np.int32)
+            for r, seq in enumerate(rows):
+                ids = seq.prompt_ids + seq.output_ids
+                host["history"][r, : len(ids)] = ids
         return host
 
     def _to_device(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -696,7 +996,10 @@ class EngineCore:
             self._drain(finished)
             self._resync()
         if self.cfg.prefill_chunk_size:
-            self._prefill_chunked(seqs, finished)
+            if self.mixed_step == "on":
+                self._prefill_mixed(seqs, finished)
+            else:
+                self._prefill_chunked(seqs, finished)
             return
         by_bucket: Dict[int, List[Sequence]] = {}
         for seq in seqs:
@@ -817,6 +1120,134 @@ class EngineCore:
                 if lo + C < maxlen and any(rid in self.scheduler.running for rid in pre_wave):
                     self._dispatch_decode(finished)
 
+    def _prefill_mixed(self, seqs: List[Sequence], finished: List[RequestOutput]) -> None:
+        """Piggyback scheduling (JAX ``_prefill_mixed``, :3412): prefill
+        each admitted sequence by fusing its chunk segments into the decode
+        dispatches. Every mixed dispatch advances the running batch by
+        ``decode_block`` tokens while the piggy's prompt comes in under the
+        per-iteration budget (``mixed_token_budget``); one sequence at a
+        time. When its final segment lands before a dispatch's last
+        iteration, the remaining iterations decode it (pages for those
+        positions are ensured first; under pool pressure the plan moves the
+        final segment to the last iteration, which needs none). With
+        nothing decodable the plain chunk loop runs instead."""
+        C = self.cfg.prefill_chunk_size
+        K = self.cfg.decode_block
+        for seq in seqs:
+            if not self._decodable_seqs():
+                self._prefill_chunked([seq], finished)
+                continue
+            epoch0 = seq.epoch
+            # Chunk-invariant values, snapshotted once: mixed dispatches
+            # append tokens to OTHER rows, never to the mid-prefill piggy.
+            n = seq.num_tokens
+            ids0 = seq.prompt_ids + seq.output_ids
+            cur = seq.prefix_len  # cached prefix pages already hold KV
+            seq_mode = sampling_mod.required_mode(seq.params)
+            piggy = dict(lengths=np.asarray([n], np.int32), **self._pack_sampling_rows([seq], 1))
+            if seq.params.min_tokens > 0:
+                self._suppress = True
+            while cur < n:
+                if seq.rid not in self.scheduler.running or seq.epoch != epoch0:
+                    break  # preempted mid-prefill; re-admission restarts
+                # This dispatch's K segments under the token budget (decode
+                # rows first, the remainder to the piggy's prompt).
+                decode_rows = len(self._decodable_seqs())
+                segs: List[Tuple[int, int]] = []
+                pos, final_k = cur, None
+                for k in range(K):
+                    take = mixed_token_budget(C, decode_rows, n - pos)
+                    segs.append((pos, take))
+                    pos += take
+                    if take and pos >= n:
+                        final_k = k
+                if final_k is not None and final_k < K - 1:
+                    # The iterations after activation decode the piggy,
+                    # writing positions n..n+K-2-final_k: pages first.
+                    extra = K - 1 - final_k
+                    try:
+                        self.scheduler.ensure_pages(seq, self._page_target(seq, extra),
+                                                    allow_preempt=False)
+                    except OutOfPages:
+                        self._drain(finished)
+                        self._flush_deferred()
+                        try:
+                            self.scheduler.ensure_pages(seq, self._page_target(seq, extra),
+                                                        allow_preempt=False)
+                        except OutOfPages:
+                            # Re-plan: the final segment at the LAST
+                            # iteration (empty middles are pure decode).
+                            start, take = segs[final_k]
+                            for k in range(final_k, K - 1):
+                                segs[k] = (start, 0)
+                            segs[K - 1] = (start, take)
+                            final_k = K - 1
+                # The decode rows' own lookahead and dirty resync: the mixed
+                # dispatch IS their decode dispatch.
+                if not self._ensure_decode_pages(finished):
+                    break
+                if seq.rid not in self.scheduler.running or seq.epoch != epoch0:
+                    break
+                host = dict(
+                    tokens=np.zeros((K, C), np.int32), positions=np.full((K, C), -1, np.int32),
+                    final=np.zeros((K,), bool), last=np.zeros((K,), np.int32),
+                    bt=np.zeros((1, self._pages_per_seq), np.int32), **piggy,
+                )
+                for k, (start, take) in enumerate(segs):
+                    if take:
+                        host["tokens"][k, :take] = ids0[start : start + take]
+                        host["positions"][k, :take] = np.arange(start, start + take)
+                if final_k is not None:
+                    host["final"][final_k] = True
+                    host["last"][final_k] = n - 1 - segs[final_k][0]
+                host["bt"][0, : len(seq.pages)] = seq.pages  # live: grow-only
+                seg = self._mixed_inputs(host)
+                # The dispatch must cover the piggy's sampler needs too.
+                mode = sampling_mod.join_modes((self._mode, seq_mode))
+                if seq.t_prefill_start == 0.0:
+                    seq.t_prefill_start = time.monotonic()
+                out = self._dispatch_block("mixed", seg, mode)
+                taken = sum(t for _, t in segs)
+                self.mixed_steps += 1
+                self.mixed_prefill_tokens += taken
+                self.prefill_tokens += taken
+                self.decode_steps += K
+                self.decode_dispatches += 1
+                if final_k is not None:
+                    seq.prefilled = True
+                    self.scheduler.register_prefix(seq)
+                    self.prefills += 1
+                    self._mode = mode
+                # Snapshot after marking prefilled, so the piggy's row is
+                # in it; its tokens before final_k are skipped by starts.
+                starts = np.zeros((self.cfg.max_num_seqs,), np.int32)
+                if final_k is not None:
+                    starts[seq.slot] = final_k
+                self._push_pending(
+                    "mixed", out,
+                    [(i, s) for i, s in enumerate(self.scheduler.slots)
+                     if s is not None and s.prefilled],
+                    starts,
+                )
+                while len(self._pending) > self.cfg.runahead:
+                    self._process_oldest(finished)
+                cur = pos
+
+    def _mixed_inputs(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Upload a mixed dispatch's inputs into their static device
+        buffers (made anew, and the graphs dropped, when a shape changes:
+        a wider stop-id set)."""
+        bufs = self._mixed_in
+        if bufs is None or any(bufs[k].shape != v.shape for k, v in host.items()):
+            bufs = self._mixed_in = {k: torch.from_numpy(v.copy()).to(self.device)
+                                     for k, v in host.items()}
+            if self._graphs is not None:
+                self._graphs.reset()
+            return bufs
+        for name, arr in host.items():
+            self._upload(bufs[name], arr)
+        return bufs
+
     # --- decode -----------------------------------------------------------
     def _ensure_decode_pages(self, finished: List[RequestOutput]) -> bool:
         """Page lookahead for every decodable row, then the dirty drain +
@@ -826,7 +1257,11 @@ class EngineCore:
         must have a page now: pages are only ever added to a block table,
         so the grown table swaps into the device state without a drain.
         Only allocator exhaustion (preemption needed) forces a drain."""
-        lookahead = self._pending_decodes + 2  # in flight + this one + slack
+        # Each in-flight decode-type dispatch covers decode_block positions
+        # (times spec_tokens + 1 under speculation: a verify iteration writes
+        # every candidate), and this dispatch another block; + 1 slack.
+        K, Q = self.cfg.decode_block, self.cfg.spec_tokens + 1
+        lookahead = (self._pending_decodes + 1) * K * Q + 1
         decodable = self._decodable_seqs()
         needs_pages = any(
             -(-self._page_target(seq, lookahead) // self.cfg.page_size) > len(seq.pages)
@@ -881,11 +1316,12 @@ class EngineCore:
     def _dispatch_decode(self, finished: List[RequestOutput]) -> None:
         if not self._ensure_decode_pages(finished):
             return
-        out, self._dev_state = self._decode_fn(self._dev_state, self._mode)
-        self.decode_steps += 1
+        kind = "verify" if self._spec else "decode"
+        out = self._dispatch_block(kind)
+        self.decode_steps += self.cfg.decode_block
         self.decode_dispatches += 1
         self._push_pending(
-            "decode",
+            kind,
             out,
             [
                 (i, seq)
@@ -905,14 +1341,13 @@ class EngineCore:
         self._dirty = True
 
     def _swap_block_tables(self) -> None:
-        """Ship grown block tables into the device state without a drain."""
+        """Ship grown block tables into the device state, in place, without
+        a drain (queued dispatches read the old tables first)."""
         self._h_bt[...] = 0
         for i, seq in enumerate(self.scheduler.slots):
             if seq is not None:
                 self._h_bt[i, : len(seq.pages)] = seq.pages
-        bt_dev = torch.from_numpy(self._h_bt.copy()).to(self.device)
-        st = self._dev_state
-        self._dev_state = st[:2] + (bt_dev,) + st[3:]
+        self._upload(self._dev_state[2], self._h_bt)
 
     def _page_target(self, seq: Sequence, lookahead: int) -> int:
         """KV positions ``seq`` must have pages for, capped by its own
@@ -1081,7 +1516,25 @@ class EngineCore:
             decode_kernel=decode_kernel_plan(self.model.decode_kernel, self.device)[0],
             kv_dtype=str(self.cfg.kv_dtype).replace("torch.", ""),
             device=str(self.device),
+            decode_block=self.cfg.decode_block,
+            spec_tokens=self.cfg.spec_tokens,
+            spec_proposed=self.spec_proposed,
+            spec_accepted=self.spec_accepted,
+            acceptance_rate=(self.spec_accepted / self.spec_proposed
+                             if self.spec_proposed else 0.0),
+            mixed_step=self.mixed_step,
+            mixed_steps=self.mixed_steps,
+            mixed_prefill_tokens=self.mixed_prefill_tokens,
+            # Decode-type dispatches as CUDA graphs: None when eager.
+            cuda_graphs=None if self._graphs is None else dict(
+                graphs=len(self._graphs), captures=self._graphs.captures,
+                replays=self._graphs.replays, warmup_steps=self._graphs.warmup_steps,
+            ),
         )
+        if self._spec:
+            s["verify_kernel"] = verify_kernel_plan(self.device)[0]
+        if self.mixed_step == "on":
+            s["mixed_kernel"] = mixed_kernel_plan(self.device)[0]
         if self.cancellations:
             s["cancellations"] = self.cancellations
         return s

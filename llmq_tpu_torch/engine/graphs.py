@@ -1,0 +1,95 @@
+"""Decode-type dispatches of the engine as captured CUDA graphs.
+
+The JAX engine dispatches each decode step, fused decode block, verify
+block and mixed block as one jitted executable
+(``llmq_tpu/engine/engine.py:1840-1851``, ``:2382-2385``); the port's
+counterpart of that executable is one ``torch.cuda.CUDAGraph``, replayed
+with one host call. :class:`DispatchGraphs` keeps one graph per key (the
+engine keys them by dispatch kind, sampling mode and stop suppression)
+over the engine's static buffers: the decode state, the KV pools and the
+mixed step's inputs, all written in place, so a replay reads what the
+host last put there. Nothing here runs on the CPU, where the engine
+dispatches eagerly.
+
+Before its capture a graph's work runs once eagerly on inactive copies of
+the state (``warm``): that builds and loads the kernels, makes cuBLAS's
+and the wrappers' cached buffers (K1's split counters), and writes only
+the scratch page. Those launches are real and are counted. The capture
+itself launches nothing, so the kernel launch counters
+(``ops/_build.count_launch``) are put back after it, and the launches
+counted while capturing are added again on every replay. A capture or a
+replay that fails raises; there is no eager fallback.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Hashable, Optional, Tuple
+
+import torch
+
+from llmq_tpu_torch.ops import _build
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: Any  # torch.cuda.CUDAGraph
+    outputs: Any  # the tensors the captured work returned (static)
+    launches: Dict[Any, Tuple[int, ...]]  # counters a replay adds
+
+
+class DispatchGraphs:
+    """One captured graph per key, on ``device``'s graph memory pool."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self._graphs: Dict[Hashable, _Captured] = {}
+        self._pool: Optional[Any] = None
+        self.captures = 0
+        self.replays = 0
+        # Decode iterations run eagerly before captures, by key[0] (the kind).
+        self.warmup_steps: Dict[Hashable, int] = {}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def reset(self) -> None:
+        """Drop every graph: a static buffer changed shape or identity, so
+        the next dispatch of each key captures anew."""
+        self._graphs.clear()
+        self._pool = None
+
+    def run(self, key: Hashable, fn: Callable[[], Any], warm: Callable[[], Any],
+            steps: int) -> Any:
+        """Replay ``key``'s graph, capturing ``fn`` first if there is none
+        (after one eager ``warm`` run of ``steps`` decode iterations on
+        inactive copies of its inputs, counted under ``key[0]``). Returns
+        the graph's outputs."""
+        entry = self._graphs.get(key)
+        if entry is None:
+            warm()
+            self.warmup_steps[key[0]] = self.warmup_steps.get(key[0], 0) + steps
+            entry = self._graphs[key] = self._capture(fn)
+        entry.graph.replay()
+        _build.set_launch_counts(entry.launches, add=True)
+        self.replays += 1
+        return entry.outputs
+
+    def _capture(self, fn: Callable[[], Any]) -> _Captured:
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        zero = (0,) * len(_build.COUNTERS)
+        before = _build.launch_counts()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"
+            ):
+                outputs = fn()
+            after = _build.launch_counts()
+        finally:  # the capture launched nothing: put the counters back
+            _build.set_launch_counts({w: before.get(w, zero) for w in _build.launch_counts()})
+        launches = {w: tuple(a - b for a, b in zip(n, before.get(w, zero)))
+                    for w, n in after.items()}
+        self.captures += 1
+        return _Captured(graph, outputs, launches)

@@ -1,11 +1,13 @@
 """Token sampling: batched, per-slot parameters, on the device.
 
-Port of ``llmq_tpu/engine/sampling.py`` (:29-197). ``sample_tokens`` keeps
+Port of ``llmq_tpu/engine/sampling.py`` (:29-290). ``sample_tokens`` keeps
 the three variants — ``greedy`` (argmax), ``stochastic`` (Gumbel-max, no
 sort) and ``filtered`` (one descending vocab sort, per-slot top-k / top-p
 rank masks, Gumbel argmax, un-sorted back) — and takes the Gumbel noise
 as an argument, so a test can feed the JAX sampler and this one the same
-noise.
+noise. ``spec_verify_tokens`` is the speculative verify sampler (greedy
+acceptance, or rejection sampling against the point-mass draft), which
+draws its own noise from the key chain as JAX's does.
 
 Noise source. As in JAX, per-slot noise is ``jax.random.gumbel`` under
 the threefry key ``fold_in(base_key, step)``: the port carries
@@ -182,26 +184,123 @@ def uniform_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     return y0 ^ y1
 
 
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """23 random mantissa bits of each uint32 (int64) word as a float in
+    [0, 1), JAX's arithmetic."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
 def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), float32, minval=tiny, maxval=1)``
     per row of ``keys`` [S, 2], bit for bit: 23 random mantissa bits make
     a float in [0, 1), lifted to [tiny, 1) with JAX's own arithmetic."""
-    bits = uniform_bits(keys, n)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    floats = _unit_floats(uniform_bits(keys, n))
     # JAX computes floats * (maxval - minval) + minval; in f32 the span
     # 1 - tiny rounds to 1.0, so the product is exact and drops out.
     return torch.clamp_min(floats + _F32_TINY, _F32_TINY)
 
 
-def step_gumbel(keys: torch.Tensor, steps: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Gumbel noise [S, vocab] (f32): ``jax.random.gumbel(fold_in(key,
-    step), (vocab,), float32)`` in its default ("low") mode,
+def split_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.split(key, n)`` per row of ``keys`` [S, 2]: the
+    partitionable layout hashes the counter pair (0, i) into key i.
+    Returns [S, n, 2]."""
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    k0, k1 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(idx), idx)
+    return torch.stack((k0, k1), dim=2)
+
+
+def uniform_unit(keys: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(key, ())`` (f32 in [0, 1)) per row of ``keys``
+    [S, 2], bit for bit."""
+    return _unit_floats(uniform_bits(keys, 1)[:, 0])
+
+
+def gumbel(keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Gumbel noise [S, vocab] (f32): ``jax.random.gumbel(key, (vocab,),
+    float32)`` per row of ``keys`` [S, 2], in its default ("low") mode,
     ``-log(-log(u))`` of the uniform draw above. The logs run in f64 and
     round once to f32: the draw is then within an f32 ulp of JAX's and
     the same on every call (torch's f32 log on the CPU was seen to differ
     from call to call in its last bits)."""
-    u = uniform(fold_step_keys(keys, steps), vocab).double()
+    u = uniform(keys, vocab).double()
     return (-torch.log(-torch.log(u))).float()
+
+
+def step_gumbel(keys: torch.Tensor, steps: torch.Tensor, vocab: int) -> torch.Tensor:
+    """:func:`gumbel` under the step keys ``fold_in(key, step)``: a
+    decode step's noise [S, vocab]."""
+    return gumbel(fold_step_keys(keys, steps), vocab)
+
+
+def spec_verify_tokens(
+    logits: torch.Tensor,  # [S, Q, V] float32 — Q = spec_tokens + 1 positions
+    drafts: torch.Tensor,  # [S, Q-1] int — proposed tokens (-1 = no draft)
+    keys: torch.Tensor,  # [S, 2] base key data (uint32 values in int64)
+    steps: torch.Tensor,  # [S] int32 — generation step at position 0
+    temperature: torch.Tensor,  # [S]
+    top_k: torch.Tensor,  # [S] int32, 0 = off
+    top_p: torch.Tensor,  # [S] float32, 1.0 = off
+    *,
+    mode: str = "filtered",
+) -> torch.Tensor:
+    """The token the model emits at each of Q candidate positions ([S, Q],
+    int64), assuming every earlier draft was accepted; the engine's
+    accepted run is the prefix where ``emit[:, i] == drafts[:, i]``.
+    ``greedy``: the argmax per position, so an accepted run is the
+    non-speculative engine's tokens. Sampled: accept draft d with
+    probability p(d) under the row's filtered distribution, else sample
+    the residual (p with d removed); per position the key
+    ``fold_in(base, step + i)`` is split into an accept uniform and a
+    resample Gumbel, as in JAX (``llmq_tpu/engine/sampling.py:200``)."""
+    S, Q, V = logits.shape
+    greedy = torch.argmax(logits, dim=-1)
+    if mode == "greedy":
+        return greedy
+
+    R = S * Q
+    flat = logits.reshape(R, V)
+    pos = torch.arange(Q, dtype=steps.dtype, device=logits.device)
+    steps_q = (steps[:, None] + pos[None, :]).reshape(R)
+    safe_temp = temperature.repeat_interleave(Q).clamp(min=1e-6)[:, None]
+    scaled = flat / safe_temp
+
+    if mode == "filtered":
+        # sample_tokens' filters, scattered back to token space: rejection
+        # sampling needs the filtered distribution itself.
+        topk_q = top_k.repeat_interleave(Q)
+        topp_q = top_p.repeat_interleave(Q)
+        sort_idx = torch.argsort(-scaled, dim=-1, stable=True)
+        sorted_logits = torch.take_along_dim(scaled, sort_idx, dim=-1)
+        ranks = torch.arange(V, device=logits.device)[None, :]
+        keep = ranks < torch.where(topk_q > 0, topk_q, V)[:, None]
+        probs_sorted = torch.softmax(sorted_logits, dim=-1)
+        cum_before = torch.cumsum(probs_sorted, dim=-1) - probs_sorted
+        keep = keep & (cum_before < topp_q[:, None])
+        keep_tok = torch.zeros_like(keep).scatter_(1, sort_idx, keep)
+        masked = torch.where(keep_tok, scaled, NEG_INF)
+    else:
+        masked = scaled
+
+    # Drafts with a -1 sentinel at the bonus position: p(d) = 0 there, so
+    # the reject branch is a plain sample from p.
+    d = torch.cat([drafts.long(), torch.full((S, 1), -1, dtype=torch.long,
+                                             device=logits.device)], dim=1).reshape(R)
+    pairs = split_keys(fold_step_keys(keys.repeat_interleave(Q, dim=0), steps_q), 2)
+    u = uniform_unit(pairs[:, 0])
+    noise = gumbel(pairs[:, 1], V)
+
+    probs = torch.softmax(masked, dim=-1)
+    p_d = torch.take_along_dim(probs, d.clamp(0, V - 1)[:, None], dim=-1)[:, 0]
+    p_d = torch.where(d >= 0, p_d, 0.0)
+    accept = u < p_d
+    # The residual of a point-mass draft: d's logit dropped (no draft:
+    # nothing dropped).
+    drop = torch.zeros((R, V + 1), dtype=torch.bool, device=logits.device)
+    drop.scatter_(1, torch.where(d >= 0, d, V)[:, None], True)
+    residual = torch.where(drop[:, :V], NEG_INF, masked)
+    resample = torch.argmax(residual + noise, dim=-1)
+    emit = torch.where(accept, d, resample).reshape(S, Q)
+    return torch.where((temperature <= 0.0)[:, None], greedy, emit)
 
 
 def make_base_key(seed: Optional[int], request_tag: int) -> np.ndarray:

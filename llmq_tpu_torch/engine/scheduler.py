@@ -4,7 +4,8 @@ Port of ``llmq_tpu/engine/scheduler.py`` with its prefix cache (the
 refcounted allocator with a parked evictable pool :83-175, chain-hash
 matching at admission :462-521, ``register_prefix`` :327,
 ``invalidate_prefix_cache`` :364) and without priority classes or the
-host prefix tier (M11). The device half is a fixed-shape decode step over
+host prefix tier (M11), plus ``mixed_token_budget`` (:45), the piggybacked
+segment's share of a mixed dispatch. The device half is a fixed-shape decode step over
 ``max_num_seqs`` slots; this module decides which sequence lives in which
 slot and which physical KV pages back it.
 
@@ -31,6 +32,19 @@ from llmq_tpu_torch.utils.hashing import token_prefix_chain
 
 class OutOfPages(Exception):
     """No free KV pages; caller should preempt or defer."""
+
+
+def mixed_token_budget(
+    chunk_size: int, decode_rows: int, remaining: int, *, min_tokens: int = 1
+) -> int:
+    """Prefill positions one piggybacked segment may claim in a mixed
+    (decode + prefill) iteration: the chunk width less one position for
+    each decodable row, at least ``min_tokens`` so the prompt always
+    advances, at most the chunk width and the ``remaining`` positions
+    (0 when none remain)."""
+    if remaining <= 0:
+        return 0
+    return min(remaining, max(chunk_size - decode_rows, min_tokens), chunk_size)
 
 
 class PageAllocator:

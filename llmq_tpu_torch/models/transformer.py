@@ -1,8 +1,8 @@
 """Dense decoder-only transformer over a paged KV cache, in PyTorch.
 
 Port of ``llmq_tpu/models/transformer.py`` (building blocks :100-176,
-``Transformer`` :340-824 with ``_paged_chunk_trunk`` :569 and
-``prefill_chunk`` :628, ``init_params`` :840 with its int8/int4
+``Transformer`` :340-824 with ``_paged_chunk_trunk`` :569,
+``prefill_chunk`` :628, ``mixed`` :663 and ``verify`` :710, ``init_params`` :840 with its int8/int4
 quantization, ``make_kv_pages`` :946).
 Same parameter tree (per-layer weights stacked on a leading ``[L, ...]``
 axis, ``[in, out]`` matmul layout), same family switches (Qwen2 QKV bias,
@@ -367,6 +367,43 @@ class Transformer(nn.Module):
         B = tokens.shape[0]
         last_h = h[torch.arange(B, device=h.device), last_in_chunk.long()]
         return self._logits(last_h)
+
+    # --- fused mixed prefill+decode ----------------------------------------
+    @torch.no_grad()
+    def mixed(
+        self,
+        tokens: torch.Tensor,  # [S, C] combined query grid (ops.attention.mixed_query_grid)
+        positions: torch.Tensor,  # [S, C] absolute positions (−1 = padding)
+        k_pages: torch.Tensor,  # [L, P, page, n_kv, d] — written in place
+        v_pages: torch.Tensor,
+        block_tables: torch.Tensor,  # [S, pages_per_seq] int32
+        gather_idx: torch.Tensor,  # [S] the grid column whose logits each row returns
+    ) -> torch.Tensor:
+        """One mixed step: each decode row scores its one position (column
+        0) while one pending prompt's segment rides in its own row, all
+        through the chunk trunk (K3 on the card). Returns logits [S, V]
+        (f32) at each row's ``gather_idx`` column."""
+        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables)
+        S = tokens.shape[0]
+        return self._logits(h[torch.arange(S, device=h.device), gather_idx.long()])
+
+    # --- speculative verify ------------------------------------------------
+    @torch.no_grad()
+    def verify(
+        self,
+        tokens: torch.Tensor,  # [S, Q] current token + draft candidates
+        positions: torch.Tensor,  # [S, Q] absolute positions (−1 = inactive)
+        k_pages: torch.Tensor,  # [L, P, page, n_kv, d] — written in place
+        v_pages: torch.Tensor,
+        block_tables: torch.Tensor,  # [S, pages_per_seq] int32
+    ) -> torch.Tensor:
+        """Multi-query decode for speculative verification: writes the Q
+        candidates' K/V and attends each against the cache causally, as
+        ``prefill_chunk`` does with the slots as the batch, and returns the
+        logits of every position [S, Q, V] (f32). Rejected candidates' K/V
+        stay and are overwritten by the next step at the same positions."""
+        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables)
+        return self._logits(h)
 
     # --- decode ------------------------------------------------------------
     @torch.no_grad()

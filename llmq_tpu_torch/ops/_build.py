@@ -144,15 +144,36 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
 
 
+#: the launch counters of a wrapper, in :func:`launch_counts`' order
+COUNTERS = ("launches", "tensor_core_launches", "exact_launches")
+_counted: Dict[Any, None] = {}  # every wrapper count_launch has seen
+
+
 def count_launch(wrapper, route: str) -> None:
     """One launch of a two-route kernel ``wrapper`` on ``route``
     (``"tensor_core"`` or ``"exact"``): its ``launches`` and that route's
     counter go up by one."""
+    _counted[wrapper] = None
     wrapper.launches += 1
     if route == "tensor_core":
         wrapper.tensor_core_launches += 1
     else:
         wrapper.exact_launches += 1
+
+
+def launch_counts() -> Dict[Any, Tuple[int, ...]]:
+    """Each counted wrapper's :data:`COUNTERS` now."""
+    return {w: tuple(getattr(w, c) for c in COUNTERS) for w in _counted}
+
+
+def set_launch_counts(counts: Dict[Any, Tuple[int, ...]], add: bool = False) -> None:
+    """Set (or, with ``add``, add to) the wrappers' :data:`COUNTERS`. A
+    captured CUDA graph counts its kernels at capture and adds them on
+    each replay, where no wrapper runs (``engine/graphs.py``)."""
+    for wrapper, values in counts.items():
+        _counted[wrapper] = None
+        for name, n in zip(COUNTERS, values):
+            setattr(wrapper, name, (getattr(wrapper, name) if add else 0) + n)
 
 
 def split_count(units: int, target: int, max_splits: int) -> int:

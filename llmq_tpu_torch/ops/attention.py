@@ -255,6 +255,33 @@ def write_prompt_kv_pages(
     return k_pages, v_pages
 
 
+def mixed_query_grid(
+    tokens: torch.Tensor,  # [S] current decode token per slot
+    ctx: torch.Tensor,  # [S] context length − 1 per slot
+    active: torch.Tensor,  # [S] bool — slot is decoding
+    chunk_tokens: torch.Tensor,  # [C] piggybacked prefill segment tokens
+    chunk_positions: torch.Tensor,  # [C] absolute positions (−1 = padding)
+    slot: torch.Tensor,  # 0-dim int — the piggy sequence's slot
+    max_kv_pos: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Query grids of a mixed (decode + piggybacked prefill) dispatch:
+    every decodable row is a one-query row ``[ctx, -1, ...]`` (empty when
+    inactive or past the page map), and the piggy's slot, while it is still
+    inactive, carries the prefill segment. Every row is a leading
+    contiguous run, the chunked-prefill contract. Returns
+    ``(q_tokens [S, C], q_positions [S, C], is_chunk [S])``."""
+    S, C = tokens.shape[0], chunk_tokens.shape[0]
+    base_tok = torch.zeros((S, C), dtype=tokens.dtype, device=tokens.device)
+    base_tok[:, 0] = tokens
+    base_pos = torch.full((S, C), -1, dtype=ctx.dtype, device=ctx.device)
+    base_pos[:, 0] = torch.where(active & (ctx < max_kv_pos), ctx, -1)
+    is_chunk = (torch.arange(S, device=tokens.device) == slot) & ~active
+    q_tokens = torch.where(is_chunk[:, None], chunk_tokens[None, :].to(tokens.dtype), base_tok)
+    q_positions = torch.where(is_chunk[:, None], chunk_positions[None, :].to(ctx.dtype),
+                              base_pos)
+    return q_tokens, q_positions, is_chunk
+
+
 def kv_write_index(
     block_tables: torch.Tensor,  # [B, pages_per_seq]
     positions: torch.Tensor,  # [B, T] absolute positions (−1 = skip)

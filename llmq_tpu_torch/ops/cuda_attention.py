@@ -85,17 +85,17 @@ def _kernel(name: str):
     return _build.function(name, *_SIGNATURES[name])
 
 
-_counters: Dict[Optional[int], torch.Tensor] = {}
+_counters: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
 
 
 def _split_counters(n: int, device: torch.device) -> torch.Tensor:
-    """At least ``n`` int32 zeros on ``device`` for K1's tensor-core route:
-    its spans count themselves in, and the last one resets its counter, so
-    the buffer is zero again after every launch and is kept per device."""
-    buf = _counters.get(device.index)
-    if buf is None or buf.numel() < n:
-        buf = _counters[device.index] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                                    device=device)
+    """``n`` int32 zeros on ``device`` for K1's tensor-core route: its spans
+    count themselves in, and the last one resets its counter, so the
+    buffer is zero again after every launch. Kept per (device, ``n``) and
+    never freed: a captured CUDA graph holds its address."""
+    buf = _counters.get((device.index, n))
+    if buf is None:
+        buf = _counters[(device.index, n)] = torch.zeros(n, dtype=torch.int32, device=device)
     return buf
 
 

@@ -3,6 +3,7 @@ versions for CPU tensors.
 
 Port of ``llmq_tpu/ops/dispatch.py`` (``prefill_attention`` :67,
 ``chunked_prefill_attention`` :119, ``decode_kernel_plan`` :193,
+``verify_kernel_plan`` :219, ``mixed_kernel_plan`` :245,
 ``decode_attention_fused_write`` :322, ``decode_attention`` :381), plus
 the weight-only matmuls that ``llmq_tpu/models/quant.py::matmul`` sends
 to ``ops/pallas_matmul.py``. The model calls these functions, and this
@@ -113,6 +114,22 @@ def decode_kernel_plan(kernel: str, device: torch.device) -> Tuple[str, bool]:
     if device.type != "cuda":
         return "plain", False
     return kernel, kernel == "v3"
+
+
+def verify_kernel_plan(device: torch.device) -> Tuple[str, bool]:
+    """(kernel name, fused_write) of the speculative verify step: Q =
+    spec_tokens + 1 queries a row against the paged cache is the chunked
+    prefill shape, so K3 (``chunked_prefill``) on the card and its plain
+    version on the CPU; never a fused write, since each candidate attends
+    its predecessors' fresh K/V."""
+    return ("chunked_prefill" if device.type == "cuda" else "plain"), False
+
+
+def mixed_kernel_plan(device: torch.device) -> Tuple[str, bool]:
+    """(kernel name, fused_write) of the mixed step: the [S, C] grid of one
+    query a decode row and one prompt segment meets the same contract as
+    verify, so the same plan."""
+    return verify_kernel_plan(device)
 
 
 def decode_attention_fused_write(

@@ -270,8 +270,12 @@ def test_paged_prefill_kernel_matches_plain(cuda_device, dtype, n_heads, n_kv, d
     "n_heads,n_kv,d,window,softcap,page,C,starts,valids",
     [(16, 2, 128, None, None, 32, 160, [37, 300, 0], [150, 90, 1]),  # mid-page, GQA 8
      (8, 4, 256, 64, 50.0, 16, 100, [75, 0, 200], [100, 33, 64]),  # gemma2 d 256, GQA 2
-     (4, 4, 64, 20, None, 8, 64, [5, 130, 0], [64, 1, 40])],  # GQA 1, window in a tile
-    ids=["midpage-gqa8", "d256-window-softcap", "gqa1-window20"],
+     (4, 4, 64, 20, None, 8, 64, [5, 130, 0], [64, 1, 40]),  # GQA 1, window in a tile
+     # the speculative verify step: Q = spec_tokens + 1 queries a row
+     (16, 2, 128, None, None, 32, 4, [300, 317, 0, 31], [4, 3, 0, 4]),
+     # the mixed step's [S, C] grid: one query a decode row, a prompt segment
+     (16, 2, 128, None, None, 32, 256, [330, 0, 95, 7], [1, 0, 200, 1])],
+    ids=["midpage-gqa8", "d256-window-softcap", "gqa1-window20", "verify-q4", "mixed-grid"],
 )
 def test_paged_prefill_tensor_core_edges(cuda_device, kv_dtype, n_heads, n_kv, d, window,
                                          softcap, page, C, starts, valids):
@@ -948,3 +952,122 @@ def test_int8_matmul_tensor_core_is_deterministic(cuda_device, M, K, N):
     outs = [int8_matmul_cuda(x, *parts) for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(o.view(torch.int16), outs[0].view(torch.int16)) for o in outs[1:])
+
+
+# --- the engine's decode-type dispatches as captured CUDA graphs ----------------
+
+GRAPH_MODES = {
+    "decode": {},
+    "block": dict(decode_block=4),
+    "verify": dict(spec_tokens=3, decode_block=2),
+    "mixed": dict(mixed_step="on", prefill_chunk_size=32, decode_block=2),
+}
+GRAPH_REQUESTS = [
+    ("g0", "hello world hello world hello", dict(max_tokens=12)),
+    ("g1", "abcabcabcabcabc", dict(max_tokens=9)),
+    ("s0", "a seeded request", dict(max_tokens=10, temperature=0.8, seed=5)),
+    ("f0", "a filtered one", dict(max_tokens=7, temperature=0.6, top_k=5, seed=1)),
+    ("g2", "x" * 70, dict(max_tokens=8)),  # a prompt of three chunks under mixed steps
+    ("m0", "min tokens", dict(max_tokens=6, min_tokens=3)),
+]
+
+
+def _graph_engine(device, cuda_graphs, **fields):
+    from llmq_tpu_torch.engine.engine import EngineConfig, EngineCore
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    cfg = ModelConfig.tiny(vocab_size=320, hidden_size=256, num_layers=2, num_heads=4,
+                           num_kv_heads=2, intermediate_size=320)
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.bfloat16)
+    ecfg = EngineConfig(**{**dict(max_num_seqs=4, max_model_len=128, page_size=16,
+                                  num_pages=64, kv_dtype="bf16"), **fields})
+    return EngineCore(cfg, params, ByteTokenizer(), engine_config=ecfg, device=device,
+                      cuda_graphs=cuda_graphs)
+
+
+def _serve(core, requests=GRAPH_REQUESTS):
+    from llmq_tpu_torch.engine.sampling import SamplingParams
+
+    for rid, prompt, kw in requests:
+        core.add_request(rid, prompt=prompt, params=SamplingParams(
+            **{"temperature": 0.0, "ignore_eos": True, **kw}))
+    outs = {}
+    while core.has_work:
+        outs.update({o.rid: (o.token_ids, o.finish_reason) for o in core.step()})
+    return outs
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_engine_graph_replay_equals_eager(cuda_device, mode):
+    """Every decode-type dispatch of the engine is a replay of a captured
+    graph, and greedy, seeded, filtered and min_tokens rows come out bit
+    for bit as the same engine's eager dispatches give them: plain decode,
+    decode blocks, verify blocks (spec + block) and mixed blocks."""
+    eager = _serve(_graph_engine(cuda_device, False, **GRAPH_MODES[mode]))
+    core = _graph_engine(cuda_device, True, **GRAPH_MODES[mode])
+    assert _serve(core) == eager
+    st = core.stats()
+    assert st["cuda_graphs"]["replays"] == st["decode_dispatches"] > 0
+    assert st["cuda_graphs"]["captures"] >= 1
+    if mode == "mixed":
+        assert st["mixed_steps"] > 0
+    if mode == "verify":
+        assert st["spec_proposed"] > 0
+
+
+@pytest.mark.parametrize("mode,wrapper,per_layer", [
+    ("decode", paged_decode_attention_cuda, 1), ("block", paged_decode_attention_cuda, 4),
+    ("verify", paged_prefill_attention_cuda, 2),
+])
+def test_engine_graph_launch_counts_per_replay(cuda_device, mode, wrapper, per_layer):
+    """A replay launches no wrapper, so the graph adds the launches its
+    capture counted: the layers times the iterations of the block, on the
+    tensor-core route, and nothing else."""
+    core = _graph_engine(cuda_device, True, **GRAPH_MODES[mode])
+    _serve(core, GRAPH_REQUESTS[:2])
+    kind = "verify" if mode == "verify" else "decode"
+    before = (wrapper.launches, *_routes(wrapper), paged_decode_attention_cuda.launches)
+    for _ in range(3):
+        core._dispatch_block(kind)
+    torch.cuda.synchronize()
+    n = 3 * per_layer * core.model_config.num_layers
+    after = (wrapper.launches, *_routes(wrapper), paged_decode_attention_cuda.launches)
+    assert after[:3] == (before[0] + n, before[1] + n, before[2])
+    if wrapper is not paged_decode_attention_cuda:
+        assert after[3] == before[3]  # verify blocks never launch K1
+
+
+def test_engine_graph_recaptures_after_stop_capacity_grows(cuda_device):
+    """A request with more stop ids than the state holds widens a leaf:
+    the engine drains, resyncs at the new shape and captures again, and
+    its tokens still equal the eager engine's."""
+    wide = [("w", "stop ids", dict(max_tokens=8, stop_token_ids=tuple(range(300, 312))))]
+    outs = []
+    for graphs in (False, True):
+        core = _graph_engine(cuda_device, graphs)
+        first = _serve(core, GRAPH_REQUESTS[:1])
+        captures = core.stats()["cuda_graphs"]
+        outs.append((first, _serve(core, wide)))
+        assert core._stop_capacity == 16
+    assert outs[0] == outs[1]
+    assert core.stats()["cuda_graphs"]["captures"] == captures["captures"] + 1
+
+
+def test_engine_graph_capture_failure_raises(cuda_device, monkeypatch):
+    """A capture that fails (here: a host read of a device value inside
+    the step, which a stream capture forbids) raises out of the step; the
+    dispatch is never run eagerly instead."""
+    core = _graph_engine(cuda_device, True)
+    decode = core.model.decode
+
+    def reads_the_host(*args):
+        out = decode(*args)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(core.model, "decode", reads_the_host)
+    core.add_request("r", prompt="hello", params=None)
+    with pytest.raises(RuntimeError):
+        for _ in range(10):
+            core.step()
+    assert core.decode_dispatches == 0 and core.stats()["cuda_graphs"]["replays"] == 0

@@ -189,12 +189,25 @@ def test_engine_config_fields_and_unported_options():
         jengine._prefill_buckets(jengine.EngineConfig(max_model_len=700))
     cfg = TConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
-    for field, value, item in (("decode_block", 4, "M10"), ("mixed_step", "on", "M10"),
-                               ("prefix_host_gb", 0.5, "M11"), ("logit_guard", "on", "M12"),
+    for field, value, item in (("prefix_host_gb", 0.5, "M11"), ("logit_guard", "on", "M12"),
+                               ("interactive_decode_block", 2, "M11"),
                                ("tp_overlap", "on", "M13")):
         with pytest.raises(NotImplementedError, match=item):
             tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
                                engine_config=tengine.EngineConfig(**{field: value}))
+    # The fused dispatch modes (M10) build, holding the JAX config's values;
+    # interactive_decode_block resolves to 0 (no interactive rows), as in JAX
+    # without them.
+    for fields in (dict(decode_block=4), dict(spec_tokens=2),
+                   dict(mixed_step="on", prefill_chunk_size=16)):
+        core = tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
+                                  engine_config=tengine.EngineConfig(**fields))
+        jcfg = jengine.EngineConfig(**fields)
+        for name in fields:
+            assert getattr(core.cfg, name) == getattr(jcfg, name), name
+        mode = next(iter(fields))
+        assert core.stats()[mode] == fields[mode]
+        assert core.interactive_decode_block == 0
     for name in ("fp8", "fp8_e5m2", "float8_e5m2"):  # JAX's name table (M9 is ported)
         assert tengine.EngineConfig(kv_dtype=name).kv_dtype == torch.float8_e5m2
     with pytest.raises(ValueError, match="kv_dtype"):

@@ -171,7 +171,8 @@ ENGINE_VARS = (
     "LLMQ_SPEC_TOKENS", "LLMQ_TP_OVERLAP", "LLMQ_MIXED_STEP", "LLMQ_PREFIX_HOST_GB",
 )
 COMPARED = ("max_model_len", "max_num_seqs", "kv_dtype", "prefill_chunk_size",
-            "enable_prefix_caching", "hbm_utilization")
+            "enable_prefix_caching", "hbm_utilization", "decode_block", "spec_tokens",
+            "mixed_step", "interactive_decode_block")
 
 
 def _jax_worker_engine_config(monkeypatch, model: str, **flags):
@@ -235,9 +236,6 @@ def test_worker_engine_config_matches_the_jax_worker(monkeypatch, env, flags):
 
 
 @pytest.mark.parametrize("var,value,item", [
-    ("LLMQ_DECODE_BLOCK", "4", "M10"),
-    ("LLMQ_SPEC_TOKENS", "2", "M10"),
-    ("LLMQ_MIXED_STEP", "on", "M10"),
     ("LLMQ_TP_OVERLAP", "on", "M13"),
     ("LLMQ_PREFIX_HOST_GB", "1", "M11"),
 ])
@@ -249,6 +247,32 @@ def test_worker_refuses_unported_env_features(monkeypatch, var, value, item):
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         build_engine("preset://tiny", **ENGINE)
-    monkeypatch.setenv(var, {"LLMQ_DECODE_BLOCK": "1", "LLMQ_SPEC_TOKENS": "0",
-                             "LLMQ_PREFIX_HOST_GB": "0"}.get(var, "off"))
+    monkeypatch.setenv(var, {"LLMQ_PREFIX_HOST_GB": "0"}.get(var, "off"))
     build_engine("preset://tiny", **ENGINE).shutdown()
+
+
+@pytest.mark.parametrize("env,flags", [
+    ({"LLMQ_DECODE_BLOCK": "4"}, {}),
+    ({"LLMQ_SPEC_TOKENS": "2"}, {"decode_block": 2}),
+    ({"LLMQ_MIXED_STEP": "on", "LLMQ_PREFILL_CHUNK": "32"}, {}),
+])
+def test_worker_resolves_fused_modes_as_the_jax_worker(monkeypatch, env, flags):
+    """The fused dispatch modes (M10, once refused here) turned on by their
+    variables, and a flag over a variable, resolve to the JAX worker's
+    EngineConfig (interactive_decode_block stays 0 in both: no variable of
+    the worker sets it), and the engine builds and reports them."""
+    for name in ENGINE_VARS:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    model = "preset://qwen2.5-0.5b"
+    want = _fields(_jax_worker_engine_config(monkeypatch, model, **flags))
+    assert _fields(engine_config(get_preset(model.split("://")[1]), **flags)) == want
+    engine = build_engine("preset://tiny", **ENGINE, **flags)
+    try:
+        st = engine.core.stats()
+        for name in ("decode_block", "spec_tokens", "mixed_step"):
+            assert st[name] == want[name], name
+        assert engine.core.interactive_decode_block == 0
+    finally:
+        engine.shutdown()
