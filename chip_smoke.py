@@ -84,8 +84,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    time as ``exact_f32_ms``; K6's and K7's also their M = 1,024 time,
    library time and bound (``m1024_*``). K5's launches are phase 8's;
    K3's record adds its launches on phase 10's verify and mixed paths
-   and its verify-shape times (``verify_shape_*``). Printed last, after
-   phases 8-10.
+   and its verify-shape times (``verify_shape_*``); K1's and K2's add
+   their launches in phase 11 (a) (``snapshot_launches``). Printed last,
+   after phases 8-11.
 8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
    same seed) written as an HF checkpoint (config.json, two safetensors
    shards and their index, HF names, [out, in] weights) under ``build/``
@@ -116,6 +117,28 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    on phase 4's workload and settings, mixed steps taken, K3 and K4
    launches counted, jobs equal to phase 4's printed. All on the
    tensor-core routes.
+11. The request-state plane at full width (qwen2.5-3b, bf16, phase 3's
+   weights and 16 jobs, 128 tokens, through ``EngineCore``): (a) every
+   row decodes to >= 40 tokens, ``extract_all``, the snapshot bytes codec
+   both ways, ``insert_request`` back into the same engine, decode to
+   the end: tokens equal phase 3's, the pools keep their storage and the
+   graphs' capture count does not move, K1 and K2 counted as in phase 3;
+   printed: snapshot bytes a row, the gather's and the in-place insert's
+   ms and GB/s, codec ms; (b) a pool of 137 pages, so the rows must
+   preempt, under recompute and under swap preemption: swap's tokens
+   equal phase 3's (recompute's count printed: its re-prefill's bf16
+   arithmetic is not the decode's), ``swap_preempts`` and
+   ``kv_restores`` >= 1, fewer prefill tokens with swap; and in f32 at 2
+   layers on the exact routes, recompute, swap and an uninterrupted run
+   give the same tokens; (c) ``decode_block`` 4 and
+   ``interactive_decode_block`` 1: one request arrives while the 16 rows
+   decode, as batch and then as interactive: one priority preemption,
+   its tokens equal its solo run's, the small block's graph captured and
+   replayed; printed: its time to first token both ways; (d) phase 9's
+   broker and a worker process, SIGTERM'd when the first result lands,
+   then a second worker process: 16 unique results, texts equal phase
+   3's, at least one resumed from a snapshot (``resume_offset`` > 0),
+   both processes exit 0 (logs ``handoff_worker*.log``).
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -149,7 +172,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
 ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
-              "fused")
+              "fused", "snapshot")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -2147,6 +2170,470 @@ async def _receive_n(url: str, queue: str, n: int, proc, timeout: float) -> list
     return results
 
 
+# --- phase 11: the request-state plane at full width -------------------------
+
+SNAPSHOT_POOL_PAGES = 137  # 136 usable pages of 32: 16 rows of 200 + 128 tokens must preempt
+
+
+def _snapshot_engine(params, cfg, **fields):
+    """Phase 3's engine settings through ``EngineCore`` (16 slots, 512
+    positions, bf16, K1), with ``fields`` over them."""
+    from llmq_tpu_torch.cli.worker import engine_config
+    from llmq_tpu_torch.engine.engine import EngineCore
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    ecfg = engine_config(cfg, dtype="bfloat16", max_num_seqs=16, max_model_len=512,
+                         decode_block=fields.pop("decode_block", None))
+    with env(LLMQ_DECODE_KERNEL="v1"):
+        return EngineCore(cfg, params, ByteTokenizer(), device=torch.device("cuda"),
+                          engine_config=dataclasses.replace(ecfg, **fields))
+
+
+def _step_to_end(core, outs: dict) -> dict:
+    while core.has_work:
+        outs.update({o.rid: o for o in core.step()})
+    return outs
+
+
+def _greedy(n: int):
+    from llmq_tpu_torch.engine.sampling import SamplingParams
+
+    return SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
+
+
+def _snapshot_round_trip(smi, cfg, params, jobs, serve_tokens) -> dict:
+    """Phase 11 (a): 16 rows decode to >= 40 tokens each, ``extract_all``,
+    the bytes codec both ways, ``insert_request`` back into the same
+    engine, decode to the end: tokens equal phase 3's, the pools keep
+    their storage and no graph is captured again. Then the gather and the
+    in-place insert of the same rows' pages, timed apart."""
+    from llmq_tpu_torch.engine import snapshot as snap_mod
+
+    L = cfg.num_layers
+    core = _snapshot_engine(params, cfg)
+    reset_launches()
+    for j in jobs:
+        core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(128))
+    outs: dict = {}
+    while (len(core.scheduler.running) < len(jobs)
+           or min(len(s.output_ids) for s in core.scheduler.running.values()) < 40):
+        outs.update({o.rid: o for o in core.step()})
+    ptrs = (core.k_pages.data_ptr(), core.v_pages.data_ptr())
+    captures = core.stats()["cuda_graphs"]["captures"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps = core.extract_all(finished=[])
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    blobs = [s.to_bytes() for s in snaps]
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = [snap_mod.RequestSnapshot.from_bytes(b) for b in blobs]
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    offsets = sorted(len(s.output_ids) for s in back)
+    for s in back:
+        core.insert_request(s)
+    outs = _step_to_end(core, outs)
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), read_routes()
+    st = core.stats()
+    tokens = {rid: o.token_ids for rid, o in outs.items()}
+    problems = route_problems(routes, launches) + graph_problems(st)
+    equal = sum(tokens.get(j.id) == serve_tokens[j.id] for j in jobs)
+    if equal != len(jobs):
+        problems.append(f"{equal} of {len(jobs)} restored jobs equal phase 3's tokens")
+    if len(snaps) != len(jobs) or any(s.kv_k is None for s in snaps):
+        problems.append(f"{len(snaps)} snapshots, some without KV pages")
+    if st["cuda_graphs"]["captures"] != captures:
+        problems.append(f"captures {captures} -> {st['cuda_graphs']['captures']} over the restore")
+    if (core.k_pages.data_ptr(), core.v_pages.data_ptr()) != ptrs:
+        problems.append("the restore moved the KV pools")
+    if st["kv_restores"] != len(jobs) or st["snapshots_inserted"] != len(jobs):
+        problems.append(f"kv_restores {st['kv_restores']}, inserted {st['snapshots_inserted']}")
+    if launches["paged_decode"] != L * (st["decode_steps"] + _warm(st)):
+        problems.append(f"K1 {launches['paged_decode']} != {L} x ({st['decode_steps']} + "
+                        f"{_warm(st)})")
+    if launches["flash_prefill"] != L * st["prefill_dispatches"]:
+        problems.append(f"K2 {launches['flash_prefill']} != {L} x {st['prefill_dispatches']}")
+    # The same rows' pages through the gather and the insert alone, with
+    # every row finished (their pages free; nothing reads them again).
+    n = max(s.kv_k.shape[1] for s in snaps)
+    rows = [torch.arange(1 + r * n, 1 + (r + 1) * n, device=core.device) for r in range(len(jobs))]
+    gather_ms = insert_ms = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = [(snap_mod.pages_to_host(core.k_pages, idx), snap_mod.pages_to_host(core.v_pages, idx))
+                for idx in rows]
+        gather_ms = min(gather_ms, (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for idx, (k, v) in zip(rows, host):
+            snap_mod.pages_from_host(core.k_pages, idx, k)
+            snap_mod.pages_from_host(core.v_pages, idx, v)
+        torch.cuda.synchronize()
+        insert_ms = min(insert_ms, (time.perf_counter() - t0) * 1e3)
+    kv_bytes = sum(k.nbytes + v.nbytes for k, v in host)
+    rec = dict(
+        phase="snapshot", part="a: round trip", model="preset://qwen2.5-3b", layers=L,
+        rows=len(snaps), resume_offsets=offsets, jobs_equal_phase3=equal,
+        snapshot_bytes_per_row=sum(map(len, blobs)) / len(blobs),
+        kv_positions_per_row=sum(s.kv_valid for s in snaps) / len(snaps),
+        extract_all_ms=extract_ms, encode_ms=encode_ms, decode_ms=decode_ms,
+        gather_ms=gather_ms, gather_gb_s=kv_bytes / gather_ms / 1e6,
+        insert_ms=insert_ms, insert_gb_s=kv_bytes / insert_ms / 1e6, timed_kv_bytes=kv_bytes,
+        timing="16 rows of pages, both pools: gather = one index_select and one copy to "
+               "pageable host memory a pool and row; insert = one copy to the card and one "
+               "index_copy_ a pool and row; best of 3; extract_all includes the drain of "
+               "the run-ahead",
+        captures_before=captures, captures_after=st["cuda_graphs"]["captures"],
+        kv_restores=st["kv_restores"], decode_steps=st["decode_steps"],
+        prefill_dispatches=st["prefill_dispatches"], launches=launches, routes=routes,
+        card=smi, problems=problems,
+    )
+    emit(rec)
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise SystemExit("snapshot phase (a) failed: " + "; ".join(problems[:5]))
+    return launches
+
+
+# A row of bf16 recompute that parts from phase 3's tokens must part at a
+# near-tie: at the first position where they differ, both tokens rank in
+# the top 3 of the logits that a prefill of the shared context gives, and
+# their logits lie at most NEAR_TIE_ULPS bf16 steps apart (the step at the
+# top logit's magnitude; the head's matmul rounds logits to bf16). A fault
+# in the re-prefill path would pick a token that ranks nowhere near.
+NEAR_TIE_ULPS = 4
+
+
+def _parting_witness(core, jobs, tokens: dict, serve_tokens: dict) -> dict:
+    """For each job whose ``tokens`` part from phase 3's: the first position
+    where they part and, there, the logits of one prefill (through K2, on
+    pools of its own) of the prompt and the tokens both runs share: the
+    two tokens' logits, their ranks, the gap in logits and in bf16 steps."""
+    out = {}
+    page = core.k_pages.shape[2]
+    L, _, _, n_kv, d = core.k_pages.shape
+    for j in jobs:
+        got, want = tokens.get(j.id), serve_tokens[j.id]
+        if got == want:
+            continue
+        pos = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   min(len(got), len(want)))
+        ids = core.tokenizer.encode(j.get_formatted_prompt()) + want[:pos]
+        T = next(b for b in core._buckets if b >= len(ids))
+        n = -(-T // page)
+        pools = [torch.zeros((L, n + 1, page, n_kv, d), dtype=core.k_pages.dtype,
+                             device=core.k_pages.device) for _ in range(2)]
+        toks = torch.zeros((1, T), dtype=torch.int32, device=core.device)
+        toks[0, : len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        lengths = torch.tensor([len(ids)], dtype=torch.int32, device=core.device)
+        bt = torch.arange(1, n + 1, dtype=torch.int32, device=core.device)[None]
+        logits = core.model.prefill(toks, lengths, *pools, bt)[0].float()
+        top = torch.topk(logits, 3)
+        a, b = want[pos], got[pos] if pos < len(got) else None
+        la = float(logits[a])
+        lb = float(logits[b]) if b is not None else float("nan")
+        step = 2.0 ** (math.floor(math.log2(abs(float(top.values[0])))) - 7)
+        rank = lambda t: int((logits > logits[t]).sum())  # noqa: E731
+        out[j.id] = dict(position=pos, phase3_token=a, recompute_token=b,
+                         phase3_logit=la, recompute_logit=lb, gap=abs(la - lb),
+                         gap_bf16_steps=abs(la - lb) / step, bf16_step=step,
+                         phase3_rank=rank(a), recompute_rank=rank(b) if b is not None else None,
+                         top3_logits=[float(v) for v in top.values])
+        del pools
+    return out
+
+
+def _swap_serves(make, jobs, modes, serve_tokens=None) -> dict:
+    """The 16 jobs through an engine per preemption mode (``make(mode)``):
+    tokens, stats, wall time, launches; with ``serve_tokens``, the witness
+    of each row that parts from them (``_parting_witness``)."""
+    recs = {}
+    for mode in modes:
+        core = make(mode)
+        reset_launches()
+        t0 = time.perf_counter()
+        for j in jobs:
+            core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(128))
+        outs = _step_to_end(core, {})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, routes = read_launches(), read_routes()
+        st = core.stats()
+        tokens = {rid: o.token_ids for rid, o in outs.items()}
+        recs[mode] = dict(tokens=tokens, stats=st, wall=wall, launches=launches, routes=routes)
+        if serve_tokens is not None:
+            recs[mode]["parting"] = _parting_witness(core, jobs, tokens, serve_tokens)
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _snapshot_swap(smi, cfg, params, jobs, serve_tokens) -> None:
+    """Phase 11 (b): the 16 jobs on a pool that must preempt, under
+    recompute and under swap preemption, in bf16 at full width (swap's
+    tokens equal phase 3's), then at the same widths in f32 on 2 layers
+    on the exact routes, where recompute's re-prefill gives the
+    uninterrupted run's tokens too and all three must agree."""
+    recs = _swap_serves(lambda mode: _snapshot_engine(
+        params, cfg, num_pages=SNAPSHOT_POOL_PAGES, preempt_mode=mode), jobs,
+        ("recompute", "swap"), serve_tokens)
+    rec_, swap = recs["recompute"], recs["swap"]
+    problems = []
+    for r in recs.values():
+        problems += route_problems(r["routes"], r["launches"]) + graph_problems(r["stats"])
+    equal = {m: [j.id for j in jobs if r["tokens"].get(j.id) == serve_tokens[j.id]]
+             for m, r in recs.items()}
+    if len(equal["swap"]) != len(jobs):
+        problems.append(f"{len(equal['swap'])} of {len(jobs)} swap jobs equal phase 3's")
+    parting = rec_["parting"]
+    for rid, w in parting.items():
+        if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
+                or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS):
+            problems.append(f"recompute's {rid} parts from phase 3's at {w['position']} at no "
+                            f"near-tie: ranks {w['phase3_rank']} / {w['recompute_rank']}, gap "
+                            f"{w['gap']} ({w['gap_bf16_steps']} bf16 steps)")
+    s, r = swap["stats"], rec_["stats"]
+    if r["preemptions"] < 1 or s["swap_preempts"] < 1 or s["kv_restores"] < 1:
+        problems.append(f"preemptions {r['preemptions']}, swap_preempts {s['swap_preempts']}, "
+                        f"kv_restores {s['kv_restores']}")
+    if not s["prefill_tokens"] < r["prefill_tokens"]:
+        problems.append(f"swap prefill tokens {s['prefill_tokens']} not under recompute's "
+                        f"{r['prefill_tokens']}")
+    # f32, 2 layers, the exact routes (TF32 off): all three runs agree.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg, tree = _parity_config()
+    f32 = _swap_serves(lambda mode: _engine(
+        pcfg, tree, torch.device("cuda"), max_num_seqs=16, max_model_len=512, kv_dtype="f32",
+        preempt_mode="recompute" if mode == "whole" else mode,
+        num_pages=None if mode == "whole" else SNAPSHOT_POOL_PAGES), jobs,
+        ("whole", "recompute", "swap"))
+    for r in f32.values():
+        problems += route_problems(r["routes"], r["launches"], route="exact")
+    f32_equal = {m: sum(f32[m]["tokens"][j.id] == f32["whole"]["tokens"][j.id] for j in jobs)
+                 for m in ("recompute", "swap")}
+    if f32_equal != {"recompute": len(jobs), "swap": len(jobs)}:
+        problems.append(f"f32 jobs equal to the uninterrupted run: {f32_equal}")
+    fs = f32["swap"]["stats"]
+    if f32["recompute"]["stats"]["preemptions"] < 1 or fs["swap_preempts"] < 1:
+        problems.append(f"f32: preemptions {f32['recompute']['stats']['preemptions']}, "
+                        f"swap_preempts {fs['swap_preempts']}")
+    emit(dict(phase="snapshot", part="b: swap against recompute", num_pages=SNAPSHOT_POOL_PAGES,
+              bf16_jobs_equal_phase3={m: len(v) for m, v in equal.items()},
+              bf16_recompute_jobs_differing=[j.id for j in jobs if j.id not in equal["recompute"]],
+              bf16_recompute_parting=parting, near_tie_limit_bf16_steps=NEAR_TIE_ULPS,
+              **{f"bf16_{m}_{k}": recs[m]["stats"][k] for m in recs
+                 for k in ("preemptions", "swap_preempts", "kv_restores", "prefill_tokens",
+                           "prefill_dispatches", "decode_steps")},
+              bf16_recompute_wall_s=rec_["wall"], bf16_swap_wall_s=swap["wall"],
+              bf16_swap_launches=swap["launches"],
+              f32_2_layers_jobs_equal_uninterrupted=f32_equal,
+              **{f"f32_{m}_{k}": f32[m]["stats"][k] for m in ("recompute", "swap")
+                 for k in ("preemptions", "swap_preempts", "kv_restores", "prefill_tokens")},
+              note="bf16 recompute's equality with phase 3 is printed, not asserted: its "
+                   "re-prefill computes the generated positions' K/V through K2 and a "
+                   "many-row projection, where the uninterrupted run wrote them a decode row "
+                   "at a time; swap restores the very bytes. Each row that parts must part at "
+                   "a near-tie (bf16_recompute_parting: ranks from 0 under a prefill of the "
+                   "shared context)",
+              card=smi, problems=problems))
+    if problems:
+        raise SystemExit("snapshot phase (b) failed: " + "; ".join(problems[:5]))
+
+
+VIP_PROMPT = ("Answer in one short sentence, in French, and keep the register formal: what "
+              "does the quarterly report say about growth in the northern region this year? ")
+
+
+def _snapshot_priority(smi, cfg, params, jobs, serve_tokens) -> None:
+    """Phase 11 (c): 16 batch rows fill the slots at ``decode_block`` 4 and
+    ``interactive_decode_block`` 1 (swap preemption); one request arrives
+    once they all decode, first as batch, then as interactive; then alone."""
+    core = _snapshot_engine(params, cfg, decode_block=4, interactive_decode_block=1,
+                            preempt_mode="swap")
+    runs = {}
+    for prio in ("batch", "interactive"):
+        for j in jobs:
+            core.add_request(f"{prio}-{j.id}", prompt=j.get_formatted_prompt(),
+                             params=_greedy(128))
+        outs: dict = {}
+        while (len(core.scheduler.running) < len(jobs)
+               or min(len(s.output_ids) for s in core.scheduler.running.values()) < 8):
+            outs.update({o.rid: o for o in core.step()})
+        before = dict(pp=core.priority_preemptions, steps=core.decode_steps,
+                      dispatches=core.decode_dispatches)
+        core.add_request(f"vip-{prio}", prompt=VIP_PROMPT, params=_greedy(32), priority=prio)
+        outs = _step_to_end(core, outs)
+        vip = outs[f"vip-{prio}"]
+        runs[prio] = dict(
+            tokens=vip.token_ids, ttft_ms=(vip.timing["first_token"] - vip.timing["enqueued"]) * 1e3,
+            finish_ms=(vip.timing["finished"] - vip.timing["enqueued"]) * 1e3,
+            priority_preemptions=core.priority_preemptions - before["pp"],
+            decode_steps=core.decode_steps - before["steps"],
+            decode_dispatches=core.decode_dispatches - before["dispatches"],
+            batch_equal_phase3=sum(outs[f"{prio}-{j.id}"].token_ids == serve_tokens[j.id]
+                                   for j in jobs))
+    replays_small = core._graphs.replays
+    small_graphs = 1 in core.stats()["cuda_graphs"]["graph_iterations"]
+    core.add_request("solo", prompt=VIP_PROMPT, params=_greedy(32))
+    solo = _step_to_end(core, {})
+    problems = graph_problems(core.stats())
+    if runs["interactive"]["priority_preemptions"] != 1 or runs["batch"]["priority_preemptions"]:
+        problems.append(f"priority preemptions {runs['interactive']['priority_preemptions']} "
+                        f"(interactive), {runs['batch']['priority_preemptions']} (batch)")
+    if runs["interactive"]["tokens"] != solo["solo"].token_ids:
+        problems.append("the interactive request's tokens differ from its solo run")
+    if not small_graphs:
+        problems.append("no graph of the small interactive block was captured")
+    it = runs["interactive"]
+    if not it["decode_steps"] < 4 * it["decode_dispatches"]:
+        problems.append("no small-block dispatch while the interactive row was resident")
+    emit(dict(phase="snapshot", part="c: priority", decode_block=4, interactive_decode_block=1,
+              ttft_interactive_ms=it["ttft_ms"], ttft_as_batch_ms=runs["batch"]["ttft_ms"],
+              finish_interactive_ms=it["finish_ms"], finish_as_batch_ms=runs["batch"]["finish_ms"],
+              priority_preemptions=it["priority_preemptions"],
+              small_block_graph=small_graphs, replays_through_c=replays_small,
+              batch_rows_equal_phase3={p: r["batch_equal_phase3"] for p, r in runs.items()},
+              timing="engine host stamps, enqueue to first token / to finish, the 16 batch "
+                     "rows decoding", card=smi, problems=problems))
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise SystemExit("snapshot phase (c) failed: " + "; ".join(problems[:5]))
+
+
+async def _collect_results(url: str, queue: str, n: int, procs, timeout: float,
+                           on_first=None) -> list:
+    """``n`` results off ``<queue>.results``, acked; ``on_first`` runs when
+    the first lands. Fails when the time runs out or every process in
+    ``procs()`` has exited."""
+    from llmq_tpu_torch.broker.base import make_broker
+
+    broker = make_broker(url)
+    await broker.connect()
+    results, deadline = [], time.monotonic() + timeout
+    try:
+        while len(results) < n:
+            live = procs()
+            if time.monotonic() > deadline or (live and all(p.poll() is not None for p in live)):
+                raise SystemExit(f"snapshot phase (d): {len(results)} of {n} results "
+                                 f"(logs: handoff_worker*.log in {OUT_DIR})")
+            msg = await broker.get(queue + ".results")
+            if msg is None:
+                await asyncio.sleep(0.01)
+                continue
+            results.append(json.loads(msg.body))
+            await msg.ack()
+            if len(results) == 1 and on_first is not None:
+                on_first()
+    finally:
+        await broker.close()
+    return results
+
+
+def _snapshot_handoff(smi, serve_tokens) -> None:
+    """Phase 11 (d): phase 9's ``BrokerServer`` and a ``python -m
+    llmq_tpu_torch worker run`` process, SIGTERM'd when the first result
+    lands (a job of 8 tokens; the others ask for 128); a second worker
+    process drains the queue, resuming the handed-off jobs."""
+    from llmq_tpu_torch.core.models import Job
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_jobs, queue = 16, "smoke-handoff"
+    gens = {f"job-{i:02d}": 8 if i == 0 else 128 for i in range(n_jobs)}
+    jobs = [Job(**{**j.model_dump(), "max_tokens": gens[j.id]})
+            for j in _default_jobs(n_jobs, 128)]
+    penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    server = subprocess.Popen([sys.executable, "-c", _SERVER], cwd=root, env=penv,
+                              stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    workers, rcs, problems = [], [], []
+    try:
+        url = f"tcp://127.0.0.1:{int(server.stdout.readline())}"
+        asyncio.run(_submit(url, queue, jobs))
+
+        def start(i):
+            log = open(os.path.join(OUT_DIR, f"handoff_worker{i}.log"), "w")
+            workers.append(subprocess.Popen(
+                [sys.executable, "-m", "llmq_tpu_torch", "worker", "run", "preset://qwen2.5-3b",
+                 queue, "--max-num-seqs", "16", "--max-model-len", "512", "--dtype", "bfloat16"],
+                cwd=root, env=dict(penv, LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1"),
+                stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+
+        t0 = time.perf_counter()
+        start(1)
+        stopped = {}
+
+        def sigterm_first():
+            stopped["t"] = time.perf_counter()
+            workers[0].send_signal(signal.SIGTERM)
+
+        first = asyncio.run(_collect_results(url, queue, 1, lambda: workers, 600, sigterm_first))
+        rcs.append(_stop(workers[0], signal.SIGTERM, 120))
+        drained_s = time.perf_counter() - stopped["t"]
+        start(2)
+        rest = asyncio.run(_collect_results(url, queue, n_jobs - len(first), lambda: workers[1:],
+                                            600))
+        wall = time.perf_counter() - t0
+        rcs.append(_stop(workers[1], signal.SIGTERM, 120))
+    finally:
+        for w in workers:
+            _stop(w, signal.SIGKILL, 10)
+        _stop(server, signal.SIGTERM, 10)
+    results = first + rest
+    ids = [r["id"] for r in results]
+    if sorted(ids) != sorted(gens):
+        problems.append(f"{len(results)} results, {len(set(ids))} unique ids")
+    tok = ByteTokenizer()
+    for r in results:
+        want = serve_tokens[r["id"]][: gens[r["id"]]]
+        if r["result"] != tok.decode(want) or r["usage"]["completion_tokens"] != len(want):
+            problems.append(f"{r['id']}: text differs from phase 3's first {len(want)} tokens")
+    offsets = {r["id"]: r.get("resume_offset", 0) for r in results}
+    if not any(o > 0 for o in offsets.values()):
+        problems.append("no result was resumed from a snapshot (resume_offset > 0)")
+    if rcs != [0, 0]:
+        problems.append(f"worker exit codes {rcs}")
+    emit(dict(phase="snapshot", part="d: worker handoff over tcp://", broker=url,
+              jobs=len(results), resumed=sum(o > 0 for o in offsets.values()),
+              resume_offsets=sorted(o for o in offsets.values() if o > 0),
+              first_worker_drain_s=drained_s, wall_s=wall, worker_exit_codes=rcs,
+              timing="from the first worker process's start to the 16th result; drain = "
+                     "SIGTERM to the first worker's exit", card=smi, problems=problems))
+    if problems:
+        raise SystemExit("snapshot phase (d) failed: " + "; ".join(problems[:5]))
+
+
+def phase_snapshot(smi: str, serve_tokens: dict) -> dict:
+    """Phase 11, the request-state plane (M11) at full width: qwen2.5-3b,
+    bf16, phase 3's seeded weights and 16 jobs; parts (a)-(d). Returns the
+    launches of part (a), whose restored rows decode through K1."""
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    cfg = get_preset("qwen2.5-3b")
+    # build_engine's draw for preset://qwen2.5-3b at seed 0: phase 3's weights
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+                         device=torch.device("cuda"))
+    jobs = _default_jobs(16, 128)
+    launches = _snapshot_round_trip(smi, cfg, params, jobs, serve_tokens)
+    _snapshot_swap(smi, cfg, params, jobs, serve_tokens)
+    _snapshot_priority(smi, cfg, params, jobs, serve_tokens)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _snapshot_handoff(smi, serve_tokens)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -2216,6 +2703,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         fused_launches = phase_fused(smi, serve_tokens, prefix_tokens)
+    snapshot_launches = {}
+    if "snapshot" in phases:
+        if serve_tokens is None:
+            raise SystemExit("phase snapshot compares with the serve phase's tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        snapshot_launches = phase_snapshot(smi, serve_tokens)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -2255,6 +2749,8 @@ def main() -> int:
                          **{f"verify_shape_{k}": verify.get(k) for k in (
                              "ms", "library_ms", "bound_ms", "bound_by", "plain_ms",
                              "k1_same_contexts_ms")})
+        if name in ("paged_decode", "flash_prefill"):  # phase 11 (a): restored rows
+            entry["snapshot_launches"] = snapshot_launches.get(name)
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",

@@ -6,8 +6,9 @@
 (``tcp://host:port`` for the llmq broker daemon, the reference's or the
 port's ``broker/tcp.py::BrokerServer``) with MODEL, a ``preset://NAME``
 or an HF checkpoint directory, through :func:`cli.worker.run_torch_worker`,
-until a SIGINT or SIGTERM stops it (the jobs in flight settle first; the
-process exits 0). ``argparse``, not click: the port's machines need no
+until a SIGINT or SIGTERM stops it (the jobs in flight are handed back to
+the queue as resumable snapshots, which a peer continues; the process
+exits 0). ``argparse``, not click: the port's machines need no
 package beyond torch, numpy and pydantic.
 
 The options of the reference's ``worker run`` (:336-412) that the port
@@ -32,9 +33,9 @@ UNPORTED_OPTIONS = {
     "tensor_parallel": (lambda v: v is not None and v > 1, "M13"),
     "data_parallel": (lambda v: v > 1, "M13"),
     "sequence_parallel": (lambda v: v > 1, "M13"),
-    "prefix_host_gb": (lambda v: v is not None and v > 0, "M11"),
+    "prefix_host_gb": (lambda v: v is not None and v > 0, "M11b"),
     "tp_overlap": (lambda v: v not in (None, "off"), "M13"),
-    "role": (lambda v: v not in (None, "unified"), "M11"),
+    "role": (lambda v: v not in (None, "unified"), "M11b"),
 }
 
 

@@ -7,9 +7,12 @@ reference's ``VLLM_*`` / ``BROKER_URL`` / ``RABBITMQ_URL`` aliases after
 it), re-read on every ``get_config()`` call so tests can monkeypatch the
 environment. Of the broker section it keeps what the worker reads
 (``broker_url``, ``queue_prefetch``; ``max_tokens`` of the engine
-section); the reconnect and outbox settings of the resilient session and
-the affinity and disaggregation sections come with the modules that read
-them (ROADMAP.md queue 1, M6 and M11), as does the ``.env`` autoload.
+section), and of the resilience section the shared host-memory budget
+(``host_mem_gb``, ``utils/host_mem.py``) and the drain timeout
+(``drain_timeout_s``, the worker's drain-with-handoff); the reconnect and
+outbox settings of the resilient session and the affinity and
+disaggregation sections come with the modules that read them (ROADMAP.md
+queue 1, M6 and M11b), as does the ``.env`` autoload.
 """
 
 from __future__ import annotations
@@ -101,6 +104,18 @@ class Config(BaseModel):
     mixed_step: str = Field(
         default_factory=lambda: (_env("LLMQ_MIXED_STEP") or "off").lower(),
         description="Piggyback scheduling of prefill chunks into decode: on or off.",
+    )
+
+    # --- resilience -------------------------------------------------------
+    host_mem_gb: float = Field(
+        default_factory=lambda: _env_float("LLMQ_HOST_MEM_GB", default=0.0),
+        description="Shared host-RAM byte budget (GiB) of swap-preempt captures "
+        "(utils/host_mem.HostMemoryGovernor); 0 disables it.",
+    )
+    drain_timeout_s: float = Field(
+        default_factory=lambda: _env_float("LLMQ_DRAIN_TIMEOUT_S", default=30.0),
+        description="Seconds a shutting-down worker waits for its in-flight jobs to settle "
+        "after handing them off.",
     )
 
 

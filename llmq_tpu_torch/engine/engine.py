@@ -15,6 +15,24 @@ iterations a dispatch (``decode_block_step`` :1375), speculative decoding
 chunk segments ride in the decode dispatches, ``mixedfill_step`` :1666,
 ``_prefill_mixed`` :3412), composed as the JAX engine composes them.
 
+Request-state plane (M11). ``extract_request`` / ``extract_all`` (:4147,
+:4174) pull requests out as ``engine/snapshot.py`` snapshots (KV pages
+gathered to the host after the run-ahead is drained: one
+``index_select`` and one copy a pool) and ``insert_request`` (:4323)
+puts them back, here or on another engine or package: it checks the
+model signature and the key chain, repacks across page sizes and refuses
+duplicates, and admission then writes the pages back into the pools in
+place (``index_copy_``; the captured graphs keep the pools' addresses)
+instead of prefilling. ``preempt_mode="swap"`` (``LLMQ_PREEMPT_MODE``)
+captures a preempted row's pages to the host at its deferred-release
+watermark and restores them on re-admission. Deadlines (``deadline_at``,
+swept between steps) and the priority classes (interactive waiters
+admitted first; ``priority_preempt`` evicts the youngest batch row for
+one; ``interactive_decode_block`` dispatches a small-K block, its own
+captured graph, while an interactive row is resident) follow :2569-2680.
+``AsyncEngine`` adds ``resume``, ``handoff`` (drain-with-handoff,
+:5044), token callbacks and ``call_on_engine``.
+
 Device decode state. The 12 leaves of the JAX state (:1300) live in
 static device tensors — tokens, ctx, block tables, active, two-word
 threefry keys, steps, temps, top-k, top-p, limits, min-tokens, stop ids,
@@ -24,7 +42,7 @@ in place by every dispatch, by the prefill scatter and by the resync, so
 steady-state decode ships nothing host→device. On the card each
 decode-type dispatch is one replay of a captured CUDA graph
 (``engine/graphs.py``), one graph per (dispatch kind, sampling mode,
-stop suppression); ``EngineCore(cuda_graphs=False)`` dispatches eagerly
+stop suppression, iterations); ``EngineCore(cuda_graphs=False)`` dispatches eagerly
 instead, and the CPU always does. A dispatch's tokens go to pinned host
 memory with ``non_blocking=True`` and a ``torch.cuda.Event``; the host
 reads them ``runahead`` dispatches later. Prefill stays eager.
@@ -34,14 +52,13 @@ Config. The engine honours ``max_num_seqs``, ``max_model_len``,
 f32 or fp8 = float8_e5m2), ``min_prefill_bucket``, ``max_prefill_batch``,
 ``prefill_chunk_size``, ``enable_prefix_caching`` (chunked prefill only,
 as in JAX), ``admit_max_wait_s``, ``runahead``, ``decode_block``,
-``spec_tokens``, ``spec_ngram``, ``stop_id_capacity`` and ``mixed_step``
-(``LLMQ_MIXED_STEP`` pins over it; it needs ``prefill_chunk_size``). Any
-other field set away from its default, or ``LLMQ_PREFIX_HOST_GB`` /
-``LLMQ_INTERACTIVE_DECODE_BLOCK`` set to turn their feature on, raises
-``NotImplementedError`` naming its ROADMAP.md item. With no interactive
-rows (priority classes come with M11) the small-K interactive executable
-is never dispatched, so ``interactive_decode_block`` resolves to 0 as in
-the JAX engine without them (:774).
+``spec_tokens``, ``spec_ngram``, ``stop_id_capacity``, ``mixed_step``
+(``LLMQ_MIXED_STEP`` pins over it; it needs ``prefill_chunk_size``),
+``preempt_mode``, ``priority_classes``, ``priority_preempt`` and
+``interactive_decode_block`` (each pinned by its ``LLMQ_*`` variable, as
+in JAX :733-774). Any other field set away from its default, or
+``LLMQ_PREFIX_HOST_GB`` set to turn the host prefix tier on, raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -62,6 +79,7 @@ import torch
 
 from llmq_tpu_torch.device import DeviceLike, resolve_device
 from llmq_tpu_torch.engine import sampling as sampling_mod
+from llmq_tpu_torch.engine import snapshot as snapshot_mod
 from llmq_tpu_torch.engine.graphs import DispatchGraphs
 from llmq_tpu_torch.engine.sampling import (
     SamplingParams,
@@ -78,6 +96,7 @@ from llmq_tpu_torch.engine.scheduler import (
     Sequence,
     mixed_token_budget,
 )
+from llmq_tpu_torch.engine.snapshot import KVRestore, RequestSnapshot, SnapshotCompatError
 from llmq_tpu_torch.engine.tokenizer import Tokenizer
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.models.transformer import Params, Transformer, make_kv_pages
@@ -87,6 +106,7 @@ from llmq_tpu_torch.ops.dispatch import (
     mixed_kernel_plan,
     verify_kernel_plan,
 )
+from llmq_tpu_torch.utils.host_mem import get_governor
 
 logger = logging.getLogger(__name__)
 
@@ -173,6 +193,9 @@ class EngineConfig:
         self.mixed_step = str(self.mixed_step).lower()
         if self.mixed_step not in ("off", "on"):
             raise ValueError(f"mixed_step={self.mixed_step!r} (want off|on)")
+        self.preempt_mode = str(self.preempt_mode).lower()
+        if self.preempt_mode not in ("recompute", "swap"):
+            raise ValueError(f"preempt_mode={self.preempt_mode!r} (want recompute|swap)")
         if isinstance(self.kv_dtype, str):
             try:
                 self.kv_dtype = _KV_DTYPES[self.kv_dtype.lower()]
@@ -187,11 +210,7 @@ class EngineConfig:
 #: Fields of EngineConfig this engine does not honour yet → the ROADMAP.md
 #: queue 1 item that brings them.
 _UNPORTED_FIELDS = {
-    "prefix_host_gb": "M11",
-    "interactive_decode_block": "M11",
-    "preempt_mode": "M11",
-    "priority_classes": "M11",
-    "priority_preempt": "M11",
+    "prefix_host_gb": "M11b",
     "watchdog_mult": "M12",
     "watchdog_min_s": "M12",
     "logit_guard": "M12",
@@ -207,9 +226,17 @@ _UNPORTED_FIELDS = {
 #: :733, :779) -> whether a value turns the feature on, and the field.
 _UNPORTED_ENV = {
     "LLMQ_PREFIX_HOST_GB": (lambda v: bool(v.strip()) and float(v) > 0, "prefix_host_gb"),
-    "LLMQ_INTERACTIVE_DECODE_BLOCK": (lambda v: bool(v.strip()) and int(v) > 0,
-                                      "interactive_decode_block"),
 }
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    """A boolean variable that pins over its config field (JAX :743-760)."""
+    value = os.environ.get(name, "").lower()
+    if value in ("0", "false", "no", "off"):
+        return False
+    if value in ("1", "true", "yes", "on"):
+        return True
+    return default
 
 
 def _check_ported(cfg: EngineConfig) -> None:
@@ -371,7 +398,23 @@ class EngineCore:
                 "piggybacks a prefill *chunk* onto the decode batch (bucketed "
                 "whole-prompt prefill has no chunks)"
             )
-        self.interactive_decode_block = 0  # no interactive rows (M11)
+        # Swap preemption and the priority classes: each variable pins over
+        # its field, as in the JAX engine (:737-774).
+        preempt = os.environ.get("LLMQ_PREEMPT_MODE", "").lower()
+        self.preempt_mode = preempt if preempt in ("recompute", "swap") else self.cfg.preempt_mode
+        self.priority_classes = _env_flag("LLMQ_PRIORITY_CLASSES", self.cfg.priority_classes)
+        self.priority_preempt = _env_flag("LLMQ_PRIORITY_PREEMPT", self.cfg.priority_preempt)
+        ik = self.cfg.interactive_decode_block
+        env_ik = os.environ.get("LLMQ_INTERACTIVE_DECODE_BLOCK", "").strip()
+        if env_ik:
+            try:
+                ik = int(env_ik)
+            except ValueError:
+                raise ValueError(
+                    f"LLMQ_INTERACTIVE_DECODE_BLOCK={env_ik!r} is not an int") from None
+        if ik < 0:
+            raise ValueError(f"interactive_decode_block={ik} (want >= 0)")
+        self.interactive_decode_block = ik if self.priority_classes else 0
         self._spec = self.cfg.spec_tokens > 0
         self.model = Transformer(model_config, params).to(self.device)
         self._vocab = model_config.vocab_size
@@ -385,6 +428,7 @@ class EngineCore:
             enable_prefix_caching=self.cfg.enable_prefix_caching,
         )
         self.scheduler = Scheduler(sched_cfg)
+        self.scheduler.on_preempt = self._on_scheduler_preempt
         self._pages_per_seq = sched_cfg.pages_per_seq
         self.k_pages, self.v_pages = make_kv_pages(
             model_config, num_pages, self.cfg.page_size,
@@ -396,6 +440,7 @@ class EngineCore:
             2 * self.k_pages.numel() * self.k_pages.element_size() / 2**30,
             self.cfg.max_num_seqs, self.device,
         )
+        self._kv_name = snapshot_mod.dtype_name(self.k_pages.dtype)
         self._eos_ids = set(model_config.eos_token_ids) | set(tokenizer.eos_token_ids)
         self._buckets = _prefill_buckets(self.cfg)
 
@@ -429,6 +474,10 @@ class EngineCore:
         self._defer_since: Optional[float] = None
         # (dispatch watermark, pages, leading cacheable count)
         self._deferred_pages: List[Tuple[int, List[int], int]] = []
+        # Swap captures awaiting their deferred-release watermark: (dispatch
+        # watermark, seq, pages, KV positions, epoch at the preemption),
+        # gathered to the host before those pages return to the allocator.
+        self._pending_swaps: List[Tuple[int, Sequence, List[int], int, int]] = []
         self._dispatch_idx = 0
         self._processed_idx = 0
         self._dirty = True
@@ -436,6 +485,13 @@ class EngineCore:
         self._suppress = False  # some resident row has min_tokens > 0
         self._dev_state: Optional[tuple] = None
         self._cancel_rids: Dict[str, float] = {}
+        # Called on the engine thread as (seq, token) for every token that
+        # survives the stop check (AsyncEngine's token callbacks).
+        self.on_token: Optional[Any] = None
+        # Flipped by the first deadline-carrying / interactive request, so
+        # deployments without them keep the exact sweep-free FIFO path.
+        self._deadlines_enabled = False
+        self._priority_enabled = False
 
         # Counters for stats/heartbeats.
         self.total_prompt_tokens = 0
@@ -450,7 +506,21 @@ class EngineCore:
         self.spec_accepted = 0
         self.mixed_steps = 0
         self.mixed_prefill_tokens = 0
+        self.swap_preempts = 0  # preemptions whose KV went to the host
+        self.swap_refused = 0  # captures the host-memory governor declined
+        self.kv_restores = 0  # admissions that wrote host KV back
+        self.snapshots_extracted = 0
+        self.snapshots_inserted = 0
+        self.deadline_expirations = 0
+        self.priority_preemptions = 0  # batch rows evicted for interactive ones
+        # Finished cleanly ("stop" / "length") and tokens, by class.
+        self.class_finished = {"interactive": 0, "batch": 0}
+        self.class_tokens = {"interactive": 0, "batch": 0}
         self._started_at = time.monotonic()
+
+        gov = get_governor()
+        if gov.enabled:  # the swap blobs report into the shared budget
+            gov.register(f"swap:engine-{id(self):x}", self._swap_restore_bytes)
 
         self._resync()
 
@@ -480,13 +550,9 @@ class EngineCore:
         messages: Optional[List[Dict[str, str]]] = None,
         prompt_ids: Optional[List[int]] = None,
         params: Optional[SamplingParams] = None,
+        deadline_at: Optional[float] = None,
         priority: str = "batch",
     ) -> Sequence:
-        if priority != "batch":
-            raise NotImplementedError(
-                f"priority={priority!r}: priority classes are not ported yet "
-                "(ROADMAP.md queue 1, M11)"
-            )
         if prompt_ids is None:
             if messages is not None:
                 prompt_ids = self.tokenizer.apply_chat_template(messages)
@@ -501,7 +567,18 @@ class EngineCore:
         need = len(set(params.stop_token_ids) | (set() if params.ignore_eos else self._eos_ids))
         if need > self._stop_capacity:
             self._grow_stop_capacity(need)
-        seq = Sequence(rid=rid, prompt_ids=list(prompt_ids), params=params)
+        if priority not in ("interactive", "batch"):
+            raise ValueError(f"priority={priority!r} (want interactive|batch)")
+        if not self.priority_classes:
+            priority = "batch"  # classes disabled: everything is FIFO batch
+        seq = Sequence(rid=rid, prompt_ids=list(prompt_ids), params=params,
+                       deadline_at=deadline_at, priority=priority)
+        if deadline_at is not None:
+            self._deadlines_enabled = True
+        if priority == "interactive" and not self._priority_enabled:
+            # Priority-aware admission from the first interactive request on.
+            self._priority_enabled = True
+            self.scheduler.config.priority_aware = True
         self.total_prompt_tokens += len(seq.prompt_ids)
         self.scheduler.add(seq)
         return seq
@@ -516,6 +593,8 @@ class EngineCore:
         batch, process lagged results. Returns the requests whose finish
         was observed this iteration (results lag dispatch by <= runahead)."""
         finished: List[RequestOutput] = []
+        if self._deadlines_enabled:
+            self._expire_deadlines(finished)
         if self._cancel_rids:
             self._sweep_cancels(finished)
         pre_wave = [s.rid for s in self._decodable_seqs()]
@@ -531,6 +610,22 @@ class EngineCore:
 
     def _decodable_seqs(self) -> List[Sequence]:
         return [s for s in self.scheduler.running.values() if s.prefilled]
+
+    def _expire_deadlines(self, finished: List[RequestOutput]) -> None:
+        """Waiting or running sequences past their wall-clock deadline
+        finish with ``deadline_exceeded`` (JAX :2569). Mid-prefill rows
+        expire on a later sweep, once prefilled."""
+        now = time.time()
+        for seq in [s for s in self.scheduler.waiting
+                    if s.deadline_at is not None and now > s.deadline_at]:
+            self.scheduler.waiting.remove(seq)
+            self.scheduler.finish(seq, "deadline_exceeded")
+            finished.append(self._output_for(seq))
+            self.deadline_expirations += 1
+        for seq in [s for s in self.scheduler.running.values()
+                    if s.prefilled and s.deadline_at is not None and now > s.deadline_at]:
+            self._finish_seq(seq, "deadline_exceeded", device_detected=False, finished=finished)
+            self.deadline_expirations += 1
 
     def cancel_request(self, rid: str) -> None:
         """Cancel a waiting/running request at the next step's sweep: it
@@ -556,13 +651,32 @@ class EngineCore:
             if now - t > _CANCEL_TTL_S:
                 del self._cancel_rids[rid]
 
+    def _interactive_victim(self) -> Optional[Sequence]:
+        """The youngest running prefilled batch sequence (JAX :2638): the
+        victim when interactive work would otherwise queue for a slot."""
+        candidates = [s for s in self.scheduler.running.values()
+                      if s.prefilled and s.priority != "interactive"]
+        return max(candidates, key=lambda s: s.admitted_at) if candidates else None
+
     def _try_admit(self, finished: List[RequestOutput]) -> bool:
-        """Admit + prefill up to one batch; True if anything was admitted
-        (the caller loops until the admissible backlog is drained)."""
+        """Admit + prefill (or restore) up to one batch; True if anything
+        was admitted (the caller loops until the admissible backlog is
+        drained)."""
         while len(self._pending) > self.cfg.runahead:
             self._process_oldest(finished)
         self._flush_deferred()
         free = sum(s is None for s in self.scheduler.slots)
+        # SLO preemption: an interactive waiter facing a full slot table
+        # evicts the youngest prefilled batch row (swapped under
+        # preempt_mode=swap), one victim per admission round.
+        int_waiting = self._priority_enabled and any(
+            s.priority == "interactive" for s in self.scheduler.waiting)
+        if int_waiting and free == 0 and self.priority_preempt:
+            victim = self._interactive_victim()
+            if victim is not None:
+                self._self_preempt_deferred(victim)
+                self.priority_preemptions += 1
+                free = 1
         want = (
             min(self.cfg.max_prefill_batch, len(self.scheduler.waiting), len(self.scheduler.slots))
             if self.scheduler.has_waiting
@@ -581,17 +695,24 @@ class EngineCore:
             self._defer_since is not None
             and time.monotonic() - self._defer_since > self.cfg.admit_max_wait_s
         )
-        if not (can_admit and (full or overdue)):
+        # Interactive waiters never sit out the batch-admission deferral.
+        if not (can_admit and (full or overdue or int_waiting)):
             return False
         self._defer_since = None
         admitted = self.scheduler.admit(max_new=self.cfg.max_prefill_batch)
-        todo = []
+        todo, restored = [], []
         for seq in admitted:
             if seq.params.max_tokens <= 0:
                 self.scheduler.finish(seq, "length")
                 finished.append(self._output_for(seq))
+            elif seq.restore is not None:
+                restored.append(seq)
             else:
                 todo.append(seq)
+        # Restores first: they mark the state dirty, and the prefill below
+        # (or the next decode dispatch) resyncs once for the whole wave.
+        if restored:
+            self._restore_batch(restored)
         if todo:
             self._prefill_batch(todo, finished)
         return bool(admitted)
@@ -671,9 +792,82 @@ class EngineCore:
         self._processed_idx = idx
 
     def _flush_deferred(self) -> None:
+        # Swap captures first: each shares its watermark with the deferred
+        # pages of the same preemption, and its pages must reach the host
+        # before they return to the allocator. At the watermark every
+        # dispatch that may write them has completed (its event waited).
+        while self._pending_swaps and self._pending_swaps[0][0] <= self._processed_idx:
+            _, seq, pages, valid, epoch = self._pending_swaps.pop(0)
+            self._capture_swap(seq, pages, valid, epoch)
         while self._deferred_pages and self._deferred_pages[0][0] <= self._processed_idx:
             _, pages, cacheable = self._deferred_pages.pop(0)
             self.scheduler.release_pages(pages, cacheable)
+
+    # --- swap preemption ----------------------------------------------------
+    def _kv_gather(self, pages: List[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """Pool pages to the host as ``[L, n, page, H, D]`` raw bits (JAX
+        ``_kv_gather_np`` :2314 over ``gather_kv_pages``): one
+        ``index_select`` and one copy a pool, the copy waiting for it."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        return (snapshot_mod.pages_to_host(self.k_pages, idx),
+                snapshot_mod.pages_to_host(self.v_pages, idx))
+
+    def _kv_insert(self, pages: List[int], k: np.ndarray, v: np.ndarray) -> None:
+        """Write host raw-bit pages into the pools in place (JAX
+        ``_kv_insert_np`` :2339 rebinds donated pools; here the pools keep
+        their storage, so the captured graphs stay valid)."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        snapshot_mod.pages_from_host(self.k_pages, idx, k)
+        snapshot_mod.pages_from_host(self.v_pages, idx, v)
+
+    def _swap_out(self, seq: Sequence, pages: List[int], valid: int) -> None:
+        """Gather ``seq``'s first ``pages_for(valid)`` pages to the host as
+        its restore, if the governor admits them (else it recomputes)."""
+        n = snapshot_mod.pages_for(valid, self.cfg.page_size)
+        if n == 0 or n > len(pages) or not self._admit_swap_capture(n):
+            return
+        k, v = self._kv_gather(pages[:n])
+        seq.restore = KVRestore(k=k, v=v, valid=valid, dtype=self._kv_name)
+        self.swap_preempts += 1
+
+    def _capture_swap(self, seq: Sequence, pages: List[int], valid: int, epoch: int) -> None:
+        """A swap-preempted sequence's pages to the host at its watermark
+        (JAX :2912); skipped (it re-prefills, always correct) when the
+        sequence moved on meanwhile: re-admitted, finished, preempted
+        again, or already carrying a restore."""
+        if (seq.epoch != epoch or seq.finish_reason is not None
+                or seq.rid in self.scheduler.running or seq.restore is not None):
+            return
+        self._swap_out(seq, pages, valid)
+
+    def _page_host_bytes(self) -> int:
+        """Host bytes one swapped KV page costs (K + V)."""
+        return 2 * self.k_pages.numel() * self.k_pages.element_size() // self.k_pages.shape[1]
+
+    def _admit_swap_capture(self, n_pages: int) -> bool:
+        """Ask the host-memory governor before buffering ``n_pages`` of
+        swapped KV; a refusal downgrades the preemption to recompute."""
+        if get_governor().admit_swap(n_pages * self._page_host_bytes()):
+            return True
+        self.swap_refused += 1
+        return False
+
+    def _swap_restore_bytes(self) -> int:
+        """Governor gauge: host bytes of restores awaiting re-admission."""
+        return sum(s.restore.k.nbytes + s.restore.v.nbytes
+                   for s in list(self.scheduler.waiting) if s.restore is not None)
+
+    def _on_scheduler_preempt(self, seq: Sequence, deferred: bool) -> None:
+        """Scheduler ``on_preempt`` hook (JAX :2985): an immediate
+        preemption (a scheduler-picked victim, only with the pipeline
+        drained) gathers the victim's pages here, while it owns them;
+        deferred ones queue their capture in ``_self_preempt_deferred``."""
+        if (deferred or self.preempt_mode != "swap" or not seq.prefilled or not seq.pages
+                or seq.restore is not None):
+            return
+        if self._pending:
+            raise RuntimeError("immediate preemption with dispatches in flight")
+        self._swap_out(seq, seq.pages, seq.num_tokens - 1)
 
     def _resync(self) -> None:
         """Rebuild the device decode state from scheduler truth, in place
@@ -860,13 +1054,12 @@ class EngineCore:
             leaf[row] = torch.where(valid, values[name], leaf[row])
         return torch.where((torch.arange(S, device=dev) == slot) & final, out1[0], out)
 
-    def _block(self, kind: str, st: tuple, seg, mode: str, suppress: bool) -> Any:
-        """``decode_block`` iterations of ``kind`` over the state ``st``
-        (JAX ``decode_block_step`` :1375, ``verify_block_step`` :1549, the
-        mixed scan): a [K, S] token block, or ([K, S, Q], [K, S]) for
-        verify."""
+    def _block(self, kind: str, st: tuple, seg, mode: str, suppress: bool, K: int) -> Any:
+        """``K`` iterations of ``kind`` over the state ``st`` (JAX
+        ``decode_block_step`` :1375, ``verify_block_step`` :1549, the mixed
+        scan): a [K, S] token block, or ([K, S, Q], [K, S]) for verify."""
         outs = []
-        for k in range(self.cfg.decode_block):
+        for k in range(K):
             if kind == "decode":
                 outs.append(self._decode_iter(st, mode, suppress))
             elif kind == "verify":
@@ -877,14 +1070,17 @@ class EngineCore:
             return tuple(torch.stack(part) for part in zip(*outs))
         return torch.stack(outs)
 
-    def _dispatch_block(self, kind: str, seg=None, mode: Optional[str] = None) -> Any:
-        """Run one decode-type dispatch in sampling ``mode`` (the state's
-        by default): on the card a replay of its captured graph (captured
-        on first use, after a warm-up on inactive copies of the state and
-        inputs), else eagerly."""
+    def _dispatch_block(self, kind: str, seg=None, mode: Optional[str] = None,
+                        K: Optional[int] = None) -> Any:
+        """Run one decode-type dispatch of ``K`` iterations (``decode_block``
+        by default) in sampling ``mode`` (the state's by default): on the
+        card a replay of its captured graph, one per K (captured on first
+        use, after a warm-up on inactive copies of the state and inputs),
+        else eagerly."""
         mode, suppress = mode or self._mode, self._suppress
+        K = K or self.cfg.decode_block
         if self._graphs is None:
-            return self._block(kind, self._dev_state, seg, mode, suppress)
+            return self._block(kind, self._dev_state, seg, mode, suppress, K)
 
         def warm():
             dead = tuple(t.clone() for t in self._dev_state)
@@ -894,12 +1090,12 @@ class EngineCore:
                 dead_seg = {name: t.clone() for name, t in seg.items()}
                 dead_seg["positions"].fill_(-1)
                 dead_seg["final"].zero_()
-            self._block(kind, dead, dead_seg, mode, suppress)
+            self._block(kind, dead, dead_seg, mode, suppress, K)
 
         return self._graphs.run(
-            (kind, mode, suppress),
-            lambda: self._block(kind, self._dev_state, seg, mode, suppress),
-            warm, steps=self.cfg.decode_block,
+            (kind, mode, suppress, K),
+            lambda: self._block(kind, self._dev_state, seg, mode, suppress, K),
+            warm, steps=K,
         )
 
     def _first_tokens(
@@ -1317,8 +1513,16 @@ class EngineCore:
         if not self._ensure_decode_pages(finished):
             return
         kind = "verify" if self._spec else "decode"
-        out = self._dispatch_block(kind)
-        self.decode_steps += self.cfg.decode_block
+        K = self.cfg.decode_block
+        if 0 < self.interactive_decode_block < K and any(
+            s.prefilled and s.priority == "interactive" for s in self.scheduler.running.values()
+        ):
+            # An interactive row is resident: the small-K block brings its
+            # tokens home every interactive_decode_block iterations (JAX
+            # :3779-3790); pure-batch dispatches keep the big block.
+            K = self.interactive_decode_block
+        out = self._dispatch_block(kind, K=K)
+        self.decode_steps += K
         self.decode_dispatches += 1
         self._push_pending(
             kind,
@@ -1334,8 +1538,18 @@ class EngineCore:
 
     def _self_preempt_deferred(self, seq: Sequence) -> None:
         """Preempt ``seq`` itself; its pages return to the allocator only
-        after every in-flight step that may write them is processed."""
+        after every in-flight step that may write them is processed. Under
+        ``preempt_mode="swap"`` its pages are queued for a host capture at
+        that same watermark, and re-admission writes them back instead of
+        re-prefilling (JAX :3813-3841)."""
+        swap = self.preempt_mode == "swap" and seq.prefilled and bool(seq.pages)
+        pages_copy = list(seq.pages) if swap else None
+        kv_valid = seq.num_tokens - 1
         pages, cacheable = self.scheduler.preempt(seq, defer_pages=True)
+        if swap:
+            # The epoch after the bump: the capture fires only for this
+            # preemption, not a later one of the same sequence.
+            self._pending_swaps.append((self._dispatch_idx, seq, pages_copy, kv_valid, seq.epoch))
         if pages:
             self._deferred_pages.append((self._dispatch_idx, pages, cacheable))
         self._dirty = True
@@ -1359,19 +1573,29 @@ class EngineCore:
     def _append_and_check(self, seq: Sequence, token: int, finished: List[RequestOutput]) -> None:
         seq.output_ids.append(token)
         self.total_generated_tokens += 1
+        self.class_tokens["interactive" if seq.priority == "interactive" else "batch"] += 1
         now = time.monotonic()
         if seq.t_first_token == 0.0:
             seq.t_first_token = now
         seq.t_last_token = now
         # Stops are checked BEFORE the page top-up: a stopping sequence
         # needs no more pages.
+        n_before = len(seq.output_ids)
         reason = self._stop_reason(seq, token)
         if reason is not None:
+            # The token streams iff it survived the stop check (length
+            # finishes keep it; stop tokens are popped; a stop-string hit
+            # pre-truncates the text).
+            if (self.on_token is not None and len(seq.output_ids) == n_before
+                    and seq.finish_text is None):
+                self.on_token(seq, token)
             # Token stops and length caps were detected on the device
             # (advance_state); only stop strings force a resync.
             self._finish_seq(seq, reason, device_detected=seq.finish_text is None,
                              finished=finished)
             return
+        if self.on_token is not None:
+            self.on_token(seq, token)
         try:
             # Pages were pre-allocated at dispatch time; a no-op except
             # under pool exhaustion.
@@ -1453,6 +1677,8 @@ class EngineCore:
                 return
 
     def _output_for(self, seq: Sequence) -> RequestOutput:
+        if (seq.finish_reason or "stop") in ("stop", "length"):
+            self.class_finished["interactive" if seq.priority == "interactive" else "batch"] += 1
         text = seq.finish_text
         if text is None:
             text = self.tokenizer.decode(seq.output_ids)
@@ -1477,6 +1703,178 @@ class EngineCore:
             timing=timing,
         )
 
+    # --- snapshot plane ---------------------------------------------------
+    def _model_sig(self) -> Dict[str, Any]:
+        """The shape contract a snapshot's KV pages must match (JAX
+        :4078; ``kv_dtype`` as ``str(jnp.dtype(...))`` writes it). Weights
+        are not part of it: peers serve the same checkpoint."""
+        return {
+            "num_layers": int(self.model_config.num_layers),
+            "num_kv_heads": int(self.model_config.num_kv_heads),
+            "head_dim": int(self.model_config.head_dim_),
+            "kv_dtype": self._kv_name,
+        }
+
+    def _snapshot_seq(self, seq: Sequence) -> RequestSnapshot:
+        """Host state of one unfinished sequence (JAX :4091). KV pages come
+        from its pending swap restore, or a gather (prefilled and running),
+        or not at all (waiting or mid-prefill: insertion re-prefills)."""
+        p = seq.params
+        kv_k = kv_v = None
+        kv_valid = 0
+        if seq.restore is not None:
+            kv_k, kv_v, kv_valid = seq.restore.k, seq.restore.v, seq.restore.valid
+        elif seq.prefilled and seq.rid in self.scheduler.running and seq.pages:
+            kv_valid = seq.num_tokens - 1
+            n = snapshot_mod.pages_for(kv_valid, self.cfg.page_size)
+            if 0 < n <= len(seq.pages):
+                kv_k, kv_v = self._kv_gather(seq.pages[:n])
+            else:
+                kv_valid = 0
+        return RequestSnapshot(
+            rid=seq.rid, model_sig=self._model_sig(), page_size=self.cfg.page_size,
+            prompt_ids=list(seq.prompt_ids), output_ids=list(seq.output_ids),
+            params=dataclasses.replace(p),
+            key_data=np.asarray(make_base_key(p.seed, request_tag(seq.rid)), np.uint32),
+            epoch=seq.epoch, preempt_count=seq.preempt_count, detok_len=seq.detok_len,
+            detok_text=seq.detok_text, kv_valid=kv_valid, kv_k=kv_k, kv_v=kv_v,
+            kv_dtype=self._kv_name,
+        )
+
+    def _remove_extracted(self, seq: Sequence) -> None:
+        if seq.rid in self.scheduler.running:
+            was_prefilled = seq.prefilled
+            # The pipeline is drained (extraction drains first), so the
+            # pages release now.
+            self.scheduler.finish(seq, "extracted")
+            if was_prefilled:
+                self._dirty = True
+        else:
+            try:
+                self.scheduler.waiting.remove(seq)
+            except ValueError:
+                pass
+        seq.restore = None
+
+    def extract_request(self, rid: str, *,
+                        finished: Optional[List[RequestOutput]] = None) -> RequestSnapshot:
+        """Pull one in-flight request out as a :class:`RequestSnapshot`
+        and remove it (JAX :4147). Drains the run-ahead pipeline first;
+        outputs observed during that drain go to ``finished`` (a request
+        that finishes in it raises KeyError here). Greedy continuation
+        after :meth:`insert_request` equals never extracting."""
+        out = finished if finished is not None else []
+        self._drain(out)
+        seq = self.scheduler.running.get(rid)
+        if seq is None:
+            seq = next((s for s in self.scheduler.waiting if s.rid == rid), None)
+        if seq is None or seq.finish_reason is not None:
+            raise KeyError(f"no in-flight request {rid!r} to extract")
+        snap = self._snapshot_seq(seq)
+        self._remove_extracted(seq)
+        self.snapshots_extracted += 1
+        return snap
+
+    def extract_all(self, *, finished: Optional[List[RequestOutput]] = None
+                    ) -> List[RequestSnapshot]:
+        """Extract every unfinished request (drain-with-handoff; JAX
+        :4174). See :meth:`extract_request`."""
+        out = finished if finished is not None else []
+        self._drain(out)
+        snaps: List[RequestSnapshot] = []
+        for seq in list(self.scheduler.running.values()) + list(self.scheduler.waiting):
+            if seq.finish_reason is not None:
+                continue
+            snaps.append(self._snapshot_seq(seq))
+            self._remove_extracted(seq)
+            self.snapshots_extracted += 1
+        return snaps
+
+    def discard_pending(self, *, reuse_pool: bool = False) -> None:
+        """Drop every in-flight dispatch result unread (JAX :4193), for
+        recovery: the sequences' host state up to the last processed step
+        is consistent, and re-inserting their snapshots recomputes the
+        lost iterations (same key chain, same step counts). With
+        ``reuse_pool`` the deferred pages go back to the allocator (any
+        in-flight write to them is stream-ordered before their next use);
+        else their bookkeeping is dropped with the pool."""
+        self._pending.clear()
+        self._pending_decodes = 0
+        self._pending_swaps.clear()  # dropped captures re-prefill instead
+        self._processed_idx = self._dispatch_idx
+        if reuse_pool:
+            for _, pages, cacheable in self._deferred_pages:
+                self.scheduler.release_pages(pages, cacheable)
+        self._deferred_pages.clear()
+        self._dirty = True
+
+    def insert_request(self, snap: RequestSnapshot, *,
+                       deadline_at: Optional[float] = None) -> Sequence:
+        """Re-insert an extracted request, here or on another engine (JAX
+        :4323). Its KV pages go to whatever pages admission hands out
+        (repacked on the host if the page size differs); the key chain is
+        re-derived from (seed, rid) and checked against the snapshot's bit
+        for bit. A snapshot without KV re-prefills prompt + output."""
+        sig, mine = dict(snap.model_sig), self._model_sig()
+        if sig != mine:
+            raise SnapshotCompatError(
+                f"snapshot model signature {sig} does not match engine {mine}")
+        if snap.rid in self.scheduler.running or any(
+                s.rid == snap.rid for s in self.scheduler.waiting):
+            raise ValueError(f"request {snap.rid!r} is already in flight on this engine")
+        params = dataclasses.replace(snap.params)
+        expect = np.asarray(make_base_key(params.seed, request_tag(snap.rid)), np.uint32)
+        got = np.asarray(snap.key_data, np.uint32)
+        if got.shape != expect.shape or not np.array_equal(got, expect):
+            raise SnapshotCompatError(
+                "sampling-key chain mismatch: the snapshot's base key does not re-derive "
+                "from (seed, rid) on this engine")
+        need = len(set(params.stop_token_ids) | (set() if params.ignore_eos else self._eos_ids))
+        if need > self._stop_capacity:
+            self._grow_stop_capacity(need)
+        seq = Sequence(
+            rid=snap.rid, prompt_ids=[int(t) for t in snap.prompt_ids], params=params,
+            output_ids=[int(t) for t in snap.output_ids],
+            # A fresh epoch lineage; +1 as a preemption would have done.
+            epoch=snap.epoch + 1, preempt_count=snap.preempt_count,
+            detok_len=snap.detok_len, detok_text=snap.detok_text, deadline_at=deadline_at,
+        )
+        if deadline_at is not None:
+            self._deadlines_enabled = True
+        if snap.kv_k is not None and snap.kv_v is not None and snap.kv_valid > 0:
+            if snap.kv_valid != seq.num_tokens - 1:
+                raise SnapshotCompatError(
+                    f"snapshot KV covers {snap.kv_valid} positions but "
+                    f"{seq.num_tokens - 1} are needed to continue decode")
+            k, v = snap.kv_k, snap.kv_v
+            if snap.page_size != self.cfg.page_size:
+                n_dst = snapshot_mod.pages_for(snap.kv_valid, self.cfg.page_size)
+                k = snapshot_mod.repack_pages(k, snap.kv_valid, self.cfg.page_size, n_dst)
+                v = snapshot_mod.repack_pages(v, snap.kv_valid, self.cfg.page_size, n_dst)
+            seq.restore = KVRestore(k=k, v=v, valid=snap.kv_valid, dtype=snap.kv_dtype)
+        self.total_prompt_tokens += len(seq.prompt_ids)
+        self.scheduler.add_restored(seq)
+        self.snapshots_inserted += 1
+        return seq
+
+    def _restore_batch(self, seqs: List[Sequence]) -> None:
+        """Write admitted sequences' host KV pages into the pools, in
+        place, and mark them prefilled (JAX :4407); their decode-state
+        rows join through the dirty resync of the next dispatch."""
+        for seq in seqs:
+            r, seq.restore = seq.restore, None
+            n = r.k.shape[1]
+            # admit() allocated pages for num_tokens + 1 positions, which
+            # always covers ceil(valid / page) pages of data.
+            assert n <= len(seq.pages), (n, len(seq.pages))
+            self._kv_insert(seq.pages[:n], r.k, r.v)
+            seq.prefilled = True
+            if seq.t_prefill_start == 0.0:
+                seq.t_prefill_start = time.monotonic()
+            self.scheduler.register_prefix(seq)
+            self.kv_restores += 1
+        self._dirty = True
+
     def abort_all(self, note: str = "aborted") -> None:
         """Drop every running/waiting sequence and release their pages —
         recovery after a failed step."""
@@ -1490,6 +1888,8 @@ class EngineCore:
             self._processed_idx = last[0]
             self._pending.clear()
             self._pending_decodes = 0
+        # Swap captures would gather untrusted KV; their sequences go anyway.
+        self._pending_swaps.clear()
         self._flush_deferred()
         # The prefix cache must not survive an abort: a failed step leaves
         # the KV content untrusted, and a cached hash would hand it to
@@ -1525,19 +1925,50 @@ class EngineCore:
             mixed_step=self.mixed_step,
             mixed_steps=self.mixed_steps,
             mixed_prefill_tokens=self.mixed_prefill_tokens,
+            preempt_mode=self.preempt_mode,
+            swap_preempts=self.swap_preempts,
+            kv_restores=self.kv_restores,
+            snapshots_extracted=self.snapshots_extracted,
+            snapshots_inserted=self.snapshots_inserted,
             # Decode-type dispatches as CUDA graphs: None when eager.
             cuda_graphs=None if self._graphs is None else dict(
                 graphs=len(self._graphs), captures=self._graphs.captures,
                 replays=self._graphs.replays, warmup_steps=self._graphs.warmup_steps,
+                graph_iterations=self._graphs.iterations(),
             ),
         )
         if self._spec:
             s["verify_kernel"] = verify_kernel_plan(self.device)[0]
         if self.mixed_step == "on":
             s["mixed_kernel"] = mixed_kernel_plan(self.device)[0]
+        # Superset-only keys, as in JAX (:4805-4839): the priority plane
+        # once an interactive request arrived, the counters once moved.
+        if self._priority_enabled:
+            s["priority_preemptions"] = self.priority_preemptions
+            s["interactive_decode_block"] = self.interactive_decode_block
+            s["tokens_interactive"] = self.class_tokens["interactive"]
+            s["tokens_batch"] = self.class_tokens["batch"]
+            s["finished_interactive"] = self.class_finished["interactive"]
+            s["finished_batch"] = self.class_finished["batch"]
         if self.cancellations:
             s["cancellations"] = self.cancellations
+        if self.deadline_expirations:
+            s["deadline_expirations"] = self.deadline_expirations
+        if self.swap_refused:
+            s["swap_refused"] = self.swap_refused
         return s
+
+
+@dataclasses.dataclass
+class HandoffOutput:
+    """What :meth:`AsyncEngine.handoff` resolves an in-flight request with
+    instead of a :class:`RequestOutput` (JAX :4884): its snapshot (None
+    when it never entered the engine: nothing to carry) and the count of
+    tokens already generated (the resume offset for result dedup)."""
+
+    rid: str
+    snapshot: Optional[RequestSnapshot]
+    emitted: int = 0
 
 
 class AsyncEngine:
@@ -1546,11 +1977,20 @@ class AsyncEngine:
 
     def __init__(self, core: EngineCore) -> None:
         self.core = core
+        # (rid, prompt, messages, prompt_ids, params, snapshot, deadline_at, priority)
         self._intake: "queue.Queue[tuple]" = queue.Queue()
-        self._calls: "queue.Queue[Any]" = queue.Queue()
+        # Closures marshalled onto the engine thread, with their futures.
+        self._calls: "queue.Queue[Tuple[Any, Future]]" = queue.Queue()
         self._futures: Dict[str, Future] = {}
         self._wake = threading.Event()
         self._stop = False
+        self._draining = False
+        self._handoff_requested = False
+        self._handoff_event: Optional[threading.Event] = None
+        self._handoff_results: List[HandoffOutput] = []
+        # rid -> cb(token, n_out), fired on the engine thread per surviving token.
+        self._token_cbs: Dict[str, Any] = {}
+        core.on_token = self._dispatch_token
         self.error: Optional[BaseException] = None  # the first failed step's exception
         self._thread = threading.Thread(target=self._run, name="llmq-torch-engine", daemon=True)
         self._thread.start()
@@ -1563,63 +2003,182 @@ class AsyncEngine:
         messages: Optional[List[Dict[str, str]]] = None,
         prompt_ids: Optional[List[int]] = None,
         params: Optional[SamplingParams] = None,
+        deadline_at: Optional[float] = None,
+        priority: str = "batch",
     ) -> RequestOutput:
-        fut = self._submit(rid, prompt, messages, prompt_ids, params)
+        fut = self._submit(rid, prompt, messages, prompt_ids, params, None, deadline_at, priority)
+        try:
+            return await asyncio.wrap_future(fut)
+        finally:
+            self._futures.pop(rid, None)
+
+    async def resume(self, *, rid: str, snapshot: RequestSnapshot,
+                     deadline_at: Optional[float] = None) -> RequestOutput:
+        """Continue a request from a :class:`RequestSnapshot` (a peer's
+        drain-with-handoff). Completes as :meth:`generate` does, or with a
+        :class:`HandoffOutput` if this engine drains in turn."""
+        fut = self._submit(rid, snapshot=snapshot, deadline_at=deadline_at)
         try:
             return await asyncio.wrap_future(fut)
         finally:
             self._futures.pop(rid, None)
 
     def generate_sync(self, *, rid: str, timeout: Optional[float] = None, **kwargs) -> RequestOutput:
-        fut = self._submit(
-            rid, kwargs.get("prompt"), kwargs.get("messages"),
-            kwargs.get("prompt_ids"), kwargs.get("params"),
-        )
+        fut = self._submit(rid, **kwargs)
         try:
             return fut.result(timeout=timeout)
         finally:
             self._futures.pop(rid, None)
 
-    def _submit(self, rid, prompt, messages, prompt_ids, params) -> Future:
+    def _submit(self, rid: str, prompt: Optional[str] = None,
+                messages: Optional[List[Dict[str, str]]] = None,
+                prompt_ids: Optional[List[int]] = None,
+                params: Optional[SamplingParams] = None,
+                snapshot: Optional[RequestSnapshot] = None,
+                deadline_at: Optional[float] = None, priority: str = "batch") -> Future:
+        if self._draining:
+            raise RuntimeError("engine is draining for handoff")
         fut: Future = Future()
         self._futures[rid] = fut
-        self._intake.put((rid, prompt, messages, prompt_ids, params))
+        self._intake.put((rid, prompt, messages, prompt_ids, params, snapshot, deadline_at,
+                          priority))
         self._wake.set()
         return fut
 
+    def handoff(self, timeout: float = 120.0) -> List[HandoffOutput]:
+        """Drain-with-handoff (thread-safe; JAX :5044): let the in-flight
+        dispatches land, extract every unfinished request as a snapshot
+        and resolve its future with a :class:`HandoffOutput`. New
+        ``generate`` / ``resume`` calls fail from now on. Returns the
+        handoffs; requests that finish during the drain resolve with
+        their :class:`RequestOutput` and are not among them."""
+        self._draining = True
+        if not self._thread.is_alive():
+            return []
+        self._handoff_results = []
+        self._handoff_event = threading.Event()
+        self._handoff_requested = True
+        self._wake.set()
+        if not self._handoff_event.wait(timeout=timeout):
+            logger.warning("engine handoff timed out after %.1fs", timeout)
+        return self._handoff_results
+
     def stats(self) -> Dict[str, Any]:
         return self.core.stats()
+
+    # --- streaming / cancellation ----------------------------------------
+    def _dispatch_token(self, seq: Sequence, token: int) -> None:
+        """``EngineCore.on_token`` bridge (engine thread): a surviving token
+        to its request's callback, if any. Callback errors are logged, not
+        raised: a broken consumer must not stop the step loop."""
+        cb = self._token_cbs.get(seq.rid)
+        if cb is None:
+            return
+        try:
+            cb(token, len(seq.output_ids))
+        except Exception:  # noqa: BLE001 — the consumer's fault, not the engine's
+            logger.exception("token callback for %s failed", seq.rid)
+
+    def set_token_callback(self, rid: str, cb: Any) -> None:
+        """Register ``cb(token, n_out)`` for one request's tokens: fired on
+        the engine thread for each token that survives the stop check,
+        ``n_out`` the output length including it (its 1-based index).
+        Register before ``generate`` to see every token."""
+        self._token_cbs[rid] = cb
+
+    def clear_token_callback(self, rid: str) -> None:
+        self._token_cbs.pop(rid, None)
 
     def cancel(self, rid: str) -> None:
         """Cancel one in-flight request (thread-safe, non-blocking): it
         finishes with finish_reason='cancelled' through the normal path."""
         if self._thread.is_alive():
-            self._calls.put(lambda: self.core.cancel_request(rid))
+            self._calls.put((lambda: self.core.cancel_request(rid), Future()))
             self._wake.set()
+
+    def call_on_engine(self, fn, timeout: float = 30.0):
+        """Run ``fn()`` on the engine thread and return its result: what
+        touches the pools or the scheduler from another thread goes
+        through here (JAX :5115)."""
+        if not self._thread.is_alive():
+            return fn()
+        fut: Future = Future()
+        self._calls.put((fn, fut))
+        self._wake.set()
+        return fut.result(timeout=timeout)
 
     def shutdown(self) -> None:
         self._stop = True
         self._wake.set()
         self._thread.join(timeout=30)
 
-    def _run(self) -> None:
-        while not self._stop:
+    # --- engine thread ----------------------------------------------------
+    def _resolve(self, rid: str, value: Any) -> None:
+        fut = self._futures.get(rid)
+        if fut is not None and not fut.done():
+            fut.set_result(value)
+
+    def _run_handoff(self) -> None:
+        """Drain, extract, resolve (JAX :5411-5458). Outputs that finish in
+        the drain resolve normally, the unfinished with a HandoffOutput
+        carrying their snapshot, intake stragglers with a snapshot-less
+        one (the worker requeues those whole)."""
+        self._handoff_requested = False
+        results: List[HandoffOutput] = []
+        try:
+            outs: List[RequestOutput] = []
+            snaps = self.core.extract_all(finished=outs)
+            for out in outs:
+                self._resolve(out.rid, out)
+            for snap in snaps:
+                results.append(HandoffOutput(snap.rid, snap, len(snap.output_ids)))
             while True:
                 try:
-                    self._calls.get_nowait()()
+                    item = self._intake.get_nowait()
                 except queue.Empty:
                     break
+                results.append(HandoffOutput(item[0], None, 0))
+            for ho in results:
+                self._resolve(ho.rid, ho)
+        except Exception:  # noqa: BLE001 — a handoff must never wedge shutdown
+            logger.exception("engine handoff failed; aborting the batch")
+            self.core.abort_all("handoff_failed")
+            for fut in list(self._futures.values()):
+                if not fut.done():
+                    fut.set_exception(RuntimeError("engine handoff failed"))
+        finally:
+            self._handoff_results = results
+            if self._handoff_event is not None:
+                self._handoff_event.set()
+
+    def _run(self) -> None:
+        while not self._stop:
+            if self._handoff_requested:
+                self._run_handoff()
+            while True:
+                try:
+                    fn, call_fut = self._calls.get_nowait()
+                except queue.Empty:
+                    break
+                try:
+                    call_fut.set_result(fn())
+                except Exception as exc:  # noqa: BLE001 — the caller's error
+                    call_fut.set_exception(exc)
             added = False
             while True:
                 try:
-                    rid, prompt, messages, prompt_ids, params = self._intake.get_nowait()
+                    (rid, prompt, messages, prompt_ids, params, snapshot, deadline_at,
+                     priority) = self._intake.get_nowait()
                 except queue.Empty:
                     break
                 try:
-                    self.core.add_request(
-                        rid, prompt=prompt, messages=messages,
-                        prompt_ids=prompt_ids, params=params,
-                    )
+                    if snapshot is not None:
+                        self.core.insert_request(snapshot, deadline_at=deadline_at)
+                    else:
+                        self.core.add_request(
+                            rid, prompt=prompt, messages=messages, prompt_ids=prompt_ids,
+                            params=params, deadline_at=deadline_at, priority=priority,
+                        )
                     added = True
                 except Exception as exc:  # noqa: BLE001 — invalid request
                     fut = self._futures.get(rid)
@@ -1631,9 +2190,7 @@ class AsyncEngine:
                 continue
             try:
                 for out in self.core.step():
-                    fut = self._futures.get(out.rid)
-                    if fut is not None and not fut.done():
-                        fut.set_result(out)
+                    self._resolve(out.rid, out)
             except Exception as exc:  # noqa: BLE001 — keep the loop alive
                 logger.exception("engine step failed")
                 if self.error is None:

@@ -5,7 +5,8 @@ block and mixed block as one jitted executable
 (``llmq_tpu/engine/engine.py:1840-1851``, ``:2382-2385``); the port's
 counterpart of that executable is one ``torch.cuda.CUDAGraph``, replayed
 with one host call. :class:`DispatchGraphs` keeps one graph per key (the
-engine keys them by dispatch kind, sampling mode and stop suppression)
+engine keys them by dispatch kind, sampling mode, stop suppression and
+iterations, so the small interactive block is a graph of its own)
 over the engine's static buffers: the decode state, the KV pools and the
 mixed step's inputs, all written in place, so a replay reads what the
 host last put there. Nothing here runs on the CPU, where the engine
@@ -24,7 +25,7 @@ replay that fails raises; there is no eager fallback.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Hashable, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
 
@@ -36,6 +37,7 @@ class _Captured:
     graph: Any  # torch.cuda.CUDAGraph
     outputs: Any  # the tensors the captured work returned (static)
     launches: Dict[Any, Tuple[int, ...]]  # counters a replay adds
+    steps: int  # decode iterations a replay runs
 
 
 class DispatchGraphs:
@@ -53,6 +55,10 @@ class DispatchGraphs:
     def __len__(self) -> int:
         return len(self._graphs)
 
+    def iterations(self) -> List[int]:
+        """The decode iterations of the captured graphs, each count once."""
+        return sorted({entry.steps for entry in self._graphs.values()})
+
     def reset(self) -> None:
         """Drop every graph: a static buffer changed shape or identity, so
         the next dispatch of each key captures anew."""
@@ -69,13 +75,13 @@ class DispatchGraphs:
         if entry is None:
             warm()
             self.warmup_steps[key[0]] = self.warmup_steps.get(key[0], 0) + steps
-            entry = self._graphs[key] = self._capture(fn)
+            entry = self._graphs[key] = self._capture(fn, steps)
         entry.graph.replay()
         _build.set_launch_counts(entry.launches, add=True)
         self.replays += 1
         return entry.outputs
 
-    def _capture(self, fn: Callable[[], Any]) -> _Captured:
+    def _capture(self, fn: Callable[[], Any], steps: int) -> _Captured:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -92,4 +98,4 @@ class DispatchGraphs:
         launches = {w: tuple(a - b for a, b in zip(n, before.get(w, zero)))
                     for w, n in after.items()}
         self.captures += 1
-        return _Captured(graph, outputs, launches)
+        return _Captured(graph, outputs, launches, steps)

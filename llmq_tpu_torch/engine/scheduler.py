@@ -3,9 +3,13 @@
 Port of ``llmq_tpu/engine/scheduler.py`` with its prefix cache (the
 refcounted allocator with a parked evictable pool :83-175, chain-hash
 matching at admission :462-521, ``register_prefix`` :327,
-``invalidate_prefix_cache`` :364) and without priority classes or the
-host prefix tier (M11), plus ``mixed_token_budget`` (:45), the piggybacked
-segment's share of a mixed dispatch. The device half is a fixed-shape decode step over
+``invalidate_prefix_cache`` :364), its priority classes (interactive
+waiters first, ``_next_admit_index`` :450; batch victims first under page
+pressure, ``_youngest_running`` :589), snapshot restores
+(``add_restored`` :406) and the ``on_preempt`` hook swap preemption rides
+(:621), without the host prefix tier (ROADMAP.md M11b), plus
+``mixed_token_budget`` (:45), the piggybacked segment's share of a mixed
+dispatch. The device half is a fixed-shape decode step over
 ``max_num_seqs`` slots; this module decides which sequence lives in which
 slot and which physical KV pages back it.
 
@@ -15,8 +19,10 @@ Invariants (``check_invariants``):
     the rest); page 0 is a reserved scratch page and is never handed out,
   - every admitted sequence has pages covering len(tokens)+1 positions,
   - slots hold at most one sequence,
-  - admission is FIFO; preemption evicts the youngest running sequence
-    (its re-prefill wastes the least work) and keeps its generated tokens.
+  - admission is FIFO (interactive waiters first once the scheduler is
+    priority-aware); preemption evicts the youngest running sequence (its
+    re-prefill wastes the least work; batch before interactive) and keeps
+    its generated tokens.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from llmq_tpu_torch.engine.sampling import SamplingParams
 from llmq_tpu_torch.utils.hashing import token_prefix_chain
@@ -141,6 +147,9 @@ class Sequence:
     params: SamplingParams
     output_ids: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
+    # SLO class: "interactive" or "batch". Scheduling order only: no
+    # sequence's own token stream depends on it.
+    priority: str = "batch"
     # Prefix caching: leading prompt positions whose KV already sits in
     # shared leading pages (prefill starts there), and how many leading
     # pages are cache-registered (they park in the evictable pool instead
@@ -154,12 +163,20 @@ class Sequence:
     admitted_at: int = -1  # scheduler tick of (last) admission, for LIFO preempt
     preempt_count: int = 0
     prefilled: bool = False  # KV cache holds this sequence (engine sets it)
+    # Wall-clock (time.time()) deadline, or None: the engine's sweep
+    # finishes a sequence past it with finish_reason="deadline_exceeded".
+    deadline_at: Optional[float] = None
     finish_reason: Optional[str] = None
     finish_text: Optional[str] = None  # pre-truncated text on stop-string hit
     # Incremental detokenization cache for stop strings: ``detok_text`` is
     # the decoded text of ``output_ids[:detok_len]``.
     detok_len: int = 0
     detok_text: str = ""
+    # Host-held KV pages awaiting re-insertion (a snapshot.KVRestore), set
+    # by swap preemption and insert_request and consumed at admission: the
+    # engine writes the pages back instead of re-prefilling. None =
+    # re-prefill prompt + output as usual.
+    restore: Optional[Any] = None
     # Host-side lifecycle stamps (time.monotonic(); 0.0 = not yet).
     t_enqueue: float = 0.0
     t_admit: float = 0.0
@@ -186,6 +203,10 @@ class SchedulerConfig:
     # RoPE'd K matches) reuse them by refcount instead of recomputing; the
     # engine then prefills from prefix_len on (chunked prefill only).
     enable_prefix_caching: bool = False
+    # Interactive waiters are admitted before batch waiters (FIFO within a
+    # class). Off = pure FIFO; the engine turns it on at the first
+    # interactive request.
+    priority_aware: bool = False
 
     @property
     def pages_per_seq(self) -> int:
@@ -210,6 +231,9 @@ class Scheduler:
         self.prefix_hits = 0  # pages reused through the cache
         self.prefix_misses = 0  # full prompt pages that had to prefill
         self.allocator.on_evict = self._drop_page_hashes
+        # Called as on_preempt(seq, defer_pages) at the top of preempt(),
+        # before the epoch bump and page release (swap preemption).
+        self.on_preempt: Optional[Callable[[Sequence, bool], None]] = None
 
     # --- prefix caching ---------------------------------------------------
     def _prefix_hashes(self, prompt_ids: List[int]) -> List[bytes]:
@@ -285,6 +309,30 @@ class Scheduler:
             seq.t_enqueue = time.monotonic()
         self.waiting.append(seq)
 
+    def add_restored(self, seq: Sequence) -> None:
+        """Enqueue a snapshot-restored sequence. Unlike :meth:`add`, the
+        prompt is never truncated (the snapshot's KV and key chain cover
+        exactly these positions) and the generation cap is re-derived from
+        the prompt length alone, so a restored request keeps the budget
+        its source engine granted."""
+        if seq.num_tokens >= self.config.max_model_len:
+            raise ValueError(
+                f"restored request {seq.rid!r} holds {seq.num_tokens} tokens; this "
+                f"engine's window is {self.config.max_model_len}"
+            )
+        window = self.config.max_model_len - len(seq.prompt_ids)
+        if seq.params.max_tokens > window:
+            seq.params.max_tokens = window
+        if self._pages_needed(seq.num_tokens) > self.config.num_pages - 1:
+            raise ValueError(
+                f"restored request {seq.rid!r} of {seq.num_tokens} tokens needs "
+                f"{self._pages_needed(seq.num_tokens)} KV pages; pool has "
+                f"{self.config.num_pages - 1}"
+            )
+        if seq.t_enqueue == 0.0:
+            seq.t_enqueue = time.monotonic()
+        self.waiting.append(seq)
+
     @property
     def has_waiting(self) -> bool:
         return bool(self.waiting)
@@ -295,15 +343,27 @@ class Scheduler:
         return -(-(num_tokens + 1) // self.config.page_size)
 
     # --- admission --------------------------------------------------------
+    def _next_admit_index(self) -> int:
+        """The FIFO head, unless the scheduler is priority-aware and an
+        interactive sequence waits anywhere: then the oldest interactive
+        waiter (a preempted one already sits at the head)."""
+        if self.config.priority_aware:
+            for i, seq in enumerate(self.waiting):
+                if seq.priority == "interactive":
+                    return i
+        return 0
+
     def admit(self, max_new: Optional[int] = None) -> List[Sequence]:
-        """Move waiting sequences (FIFO) into free slots while pages allow;
-        each admitted sequence needs a prefill before it joins decode."""
+        """Move waiting sequences (FIFO, interactive first when
+        priority-aware) into free slots while pages allow; each admitted
+        sequence needs a prefill (or a restore) before it joins decode."""
         admitted: List[Sequence] = []
         free_slots = [i for i, s in enumerate(self.slots) if s is None]
         while self.waiting and free_slots:
             if max_new is not None and len(admitted) >= max_new:
                 break
-            seq = self.waiting[0]
+            idx = self._next_admit_index()
+            seq = self.waiting[idx]
             matched: List[int] = []
             hashes: List[bytes] = []
             if self.config.enable_prefix_caching:
@@ -328,7 +388,7 @@ class Scheduler:
             seq.cacheable_pages = len(matched)
             self.prefix_hits += len(matched)
             self.prefix_misses += len(hashes) - len(matched)
-            self.waiting.popleft()
+            del self.waiting[idx]
             seq.slot = free_slots.pop(0)
             seq.admitted_at = self._tick
             self._tick += 1
@@ -374,6 +434,11 @@ class Scheduler:
         ]
         if not candidates:
             return None
+        if self.config.priority_aware:
+            # Page pressure evicts batch work before interactive work.
+            batch = [s for s in candidates if s.priority != "interactive"]
+            if batch:
+                candidates = batch
         return max(candidates, key=lambda s: s.admitted_at)
 
     def preempt(
@@ -384,7 +449,10 @@ class Scheduler:
         prompt+output (recompute preemption). With ``defer_pages`` the
         pages are detached and returned, with the count of leading
         cache-registered pages, instead of freed: the engine releases them
-        once no in-flight step can still write them."""
+        once no in-flight step can still write them. ``on_preempt`` fires
+        first, while ``seq`` still holds its pages."""
+        if self.on_preempt is not None:
+            self.on_preempt(seq, defer_pages)
         seq.epoch += 1  # stale in-flight results must not resurface
         pages, cacheable = self._detach_pages(seq) if defer_pages else ([], 0)
         self._release(seq)
@@ -440,6 +508,11 @@ class Scheduler:
             / max(1, total_pages),
             "preemptions": self.preemptions,
         }
+        if self.config.priority_aware:
+            out["waiting_interactive"] = sum(s.priority == "interactive" for s in self.waiting)
+            out["running_interactive"] = sum(
+                s.priority == "interactive" for s in self.running.values()
+            )
         if self.config.enable_prefix_caching:
             seen = self.prefix_hits + self.prefix_misses
             out["prefix_cache_hit_pages"] = self.prefix_hits

@@ -13,11 +13,27 @@ Port of the job path of ``llmq_tpu/workers/base.py`` (``_process_message``
   through, colliding names kept as ``job_<name>``) to
   ``<queue>.results``, then ack.
 
-The broker URL, the prefetch and the default ``max_tokens`` come from
-``core/config.py`` unless given, as ``BaseWorker`` / ``TPUWorker`` take
-them (``base.py:112-113``, ``tpu_worker.py:177-179``). SIGINT and SIGTERM
-stop the worker gracefully (``base.py:222-226``): it stops consuming,
-lets the jobs in flight settle, and :meth:`run` returns.
+The broker URL, the prefetch, the default ``max_tokens`` and the drain
+timeout come from ``core/config.py`` unless given, as ``BaseWorker`` /
+``TPUWorker`` take them (``base.py:112-113``, ``tpu_worker.py:177-179``).
+
+Shutdown is the reference's drain-with-handoff (``base.py:262-316``,
+``tpu_worker.py:506-520``): SIGINT, SIGTERM or :meth:`request_shutdown`
+cancels the consumer without requeue and calls ``engine.handoff()``,
+which resolves every request still in the engine with its snapshot. Such
+a job is republished to the queue carrying the snapshot (base64 wire
+form) and its offset under ``RESUME_FIELD``, then acked (``base.py:
+878-930``); a job that never reached the engine is rejected with requeue.
+The worker then waits up to ``drain_timeout_s`` for its jobs to settle
+and :meth:`run` returns. A job that carries a resume snapshot continues
+through ``engine.resume`` from the token where it stopped
+(``tpu_worker.py:1161-1262``); a snapshot that cannot be decoded or
+inserted (another model signature or KV dtype) re-runs the job from its
+prompt, as the reference does. Results are published once per ``(job id,
+resume offset)`` (``workers/resume.py``). A job's ``deadline_at`` and
+``priority`` reach the engine; a deadline that lapsed before the engine
+saw the job, or that the engine's sweep enforced, dead-letters the job to
+``<queue>.failed`` as ``deadline_exceeded``.
 
 An unparseable payload is dead-lettered to ``<queue>.failed``; a job the
 engine rejects as invalid (``ValueError``) is acked and dropped; any
@@ -26,15 +42,17 @@ failed engine step (a kernel launch error, say, which leaves the CUDA
 context unusable) stops the worker: it stops consuming, hands its
 in-flight jobs back to the queue, and :meth:`run` raises with the
 engine's exception as the cause.
-Heartbeats, deadlines, handoff and the fault planes come with later
-slices (ROADMAP M11, M12).
+Heartbeats, lifecycle traces and the fault planes come with later slices
+(ROADMAP M6, M16, M12).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import signal
+import time
 import uuid
 from typing import Optional
 
@@ -46,13 +64,30 @@ from llmq_tpu_torch.broker.base import (
 )
 from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job, Result
-from llmq_tpu_torch.engine.engine import AsyncEngine, RequestOutput
+from llmq_tpu_torch.engine.engine import AsyncEngine, HandoffOutput, RequestOutput
 from llmq_tpu_torch.engine.sampling import SamplingParams
+from llmq_tpu_torch.engine.snapshot import (
+    RequestSnapshot,
+    SnapshotError,
+    snapshot_from_wire,
+    snapshot_to_b64,
+)
 from llmq_tpu_torch.utils import clock
+from llmq_tpu_torch.workers.resume import (
+    RESUME_FIELD,
+    JobHandoff,
+    ResultDeduper,
+    resume_offset,
+)
 
 logger = logging.getLogger(__name__)
 
 FAILED_SUFFIX = ".failed"
+
+
+class DeadlineExceeded(Exception):
+    """The job's ``deadline_at`` passed: dead-lettered as
+    ``deadline_exceeded``, neither published nor requeued."""
 
 
 class TorchWorker:
@@ -80,15 +115,19 @@ class TorchWorker:
         slots = engine.core.cfg.max_num_seqs
         self.concurrency = concurrency or max(cfg.queue_prefetch, slots + slots // 2)
         self.max_tokens = max_tokens or cfg.max_tokens
+        self.drain_timeout_s = cfg.drain_timeout_s
         self.max_jobs = max_jobs
         self.worker_id = worker_id or f"torch-{uuid.uuid4().hex[:8]}"
         self.broker: Optional[Broker] = None
         self.jobs_processed = 0
         self.jobs_failed = 0
+        self.jobs_handed_off = 0
+        self.jobs_resumed = 0
+        self.jobs_deadline_exceeded = 0
         self._settled = 0
         self._stop: Optional[asyncio.Event] = None
         self._tag: Optional[str] = None
-        self._draining = False  # a signal asked for a graceful stop
+        self._dedup = ResultDeduper()
         self._in_flight = 0
         self._idle: Optional[asyncio.Event] = None  # set while no job is in flight
         self.error: Optional[BaseException] = None  # the engine failure that stopped it
@@ -98,8 +137,9 @@ class TorchWorker:
             self._stop.set()
 
     def _on_signal(self) -> None:
-        """SIGINT / SIGTERM: stop taking jobs, let those in flight settle."""
-        self._draining = True
+        """SIGINT / SIGTERM: stop taking jobs, hand those in flight off."""
+        logger.info("worker %s: shutdown requested; handing off in-flight jobs",
+                    self.worker_id)
         self.request_shutdown()
 
     async def run(self) -> None:
@@ -122,18 +162,32 @@ class TorchWorker:
             )
             logger.info("worker %s consuming %s", self.worker_id, self.queue)
             await self._stop.wait()
-            if self._draining and self.error is None:
-                # Deliveries stop; the jobs already delivered finish and
-                # settle before the connection closes.
-                await self.broker.cancel(self._tag, requeue=False)
-                await self._idle.wait()
-                logger.info("worker %s stopped by signal after settling its jobs",
-                            self.worker_id)
+            if self.error is None:
+                await self._drain_with_handoff()
             await self.broker.cancel(self._tag)
         finally:
             await self.broker.close()
         if self.error is not None:
             raise RuntimeError(f"worker {self.worker_id} stopped: its engine failed") from self.error
+
+    async def _drain_with_handoff(self) -> None:
+        """Deliveries stop without requeue; the engine hands every request
+        it holds back as a snapshot, which the jobs' handlers republish;
+        then the jobs settle, for at most ``drain_timeout_s``."""
+        await self.broker.cancel(self._tag, requeue=False)
+        loop = asyncio.get_running_loop()
+        handoffs = await loop.run_in_executor(None, self.engine.handoff)
+        if handoffs:
+            logger.info("Drained %d in-flight request(s) as resumable snapshots",
+                        len(handoffs))
+        try:
+            await asyncio.wait_for(self._idle.wait(), timeout=self.drain_timeout_s)
+        except asyncio.TimeoutError:
+            logger.warning("worker %s: timed out draining %d in-flight jobs",
+                           self.worker_id, self._in_flight)
+        logger.info("worker %s stopped (processed=%d handed off=%d failed=%d)",
+                    self.worker_id, self.jobs_processed, self.jobs_handed_off,
+                    self.jobs_failed)
 
     # --- the hot loop -----------------------------------------------------
     async def _process_message(self, message: DeliveredMessage) -> None:
@@ -165,13 +219,24 @@ class TorchWorker:
             out = await self._process_job(job)
             duration_ms = (clock.monotonic() - start) * 1000
             result = self._build_result(job, out, duration_ms)
-            await self.broker.publish(
-                results_queue_name(self.queue),
-                result.model_dump_json().encode("utf-8"),
-                message_id=result.id,
-            )
+            offset = resume_offset(job.extras())
+            if self._dedup.seen(job.id, offset):
+                # Redelivered after its result went out: settle silently.
+                logger.info("Suppressing duplicate result for job %s (offset %d)",
+                            job.id, offset)
+            else:
+                await self.broker.publish(
+                    results_queue_name(self.queue),
+                    result.model_dump_json().encode("utf-8"),
+                    message_id=result.id,
+                )
+                self._dedup.record(job.id, offset)
             await message.ack()
             self.jobs_processed += 1
+        except DeadlineExceeded:
+            await self._dead_letter_deadline(message)
+        except JobHandoff as exc:
+            await self._republish_for_resume(job, message, exc)
         except ValueError as exc:
             # Semantically invalid job: retrying can't fix it.
             logger.error("Job %s invalid, dropping: %s", job.id, exc)
@@ -186,6 +251,44 @@ class TorchWorker:
             await message.reject(requeue=True)
             return
         self._note_settled()
+
+    async def _dead_letter_deadline(self, message: DeliveredMessage) -> None:
+        """File a job whose deadline passed on ``<queue>.failed`` as
+        ``deadline_exceeded`` (``base.py:541-571``)."""
+        self.jobs_deadline_exceeded += 1
+        headers = dict(message.headers or {})
+        headers.update({"x-error": "deadline_exceeded", "x-failure-reason": "deadline_exceeded",
+                        "x-worker-id": self.worker_id,
+                        "x-delivery-count": message.delivery_count})
+        headers.setdefault("x-death-queue", self.queue)
+        try:
+            await self.broker.publish(self.queue + FAILED_SUFFIX, message.body,
+                                      message_id=message.message_id, headers=headers)
+        finally:
+            await message.ack()
+
+    async def _republish_for_resume(self, job: Job, message: DeliveredMessage,
+                                    exc: JobHandoff) -> None:
+        """Publish a handed-off job back to the queue with its snapshot
+        under ``RESUME_FIELD``, then ack the delivery (``base.py:878-930``):
+        until the ack the original survives, and the deduper suppresses a
+        double publish. A snapshot-less handoff requeues the original."""
+        if exc.snapshot_b64 is None:
+            await message.reject(requeue=True)
+            return
+        payload = json.loads(message.body)
+        payload[RESUME_FIELD] = {"snapshot": exc.snapshot_b64, "offset": exc.emitted}
+        try:
+            body = json.dumps(payload).encode("utf-8")
+            await self.broker.publish(self.queue, body, message_id=job.id)
+        except Exception:  # noqa: BLE001 — transport down mid-shutdown
+            logger.warning("Resume republish failed for job %s; requeueing plain", job.id,
+                           exc_info=True)
+            await message.reject(requeue=True)
+            return
+        self.jobs_handed_off += 1
+        logger.info("Job %s handed off with %d tokens generated", job.id, exc.emitted)
+        await message.ack()
 
     async def _stop_on_engine_failure(self) -> None:
         """Stop taking jobs (no redelivery loop into a dead engine); the
@@ -221,21 +324,68 @@ class TorchWorker:
                 params.stop = tuple(opts.stop)
         return params
 
+    def _resume_snapshot(self, job: Job) -> Optional[RequestSnapshot]:
+        """The resume snapshot a handed-off job carries, or None to run it
+        from its prompt (also when the blob does not decode: the prompt is
+        still in the payload, so token zero is always a correct start)."""
+        resume = job.extras().get(RESUME_FIELD)
+        if not isinstance(resume, dict) or not resume.get("snapshot"):
+            return None
+        try:
+            return snapshot_from_wire(resume["snapshot"])
+        except SnapshotError as exc:
+            logger.warning("Job %s resume snapshot unusable (%s); re-running from scratch",
+                           job.id, exc)
+            return None
+
     async def _process_job(self, job: Job) -> RequestOutput:
         params = self._sampling_for(job)
-        if job.messages is not None:
-            return await self.engine.generate(rid=job.id, messages=job.messages, params=params)
-        if job.chat_mode:
-            messages = [{"role": "user", "content": job.get_formatted_prompt()}]
-            return await self.engine.generate(rid=job.id, messages=messages, params=params)
-        return await self.engine.generate(
-            rid=job.id, prompt=job.get_formatted_prompt(), params=params
-        )
+        # The deadline and the SLO class ride into the engine
+        # (``tpu_worker.py:1192-1206``); batch sends nothing.
+        gen_kw = {} if job.deadline_at is None else {"deadline_at": job.deadline_at}
+        if job.deadline_at is not None and time.time() > job.deadline_at:
+            raise DeadlineExceeded(job.id)  # before any engine work
+        out = None
+        snapshot = self._resume_snapshot(job)
+        if snapshot is not None:
+            try:
+                out = await self.engine.resume(rid=job.id, snapshot=snapshot, **gen_kw)
+                self.jobs_resumed += 1
+            except SnapshotError as exc:
+                # A valid blob for another engine (model signature, KV dtype).
+                logger.warning("Job %s snapshot not insertable (%s); re-running from scratch",
+                               job.id, exc)
+        if out is None:
+            if job.priority_class == "interactive":
+                gen_kw["priority"] = "interactive"
+            if job.messages is not None:
+                out = await self.engine.generate(rid=job.id, messages=job.messages,
+                                                 params=params, **gen_kw)
+            elif job.chat_mode:
+                messages = [{"role": "user", "content": job.get_formatted_prompt()}]
+                out = await self.engine.generate(rid=job.id, messages=messages, params=params,
+                                                 **gen_kw)
+            else:
+                out = await self.engine.generate(rid=job.id, prompt=job.get_formatted_prompt(),
+                                                 params=params, **gen_kw)
+        if isinstance(out, HandoffOutput):
+            # This worker is draining: the partial progress goes back.
+            raise JobHandoff(
+                snapshot_to_b64(out.snapshot) if out.snapshot is not None else None,
+                out.emitted,
+            )
+        if out.finish_reason == "deadline_exceeded":
+            raise DeadlineExceeded(job.id)
+        return out
 
     def _build_result(self, job: Job, out: RequestOutput, duration_ms: float) -> Result:
         """Result with extra-field passthrough. Built dict-first so a job
         extra named like a Result field is kept as ``job_<name>``."""
         payload = dict(job.extras())
+        # The spent resume blob stays out of the result; its offset stays.
+        resume = payload.pop(RESUME_FIELD, None)
+        if isinstance(resume, dict):
+            payload["resume_offset"] = resume_offset({RESUME_FIELD: resume})
         reserved = {
             "id": job.id,
             "prompt": job.get_formatted_prompt() if job.prompt is not None else "",

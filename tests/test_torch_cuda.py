@@ -1009,6 +1009,7 @@ def test_engine_graph_replay_equals_eager(cuda_device, mode):
     st = core.stats()
     assert st["cuda_graphs"]["replays"] == st["decode_dispatches"] > 0
     assert st["cuda_graphs"]["captures"] >= 1
+    assert st["cuda_graphs"]["graph_iterations"] == [GRAPH_MODES[mode].get("decode_block", 1)]
     if mode == "mixed":
         assert st["mixed_steps"] > 0
     if mode == "verify":
@@ -1071,3 +1072,72 @@ def test_engine_graph_capture_failure_raises(cuda_device, monkeypatch):
         for _ in range(10):
             core.step()
     assert core.decode_dispatches == 0 and core.stats()["cuda_graphs"]["replays"] == 0
+
+
+# --- the request-state plane (M11): snapshots under captured graphs -------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+def test_snapshot_gather_and_in_place_insert_are_bit_exact(cuda_device, dtype):
+    """``pages_to_host`` reads a card pool's pages as raw bits, and
+    ``pages_from_host`` writes them into other pages of another pool in
+    place: same bits, same storage."""
+    from llmq_tpu_torch.engine.snapshot import pages_from_host, pages_to_host
+
+    gen = torch.Generator().manual_seed(3)
+    pool = torch.randn((3, 12, 16, 2, 128), generator=gen).to(dtype).to(cuda_device)
+    raw = torch.int16 if dtype == torch.bfloat16 else torch.uint8
+    src = torch.tensor([7, 2, 9], device=cuda_device)
+    host = pages_to_host(pool, src)
+    want = pool.view(raw)[:, src.cpu()].cpu().numpy()
+    assert np.array_equal(host.view(want.dtype), want)
+    dst = torch.zeros_like(pool)
+    ptr = dst.data_ptr()
+    pages_from_host(dst, torch.tensor([1, 5, 11], device=cuda_device), host)
+    torch.cuda.synchronize()
+    assert dst.data_ptr() == ptr
+    assert torch.equal(dst.view(raw)[:, [1, 5, 11]], pool.view(raw)[:, [7, 2, 9]])
+    untouched = [i for i in range(12) if i not in (1, 5, 11)]
+    assert not dst.view(raw)[:, untouched].any()
+
+
+def test_snapshot_restore_under_captured_graphs_keeps_the_pools(cuda_device):
+    """Extract a request mid-decode and insert it back into the same
+    engine: the pools keep their storage, no graph is captured again, and
+    the replays after the restore give the eager engine's tokens."""
+    from llmq_tpu_torch.engine.sampling import SamplingParams
+
+    req = [("r", "hello world hello world hello", dict(max_tokens=24))]
+    want = _serve(_graph_engine(cuda_device, False), req)
+    core = _graph_engine(cuda_device, True)
+    core.add_request("r", prompt=req[0][1], params=SamplingParams(
+        temperature=0.0, ignore_eos=True, max_tokens=24))
+    while "r" not in core.scheduler.running or len(core.scheduler.running["r"].output_ids) < 6:
+        core.step()
+    ptrs = (core.k_pages.data_ptr(), core.v_pages.data_ptr())
+    captures = core.stats()["cuda_graphs"]["captures"]
+    snap = core.extract_request("r")
+    core.insert_request(type(snap).from_bytes(snap.to_bytes()))
+    outs = {}
+    while core.has_work:
+        outs.update({o.rid: (o.token_ids, o.finish_reason) for o in core.step()})
+    st = core.stats()
+    assert outs == want
+    assert (core.k_pages.data_ptr(), core.v_pages.data_ptr()) == ptrs
+    assert st["cuda_graphs"]["captures"] == captures and st["kv_restores"] == 1
+    assert st["cuda_graphs"]["replays"] == st["decode_dispatches"]
+
+
+def test_swap_preemption_under_captured_graphs_equals_recompute(cuda_device):
+    """On a pool that must preempt, swap preemption under captured graphs
+    gives recompute's tokens, with pages swapped out and restored."""
+    reqs = [(f"p{i}", f"request {i} " + "ab" * (6 + 3 * i), dict(max_tokens=40))
+            for i in range(3)]
+    rec = _graph_engine(cuda_device, True, num_pages=12)
+    want = _serve(rec, reqs)
+    assert rec.scheduler.preemptions > 0
+    swap = _graph_engine(cuda_device, True, num_pages=12, preempt_mode="swap")
+    assert _serve(swap, reqs) == want
+    st = swap.stats()
+    assert st["swap_preempts"] >= 1 and st["kv_restores"] >= 1
+    assert st["cuda_graphs"]["replays"] == st["decode_dispatches"]

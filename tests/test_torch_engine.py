@@ -189,17 +189,19 @@ def test_engine_config_fields_and_unported_options():
         jengine._prefill_buckets(jengine.EngineConfig(max_model_len=700))
     cfg = TConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
-    for field, value, item in (("prefix_host_gb", 0.5, "M11"), ("logit_guard", "on", "M12"),
-                               ("interactive_decode_block", 2, "M11"),
+    for field, value, item in (("prefix_host_gb", 0.5, "M11b"), ("logit_guard", "on", "M12"),
                                ("tp_overlap", "on", "M13")):
         with pytest.raises(NotImplementedError, match=item):
             tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
                                engine_config=tengine.EngineConfig(**{field: value}))
-    # The fused dispatch modes (M10) build, holding the JAX config's values;
-    # interactive_decode_block resolves to 0 (no interactive rows), as in JAX
-    # without them.
+    # The fused dispatch modes (M10) and the request-state fields (M11, once
+    # refused here: interactive_decode_block) build, holding the JAX config's
+    # values; interactive_decode_block is what the config says (0 unless set).
     for fields in (dict(decode_block=4), dict(spec_tokens=2),
-                   dict(mixed_step="on", prefill_chunk_size=16)):
+                   dict(mixed_step="on", prefill_chunk_size=16),
+                   dict(decode_block=4, interactive_decode_block=2),
+                   dict(preempt_mode="swap"),
+                   dict(decode_block=2, priority_classes=False, interactive_decode_block=1)):
         core = tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
                                   engine_config=tengine.EngineConfig(**fields))
         jcfg = jengine.EngineConfig(**fields)
@@ -207,7 +209,11 @@ def test_engine_config_fields_and_unported_options():
             assert getattr(core.cfg, name) == getattr(jcfg, name), name
         mode = next(iter(fields))
         assert core.stats()[mode] == fields[mode]
-        assert core.interactive_decode_block == 0
+        # JAX resolves it to 0 with the priority classes off (:774).
+        want_ik = fields.get("interactive_decode_block", 0) if core.priority_classes else 0
+        assert core.interactive_decode_block == want_ik
+    with pytest.raises(ValueError, match="preempt_mode"):
+        tengine.EngineConfig(preempt_mode="maybe")
     for name in ("fp8", "fp8_e5m2", "float8_e5m2"):  # JAX's name table (M9 is ported)
         assert tengine.EngineConfig(kv_dtype=name).kv_dtype == torch.float8_e5m2
     with pytest.raises(ValueError, match="kv_dtype"):

@@ -292,7 +292,9 @@ def test_mixed_composes_with_spec_and_decode_block():
 def test_mixed_step_config_and_env_pin(monkeypatch):
     """As in JAX: mixed steps need chunked prefill, LLMQ_MIXED_STEP pins
     over the config, the fields are checked, and interactive_decode_block
-    resolves to 0 (no interactive rows) and stays refused (M11)."""
+    (refused until M11 was ported) resolves as the JAX engine resolves it:
+    the config's value, LLMQ_INTERACTIVE_DECODE_BLOCK over it, 0 with the
+    priority classes off."""
     with pytest.raises(ValueError, match="prefill_chunk_size"):
         _tcore(mixed_step="on")
     monkeypatch.setenv("LLMQ_MIXED_STEP", "off")
@@ -307,8 +309,11 @@ def test_mixed_step_config_and_env_pin(monkeypatch):
         with pytest.raises(ValueError):
             jengine.EngineConfig(**bad)
     assert _tcore().interactive_decode_block == 0
-    with pytest.raises(NotImplementedError, match="M11"):
-        _tcore(interactive_decode_block=2)
+    assert _tcore(decode_block=4, interactive_decode_block=2).interactive_decode_block == 2
+    monkeypatch.setenv("LLMQ_INTERACTIVE_DECODE_BLOCK", "1")
+    assert _tcore(decode_block=4, interactive_decode_block=2).interactive_decode_block == 1
+    monkeypatch.setenv("LLMQ_PRIORITY_CLASSES", "0")
+    assert _tcore(decode_block=4).interactive_decode_block == 0
 
 
 # --- the model's verify and mixed forwards ----------------------------------------

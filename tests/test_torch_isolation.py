@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
-An AST scan finds no ``jax`` or ``llmq_tpu`` import in ``llmq_tpu_torch/``
-or ``chip_smoke.py``; a fresh interpreter that imports every port module
-loads neither; the checkpoint loader, the broker and the command line
+An AST scan finds no ``jax``, ``llmq_tpu`` or ``ml_dtypes`` import in
+``llmq_tpu_torch/`` or ``chip_smoke.py`` (the GPU machine has no
+``ml_dtypes``: the snapshot codec carries bf16 / e5m2 pages as raw bits);
+a fresh interpreter that imports every port module loads none of them; the checkpoint loader, the broker and the command line
 need none of the packages the GPU machine lacks (``safetensors``,
 ``transformers``, ``click``); and the entry points default to CUDA,
 raising here where there is none.
@@ -27,7 +28,7 @@ PORT = ROOT / "llmq_tpu_torch"
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "llmq_tpu")
+    return top in ("jax", "jaxlib", "llmq_tpu", "ml_dtypes")
 
 
 def test_no_jax_or_reference_imports_in_source():
@@ -57,7 +58,7 @@ def test_importing_every_module_loads_no_jax():
         "before = set(sys.modules)\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "new = sorted(set(sys.modules) - before)\n"
-        "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'llmq_tpu')]\n"
+        "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'llmq_tpu', 'ml_dtypes')]\n"
         "print(len(new), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

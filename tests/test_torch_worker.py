@@ -169,6 +169,8 @@ ENGINE_VARS = (
     "LLMQ_PREFILL_CHUNK", "LLMQ_PREFIX_CACHING", "LLMQ_KV_DTYPE", "VLLM_KV_CACHE_DTYPE",
     "TPU_HBM_UTILIZATION", "VLLM_GPU_MEMORY_UTILIZATION", "LLMQ_DECODE_BLOCK",
     "LLMQ_SPEC_TOKENS", "LLMQ_TP_OVERLAP", "LLMQ_MIXED_STEP", "LLMQ_PREFIX_HOST_GB",
+    "LLMQ_PREEMPT_MODE", "LLMQ_PRIORITY_CLASSES", "LLMQ_PRIORITY_PREEMPT",
+    "LLMQ_INTERACTIVE_DECODE_BLOCK", "LLMQ_HOST_MEM_GB", "LLMQ_DRAIN_TIMEOUT_S",
 )
 COMPARED = ("max_model_len", "max_num_seqs", "kv_dtype", "prefill_chunk_size",
             "enable_prefix_caching", "hbm_utilization", "decode_block", "spec_tokens",
@@ -276,3 +278,61 @@ def test_worker_resolves_fused_modes_as_the_jax_worker(monkeypatch, env, flags):
         assert engine.core.interactive_decode_block == 0
     finally:
         engine.shutdown()
+
+
+@pytest.mark.parametrize("env", [
+    {"LLMQ_PREEMPT_MODE": "swap"},
+    {"LLMQ_PRIORITY_CLASSES": "0", "LLMQ_DECODE_BLOCK": "4", "LLMQ_INTERACTIVE_DECODE_BLOCK": "2"},
+    {"LLMQ_PRIORITY_PREEMPT": "off"},
+    {"LLMQ_DECODE_BLOCK": "4", "LLMQ_INTERACTIVE_DECODE_BLOCK": "2"},
+    {"LLMQ_HOST_MEM_GB": "1.5", "LLMQ_DRAIN_TIMEOUT_S": "5"},
+])
+def test_worker_resolves_the_request_state_variables_as_the_jax_worker(monkeypatch, env):
+    """The request-state plane's variables (M11) resolve as in the JAX
+    worker: the engine's swap mode, priority classes, priority preemption
+    and small interactive block (each variable over its field, JAX
+    ``engine.py`` :737-774, resolved by an engine built on the worker's
+    ``EngineConfig``), the host-memory budget and the drain timeout."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import llmq_tpu.engine.engine as jax_engine
+    import llmq_tpu.utils.host_mem as jax_host_mem
+    from llmq_tpu.core.config import Config as JaxConfig
+    from llmq_tpu.engine.tokenizer import ByteTokenizer as JaxByteTokenizer
+    from llmq_tpu.models.config import ModelConfig as JaxModelConfig
+    from llmq_tpu.parallel import make_mesh
+    from llmq_tpu_torch.utils import host_mem
+
+    from test_torch_model import numpy_params
+
+    for name in ENGINE_VARS:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    real_core = jax_engine.EngineCore
+    model = "preset://qwen2.5-0.5b"
+    want_cfg = _jax_worker_engine_config(monkeypatch, model)
+    assert _fields(engine_config(get_preset(model.split("://")[1]))) == _fields(want_cfg)
+    small = dict(max_num_seqs=4, max_model_len=64, num_pages=16, kv_dtype=jnp.float32)
+    jcfg = JaxModelConfig.tiny()
+    jcore = real_core(jcfg, jax.tree.map(jnp.asarray, numpy_params(jcfg, 0)), JaxByteTokenizer(),
+                      mesh=make_mesh(tensor_parallel=1),
+                      engine_config=dataclasses.replace(want_cfg, **small))
+    engine = build_engine("preset://tiny", **ENGINE)
+    resolved = ("preempt_mode", "priority_classes", "priority_preempt",
+                "interactive_decode_block")
+    try:
+        assert {k: getattr(engine.core, k) for k in resolved} == \
+            {k: getattr(jcore, k) for k in resolved}
+        worker = TorchWorker("q", engine, broker_url="memory://resolve")
+        assert worker.drain_timeout_s == JaxConfig().drain_timeout_s
+        host_mem.set_governor(None)
+        jax_host_mem.set_governor(None)
+        assert host_mem.get_governor().budget_bytes == \
+            jax_host_mem.get_governor().budget_bytes
+    finally:
+        engine.shutdown()
+        host_mem.set_governor(None)
+        jax_host_mem.set_governor(None)
