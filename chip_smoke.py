@@ -85,8 +85,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    library time and bound (``m1024_*``). K5's launches are phase 8's;
    K3's record adds its launches on phase 10's verify and mixed paths
    and its verify-shape times (``verify_shape_*``); K1's and K2's add
-   their launches in phase 11 (a) (``snapshot_launches``). Printed last,
-   after phases 8-11.
+   their launches in phase 11 (a) (``snapshot_launches``); K1-K4's add
+   their launches in phase 12 (``prefix_kv_launches``: K3, K4 in (a), K1,
+   K2 in (c)'s in-process run). Printed last, after phases 8-12.
 8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
    same seed) written as an HF checkpoint (config.json, two safetensors
    shards and their index, HF names, [out, in] weights) under ``build/``
@@ -104,8 +105,10 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    3's 16 jobs (32 new tokens) published to it, ``python -m
    llmq_tpu_torch worker run preset://qwen2.5-3b`` in another process
    with ``LLMQ_BROKER_URL`` set; once the 16 results are read the worker
-   gets SIGTERM and must exit 0; ids, ``usage.completion_tokens``, extras
-   and text must match phase 3's first 32 tokens.
+   gets SIGTERM and must exit 0; ids, ``usage.completion_tokens``, extras,
+   text and token ids (``LLMQ_RESULT_DIGEST=1`` puts them on each result;
+   random weights emit mostly ids past the byte tokenizer's 256, whose
+   text is empty) must match phase 3's first 32 tokens.
 10. The fused dispatch modes at full width (qwen2.5-3b, 36 layers, bf16,
    phase 3's seeded weights, 16 jobs a serve through ``EngineCore``):
    phase 3's workload eagerly (``cuda_graphs=False``), tokens bit for bit
@@ -136,9 +139,34 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    its tokens equal its solo run's, the small block's graph captured and
    replayed; printed: its time to first token both ways; (d) phase 9's
    broker and a worker process, SIGTERM'd when the first result lands,
-   then a second worker process: 16 unique results, texts equal phase
-   3's, at least one resumed from a snapshot (``resume_offset`` > 0),
+   then a second worker process: 16 unique results, texts and token ids
+   equal phase 3's, at least one resumed from a snapshot (``resume_offset`` > 0),
    both processes exit 0 (logs ``handoff_worker*.log``).
+12. The prefix-KV plane at full width (qwen2.5-3b, bf16, phase 3's
+   weights, through ``EngineCore``): (a) phase 4's settings (v3, chunks
+   of 256, the prefix cache) with a 1 GiB host prefix tier: phase 4's 16
+   jobs in two waves of 8, every cached page flushed to the host tier
+   between them, so the second wave promotes the template's 32 pages:
+   tokens equal phase 4's, the pools keep their storage and the capture
+   count does not move, K3 and K4 counted as in phase 4; printed: pages
+   demoted and the ms a page, pages promoted, the promotion's ms and
+   GB/s, prefill tokens against the same waves with the tier off; (b)
+   the template's 32 pages exported as chunks from (a)'s engine and
+   ingested into a second engine, whose serve of jobs 0-7 prefills only
+   their tails and gives phase 4's tokens; printed: chunk bytes, export
+   and ingest ms; (c) phase 9's broker, a ``worker run --role decode``
+   and a ``--role prefill`` process serve phase 3's 16 jobs at 32 tokens:
+   16 unique results, every job handed off and adopted, both processes
+   exit 0 on SIGTERM (logs ``disagg_*.log``); printed: the handoff
+   latency (p50, p95), snapshot and payload bytes a job, the wall time to
+   the 16th result. In process, the same path (prefill-only, then each
+   snapshot adopted by ``insert_request``) in bf16, K2 and K1 counted:
+   each worker row's token ids equal phase 3's or this run's (worker
+   processes under ``LLMQ_RESULT_DIGEST=1``), and each row of
+   this run that parts from phase 3's tokens parts at a near-tie (the
+   adopted row computes its last prompt position in a decode step);
+   then in f32 at 2 layers on the exact routes, adoption gives the
+   unified run's tokens, 16 of 16.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -172,7 +200,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
 ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
-              "fused", "snapshot")
+              "fused", "snapshot", "prefix_kv")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -2121,7 +2149,8 @@ def phase_tcp_cli(smi: str, serve_tokens: dict) -> None:
                 [sys.executable, "-m", "llmq_tpu_torch", "worker", "run",
                  "preset://qwen2.5-3b", queue, "--max-num-seqs", "16", "--max-model-len", "512",
                  "--dtype", "bfloat16"],
-                cwd=root, env=dict(penv, LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1"),
+                cwd=root, env=dict(penv, LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1",
+                                 LLMQ_RESULT_DIGEST="1"),
                 stdout=log, stderr=subprocess.STDOUT)
             results = asyncio.run(_receive_n(url, queue, n_jobs, worker, timeout=600))
             wall = time.perf_counter() - t0
@@ -2132,8 +2161,8 @@ def phase_tcp_cli(smi: str, serve_tokens: dict) -> None:
         tok = ByteTokenizer()
         for r in results:
             want = serve_tokens.get(r["id"], [])[:gen]
-            if r["result"] != tok.decode(want):
-                problems.append(f"{r['id']}: text differs from phase 3's first {gen} tokens")
+            if r["result"] != tok.decode(want) or r.get("token_ids") != want:
+                problems.append(f"{r['id']}: tokens differ from phase 3's first {gen}")
         gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
         emit(dict(phase="tcp_cli", model="preset://qwen2.5-3b", broker=url, jobs=len(results),
                   gen_tokens=gen_tokens, wall_s=wall, serve_completion_tok_s=gen_tokens / wall,
@@ -2523,8 +2552,8 @@ async def _collect_results(url: str, queue: str, n: int, procs, timeout: float,
         while len(results) < n:
             live = procs()
             if time.monotonic() > deadline or (live and all(p.poll() is not None for p in live)):
-                raise SystemExit(f"snapshot phase (d): {len(results)} of {n} results "
-                                 f"(logs: handoff_worker*.log in {OUT_DIR})")
+                raise SystemExit(f"{len(results)} of {n} results from the worker processes "
+                                 f"(their logs are in {OUT_DIR})")
             msg = await broker.get(queue + ".results")
             if msg is None:
                 await asyncio.sleep(0.01)
@@ -2564,7 +2593,8 @@ def _snapshot_handoff(smi, serve_tokens) -> None:
             workers.append(subprocess.Popen(
                 [sys.executable, "-m", "llmq_tpu_torch", "worker", "run", "preset://qwen2.5-3b",
                  queue, "--max-num-seqs", "16", "--max-model-len", "512", "--dtype", "bfloat16"],
-                cwd=root, env=dict(penv, LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1"),
+                cwd=root, env=dict(penv, LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1",
+                                 LLMQ_RESULT_DIGEST="1"),
                 stdout=log, stderr=subprocess.STDOUT))
             log.close()
 
@@ -2595,8 +2625,9 @@ def _snapshot_handoff(smi, serve_tokens) -> None:
     tok = ByteTokenizer()
     for r in results:
         want = serve_tokens[r["id"]][: gens[r["id"]]]
-        if r["result"] != tok.decode(want) or r["usage"]["completion_tokens"] != len(want):
-            problems.append(f"{r['id']}: text differs from phase 3's first {len(want)} tokens")
+        if (r["result"] != tok.decode(want) or r["usage"]["completion_tokens"] != len(want)
+                or r.get("token_ids") != want):
+            problems.append(f"{r['id']}: tokens differ from phase 3's first {len(want)}")
     offsets = {r["id"]: r.get("resume_offset", 0) for r in results}
     if not any(o > 0 for o in offsets.values()):
         problems.append("no result was resumed from a snapshot (resume_offset > 0)")
@@ -2632,6 +2663,516 @@ def phase_snapshot(smi: str, serve_tokens: dict) -> dict:
     torch.cuda.empty_cache()
     _snapshot_handoff(smi, serve_tokens)
     return launches
+
+
+# --- phase 12: the prefix-KV plane at full width ------------------------------
+
+PREFIX_HOST_GB = 1.0  # the host tier's budget: ~870 pages of 1.18 MB
+# A pool the 16 templated rows outgrow (each holds ~37 pages, 32 shared):
+# admissions and page growth evict cached pages while dispatches fly.
+PRESSURE_PAGES = 80
+
+
+def _prefix_kv_engine(params, cfg, dtype="bfloat16", **fields):
+    """Phase 4's engine settings (v3, chunks of 256, the prefix cache, 16
+    slots, 2,048 positions, bf16 unless ``dtype`` says otherwise) through
+    ``EngineCore``, ``fields`` over them."""
+    from llmq_tpu_torch.cli.worker import engine_config
+    from llmq_tpu_torch.engine.engine import EngineCore
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    ecfg = engine_config(cfg, dtype=dtype, max_num_seqs=16, max_model_len=2048,
+                         prefill_chunk_size=256, enable_prefix_caching=True)
+    with env(LLMQ_DECODE_KERNEL="v3"):
+        return EngineCore(cfg, params, ByteTokenizer(), device=torch.device("cuda"),
+                          engine_config=dataclasses.replace(ecfg, **fields))
+
+
+def _timed_promotes(core) -> list:
+    """Wrap the engine's promotion so each wave that promotes is timed
+    alone (synchronized before and after): [(seconds, pages, bytes)]."""
+    timed, promote = [], core._promote_host_pages
+
+    def wrapper(admitted):
+        hr = [e for s in admitted for _, _, e in (s.host_restore or ())]
+        if not hr:
+            return promote(admitted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        promote(admitted)
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t0, len(hr), sum(e.nbytes for e in hr)))
+
+    core._promote_host_pages = wrapper
+    return timed
+
+
+def _two_waves(core, jobs, gen: int) -> dict:
+    """``jobs[:8]`` to their end, every cached page flushed to the host
+    tier (dropped with the tier off), then ``jobs[8:]`` to their end.
+    Returns the tokens and what the flush cost."""
+    outs: dict = {}
+    for j in jobs[:8]:
+        core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+    outs = _step_to_end(core, outs)
+    captures = core.stats()["cuda_graphs"]["captures"]
+    demotes = core.prefix_demotes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flushed = core.flush_prefix_to_host()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    for j in jobs[8:]:
+        core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+    outs = _step_to_end(core, outs)
+    torch.cuda.synchronize()
+    return dict(tokens={rid: o.token_ids for rid, o in outs.items()}, flushed=flushed,
+                flush_s=flush_s, demoted=core.prefix_demotes - demotes,
+                captures_wave1=captures)
+
+
+def _pressure_serve(core, jobs, gen: int) -> dict:
+    """The jobs at once on ``core``, whose pool they outgrow: the allocator
+    evicts cached pages during admission and page growth, with dispatches
+    in flight. Times each demote's host time (its gather waits for every
+    dispatch queued before it) and notes the rows preempted and the rows
+    that promoted host pages."""
+    timed, demote = [], core._demote_page
+    preempted, preempt = set(), core.scheduler.preempt
+    promoted, promote = set(), core._promote_host_pages
+
+    def on_demote(page, hashes):
+        in_flight = core._dispatch_idx - core._processed_idx
+        t0 = time.perf_counter()
+        demote(page, hashes)
+        timed.append((time.perf_counter() - t0, in_flight))
+
+    def on_preempt(seq, **kw):
+        preempted.add(seq.rid)
+        return preempt(seq, **kw)
+
+    def on_promote(admitted):
+        promoted.update(seq.rid for seq in admitted if seq.host_restore)
+        promote(admitted)
+
+    core.scheduler.on_demote = on_demote
+    core.scheduler.preempt = on_preempt
+    core._promote_host_pages = on_promote
+    reset_launches()
+    for j in jobs:
+        core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+    outs = _step_to_end(core, {})
+    torch.cuda.synchronize()
+    return dict(tokens={rid: o.token_ids for rid, o in outs.items()}, timed=timed,
+                preempted=preempted, promoted=promoted, stats=core.stats(),
+                launches=read_launches(), routes=read_routes())
+
+
+def _pressure_demotes(params, cfg, jobs, gen: int, prefix_tokens) -> tuple:
+    """Demotes with dispatches in flight, on a pool of ``PRESSURE_PAGES``
+    with the host tier on: phase 4's 16 jobs in bf16 at full width, where
+    every row never preempted gives phase 4's tokens and a row that parts
+    (a preempted one re-prefills) parts at a near-tie; then the same
+    serve in f32 on 2 layers on the exact routes, where all 16 rows give
+    the tokens of a serve on a pool they do not outgrow with the tier off.
+    Both serves must demote with dispatches in flight and promote.
+    Returns (the record, its problems)."""
+    problems = []
+    core = _prefix_kv_engine(params, cfg, prefix_host_gb=PREFIX_HOST_GB,
+                             num_pages=PRESSURE_PAGES)
+    bf = _pressure_serve(core, jobs, gen)
+    never = [j.id for j in jobs if j.id not in bf["preempted"]]
+    unequal = [rid for rid in never if bf["tokens"][rid] != prefix_tokens[rid]]
+    if unequal:
+        problems.append(f"(a) pressure: rows never preempted part from phase 4's: {unequal}")
+    parting = _parting_witness(core, jobs, bf["tokens"], prefix_tokens)
+    for rid, w in parting.items():
+        if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
+                or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS):
+            problems.append(f"(a) pressure: {rid} parts from phase 4's at {w['position']} at no "
+                            f"near-tie: ranks {w['phase3_rank']} / {w['recompute_rank']}, gap "
+                            f"{w['gap']} ({w['gap_bf16_steps']} bf16 steps)")
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from llmq_tpu_torch.models.convert import params_from_numpy
+
+    pcfg, tree = _parity_config()
+    p32 = params_from_numpy(tree)
+    f32 = _pressure_serve(_prefix_kv_engine(p32, pcfg, dtype="float32",
+                                            prefix_host_gb=PREFIX_HOST_GB,
+                                            num_pages=PRESSURE_PAGES), jobs, gen)
+    roomy = _pressure_serve(_prefix_kv_engine(p32, pcfg, dtype="float32"), jobs, gen)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_equal = sum(f32["tokens"][j.id] == roomy["tokens"][j.id] for j in jobs)
+    if f32_equal != len(jobs):
+        problems.append(f"(a) pressure f32: {f32_equal} of {len(jobs)} rows equal the roomy "
+                        f"serve's")
+    problems += route_problems(f32["routes"], f32["launches"], route="exact")
+    for name, r in (("bf16", bf), ("f32", f32)):
+        if not any(n > 0 for _, n in r["timed"]):
+            problems.append(f"(a) pressure {name}: no demote with dispatches in flight "
+                            f"({len(r['timed'])} demotes)")
+        if r["stats"]["prefix_promotes"] < 1:
+            problems.append(f"(a) pressure {name}: no page promoted")
+    if roomy["stats"]["preemptions"] or roomy["stats"]["prefix_demotes"]:
+        problems.append(f"(a) the roomy f32 serve preempted {roomy['stats']['preemptions']} "
+                        f"and demoted {roomy['stats']['prefix_demotes']}")
+    ms = sorted(t * 1e3 for t, _ in bf["timed"])
+    st = bf["stats"]
+    rec = dict(pressure_pages=PRESSURE_PAGES, pressure_demotes=len(bf["timed"]),
+               pressure_demote_ms_median=ms[len(ms) // 2] if ms else None,
+               pressure_demote_ms_max=ms[-1] if ms else None,
+               pressure_in_flight=[n for _, n in bf["timed"]],
+               pressure_promotes=st["prefix_promotes"], pressure_preemptions=st["preemptions"],
+               pressure_preempted_rows=sorted(bf["preempted"]),
+               pressure_promoted_rows=sorted(bf["promoted"]),
+               pressure_jobs_equal_phase4=sum(bf["tokens"][j.id] == prefix_tokens[j.id]
+                                              for j in jobs),
+               pressure_never_preempted_equal_phase4=len(never) - len(unequal),
+               pressure_never_preempted=len(never), pressure_parting=parting,
+               pressure_f32_2_layers_equal_roomy=f32_equal,
+               pressure_f32_demotes=len(f32["timed"]),
+               pressure_f32_in_flight=[n for _, n in f32["timed"]],
+               pressure_f32_promotes=f32["stats"]["prefix_promotes"],
+               pressure_f32_preemptions=f32["stats"]["preemptions"],
+               pressure_f32_preempted_rows=sorted(f32["preempted"]),
+               pressure_f32_promoted_rows=sorted(f32["promoted"]))
+    return rec, problems
+
+
+def _prefix_kv_host_tier(smi, cfg, params, prefix_tokens) -> dict:
+    """Phase 12 (a) and (b). (a): phase 4's 16 jobs in two waves of 8 with
+    the host tier on and a flush between: the second wave promotes the
+    template's pages; tokens equal phase 4's, pools and captures in
+    place; the same waves with the tier off for the prefill tokens. (b):
+    the template's chunks exported from (a)'s engine and ingested into a
+    second engine, whose serve of jobs 0-7 skips the template's prefill
+    and gives phase 4's tokens. Returns (a)'s launches."""
+    from llmq_tpu_torch.engine import prefix_store as prefix_mod
+    from llmq_tpu_torch.utils.hashing import token_prefix_chain
+
+    L, gen = cfg.num_layers, 64
+    jobs = _prefix_jobs(16, gen)
+    problems = []
+    off = _prefix_kv_engine(params, cfg)
+    cold = _two_waves(off, jobs, gen)
+    cold_prefill = off.stats()["prefill_tokens"]
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    core = _prefix_kv_engine(params, cfg, prefix_host_gb=PREFIX_HOST_GB)
+    promotes = _timed_promotes(core)
+    ptrs = (core.k_pages.data_ptr(), core.v_pages.data_ptr())
+    reset_launches()
+    t0 = time.perf_counter()
+    warm = _two_waves(core, jobs, gen)
+    wall = time.perf_counter() - t0
+    launches, routes = read_launches(), read_routes()
+    st = core.stats()
+    equal = sum(warm["tokens"].get(j.id) == prefix_tokens[j.id] for j in jobs)
+    cold_equal = sum(cold["tokens"].get(j.id) == prefix_tokens[j.id] for j in jobs)
+    problems += route_problems(routes, launches) + graph_problems(st)
+    if equal != len(jobs):
+        problems.append(f"(a) {equal} of {len(jobs)} jobs equal phase 4's tokens")
+    if st["prefix_promotes"] < 1 or not promotes:
+        problems.append(f"(a) no page promoted: {st['prefix_promotes']}")
+    if st["cuda_graphs"]["captures"] != warm["captures_wave1"]:
+        problems.append(f"(a) captures {warm['captures_wave1']} -> "
+                        f"{st['cuda_graphs']['captures']} over the promotion")
+    if (core.k_pages.data_ptr(), core.v_pages.data_ptr()) != ptrs:
+        problems.append("(a) the promotion moved the KV pools")
+    if not st["prefill_tokens"] < cold_prefill:
+        problems.append(f"(a) prefill tokens {st['prefill_tokens']} not under the tier-off "
+                        f"serve's {cold_prefill}")
+    if launches["paged_prefill"] != L * st["prefill_dispatches"]:
+        problems.append(f"(a) K3 {launches['paged_prefill']} != {L} x {st['prefill_dispatches']}")
+    if launches["paged_decode_v3"] != L * (st["decode_steps"] + _warm(st)):
+        problems.append(f"(a) K4 {launches['paged_decode_v3']} != {L} x ({st['decode_steps']} + "
+                        f"{_warm(st)})")
+    off_path = {k: launches[k] for k in ("paged_decode", "flash_prefill", "paged_decode_v2")}
+    if any(off_path.values()):
+        problems.append(f"(a) kernels off the prefix-cache path launched: {off_path}")
+    promote_s = sum(t for t, _, _ in promotes)
+    promote_bytes = sum(b for _, _, b in promotes)
+    pressure, pressure_problems = _pressure_demotes(params, cfg, jobs, gen, prefix_tokens)
+    problems += pressure_problems
+    emit(dict(
+        **pressure, phase="prefix_kv", part="a: host tier", model="preset://qwen2.5-3b", layers=L,
+        decode_kernel=st["decode_kernel"], prefix_host_gb=PREFIX_HOST_GB,
+        jobs_equal_phase4=equal, tier_off_jobs_equal_phase4=cold_equal,
+        prefix_demotes=st["prefix_demotes"], pages_flushed=warm["flushed"],
+        demote_ms_per_page=warm["flush_s"] * 1e3 / max(1, warm["demoted"]),
+        prefix_promotes=st["prefix_promotes"], promote_waves=len(promotes),
+        promote_ms=promote_s * 1e3, promote_bytes=promote_bytes,
+        promote_gb_s=promote_bytes / promote_s / 1e9 if promote_s else None,
+        prefill_tokens=st["prefill_tokens"], tier_off_prefill_tokens=cold_prefill,
+        prefix_cache_hit_pages=st["prefix_cache_hit_pages"],
+        host_tier={k: v for k, v in st.items() if k.startswith("prefix_host_")},
+        captures_before=warm["captures_wave1"], captures_after=st["cuda_graphs"]["captures"],
+        wall_s=wall, launches=launches, routes=routes,
+        timing="demote: flush_prefix_to_host() between two synchronizes over the pages it "
+               "demoted (one gather and one copy to pageable host memory a page and pool); "
+               "promote: the wave's _promote_host_pages between two synchronizes (a concat "
+               "on the host, one copy to the card and one index_copy_ a pool); pressure: "
+               "each demote's host time inside the allocator, dispatches in flight",
+        near_tie_limit_bf16_steps=NEAR_TIE_ULPS,
+        note="pressure: a row never preempted must give phase 4's tokens; a preempted row "
+             "re-prefills its generated positions (K3) where phase 4 wrote them a decode row "
+             "at a time (K4), so in bf16 it may part, at a near-tie (ranks from 0 under a "
+             "prefill of the shared context); in f32 on the exact routes all 16 rows must "
+             "equal a serve on a pool they do not outgrow",
+        card=smi, problems=problems))
+    if problems:
+        raise SystemExit("prefix_kv phase (a) failed: " + "; ".join(problems[:5]))
+    a_launches = launches
+
+    # (b) shipping: the template's chunks from (a)'s engine into a second engine
+    # The template's pages: the first 1,024 positions' chain digests (a
+    # chain covers only the full pages before a prompt's last position).
+    page = core.cfg.page_size
+    ids = core.tokenizer.encode(jobs[0].get_formatted_prompt())
+    digests = [h.hex() for h in token_prefix_chain(ids, page)[: 1024 // page]]
+    t0 = time.perf_counter()
+    chunks = core.export_prefix_chunks(digests)
+    export_s = time.perf_counter() - t0
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    dst = _prefix_kv_engine(params, cfg, prefix_host_gb=PREFIX_HOST_GB)
+    t0 = time.perf_counter()
+    ingested = dst.ingest_prefix_chunks(chunks)
+    ingest_s = time.perf_counter() - t0
+    reset_launches()
+    for j in jobs[:8]:
+        dst.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+    outs = _step_to_end(dst, {})
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), read_routes()
+    st = dst.stats()
+    shipped = {rid: o.token_ids for rid, o in outs.items()}
+    problems = route_problems(routes, launches) + graph_problems(st)
+    equal = sum(shipped.get(j.id) == prefix_tokens[j.id] for j in jobs[:8])
+    tails = sum(len(dst.tokenizer.encode(j.get_formatted_prompt())) - 1024 for j in jobs[:8])
+    if len(chunks) != len(digests) or ingested != len(digests):
+        problems.append(f"(b) {len(chunks)} chunks exported, {ingested} ingested, of "
+                        f"{len(digests)}")
+    if equal != 8:
+        problems.append(f"(b) {equal} of 8 jobs equal phase 4's tokens")
+    if st["prefill_tokens"] != tails or st["prefix_promotes"] != len(digests):
+        problems.append(f"(b) prefill tokens {st['prefill_tokens']} (the tails: {tails}), "
+                        f"promotes {st['prefix_promotes']}")
+    chunk_bytes = [len(prefix_mod.chunk_from_b64(c)) for c in chunks]
+    emit(dict(phase="prefix_kv", part="b: chunk shipping", chunks=len(chunks),
+              ingested=ingested, chunk_bytes=chunk_bytes[0] if chunk_bytes else None,
+              chunks_total_bytes=sum(chunk_bytes), export_ms=export_s * 1e3,
+              ingest_ms=ingest_s * 1e3, jobs_equal_phase4=equal,
+              prefill_tokens=st["prefill_tokens"], tail_tokens=tails,
+              prefix_promotes=st["prefix_promotes"], launches=launches,
+              timing="export: the host tier's entries to the chunk codec and base64; ingest: "
+                     "base64 and the codec back (blake2b over every byte) into the host tier",
+              card=smi, problems=problems))
+    del dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise SystemExit("prefix_kv phase (b) failed: " + "; ".join(problems[:5]))
+    return a_launches
+
+
+def _adopted_serve(core, jobs, gen: int) -> tuple:
+    """Every job prefilled alone (``prefill_only``), then each snapshot
+    inserted back into the same engine and decoded: the disaggregated
+    path in one process. Returns (tokens, snapshots)."""
+    for j in jobs:
+        core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen),
+                         prefill_only=True)
+    done = _step_to_end(core, {})
+    snaps = [done[j.id].snapshot for j in jobs]
+    if any(o.finish_reason != "prefill_done" or o.token_ids for o in done.values()):
+        raise SystemExit("prefix_kv phase (c): a prefill-only request did not stop at the "
+                         "boundary")
+    for s in snaps:
+        core.insert_request(s)
+    outs = _step_to_end(core, {})
+    return {rid: o.token_ids for rid, o in outs.items()}, snaps
+
+
+def _log_has(path: str, text: str) -> bool:
+    with open(path) as f:
+        return text in f.read()
+
+
+def _worker_stats(log_path: str) -> dict:
+    """The ``worker stats`` line a worker process logs as it stops."""
+    with open(log_path) as f:
+        lines = [ln for ln in f if "worker stats " in ln]
+    return json.loads(lines[-1].split("worker stats ", 1)[1]) if lines else {}
+
+
+def _prefix_kv_disagg(smi, cfg, params, serve_tokens) -> dict:
+    """Phase 12 (c): a prefill-role and a decode-role worker process over
+    phase 9's broker serve phase 3's 16 jobs at 32 tokens; in process, the
+    same path in bf16 (K2 then K1, counted) witnesses each row that parts
+    from phase 3's, and in f32 on 2 layers (exact routes) gives the
+    unified run's tokens 16 of 16. Returns the in-process launches."""
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_jobs, gen, queue = 16, 32, "smoke-disagg"
+    jobs = _default_jobs(n_jobs, gen)
+    want = {j.id: serve_tokens[j.id][:gen] for j in jobs}
+    penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    server = subprocess.Popen([sys.executable, "-c", _SERVER], cwd=root, env=penv,
+                              stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    workers, rcs, problems, logs = [], [], [], {}
+    try:
+        url = f"tcp://127.0.0.1:{int(server.stdout.readline())}"
+        asyncio.run(_submit(url, queue, jobs))
+        starts = {}
+        # The decode worker first, consuming before the prefill worker
+        # starts: the handoff latency is then the road's, not a start-up race.
+        for role in ("decode", "prefill"):
+            logs[role] = os.path.join(OUT_DIR, f"disagg_{role}.log")
+            starts[role] = time.perf_counter()
+            with open(logs[role], "w") as log:
+                workers.append(subprocess.Popen(
+                    [sys.executable, "-m", "llmq_tpu_torch", "worker", "run",
+                     "preset://qwen2.5-3b", queue, "--role", role, "--max-num-seqs", "16",
+                     "--max-model-len", "512", "--dtype", "bfloat16"],
+                    cwd=root, env=dict(penv, LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1",
+                                 LLMQ_RESULT_DIGEST="1"),
+                    stdout=log, stderr=subprocess.STDOUT))
+            while role == "decode" and not _log_has(logs[role], "consuming"):
+                if workers[0].poll() is not None or time.perf_counter() - starts[role] > 300:
+                    raise SystemExit(f"prefix_kv phase (c): the decode worker did not start "
+                                     f"(log: {logs[role]})")
+                time.sleep(0.2)
+        results = asyncio.run(_collect_results(url, queue, n_jobs, lambda: workers, 600))
+        done = time.perf_counter()
+        rcs = [_stop(w, signal.SIGTERM, 120) for w in workers]
+    finally:
+        for w in workers:
+            _stop(w, signal.SIGKILL, 10)
+        _stop(server, signal.SIGTERM, 10)
+    dec, pre = _worker_stats(logs["decode"]), _worker_stats(logs["prefill"])
+    ids = [r["id"] for r in results]
+    if sorted(ids) != sorted(want):
+        problems.append(f"(c) {len(results)} results, {len(set(ids))} unique ids")
+    if rcs != [0, 0]:
+        problems.append(f"(c) worker exit codes {rcs} (decode, prefill)")
+    if pre.get("handoffs_fallback") != n_jobs or dec.get("jobs_adopted") != n_jobs:
+        problems.append(f"(c) handoffs {pre.get('handoffs_fallback')}, adopted "
+                        f"{dec.get('jobs_adopted')}")
+    if any(r["usage"]["completion_tokens"] != gen for r in results):
+        problems.append("(c) a result without its 32 tokens")
+
+    # In process, bf16 at full width: the same path, counted, and its tokens.
+    core = _snapshot_engine(params, cfg)
+    reset_launches()
+    adopted, snaps = _adopted_serve(core, jobs, gen)
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), read_routes()
+    st = core.stats()
+    L = cfg.num_layers
+    problems += route_problems(routes, launches) + graph_problems(st)
+    if launches["flash_prefill"] != L * st["prefill_dispatches"] or launches["flash_prefill"] < 1:
+        problems.append(f"(c) K2 {launches['flash_prefill']} != {L} x {st['prefill_dispatches']}")
+    if launches["paged_decode"] != L * (st["decode_steps"] + _warm(st)):
+        problems.append(f"(c) K1 {launches['paged_decode']} != {L} x ({st['decode_steps']} + "
+                        f"{_warm(st)})")
+    tok = ByteTokenizer()
+    got = {r["id"]: r.get("token_ids") for r in results}
+    parting_ids = [j.id for j in jobs if adopted.get(j.id) != want[j.id]]
+    if any(tok.decode(got[r["id"]] or []) != r["result"] for r in results):
+        problems.append("(c) a result's text is not its token ids' text")
+    unwitnessed = [rid for rid, ids in got.items() if ids not in (want[rid], adopted.get(rid))]
+    if unwitnessed:
+        problems.append(f"(c) worker rows parting from phase 3's and from the in-process "
+                        f"adoption: {unwitnessed}")
+    parting = _parting_witness(core, jobs, adopted, want)
+    for rid, w in parting.items():
+        if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
+                or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS):
+            problems.append(f"(c) adopted {rid} parts from phase 3's at {w['position']} at no "
+                            f"near-tie: ranks {w['phase3_rank']} / {w['recompute_rank']}, gap "
+                            f"{w['gap']} ({w['gap_bf16_steps']} bf16 steps)")
+    snap_bytes = [len(s.to_bytes()) for s in snaps]
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at 2 layers on the exact routes: adoption equals the unified run.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg, tree = _parity_config()
+    f32 = _engine(pcfg, tree, torch.device("cuda"), max_num_seqs=16, max_model_len=512,
+                  kv_dtype="f32")
+    reset_launches()
+    for j in jobs:
+        f32.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+    whole = {rid: o.token_ids for rid, o in _step_to_end(f32, {}).items()}
+    f32_adopted, _ = _adopted_serve(f32, jobs, gen)
+    problems += route_problems(read_routes(), read_launches(), route="exact")
+    f32_equal = sum(f32_adopted.get(j.id) == whole[j.id] for j in jobs)
+    if f32_equal != n_jobs:
+        problems.append(f"(c) f32: {f32_equal} of {n_jobs} adopted jobs equal the unified run's")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="prefix_kv", part="c: disaggregation over tcp://", broker=url,
+              jobs=len(results), unique=len(set(ids)), worker_exit_codes=rcs,
+              prefill_worker=pre, decode_worker=dec,
+              handoff_ms_p50=dec.get("handoff_ms_p50"), handoff_ms_p95=dec.get("handoff_ms_p95"),
+              handoff_payload_bytes_per_job=pre.get("handoff_bytes", 0) / n_jobs,
+              snapshot_bytes_per_job=sum(snap_bytes) / len(snap_bytes),
+              wall_from_prefill_start_s=done - starts["prefill"],
+              wall_from_decode_start_s=done - starts["decode"],
+              worker_tokens_equal_phase3=sum(ids == want[r] for r, ids in got.items()),
+              worker_tokens_equal_in_process=sum(ids == adopted.get(r) for r, ids in got.items()),
+              bf16_in_process_equal_phase3=n_jobs - len(parting_ids),
+              bf16_parting=parting, near_tie_limit_bf16_steps=NEAR_TIE_ULPS,
+              bf16_launches=launches, f32_2_layers_adopted_equal_unified=f32_equal,
+              timing="wall: from a worker process's start (its engine build included) to the "
+                     "16th result, the decode worker consuming before the prefill worker starts; "
+                     "handoff: the prefill worker's stamp before its publish to the decode "
+                     "worker's start of the job, after its parse and snapshot decode (wall "
+                     "clocks of one host); payload: the JSON job with its base64 snapshot",
+              note="bf16: the adopted row computes its last prompt position in a decode step "
+                   "(K1), where phase 3 computed it in the prefill (K2 and a many-row "
+                   "projection); a row that parts must part at a near-tie (ranks from 0 under a "
+                   "prefill of the shared context)",
+              card=smi, problems=problems))
+    if problems:
+        raise SystemExit("prefix_kv phase (c) failed: " + "; ".join(problems[:5]))
+    return launches
+
+
+def phase_prefix_kv(smi: str, serve_tokens: dict, prefix_tokens: dict) -> dict:
+    """Phase 12, the prefix-KV plane (M11b) at full width: qwen2.5-3b,
+    bf16, phase 3's seeded weights; parts (a)-(c). Returns the launches of
+    (a) (K3, K4) and of (c)'s in-process adoption (K1, K2)."""
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    t0 = time.perf_counter()
+    cfg = get_preset("qwen2.5-3b")
+    # build_engine's draw for preset://qwen2.5-3b at seed 0: phase 3's weights
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+                         device=torch.device("cuda"))
+    a = _prefix_kv_host_tier(smi, cfg, params, prefix_tokens)
+    c = _prefix_kv_disagg(smi, cfg, params, serve_tokens)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="prefix_kv", part="total", seconds=time.perf_counter() - t0))
+    return dict(paged_prefill=a["paged_prefill"], paged_decode_v3=a["paged_decode_v3"],
+                paged_decode=c["paged_decode"], flash_prefill=c["flash_prefill"])
 
 
 def main() -> int:
@@ -2710,6 +3251,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         snapshot_launches = phase_snapshot(smi, serve_tokens)
+    prefix_kv_launches = {}
+    if "prefix_kv" in phases:
+        if serve_tokens is None or prefix_tokens is None:
+            raise SystemExit("phase prefix_kv compares with the serve and prefix phases' tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefix_kv_launches = phase_prefix_kv(smi, serve_tokens, prefix_tokens)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -2751,6 +3299,8 @@ def main() -> int:
                              "k1_same_contexts_ms")})
         if name in ("paged_decode", "flash_prefill"):  # phase 11 (a): restored rows
             entry["snapshot_launches"] = snapshot_launches.get(name)
+        if name in prefix_kv_launches:  # phase 12: (a) K3, K4; (c) in process K1, K2
+            entry["prefix_kv_launches"] = prefix_kv_launches[name]
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",

@@ -193,10 +193,27 @@ class Broker(abc.ABC):
 
 
 RESULTS_SUFFIX = ".results"
+DECODE_SUFFIX = ".decode"
+INTERACTIVE_SUFFIX = ".interactive"
 
 
 def results_queue_name(queue: str) -> str:
     return queue if queue.endswith(RESULTS_SUFFIX) else queue + RESULTS_SUFFIX
+
+
+def decode_queue_name(queue: str) -> str:
+    """The shared decode-pool queue (``llmq_tpu/broker/manager.py:135``):
+    prefill-role workers republish a prefill-complete job here, its
+    snapshot under ``RESUME_FIELD``; decode-role workers consume it."""
+    return queue + DECODE_SUFFIX
+
+
+def interactive_queue_name(queue: str) -> str:
+    """The queue's SLO fast lane (``manager.py:111``): jobs submitted as
+    ``priority: interactive`` publish here; workers consume it beside the
+    shared queue, so interactive work never waits behind a batch backlog
+    at the broker."""
+    return queue + INTERACTIVE_SUFFIX
 
 
 def make_broker(url: str) -> Broker:

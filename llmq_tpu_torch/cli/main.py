@@ -14,8 +14,9 @@ package beyond torch, numpy and pydantic.
 The options of the reference's ``worker run`` (:336-412) that the port
 serves keep their names: ``-c/--concurrency``, ``--max-num-seqs``,
 ``--max-model-len``, ``--dtype``, ``--kv-dtype``, ``--prefill-chunk``,
-``--prefix-caching``, ``--decode-block``, ``--spec-tokens``,
-``--mixed-step``. The others are accepted and, set to anything but
+``--prefix-caching``, ``--prefix-host-gb``, ``--decode-block``,
+``--spec-tokens``, ``--mixed-step``, ``--role`` (unified, prefill or
+decode). The others are accepted and, set to anything but
 their default, raise ``NotImplementedError`` with their ROADMAP item. One
 option is the port's own: ``--device`` (default ``cuda``; ``cpu`` runs
 the plain PyTorch path).
@@ -33,9 +34,8 @@ UNPORTED_OPTIONS = {
     "tensor_parallel": (lambda v: v is not None and v > 1, "M13"),
     "data_parallel": (lambda v: v > 1, "M13"),
     "sequence_parallel": (lambda v: v > 1, "M13"),
-    "prefix_host_gb": (lambda v: v is not None and v > 0, "M11b"),
     "tp_overlap": (lambda v: v not in (None, "off"), "M13"),
-    "role": (lambda v: v not in (None, "unified"), "M11b"),
+    "role": (lambda v: v == "auto", "M6"),
 }
 
 
@@ -62,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                      help="Chunked prefill: positions per chunk")
     run.add_argument("--prefix-caching", action="store_true",
                      help="Reuse cached KV for shared prompt prefixes (needs --prefill-chunk)")
+    run.add_argument("--prefix-host-gb", type=float, default=None,
+                     help="Host-RAM tier (GiB) for evicted prefix pages (needs "
+                          "--prefix-caching; LLMQ_PREFIX_HOST_GB)")
     run.add_argument("--decode-block", type=int, default=None,
                      help="Fused decode: device iterations per dispatch (LLMQ_DECODE_BLOCK)")
     run.add_argument("--spec-tokens", type=int, default=None,
@@ -69,15 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--mixed-step", default=None, choices=["off", "on"],
                      help="Piggyback prefill chunks into decode dispatches (needs "
                           "--prefill-chunk; LLMQ_MIXED_STEP)")
+    run.add_argument("--role", default=None, choices=["unified", "prefill", "decode", "auto"],
+                     help="Disaggregated serving: 'prefill' runs the prompt phase and hands "
+                          "each job to <queue>.decode; 'decode' serves <queue>.decode. "
+                          "Default: LLMQ_WORKER_ROLE or unified")
     run.add_argument("--device", default="cuda",
                      help="cuda (default) or cpu (the plain PyTorch path)")
     # The reference's options that the port does not serve yet.
     run.add_argument("-tp", "--tensor-parallel", type=int, default=None)
     run.add_argument("-dp", "--data-parallel", type=int, default=1)
     run.add_argument("-sp", "--sequence-parallel", type=int, default=1)
-    run.add_argument("--prefix-host-gb", type=float, default=None)
     run.add_argument("--tp-overlap", default=None, choices=["off", "on", "auto"])
-    run.add_argument("--role", default=None, choices=["unified", "prefill", "decode", "auto"])
     return parser
 
 
@@ -94,7 +99,8 @@ def worker_run_kwargs(args: argparse.Namespace) -> dict:
         device=args.device, concurrency=args.concurrency, max_num_seqs=args.max_num_seqs,
         max_model_len=args.max_model_len, dtype=args.dtype, kv_dtype=args.kv_dtype,
         prefill_chunk_size=args.prefill_chunk, enable_prefix_caching=args.prefix_caching,
-        decode_block=args.decode_block, spec_tokens=args.spec_tokens, mixed_step=args.mixed_step,
+        prefix_host_gb=args.prefix_host_gb, decode_block=args.decode_block,
+        spec_tokens=args.spec_tokens, mixed_step=args.mixed_step, role=args.role,
     )
 
 
@@ -107,6 +113,7 @@ def main(argv: Optional[List[str]] = None,
     if run_worker is None:
         from llmq_tpu_torch.cli.worker import run_torch_worker as run_worker
     print(f"Starting torch worker: model={args.model} queue={args.queue} "
-          f"device={args.device}", file=sys.stderr, flush=True)
+          f"device={args.device}" + (f" role={args.role}" if args.role else ""),
+          file=sys.stderr, flush=True)
     run_worker(args.model, args.queue, **kwargs)
     return 0

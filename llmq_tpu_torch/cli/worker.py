@@ -17,7 +17,10 @@ bfloat16, float32, or int8 / int4: weight-only quantization
 the compute dtype. The engine config is resolved as the JAX worker's
 ``_build_core`` (:333) resolves it (:func:`engine_config`): each argument over
 its variable in ``core/config.py``, ``max_model_len`` clamped to the
-model's ``max_position_embeddings``. The command line is
+model's ``max_position_embeddings``, ``prefix_host_gb`` refused without
+prefix caching (``tpu_worker.py:190``). ``role`` (unified, prefill or
+decode) sets the worker's ``Config.worker_role`` over
+``LLMQ_WORKER_ROLE``. The command line is
 ``python -m llmq_tpu_torch worker run MODEL QUEUE`` (``cli/main.py``).
 """
 
@@ -38,7 +41,7 @@ from llmq_tpu_torch.engine.weights import load_checkpoint
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.models.presets import get_preset
 from llmq_tpu_torch.models.transformer import init_params
-from llmq_tpu_torch.workers.torch_worker import TorchWorker
+from llmq_tpu_torch.workers.torch_worker import TorchWorker, worker_role
 
 logger = logging.getLogger(__name__)
 
@@ -78,6 +81,7 @@ def engine_config(
     kv_dtype: Optional[str] = None,
     prefill_chunk_size: Optional[int] = None,
     enable_prefix_caching: bool = False,
+    prefix_host_gb: Optional[float] = None,
     decode_block: Optional[int] = None,
     spec_tokens: Optional[int] = None,
     mixed_step: Optional[str] = None,
@@ -90,8 +94,14 @@ def engine_config(
     1), spec tokens (> 0) and mixed steps (not "off") are set when an
     argument or variable turns them on; tp overlap is passed on when its
     variable turns it on, so the engine refuses it with its ROADMAP.md
-    item."""
+    item. ``prefix_host_gb`` is passed on when set (the engine resolves
+    ``LLMQ_PREFIX_HOST_GB`` over it), and refused without prefix caching,
+    as the JAX worker refuses it before any weight is loaded."""
     cfg = config or get_config()
+    caching = enable_prefix_caching or cfg.enable_prefix_caching
+    if prefix_host_gb and not caching:
+        raise ValueError("--prefix-host-gb requires --prefix-caching: the host tier parks "
+                         "pages the device prefix cache evicts")
     overrides = {}
     if max_num_seqs or cfg.max_num_seqs:
         overrides["max_num_seqs"] = max_num_seqs or cfg.max_num_seqs
@@ -100,8 +110,10 @@ def engine_config(
     chunk = prefill_chunk_size or cfg.prefill_chunk_size
     if chunk:
         overrides["prefill_chunk_size"] = chunk
-    if enable_prefix_caching or cfg.enable_prefix_caching:
+    if caching:
         overrides["enable_prefix_caching"] = True
+    if prefix_host_gb:
+        overrides["prefix_host_gb"] = prefix_host_gb
     block = decode_block or cfg.decode_block
     if block and block > 1:
         overrides["decode_block"] = block
@@ -127,6 +139,7 @@ def build_engine(
     kv_dtype: Optional[str] = None,
     prefill_chunk_size: Optional[int] = None,
     enable_prefix_caching: bool = False,
+    prefix_host_gb: Optional[float] = None,
     decode_block: Optional[int] = None,
     spec_tokens: Optional[int] = None,
     mixed_step: Optional[str] = None,
@@ -147,8 +160,8 @@ def build_engine(
     ecfg = engine_config(
         config, dtype=dtype, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
         kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,
-        enable_prefix_caching=enable_prefix_caching, decode_block=decode_block,
-        spec_tokens=spec_tokens, mixed_step=mixed_step,
+        enable_prefix_caching=enable_prefix_caching, prefix_host_gb=prefix_host_gb,
+        decode_block=decode_block, spec_tokens=spec_tokens, mixed_step=mixed_step,
     )
     compute, quantize = _DTYPES[dtype]
     if preset:
@@ -173,9 +186,11 @@ def run_torch_worker(
     kv_dtype: Optional[str] = None,
     prefill_chunk_size: Optional[int] = None,
     enable_prefix_caching: bool = False,
+    prefix_host_gb: Optional[float] = None,
     decode_block: Optional[int] = None,
     spec_tokens: Optional[int] = None,
     mixed_step: Optional[str] = None,
+    role: Optional[str] = None,
     broker_url: Optional[str] = None,
     concurrency: Optional[int] = None,
     max_jobs: Optional[int] = None,
@@ -185,19 +200,24 @@ def run_torch_worker(
     with a preset or checkpoint model; returns the worker (its engine shut
     down) once ``max_jobs`` jobs are settled or a SIGINT / SIGTERM has
     stopped it. ``prefill_chunk_size`` and ``enable_prefix_caching``
-    select chunked prefill and the prefix cache, ``decode_block``,
-    ``spec_tokens`` and ``mixed_step`` the fused dispatch modes, as
-    ``llmq_tpu``'s ``run_tpu_worker`` does."""
+    select chunked prefill and the prefix cache, ``prefix_host_gb`` its
+    host tier, ``decode_block``, ``spec_tokens`` and ``mixed_step`` the
+    fused dispatch modes, ``role`` the disaggregated role, as ``llmq_tpu``'s
+    ``run_tpu_worker`` does."""
+    config = get_config()
+    if role is not None:
+        config.worker_role = role
+    worker_role(config)  # refused before any weight is loaded
     engine = build_engine(
         model, device=device, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
         dtype=dtype, kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,
-        enable_prefix_caching=enable_prefix_caching, decode_block=decode_block,
-        spec_tokens=spec_tokens, mixed_step=mixed_step, seed=seed,
+        enable_prefix_caching=enable_prefix_caching, prefix_host_gb=prefix_host_gb,
+        decode_block=decode_block, spec_tokens=spec_tokens, mixed_step=mixed_step, seed=seed,
     )
-    worker = TorchWorker(
-        queue, engine, broker_url=broker_url, concurrency=concurrency, max_jobs=max_jobs
-    )
-    logger.info("torch worker: model=%s queue=%s device=%s", model, queue, engine.core.device)
+    worker = TorchWorker(queue, engine, broker_url=broker_url, concurrency=concurrency,
+                         max_jobs=max_jobs, config=config)
+    logger.info("torch worker: model=%s queue=%s device=%s role=%s", model, queue,
+                engine.core.device, worker.role)
     try:
         asyncio.run(worker.run())
     except KeyboardInterrupt:

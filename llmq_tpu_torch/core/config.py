@@ -9,10 +9,14 @@ environment. Of the broker section it keeps what the worker reads
 (``broker_url``, ``queue_prefetch``; ``max_tokens`` of the engine
 section), and of the resilience section the shared host-memory budget
 (``host_mem_gb``, ``utils/host_mem.py``) and the drain timeout
-(``drain_timeout_s``, the worker's drain-with-handoff); the reconnect and
-outbox settings of the resilient session and the affinity and
-disaggregation sections come with the modules that read them (ROADMAP.md
-queue 1, M6 and M11b), as does the ``.env`` autoload.
+(``drain_timeout_s``, the worker's drain-with-handoff) and the result
+digest (``result_digest``: the emitted token ids on each result), of the
+disaggregation section the worker's role (``worker_role``), and of the
+priority section the switch of the ``<q>.interactive`` fast lane
+(``priority_classes``). The reconnect and outbox settings of the resilient
+session, the prefix-affinity section and the ``auto`` role's controller
+settings come with the modules that read them (ROADMAP.md queue 1, M6),
+as does the ``.env`` autoload.
 """
 
 from __future__ import annotations
@@ -106,16 +110,42 @@ class Config(BaseModel):
         description="Piggyback scheduling of prefill chunks into decode: on or off.",
     )
 
+    # --- disaggregated prefill/decode serving -----------------------------
+    worker_role: str = Field(
+        default_factory=lambda: (_env("LLMQ_WORKER_ROLE") or "unified").lower(),
+        description="Disaggregated serving role. 'unified' (default) runs prefill and decode "
+        "on one worker. 'prefill' consumes the shared job queue, runs the prompt phase only "
+        "and republishes each job with its prompt-KV snapshot to <q>.decode. 'decode' "
+        "consumes <q>.decode and continues the handed-off requests. 'auto' switches between "
+        "the two on fleet queue depths (the reference's; not ported yet, ROADMAP.md M6).",
+    )
+
+    # --- priority classes -------------------------------------------------
+    priority_classes: bool = Field(
+        default_factory=lambda: (_env("LLMQ_PRIORITY_CLASSES") or "1").lower()
+        not in ("0", "false", "no", "off"),
+        description="SLO priority classes: workers also consume the per-queue fast lane "
+        "<q>.interactive, and the engine admits interactive work first. On by default; "
+        "LLMQ_PRIORITY_CLASSES=0 forces pure FIFO.",
+    )
+
     # --- resilience -------------------------------------------------------
     host_mem_gb: float = Field(
         default_factory=lambda: _env_float("LLMQ_HOST_MEM_GB", default=0.0),
-        description="Shared host-RAM byte budget (GiB) of swap-preempt captures "
-        "(utils/host_mem.HostMemoryGovernor); 0 disables it.",
+        description="Shared host-RAM byte budget (GiB) of the prefix host tier, "
+        "swap-preempt captures and resume blobs (utils/host_mem.HostMemoryGovernor); "
+        "0 disables it.",
     )
     drain_timeout_s: float = Field(
         default_factory=lambda: _env_float("LLMQ_DRAIN_TIMEOUT_S", default=30.0),
         description="Seconds a shutting-down worker waits for its in-flight jobs to settle "
         "after handing them off.",
+    )
+    result_digest: bool = Field(
+        default_factory=lambda: (_env("LLMQ_RESULT_DIGEST") or "").lower()
+        in ("1", "true", "yes", "on"),
+        description="Workers attach the emitted token_ids and their blake2b-16 token_digest "
+        "to every result. Off by default.",
     )
 
 

@@ -33,6 +33,22 @@ captured graph, while an interactive row is resident) follow :2569-2680.
 ``AsyncEngine`` adds ``resume``, ``handoff`` (drain-with-handoff,
 :5044), token callbacks and ``call_on_engine``.
 
+Prefix-KV plane (M11b). ``prefix_host_gb`` (``LLMQ_PREFIX_HOST_GB`` pins
+over it; it needs ``enable_prefix_caching``, JAX :775-811) turns on the
+host prefix tier (``engine/prefix_store.py``): a cache page the allocator
+evicts is gathered to host RAM (``_demote_page``), and admission extends a
+device prefix match from it, writing the host pages into the fresh pages
+in place before the wave's first dispatch (``_promote_host_pages``,
+:3012-3065). ``flush_prefix_to_host`` and ``export_prefix_chunks`` /
+``ingest_prefix_chunks`` (pages shipped between engines in the chunk wire
+form) follow :3055-3120; the want-list and hot-chain queries and their
+``AsyncEngine`` wrappers come with the heartbeats that call them
+(ROADMAP.md M6). ``add_request(prefill_only=True)`` stops a request at the
+prefill boundary (:3866-3880): its first sampled token is dropped, the
+prompt KV is snapshotted and it finishes as ``"prefill_done"`` with the
+snapshot on ``RequestOutput.snapshot``; a decode engine adopts it through
+``insert_request``.
+
 Device decode state. The 12 leaves of the JAX state (:1300) live in
 static device tensors — tokens, ctx, block tables, active, two-word
 threefry keys, steps, temps, top-k, top-p, limits, min-tokens, stop ids,
@@ -56,9 +72,8 @@ as in JAX), ``admit_max_wait_s``, ``runahead``, ``decode_block``,
 (``LLMQ_MIXED_STEP`` pins over it; it needs ``prefill_chunk_size``),
 ``preempt_mode``, ``priority_classes``, ``priority_preempt`` and
 ``interactive_decode_block`` (each pinned by its ``LLMQ_*`` variable, as
-in JAX :733-774). Any other field set away from its default, or
-``LLMQ_PREFIX_HOST_GB`` set to turn the host prefix tier on, raises
-``NotImplementedError`` naming its ROADMAP.md item.
+in JAX :733-774) and ``prefix_host_gb``. Any other field set away from its
+default raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -79,6 +94,7 @@ import torch
 
 from llmq_tpu_torch.device import DeviceLike, resolve_device
 from llmq_tpu_torch.engine import sampling as sampling_mod
+from llmq_tpu_torch.engine import prefix_store as prefix_mod
 from llmq_tpu_torch.engine import snapshot as snapshot_mod
 from llmq_tpu_torch.engine.graphs import DispatchGraphs
 from llmq_tpu_torch.engine.sampling import (
@@ -127,6 +143,9 @@ class RequestOutput:
     # Host-side monotonic lifecycle stamps (enqueued/admitted/
     # prefill_start/first_token/last_token/finished + preempt_count).
     timing: Optional[Dict[str, float]] = None
+    # A prefill-only request (finish_reason="prefill_done") carries its
+    # prompt-KV snapshot here for the decode-pool handoff; None otherwise.
+    snapshot: Optional[RequestSnapshot] = None
 
 
 # The JAX EngineConfig's name table: "fp8" is float8_e5m2, stored without
@@ -205,12 +224,14 @@ class EngineConfig:
                 ) from None
         if self.kv_dtype not in set(_KV_DTYPES.values()):
             raise ValueError(f"kv_dtype={self.kv_dtype} (want bf16, f32 or fp8)")
+        self.prefix_host_gb = float(self.prefix_host_gb)
+        if self.prefix_host_gb < 0:
+            raise ValueError(f"prefix_host_gb={self.prefix_host_gb} (want >= 0)")
 
 
 #: Fields of EngineConfig this engine does not honour yet → the ROADMAP.md
 #: queue 1 item that brings them.
 _UNPORTED_FIELDS = {
-    "prefix_host_gb": "M11b",
     "watchdog_mult": "M12",
     "watchdog_min_s": "M12",
     "logit_guard": "M12",
@@ -219,13 +240,6 @@ _UNPORTED_FIELDS = {
     "weight_audit_every": "M12",
     "canary_every": "M12",
     "tp_overlap": "M13",
-}
-
-
-#: Variables the JAX engine resolves over its own config (``engine.py``
-#: :733, :779) -> whether a value turns the feature on, and the field.
-_UNPORTED_ENV = {
-    "LLMQ_PREFIX_HOST_GB": (lambda v: bool(v.strip()) and float(v) > 0, "prefix_host_gb"),
 }
 
 
@@ -247,13 +261,6 @@ def _check_ported(cfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={value!r} is not ported yet "
                 f"(ROADMAP.md queue 1, {item})"
-            )
-    for var, (turns_on, name) in _UNPORTED_ENV.items():
-        value = os.environ.get(var, "")
-        if turns_on(value):
-            raise NotImplementedError(
-                f"{var}={value!r} turns on {name}, which is not ported yet "
-                f"(ROADMAP.md queue 1, {_UNPORTED_FIELDS[name]})"
             )
 
 
@@ -441,6 +448,30 @@ class EngineCore:
             self.cfg.max_num_seqs, self.device,
         )
         self._kv_name = snapshot_mod.dtype_name(self.k_pages.dtype)
+        # The host prefix tier: the variable pins over the config (JAX
+        # :775-811); hooked up before the first request, so the allocator's
+        # evictions demote from the start.
+        host_gb = self.cfg.prefix_host_gb
+        env_gb = os.environ.get("LLMQ_PREFIX_HOST_GB", "").strip()
+        if env_gb:
+            try:
+                host_gb = float(env_gb)
+            except ValueError:
+                raise ValueError(f"LLMQ_PREFIX_HOST_GB={env_gb!r} is not a number") from None
+        self.prefix_host_gb = host_gb
+        self.prefix_store: Optional[prefix_mod.PrefixStore] = None
+        if host_gb > 0:
+            if not self.cfg.enable_prefix_caching:
+                raise ValueError(
+                    "prefix_host_gb > 0 requires enable_prefix_caching: the host tier "
+                    "extends the device prefix cache (there is nothing to demote without it)"
+                )
+            self.prefix_store = prefix_mod.PrefixStore(
+                int(host_gb * 2**30), page_size=self.cfg.page_size, model_sig=self._model_sig())
+            self.scheduler.on_demote = self._demote_page
+            self.scheduler.host_lookup = self.prefix_store.match_chain
+            logger.info("prefix host tier: %.2f GiB budget (%d-token pages)", host_gb,
+                        self.cfg.page_size)
         self._eos_ids = set(model_config.eos_token_ids) | set(tokenizer.eos_token_ids)
         self._buckets = _prefill_buckets(self.cfg)
 
@@ -511,6 +542,14 @@ class EngineCore:
         self.kv_restores = 0  # admissions that wrote host KV back
         self.snapshots_extracted = 0
         self.snapshots_inserted = 0
+        self.prefill_done = 0  # prefill-only requests finished at the boundary
+        # rid -> the snapshot taken at the prefill boundary, popped by
+        # _output_for when the finished RequestOutput is built.
+        self._prefill_snapshots: Dict[str, RequestSnapshot] = {}
+        self.prefix_demotes = 0  # pages parked in the host tier on eviction
+        self.prefix_promotes = 0  # pages written back from the host tier
+        self.prefix_chunks_exported = 0  # pages serialized for peers
+        self.prefix_chunks_ingested = 0  # shipped pages accepted
         self.deadline_expirations = 0
         self.priority_preemptions = 0  # batch rows evicted for interactive ones
         # Finished cleanly ("stop" / "length") and tokens, by class.
@@ -518,9 +557,19 @@ class EngineCore:
         self.class_tokens = {"interactive": 0, "batch": 0}
         self._started_at = time.monotonic()
 
+        # The swap blobs and the prefix tier report into the shared budget
+        # (names per engine, so several engines in one process coexist).
+        self._gov_names: List[str] = []
         gov = get_governor()
-        if gov.enabled:  # the swap blobs report into the shared budget
-            gov.register(f"swap:engine-{id(self):x}", self._swap_restore_bytes)
+        if gov.enabled:
+            tag = f"engine-{id(self):x}"
+            gov.register(f"swap:{tag}", self._swap_restore_bytes)
+            self._gov_names.append(f"swap:{tag}")
+            if self.prefix_store is not None:
+                store = self.prefix_store
+                gov.register(f"prefix:{tag}", lambda: store.occupancy_bytes,
+                             evict_fn=store.evict_bytes)
+                self._gov_names.append(f"prefix:{tag}")
 
         self._resync()
 
@@ -551,6 +600,7 @@ class EngineCore:
         prompt_ids: Optional[List[int]] = None,
         params: Optional[SamplingParams] = None,
         deadline_at: Optional[float] = None,
+        prefill_only: bool = False,
         priority: str = "batch",
     ) -> Sequence:
         if prompt_ids is None:
@@ -572,7 +622,7 @@ class EngineCore:
         if not self.priority_classes:
             priority = "batch"  # classes disabled: everything is FIFO batch
         seq = Sequence(rid=rid, prompt_ids=list(prompt_ids), params=params,
-                       deadline_at=deadline_at, priority=priority)
+                       deadline_at=deadline_at, prefill_only=prefill_only, priority=priority)
         if deadline_at is not None:
             self._deadlines_enabled = True
         if priority == "interactive" and not self._priority_enabled:
@@ -700,6 +750,11 @@ class EngineCore:
             return False
         self._defer_since = None
         admitted = self.scheduler.admit(max_new=self.cfg.max_prefill_batch)
+        # Host-tier promotion before anything else touches the wave: admit()
+        # registered the promoted pages' hashes (later admits may share
+        # them), which is sound only if their KV is in place before any
+        # dispatch can read the pages.
+        self._promote_host_pages(admitted)
         todo, restored = [], []
         for seq in admitted:
             if seq.params.max_tokens <= 0:
@@ -868,6 +923,89 @@ class EngineCore:
         if self._pending:
             raise RuntimeError("immediate preemption with dispatches in flight")
         self._swap_out(seq, seq.pages, seq.num_tokens - 1)
+
+    # --- host prefix tier -------------------------------------------------
+    def _demote_page(self, page: int, hashes: List[bytes]) -> None:
+        """Scheduler ``on_demote`` hook (JAX :3012): park an evicted cache
+        page's KV in the host tier under every chain hash that named it.
+        The gather is safe with dispatches in flight: a cached page has
+        refcount 0 and its deferred release passed its watermark, so no
+        queued dispatch writes it, and the gather, queued behind them all,
+        copies it to the host before the allocator hands the page out."""
+        k, v = self._kv_gather([page])
+        for h in hashes:
+            self.prefix_store.put(h, k, v)
+        self.prefix_demotes += 1
+
+    def _promote_host_pages(self, admitted: List[Sequence]) -> None:
+        """Write host-tier KV into the pages admit() reserved for it, in
+        place (``index_copy_``: the pools keep their storage and the
+        captured graphs stay valid), before the wave's first dispatch. The
+        sequences are unprefilled: their prefill scatter brings their
+        decode rows up, so no resync is needed."""
+        for seq in admitted:
+            hr, seq.host_restore = seq.host_restore, None
+            if not hr:
+                continue
+            k = np.concatenate([e.k for _, _, e in hr], axis=1)
+            v = np.concatenate([e.v for _, _, e in hr], axis=1)
+            self._kv_insert([page for page, _, _ in hr], k, v)
+            self.prefix_promotes += len(hr)
+
+    def flush_prefix_to_host(self) -> int:
+        """Demote every evictable (refcount-0) cached page to the host tier
+        now instead of under pool pressure (before a planned teardown, and
+        to drive demote -> promote deterministically). Returns the number
+        of pages dropped from the device cache."""
+        pages = list(self.scheduler.allocator._cached)
+        for page in pages:
+            self.scheduler.allocator.drop_cached(page)  # fires on_evict
+        return len(pages)
+
+    def export_prefix_chunks(self, digests_hex: List[str]) -> List[str]:
+        """Serialize the named prefix pages for a peer (base64 chunk wire
+        form). Each digest resolves against the host tier first, then the
+        device cache (gathered on demand); misses are skipped: shipping is
+        best-effort and the requester prefills what does not arrive."""
+        out: List[str] = []
+        sig = self._model_sig()
+        for hx in digests_hex:
+            try:
+                key = bytes.fromhex(hx)
+            except ValueError:
+                continue
+            entry = (self.prefix_store.get(key)
+                     if self.prefix_store is not None and key in self.prefix_store else None)
+            if entry is not None:  # None too if the governor evicted it since the test
+                k, v = entry.k, entry.v
+            elif key in self.scheduler._prefix_cache:
+                k, v = self._kv_gather([self.scheduler._prefix_cache[key]])
+            else:
+                continue
+            blob = prefix_mod.chunk_to_bytes(key, k, v, model_sig=sig,
+                                             page_size=self.cfg.page_size)
+            out.append(prefix_mod.chunk_to_b64(blob))
+            self.prefix_chunks_exported += 1
+        return out
+
+    def ingest_prefix_chunks(self, chunks_b64: List[str]) -> int:
+        """Accept shipped prefix pages into the host tier (they promote on
+        the next matching admission). Returns the number accepted, 0 with
+        the tier off. A malformed or incompatible chunk raises: a fleet
+        whose shapes disagree must fail loudly, not recompute forever."""
+        if self.prefix_store is None:
+            return 0
+        n = 0
+        sig = self._model_sig()
+        for c in chunks_b64:
+            key, k, v, chunk_sig, page_size = prefix_mod.chunk_from_bytes(
+                prefix_mod.chunk_from_b64(c))
+            prefix_mod.check_chunk_compat(chunk_sig, page_size, want_sig=sig,
+                                          want_page_size=self.cfg.page_size)
+            if self.prefix_store.put(key, k, v):
+                n += 1
+                self.prefix_chunks_ingested += 1
+        return n
 
     def _resync(self) -> None:
         """Rebuild the device decode state from scheduler truth, in place
@@ -1571,6 +1709,18 @@ class EngineCore:
         return min(seq.num_tokens + lookahead, horizon, cap)
 
     def _append_and_check(self, seq: Sequence, token: int, finished: List[RequestOutput]) -> None:
+        if seq.prefill_only and not seq.output_ids:
+            # The prefill boundary (JAX :3866): the prompt KV is complete and
+            # the device sampled the first token. Drop it (the adopting
+            # engine re-derives the key chain and samples it again), snapshot
+            # the prompt KV while the pages are held and finish. The
+            # snapshot's kv_valid = len(prompt) - 1 is insert_request's
+            # contract for an empty output: the adopter computes only the
+            # last prompt position again.
+            self._prefill_snapshots[seq.rid] = self._snapshot_seq(seq)
+            self.prefill_done += 1
+            self._finish_seq(seq, "prefill_done", device_detected=False, finished=finished)
+            return
         seq.output_ids.append(token)
         self.total_generated_tokens += 1
         self.class_tokens["interactive" if seq.priority == "interactive" else "batch"] += 1
@@ -1701,6 +1851,7 @@ class EngineCore:
             completion_tokens=len(seq.output_ids),
             finish_reason=seq.finish_reason or "stop",
             timing=timing,
+            snapshot=self._prefill_snapshots.pop(seq.rid, None),
         )
 
     # --- snapshot plane ---------------------------------------------------
@@ -1893,8 +2044,11 @@ class EngineCore:
         self._flush_deferred()
         # The prefix cache must not survive an abort: a failed step leaves
         # the KV content untrusted, and a cached hash would hand it to
-        # future requests.
+        # future requests. The host tier goes with it (its pages were
+        # gathered from the same pools; the invalidation demotes nothing).
         self.scheduler.invalidate_prefix_cache()
+        if self.prefix_store is not None:
+            self.prefix_store.invalidate()
         for seq in list(self.scheduler.running.values()):
             self.scheduler.finish(seq, note)
         self.scheduler.waiting.clear()
@@ -1930,6 +2084,10 @@ class EngineCore:
             kv_restores=self.kv_restores,
             snapshots_extracted=self.snapshots_extracted,
             snapshots_inserted=self.snapshots_inserted,
+            prefix_demotes=self.prefix_demotes,
+            prefix_promotes=self.prefix_promotes,
+            prefix_chunks_exported=self.prefix_chunks_exported,
+            prefix_chunks_ingested=self.prefix_chunks_ingested,
             # Decode-type dispatches as CUDA graphs: None when eager.
             cuda_graphs=None if self._graphs is None else dict(
                 graphs=len(self._graphs), captures=self._graphs.captures,
@@ -1941,6 +2099,8 @@ class EngineCore:
             s["verify_kernel"] = verify_kernel_plan(self.device)[0]
         if self.mixed_step == "on":
             s["mixed_kernel"] = mixed_kernel_plan(self.device)[0]
+        if self.prefix_store is not None:
+            s.update(self.prefix_store.stats())
         # Superset-only keys, as in JAX (:4805-4839): the priority plane
         # once an interactive request arrived, the counters once moved.
         if self._priority_enabled:
@@ -1952,11 +2112,25 @@ class EngineCore:
             s["finished_batch"] = self.class_finished["batch"]
         if self.cancellations:
             s["cancellations"] = self.cancellations
+        if self.prefill_done:
+            s["prefill_done"] = self.prefill_done
         if self.deadline_expirations:
             s["deadline_expirations"] = self.deadline_expirations
         if self.swap_refused:
             s["swap_refused"] = self.swap_refused
+        gov = get_governor()
+        if gov.enabled:
+            s["host_mem"] = gov.stats()
         return s
+
+    def close(self) -> None:
+        """Take this engine's gauges out of the process's host-memory
+        governor, which would otherwise keep the engine (and its pools)
+        alive."""
+        gov = get_governor()
+        for name in self._gov_names:
+            gov.unregister(name)
+        self._gov_names = []
 
 
 @dataclasses.dataclass
@@ -1977,7 +2151,8 @@ class AsyncEngine:
 
     def __init__(self, core: EngineCore) -> None:
         self.core = core
-        # (rid, prompt, messages, prompt_ids, params, snapshot, deadline_at, priority)
+        # (rid, prompt, messages, prompt_ids, params, snapshot, deadline_at,
+        #  prefill_only, priority)
         self._intake: "queue.Queue[tuple]" = queue.Queue()
         # Closures marshalled onto the engine thread, with their futures.
         self._calls: "queue.Queue[Tuple[Any, Future]]" = queue.Queue()
@@ -2004,9 +2179,11 @@ class AsyncEngine:
         prompt_ids: Optional[List[int]] = None,
         params: Optional[SamplingParams] = None,
         deadline_at: Optional[float] = None,
+        prefill_only: bool = False,
         priority: str = "batch",
     ) -> RequestOutput:
-        fut = self._submit(rid, prompt, messages, prompt_ids, params, None, deadline_at, priority)
+        fut = self._submit(rid, prompt, messages, prompt_ids, params, None, deadline_at,
+                           prefill_only, priority)
         try:
             return await asyncio.wrap_future(fut)
         finally:
@@ -2035,13 +2212,14 @@ class AsyncEngine:
                 prompt_ids: Optional[List[int]] = None,
                 params: Optional[SamplingParams] = None,
                 snapshot: Optional[RequestSnapshot] = None,
-                deadline_at: Optional[float] = None, priority: str = "batch") -> Future:
+                deadline_at: Optional[float] = None, prefill_only: bool = False,
+                priority: str = "batch") -> Future:
         if self._draining:
             raise RuntimeError("engine is draining for handoff")
         fut: Future = Future()
         self._futures[rid] = fut
         self._intake.put((rid, prompt, messages, prompt_ids, params, snapshot, deadline_at,
-                          priority))
+                          prefill_only, priority))
         self._wake.set()
         return fut
 
@@ -2111,6 +2289,7 @@ class AsyncEngine:
         self._stop = True
         self._wake.set()
         self._thread.join(timeout=30)
+        self.core.close()
 
     # --- engine thread ----------------------------------------------------
     def _resolve(self, rid: str, value: Any) -> None:
@@ -2168,7 +2347,7 @@ class AsyncEngine:
             while True:
                 try:
                     (rid, prompt, messages, prompt_ids, params, snapshot, deadline_at,
-                     priority) = self._intake.get_nowait()
+                     prefill_only, priority) = self._intake.get_nowait()
                 except queue.Empty:
                     break
                 try:
@@ -2177,7 +2356,8 @@ class AsyncEngine:
                     else:
                         self.core.add_request(
                             rid, prompt=prompt, messages=messages, prompt_ids=prompt_ids,
-                            params=params, deadline_at=deadline_at, priority=priority,
+                            params=params, deadline_at=deadline_at, prefill_only=prefill_only,
+                            priority=priority,
                         )
                     added = True
                 except Exception as exc:  # noqa: BLE001 — invalid request

@@ -6,8 +6,10 @@ matching at admission :462-521, ``register_prefix`` :327,
 ``invalidate_prefix_cache`` :364), its priority classes (interactive
 waiters first, ``_next_admit_index`` :450; batch victims first under page
 pressure, ``_youngest_running`` :589), snapshot restores
-(``add_restored`` :406) and the ``on_preempt`` hook swap preemption rides
-(:621), without the host prefix tier (ROADMAP.md M11b), plus
+(``add_restored`` :406), the ``on_preempt`` hook swap preemption rides
+(:621) and the host prefix tier's hooks (``on_demote`` / ``host_lookup``:
+an evicted cache page parks in host RAM, and admission extends a device
+match from the host tier, :284-294, :486-520), plus
 ``mixed_token_budget`` (:45), the piggybacked segment's share of a mixed
 dispatch. The device half is a fixed-shape decode step over
 ``max_num_seqs`` slots; this module decides which sequence lives in which
@@ -163,6 +165,11 @@ class Sequence:
     admitted_at: int = -1  # scheduler tick of (last) admission, for LIFO preempt
     preempt_count: int = 0
     prefilled: bool = False  # KV cache holds this sequence (engine sets it)
+    # Disaggregated prefill role: stop after the prompt phase. The first
+    # sampled token is discarded, the prompt KV is snapshotted, and the
+    # sequence finishes with finish_reason="prefill_done"; the decode side
+    # re-samples that token from the same key chain.
+    prefill_only: bool = False
     # Wall-clock (time.time()) deadline, or None: the engine's sweep
     # finishes a sequence past it with finish_reason="deadline_exceeded".
     deadline_at: Optional[float] = None
@@ -177,6 +184,12 @@ class Sequence:
     # engine writes the pages back instead of re-prefilling. None =
     # re-prefill prompt + output as usual.
     restore: Optional[Any] = None
+    # Host-tier prefix promotion: [(page, chain_hash, PrefixEntry), ...]
+    # assigned at admission when the host prefix store extends the device
+    # match. The engine writes the entries' KV into the listed pages before
+    # this sequence's first dispatch and clears the field; prefix_len
+    # already counts these positions.
+    host_restore: Optional[List[Any]] = None
     # Host-side lifecycle stamps (time.monotonic(); 0.0 = not yet).
     t_enqueue: float = 0.0
     t_admit: float = 0.0
@@ -234,6 +247,15 @@ class Scheduler:
         # Called as on_preempt(seq, defer_pages) at the top of preempt(),
         # before the epoch bump and page release (swap preemption).
         self.on_preempt: Optional[Callable[[Sequence, bool], None]] = None
+        # Host prefix tier hooks (engine-owned; both optional):
+        #   on_demote(page, hashes): a cache-registered page is evicted,
+        #     its device content still intact; hashes are the chain hashes
+        #     that pointed at it (park the KV in host RAM);
+        #   host_lookup(hashes): the longest contiguous [(hash, entry), ...]
+        #     run the host tier holds for a chain tail the device missed.
+        self.on_demote: Optional[Callable[[int, List[bytes]], None]] = None
+        self.host_lookup: Optional[Callable[[List[bytes]], List[Any]]] = None
+        self._suppress_demote = False  # invalidation must not demote
 
     # --- prefix caching ---------------------------------------------------
     def _prefix_hashes(self, prompt_ids: List[int]) -> List[bytes]:
@@ -273,16 +295,26 @@ class Scheduler:
         seq.cacheable_pages = cacheable
 
     def _drop_page_hashes(self, page: int) -> None:
-        for h in self._prefix_rev.pop(page, []):
-            if self._prefix_cache.get(h) == page:
-                del self._prefix_cache[h]
+        hashes = [h for h in self._prefix_rev.pop(page, []) if self._prefix_cache.get(h) == page]
+        for h in hashes:
+            del self._prefix_cache[h]
+        # Demote to the host tier while the page's content is intact
+        # (on_evict fires before the page reaches the free list), unless an
+        # invalidation is running: that content is what must not survive.
+        if hashes and self.on_demote is not None and not self._suppress_demote:
+            self.on_demote(page, hashes)
 
     def invalidate_prefix_cache(self) -> None:
         """Forget every cached prefix and return the parked pages to the
         free list: after a failed step the KV content is untrusted, and a
-        surviving hash would hand it to future requests."""
-        for page in list(self.allocator._cached):
-            self.allocator.drop_cached(page)
+        surviving hash would hand it to future requests. Demotion is
+        suppressed throughout, or the host tier would serve it later."""
+        self._suppress_demote = True
+        try:
+            for page in list(self.allocator._cached):
+                self.allocator.drop_cached(page)
+        finally:
+            self._suppress_demote = False
         self._prefix_cache.clear()
         self._prefix_rev.clear()
         for seq in list(self.running.values()) + list(self.waiting):
@@ -365,6 +397,7 @@ class Scheduler:
             idx = self._next_admit_index()
             seq = self.waiting[idx]
             matched: List[int] = []
+            host: List[Any] = []
             hashes: List[bytes] = []
             if self.config.enable_prefix_caching:
                 hashes = self._prefix_hashes(seq.prompt_ids)
@@ -373,6 +406,10 @@ class Scheduler:
                 # pool, so the fresh alloc below cannot evict them.
                 for page in matched:
                     self.allocator.share(page)
+                # Extend the device match from the host tier (a snapshot
+                # restore brings its own KV: no double restore).
+                if self.host_lookup is not None and seq.restore is None:
+                    host = self.host_lookup(hashes[len(matched):])
             need = self._pages_needed(seq.num_tokens) - len(matched)
             try:
                 fresh = self.allocator.alloc(need) if need > 0 else []
@@ -381,13 +418,25 @@ class Scheduler:
                     self.allocator.free([page], cacheable=True)
                 break
             seq.pages = matched + fresh
-            seq.prefix_len = len(matched) * self.config.page_size
-            # Matched pages are cache-registered by construction: they park
-            # back in the evictable pool on release even if this sequence
-            # never registers (e.g. it finishes early).
-            seq.cacheable_pages = len(matched)
-            self.prefix_hits += len(matched)
-            self.prefix_misses += len(hashes) - len(matched)
+            if host:
+                # Promoted pages come out of the fresh allocation (a prompt
+                # has at least one more page than its full prefix pages).
+                # Their hashes register now: the engine writes the host KV
+                # before this sequence's first dispatch, so later admits
+                # may share them.
+                seq.host_restore = [(page, h, entry)
+                                    for page, (h, entry) in zip(fresh[: len(host)], host)]
+                for page, h, _ in seq.host_restore:
+                    self._prefix_cache[h] = page
+                    self._prefix_rev.setdefault(page, []).append(h)
+            n_reused = len(matched) + len(host)
+            seq.prefix_len = n_reused * self.config.page_size
+            # Matched (and promoted) pages are cache-registered by
+            # construction: they park back in the evictable pool on release
+            # even if this sequence never registers (it finishes early).
+            seq.cacheable_pages = n_reused
+            self.prefix_hits += n_reused
+            self.prefix_misses += len(hashes) - n_reused
             del self.waiting[idx]
             seq.slot = free_slots.pop(0)
             seq.admitted_at = self._tick

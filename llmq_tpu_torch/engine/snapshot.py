@@ -296,8 +296,8 @@ def snapshot_from_b64(data: str) -> RequestSnapshot:
 # bodies; what the worker publishes) or as a binary frame (WIRE_MAGIC |
 # u32 LE length | raw snapshot bytes), which the JAX package's encoder
 # writes under ``LLMQ_WIRE_FORMAT=binary``. The decoder sniffs either.
-# The binary encoder and the tensor frames come with their callers in
-# M11b (ROADMAP.md).
+# The binary encoder comes with the first transport that publishes bytes,
+# the pipeline-stage tensor frames with M13 (ROADMAP.md).
 
 
 def snapshot_from_wire(data: Union[str, bytes, bytearray, memoryview]) -> RequestSnapshot:

@@ -1,7 +1,7 @@
 """Content hashing of token pages: the prefix cache's page identity.
 
 Port of ``llmq_tpu/utils/hashing.py`` (``chain_hash`` :33,
-``token_prefix_chain`` :51). The digests are the wire identity of a KV
+``token_prefix_chain`` :51, ``token_fold`` :111). The digests are the wire identity of a KV
 prefix page across a fleet (the host tier and cross-worker shipping key
 on them), so they must stay byte-identical to the JAX package's: blake2b
 is keyless and process-stable, unlike Python's salted ``hash()``.
@@ -40,3 +40,13 @@ def token_prefix_chain(token_ids: Sequence[int], page_size: int) -> List[bytes]:
         h = chain_hash(h, token_ids[i * page_size : (i + 1) * page_size])
         hashes.append(h)
     return hashes
+
+
+def token_fold(token_ids: Sequence[int]) -> str:
+    """blake2b-16 hex over a token-id sequence (4-byte little-endian
+    each): the digest a worker stamps on a result under
+    ``LLMQ_RESULT_DIGEST``, equal to the JAX package's for the same ids."""
+    dig = hashlib.blake2b(digest_size=CHAIN_DIGEST_SIZE)
+    for tid in token_ids:
+        dig.update(int(tid).to_bytes(4, "little", signed=True))
+    return dig.hexdigest()

@@ -1,23 +1,28 @@
 """Unified host-memory governor (from ``llmq_tpu/utils/host_mem.py``).
 
-Several subsystems buffer KV-derived bytes in host RAM: snapshot
-swap-preemption (``engine/engine.py`` capture paths) here, and the prefix
-cold tier (``engine/prefix_store.py``, ROADMAP.md M11b) with it. Sized
+Three subsystems buffer KV-derived bytes in host RAM: the prefix cold tier
+(``engine/prefix_store.py``), snapshot swap-preemption (``engine/engine.py``
+capture paths) and resume-republish blobs (the worker's handoffs). Sized
 each on its own, their budgets would only compose by luck, and a worker
 that overshoots container RAM is OOM-killed with every in-flight request.
 
 :class:`HostMemoryGovernor` gives them one shared byte budget
-(``LLMQ_HOST_MEM_GB``). A swap capture that would push usage past
-``SWAP_REFUSE_FRAC`` of it is refused, and the engine falls back to
-recompute-preemption: the behaviour without swap, always correct, just
-slower on resume.
+(``LLMQ_HOST_MEM_GB``) with a ladder of degradations, each of which trades
+throughput, never correctness:
 
-The reference's other rungs (evicting cold prefixes, refusing KV-ship
-serves, eviction pressure from resume-republish blobs) act only on the
-prefix tier and its peers, so they come with M11b.
+1. **Evict cold prefixes.** Prefix pages are a pure cache; dropping one
+   costs a re-prefill at worst.
+2. **Refuse swap-preempt** (above ``SWAP_REFUSE_FRAC`` of the budget,
+   after eviction). The engine falls back to recompute-preemption: the
+   behaviour without swap, always correct, just slower on resume.
+
+Resume-republish blobs are accounted but never refused: refusing one
+would strand an in-flight request mid-drain. The reference's third rung,
+refusing KV-ship serves (``admit_serve``), serves the prefix fetch RPC
+between workers, which comes with the heartbeats (ROADMAP.md M6).
 
 A budget of 0 (the default) disables the governor: every ``admit_swap``
-answers yes.
+answers yes and no eviction pressure is applied.
 """
 
 from __future__ import annotations
@@ -32,26 +37,43 @@ SWAP_REFUSE_FRAC = 0.85
 class HostMemoryGovernor:
     """One shared byte budget across host-RAM consumers.
 
-    Consumers ``register(name, usage_fn)``; ``usage_fn`` reports their
-    current bytes, so admission checks see the *global* occupancy, not
-    one store's.
+    Consumers ``register(name, usage_fn, evict_fn=None)``: ``usage_fn``
+    reports their current bytes, ``evict_fn(nbytes)`` (optional) frees, at
+    least effort, toward ``nbytes`` and returns the bytes it freed.
+    Admission checks see the *global* occupancy, not one store's.
     """
 
     def __init__(self, budget_bytes: int) -> None:
         self.budget_bytes = max(0, int(budget_bytes))
         self._lock = threading.Lock()
         self._usage_fns: Dict[str, Callable[[], int]] = {}
+        self._evict_fns: Dict[str, Callable[[int], int]] = {}
+        self.evictions_forced = 0
         self.swap_refusals = 0
 
     @property
     def enabled(self) -> bool:
         return self.budget_bytes > 0
 
-    def register(self, name: str, usage_fn: Callable[[], int]) -> None:
+    def register(
+        self,
+        name: str,
+        usage_fn: Callable[[], int],
+        evict_fn: Optional[Callable[[int], int]] = None,
+    ) -> None:
         """Register (or replace) a consumer. Idempotent per name so
         engine restarts inside one process re-bind cleanly."""
         with self._lock:
             self._usage_fns[name] = usage_fn
+            if evict_fn is not None:
+                self._evict_fns[name] = evict_fn
+            else:
+                self._evict_fns.pop(name, None)
+
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            self._usage_fns.pop(name, None)
+            self._evict_fns.pop(name, None)
 
     def usage_bytes(self) -> int:
         """Sum of all registered consumers' current bytes (0 on any
@@ -66,19 +88,60 @@ class HostMemoryGovernor:
                 pass
         return total
 
+    def _evict_toward(self, target_bytes: int) -> int:
+        """Rung 1: ask the evictors (cold prefixes, the only ones) to free
+        until global usage fits under ``target_bytes``. Returns the bytes
+        freed."""
+        freed = 0
+        with self._lock:
+            evictors = list(self._evict_fns.values())
+        for evict in evictors:
+            over = self.usage_bytes() - target_bytes
+            if over <= 0:
+                break
+            try:
+                got = int(evict(over))
+            except Exception:  # noqa: BLE001 — an evictor's fault must not wedge admission
+                got = 0
+            if got > 0:
+                freed += got
+                self.evictions_forced += 1
+        return freed
+
     def admit_swap(self, nbytes: int) -> bool:
         """May the engine buffer a swap-preempt capture of ``nbytes``?
 
-        Refuses if the capture would push usage past ``SWAP_REFUSE_FRAC``
-        of budget. A refusal is safe — the caller falls back to
-        recompute-preemption.
+        Evicts cold prefixes first; refuses only if, even after that, the
+        capture would push usage past ``SWAP_REFUSE_FRAC`` of the budget.
+        A refusal is safe: the caller falls back to recompute-preemption.
         """
         if not self.enabled:
             return True
-        if self.usage_bytes() + nbytes <= int(self.budget_bytes * SWAP_REFUSE_FRAC):
+        limit = int(self.budget_bytes * SWAP_REFUSE_FRAC)
+        if self.usage_bytes() + nbytes <= limit:
+            return True
+        self._evict_toward(limit - nbytes)
+        if self.usage_bytes() + nbytes <= limit:
             return True
         self.swap_refusals += 1
         return False
+
+    def note_resume_blob(self, nbytes: int) -> None:
+        """Account a resume-republish blob. Never refuses (that would
+        strand an in-flight request mid-drain), but applies eviction
+        pressure so the *next* optional allocation sees the cost."""
+        if not self.enabled or nbytes <= 0:
+            return
+        if self.usage_bytes() + nbytes > self.budget_bytes:
+            self._evict_toward(self.budget_bytes - nbytes)
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "budget_bytes": self.budget_bytes,
+            "usage_bytes": self.usage_bytes(),
+            "evictions_forced": self.evictions_forced,
+            "swap_refusals": self.swap_refusals,
+        }
 
 
 _governor: Optional[HostMemoryGovernor] = None

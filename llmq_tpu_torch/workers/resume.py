@@ -7,7 +7,9 @@ engine's drain-with-handoff extracts each one as a
 republishes the job to its own queue with the snapshot riding under
 ``RESUME_FIELD`` (base64 of the versioned, integrity-hashed snapshot
 codec, never pickle), so a restarting or peer worker picks it up and
-continues mid-stream instead of re-running the prompt from scratch.
+continues mid-stream instead of re-running the prompt from scratch. A
+prefill-role worker hands every job on the same way, at the prefill
+boundary, to the decode pool (:class:`PrefillDone`).
 
 Because handoff republishes and broker redelivery can both put the same
 job in front of a worker more than once, results are deduplicated on
@@ -38,6 +40,18 @@ class JobHandoff(Exception):
         super().__init__(f"request handed off with {emitted} tokens generated")
         self.snapshot_b64 = snapshot_b64
         self.emitted = emitted
+
+
+class PrefillDone(Exception):
+    """Raised by a prefill-role processor when the engine finished the
+    prompt phase of a request (``finish_reason="prefill_done"``): the
+    prompt KV is complete and snapshotted, no output token was kept. The
+    worker hands the request to the decode pool (a snapshot republish on
+    ``<q>.decode``) instead of publishing a result."""
+
+    def __init__(self, snapshot_b64: str) -> None:
+        super().__init__("prefill complete; handing off to the decode pool")
+        self.snapshot_b64 = snapshot_b64
 
 
 def resume_offset(extras: Optional[dict]) -> int:

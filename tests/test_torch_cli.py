@@ -44,20 +44,21 @@ def test_worker_run_options_parse_into_run_torch_worker_arguments():
     assert cli.main(argv, run_worker=lambda *a, **k: calls.append((a, k))) == 0
     assert calls == [(("/models/qwen", "jobs"), dict(
         device="cpu", concurrency=12, max_num_seqs=8, max_model_len=512, dtype="int8",
-        kv_dtype="fp8", prefill_chunk_size=64, enable_prefix_caching=True, decode_block=None,
-        spec_tokens=None, mixed_step=None))]
+        kv_dtype="fp8", prefill_chunk_size=64, enable_prefix_caching=True,
+        prefix_host_gb=None, decode_block=None, spec_tokens=None, mixed_step=None,
+        role="unified"))]
     cli.main(["worker", "run", "preset://tiny", "q"], run_worker=lambda *a, **k: calls.append(k))
     assert calls[-1] == dict(device="cuda", concurrency=None, max_num_seqs=None,
                              max_model_len=None, dtype="bfloat16", kv_dtype=None,
                              prefill_chunk_size=None, enable_prefix_caching=False,
-                             decode_block=None, spec_tokens=None, mixed_step=None)
+                             prefix_host_gb=None, decode_block=None, spec_tokens=None,
+                             mixed_step=None, role=None)
 
 
 @pytest.mark.parametrize("option,flag,item", [
     (["-tp", "2"], "--tensor-parallel", "M13"), (["-dp", "2"], "--data-parallel", "M13"),
     (["-sp", "2"], "--sequence-parallel", "M13"),
-    (["--prefix-host-gb", "1.5"], "--prefix-host-gb", "M11"),
-    (["--tp-overlap", "on"], "--tp-overlap", "M13"), (["--role", "prefill"], "--role", "M11"),
+    (["--tp-overlap", "on"], "--tp-overlap", "M13"), (["--role", "auto"], "--role", "M6"),
 ])
 def test_unported_worker_options_raise_with_their_item(option, flag, item):
     with pytest.raises(NotImplementedError, match=f"{flag}=.*{item}"):
@@ -70,12 +71,17 @@ def test_unported_worker_options_raise_with_their_item(option, flag, item):
     (["--spec-tokens", "3"], dict(spec_tokens=3)),
     (["--mixed-step", "on", "--prefill-chunk", "64"], dict(mixed_step="on",
                                                          prefill_chunk_size=64)),
+    (["--prefix-host-gb", "1.5", "--prefix-caching", "--prefill-chunk", "64"],
+     dict(prefix_host_gb=1.5, enable_prefix_caching=True, prefill_chunk_size=64)),
+    (["--role", "prefill"], dict(role="prefill")),
+    (["--role", "decode"], dict(role="decode")),
 ])
 def test_fused_mode_options_reach_the_worker(option, passed):
     """The reference's --decode-block, --spec-tokens and --mixed-step (M10,
+    once refused here), --prefix-host-gb and --role prefill / decode (M11b,
     once refused here) reach ``run_torch_worker`` as the JAX CLI hands
     them to ``run_tpu_worker``; the worker resolves them as the JAX
-    worker does (``test_torch_worker.py``)."""
+    worker does (``test_torch_worker.py``, ``test_torch_disagg.py``)."""
     calls = []
     assert cli.main(["worker", "run", "preset://tiny", "q", "--device", "cpu", *option],
                     run_worker=lambda *a, **k: calls.append(k)) == 0

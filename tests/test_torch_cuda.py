@@ -1141,3 +1141,68 @@ def test_swap_preemption_under_captured_graphs_equals_recompute(cuda_device):
     st = swap.stats()
     assert st["swap_preempts"] >= 1 and st["kv_restores"] >= 1
     assert st["cuda_graphs"]["replays"] == st["decode_dispatches"]
+
+
+# --- the prefix-KV plane (M11b): the host tier under captured graphs ------------
+
+
+def _host_tier_serve(core, prompts):
+    """Serve ``prompts`` one after the other (greedy, 8 tokens), flushing
+    the device prefix cache to the host tier after the first."""
+    outs = {}
+    for i, (rid, prompt) in enumerate(prompts):
+        outs.update(_serve(core, [(rid, prompt, dict(max_tokens=8))]))
+        if i == 0:
+            core.flush_prefix_to_host()
+    return outs
+
+
+HOST_TIER = dict(prefill_chunk_size=32, enable_prefix_caching=True, prefix_host_gb=0.01)
+TEMPLATE_PROMPTS = [("a", "t" * 64 + " first tail"), ("b", "t" * 64 + " second tail")]
+
+
+def test_prefix_promote_under_captured_graphs_keeps_the_pools(cuda_device):
+    """The second prompt's template pages come back from the host tier,
+    written into the pools in place: the pools keep their storage, no graph
+    is captured again, and the tokens equal the eager engine's."""
+    want = _host_tier_serve(_graph_engine(cuda_device, False, **HOST_TIER), TEMPLATE_PROMPTS)
+    core = _graph_engine(cuda_device, True, **HOST_TIER)
+    first = _host_tier_serve(core, TEMPLATE_PROMPTS[:1])
+    ptrs = (core.k_pages.data_ptr(), core.v_pages.data_ptr())
+    captures = core.stats()["cuda_graphs"]["captures"]
+    outs = {**first, **_serve(core, [(TEMPLATE_PROMPTS[1][0], TEMPLATE_PROMPTS[1][1],
+                                      dict(max_tokens=8))])}
+    st = core.stats()
+    assert outs == want
+    assert st["prefix_promotes"] == 4 and st["prefix_demotes"] >= 4  # 64 template positions
+    assert (core.k_pages.data_ptr(), core.v_pages.data_ptr()) == ptrs
+    assert st["cuda_graphs"]["captures"] == captures
+    assert st["cuda_graphs"]["replays"] == st["decode_dispatches"]
+
+
+def test_prefix_demote_promote_round_trip_is_bit_exact(cuda_device):
+    """A template page's bits on the card, demoted to the host and promoted
+    into another page, are the same bits (bf16 pools, raw views)."""
+    from llmq_tpu_torch.engine.snapshot import pages_to_host
+
+    core = _graph_engine(cuda_device, True, **HOST_TIER)
+    _serve(core, [(TEMPLATE_PROMPTS[0][0], TEMPLATE_PROMPTS[0][1], dict(max_tokens=8))])
+    cached = dict(core.scheduler._prefix_cache)
+    before = {h: (pages_to_host(core.k_pages, torch.tensor([p], device=cuda_device)),
+                  pages_to_host(core.v_pages, torch.tensor([p], device=cuda_device)))
+              for h, p in cached.items()}
+    core.flush_prefix_to_host()
+    promoted = []
+    promote = core._promote_host_pages
+
+    def spy(admitted):
+        promoted.extend((p, h) for s in admitted for p, h, _ in (s.host_restore or ()))
+        promote(admitted)
+
+    core._promote_host_pages = spy
+    _serve(core, [(TEMPLATE_PROMPTS[1][0], TEMPLATE_PROMPTS[1][1], dict(max_tokens=8))])
+    assert len(promoted) == 4
+    for page, h in promoted:
+        idx = torch.tensor([page], device=cuda_device)
+        assert np.array_equal(pages_to_host(core.k_pages, idx), before[h][0])
+        assert np.array_equal(pages_to_host(core.v_pages, idx), before[h][1])

@@ -189,7 +189,7 @@ def test_engine_config_fields_and_unported_options():
         jengine._prefill_buckets(jengine.EngineConfig(max_model_len=700))
     cfg = TConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
-    for field, value, item in (("prefix_host_gb", 0.5, "M11b"), ("logit_guard", "on", "M12"),
+    for field, value, item in (("watchdog_mult", 2.0, "M12"), ("logit_guard", "on", "M12"),
                                ("tp_overlap", "on", "M13")):
         with pytest.raises(NotImplementedError, match=item):
             tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
@@ -212,6 +212,16 @@ def test_engine_config_fields_and_unported_options():
         # JAX resolves it to 0 with the priority classes off (:774).
         want_ik = fields.get("interactive_decode_block", 0) if core.priority_classes else 0
         assert core.interactive_decode_block == want_ik
+    # The host prefix tier (M11b, once refused here) builds over the prefix
+    # cache, and is refused without it, as in JAX.
+    core = tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
+                              engine_config=tengine.EngineConfig(
+                                  prefix_host_gb=0.5, enable_prefix_caching=True,
+                                  prefill_chunk_size=16))
+    assert core.stats()["prefix_host_budget_bytes"] == int(0.5 * 2**30)
+    with pytest.raises(ValueError, match="enable_prefix_caching"):
+        tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
+                           engine_config=tengine.EngineConfig(prefix_host_gb=0.5))
     with pytest.raises(ValueError, match="preempt_mode"):
         tengine.EngineConfig(preempt_mode="maybe")
     for name in ("fp8", "fp8_e5m2", "float8_e5m2"):  # JAX's name table (M9 is ported)

@@ -17,10 +17,11 @@ import torch
 from llmq_tpu_torch.broker.base import make_broker
 from llmq_tpu_torch.broker.memory import reset_namespace
 from llmq_tpu_torch.cli.worker import build_engine, engine_config, run_torch_worker
+from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job
 from llmq_tpu_torch.engine.sampling import SamplingParams
 from llmq_tpu_torch.models.presets import get_preset
-from llmq_tpu_torch.workers.torch_worker import TorchWorker
+from llmq_tpu_torch.workers.torch_worker import TorchWorker, worker_role
 
 pytestmark = pytest.mark.unit
 
@@ -163,7 +164,8 @@ def test_worker_serves_quantized_weights(monkeypatch, dtype, kv_dtype):
     assert core.model.quant_kernels == frozenset({"int8", "int4"})
 
 
-# Every variable either worker's engine config reads (core/config.py).
+# Every variable either worker's engine config reads (core/config.py), and
+# the worker's role.
 ENGINE_VARS = (
     "LLMQ_MAX_NUM_SEQS", "VLLM_MAX_NUM_SEQS", "LLMQ_MAX_MODEL_LEN", "VLLM_MAX_MODEL_LEN",
     "LLMQ_PREFILL_CHUNK", "LLMQ_PREFIX_CACHING", "LLMQ_KV_DTYPE", "VLLM_KV_CACHE_DTYPE",
@@ -171,6 +173,7 @@ ENGINE_VARS = (
     "LLMQ_SPEC_TOKENS", "LLMQ_TP_OVERLAP", "LLMQ_MIXED_STEP", "LLMQ_PREFIX_HOST_GB",
     "LLMQ_PREEMPT_MODE", "LLMQ_PRIORITY_CLASSES", "LLMQ_PRIORITY_PREEMPT",
     "LLMQ_INTERACTIVE_DECODE_BLOCK", "LLMQ_HOST_MEM_GB", "LLMQ_DRAIN_TIMEOUT_S",
+    "LLMQ_WORKER_ROLE",
 )
 COMPARED = ("max_model_len", "max_num_seqs", "kv_dtype", "prefill_chunk_size",
             "enable_prefix_caching", "hbm_utilization", "decode_block", "spec_tokens",
@@ -237,20 +240,28 @@ def test_worker_engine_config_matches_the_jax_worker(monkeypatch, env, flags):
     assert got == want
 
 
+def _start_worker_engine():
+    """What ``run_torch_worker`` does before it serves: check the role,
+    then build the engine."""
+    worker_role(get_config())
+    return build_engine("preset://tiny", **ENGINE)
+
+
 @pytest.mark.parametrize("var,value,item", [
     ("LLMQ_TP_OVERLAP", "on", "M13"),
-    ("LLMQ_PREFIX_HOST_GB", "1", "M11"),
+    ("LLMQ_WORKER_ROLE", "auto", "M6"),
 ])
 def test_worker_refuses_unported_env_features(monkeypatch, var, value, item):
     """A variable that turns on a feature the port lacks is refused with
-    its ROADMAP.md item, never ignored; set to its "off" value it is not."""
+    its ROADMAP.md item, never ignored; set to its "off" value it is not.
+    (``LLMQ_PREFIX_HOST_GB``, once refused here, is ported: M11b.)"""
     for name in ENGINE_VARS:
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        build_engine("preset://tiny", **ENGINE)
-    monkeypatch.setenv(var, {"LLMQ_PREFIX_HOST_GB": "0"}.get(var, "off"))
-    build_engine("preset://tiny", **ENGINE).shutdown()
+        _start_worker_engine()
+    monkeypatch.setenv(var, {"LLMQ_WORKER_ROLE": "unified"}.get(var, "off"))
+    _start_worker_engine().shutdown()
 
 
 @pytest.mark.parametrize("env,flags", [
@@ -286,13 +297,19 @@ def test_worker_resolves_fused_modes_as_the_jax_worker(monkeypatch, env, flags):
     {"LLMQ_PRIORITY_PREEMPT": "off"},
     {"LLMQ_DECODE_BLOCK": "4", "LLMQ_INTERACTIVE_DECODE_BLOCK": "2"},
     {"LLMQ_HOST_MEM_GB": "1.5", "LLMQ_DRAIN_TIMEOUT_S": "5"},
+    {"LLMQ_WORKER_ROLE": "prefill"},
+    {"LLMQ_WORKER_ROLE": "DECODE", "LLMQ_PRIORITY_CLASSES": "no"},
+    {"LLMQ_PREFIX_HOST_GB": "0.25", "LLMQ_PREFIX_CACHING": "1", "LLMQ_PREFILL_CHUNK": "32"},
 ])
 def test_worker_resolves_the_request_state_variables_as_the_jax_worker(monkeypatch, env):
     """The request-state plane's variables (M11) resolve as in the JAX
     worker: the engine's swap mode, priority classes, priority preemption
     and small interactive block (each variable over its field, JAX
     ``engine.py`` :737-774, resolved by an engine built on the worker's
-    ``EngineConfig``), the host-memory budget and the drain timeout."""
+    ``EngineConfig``), the host-memory budget and the drain timeout; and
+    those of the prefix-KV plane (M11b): the worker's role and fast lane
+    (``Config.worker_role`` / ``priority_classes``) and the engine's host
+    prefix tier (``LLMQ_PREFIX_HOST_GB``, JAX ``engine.py`` :775-811)."""
     import dataclasses
 
     import jax
@@ -322,12 +339,20 @@ def test_worker_resolves_the_request_state_variables_as_the_jax_worker(monkeypat
                       engine_config=dataclasses.replace(want_cfg, **small))
     engine = build_engine("preset://tiny", **ENGINE)
     resolved = ("preempt_mode", "priority_classes", "priority_preempt",
-                "interactive_decode_block")
+                "interactive_decode_block", "prefix_host_gb")
     try:
         assert {k: getattr(engine.core, k) for k in resolved} == \
             {k: getattr(jcore, k) for k in resolved}
+        budgets = [None if c.prefix_store is None else c.prefix_store.budget_bytes
+                   for c in (engine.core, jcore)]
+        assert budgets[0] == budgets[1]
         worker = TorchWorker("q", engine, broker_url="memory://resolve")
         assert worker.drain_timeout_s == JaxConfig().drain_timeout_s
+        jax_cfg = JaxConfig()
+        assert (worker.role, worker.priority_classes) == \
+            (jax_cfg.worker_role, jax_cfg.priority_classes)
+        assert (Config().worker_role, Config().priority_classes) == \
+            (jax_cfg.worker_role, jax_cfg.priority_classes)
         host_mem.set_governor(None)
         jax_host_mem.set_governor(None)
         assert host_mem.get_governor().budget_bytes == \
