@@ -50,7 +50,16 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    as steps. After the counted run each serve phase times one decode
    dispatch both ways: the model's eager decode step, and the engine's
    captured graph replayed (``captured_*``: host span, device time, idle
-   share).
+   share). Then the same jobs on a fresh engine of the same weights and
+   settings, each prefilled alone: an engine pads the jobs waiting at a
+   step to 4 prefill rows and a job waiting alone to 1 (as the JAX
+   engine does), in bf16 the two shapes round apart, and a worker
+   process takes its jobs as they arrive, so each job of a worker
+   process may take either shape. Phases 9, 11 (d), 12 (c) and 13 (b)
+   hold each of a worker process's results to the first tokens of phase
+   3's run or of this solo run, and each solo row that parts from phase
+   3's must part at a near-tie (the witness of phase 11 (b)); printed:
+   how many results took each shape.
 4. The prefix-cache path at full width: the same model with
    ``LLMQ_DECODE_KERNEL=v3``, ``prefill_chunk_size=256`` and
    ``enable_prefix_caching=True`` serves 16 greedy jobs sharing a
@@ -87,7 +96,8 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    and its verify-shape times (``verify_shape_*``); K1's and K2's add
    their launches in phase 11 (a) (``snapshot_launches``); K1-K4's add
    their launches in phase 12 (``prefix_kv_launches``: K3, K4 in (a), K1,
-   K2 in (c)'s in-process run). Printed last, after phases 8-12.
+   K2 in (c)'s in-process run), and phase 13 (a)'s
+   (``failure_policy_launches``). Printed last, after phases 8-13.
 8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
    same seed) written as an HF checkpoint (config.json, two safetensors
    shards and their index, HF names, [out, in] weights) under ``build/``
@@ -108,7 +118,8 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    gets SIGTERM and must exit 0; ids, ``usage.completion_tokens``, extras,
    text and token ids (``LLMQ_RESULT_DIGEST=1`` puts them on each result;
    random weights emit mostly ids past the byte tokenizer's 256, whose
-   text is empty) must match phase 3's first 32 tokens.
+   text is empty) must match the first 32 tokens of phase 3's or of its
+   solo run's (see phase 3).
 10. The fused dispatch modes at full width (qwen2.5-3b, 36 layers, bf16,
    phase 3's seeded weights, 16 jobs a serve through ``EngineCore``):
    phase 3's workload eagerly (``cuda_graphs=False``), tokens bit for bit
@@ -140,8 +151,8 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    replayed; printed: its time to first token both ways; (d) phase 9's
    broker and a worker process, SIGTERM'd when the first result lands,
    then a second worker process: 16 unique results, texts and token ids
-   equal phase 3's, at least one resumed from a snapshot (``resume_offset`` > 0),
-   both processes exit 0 (logs ``handoff_worker*.log``).
+   equal phase 3's or its solo run's, at least one resumed from a
+   snapshot (``resume_offset`` > 0), both processes exit 0 (logs ``handoff_worker*.log``).
 12. The prefix-KV plane at full width (qwen2.5-3b, bf16, phase 3's
    weights, through ``EngineCore``): (a) phase 4's settings (v3, chunks
    of 256, the prefix cache) with a 1 GiB host prefix tier: phase 4's 16
@@ -161,12 +172,40 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    latency (p50, p95), snapshot and payload bytes a job, the wall time to
    the 16th result. In process, the same path (prefill-only, then each
    snapshot adopted by ``insert_request``) in bf16, K2 and K1 counted:
-   each worker row's token ids equal phase 3's or this run's (worker
+   each worker row's token ids equal phase 3's, its solo run's or this
+   run's (worker
    processes under ``LLMQ_RESULT_DIGEST=1``), and each row of
    this run that parts from phase 3's tokens parts at a near-tie (the
    adopted row computes its last prompt position in a decode step);
    then in f32 at 2 layers on the exact routes, adoption gives the
    unified run's tokens, 16 of 16.
+13. The failure policy (M6's first part) at full width (qwen2.5-3b,
+   bf16, phase 3's weights and engine settings): (a) a ``TorchWorker``
+   in this process over ``chaos+tcp://`` to phase 9's ``BrokerServer``
+   process (a kill every 29th client operation, a duplicate every 7th
+   delivery, ``quarantine_attempts=2``, ``job_timeout_s`` ~1.1 s, at most
+   1/2.6 of a 448-token decode at the step measured after a warm-up):
+   one slow job of 448 tokens alone, which must land on
+   ``<q>.quarantine`` exactly once as ``timeout`` with
+   ``x-delivery-count`` 2; a heartbeat read through the port's
+   ``BrokerManager.get_worker_health`` with ``jobs_quarantined: 1``;
+   then phase 3's 16 jobs at 32 tokens under the kills: 16 unique
+   results whose token ids equal phase 3's first 32, nothing on
+   ``<q>.failed``, at least one reconnect, K1 and K2 on the tensor-core
+   route only, every decode dispatch a replay (log
+   ``failure_policy_worker.log``); printed: kills, duplicates,
+   reconnects, fenced settles, outbox parks and flushes, the jobs' wall
+   time and tok/s beside phase 9's; (b) ``python -m llmq_tpu_torch worker
+   run`` as a process over ``file://`` (a directory under ``build/``,
+   removed after) with ``LLMQ_MAX_REDELIVERIES=7 LLMQ_JOB_TTL_MINUTES=5``:
+   phase 3's 16 jobs and one unparseable body; each queue's TTL and cap
+   in its ``meta.json`` as the reference declares them, the body on
+   ``<q>.failed`` with the reference's headers, 16 results equal to the
+   first 32 tokens of phase 3's or its solo run's, exit 0 on SIGTERM (log
+   ``failure_policy_file.log``); printed: the time to the 16th result
+   from the process's start, beside phase 9's. K1's and K2's records in
+   the kernels line add their launches in (a)
+   (``failure_policy_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -182,6 +221,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import shutil
@@ -200,7 +240,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
 ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
-              "fused", "snapshot", "prefix_kv")
+              "fused", "snapshot", "prefix_kv", "failure_policy")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -231,6 +271,7 @@ def span_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 PROFILE_ATTEMPTS = 3  # a trace that records no device activity is taken again
+EVENT_TIMED = []  # windows the profiler never traced, timed by CUDA events instead
 
 
 def device_ms(fn, iters: int, warmup: int = 2, required: bool = True):
@@ -238,9 +279,12 @@ def device_ms(fn, iters: int, warmup: int = 2, required: bool = True):
     every kernel, copy and fill that ``iters`` calls put on the card, as
     ``torch.profiler`` traces them. The gaps in which the card waits for
     the host are left out. Now and then a trace comes back without any
-    device activity (seen once in a few hundred traces on the H100); the
-    window is then traced again, up to ``PROFILE_ATTEMPTS`` times, and
-    then this fails, or returns None where not ``required``."""
+    device activity (seen once in a few hundred traces on the H100, and
+    once three times in a row); the window is then traced again, up to
+    ``PROFILE_ATTEMPTS`` times. After that it returns None where not
+    ``required``, else the span between CUDA events (``span_ms``, which
+    counts the host's gaps too, so it can only read high), noted in
+    ``EVENT_TIMED`` and in each record's ``timing`` (``device_timing``)."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -255,7 +299,18 @@ def device_ms(fn, iters: int, warmup: int = 2, required: bool = True):
             return busy_us / 1e3 / iters
     if not required:
         return None
-    raise SystemExit(f"torch.profiler traced no device time in {PROFILE_ATTEMPTS} attempts")
+    EVENT_TIMED.append(getattr(fn, "__qualname__", repr(fn)))
+    print(f"torch.profiler traced no device time in {PROFILE_ATTEMPTS} attempts; timed "
+          f"between CUDA events instead", file=sys.stderr, flush=True)
+    return span_ms(fn, iters, warmup=0)
+
+
+def device_timing() -> str:
+    """The ``timing`` of a record timed by ``device_ms``."""
+    if not EVENT_TIMED:
+        return "torch.profiler device time per call"
+    return (f"torch.profiler device time per call, except {len(EVENT_TIMED)} window(s) so far "
+            f"that it traced empty, timed between CUDA events (host gaps included)")
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple:
@@ -429,7 +484,7 @@ def check_decode(label, *, variant, S, H, n_kv, d, L, page, max_ctx, dtype, soft
         tolerance_vs_f32_math=None if f32_math_err is None else DECODE_F32_MATH_TOLERANCE,
         pools_bit_exact_pages_ge_1=pools_equal, overflow_row_values_stored=overflow,
         ms=ms, host_span_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by, timing="torch.profiler device time per call",
+        bound_ms=b_ms, bound_by=b_by, timing=device_timing(),
     )
     emit(rec)
     if (not (err <= TOLERANCE[dtype]) or zero_row != 0.0 or pools_equal is False
@@ -551,7 +606,7 @@ def check_paged_prefill(label, *, B, C, H, n_kv, d, L, page, starts, valids, dty
                    valids=list(valids), window=window, softcap=softcap, layer=layer),
         max_abs_err=err, tolerance=TOLERANCE[dtype], padding_rows_zero=pad_zero,
         ms=ms, host_span_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by, timing="torch.profiler device time per call",
+        bound_ms=b_ms, bound_by=b_by, timing=device_timing(),
     )
     emit(rec)
     if not (err <= TOLERANCE[dtype]) or not pad_zero or not route_ok:
@@ -613,7 +668,7 @@ def check_prefill(label, *, B, T, H, n_kv, d, lengths, dtype, softcap, window, i
                    window=window, softcap=softcap),
         max_abs_err=err, tolerance=TOLERANCE[dtype], finite=finite, padding_rows_zero=pad_zero,
         ms=ms, host_span_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by, timing="torch.profiler device time per call",
+        bound_ms=b_ms, bound_by=b_by, timing=device_timing(),
     )
     emit(rec)
     if not (err <= TOLERANCE[dtype]) or not finite or not pad_zero or not route_ok:
@@ -682,7 +737,7 @@ def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed, timed
     ok = ok and bool(torch.isfinite(out.float()).all()) and route_ok
     if timed_kernel and not timed:
         rec.update(ms=device_ms(lambda i: fn(x, *parts), iters),
-                   timing="torch.profiler device time per call")
+                   timing=device_timing())
     if timed:
         w_deq = qm.dequantize(qt, dtype)  # the library yardstick's weight, made once
         rec.update(
@@ -699,7 +754,7 @@ def check_quant_matmul(label, *, kind, M, K, N, dtype, iters, seed, timed, timed
         item = torch.empty((), dtype=dtype).element_size()
         nbytes = (M * K + M * N) * item + sum(t.numel() * t.element_size() for t in parts)
         rec.update(zip(("bound_ms", "bound_by"), bound(nbytes, 2 * M * K * N, dtype)))
-        rec["timing"] = "torch.profiler device time per call"
+        rec["timing"] = device_timing()
     emit(rec)
     if not ok:
         raise SystemExit(f"{kind}_matmul {label} {dtype}: {rec}")
@@ -1024,7 +1079,8 @@ def recording_tokens(tokens: dict):
 
 
 def phase_serve(smi: str) -> tuple:
-    """Phase 3; returns the launch counts and each job's token ids."""
+    """Phase 3; returns the launch counts, each job's token ids and each
+    job's token ids prefilled alone (``_solo_serve``)."""
     from llmq_tpu_torch.cli.worker import run_torch_worker
 
     n_jobs, gen, url, queue = 16, 128, "memory://chip-smoke", "smoke"
@@ -1089,7 +1145,59 @@ def phase_serve(smi: str) -> tuple:
     if problems:
         raise SystemExit("serve phase failed: " + "; ".join(problems[:5]))
     worker.engine.core.model = None  # free the 3B weights before the next phase
-    return launches, tokens
+    return launches, tokens, _solo_serve(smi, _default_jobs(n_jobs, gen), tokens)
+
+
+def _solo_serve(smi: str, jobs, serve_tokens: dict) -> dict:
+    """Phase 3's jobs on a fresh engine of its weights and settings, one
+    job waiting at each step, so each is prefilled alone (1 row, where
+    phase 3 prefilled 4 a dispatch). Each row that parts from phase 3's
+    must part at a near-tie. Returns each job's token ids: the second
+    stream a worker process that prefilled the job alone answers with."""
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    cfg = get_preset("qwen2.5-3b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+                         device=torch.device("cuda"))
+    core = _snapshot_engine(params, cfg)
+    outs: dict = {}
+    for j in jobs:
+        core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(j.max_tokens))
+        outs.update({o.rid: o for o in core.step()})
+    solo = {rid: list(o.token_ids) for rid, o in _step_to_end(core, outs).items()}
+    problems = []
+    dispatches = core.stats()["prefill_dispatches"]
+    if dispatches != len(jobs):
+        problems.append(f"{dispatches} prefill dispatches for {len(jobs)} jobs prefilled alone")
+    parting = _parting_witness(core, jobs, solo, serve_tokens)
+    for rid, w in parting.items():
+        if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
+                or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS):
+            problems.append(f"solo {rid} parts from phase 3's at {w['position']} at no near-tie: "
+                            f"ranks {w['phase3_rank']} / {w['recompute_rank']}, gap {w['gap']} "
+                            f"({w['gap_bf16_steps']} bf16 steps)")
+    emit(dict(phase="serve", part="solo prefill", prefill_dispatches=dispatches,
+              equal_phase3=len(jobs) - len(parting),
+              parting_positions={rid: w["position"] for rid, w in parting.items()},
+              max_gap_bf16_steps=max((w["gap_bf16_steps"] for w in parting.values()), default=0),
+              near_tie_limit_bf16_steps=NEAR_TIE_ULPS, card=smi, problems=problems))
+    if problems:
+        raise SystemExit("serve phase (solo prefill) failed: " + "; ".join(problems[:5]))
+    del core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return solo
+
+
+def _served_as(ids, rid: str, gen: int, serve_tokens: dict, solo_tokens: dict):
+    """Which prefill shape a worker process's token ids for ``rid`` came
+    from: ``"batch"`` (phase 3's first ``gen``), ``"solo"`` (the solo
+    run's), or None for neither."""
+    for shape, ref in (("batch", serve_tokens), ("solo", solo_tokens)):
+        if rid in ref and ids == ref[rid][:gen]:
+            return shape
+    return None
 
 
 def phase_quant(smi: str) -> dict:
@@ -2124,7 +2232,7 @@ def _stop(proc: subprocess.Popen, sig=signal.SIGTERM, timeout: float = 60) -> in
     return proc.returncode
 
 
-def phase_tcp_cli(smi: str, serve_tokens: dict) -> None:
+def phase_tcp_cli(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
     """Phase 9: the port's ``BrokerServer`` in a process of its own,
     phase 3's jobs (32 new tokens) published to it over tcp://, served by
     ``python -m llmq_tpu_torch worker run preset://qwen2.5-3b`` in another
@@ -2159,21 +2267,26 @@ def phase_tcp_cli(smi: str, serve_tokens: dict) -> None:
             problems.append(f"worker exited {rc} on SIGTERM")
         problems += _check_results(results, n_jobs, gen)
         tok = ByteTokenizer()
-        for r in results:
-            want = serve_tokens.get(r["id"], [])[:gen]
-            if r["result"] != tok.decode(want) or r.get("token_ids") != want:
-                problems.append(f"{r['id']}: tokens differ from phase 3's first {gen}")
+        shapes = [_served_as(r.get("token_ids"), r["id"], gen, serve_tokens, solo_tokens)
+                  for r in results]
+        for r, shape in zip(results, shapes):
+            if shape is None or r["result"] != tok.decode(r["token_ids"]):
+                problems.append(f"{r['id']}: tokens differ from the first {gen} of phase 3's "
+                                f"and of its solo run's")
         gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
-        emit(dict(phase="tcp_cli", model="preset://qwen2.5-3b", broker=url, jobs=len(results),
-                  gen_tokens=gen_tokens, wall_s=wall, serve_completion_tok_s=gen_tokens / wall,
-                  timing="from the worker process's start, its engine build included",
-                  worker_exit_code=rc, card=smi, problems=problems))
+        rec = dict(phase="tcp_cli", model="preset://qwen2.5-3b", broker=url, jobs=len(results),
+                   prefilled_solo=shapes.count("solo"),
+                   gen_tokens=gen_tokens, wall_s=wall, serve_completion_tok_s=gen_tokens / wall,
+                   timing="from the worker process's start, its engine build included",
+                   worker_exit_code=rc, card=smi, problems=problems)
+        emit(rec)
     finally:
         if worker is not None:
             _stop(worker, signal.SIGKILL, 10)
         _stop(server, signal.SIGTERM, 10)
     if problems:
         raise SystemExit("tcp/cli phase failed: " + "; ".join(problems[:5]))
+    return rec
 
 
 async def _receive_n(url: str, queue: str, n: int, proc, timeout: float) -> list:
@@ -2567,7 +2680,7 @@ async def _collect_results(url: str, queue: str, n: int, procs, timeout: float,
     return results
 
 
-def _snapshot_handoff(smi, serve_tokens) -> None:
+def _snapshot_handoff(smi, serve_tokens, solo_tokens) -> None:
     """Phase 11 (d): phase 9's ``BrokerServer`` and a ``python -m
     llmq_tpu_torch worker run`` process, SIGTERM'd when the first result
     lands (a job of 8 tokens; the others ask for 128); a second worker
@@ -2623,18 +2736,22 @@ def _snapshot_handoff(smi, serve_tokens) -> None:
     if sorted(ids) != sorted(gens):
         problems.append(f"{len(results)} results, {len(set(ids))} unique ids")
     tok = ByteTokenizer()
+    shapes = []
     for r in results:
-        want = serve_tokens[r["id"]][: gens[r["id"]]]
-        if (r["result"] != tok.decode(want) or r["usage"]["completion_tokens"] != len(want)
-                or r.get("token_ids") != want):
-            problems.append(f"{r['id']}: tokens differ from phase 3's first {len(want)}")
+        n = gens[r["id"]]
+        shapes.append(_served_as(r.get("token_ids"), r["id"], n, serve_tokens, solo_tokens))
+        if (shapes[-1] is None or r["result"] != tok.decode(r["token_ids"])
+                or r["usage"]["completion_tokens"] != n):
+            problems.append(f"{r['id']}: tokens differ from the first {n} of phase 3's and of "
+                            f"its solo run's")
     offsets = {r["id"]: r.get("resume_offset", 0) for r in results}
     if not any(o > 0 for o in offsets.values()):
         problems.append("no result was resumed from a snapshot (resume_offset > 0)")
     if rcs != [0, 0]:
         problems.append(f"worker exit codes {rcs}")
     emit(dict(phase="snapshot", part="d: worker handoff over tcp://", broker=url,
-              jobs=len(results), resumed=sum(o > 0 for o in offsets.values()),
+              jobs=len(results), prefilled_solo=shapes.count("solo"),
+              resumed=sum(o > 0 for o in offsets.values()),
               resume_offsets=sorted(o for o in offsets.values() if o > 0),
               first_worker_drain_s=drained_s, wall_s=wall, worker_exit_codes=rcs,
               timing="from the first worker process's start to the 16th result; drain = "
@@ -2643,7 +2760,7 @@ def _snapshot_handoff(smi, serve_tokens) -> None:
         raise SystemExit("snapshot phase (d) failed: " + "; ".join(problems[:5]))
 
 
-def phase_snapshot(smi: str, serve_tokens: dict) -> dict:
+def phase_snapshot(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
     """Phase 11, the request-state plane (M11) at full width: qwen2.5-3b,
     bf16, phase 3's seeded weights and 16 jobs; parts (a)-(d). Returns the
     launches of part (a), whose restored rows decode through K1."""
@@ -2661,7 +2778,7 @@ def phase_snapshot(smi: str, serve_tokens: dict) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    _snapshot_handoff(smi, serve_tokens)
+    _snapshot_handoff(smi, serve_tokens, solo_tokens)
     return launches
 
 
@@ -3015,7 +3132,7 @@ def _worker_stats(log_path: str) -> dict:
     return json.loads(lines[-1].split("worker stats ", 1)[1]) if lines else {}
 
 
-def _prefix_kv_disagg(smi, cfg, params, serve_tokens) -> dict:
+def _prefix_kv_disagg(smi, cfg, params, serve_tokens, solo_tokens) -> dict:
     """Phase 12 (c): a prefill-role and a decode-role worker process over
     phase 9's broker serve phase 3's 16 jobs at 32 tokens; in process, the
     same path in bf16 (K2 then K1, counted) witnesses each row that parts
@@ -3091,10 +3208,11 @@ def _prefix_kv_disagg(smi, cfg, params, serve_tokens) -> dict:
     parting_ids = [j.id for j in jobs if adopted.get(j.id) != want[j.id]]
     if any(tok.decode(got[r["id"]] or []) != r["result"] for r in results):
         problems.append("(c) a result's text is not its token ids' text")
-    unwitnessed = [rid for rid, ids in got.items() if ids not in (want[rid], adopted.get(rid))]
+    unwitnessed = [rid for rid, ids in got.items()
+                   if ids not in (want[rid], adopted.get(rid), solo_tokens[rid][:gen])]
     if unwitnessed:
-        problems.append(f"(c) worker rows parting from phase 3's and from the in-process "
-                        f"adoption: {unwitnessed}")
+        problems.append(f"(c) worker rows parting from phase 3's, its solo run's and the "
+                        f"in-process adoption: {unwitnessed}")
     parting = _parting_witness(core, jobs, adopted, want)
     for rid, w in parting.items():
         if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
@@ -3134,6 +3252,7 @@ def _prefix_kv_disagg(smi, cfg, params, serve_tokens) -> dict:
               wall_from_prefill_start_s=done - starts["prefill"],
               wall_from_decode_start_s=done - starts["decode"],
               worker_tokens_equal_phase3=sum(ids == want[r] for r, ids in got.items()),
+              worker_tokens_equal_solo=sum(ids == solo_tokens[r][:gen] for r, ids in got.items()),
               worker_tokens_equal_in_process=sum(ids == adopted.get(r) for r, ids in got.items()),
               bf16_in_process_equal_phase3=n_jobs - len(parting_ids),
               bf16_parting=parting, near_tie_limit_bf16_steps=NEAR_TIE_ULPS,
@@ -3153,7 +3272,8 @@ def _prefix_kv_disagg(smi, cfg, params, serve_tokens) -> dict:
     return launches
 
 
-def phase_prefix_kv(smi: str, serve_tokens: dict, prefix_tokens: dict) -> dict:
+def phase_prefix_kv(smi: str, serve_tokens: dict, solo_tokens: dict,
+                    prefix_tokens: dict) -> dict:
     """Phase 12, the prefix-KV plane (M11b) at full width: qwen2.5-3b,
     bf16, phase 3's seeded weights; parts (a)-(c). Returns the launches of
     (a) (K3, K4) and of (c)'s in-process adoption (K1, K2)."""
@@ -3166,13 +3286,389 @@ def phase_prefix_kv(smi: str, serve_tokens: dict, prefix_tokens: dict) -> dict:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
                          device=torch.device("cuda"))
     a = _prefix_kv_host_tier(smi, cfg, params, prefix_tokens)
-    c = _prefix_kv_disagg(smi, cfg, params, serve_tokens)
+    c = _prefix_kv_disagg(smi, cfg, params, serve_tokens, solo_tokens)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     emit(dict(phase="prefix_kv", part="total", seconds=time.perf_counter() - t0))
     return dict(paged_prefill=a["paged_prefill"], paged_decode_v3=a["paged_decode_v3"],
                 paged_decode=c["paged_decode"], flash_prefill=c["flash_prefill"])
+
+
+# --- phase 13: the failure policy at full width -------------------------------
+
+#: (a)'s chaos: a connection kill every 29th client operation (publish,
+#: settle, get), a duplicate of every 7th delivery, seeded. The 16 jobs
+#: make ~32 operations and the slow part ~8 before them, so one kill lands
+#: among the jobs and no job is in flight across two: each kill redelivers
+#: the jobs in flight, and a copy's delivery count is also the attempt
+#: count that quarantine reads (2 here), as in the reference.
+POLICY_CHAOS = "kill_every=29&dup_every=7&seed=13"
+#: (a)'s job timeout: well above a job's ~0.5 s to result at phase 3's
+#: settings (16 rows, ~200-token prompts, 32 tokens), and at most 1/2.6 of
+#: the slow job's decode, whose timed-out requests keep decoding (neither
+#: engine aborts them) and must not finish before its second attempt ends.
+POLICY_JOB_TIMEOUT_S = 1.1
+#: What ``setup_queue_infrastructure`` and ``BaseWorker.initialize``
+#: (``llmq_tpu/broker/manager.py:253-291``, ``llmq_tpu/workers/base.py:
+#: 203-209``) declare with LLMQ_MAX_REDELIVERIES=7 LLMQ_JOB_TTL_MINUTES=5:
+#: each queue's meta.json in the file broker's directory (none: no meta).
+FILE_POLICY = {"": {"ttl_ms": 300_000, "max_redeliveries": 7},
+               ".results": {"max_redeliveries": 1_000_000_000}, ".failed": None,
+               ".interactive": {"ttl_ms": 300_000, "max_redeliveries": 7},
+               ".health": {"ttl_ms": 120_000, "max_redeliveries": 1_000_000_000}}
+
+
+def _rows_held(core) -> int:
+    return sum(s is not None for s in core.scheduler.slots)
+
+
+async def _policy_serve(engine, url: str, queue: str, jobs: list, slow, timeout_s: float,
+                        idle_timeout_s: float = 60.0, probe=None) -> dict:
+    """Phase 13 (a) on a running broker: the slow job alone first, in a
+    stretch the chaos leaves alone, until it is quarantined; a heartbeat
+    read back; the 16 jobs under the chaos. Returns what was seen."""
+    from llmq_tpu_torch.broker.manager import BrokerManager
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.workers import base as worker_base
+    from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+    plain = BrokerManager(Config(broker_url=url, max_redeliveries=1000))
+    await plain.connect()
+    worker = TorchWorker(queue, engine, config=Config(
+        broker_url=f"chaos+{url}?{POLICY_CHAOS}", max_redeliveries=1000, quarantine_attempts=2,
+        job_timeout_s=timeout_s, reconnect_base_delay_s=0.05, reconnect_max_delay_s=0.5,
+        result_digest=True))
+    out = dict(quarantine=[], results={}, received=0)
+    worker_base.HEARTBEAT_INTERVAL_S = 3600.0  # one beat at the start, none in the slow part
+    await plain.publish_job(queue, slow)
+    if probe is not None:
+        probe()
+    t0 = time.perf_counter()
+    task = asyncio.create_task(worker.run())
+    chaos = None
+
+    async def until(what: str, done, timeout: float = 120.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not await done():
+            if time.monotonic() > deadline or task.done():
+                state = dict(worker_done=task.done(), quarantine=[m for m, _ in out["quarantine"]],
+                             results=sorted(out["results"]), rows=_rows_held(engine.core),
+                             processed=worker.jobs_processed, failed=worker.jobs_failed,
+                             timed_out=worker.jobs_timed_out)
+                raise SystemExit(f"failure_policy (a): {what} ({state}; log: "
+                                 f"failure_policy_worker.log in {OUT_DIR})")
+            await asyncio.sleep(0.01)
+
+    async def slow_quarantined() -> bool:
+        msg = await plain.broker.get(queue + ".quarantine")
+        if msg is not None:
+            out["quarantine"].append((msg.message_id, msg.headers))
+            await msg.ack()
+        return any(mid == slow.id for mid, _ in out["quarantine"])
+
+    try:
+        await until("the slow job was never quarantined", slow_quarantined)
+        out["slow_quarantined_s"] = time.perf_counter() - t0
+        chaos = worker.broker.broker.inner
+        out["slow_part_chaos"] = dict(ops=chaos._ops, deliveries=chaos._deliveries,
+                                      kills=chaos.kills, duplicates=chaos.duplicates)
+        worker_base.HEARTBEAT_INTERVAL_S = 0.5
+
+        async def beat() -> bool:
+            health = (await plain.get_worker_health(queue)).get(worker.worker_id)
+            if health is None or not (health.engine_stats or {}).get("jobs_quarantined"):
+                return False
+            out["heartbeat"] = health.model_dump(mode="json")
+            return True
+
+        await until("no heartbeat carried jobs_quarantined", beat, 30)
+
+        # The slow job's request keeps decoding after its attempts timed
+        # out (neither engine aborts it; the second attempt joined it):
+        # the 16 jobs start on an idle engine.
+        async def idle() -> bool:
+            return _rows_held(engine.core) == 0
+
+        await until("the slow job's request never ran out", idle, idle_timeout_s)
+        out["slow_rows_done_s"] = time.perf_counter() - t0
+        # The engine is held while the 16 jobs arrive, so they are admitted
+        # together and prefilled four to a dispatch, as in phase 3: a job
+        # that arrived alone would be prefilled as one row, another matmul
+        # shape, whose bf16 rounding can flip a near-tie.
+        held, gate = threading.Event(), threading.Event()
+        prefills = engine.core.prefill_dispatches
+
+        def hold() -> None:
+            held.set()
+            gate.wait(60)
+
+        holder = threading.Thread(target=engine.call_on_engine, args=(hold, 90))
+        holder.start()
+        t1 = time.perf_counter()
+        try:
+            held.wait(30)
+            for job in jobs:
+                await plain.publish_job(queue, job)
+
+            async def submitted() -> bool:
+                return len(engine._futures) >= len(jobs)
+
+            await until("the jobs did not all reach the engine", submitted, 60)
+        finally:
+            gate.set()
+            holder.join(90)
+
+        async def answered() -> bool:
+            msg = await plain.broker.get(queue + ".results")
+            if msg is not None:
+                r = json.loads(msg.body)
+                out["received"] += 1
+                out["results"].setdefault(r["id"], r)
+                await msg.ack()
+            return len(out["results"]) == len(jobs)
+
+        await until("the jobs were not all answered", answered, 300)
+        out["serve_wall_s"] = time.perf_counter() - t1
+        out["jobs_prefill_dispatches"] = engine.core.prefill_dispatches - prefills
+        out["session"] = dict(worker.broker.session_stats.as_dict(), kills=chaos.kills,
+                              duplicates=chaos.duplicates)
+    finally:
+        worker.request_shutdown()
+        await asyncio.wait_for(task, timeout=120)
+    while (msg := await plain.broker.get(queue + ".quarantine")) is not None:
+        out["quarantine"].append((msg.message_id, msg.headers))
+        await msg.ack()
+    out["failed"] = (await plain.get_queue_stats(queue + ".failed")).message_count
+    out["counters"] = {k: getattr(worker, k) for k in (
+        "jobs_processed", "jobs_failed", "jobs_timed_out", "jobs_quarantined",
+        "jobs_deadline_exceeded", "breaker_tripped")}
+    out["worker_id"] = worker.worker_id
+    await plain.disconnect()
+    return out
+
+
+def _failure_policy_chaos(smi, serve_tokens: dict, tcp_rec: dict) -> dict:
+    """Phase 13 (a): a ``TorchWorker`` in this process over
+    ``chaos+tcp://`` to phase 9's ``BrokerServer`` process, at phase 3's
+    settings and weights."""
+    from llmq_tpu_torch.cli.worker import build_engine
+    from llmq_tpu_torch.core.models import Job
+    from llmq_tpu_torch.engine.sampling import SamplingParams
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_jobs, gen, queue, max_model_len = 16, 32, "smoke-policy", 512
+    penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    server = subprocess.Popen([sys.executable, "-c", _SERVER], cwd=root, env=penv,
+                              stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    # The in-process worker's and broker session's log lines.
+    log = logging.FileHandler(os.path.join(OUT_DIR, "failure_policy_worker.log"), mode="w")
+    log.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
+    for name in ("worker", "llmq_tpu_torch"):
+        logging.getLogger(name).addHandler(log)
+        logging.getLogger(name).setLevel(logging.INFO)
+    engine = None
+    try:
+        url = f"tcp://127.0.0.1:{int(server.stdout.readline())}"
+        with env(LLMQ_DECODE_KERNEL="v1"):
+            engine = build_engine("preset://qwen2.5-3b", device="cuda", dtype="bfloat16",
+                                  max_num_seqs=16, max_model_len=max_model_len)
+        # Warm-up (the decode graph's capture), then the step the slow job
+        # is sized from: 64 more tokens of one request.
+        times = {}
+        for i, n in enumerate((8, 8, 72)):
+            t = time.perf_counter()
+            engine.generate_sync(rid=f"warm-{i}", prompt="warm up", timeout=300,
+                                 params=SamplingParams(temperature=0.0, max_tokens=n,
+                                                       ignore_eos=True))
+            times[n] = time.perf_counter() - t
+        step_s = (times[72] - times[8]) / 64
+        if step_s <= 0:
+            raise SystemExit(f"failure_policy (a): decode step measured {step_s * 1e3:.3f} ms")
+        slow_tokens = max_model_len - 64
+        timeout_s = min(POLICY_JOB_TIMEOUT_S, slow_tokens * step_s / 2.6)
+        slow = Job(id="slow", prompt="Count slowly.", temperature=0.0, max_tokens=slow_tokens,
+                   ignore_eos=True)
+        jobs = _default_jobs(n_jobs, gen)
+        seen = asyncio.run(_policy_serve(engine, url, queue, jobs, slow, timeout_s,
+                                         idle_timeout_s=max(60.0, 4 * slow_tokens * step_s),
+                                         probe=reset_launches))
+        launches, routes = read_launches(), read_routes()
+        stats = engine.core.stats()
+    finally:
+        if engine is not None:
+            engine.shutdown()
+        _stop(server, signal.SIGTERM, 10)
+        for name in ("worker", "llmq_tpu_torch"):
+            logging.getLogger(name).removeHandler(log)
+        log.close()
+    problems = []
+    results = [seen["results"][j.id] for j in jobs if j.id in seen["results"]]
+    problems += _check_results(results, n_jobs, gen)
+    for r in results:
+        want = serve_tokens.get(r["id"], [])[:gen]
+        if r.get("token_ids") != want:
+            at = next((i for i, (a, b) in enumerate(zip(r.get("token_ids") or [], want))
+                       if a != b), None)
+            problems.append(f"{r['id']}: tokens differ from phase 3's first {gen} (at {at})")
+    slow_entries = [h for mid, h in seen["quarantine"] if mid == "slow"]
+    if [(h.get("x-failure-reason"), h.get("x-delivery-count")) for h in slow_entries] != \
+            [("timeout", 2)]:
+        problems.append(f"the slow job's quarantine entries: {slow_entries}")
+    if seen["failed"]:
+        problems.append(f"{seen['failed']} message(s) on {queue}.failed")
+    if seen["session"]["reconnects"] < 1:
+        problems.append(f"no reconnect: {seen['session']}")
+    beat = seen.get("heartbeat") or {}
+    if beat.get("worker_id") != seen["worker_id"] or beat.get("status") != "running" or \
+            beat.get("engine_stats", {}).get("jobs_quarantined") != 1:
+        problems.append(f"heartbeat: {beat}")
+    problems += route_problems(routes, launches) + graph_problems(stats)
+    if launches["paged_decode"] <= 0 or launches["flash_prefill"] <= 0:
+        problems.append(f"a kernel did not launch on the main path: {launches}")
+    off_path = {k: n for k, n in launches.items() if k not in ("paged_decode", "flash_prefill")}
+    if any(off_path.values()):
+        problems.append(f"kernels off the default path launched: {off_path}")
+    gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
+    others = sorted({mid for mid, _ in seen["quarantine"] if mid != "slow"})
+    emit(dict(phase="failure_policy", part="a: worker under chaos+tcp://", chaos=POLICY_CHAOS,
+              job_timeout_s=timeout_s, step_ms=step_s * 1e3, slow_max_tokens=slow_tokens,
+              slow_quarantined_s=seen["slow_quarantined_s"],
+              slow_rows_done_s=seen["slow_rows_done_s"], slow_part_chaos=seen["slow_part_chaos"],
+              slow_entries=slow_entries, quarantined_others=others,
+              session=seen["session"], counters=seen["counters"],
+              results=len(results), results_received=seen["received"],
+              serve_wall_s=seen["serve_wall_s"],
+              jobs_prefill_dispatches=seen["jobs_prefill_dispatches"],
+              serve_completion_tok_s=gen_tokens / seen["serve_wall_s"],
+              tcp_serve_completion_tok_s=tcp_rec.get("serve_completion_tok_s"),
+              tcp_wall_s=tcp_rec.get("wall_s"), heartbeat=beat, launches=launches,
+              routes=routes, cuda_graphs=stats["cuda_graphs"],
+              timing="serve: the 16 jobs' publish to the 16th unique result, the engine warm; "
+                     "phase 9's tcp figure includes its worker process's start",
+              card=smi, problems=problems))
+    if problems:
+        raise SystemExit("failure_policy phase (a) failed: " + "; ".join(problems[:5]))
+    return dict(paged_decode=launches["paged_decode"], flash_prefill=launches["flash_prefill"])
+
+
+def _failure_policy_file(smi, serve_tokens: dict, solo_tokens: dict, tcp_rec: dict) -> None:
+    """Phase 13 (b): ``python -m llmq_tpu_torch worker run`` as a process
+    over ``file://`` with LLMQ_MAX_REDELIVERIES=7 LLMQ_JOB_TTL_MINUTES=5;
+    phase 3's 16 jobs at 32 tokens and one unparseable body."""
+    from llmq_tpu_torch.broker.manager import BrokerManager
+    from llmq_tpu_torch.core.config import Config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_jobs, gen, queue = 16, 32, "smoke-file"
+    broker_dir = os.path.join(root, "build", "policy_file_broker")
+    shutil.rmtree(broker_dir, ignore_errors=True)
+    url = f"file://{broker_dir}"
+    garbage = b"\x00not a job {" + bytes(range(200, 216))
+    jobs = _default_jobs(n_jobs, gen)
+
+    async def submit() -> None:
+        # Published, not declared: the worker's declaration sets each
+        # queue's policy.
+        mgr = BrokerManager(Config(broker_url=url))
+        await mgr.connect()
+        for job in jobs:
+            await mgr.publish_job(queue, job)
+        await mgr.broker.publish(queue, garbage, message_id="garbage",
+                                 headers={"x-origin": "chip_smoke"})
+        await mgr.disconnect()
+
+    async def read(proc) -> tuple:
+        mgr = BrokerManager(Config(broker_url=url))
+        await mgr.connect()
+        results, deadline = {}, time.monotonic() + 600
+        while len(results) < n_jobs:
+            if time.monotonic() > deadline or proc.poll() is not None:
+                raise SystemExit(f"failure_policy (b): {len(results)} of {n_jobs} results, "
+                                 f"worker exit code {proc.poll()} (log: failure_policy_file.log)")
+            msg = await mgr.broker.get(queue + ".results")
+            if msg is None:
+                await asyncio.sleep(0.05)
+                continue
+            r = json.loads(msg.body)
+            results.setdefault(r["id"], r)
+            await msg.ack()
+        wall = time.perf_counter() - t0
+        dead = None
+        for _ in range(200):
+            if (dead := await mgr.broker.get(queue + ".failed")) is not None:
+                break
+            await asyncio.sleep(0.05)
+        letter = None if dead is None else (dead.message_id, dead.body, dict(dead.headers))
+        if dead is not None:
+            await dead.ack()
+        left = (await mgr.get_queue_stats(queue)).message_count
+        await mgr.disconnect()
+        return list(results.values()), wall, letter, left
+
+    asyncio.run(submit())
+    penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                LLMQ_BROKER_URL=url, LLMQ_MAX_REDELIVERIES="7", LLMQ_JOB_TTL_MINUTES="5",
+                LLMQ_DECODE_KERNEL="v1", LLMQ_RESULT_DIGEST="1")
+    log_path = os.path.join(OUT_DIR, "failure_policy_file.log")
+    worker, problems = None, []
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as log:
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "llmq_tpu_torch", "worker", "run", "preset://qwen2.5-3b",
+                 queue, "--max-num-seqs", "16", "--max-model-len", "512", "--dtype", "bfloat16"],
+                cwd=root, env=penv, stdout=log, stderr=subprocess.STDOUT)
+            results, wall, letter, left = asyncio.run(read(worker))
+            rc = _stop(worker)
+    finally:
+        if worker is not None:
+            _stop(worker, signal.SIGKILL, 10)
+    metas = {}
+    for suffix in FILE_POLICY:
+        path = os.path.join(broker_dir, "queues", queue + suffix, "meta.json")
+        metas[suffix] = json.load(open(path)) if os.path.exists(path) else None
+    shutil.rmtree(broker_dir, ignore_errors=True)
+    if metas != FILE_POLICY:
+        problems.append(f"queue policies {metas}, want {FILE_POLICY}")
+    if rc != 0:
+        problems.append(f"worker exited {rc} on SIGTERM")
+    problems += _check_results(results, n_jobs, gen)
+    shapes = [_served_as(r.get("token_ids"), r["id"], gen, serve_tokens, solo_tokens)
+              for r in results]
+    problems += [f"{r['id']}: tokens differ from the first {gen} of phase 3's and of its solo "
+                 f"run's" for r, shape in zip(results, shapes) if shape is None]
+    headers = {} if letter is None else letter[2]
+    if letter is None or letter[:2] != ("garbage", garbage):
+        problems.append(f"the unparseable body's dead letter: {letter}")
+    elif not (str(headers.get("x-error", "")).startswith("unparseable job payload: ")
+              and headers.get("x-worker-id") and headers.get("x-death-queue") == queue
+              and headers.get("x-origin") == "chip_smoke"
+              and "x-failure-reason" not in headers):
+        problems.append(f"dead-letter headers {headers}")
+    if left:
+        problems.append(f"{left} message(s) left on {queue}")
+    emit(dict(phase="failure_policy", part="b: worker process over file://", broker=url,
+              queue_policies=metas, dead_letter_headers=headers, jobs=len(results),
+              prefilled_solo=shapes.count("solo"),
+              time_to_16th_result_s=wall, tcp_wall_s=tcp_rec.get("wall_s"),
+              timing="from the worker process's start, its engine build included, as phase 9's",
+              worker_exit_code=rc, card=smi, problems=problems))
+    if problems:
+        raise SystemExit("failure_policy phase (b) failed: " + "; ".join(problems[:5]))
+
+
+def phase_failure_policy(smi: str, serve_tokens: dict, solo_tokens: dict,
+                         tcp_rec: dict) -> dict:
+    """Phase 13, the broker manager and the worker's failure policy (M6's
+    first part) at full width; parts (a) and (b). Returns (a)'s launches."""
+    t0 = time.perf_counter()
+    launches = _failure_policy_chaos(smi, serve_tokens, tcp_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _failure_policy_file(smi, serve_tokens, solo_tokens, tcp_rec)
+    emit(dict(phase="failure_policy", part="total", seconds=time.perf_counter() - t0))
+    return launches
 
 
 def main() -> int:
@@ -3208,9 +3704,9 @@ def main() -> int:
     main_recs, launches = {}, {}
     if "kernels" in phases:
         main_recs = phase_kernels(args.iters)
-    serve_tokens = None
+    serve_tokens = solo_tokens = None
     if "serve" in phases:
-        served, serve_tokens = phase_serve(smi)
+        served, serve_tokens, solo_tokens = phase_serve(smi)
         launches.update(served)
         torch.cuda.empty_cache()
     prefix_tokens = None
@@ -3235,8 +3731,9 @@ def main() -> int:
         launches["paged_decode_v2"] = phase_checkpoint(smi, serve_tokens)
         gc.collect()
         torch.cuda.empty_cache()
+    tcp_rec = {}
     if "tcp" in phases:
-        phase_tcp_cli(smi, serve_tokens)
+        tcp_rec = phase_tcp_cli(smi, serve_tokens, solo_tokens)
     fused_launches = {}
     if "fused" in phases:
         if serve_tokens is None or prefix_tokens is None:
@@ -3250,14 +3747,21 @@ def main() -> int:
             raise SystemExit("phase snapshot compares with the serve phase's tokens")
         gc.collect()
         torch.cuda.empty_cache()
-        snapshot_launches = phase_snapshot(smi, serve_tokens)
+        snapshot_launches = phase_snapshot(smi, serve_tokens, solo_tokens)
     prefix_kv_launches = {}
     if "prefix_kv" in phases:
         if serve_tokens is None or prefix_tokens is None:
             raise SystemExit("phase prefix_kv compares with the serve and prefix phases' tokens")
         gc.collect()
         torch.cuda.empty_cache()
-        prefix_kv_launches = phase_prefix_kv(smi, serve_tokens, prefix_tokens)
+        prefix_kv_launches = phase_prefix_kv(smi, serve_tokens, solo_tokens, prefix_tokens)
+    policy_launches = {}
+    if "failure_policy" in phases:
+        if serve_tokens is None:
+            raise SystemExit("phase failure_policy compares with the serve phase's tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        policy_launches = phase_failure_policy(smi, serve_tokens, solo_tokens, tcp_rec)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -3301,11 +3805,16 @@ def main() -> int:
             entry["snapshot_launches"] = snapshot_launches.get(name)
         if name in prefix_kv_launches:  # phase 12: (a) K3, K4; (c) in process K1, K2
             entry["prefix_kv_launches"] = prefix_kv_launches[name]
+        if name in policy_launches:  # phase 13 (a): the worker under chaos
+            entry["failure_policy_launches"] = policy_launches[name]
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",
                                                                     "bound_by")})
         kernels.append(entry)
+    if EVENT_TIMED:
+        emit(dict(phase="timing", event_timed=EVENT_TIMED,
+                  note="torch.profiler traced these windows empty; CUDA events timed them"))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

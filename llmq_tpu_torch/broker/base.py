@@ -1,7 +1,9 @@
 """Abstract broker interface + message envelope (port of
-``llmq_tpu/broker/base.py``; the port ships the ``memory://`` broker and
-the ``tcp://`` daemon and client, ``broker/tcp.py`` — the AMQP client
-comes with a later slice).
+``llmq_tpu/broker/base.py``). The port ships ``memory://``
+(``broker/memory.py``), ``file://`` (``broker/filebroker.py``), the
+``tcp://`` daemon and client (``broker/tcp.py``) and the ``chaos+``
+fault-injecting decorator over any of them (``broker/chaos.py``); the
+AMQP client comes with a later slice (ROADMAP.md queue 1, M6).
 
 Semantics contract (what every implementation must honor — mirrors what the
 reference relies on from RabbitMQ, SURVEY.md §1 L0):
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import abc
 import base64
+import json
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable, Dict, Optional
@@ -62,6 +65,28 @@ class StoredMessage:
     delivery_count: int = 0
     # Wall stamp for TTL ages, read through the injectable clock.
     enqueued_at: float = field(default_factory=clock.wall)
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                **encode_body(self.body),
+                "message_id": self.message_id,
+                "headers": self.headers,
+                "delivery_count": self.delivery_count,
+                "enqueued_at": self.enqueued_at,
+            }
+        )
+
+    @classmethod
+    def from_json(cls, raw: str) -> "StoredMessage":
+        d = json.loads(raw)
+        return cls(
+            body=decode_body(d),
+            message_id=d["message_id"],
+            headers=d.get("headers", {}),
+            delivery_count=d.get("delivery_count", 0),
+            enqueued_at=d.get("enqueued_at", clock.wall()),
+        )
 
 
 class DeliveredMessage:
@@ -111,7 +136,7 @@ MessageHandler = Callable[[DeliveredMessage], Awaitable[None]]
 class Broker(abc.ABC):
     """Transport-level broker API (one connection).
 
-    Transports that can lose their connection (tcp) call
+    Transports that can lose their connection (tcp, chaos) call
     ``_notify_connection_lost`` when it happens; a session layer installs
     the ``on_connection_lost`` callback to re-dial promptly instead of
     waiting for the next operation to fail. Implementations that cannot
@@ -219,19 +244,27 @@ def interactive_queue_name(queue: str) -> str:
 def make_broker(url: str) -> Broker:
     """Instantiate (without connecting) the implementation for a broker URL."""
     scheme = url.split("://", 1)[0].lower() if "://" in url else ""
+    if scheme.startswith("chaos+"):
+        from llmq_tpu_torch.broker.chaos import ChaosBroker
+
+        return ChaosBroker(url)
     if scheme == "memory":
         from llmq_tpu_torch.broker.memory import MemoryBroker
 
         return MemoryBroker(url)
+    if scheme == "file":
+        from llmq_tpu_torch.broker.filebroker import FileBroker
+
+        return FileBroker(url)
     if scheme == "tcp":
         from llmq_tpu_torch.broker.tcp import TcpBroker
 
         return TcpBroker(url)
     if scheme in ("amqp", "amqps"):
         raise NotImplementedError(
-            f"{url!r}: the port has no AMQP client yet (ROADMAP queue 1, M6: it needs "
+            f"{url!r}: the port has no AMQP client yet (ROADMAP.md queue 1, M6: it needs "
             "aio_pika, which the GPU machine does not have); use tcp:// against the "
             "llmq broker daemon"
         )
-    raise ValueError(f"Unsupported broker URL scheme: {url!r} (the port ships memory:// "
-                     "and tcp://)")
+    raise ValueError(f"Unsupported broker URL scheme: {url!r} (the port ships memory://, "
+                     "file://, tcp:// and a chaos+ prefix)")

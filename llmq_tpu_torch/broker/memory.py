@@ -84,6 +84,16 @@ class BrokerCore:
         self.queues: Dict[str, QueueCore] = {}
         self.on_dead_letter: Optional[Callable[[str, StoredMessage], None]] = None
         self.on_redeliver: Optional[Callable[[str, StoredMessage], None]] = None
+        # Exponential redelivery backoff (LLMQ_REDELIVERY_BACKOFF_S /
+        # _MAX_S): a rejected message waits base * 2^(attempt-1) seconds
+        # before going back to ready, so a crash-looping job stops
+        # hammering workers at full rate. 0 = immediate (the default).
+        # It lives here, in the core, so the tcp:// daemon honours it too.
+        from llmq_tpu_torch.core.config import get_config
+
+        cfg = get_config()
+        self.redelivery_backoff_s = max(0.0, cfg.redelivery_backoff_s)
+        self.redelivery_backoff_max_s = max(0.0, cfg.redelivery_backoff_max_s)
         self._dispatch_scheduled: set[str] = set()
         # Strong refs to in-flight handler tasks (the event loop holds only
         # weak ones); tasks remove themselves on completion via spawn().
@@ -208,8 +218,37 @@ class BrokerCore:
                 else:
                     if self.on_redeliver is not None:
                         self.on_redeliver(queue, msg)
-                    q.ready.appendleft(msg)  # redelivery keeps rough ordering
+                    self._requeue(queue, msg)
         self._schedule_dispatch(queue)
+
+    def _requeue(self, queue: str, msg: StoredMessage) -> None:
+        """Return a rejected message to the ready FIFO — immediately, or
+        after its exponential-backoff delay when redelivery backoff is
+        configured (base * 2^(attempt-1), capped)."""
+        q = self._queue(queue)
+        delay = 0.0
+        if self.redelivery_backoff_s > 0:
+            delay = min(
+                self.redelivery_backoff_s * 2 ** (msg.delivery_count - 1),
+                self.redelivery_backoff_max_s,
+            )
+        if delay <= 0:
+            q.ready.appendleft(msg)  # redelivery keeps rough ordering
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:  # no loop (teardown): don't lose the message
+            q.ready.appendleft(msg)
+            return
+
+        def _release() -> None:
+            held = self.queues.get(queue)
+            if held is None:
+                return
+            held.ready.appendleft(msg)
+            self._schedule_dispatch(queue)
+
+        loop.call_later(delay, _release)
 
     def _dead_letter(self, queue: str, msg: StoredMessage) -> None:
         if self.on_dead_letter is not None:
@@ -259,7 +298,7 @@ class BrokerCore:
                     else:
                         if self.on_redeliver is not None:
                             self.on_redeliver(q.name, msg)
-                        q.ready.appendleft(msg)
+                        self._requeue(q.name, msg)
                 if stale:
                     self._schedule_dispatch(q.name)
 

@@ -497,17 +497,26 @@ class TcpBroker(Broker):
     async def close(self) -> None:
         await reap(self._recv_task, label="tcp recv loop")
         self._recv_task = None
-        # Unfinished deliveries are cancelled; the server requeues anything
-        # unacked once the connection drops, so this is loss-free.
-        await reap_all(self._handler_tasks, label="tcp handler task")
-        if self._writer is not None:
-            self._writer.close()
-            try:
-                await self._writer.wait_closed()
-            except (ConnectionResetError, BrokenPipeError):
-                pass
-        self._reader = self._writer = None
-        self._handlers.clear()
+        try:
+            # Unfinished deliveries are cancelled; the server requeues
+            # anything unacked once the connection drops, so this is
+            # loss-free. A handler that closes the connection itself (a
+            # chaos kill on its own settle) is not reaped from inside: the
+            # reference's close cancels it there, which aborts the close
+            # with the socket open, and the next connect() then returns
+            # early with no receive loop (ROADMAP.md queue 3 item 13).
+            current = asyncio.current_task()
+            await reap_all([t for t in self._handler_tasks if t is not current],
+                           label="tcp handler task")
+        finally:
+            if self._writer is not None:
+                self._writer.close()
+                try:
+                    await self._writer.wait_closed()
+                except (ConnectionResetError, BrokenPipeError):
+                    pass
+            self._reader = self._writer = None
+            self._handlers.clear()
 
     async def _recv_loop(self) -> None:
         reader = self._reader
@@ -676,6 +685,3 @@ class TcpBroker(Broker):
     async def purge(self, queue: str) -> int:
         reply = await self._request({"op": "purge", "queue": queue})
         return int(reply.get("purged", 0))
-
-    async def delete_queue(self, name: str) -> None:
-        await self._request({"op": "delete", "queue": name})

@@ -4,11 +4,17 @@
 
 ``worker run`` serves ``QUEUE`` from the broker at ``LLMQ_BROKER_URL``
 (``tcp://host:port`` for the llmq broker daemon, the reference's or the
-port's ``broker/tcp.py::BrokerServer``) with MODEL, a ``preset://NAME``
-or an HF checkpoint directory, through :func:`cli.worker.run_torch_worker`,
-until a SIGINT or SIGTERM stops it (the jobs in flight are handed back to
-the queue as resumable snapshots, which a peer continues; the process
-exits 0). ``argparse``, not click: the port's machines need no
+port's ``broker/tcp.py::BrokerServer``; ``file:///dir`` for the on-disk
+broker; ``memory://`` in process; any of them behind ``chaos+``) with
+MODEL, a ``preset://NAME`` or an HF checkpoint directory, through
+:func:`cli.worker.run_torch_worker`, until a SIGINT or SIGTERM stops it
+(the jobs in flight are handed back to the queue as resumable snapshots,
+which a peer continues; the process exits 0). The worker's queue and
+failure policy come from the environment (``core/config.py``:
+``LLMQ_JOB_TTL_MINUTES``, ``LLMQ_MAX_REDELIVERIES``,
+``LLMQ_JOB_TIMEOUT_S``, ``LLMQ_QUARANTINE_ATTEMPTS``,
+``LLMQ_BREAKER_FAILURES``, ``LLMQ_RECONNECT_*``, ...); a variable of a
+feature the port lacks is refused with its ROADMAP item. ``argparse``, not click: the port's machines need no
 package beyond torch, numpy and pydantic.
 
 The options of the reference's ``worker run`` (:336-412) that the port
@@ -19,7 +25,9 @@ serves keep their names: ``-c/--concurrency``, ``--max-num-seqs``,
 decode). The others are accepted and, set to anything but
 their default, raise ``NotImplementedError`` with their ROADMAP item. One
 option is the port's own: ``--device`` (default ``cuda``; ``cpu`` runs
-the plain PyTorch path).
+the plain PyTorch path). ``--log-level`` (default ``LLMQ_LOG_LEVEL``, else
+INFO) sets the root logger's level, as the reference's ``setup_logging``
+reads ``LLMQ_LOG_LEVEL``.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import argparse
 import logging
 import sys
 from typing import Callable, List, Optional
+
+from llmq_tpu_torch.core.config import get_config
 
 #: option (argparse dest) -> (is it turned on?, ROADMAP.md queue 1 item)
 UNPORTED_OPTIONS = {
@@ -78,6 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                           "Default: LLMQ_WORKER_ROLE or unified")
     run.add_argument("--device", default="cuda",
                      help="cuda (default) or cpu (the plain PyTorch path)")
+    run.add_argument("--log-level", default=None,
+                     help="Logging level (default: LLMQ_LOG_LEVEL, else INFO)")
     # The reference's options that the port does not serve yet.
     run.add_argument("-tp", "--tensor-parallel", type=int, default=None)
     run.add_argument("-dp", "--data-parallel", type=int, default=1)
@@ -107,7 +119,8 @@ def worker_run_kwargs(args: argparse.Namespace) -> dict:
 def main(argv: Optional[List[str]] = None,
          run_worker: Optional[Callable[..., object]] = None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+    logging.basicConfig(level=(args.log_level or get_config().log_level).upper(),
+                        stream=sys.stderr,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     kwargs = worker_run_kwargs(args)
     if run_worker is None:

@@ -20,7 +20,10 @@ its variable in ``core/config.py``, ``max_model_len`` clamped to the
 model's ``max_position_embeddings``, ``prefix_host_gb`` refused without
 prefix caching (``tpu_worker.py:190``). ``role`` (unified, prefill or
 decode) sets the worker's ``Config.worker_role`` over
-``LLMQ_WORKER_ROLE``. The command line is
+``LLMQ_WORKER_ROLE``. The worker's queue and failure policy (job TTL,
+redelivery cap, timeout, quarantine, breaker, reconnects) are read from
+the environment by ``core/config.py``; the settings of features the port
+lacks are refused before any weight is loaded. The command line is
 ``python -m llmq_tpu_torch worker run MODEL QUEUE`` (``cli/main.py``).
 """
 
@@ -33,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from llmq_tpu_torch.core.config import Config, get_config
+from llmq_tpu_torch.core.config import Config, get_config, refuse_unported
 from llmq_tpu_torch.device import DeviceLike, resolve_device
 from llmq_tpu_torch.engine.engine import AsyncEngine, EngineConfig, EngineCore
 from llmq_tpu_torch.engine.tokenizer import ByteTokenizer, HFTokenizer
@@ -207,7 +210,10 @@ def run_torch_worker(
     config = get_config()
     if role is not None:
         config.worker_role = role
-    worker_role(config)  # refused before any weight is loaded
+    # Refused before any weight is loaded: the auto role, and every
+    # setting of a feature the port lacks (core/config.py::UNPORTED_FIELDS).
+    worker_role(config)
+    refuse_unported(config)
     engine = build_engine(
         model, device=device, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
         dtype=dtype, kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,

@@ -1,30 +1,65 @@
 """Environment-driven configuration of the port's worker.
 
-The port's own copy of the broker and engine sections of
-``llmq_tpu/core/config.py`` ``Config`` (:76-195): the same variables,
-read with the same precedence (the ``LLMQ_*`` / ``TPU_*`` name first, the
-reference's ``VLLM_*`` / ``BROKER_URL`` / ``RABBITMQ_URL`` aliases after
-it), re-read on every ``get_config()`` call so tests can monkeypatch the
-environment. Of the broker section it keeps what the worker reads
-(``broker_url``, ``queue_prefetch``; ``max_tokens`` of the engine
-section), and of the resilience section the shared host-memory budget
-(``host_mem_gb``, ``utils/host_mem.py``) and the drain timeout
-(``drain_timeout_s``, the worker's drain-with-handoff) and the result
-digest (``result_digest``: the emitted token ids on each result), of the
-disaggregation section the worker's role (``worker_role``), and of the
-priority section the switch of the ``<q>.interactive`` fast lane
-(``priority_classes``). The reconnect and outbox settings of the resilient
-session, the prefix-affinity section and the ``auto`` role's controller
-settings come with the modules that read them (ROADMAP.md queue 1, M6),
-as does the ``.env`` autoload.
+The port's own copy of ``llmq_tpu/core/config.py`` ``Config``: every
+field of the reference, with the same variable, read with the same
+precedence (the ``LLMQ_*`` / ``TPU_*`` name first, the reference's
+``VLLM_*`` / ``BROKER_URL`` / ``RABBITMQ_URL`` aliases after it, then a
+``.env`` file in the working directory, then the default), re-read on
+every ``get_config()`` call so tests can monkeypatch the environment.
+
+Each field is in one of two states. Most are read by the modules that
+serve them: the broker section by the broker manager and its resilient
+session (``broker/manager.py``, ``broker/resilient.py``), the queue and
+job policy by ``broker/manager.py``, ``broker/memory.py`` and
+``workers/base.py``, the engine section by ``cli/worker.py`` and the
+engine. Two of the reference's fields, ``priority_preempt`` and
+``interactive_decode_block``, have no field here: the engine reads their
+variables itself over its own ``EngineConfig`` fields
+(``engine/engine.py::priority_settings``), as the reference's engine
+does. ``chunk_size`` is the client's (ROADMAP.md queue 1, M17): no
+worker of either package reads it. The fields of features the port does not have yet are in
+:data:`UNPORTED_FIELDS`: :func:`refuse_unported` raises
+``NotImplementedError`` naming their ROADMAP.md item when one is set to
+anything but its default, so a worker never runs as if it were unset.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Optional
 
 from pydantic import BaseModel, Field
+
+
+def load_env_file(path: str | os.PathLike = ".env", *, override: bool = False) -> None:
+    """Minimal ``.env`` loader: KEY=VALUE lines, ``#`` comments, optional quotes."""
+    p = Path(path)
+    if not p.is_file():
+        return
+    for raw in p.read_text().splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#") or "=" not in line:
+            continue
+        if line.startswith("export "):
+            line = line[len("export "):]
+        key, _, value = line.partition("=")
+        key = key.strip()
+        value = value.strip()
+        if len(value) >= 2 and value[0] == value[-1] and value[0] in "\"'":
+            value = value[1:-1]
+        if key and (override or key not in os.environ):
+            os.environ[key] = value
+
+
+_ENV_LOADED = False
+
+
+def _ensure_env_loaded() -> None:
+    global _ENV_LOADED
+    if not _ENV_LOADED:
+        load_env_file()
+        _ENV_LOADED = True
 
 
 def _env(name: str, *aliases: str) -> Optional[str]:
@@ -52,13 +87,27 @@ class Config(BaseModel):
     broker_url: str = Field(
         default_factory=lambda: _env("LLMQ_BROKER_URL", "BROKER_URL", "RABBITMQ_URL")
         or "tcp://127.0.0.1:5672/",
-        description="Broker endpoint: memory:// (in-process) or tcp://host:port/ (the llmq "
-        "broker daemon).",
+        description="Broker endpoint: memory:// (in-process), file:///path (durable on-disk), "
+        "tcp://host:port/ (the llmq broker daemon), or any of them behind a chaos+ prefix "
+        "(seeded fault injection).",
     )
     queue_prefetch: int = Field(
         default_factory=lambda: _env_int("LLMQ_QUEUE_PREFETCH", "VLLM_QUEUE_PREFETCH",
                                          default=100),
         description="Messages prefetched (in flight) per worker consumer.",
+    )
+    reconnect_base_delay_s: float = Field(
+        default_factory=lambda: _env_float("LLMQ_RECONNECT_BASE_S", default=0.5),
+        description="First re-dial backoff after a mid-run connection loss (doubles per "
+        "attempt, with jitter).",
+    )
+    reconnect_max_delay_s: float = Field(
+        default_factory=lambda: _env_float("LLMQ_RECONNECT_MAX_S", default=30.0),
+        description="Backoff ceiling for broker reconnect attempts.",
+    )
+    outbox_limit: int = Field(
+        default_factory=lambda: _env_int("LLMQ_OUTBOX_LIMIT", default=10_000),
+        description="Publishes parked during a broker outage before publishers block.",
     )
 
     # --- engine -----------------------------------------------------------
@@ -93,6 +142,11 @@ class Config(BaseModel):
         in ("1", "true", "yes"),
         description="Reuse cached KV for shared prompt prefixes (needs prefill_chunk_size).",
     )
+    prefix_affinity: bool = Field(
+        default_factory=lambda: (_env("LLMQ_PREFIX_AFFINITY") or "").lower()
+        in ("1", "true", "yes"),
+        description="Prefix-affinity routing over per-worker queues (not ported yet).",
+    )
     decode_block: int = Field(
         default_factory=lambda: _env_int("LLMQ_DECODE_BLOCK", default=1),
         description="Fused multi-step decode: device iterations per dispatch (1 = off).",
@@ -119,6 +173,33 @@ class Config(BaseModel):
         "consumes <q>.decode and continues the handed-off requests. 'auto' switches between "
         "the two on fleet queue depths (the reference's; not ported yet, ROADMAP.md M6).",
     )
+    role_dwell_s: float = Field(
+        default_factory=lambda: _env_float("LLMQ_ROLE_DWELL_S", default=60.0),
+        description="Auto-role hysteresis: least seconds in a role (not ported yet).",
+    )
+    role_switch_hi: float = Field(
+        default_factory=lambda: _env_float("LLMQ_ROLE_SWITCH_HI", default=2.0),
+        description="Auto-role band, decode -> prefill (not ported yet).",
+    )
+    role_switch_lo: float = Field(
+        default_factory=lambda: _env_float("LLMQ_ROLE_SWITCH_LO", default=0.5),
+        description="Auto-role band, prefill -> decode (not ported yet).",
+    )
+    role_check_interval_s: float = Field(
+        default_factory=lambda: _env_float("LLMQ_ROLE_CHECK_INTERVAL_S", default=5.0),
+        description="Auto-role controller cadence (not ported yet).",
+    )
+    handoff_timeout_s: float = Field(
+        default_factory=lambda: _env_float("LLMQ_HANDOFF_TIMEOUT_S", default=2.0),
+        description="Seconds a prefill worker waits for a decode peer to accept an adoption "
+        "offer (not ported yet: every handoff takes <q>.decode).",
+    )
+    result_digest: bool = Field(
+        default_factory=lambda: (_env("LLMQ_RESULT_DIGEST") or "").lower()
+        in ("1", "true", "yes", "on"),
+        description="Workers attach the emitted token_ids and their blake2b-16 token_digest "
+        "to every result. Off by default.",
+    )
 
     # --- priority classes -------------------------------------------------
     priority_classes: bool = Field(
@@ -128,6 +209,34 @@ class Config(BaseModel):
         "<q>.interactive, and the engine admits interactive work first. On by default; "
         "LLMQ_PRIORITY_CLASSES=0 forces pure FIFO.",
     )
+    serve_port: int = Field(
+        default_factory=lambda: _env_int("LLMQ_SERVE_PORT", default=8100),
+        description="HTTP port of the streaming gateway (not ported yet).",
+    )
+
+    # --- queue/job policy -------------------------------------------------
+    job_ttl_minutes: int = Field(
+        default_factory=lambda: _env_int("LLMQ_JOB_TTL_MINUTES", default=30),
+        description="Job time-to-live; expired jobs are dropped by the broker.",
+    )
+    max_redeliveries: int = Field(
+        default_factory=lambda: _env_int("LLMQ_MAX_REDELIVERIES", default=3),
+        description="Redeliveries before a job is dead-lettered to <q>.failed.",
+    )
+    redelivery_backoff_s: float = Field(
+        default_factory=lambda: _env_float("LLMQ_REDELIVERY_BACKOFF_S", default=0.0),
+        description="Base delay before a rejected job is redelivered; doubles per attempt. "
+        "0 redelivers immediately.",
+    )
+    redelivery_backoff_max_s: float = Field(
+        default_factory=lambda: _env_float("LLMQ_REDELIVERY_BACKOFF_MAX_S", default=30.0),
+        description="Ceiling on the exponential redelivery backoff.",
+    )
+    deadline_ms: int = Field(
+        default_factory=lambda: _env_int("LLMQ_DEADLINE_MS", default=0),
+        description="Default per-job completion deadline (ms from submit); the submit path "
+        "sheds early when depth / observed rate cannot meet it. 0 disables.",
+    )
 
     # --- resilience -------------------------------------------------------
     host_mem_gb: float = Field(
@@ -136,19 +245,74 @@ class Config(BaseModel):
         "swap-preempt captures and resume blobs (utils/host_mem.HostMemoryGovernor); "
         "0 disables it.",
     )
+    quarantine_attempts: int = Field(
+        default_factory=lambda: _env_int("LLMQ_QUARANTINE_ATTEMPTS", default=0),
+        description="Fleet-wide attempts before a job that keeps failing is quarantined to "
+        "<q>.quarantine. 0 disables quarantine.",
+    )
+    peer_serve_concurrency: int = Field(
+        default_factory=lambda: _env_int("LLMQ_PEER_SERVE_CONCURRENCY", default=2),
+        description="Concurrent KV-ship fetches a worker serves (not ported yet).",
+    )
+    breaker_failures: int = Field(
+        default_factory=lambda: _env_int("LLMQ_BREAKER_FAILURES", default=0),
+        description="Consecutive engine failures before a worker trips its circuit breaker "
+        "and self-drains through the handoff path. 0 disables.",
+    )
+    job_timeout_s: Optional[float] = Field(
+        default_factory=lambda: _env_float("LLMQ_JOB_TIMEOUT_S"),
+        description="Per-job processing timeout: a job past it is cancelled and "
+        "reject-requeued. None disables.",
+    )
     drain_timeout_s: float = Field(
         default_factory=lambda: _env_float("LLMQ_DRAIN_TIMEOUT_S", default=30.0),
         description="Seconds a shutting-down worker waits for its in-flight jobs to settle "
         "after handing them off.",
     )
-    result_digest: bool = Field(
-        default_factory=lambda: (_env("LLMQ_RESULT_DIGEST") or "").lower()
-        in ("1", "true", "yes", "on"),
-        description="Workers attach the emitted token_ids and their blake2b-16 token_digest "
-        "to every result. Off by default.",
+    chunk_size: int = Field(
+        default_factory=lambda: _env_int("LLMQ_CHUNK_SIZE", default=10000),
+        description="Jobs submitted per publish chunk (the client's submit, M17; no worker "
+        "reads it).",
     )
+    log_level: str = Field(
+        default_factory=lambda: _env("LLMQ_LOG_LEVEL") or "INFO",
+        description="Logging level.",
+    )
+
+    @property
+    def job_ttl_ms(self) -> int:
+        return self.job_ttl_minutes * 60 * 1000
+
+
+#: field -> (its default, ROADMAP.md queue 1 item, the feature) of the
+#: features the port does not have yet; refused at a non-default value.
+_M6_PEERS = "M6 (second part)"
+UNPORTED_FIELDS = {
+    "prefix_affinity": (False, _M6_PEERS, "prefix-affinity routing"),
+    "role_dwell_s": (60.0, _M6_PEERS, "the auto role's controller"),
+    "role_switch_hi": (2.0, _M6_PEERS, "the auto role's controller"),
+    "role_switch_lo": (0.5, _M6_PEERS, "the auto role's controller"),
+    "role_check_interval_s": (5.0, _M6_PEERS, "the auto role's controller"),
+    "handoff_timeout_s": (2.0, _M6_PEERS, "the adoption offer to a decode peer"),
+    "peer_serve_concurrency": (2, _M6_PEERS, "cross-worker prefix-page fetches"),
+    "serve_port": (8100, "M16", "the streaming gateway"),
+}
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP.md item of the
+    first field of :data:`UNPORTED_FIELDS` set to anything but its
+    default: a feature the port lacks is refused, never ignored."""
+    for name, (default, item, feature) in UNPORTED_FIELDS.items():
+        value = getattr(cfg, name)
+        if value != default:
+            raise NotImplementedError(
+                f"Config.{name}={value!r} ({feature}) is not ported yet "
+                f"(ROADMAP.md queue 1, {item})")
 
 
 def get_config() -> Config:
-    """A fresh config (the environment is re-read on each call)."""
+    """A fresh config (the environment is re-read on each call; a ``.env``
+    file in the working directory is loaded once, under the environment)."""
+    _ensure_env_loaded()
     return Config()

@@ -138,3 +138,45 @@ class QueueStats(BaseModel):
     message_bytes_unacknowledged: Optional[int] = None
     processing_rate: Optional[float] = None
     stats_source: str = "unknown"
+
+
+class WorkerHealth(BaseModel):
+    """Worker heartbeat record, published to ``<queue>.health``."""
+
+    worker_id: str
+    status: str
+    last_seen: datetime
+    jobs_processed: int
+    avg_duration_ms: Optional[float] = None
+    queue: Optional[str] = None
+    engine_stats: Optional[Dict[str, Any]] = None
+    reconnects: Optional[int] = Field(
+        None, description="Broker session reconnects survived (ResilientBroker session stats).")
+    metrics: Optional[Dict[str, Any]] = Field(
+        None, description="Compact metrics-registry summary; the port sends none until the "
+        "metrics registry is ported (ROADMAP.md queue 1, M16).")
+    prefix_chains: Optional[List[str]] = Field(
+        None, description="Hot prefix-chain digests (hex) for prefix-affinity routing; None "
+        "without it.")
+    last_dispatch_ok_age_s: Optional[float] = Field(
+        None, description="Seconds since the dispatch watchdog last saw a clean device call; "
+        "None (omitted) when no watchdog runs.")
+    integrity: Optional[str] = Field(
+        None, description="Numerics-integrity verdict ('ok' / 'suspect'); None (omitted) when "
+        "every integrity knob is off.")
+    role: Optional[str] = Field(
+        None, description="The disaggregated role served ('prefill' / 'decode'); None (omitted) "
+        "for unified workers.")
+
+
+class ErrorInfo(BaseModel):
+    """Dead-letter record, read back from ``<queue>.failed``."""
+
+    job_id: str
+    error_message: str
+    timestamp: datetime = Field(default_factory=utcnow)
+    worker_id: Optional[str] = None
+    redeliveries: int = 0
+    failure_reason: Optional[str] = Field(
+        None, description="Machine-readable failure class (engine_error:<type>, timeout, "
+        "deadline_exceeded, ...); None where none was recorded.")

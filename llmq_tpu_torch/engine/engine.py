@@ -253,6 +253,26 @@ def _env_flag(name: str, default: bool) -> bool:
     return default
 
 
+def priority_settings(cfg: EngineConfig) -> Tuple[bool, bool, int]:
+    """``(priority_classes, priority_preempt, interactive_decode_block)``:
+    each ``LLMQ_*`` variable pins over its field, and the small interactive
+    block is 0 without the classes (JAX :743-774). The engine is the one
+    reader of ``LLMQ_PRIORITY_PREEMPT`` and ``LLMQ_INTERACTIVE_DECODE_BLOCK``."""
+    classes = _env_flag("LLMQ_PRIORITY_CLASSES", cfg.priority_classes)
+    preempt = _env_flag("LLMQ_PRIORITY_PREEMPT", cfg.priority_preempt)
+    ik = cfg.interactive_decode_block
+    env_ik = os.environ.get("LLMQ_INTERACTIVE_DECODE_BLOCK", "").strip()
+    if env_ik:
+        try:
+            ik = int(env_ik)
+        except ValueError:
+            raise ValueError(
+                f"LLMQ_INTERACTIVE_DECODE_BLOCK={env_ik!r} is not an int") from None
+    if ik < 0:
+        raise ValueError(f"interactive_decode_block={ik} (want >= 0)")
+    return classes, preempt, ik if classes else 0
+
+
 def _check_ported(cfg: EngineConfig) -> None:
     defaults = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
     for name, item in _UNPORTED_FIELDS.items():
@@ -409,19 +429,8 @@ class EngineCore:
         # its field, as in the JAX engine (:737-774).
         preempt = os.environ.get("LLMQ_PREEMPT_MODE", "").lower()
         self.preempt_mode = preempt if preempt in ("recompute", "swap") else self.cfg.preempt_mode
-        self.priority_classes = _env_flag("LLMQ_PRIORITY_CLASSES", self.cfg.priority_classes)
-        self.priority_preempt = _env_flag("LLMQ_PRIORITY_PREEMPT", self.cfg.priority_preempt)
-        ik = self.cfg.interactive_decode_block
-        env_ik = os.environ.get("LLMQ_INTERACTIVE_DECODE_BLOCK", "").strip()
-        if env_ik:
-            try:
-                ik = int(env_ik)
-            except ValueError:
-                raise ValueError(
-                    f"LLMQ_INTERACTIVE_DECODE_BLOCK={env_ik!r} is not an int") from None
-        if ik < 0:
-            raise ValueError(f"interactive_decode_block={ik} (want >= 0)")
-        self.interactive_decode_block = ik if self.priority_classes else 0
+        (self.priority_classes, self.priority_preempt,
+         self.interactive_decode_block) = priority_settings(self.cfg)
         self._spec = self.cfg.spec_tokens > 0
         self.model = Transformer(model_config, params).to(self.device)
         self._vocab = model_config.vocab_size
@@ -2184,10 +2193,7 @@ class AsyncEngine:
     ) -> RequestOutput:
         fut = self._submit(rid, prompt, messages, prompt_ids, params, None, deadline_at,
                            prefill_only, priority)
-        try:
-            return await asyncio.wrap_future(fut)
-        finally:
-            self._futures.pop(rid, None)
+        return await self._await(fut)
 
     async def resume(self, *, rid: str, snapshot: RequestSnapshot,
                      deadline_at: Optional[float] = None) -> RequestOutput:
@@ -2195,17 +2201,19 @@ class AsyncEngine:
         drain-with-handoff). Completes as :meth:`generate` does, or with a
         :class:`HandoffOutput` if this engine drains in turn."""
         fut = self._submit(rid, snapshot=snapshot, deadline_at=deadline_at)
-        try:
-            return await asyncio.wrap_future(fut)
-        finally:
-            self._futures.pop(rid, None)
+        return await self._await(fut)
 
     def generate_sync(self, *, rid: str, timeout: Optional[float] = None, **kwargs) -> RequestOutput:
-        fut = self._submit(rid, **kwargs)
-        try:
-            return fut.result(timeout=timeout)
-        finally:
-            self._futures.pop(rid, None)
+        return self._submit(rid, **kwargs).result(timeout=timeout)
+
+    @staticmethod
+    async def _await(fut: Future) -> Any:
+        """Await a request without cancelling it: a caller that gives up
+        (a job timeout) leaves the request to finish in the engine, as the
+        JAX engine's does, and a retry of the same id joins it."""
+        inner = asyncio.wrap_future(fut)
+        inner.add_done_callback(lambda f: f.cancelled() or f.exception())  # retrieved
+        return await asyncio.shield(inner)
 
     def _submit(self, rid: str, prompt: Optional[str] = None,
                 messages: Optional[List[Dict[str, str]]] = None,
@@ -2216,7 +2224,16 @@ class AsyncEngine:
                 priority: str = "batch") -> Future:
         if self._draining:
             raise RuntimeError("engine is draining for handoff")
-        fut: Future = Future()
+        fut = self._futures.get(rid)
+        if fut is not None and not fut.done():
+            # A second request of an id the engine still holds (a worker's
+            # redelivered or retried job) joins the first. The JAX engine
+            # adds a second row of the id: the scheduler's id-keyed running
+            # map then keeps one of the two, and the other, left out of
+            # every step, holds its slot and pages for good (ROADMAP.md
+            # queue 3 item 12).
+            return fut
+        fut = Future()
         self._futures[rid] = fut
         self._intake.put((rid, prompt, messages, prompt_ids, params, snapshot, deadline_at,
                           prefill_only, priority))
@@ -2293,9 +2310,15 @@ class AsyncEngine:
 
     # --- engine thread ----------------------------------------------------
     def _resolve(self, rid: str, value: Any) -> None:
-        fut = self._futures.get(rid)
+        fut = self._futures.pop(rid, None)
         if fut is not None and not fut.done():
             fut.set_result(value)
+
+    def _fail_all(self, exc: BaseException) -> None:
+        for rid, fut in list(self._futures.items()):
+            self._futures.pop(rid, None)
+            if not fut.done():
+                fut.set_exception(exc)
 
     def _run_handoff(self) -> None:
         """Drain, extract, resolve (JAX :5411-5458). Outputs that finish in
@@ -2322,9 +2345,7 @@ class AsyncEngine:
         except Exception:  # noqa: BLE001 — a handoff must never wedge shutdown
             logger.exception("engine handoff failed; aborting the batch")
             self.core.abort_all("handoff_failed")
-            for fut in list(self._futures.values()):
-                if not fut.done():
-                    fut.set_exception(RuntimeError("engine handoff failed"))
+            self._fail_all(RuntimeError("engine handoff failed"))
         finally:
             self._handoff_results = results
             if self._handoff_event is not None:
@@ -2361,7 +2382,7 @@ class AsyncEngine:
                         )
                     added = True
                 except Exception as exc:  # noqa: BLE001 — invalid request
-                    fut = self._futures.get(rid)
+                    fut = self._futures.pop(rid, None)
                     if fut is not None and not fut.done():
                         fut.set_exception(exc)
             if not self.core.has_work and not added:
@@ -2377,9 +2398,7 @@ class AsyncEngine:
                     self.error = exc
                 failure = RuntimeError("engine step failed")
                 failure.__cause__ = exc
-                for fut in list(self._futures.values()):
-                    if not fut.done():
-                        fut.set_exception(failure)
+                self._fail_all(failure)
                 try:
                     self.core.abort_all("error")
                 except Exception:  # noqa: BLE001 — the callers already hold the failure

@@ -25,6 +25,7 @@ replay that fails raises; there is no eager fallback.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
@@ -87,6 +88,12 @@ class DispatchGraphs:
         graph = torch.cuda.CUDAGraph()
         zero = (0,) * len(_build.COUNTERS)
         before = _build.launch_counts()
+        # No cyclic collection while capturing: one that frees another,
+        # unreachable graph (an engine dropped earlier) resets it inside
+        # this capture, which CUDA refuses and which invalidates the
+        # capture. torch.cuda.graph collects before the capture begins.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.device(self.device), torch.cuda.graph(
                 graph, pool=self._pool, capture_error_mode="thread_local"
@@ -94,6 +101,8 @@ class DispatchGraphs:
                 outputs = fn()
             after = _build.launch_counts()
         finally:  # the capture launched nothing: put the counters back
+            if collecting:
+                gc.enable()
             _build.set_launch_counts({w: before.get(w, zero) for w in _build.launch_counts()})
         launches = {w: tuple(a - b for a, b in zip(n, before.get(w, zero)))
                     for w, n in after.items()}

@@ -79,3 +79,13 @@ async def reap_all(tasks: Iterable["asyncio.Future"], *, label: str = "tasks") -
     registries via done-callbacks)."""
     for task in list(tasks):
         await reap(task, label=label)
+
+
+async def wait_drained(tasks: Set["asyncio.Task"], *, timeout: Optional[float] = None) -> bool:
+    """Wait for in-flight tasks to finish on their own (graceful drain);
+    returns False if ``timeout`` expired with tasks still pending."""
+    pending = [t for t in tasks if not t.done()]
+    if not pending:
+        return True
+    done, still_pending = await asyncio.wait(pending, timeout=timeout)
+    return not still_pending

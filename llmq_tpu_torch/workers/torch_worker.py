@@ -1,91 +1,54 @@
 """The inference worker of the port: queue in, engine, results out.
 
-Port of the job path of ``llmq_tpu/workers/base.py`` (``_process_message``
-:633, ``_build_result`` :1105, ``_publish_result`` :1145) and
-``llmq_tpu/workers/tpu_worker.py`` (``_sampling_for`` :1137,
-``_process_job`` :1186, ``_build_result`` :1389):
+``TorchWorker`` is a ``workers/base.py::BaseWorker``, as the reference's
+``llmq_tpu/workers/tpu_worker.py::TPUWorker`` is one: the base worker
+owns the broker session (a ``BrokerManager`` over a resilient session:
+re-dial, replay, fenced settles, outbox), the queue topology with the
+job TTL and redelivery caps, the heartbeats on ``<queue>.health``, the
+per-job timeout, quarantine, the circuit breaker, the dead letters,
+result dedup, drain-with-handoff and the roles. This class keeps what is
+the engine's (``_sampling_for`` :1137, ``_process_job`` :1186,
+``_build_result`` :1389 of ``tpu_worker.py``):
 
-- consume ``<queue>`` with prefetch = ``concurrency``;
-- parse the ``Job``; build its ``SamplingParams`` from the extras, the
-  job's ``stop`` and its structured ``sampling`` object;
-- generate through the ``AsyncEngine``;
-- publish a ``Result`` (usage counts, the job's extra fields passed
-  through, colliding names kept as ``job_<name>``; with
+- build each job's ``SamplingParams`` from the extras, the job's
+  ``stop`` and its structured ``sampling`` object;
+- generate through the ``AsyncEngine``, or resume a job carrying a
+  resume snapshot through ``engine.resume`` from the token where it
+  stopped (a snapshot that cannot be decoded or inserted re-runs the job
+  from its prompt, as the reference does); a job's ``deadline_at`` and
+  ``priority`` reach the engine; a prefill-role worker generates with
+  ``prefill_only=True``;
+- build the ``Result`` on the base worker's (the job's extra fields
+  passed through, colliding names kept as ``job_<name>``): usage counts,
+  the finish reason; with
   ``LLMQ_RESULT_DIGEST`` on, the emitted token ids and their
-  ``token_digest``, as ``tpu_worker.py:1399``) to ``<queue>.results``,
-  then ack.
+  ``token_digest`` (``tpu_worker.py:1399``);
+- surface the engine's ``stats()`` in the heartbeats, and hand the
+  engine's unfinished requests back as snapshots when the worker drains.
 
-The broker URL, the prefetch, the default ``max_tokens`` and the drain
-timeout come from ``core/config.py`` unless given, as ``BaseWorker`` /
-``TPUWorker`` take them (``base.py:112-113``, ``tpu_worker.py:177-179``).
+The prefetch, when not given, is ``max(LLMQ_QUEUE_PREFETCH, 1.5 x the
+engine's slots)``, as ``TPUWorker``'s. ``max_jobs`` (the port's) stops
+the worker once that many deliveries settled without a requeue.
 
-Shutdown is the reference's drain-with-handoff (``base.py:262-316``,
-``tpu_worker.py:506-520``): SIGINT, SIGTERM or :meth:`request_shutdown`
-cancels the consumer without requeue and calls ``engine.handoff()``,
-which resolves every request still in the engine with its snapshot. Such
-a job is republished to the queue carrying the snapshot (base64 wire
-form) and its offset under ``RESUME_FIELD``, then acked (``base.py:
-878-930``); a job that never reached the engine is rejected with requeue.
-The worker then waits up to ``drain_timeout_s`` for its jobs to settle
-and :meth:`run` returns. A job that carries a resume snapshot continues
-through ``engine.resume`` from the token where it stopped
-(``tpu_worker.py:1161-1262``); a snapshot that cannot be decoded or
-inserted (another model signature or KV dtype) re-runs the job from its
-prompt, as the reference does. Results are published once per ``(job id,
-resume offset)`` (``workers/resume.py``). A job's ``deadline_at`` and
-``priority`` reach the engine; a deadline that lapsed before the engine
-saw the job, or that the engine's sweep enforced, dead-letters the job to
-``<queue>.failed`` as ``deadline_exceeded``.
-
-Roles (``LLMQ_WORKER_ROLE``, ``Config.worker_role``; ``base.py:75-77``,
-:152-162, :378-417, :956-1057, ``tpu_worker.py:1228-1332``). A ``unified``
-worker (the default) serves ``<queue>`` and, with ``priority_classes`` on
-(the default), the ``<queue>.interactive`` fast lane. A ``prefill``
-worker serves ``<queue>``, generates with ``prefill_only=True`` and hands
-each job, at its prefill boundary, to the decode pool: the job is
-republished to ``<queue>.decode`` with its prompt-KV snapshot under
-``RESUME_FIELD`` (offset 0, a ``handoff_at`` stamp) before the delivery
-is acked (``handoffs_fallback`` counts them); a job that already carries
-resume state is forwarded there untouched. A ``decode`` worker serves
-``<queue>.decode`` and resumes each job through ``engine.resume``; a
-``handoff_at`` stamp counts it in ``jobs_adopted`` and samples the
-handoff latency. A draining decode worker republishes to ``<queue>.decode``.
-The reference's direct adoption offer to a chosen decode peer
-(``_ship_to_decode_peer``) needs the heartbeats to find one, so here, as
-in a reference fleet with no live decode peer, every handoff takes the
-``<queue>.decode`` road; the offer (its hook included), prefix affinity
-and the ``auto`` role come with the heartbeats (ROADMAP.md M6).
-
-An unparseable payload is dead-lettered to ``<queue>.failed``; a job the
-engine rejects as invalid (``ValueError``) is acked and dropped; any
-other failure rejects with requeue, so the broker redelivers it. A
-failed engine step (a kernel launch error, say, which leaves the CUDA
+A failed engine step (a kernel launch error, say, which leaves the CUDA
 context unusable) stops the worker: it stops consuming, hands its
 in-flight jobs back to the queue, and :meth:`run` raises with the
-engine's exception as the cause.
-Heartbeats, lifecycle traces and the fault planes come with later slices
-(ROADMAP M6, M16, M12).
+engine's exception as the cause; the reference's in-process fault
+containment comes with the fault planes (ROADMAP.md queue 1, M12). With
+``breaker_failures`` set, the breaker's self-drain applies as in the
+reference. A timed-out job's request keeps decoding in the engine until
+its ``max_tokens``, as in the reference: neither engine aborts it.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
-import logging
-import signal
 import time
 import uuid
-from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
-from llmq_tpu_torch.broker.base import (
-    Broker,
-    DeliveredMessage,
-    decode_queue_name,
-    interactive_queue_name,
-    make_broker,
-    results_queue_name,
-)
+from llmq_tpu_torch.broker.base import DeliveredMessage
 from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job, Result
 from llmq_tpu_torch.engine.engine import AsyncEngine, HandoffOutput, RequestOutput
@@ -98,43 +61,25 @@ from llmq_tpu_torch.engine.snapshot import (
 )
 from llmq_tpu_torch.utils import clock
 from llmq_tpu_torch.utils.hashing import token_fold
-from llmq_tpu_torch.utils.host_mem import get_governor
+from llmq_tpu_torch.workers.base import (
+    WORKER_ROLES,
+    BaseWorker,
+    DeadlineExceeded,
+    worker_role,
+)
 from llmq_tpu_torch.workers.resume import (
     RESUME_FIELD,
     JobHandoff,
     PrefillDone,
-    ResultDeduper,
-    resume_offset,
 )
 
-logger = logging.getLogger(__name__)
-
-FAILED_SUFFIX = ".failed"
-#: Valid LLMQ_WORKER_ROLE values (``base.py:77``); "auto" is refused.
-WORKER_ROLES = ("unified", "prefill", "decode", "auto")
+__all__ = ["DeadlineExceeded", "TorchWorker", "WORKER_ROLES", "worker_role"]
 
 
-class DeadlineExceeded(Exception):
-    """The job's ``deadline_at`` passed: dead-lettered as
-    ``deadline_exceeded``, neither published nor requeued."""
-
-
-def worker_role(cfg: Config) -> str:
-    """The configured role, checked as ``base.py:156-162`` checks it; the
-    ``auto`` role is refused with its ROADMAP.md item."""
-    role = (cfg.worker_role or "unified").lower()
-    if role not in WORKER_ROLES:
-        raise ValueError(f"LLMQ_WORKER_ROLE must be one of {WORKER_ROLES}, got {role!r}")
-    if role == "auto":
-        raise NotImplementedError(
-            "worker role 'auto' is not ported yet: its controller reads fleet queue depths "
-            "beside the heartbeats (ROADMAP.md queue 1, M6)")
-    return role
-
-
-class TorchWorker:
+class TorchWorker(BaseWorker):
     """Serves one queue with one engine until :meth:`request_shutdown`
-    (or, with ``max_jobs``, until that many jobs have been settled)."""
+    (or, with ``max_jobs``, until that many jobs have been settled). The
+    engine's lifetime is the caller's."""
 
     def __init__(
         self,
@@ -149,94 +94,93 @@ class TorchWorker:
         config: Optional[Config] = None,
     ) -> None:
         cfg = config or get_config()
-        self.queue = queue
         self.engine = engine
-        self.broker_url = broker_url or cfg.broker_url
+        self._fixed_id = worker_id
         # Prefetch above the batch's slots, or the engine starves: without
         # an explicit concurrency, ~1.5x slots in flight (TPUWorker's rule).
         slots = engine.core.cfg.max_num_seqs
-        self.concurrency = concurrency or max(cfg.queue_prefetch, slots + slots // 2)
+        super().__init__(queue, config=cfg, broker_url=broker_url,
+                         concurrency=concurrency or max(cfg.queue_prefetch, slots + slots // 2))
         self.max_tokens = max_tokens or cfg.max_tokens
-        self.drain_timeout_s = cfg.drain_timeout_s
-        self.priority_classes = cfg.priority_classes
-        self.result_digest = cfg.result_digest
-        self.role = worker_role(cfg)
         self.max_jobs = max_jobs
-        self.worker_id = worker_id or f"torch-{uuid.uuid4().hex[:8]}"
-        self.broker: Optional[Broker] = None
-        self.jobs_processed = 0
-        self.jobs_failed = 0
-        self.jobs_handed_off = 0
         self.jobs_resumed = 0
-        self.jobs_deadline_exceeded = 0
-        self.handoffs_fallback = 0  # prefill-complete jobs republished to <q>.decode
-        self.handoff_bytes = 0  # the bytes of those republished payloads
-        self.jobs_adopted = 0  # handed-off jobs this worker resumed as decoder
-        # Handoff publish -> adoption latency samples (ms), bounded ring.
-        self._handoff_ms: deque = deque(maxlen=512)
         self._settled = 0
-        self._stop: Optional[asyncio.Event] = None
-        self._tags: List[str] = []
-        self._dedup = ResultDeduper()
-        self._in_flight = 0
-        self._idle: Optional[asyncio.Event] = None  # set while no job is in flight
         self.error: Optional[BaseException] = None  # the engine failure that stopped it
 
-    def request_shutdown(self) -> None:
-        if self._stop is not None:
-            self._stop.set()
+    def _generate_worker_id(self) -> str:
+        return self._fixed_id or f"torch-{uuid.uuid4().hex[:8]}"
 
-    def _on_signal(self) -> None:
-        """SIGINT / SIGTERM: stop taking jobs, hand those in flight off."""
-        logger.info("worker %s: shutdown requested; handing off in-flight jobs",
-                    self.worker_id)
-        self.request_shutdown()
+    @property
+    def broker_url(self) -> str:
+        return self.broker.url
+
+    @property
+    def drain_timeout_s(self) -> float:
+        return self.config.drain_timeout_s
+
+    @property
+    def priority_classes(self) -> bool:
+        return self.config.priority_classes
 
     async def run(self) -> None:
-        self._stop = asyncio.Event()
-        self._idle = asyncio.Event()
-        self._idle.set()
-        loop = asyncio.get_running_loop()
-        for sig in (signal.SIGINT, signal.SIGTERM):
-            try:
-                loop.add_signal_handler(sig, self._on_signal)
-            except (NotImplementedError, RuntimeError):
-                pass  # non-main thread or platform without signal support
-        self.broker = make_broker(self.broker_url)
-        await self.broker.connect()
-        try:
-            for name in (self.queue, results_queue_name(self.queue), self.queue + FAILED_SUFFIX,
-                         decode_queue_name(self.queue), interactive_queue_name(self.queue)):
-                await self.broker.declare_queue(name)
-            sources = self._role_queues()
-            for name in sources:
-                self._tags.append(await self.broker.consume(
-                    name, self._process_message, prefetch=self.concurrency))
-            logger.info("worker %s (role %s) consuming %s", self.worker_id, self.role,
-                        ", ".join(sources))
-            await self._stop.wait()
-            if self.error is None:
-                await self._drain_with_handoff()
-            for tag in self._tags:
-                await self.broker.cancel(tag)
-        finally:
-            await self.broker.close()
+        await super().run()
         if self.error is not None:
             raise RuntimeError(f"worker {self.worker_id} stopped: its engine failed") from self.error
 
-    def _role_queues(self) -> List[str]:
-        """The queues the role serves (``base.py:379-417``): a decode worker
-        the decode pool, the others the shared queue, after the fast lane
-        when the priority classes are on (interactive deliveries race the
-        shared queue's prefetch, and admission orders what lands)."""
-        if self.role == "decode":
-            return [decode_queue_name(self.queue)]
-        lane = [interactive_queue_name(self.queue)] if self.priority_classes else []
-        return lane + [self.queue]
+    async def _initialize_processor(self) -> None:
+        return None  # the engine is built by the caller (cli/worker.py::build_engine)
+
+    async def _cleanup_processor(self) -> None:
+        self.logger.info("worker %s stopped (processed=%d handed off=%d failed=%d)",
+                         self.worker_id, self.jobs_processed, self.jobs_handed_off,
+                         self.jobs_failed)
+        self.logger.info("worker stats %s", json.dumps(self.stats()))
+
+    async def _handoff_in_flight(self) -> None:
+        """SIGTERM drain-with-handoff: the engine resolves every request it
+        holds with its snapshot, which the jobs' handlers republish. A
+        failed engine hands nothing back: its jobs requeue."""
+        if self.error is not None:
+            return
+        loop = asyncio.get_running_loop()
+        handoffs = await loop.run_in_executor(None, self.engine.handoff)
+        if handoffs:
+            self.logger.info("Drained %d in-flight request(s) as resumable snapshots",
+                             len(handoffs))
+
+    async def _after_failure(self, exc: BaseException) -> None:
+        """Stop taking jobs once the engine failed (no redelivery loop into
+        a dead engine); the in-flight ones requeue as their handlers fail."""
+        if self.engine.error is None or self.error is not None:
+            return
+        self.error = self.engine.error
+        self.logger.error("worker %s: engine failed, stopping: %r", self.worker_id, self.error)
+        await self._stop_role_consumers()
+        self.request_shutdown()
+
+    async def _process_message(self, message: DeliveredMessage) -> None:
+        if self.max_jobs is None:
+            await super()._process_message(message)
+            return
+        # Count the deliveries that settle without a requeue.
+        requeued = []
+        settle = message._settle
+
+        async def recording(verb: str, requeue: bool) -> None:
+            requeued.append(verb == "reject" and requeue)
+            if settle is not None:
+                await settle(verb, requeue)
+
+        message._settle = recording
+        await super()._process_message(message)
+        if not any(requeued):
+            self._settled += 1
+            if self._settled >= self.max_jobs:
+                self.request_shutdown()
 
     def stats(self) -> Dict[str, Any]:
         """The worker's counters; the disaggregation ones (and the handoff
-        latency percentiles) only once they moved, as ``base.py:1198``."""
+        latency percentiles) only once they moved."""
         out: Dict[str, Any] = dict(role=self.role, jobs_processed=self.jobs_processed,
                                    jobs_failed=self.jobs_failed,
                                    jobs_handed_off=self.jobs_handed_off,
@@ -244,200 +188,11 @@ class TorchWorker:
         for name in ("handoffs_fallback", "handoff_bytes", "jobs_adopted"):
             if getattr(self, name):
                 out[name] = getattr(self, name)
-        if self._handoff_ms:
-            vals = sorted(self._handoff_ms)
-            out["handoff_ms_p50"] = round(vals[len(vals) // 2], 3)
-            out["handoff_ms_p95"] = round(vals[min(len(vals) - 1, int(len(vals) * 0.95))], 3)
+        out.update(self._handoff_percentiles())
         return out
 
-    async def _drain_with_handoff(self) -> None:
-        """Deliveries stop without requeue; the engine hands every request
-        it holds back as a snapshot, which the jobs' handlers republish;
-        then the jobs settle, for at most ``drain_timeout_s``."""
-        for tag in self._tags:
-            await self.broker.cancel(tag, requeue=False)
-        loop = asyncio.get_running_loop()
-        handoffs = await loop.run_in_executor(None, self.engine.handoff)
-        if handoffs:
-            logger.info("Drained %d in-flight request(s) as resumable snapshots",
-                        len(handoffs))
-        try:
-            await asyncio.wait_for(self._idle.wait(), timeout=self.drain_timeout_s)
-        except asyncio.TimeoutError:
-            logger.warning("worker %s: timed out draining %d in-flight jobs",
-                           self.worker_id, self._in_flight)
-        logger.info("worker %s stopped (processed=%d handed off=%d failed=%d)",
-                    self.worker_id, self.jobs_processed, self.jobs_handed_off,
-                    self.jobs_failed)
-        logger.info("worker stats %s", json.dumps(self.stats()))
-
-    # --- the hot loop -----------------------------------------------------
-    async def _process_message(self, message: DeliveredMessage) -> None:
-        self._in_flight += 1
-        self._idle.clear()
-        try:
-            await self._settle_message(message)
-        finally:
-            self._in_flight -= 1
-            if self._in_flight == 0:
-                self._idle.set()
-
-    async def _settle_message(self, message: DeliveredMessage) -> None:
-        start = clock.monotonic()
-        try:
-            job = Job.model_validate_json(message.body)
-        except Exception as exc:  # malformed payload: dead-letter, never requeue
-            logger.error("Unparseable job dead-lettered: %s", exc)
-            self.jobs_failed += 1
-            await self.broker.publish(
-                self.queue + FAILED_SUFFIX, message.body,
-                message_id=message.message_id,
-                headers={"x-failure-reason": "unparseable", "x-error": str(exc)[:500]},
-            )
-            await message.ack()
-            self._note_settled()
-            return
-        if self.role == "prefill" and isinstance(job.extras().get(RESUME_FIELD), dict):
-            # Resume state means the prompt KV exists already: on to the
-            # decode pool untouched, not prefilled again (base.py:682).
-            await self._forward_to_decode(message)
-            self._note_settled()
-            return
-        try:
-            out = await self._process_job(job)
-            duration_ms = (clock.monotonic() - start) * 1000
-            result = self._build_result(job, out, duration_ms)
-            offset = resume_offset(job.extras())
-            if self._dedup.seen(job.id, offset):
-                # Redelivered after its result went out: settle silently.
-                logger.info("Suppressing duplicate result for job %s (offset %d)",
-                            job.id, offset)
-            else:
-                await self.broker.publish(
-                    results_queue_name(self.queue),
-                    result.model_dump_json().encode("utf-8"),
-                    message_id=result.id,
-                )
-                self._dedup.record(job.id, offset)
-            await message.ack()
-            self.jobs_processed += 1
-        except DeadlineExceeded:
-            await self._dead_letter_deadline(message)
-        except PrefillDone as exc:
-            # The prefill boundary: forward progress, not a failure.
-            await self._handoff_to_decode(job, message, exc)
-        except JobHandoff as exc:
-            await self._republish_for_resume(job, message, exc)
-        except ValueError as exc:
-            # Semantically invalid job: retrying can't fix it.
-            logger.error("Job %s invalid, dropping: %s", job.id, exc)
-            self.jobs_failed += 1
-            await message.ack()
-        except Exception as exc:  # noqa: BLE001 — transient: requeue
-            logger.warning("Job %s failed (delivery %d), requeueing: %s",
-                           job.id, message.delivery_count, exc)
-            self.jobs_failed += 1
-            if self.engine.error is not None:
-                await self._stop_on_engine_failure()
-            await message.reject(requeue=True)
-            return
-        self._note_settled()
-
-    async def _dead_letter_deadline(self, message: DeliveredMessage) -> None:
-        """File a job whose deadline passed on ``<queue>.failed`` as
-        ``deadline_exceeded`` (``base.py:541-571``)."""
-        self.jobs_deadline_exceeded += 1
-        headers = dict(message.headers or {})
-        headers.update({"x-error": "deadline_exceeded", "x-failure-reason": "deadline_exceeded",
-                        "x-worker-id": self.worker_id,
-                        "x-delivery-count": message.delivery_count})
-        headers.setdefault("x-death-queue", self.queue)
-        try:
-            await self.broker.publish(self.queue + FAILED_SUFFIX, message.body,
-                                      message_id=message.message_id, headers=headers)
-        finally:
-            await message.ack()
-
-    async def _republish_for_resume(self, job: Job, message: DeliveredMessage,
-                                    exc: JobHandoff) -> None:
-        """Publish a handed-off job back to the queue with its snapshot
-        under ``RESUME_FIELD``, then ack the delivery (``base.py:878-930``):
-        until the ack the original survives, and the deduper suppresses a
-        double publish. A snapshot-less handoff requeues the original."""
-        if exc.snapshot_b64 is None:
-            await message.reject(requeue=True)
-            return
-        payload = json.loads(message.body)
-        payload[RESUME_FIELD] = {"snapshot": exc.snapshot_b64, "offset": exc.emitted}
-        try:
-            body = json.dumps(payload).encode("utf-8")
-            # Resume blobs share the host-memory budget: accounted, never
-            # refused (a refusal would strand a request mid-drain).
-            get_governor().note_resume_blob(len(body))
-            # A decode worker's requests stay in the decode pool: the shared
-            # queue would hand KV-complete work back to prefill workers.
-            target = decode_queue_name(self.queue) if self.role == "decode" else self.queue
-            await self.broker.publish(target, body, message_id=job.id)
-        except Exception:  # noqa: BLE001 — transport down mid-shutdown
-            logger.warning("Resume republish failed for job %s; requeueing plain", job.id,
-                           exc_info=True)
-            await message.reject(requeue=True)
-            return
-        self.jobs_handed_off += 1
-        logger.info("Job %s handed off with %d tokens generated", job.id, exc.emitted)
-        await message.ack()
-
-    async def _forward_to_decode(self, message: DeliveredMessage) -> None:
-        """Move a resume-carrying job off a prefill worker onto the decode
-        pool, payload untouched."""
-        try:
-            await self.broker.publish(decode_queue_name(self.queue), message.body,
-                                      message_id=message.message_id, headers=message.headers)
-        except Exception:  # noqa: BLE001 — transport down: redeliver
-            logger.warning("Forward to the decode pool failed; requeueing", exc_info=True)
-            await message.reject(requeue=True)
-            return
-        await message.ack()
-
-    async def _handoff_to_decode(self, job: Job, message: DeliveredMessage,
-                                 exc: PrefillDone) -> None:
-        """Settle a prefill-complete job into the decode pool (``base.py:
-        979-1050``, the snapshot road): the prompt-KV snapshot rides under
-        ``RESUME_FIELD`` (offset 0: no output token was kept) with a
-        wall-clock ``handoff_at`` stamp, published to ``<queue>.decode``
-        before the ack, so a crash between the two leaves the original to
-        redeliver and the deduper collapses the double."""
-        payload = json.loads(message.body)
-        payload[RESUME_FIELD] = {"snapshot": exc.snapshot_b64, "offset": 0,
-                                 "handoff_at": clock.wall()}
-        body = json.dumps(payload).encode("utf-8")
-        get_governor().note_resume_blob(len(body))
-        try:
-            await self.broker.publish(decode_queue_name(self.queue), body, message_id=job.id)
-        except Exception:  # noqa: BLE001 — transport down
-            logger.warning("Decode-pool republish failed for job %s; requeueing plain", job.id,
-                           exc_info=True)
-            await message.reject(requeue=True)
-            return
-        self.handoffs_fallback += 1
-        self.handoff_bytes += len(body)
-        await message.ack()
-
-    async def _stop_on_engine_failure(self) -> None:
-        """Stop taking jobs (no redelivery loop into a dead engine); the
-        in-flight ones requeue as their handlers fail."""
-        if self.error is not None:
-            return
-        self.error = self.engine.error
-        logger.error("worker %s: engine failed, stopping: %r", self.worker_id, self.error)
-        for tag in self._tags:
-            await self.broker.cancel(tag, requeue=False)
-        self.request_shutdown()
-
-    def _note_settled(self) -> None:
-        self._settled += 1
-        if self.max_jobs is not None and self._settled >= self.max_jobs:
-            self.request_shutdown()
+    def _engine_stats(self) -> Optional[dict]:
+        return self.engine.stats()
 
     def _sampling_for(self, job: Job) -> SamplingParams:
         """Structured ``job.sampling`` wins, loose extra fields fall back,
@@ -468,7 +223,7 @@ class TorchWorker:
         try:
             return snapshot_from_wire(resume["snapshot"])
         except SnapshotError as exc:
-            logger.warning("Job %s resume snapshot unusable (%s); re-running from scratch",
+            self.logger.warning("Job %s resume snapshot unusable (%s); re-running from scratch",
                            job.id, exc)
             return None
 
@@ -497,7 +252,7 @@ class TorchWorker:
                 self.jobs_resumed += 1
             except SnapshotError as exc:
                 # A valid blob for another engine (model signature, KV dtype).
-                logger.warning("Job %s snapshot not insertable (%s); re-running from scratch",
+                self.logger.warning("Job %s snapshot not insertable (%s); re-running from scratch",
                                job.id, exc)
         if out is None:
             if job.priority_class == "interactive":
@@ -533,31 +288,16 @@ class TorchWorker:
         return out
 
     def _build_result(self, job: Job, out: RequestOutput, duration_ms: float) -> Result:
-        """Result with extra-field passthrough. Built dict-first so a job
-        extra named like a Result field is kept as ``job_<name>``."""
-        payload = dict(job.extras())
-        # The spent resume blob stays out of the result; its offset stays.
-        resume = payload.pop(RESUME_FIELD, None)
-        if isinstance(resume, dict):
-            payload["resume_offset"] = resume_offset({RESUME_FIELD: resume})
-        reserved = {
-            "id": job.id,
-            "prompt": job.get_formatted_prompt() if job.prompt is not None else "",
-            "result": out.text,
-            "worker_id": self.worker_id,
-            "duration_ms": duration_ms,
-        }
-        for key in (*reserved, "timestamp", "usage"):
-            if key in payload:
-                payload[f"job_{key}"] = payload.pop(key)
-        payload.update(reserved)
-        result = Result.model_validate(payload)
+        """The base worker's result over the output's text, with the
+        usage, the finish reason and, under ``result_digest``, the token
+        ids and their digest."""
+        result = super()._build_result(job, out.text, duration_ms)
         result.usage = {
             "prompt_tokens": out.prompt_tokens,
             "completion_tokens": out.completion_tokens,
         }
         result.finish_reason = out.finish_reason
-        if self.result_digest:  # tpu_worker.py:1399
+        if self.config.result_digest:  # tpu_worker.py:1399
             result.token_ids = list(out.token_ids)
             result.token_digest = token_fold(out.token_ids)
         return result

@@ -1206,3 +1206,69 @@ def test_prefix_demote_promote_round_trip_is_bit_exact(cuda_device):
         idx = torch.tensor([page], device=cuda_device)
         assert np.array_equal(pages_to_host(core.k_pages, idx), before[h][0])
         assert np.array_equal(pages_to_host(core.v_pages, idx), before[h][1])
+
+
+def test_torch_worker_under_chaos_on_the_card_equals_its_memory_serve(cuda_device):
+    """M6's first part on the card: a ``TorchWorker`` over
+    ``chaos+memory://`` (connection kills, duplicate deliveries) answers
+    every job with the token ids the same worker gives over plain
+    ``memory://``; the session reconnected. f32, the exact routes."""
+    import asyncio
+    import json
+
+    from llmq_tpu_torch.broker.manager import BrokerManager
+    from llmq_tpu_torch.broker.memory import reset_namespace
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.core.models import Job
+    from llmq_tpu_torch.engine.engine import AsyncEngine, EngineConfig, EngineCore
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+    cfg = ModelConfig.tiny(vocab_size=320, hidden_size=256, num_layers=2, num_heads=4,
+                           num_kv_heads=2, intermediate_size=320)  # head_dim 64
+
+    jobs = [Job(id=f"g{i}", prompt=f"card chaos {i} " * (1 + i % 3), temperature=0.0,
+                max_tokens=6, ignore_eos=True) for i in range(10)]
+
+    async def serve(ns, url, engine):
+        plain = BrokerManager(Config(broker_url=f"memory://{ns}", max_redeliveries=1000))
+        await plain.connect()
+        await plain.setup_queue_infrastructure("gq")
+        for job in jobs:
+            await plain.publish_job("gq", job)
+        worker = TorchWorker("gq", engine, concurrency=8, config=Config(
+            broker_url=url, max_redeliveries=1000, reconnect_base_delay_s=0.01,
+            reconnect_max_delay_s=0.05, result_digest=True))
+        task = asyncio.create_task(worker.run())
+        got = {}
+        while len(got) < len(jobs):
+            assert not task.done()
+            msg = await plain.broker.get("gq.results")
+            if msg is None:
+                await asyncio.sleep(0.01)
+                continue
+            r = json.loads(msg.body)
+            got.setdefault(r["id"], r["token_ids"])
+            await msg.ack()
+        reconnects = worker.broker.session_stats.reconnects
+        worker.request_shutdown()
+        await asyncio.wait_for(task, 60)
+        await plain.disconnect()
+        reset_namespace(ns)
+        return got, reconnects
+
+    runs = []
+    for ns, url in (("card-plain", "memory://card-plain"),
+                    ("card-chaos", "chaos+memory://card-chaos?kill_every=7&dup_every=3&seed=5")):
+        # An engine a worker: a worker's drain hands its engine off.
+        engine = AsyncEngine(EngineCore(
+            cfg, init_params(cfg, torch.Generator().manual_seed(0), torch.float32),
+            ByteTokenizer(), device=cuda_device, engine_config=EngineConfig(
+                max_num_seqs=8, max_model_len=128, page_size=16, num_pages=80,
+                kv_dtype="float32")))
+        try:
+            runs.append(asyncio.run(serve(ns, url, engine)))
+        finally:
+            engine.shutdown()
+    (plain_tokens, _), (chaos_tokens, reconnects) = runs
+    assert chaos_tokens == plain_tokens and reconnects >= 1

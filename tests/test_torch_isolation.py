@@ -70,7 +70,9 @@ def test_importing_every_module_loads_no_jax():
 #: packages the GPU machine does not promise, and the modules that must do without
 OPTIONAL = ("safetensors", "transformers", "click", "aio_pika")
 WORKER_PATH = ("engine/weights.py", "broker/tcp.py", "cli/main.py", "cli/worker.py",
-               "__main__.py", "workers/torch_worker.py")
+               "__main__.py", "workers/torch_worker.py", "workers/base.py",
+               "broker/manager.py", "broker/resilient.py", "broker/filebroker.py",
+               "broker/chaos.py")
 
 
 def test_loader_broker_and_cli_need_no_optional_package():
@@ -86,6 +88,8 @@ def test_loader_broker_and_cli_need_no_optional_package():
     code = (
         "import sys\n"
         "import llmq_tpu_torch.cli.main, llmq_tpu_torch.cli.worker, llmq_tpu_torch.broker.tcp\n"
+        "import llmq_tpu_torch.broker.manager, llmq_tpu_torch.broker.filebroker\n"
+        "import llmq_tpu_torch.broker.chaos, llmq_tpu_torch.workers.base\n"
         "import llmq_tpu_torch.engine.weights\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {OPTIONAL!r}]\n"
         "print(bad)\n"

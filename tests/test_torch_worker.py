@@ -17,7 +17,7 @@ import torch
 from llmq_tpu_torch.broker.base import make_broker
 from llmq_tpu_torch.broker.memory import reset_namespace
 from llmq_tpu_torch.cli.worker import build_engine, engine_config, run_torch_worker
-from llmq_tpu_torch.core.config import Config, get_config
+from llmq_tpu_torch.core.config import Config, get_config, refuse_unported
 from llmq_tpu_torch.core.models import Job
 from llmq_tpu_torch.engine.sampling import SamplingParams
 from llmq_tpu_torch.models.presets import get_preset
@@ -241,26 +241,55 @@ def test_worker_engine_config_matches_the_jax_worker(monkeypatch, env, flags):
 
 
 def _start_worker_engine():
-    """What ``run_torch_worker`` does before it serves: check the role,
-    then build the engine."""
-    worker_role(get_config())
+    """What ``run_torch_worker`` does before it serves: check the role and
+    the settings of unported features, then build the engine."""
+    cfg = get_config()
+    worker_role(cfg)
+    refuse_unported(cfg)
     return build_engine("preset://tiny", **ENGINE)
+
+
+#: an unported feature's variable -> its "off" (default) value
+UNPORTED_OFF = {"LLMQ_TP_OVERLAP": "off", "LLMQ_WORKER_ROLE": "unified",
+                "LLMQ_PREFIX_AFFINITY": "0", "LLMQ_ROLE_DWELL_S": "60",
+                "LLMQ_ROLE_SWITCH_HI": "2.0", "LLMQ_ROLE_SWITCH_LO": "0.5",
+                "LLMQ_ROLE_CHECK_INTERVAL_S": "5", "LLMQ_HANDOFF_TIMEOUT_S": "2",
+                "LLMQ_PEER_SERVE_CONCURRENCY": "2", "LLMQ_SERVE_PORT": "8100"}
 
 
 @pytest.mark.parametrize("var,value,item", [
     ("LLMQ_TP_OVERLAP", "on", "M13"),
     ("LLMQ_WORKER_ROLE", "auto", "M6"),
+    ("LLMQ_PREFIX_AFFINITY", "1", "M6"),
+    ("LLMQ_ROLE_DWELL_S", "10", "M6"),
+    ("LLMQ_ROLE_SWITCH_HI", "3", "M6"),
+    ("LLMQ_ROLE_SWITCH_LO", "0.2", "M6"),
+    ("LLMQ_ROLE_CHECK_INTERVAL_S", "1", "M6"),
+    ("LLMQ_HANDOFF_TIMEOUT_S", "5", "M6"),
+    ("LLMQ_PEER_SERVE_CONCURRENCY", "4", "M6"),
+    ("LLMQ_SERVE_PORT", "9000", "M16"),
 ])
 def test_worker_refuses_unported_env_features(monkeypatch, var, value, item):
     """A variable that turns on a feature the port lacks is refused with
     its ROADMAP.md item, never ignored; set to its "off" value it is not.
     (``LLMQ_PREFIX_HOST_GB``, once refused here, is ported: M11b.)"""
-    for name in ENGINE_VARS:
+    for name in ENGINE_VARS + tuple(UNPORTED_OFF):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         _start_worker_engine()
-    monkeypatch.setenv(var, {"LLMQ_WORKER_ROLE": "unified"}.get(var, "off"))
+    monkeypatch.setenv(var, UNPORTED_OFF[var])
+    _start_worker_engine().shutdown()
+
+
+@pytest.mark.parametrize("var,value", [("LLMQ_CHUNK_SIZE", "50")])
+def test_worker_ignores_client_only_variables(monkeypatch, var, value):
+    """A variable that only the client reads (submit's chunk size) changes
+    nothing a worker does in either package, so a worker sharing the
+    client's ``.env`` starts as the reference's does."""
+    for name in ENGINE_VARS + tuple(UNPORTED_OFF):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv(var, value)
     _start_worker_engine().shutdown()
 
 
