@@ -97,7 +97,8 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    their launches in phase 11 (a) (``snapshot_launches``); K1-K4's add
    their launches in phase 12 (``prefix_kv_launches``: K3, K4 in (a), K1,
    K2 in (c)'s in-process run), and phase 13 (a)'s
-   (``failure_policy_launches``). Printed last, after phases 8-13.
+   (``failure_policy_launches``), and phase 14's (``pipeline_launches``).
+   Printed last, after phases 8-14.
 8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
    same seed) written as an HF checkpoint (config.json, two safetensors
    shards and their index, HF names, [out, in] weights) under ``build/``
@@ -206,6 +207,28 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    from the process's start, beside phase 9's. K1's and K2's records in
    the kernels line add their launches in (a)
    (``failure_policy_launches``).
+14. The client and a two-stage pipeline at full width, every part a
+   process of the port's command line: ``broker serve`` on a free local
+   port; a pipeline file (JSON, under ``OUT_DIR``) of two ``tpu`` stages
+   over ``preset://qwen2.5-3b`` (16 sequences, 512 positions; stage 1's
+   prompt ``{text}``, stage 2's a template over ``{result}`` and
+   ``{token_digest}``); a ``worker pipeline`` process per stage
+   (``LLMQ_RESULT_DIGEST=1``); phase 3's 16 prompts as JSONL rows
+   (greedy, 32 tokens) through ``submit -p`` and ``receive -p --limit
+   16``; then SIGTERM, and each worker must exit 0. Checked: 16 unique
+   ids and their extras; the token digest in each stage-2 prompt is that
+   of the first 32 tokens of phase 3's run or of its solo run, and
+   ``previous_result`` their text; each stage-2 prompt is the port's
+   ``build_next_stage_job`` of that result; stage 2's token ids equal a
+   run of the port's engine in this process on those prompts, all
+   waiting at once or each prefilled alone, or part from the solo run at
+   a near-tie (the witness of phase 11 (b)), and each solo row parts
+   from the batch run at a near-tie; each stage worker's ``worker stats`` line shows K1 and K2
+   launched on the tensor-core route only and no other kernel (logs
+   ``pipeline_*.log``). Printed: the wall time from the start of
+   ``submit`` to the 16th result, each stage's completion tok/s over its
+   busy span. K1's and K2's records in the kernels line add each stage
+   worker's launches (``pipeline_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -240,7 +263,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
 ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
-              "fused", "snapshot", "prefix_kv", "failure_policy")
+              "fused", "snapshot", "prefix_kv", "failure_policy", "pipeline")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -3126,10 +3149,18 @@ def _log_has(path: str, text: str) -> bool:
 
 
 def _worker_stats(log_path: str) -> dict:
-    """The ``worker stats`` line a worker process logs as it stops."""
+    """The ``worker stats`` line a worker process logs as it stops, from a
+    log of plain lines (``worker run``) or of JSON records (``worker
+    pipeline``, ``utils/logging.py``)."""
     with open(log_path) as f:
-        lines = [ln for ln in f if "worker stats " in ln]
-    return json.loads(lines[-1].split("worker stats ", 1)[1]) if lines else {}
+        for line in reversed(f.readlines()):
+            try:
+                line = json.loads(line)["message"]
+            except (ValueError, KeyError, TypeError):
+                pass
+            if "worker stats " in line:
+                return json.loads(line.split("worker stats ", 1)[1])
+    return {}
 
 
 def _prefix_kv_disagg(smi, cfg, params, serve_tokens, solo_tokens) -> dict:
@@ -3671,6 +3702,249 @@ def phase_failure_policy(smi: str, serve_tokens: dict, solo_tokens: dict,
     return launches
 
 
+# --- phase 14: the client and a two-stage pipeline at full width -------------
+
+# ``{token_digest}`` (``LLMQ_RESULT_DIGEST=1``) carries stage 1's token ids
+# into stage 2's prompt: random weights emit mostly ids past 256, which the
+# byte tokenizer's text drops, so ``{result}`` alone would not tell them.
+PIPELINE_FORMAT = ("Format the following translation as clean markdown:\n\n{result}\n\n"
+                   "(stage 1 tokens {token_digest})")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_listening(port: int, proc: subprocess.Popen, timeout: float = 60) -> None:
+    import socket
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and proc.poll() is None:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            time.sleep(0.1)
+    raise SystemExit(f"pipeline phase: `broker serve` is not listening on {port}")
+
+
+def _read_lines(stream, lines: list) -> None:
+    for line in stream:
+        lines.append((time.perf_counter(), line))
+
+
+def phase_pipeline(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
+    """Phase 14: the port's ``broker serve``, two ``worker pipeline``
+    processes (one a stage of a two-stage pipeline of ``tpu`` workers over
+    qwen2.5-3b), ``submit -p`` of phase 3's 16 prompts (32 tokens) and
+    ``receive -p --limit 16``, each a process of the port's command line.
+    Returns each stage worker's K1 and K2 launches."""
+    from llmq_tpu_torch.broker.manager import BrokerManager
+    from llmq_tpu_torch.core.models import Result
+    from llmq_tpu_torch.core.pipeline import load_pipeline_config
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+    from llmq_tpu_torch.utils.hashing import token_fold
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_jobs, gen, stages = 16, 32, ("translate", "format")
+    engine_cfg = {"model": "preset://qwen2.5-3b", "max_num_seqs": 16, "max_model_len": 512}
+    pipe_path = os.path.join(OUT_DIR, "smoke-pipeline.json")
+    with open(pipe_path, "w") as f:
+        json.dump({"name": "smoke-pipeline", "stages": [
+            {"name": stages[0], "worker": "tpu", "config": dict(engine_cfg, prompt="{text}")},
+            {"name": stages[1], "worker": "tpu",
+             "config": dict(engine_cfg, prompt=PIPELINE_FORMAT)}]}, f)
+    jobs = _default_jobs(n_jobs, gen)
+    rows_path = os.path.join(OUT_DIR, "smoke-pipeline-rows.jsonl")
+    with open(rows_path, "w") as f:
+        for j in jobs:
+            f.write(json.dumps(dict(id=j.id, text=j.prompt, **j.extras())) + "\n")
+    pipeline = load_pipeline_config(pipe_path)
+    port = _free_port()
+    url = f"tcp://127.0.0.1:{port}"
+    penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1", LLMQ_RESULT_DIGEST="1")
+    cli = [sys.executable, "-m", "llmq_tpu_torch"]
+    logs = {name: os.path.join(OUT_DIR, f"pipeline_{name}.log")
+            for name in ("broker", *stages, "submit", "receive")}
+    free_before = torch.cuda.mem_get_info()[0]
+    procs, problems, lines = {}, [], []
+    try:
+        with open(logs["broker"], "w") as log:
+            procs["broker"] = subprocess.Popen(
+                cli + ["broker", "serve", "--host", "127.0.0.1", "--port", str(port)],
+                cwd=root, env=penv, stdout=log, stderr=subprocess.STDOUT)
+        _wait_listening(port, procs["broker"])
+        t_start = time.perf_counter()
+        for name in stages:
+            with open(logs[name], "w") as log:
+                procs[name] = subprocess.Popen(cli + ["worker", "pipeline", pipe_path, name],
+                                               cwd=root, env=penv, stdout=log,
+                                               stderr=subprocess.STDOUT)
+        for name in stages:
+            while not _log_has(logs[name], "consuming"):
+                if procs[name].poll() is not None or time.perf_counter() - t_start > 300:
+                    raise SystemExit(f"pipeline phase: the {name} worker did not start "
+                                     f"(log: {logs[name]})")
+                time.sleep(0.2)
+        ready_s = time.perf_counter() - t_start
+        with open(logs["receive"], "w") as err:
+            procs["receive"] = subprocess.Popen(
+                cli + ["receive", "-p", pipe_path, "--limit", str(n_jobs)], cwd=root, env=penv,
+                stdout=subprocess.PIPE, stderr=err, text=True)
+        reader = threading.Thread(target=_read_lines, args=(procs["receive"].stdout, lines),
+                                  daemon=True)
+        reader.start()
+        t0 = time.perf_counter()
+        with open(logs["submit"], "w") as log:
+            submit_rc = subprocess.run(cli + ["submit", "-p", pipe_path, rows_path], cwd=root,
+                                       env=penv, stdout=log, stderr=subprocess.STDOUT,
+                                       timeout=300).returncode
+        submit_s = time.perf_counter() - t0
+        if submit_rc != 0:
+            raise SystemExit(f"pipeline phase: submit exited {submit_rc} (log: {logs['submit']})")
+        try:
+            receive_rc = procs["receive"].wait(600)
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"pipeline phase: {len(lines)} of {n_jobs} results in 600 s "
+                             f"(logs: {OUT_DIR}/pipeline_*.log)") from None
+        reader.join(10)
+        rcs = {name: _stop(procs[name], signal.SIGTERM, 120) for name in stages}
+    finally:
+        for proc in procs.values():
+            _stop(proc, signal.SIGKILL, 10)
+    results = [json.loads(line) for _, line in lines]
+    wall = lines[-1][0] - t0 if lines else float("nan")
+    worker_stats = {name: _worker_stats(logs[name]) for name in stages}
+
+    if receive_rc != 0 or len(results) != n_jobs:
+        problems.append(f"receive exited {receive_rc} with {len(results)} results")
+    if rcs != {name: 0 for name in stages}:
+        problems.append(f"stage worker exit codes on SIGTERM: {rcs}")
+    problems += _check_results(results, n_jobs, gen)
+    by_id = {r["id"]: r for r in results}
+    if sorted(by_id) != sorted(j.id for j in jobs):
+        problems.append(f"result ids {sorted(by_id)}")
+    tok = ByteTokenizer()
+    stage1_shapes, jobs2 = [], []
+    for j in jobs:
+        r = by_id.get(j.id)
+        if r is None:
+            continue
+        for key, value in dict(text=j.prompt, **j.extras()).items():
+            if r.get(key) != value:
+                problems.append(f"{j.id}: extra {key} = {r.get(key)!r}, want {value!r}")
+        # Stage 1's token ids reach the final result only as their digest
+        # in stage 2's prompt: phase 3's first ``gen`` or its solo run's.
+        shape = next((name for name, ref in (("batch", serve_tokens), ("solo", solo_tokens))
+                      if f"tokens {token_fold(ref[j.id][:gen])})" in r["prompt"]), None)
+        stage1_shapes.append(shape)
+        if shape is None:
+            problems.append(f"{j.id}: stage 1's token ids are neither phase 3's first {gen} "
+                            f"nor its solo run's")
+            continue
+        ids1 = (serve_tokens if shape == "batch" else solo_tokens)[j.id][:gen]
+        if r.get("previous_result") != tok.decode(ids1):
+            problems.append(f"{j.id}: previous_result is not the text of stage 1's tokens")
+        # The stage-1 result as the translate worker built it, for the
+        # port's own hand-off to stage 2.
+        stage1 = Result(id=j.id, prompt=j.prompt, result=tok.decode(ids1), worker_id="stage-1",
+                        duration_ms=0.0, token_ids=ids1, token_digest=token_fold(ids1),
+                        text=j.prompt, **j.extras())
+        job2 = BrokerManager.build_next_stage_job(stage1, pipeline.stages[1])
+        if job2.get_formatted_prompt() != r["prompt"]:
+            problems.append(f"{j.id}: stage 2's prompt is not build_next_stage_job's")
+        if r["result"] != tok.decode(r.get("token_ids") or []):
+            problems.append(f"{j.id}: the result's text is not its token ids' text")
+        jobs2.append(job2)
+
+    # Stage 2's tokens against the engine in this process on the same
+    # prompts: all waiting at once (4-row prefills), then each prefilled
+    # alone. A worker process takes its jobs as stage 1 publishes them, so
+    # a row may take either shape; a row equal to neither must part from
+    # the solo run at a near-tie, as must each solo row from the batch run.
+    cfg = get_preset("qwen2.5-3b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+                         device=torch.device("cuda"))
+    core = _snapshot_engine(params, cfg)
+    for j in jobs2:
+        core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+    batch2 = {rid: list(o.token_ids) for rid, o in _step_to_end(core, {}).items()}
+    outs: dict = {}
+    for j in jobs2:
+        core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+        outs.update({o.rid: o for o in core.step()})
+    solo2 = {rid: list(o.token_ids) for rid, o in _step_to_end(core, outs).items()}
+    got2 = {j.id: by_id[j.id].get("token_ids") for j in jobs2}
+    stage2_shapes = [next((name for name, ref in (("batch", batch2), ("solo", solo2))
+                           if got2[j.id] == ref[j.id]), None) for j in jobs2]
+    neither = [j for j, shape in zip(jobs2, stage2_shapes) if shape is None]
+    solo_parting = _parting_witness(core, jobs2, solo2, batch2)
+    parting = _parting_witness(core, neither, got2, solo2)
+    for what, witnessed in (("the solo run", solo_parting), ("both runs", parting)):
+        for rid, w in witnessed.items():
+            if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
+                    or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS):
+                problems.append(f"stage 2 {rid} ({what}) parts at {w['position']} at no "
+                                f"near-tie: ranks {w['phase3_rank']} / {w['recompute_rank']}, "
+                                f"gap {w['gap']} ({w['gap_bf16_steps']} bf16 steps)")
+    del core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {}
+    on_path = {KERNEL_COUNTERS[k][1]: k for k in ("paged_decode", "flash_prefill")}
+    for name in stages:
+        kl = worker_stats[name].get("kernel_launches", {})  # by wrapper name
+        launches[name] = {k: kl.get(w, {}).get("launches", 0) for w, k in on_path.items()}
+        for w, k in on_path.items():
+            entry = kl.get(w)
+            if not entry or entry["tensor_core"] != entry["launches"] or entry["exact"]:
+                problems.append(f"{name} worker: {k} launches {entry} (want all on the "
+                                f"tensor-core route)")
+        off_path = sorted(set(kl) - set(on_path))
+        if off_path:
+            problems.append(f"{name} worker: kernels off the default path launched: {off_path}")
+        if worker_stats[name].get("jobs_processed") != n_jobs:
+            problems.append(f"{name} worker: {worker_stats[name]}")
+    rate = {name: (worker_stats[name]["completion_tokens"] / worker_stats[name]["busy_s"]
+                   if worker_stats[name].get("busy_s") else None) for name in stages}
+    rec = dict(phase="pipeline", broker=url, pipeline=pipeline.name, jobs=len(results),
+               unique=len(by_id), submit_to_16th_result_s=wall, submit_process_s=submit_s,
+               workers_ready_s=ready_s, stage_completion_tok_s=rate,
+               stage_busy_s={name: worker_stats[name].get("busy_s") for name in stages},
+               stage1_equal_batch_run=stage1_shapes.count("batch"),
+               stage1_prefilled_solo=stage1_shapes.count("solo"),
+               stage2_equal_batch_run=stage2_shapes.count("batch"),
+               stage2_equal_solo_run=stage2_shapes.count("solo"),
+               stage2_solo_parts_from_batch={rid: w["position"]
+                                             for rid, w in solo_parting.items()},
+               stage2_parting_from_both={rid: w["position"] for rid, w in parting.items()},
+               stage2_max_gap_bf16_steps=max((w["gap_bf16_steps"] for w in
+                                              (*solo_parting.values(), *parting.values())),
+                                             default=0),
+               worker_exit_codes=rcs, worker_stats=worker_stats,
+               free_device_bytes_before=free_before, seconds=time.perf_counter() - t_phase,
+               stage2_distinct_prompts=len({j.get_formatted_prompt() for j in jobs2}),
+               timing="wall: from the start of the `submit -p` process to the 16th result line "
+                      "read from the `receive -p` process (a client process starts Python and "
+                      "imports no torch); "
+                      "stage tok/s: a worker's completion tokens over its span from its first "
+                      "job's start to its last result",
+               card=smi, problems=problems)
+    emit(rec)
+    if problems:
+        raise SystemExit("pipeline phase failed: " + "; ".join(problems[:5]))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3762,6 +4036,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         policy_launches = phase_failure_policy(smi, serve_tokens, solo_tokens, tcp_rec)
+    pipeline_launches = {}
+    if "pipeline" in phases:
+        if serve_tokens is None:
+            raise SystemExit("phase pipeline compares with the serve phase's tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipeline_launches = phase_pipeline(smi, serve_tokens, solo_tokens)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -3807,6 +4088,8 @@ def main() -> int:
             entry["prefix_kv_launches"] = prefix_kv_launches[name]
         if name in policy_launches:  # phase 13 (a): the worker under chaos
             entry["failure_policy_launches"] = policy_launches[name]
+        if name in ("paged_decode", "flash_prefill") and pipeline_launches:  # phase 14
+            entry["pipeline_launches"] = {stage: n[name] for stage, n in pipeline_launches.items()}
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",

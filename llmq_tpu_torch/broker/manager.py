@@ -8,10 +8,16 @@ TTL and redelivery caps, heartbeats peeked from ``<queue>.health``, job
 publishing with deadline stamping, the ``<queue>.interactive`` fast lane
 and deadline admission control, results, stats and the dead-letter queue.
 
+Pipelines: ``setup_pipeline_infrastructure`` declares every stage queue
+and the final results queue, and ``publish_pipeline_result`` routes a
+stage's result to the next stage as a job built by
+``build_next_stage_job`` (the next stage's own template over the
+previous output as ``{result}`` and every passthrough extra), or to
+``pipeline.<name>.results`` after the last stage.
+
 Left for later slices: the lifecycle trace the reference stamps into each
-published payload (``TRACE_FIELD``; ROADMAP.md queue 1, M16), pipelines
-(``setup_pipeline_infrastructure``, ``publish_pipeline_result``; M17),
-and prefix-affinity routing, the decode-peer discovery and the orphan
+published payload (``TRACE_FIELD``; ROADMAP.md queue 1, M16), and
+prefix-affinity routing, the decode-peer discovery and the orphan
 janitor (``affinity_targets``, ``decode_targets``,
 ``reclaim_orphaned_affinity_queues``, with the names of the per-worker
 queues they use; M6's second part, whose settings
@@ -39,6 +45,8 @@ from llmq_tpu_torch.broker.base import (
 from llmq_tpu_torch.broker.resilient import ResilientBroker, SessionStats
 from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import ErrorInfo, Job, QueueStats, Result, WorkerHealth, utcnow
+from llmq_tpu_torch.core.pipeline import PipelineConfig, PipelineStage
+from llmq_tpu_torch.core.template import resolve_template_string, resolve_template_value
 from llmq_tpu_torch.utils import clock
 
 logger = logging.getLogger(__name__)
@@ -157,6 +165,20 @@ class BrokerManager:
         # affinity is on or the role is not unified. The port creates no
         # per-worker queue for it to reclaim (M6's second part; prefix
         # affinity is refused by core/config.py::refuse_unported).
+
+    async def setup_pipeline_infrastructure(self, pipeline: PipelineConfig) -> None:
+        """Declare every stage queue (the job TTL and redelivery cap) with
+        its ``.failed``, and the single final results queue (cap 1e9)."""
+        for qname in pipeline.stage_queue_names():
+            await self.broker.declare_queue(
+                qname,
+                ttl_ms=self.config.job_ttl_ms,
+                max_redeliveries=self.config.max_redeliveries,
+            )
+            await self.broker.declare_queue(qname + FAILED_SUFFIX)
+        await self.broker.declare_queue(
+            pipeline.get_pipeline_results_queue_name(), max_redeliveries=1_000_000_000
+        )
 
     # --- worker heartbeats ------------------------------------------------
     async def get_worker_health(self, queue: str) -> Dict[str, WorkerHealth]:
@@ -291,6 +313,50 @@ class BrokerManager:
             result.model_dump_json().encode("utf-8"),
             message_id=result.id,
         )
+
+    async def publish_pipeline_result(
+        self, pipeline: PipelineConfig, stage_name: str, result: Result
+    ) -> None:
+        """Route a stage result: the last stage's to the pipeline's results
+        queue, any other's as the next stage's job (its template applied)."""
+        nxt = pipeline.next_stage(stage_name)
+        if nxt is None:
+            await self.broker.publish(
+                pipeline.get_pipeline_results_queue_name(),
+                result.model_dump_json().encode("utf-8"),
+                message_id=result.id,
+            )
+            return
+        job = self.build_next_stage_job(result, nxt)
+        await self.publish_job(pipeline.get_stage_queue_name(nxt.name), job)
+
+    @staticmethod
+    def build_next_stage_job(result: Result, next_stage: PipelineStage) -> Job:
+        """Result -> the next stage's Job, under the next stage's own
+        template. Its variables: every passthrough extra, ``{result}``
+        (the previous stage's output) and ``{prompt}`` (its formatted
+        prompt). With no template the previous output is the prompt. The
+        upstream output stays as ``previous_result`` (the first stage's
+        kept through later stages)."""
+        extras = {
+            k: v
+            for k, v in result.model_dump().items()
+            if k not in {"id", "prompt", "result", "worker_id", "duration_ms", "timestamp",
+                         "usage"}
+        }
+        template_vars: Dict[str, Any] = {**extras, "result": result.result,
+                                         "prompt": result.prompt}
+        payload: Dict[str, Any] = {"id": result.id, **extras}
+        messages_tpl = next_stage.messages_template()
+        prompt_tpl = next_stage.prompt_template()
+        if messages_tpl is not None:
+            payload["messages"] = resolve_template_value(messages_tpl, template_vars)
+        elif prompt_tpl is not None:
+            payload["prompt"] = resolve_template_string(prompt_tpl, template_vars)
+        else:
+            payload["prompt"] = result.result
+        payload.setdefault("previous_result", result.result)
+        return Job(**payload)
 
     # --- consume ----------------------------------------------------------
     async def consume_jobs(

@@ -25,18 +25,31 @@ redelivery cap, timeout, quarantine, breaker, reconnects) are read from
 the environment by ``core/config.py``; the settings of features the port
 lacks are refused before any weight is loaded. The command line is
 ``python -m llmq_tpu_torch worker run MODEL QUEUE`` (``cli/main.py``).
+
+The other launchers of ``llmq_tpu/cli/worker.py``: ``run_dummy_worker``
+(the echo worker), ``run_dedup_worker`` (the numpy dedup / filter worker)
+and ``run_pipeline_worker``, which serves one stage of a pipeline file
+with the worker its type names: ``tpu`` (or the reference's ``vllm``) a
+``TorchWorker`` over ``config.model`` with the stage's ``max_model_len``
+and ``max_num_seqs`` (the rest at the worker's defaults: bf16 on
+``device``), ``dummy`` a ``DummyWorker`` (``delay``), ``dedup`` (or
+``semhash``) a ``DedupWorker``; its results go on to the next stage's
+queue. These log JSON lines on stdout (``utils/logging.py``), as the
+reference's launchers do.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import sys
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from llmq_tpu_torch.core.config import Config, get_config, refuse_unported
+from llmq_tpu_torch.core.pipeline import load_pipeline_config
 from llmq_tpu_torch.device import DeviceLike, resolve_device
 from llmq_tpu_torch.engine.engine import AsyncEngine, EngineConfig, EngineCore
 from llmq_tpu_torch.engine.tokenizer import ByteTokenizer, HFTokenizer
@@ -44,6 +57,8 @@ from llmq_tpu_torch.engine.weights import load_checkpoint
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.models.presets import get_preset
 from llmq_tpu_torch.models.transformer import init_params
+from llmq_tpu_torch.utils.logging import setup_logging
+from llmq_tpu_torch.workers.base import BaseWorker
 from llmq_tpu_torch.workers.torch_worker import TorchWorker, worker_role
 
 logger = logging.getLogger(__name__)
@@ -231,3 +246,95 @@ def run_torch_worker(
     finally:
         engine.shutdown()
     return worker
+
+
+def run_dummy_worker(queue: str, *, concurrency: Optional[int] = None,
+                     delay: float = 1.0) -> None:
+    setup_logging(structured=True)
+    from llmq_tpu_torch.workers.dummy import DummyWorker
+
+    print(f"Starting dummy worker on queue '{queue}'", file=sys.stderr, flush=True)
+    _run(DummyWorker(queue, delay=delay, concurrency=concurrency))
+
+
+def run_dedup_worker(
+    queue: str,
+    *,
+    batch_size: int = 256,
+    mode: str = "dedup",
+    threshold: float = 0.9,
+    embedding: str = "lexical",
+    model: Optional[str] = None,
+    concurrency: Optional[int] = None,
+) -> None:
+    setup_logging(structured=True)
+    from llmq_tpu_torch.workers.dedup import DedupWorker
+
+    print(f"Starting dedup worker ({mode}, {embedding}) on queue '{queue}'", file=sys.stderr,
+          flush=True)
+    _run(DedupWorker(queue, batch_size=batch_size, mode=mode, threshold=threshold,
+                     embedding=embedding, model=model, concurrency=concurrency))
+
+
+def _refuse(message: str) -> None:
+    print(message, file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def run_pipeline_worker(config_path: str, stage: str, *, concurrency: Optional[int] = None,
+                        device: DeviceLike = "cuda") -> None:
+    """Serve one stage of a pipeline file with the worker its type names,
+    wired to route its results to the next stage, until a SIGINT /
+    SIGTERM stops it (the reference's ``run_pipeline_worker`` :130-180);
+    exits 1, as the reference does, for an unknown stage or worker type,
+    or a ``tpu`` stage without a model."""
+    setup_logging(structured=True)
+    pipeline = load_pipeline_config(config_path)
+    stage_cfg = pipeline.get_stage_by_name(stage)
+    if stage_cfg is None:
+        _refuse(f"Stage '{stage}' not in pipeline '{pipeline.name}' "
+                f"(stages: {[s.name for s in pipeline.stages]})")
+    queue = pipeline.get_stage_queue_name(stage)
+    common = dict(pipeline=pipeline, stage_name=stage, concurrency=concurrency)
+    if stage_cfg.worker in ("tpu", "vllm"):  # reference files may name vllm
+        model = stage_cfg.config.get("model")
+        if not model:
+            _refuse(f"Stage '{stage}' needs config.model")
+        config = get_config()
+        worker_role(config)
+        refuse_unported(config)
+        engine = build_engine(model, device=device,
+                              max_model_len=stage_cfg.config.get("max_model_len"),
+                              max_num_seqs=stage_cfg.config.get("max_num_seqs"))
+        worker: BaseWorker = TorchWorker(queue, engine, config=config, **common)
+    elif stage_cfg.worker == "dummy":
+        from llmq_tpu_torch.workers.dummy import DummyWorker
+
+        worker = DummyWorker(queue, delay=float(stage_cfg.config.get("delay", 1.0)), **common)
+    elif stage_cfg.worker in ("dedup", "semhash"):
+        from llmq_tpu_torch.workers.dedup import DedupWorker
+
+        worker = DedupWorker(
+            queue,
+            batch_size=int(stage_cfg.config.get("batch_size", 256)),
+            mode=stage_cfg.config.get("mode", "dedup"),
+            threshold=float(stage_cfg.config.get("threshold", 0.9)),
+            embedding=stage_cfg.config.get("embedding", "lexical"),
+            model=stage_cfg.config.get("model"),
+            **common,
+        )
+    else:
+        _refuse(f"Unknown worker type '{stage_cfg.worker}'")
+    print(f"Starting {stage_cfg.worker} worker for stage '{stage}' of pipeline "
+          f"'{pipeline.name}'", file=sys.stderr, flush=True)
+    _run(worker)
+
+
+def _run(worker: BaseWorker) -> None:
+    try:
+        asyncio.run(worker.run())
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if isinstance(worker, TorchWorker):
+            worker.engine.shutdown()

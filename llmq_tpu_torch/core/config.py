@@ -16,8 +16,8 @@ engine. Two of the reference's fields, ``priority_preempt`` and
 ``interactive_decode_block``, have no field here: the engine reads their
 variables itself over its own ``EngineConfig`` fields
 (``engine/engine.py::priority_settings``), as the reference's engine
-does. ``chunk_size`` is the client's (ROADMAP.md queue 1, M17): no
-worker of either package reads it. The fields of features the port does not have yet are in
+does. ``chunk_size`` is the client's (``cli/submit.py``): no worker of
+either package reads it. The fields of features the port does not have yet are in
 :data:`UNPORTED_FIELDS`: :func:`refuse_unported` raises
 ``NotImplementedError`` naming their ROADMAP.md item when one is set to
 anything but its default, so a worker never runs as if it were unset.
@@ -271,7 +271,7 @@ class Config(BaseModel):
     )
     chunk_size: int = Field(
         default_factory=lambda: _env_int("LLMQ_CHUNK_SIZE", default=10000),
-        description="Jobs submitted per publish chunk (the client's submit, M17; no worker "
+        description="Jobs submitted per publish chunk (the client's submit; no worker "
         "reads it).",
     )
     log_level: str = Field(

@@ -124,6 +124,15 @@ class Result(BaseModel):
 
     model_config = ConfigDict(extra="allow")
 
+    def verify_token_digest(self) -> Optional[bool]:
+        """Recompute the payload digest: None when the producing worker
+        attached none, else whether it matches the token ids."""
+        if self.token_digest is None or self.token_ids is None:
+            return None
+        from llmq_tpu_torch.utils.hashing import token_fold
+
+        return token_fold(self.token_ids) == self.token_digest
+
 
 class QueueStats(BaseModel):
     """Depth/consumer snapshot of one queue."""

@@ -166,6 +166,13 @@ def launch_counts() -> Dict[Any, Tuple[int, ...]]:
     return {w: tuple(getattr(w, c) for c in COUNTERS) for w in _counted}
 
 
+def kernel_launches() -> Dict[str, Dict[str, int]]:
+    """Each kernel this process launched, by its wrapper's name: its
+    ``launches`` and their split by route (``tensor_core``, ``exact``)."""
+    return {w.__name__: dict(zip(("launches", "tensor_core", "exact"), counts))
+            for w, counts in launch_counts().items() if counts[0]}
+
+
 def set_launch_counts(counts: Dict[Any, Tuple[int, ...]], add: bool = False) -> None:
     """Set (or, with ``add``, add to) the wrappers' :data:`COUNTERS`. A
     captured CUDA graph counts its kernels at capture and adds them on

@@ -1,10 +1,12 @@
-"""Content hashing of token pages: the prefix cache's page identity.
+"""Content hashing: the prefix cache's page identity, result digests, and
+the dedup worker's n-gram buckets.
 
-Port of ``llmq_tpu/utils/hashing.py`` (``chain_hash`` :33,
-``token_prefix_chain`` :51, ``token_fold`` :111). The digests are the wire identity of a KV
-prefix page across a fleet (the host tier and cross-worker shipping key
-on them), so they must stay byte-identical to the JAX package's: blake2b
-is keyless and process-stable, unlike Python's salted ``hash()``.
+Port of ``llmq_tpu/utils/hashing.py`` (``stable_bucket`` :26,
+``chain_hash`` :33, ``token_prefix_chain`` :51, ``token_fold`` :111).
+The page digests are the wire identity of a KV prefix page across a
+fleet (the host tier and cross-worker shipping key on them), so they
+must stay byte-identical to the JAX package's: blake2b is keyless and
+process-stable, unlike Python's salted ``hash()``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,13 @@ import hashlib
 from typing import List, Sequence
 
 CHAIN_DIGEST_SIZE = 16
+
+
+def stable_bucket(text: str, dim: int) -> int:
+    """Map ``text`` to a bucket in ``[0, dim)``, stable across processes
+    and PYTHONHASHSEED values (the dedup worker's n-gram embedding)."""
+    digest = hashlib.blake2b(text.encode("utf-8"), digest_size=8).digest()
+    return int.from_bytes(digest, "little") % dim
 
 
 def chain_hash(

@@ -5,14 +5,18 @@ A worker:
 
 1. initialises its processor, connects to the broker through a
    ``BrokerManager`` (a resilient session) and declares its queues as
-   ``setup_queue_infrastructure`` does, plus ``<queue>.health``;
+   ``setup_queue_infrastructure`` does (a pipeline stage's worker: every
+   queue of its pipeline, ``setup_pipeline_infrastructure``), plus
+   ``<queue>.health``;
 2. consumes the queues of its role (``<queue>`` and the
    ``<queue>.interactive`` fast lane, or ``<queue>.decode``) with prefetch
    = concurrency;
 3. per message: parse -> claim-time guards (a lapsed deadline, the
    quarantine backstop, a prefill worker forwarding resume state) ->
    process (under ``job_timeout_s``) -> Result (with extra-field
-   passthrough) -> publish once per ``(job id, resume offset)`` -> ack;
+   passthrough) -> publish once per ``(job id, resume offset)`` (a
+   pipeline stage's result goes on to the next stage's queue, or to the
+   pipeline's results after the last stage) -> ack;
 4. on a timeout or any other error: remember the reason, count it against
    the circuit breaker (``breaker_failures`` consecutive failures
    self-drain the worker), quarantine the job to ``<queue>.quarantine`` at
@@ -30,7 +34,7 @@ A worker:
 Left out until their slices, each place marked: the lifecycle trace and
 the heartbeat's ``metrics`` (ROADMAP.md queue 1, M16), the
 ``DeviceFaultError`` ladder and the watchdog / integrity heartbeat fields
-(M12), pipelines (M17), and prefix affinity, the adoption queue
+(M12), and prefix affinity, the adoption queue
 ``<queue>.d.<id>``, the direct offer to a decode peer and the ``auto``
 role's controller (M6's second part; their settings are refused by
 ``core/config.py::refuse_unported`` and :func:`worker_role`). Two things
@@ -61,6 +65,7 @@ from llmq_tpu_torch.broker.manager import (
 )
 from llmq_tpu_torch.core.config import Config, get_config, refuse_unported
 from llmq_tpu_torch.core.models import Job, Result, WorkerHealth, utcnow
+from llmq_tpu_torch.core.pipeline import PipelineConfig
 from llmq_tpu_torch.utils import clock
 from llmq_tpu_torch.utils.host_mem import get_governor
 from llmq_tpu_torch.workers.resume import (
@@ -110,6 +115,8 @@ class BaseWorker(abc.ABC):
         *,
         config: Optional[Config] = None,
         concurrency: Optional[int] = None,
+        pipeline: Optional[PipelineConfig] = None,
+        stage_name: Optional[str] = None,
         broker_url: Optional[str] = None,
     ) -> None:
         self.queue = queue
@@ -118,6 +125,8 @@ class BaseWorker(abc.ABC):
         self.role = worker_role(self.config)
         self.role_active = self.role
         self.concurrency = concurrency or self.config.queue_prefetch
+        self.pipeline = pipeline
+        self.stage_name = stage_name
         self.worker_id = self._generate_worker_id()
         self.logger = logging.LoggerAdapter(
             logging.getLogger(f"worker.{self.worker_id}"), {"worker_id": self.worker_id})
@@ -170,7 +179,10 @@ class BaseWorker(abc.ABC):
         # The reference starts its Prometheus exporter here (M16).
         await self._initialize_processor()
         await self.broker.connect()
-        await self.broker.setup_queue_infrastructure(self.queue)
+        if self.pipeline is not None:
+            await self.broker.setup_pipeline_infrastructure(self.pipeline)
+        else:
+            await self.broker.setup_queue_infrastructure(self.queue)
         # Heartbeats expire via TTL; the huge redelivery cap keeps repeated
         # non-destructive health peeks from ever dead-lettering them.
         await self.broker.broker.declare_queue(
@@ -595,7 +607,10 @@ class BaseWorker(abc.ABC):
         return Result.model_validate(payload)
 
     async def _publish_result(self, result: Result) -> None:
-        await self.broker.publish_result(self.queue, result)
+        if self.pipeline is not None and self.stage_name is not None:
+            await self.broker.publish_pipeline_result(self.pipeline, self.stage_name, result)
+        else:
+            await self.broker.publish_result(self.queue, result)
 
     # --- heartbeats -------------------------------------------------------
     async def _publish_heartbeat(self) -> None:

@@ -51,6 +51,7 @@ from typing import Any, Dict, Optional
 from llmq_tpu_torch.broker.base import DeliveredMessage
 from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job, Result
+from llmq_tpu_torch.core.pipeline import PipelineConfig
 from llmq_tpu_torch.engine.engine import AsyncEngine, HandoffOutput, RequestOutput
 from llmq_tpu_torch.engine.sampling import SamplingParams
 from llmq_tpu_torch.engine.snapshot import (
@@ -59,6 +60,7 @@ from llmq_tpu_torch.engine.snapshot import (
     snapshot_from_wire,
     snapshot_to_b64,
 )
+from llmq_tpu_torch.ops._build import kernel_launches
 from llmq_tpu_torch.utils import clock
 from llmq_tpu_torch.utils.hashing import token_fold
 from llmq_tpu_torch.workers.base import (
@@ -92,6 +94,8 @@ class TorchWorker(BaseWorker):
         max_jobs: Optional[int] = None,
         worker_id: Optional[str] = None,
         config: Optional[Config] = None,
+        pipeline: Optional[PipelineConfig] = None,
+        stage_name: Optional[str] = None,
     ) -> None:
         cfg = config or get_config()
         self.engine = engine
@@ -100,10 +104,14 @@ class TorchWorker(BaseWorker):
         # an explicit concurrency, ~1.5x slots in flight (TPUWorker's rule).
         slots = engine.core.cfg.max_num_seqs
         super().__init__(queue, config=cfg, broker_url=broker_url,
-                         concurrency=concurrency or max(cfg.queue_prefetch, slots + slots // 2))
+                         concurrency=concurrency or max(cfg.queue_prefetch, slots + slots // 2),
+                         pipeline=pipeline, stage_name=stage_name)
         self.max_tokens = max_tokens or cfg.max_tokens
         self.max_jobs = max_jobs
         self.jobs_resumed = 0
+        self.completion_tokens = 0  # of the results it built
+        self._busy_from: Optional[float] = None  # monotonic: its first job's start
+        self._busy_to: Optional[float] = None  # and its last result
         self._settled = 0
         self.error: Optional[BaseException] = None  # the engine failure that stopped it
 
@@ -180,7 +188,11 @@ class TorchWorker(BaseWorker):
 
     def stats(self) -> Dict[str, Any]:
         """The worker's counters; the disaggregation ones (and the handoff
-        latency percentiles) only once they moved."""
+        latency percentiles) only once they moved; once it built a result,
+        ``completion_tokens`` and ``busy_s``, the span from its first job's
+        start to its last result; ``kernel_launches``, this process's
+        launches of each kernel (by its wrapper's name) and their routes,
+        once a kernel launched (on the card)."""
         out: Dict[str, Any] = dict(role=self.role, jobs_processed=self.jobs_processed,
                                    jobs_failed=self.jobs_failed,
                                    jobs_handed_off=self.jobs_handed_off,
@@ -189,6 +201,12 @@ class TorchWorker(BaseWorker):
             if getattr(self, name):
                 out[name] = getattr(self, name)
         out.update(self._handoff_percentiles())
+        if self._busy_to is not None:
+            out.update(completion_tokens=self.completion_tokens,
+                       busy_s=self._busy_to - self._busy_from)
+        launches = kernel_launches()
+        if launches:
+            out["kernel_launches"] = launches
         return out
 
     def _engine_stats(self) -> Optional[dict]:
@@ -228,6 +246,8 @@ class TorchWorker(BaseWorker):
             return None
 
     async def _process_job(self, job: Job) -> RequestOutput:
+        if self._busy_from is None:
+            self._busy_from = clock.monotonic()
         params = self._sampling_for(job)
         # The deadline and the SLO class ride into the engine
         # (``tpu_worker.py:1192-1206``); batch sends nothing.
@@ -297,6 +317,8 @@ class TorchWorker(BaseWorker):
             "completion_tokens": out.completion_tokens,
         }
         result.finish_reason = out.finish_reason
+        self.completion_tokens += out.completion_tokens
+        self._busy_to = clock.monotonic()
         if self.config.result_digest:  # tpu_worker.py:1399
             result.token_ids = list(out.token_ids)
             result.token_digest = token_fold(out.token_ids)

@@ -3,10 +3,12 @@
 An AST scan finds no ``jax``, ``llmq_tpu`` or ``ml_dtypes`` import in
 ``llmq_tpu_torch/`` or ``chip_smoke.py`` (the GPU machine has no
 ``ml_dtypes``: the snapshot codec carries bf16 / e5m2 pages as raw bits);
-a fresh interpreter that imports every port module loads none of them; the checkpoint loader, the broker and the command line
+a fresh interpreter that imports every port module loads none of them;
+the checkpoint loader, the broker, the workers and the command line
 need none of the packages the GPU machine lacks (``safetensors``,
-``transformers``, ``click``); and the entry points default to CUDA,
-raising here where there is none.
+``transformers``, ``click``), the client and the pipelines import no
+PyYAML, ``rich`` or ``datasets`` before they are asked for; and the
+entry points default to CUDA, raising here where there is none.
 """
 
 import ast
@@ -72,7 +74,9 @@ OPTIONAL = ("safetensors", "transformers", "click", "aio_pika")
 WORKER_PATH = ("engine/weights.py", "broker/tcp.py", "cli/main.py", "cli/worker.py",
                "__main__.py", "workers/torch_worker.py", "workers/base.py",
                "broker/manager.py", "broker/resilient.py", "broker/filebroker.py",
-               "broker/chaos.py")
+               "broker/chaos.py", "cli/submit.py", "cli/receive.py", "cli/monitor.py",
+               "core/pipeline.py", "core/template.py", "workers/dummy.py", "workers/dedup.py",
+               "utils/logging.py")
 
 
 def test_loader_broker_and_cli_need_no_optional_package():
@@ -90,10 +94,36 @@ def test_loader_broker_and_cli_need_no_optional_package():
         "import llmq_tpu_torch.cli.main, llmq_tpu_torch.cli.worker, llmq_tpu_torch.broker.tcp\n"
         "import llmq_tpu_torch.broker.manager, llmq_tpu_torch.broker.filebroker\n"
         "import llmq_tpu_torch.broker.chaos, llmq_tpu_torch.workers.base\n"
-        "import llmq_tpu_torch.engine.weights\n"
+        "import llmq_tpu_torch.engine.weights, llmq_tpu_torch.cli.submit\n"
+        "import llmq_tpu_torch.cli.receive, llmq_tpu_torch.cli.monitor\n"
+        "import llmq_tpu_torch.workers.dummy, llmq_tpu_torch.workers.dedup\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {OPTIONAL!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_client_and_pipelines_run_without_yaml_rich_or_datasets(tmp_path):
+    """The GPU machine may lack PyYAML, rich and datasets: the client and
+    the pipeline workers import none of them at module level, a JSON
+    pipeline file loads, and the command line parses. The client commands
+    import no torch either (a submit starts in a fraction of a second)."""
+    path = tmp_path / "p.json"
+    path.write_text('{"name": "p", "stages": [{"name": "a", "worker": "dummy"}]}')
+    code = (
+        "import sys\n"
+        "for m in ('yaml', 'rich', 'datasets', 'click', 'torch'): sys.modules[m] = None\n"
+        "from llmq_tpu_torch.cli import main, monitor, receive, submit\n"
+        "del sys.modules['torch']\n"  # the workers need it; the client does not
+        "from llmq_tpu_torch.cli import worker\n"
+        "from llmq_tpu_torch.workers import dedup, dummy\n"
+        f"cfg = worker.load_pipeline_config({str(path)!r})\n"
+        "assert cfg.stage_queue_names() == ['pipeline.p.a'], cfg\n"
+        "args = main.build_parser().parse_args(['submit', '-p', 'p.json', 'rows.jsonl'])\n"
+        "assert args.is_pipeline\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
