@@ -97,8 +97,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    their launches in phase 11 (a) (``snapshot_launches``); K1-K4's add
    their launches in phase 12 (``prefix_kv_launches``: K3, K4 in (a), K1,
    K2 in (c)'s in-process run), and phase 13 (a)'s
-   (``failure_policy_launches``), and phase 14's (``pipeline_launches``).
-   Printed last, after phases 8-14.
+   (``failure_policy_launches``), phase 14's (``pipeline_launches``)
+   and phase 15's (``peers_launches``: K3, K4 in (a), K1, K2 in (b)).
+   Printed last, after phases 8-15.
 8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
    same seed) written as an HF checkpoint (config.json, two safetensors
    shards and their index, HF names, [out, in] weights) under ``build/``
@@ -168,7 +169,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    their tails and gives phase 4's tokens; printed: chunk bytes, export
    and ingest ms; (c) phase 9's broker, a ``worker run --role decode``
    and a ``--role prefill`` process serve phase 3's 16 jobs at 32 tokens:
-   16 unique results, every job handed off and adopted, both processes
+   16 unique results, every job handed off (offered to the decode worker
+   directly, or through ``<q>.decode`` when the offer is not answered in
+   time) and adopted, both processes
    exit 0 on SIGTERM (logs ``disagg_*.log``); printed: the handoff
    latency (p50, p95), snapshot and payload bytes a job, the wall time to
    the 16th result. In process, the same path (prefill-only, then each
@@ -229,6 +232,35 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    ``submit`` to the 16th result, each stage's completion tok/s over its
    busy span. K1's and K2's records in the kernels line add each stage
    worker's launches (``pipeline_launches``).
+15. The peers' plane (M6's second part) at full width (qwen2.5-3b, bf16,
+   phase 3's weights), the workers in this process over phase 9's
+   ``BrokerServer`` process, their heartbeats driven by hand
+   (``_publish_heartbeat``) instead of the 30 s cadence (log
+   ``peers_workers.log``): (a) phase 4's settings (v3, chunks of 256, the
+   prefix cache) with a 1 GiB host tier and ``prefix_affinity``: worker A
+   serves 8 of phase 4's templated jobs (32 tokens) from the shared queue
+   and advertises its chains; an affinity submitter publishes the other
+   8, which must all land on A's ``<q>.w.<id>`` and be served by A; then
+   A leaves the shared queue (its KV server stays) and worker B, a fresh
+   engine with empty caches, takes pfx-00's prompt from it: B must fetch
+   A's pages before it prefills (``prefix_chunks_fetched`` > 0, as many
+   promoted and hit, fewer prefill tokens than the prompt's) and give A's
+   tokens for pfx-00, or part at a near-tie (the witness of phase 11
+   (b)); K3 and K4 counted, tensor cores only; the fetch runs at the
+   worker's default timeout, and beside it an engine of B's settings with
+   empty caches times the local prefill of the same prompt; (b) phase 3's
+   settings, the worker's default offer timeout: a
+   ``decode`` worker, whose heartbeat must say so, then a ``prefill``
+   worker serve phase 3's 16 jobs at 32 tokens: every job offered to the
+   decode worker and adopted (``handoffs_shipped`` 16,
+   ``handoffs_fallback`` 0, ``jobs_adopted`` 16, ``<q>.d.<id>`` and
+   ``<q>.decode`` empty at the end), token ids equal to the first 32 of
+   phase 3's or its solo run's, or parting at a near-tie; K2 and K1
+   counted, tensor cores only. Printed: the handoff latency p50 / p95
+   beside PR 10's ``<q>.decode`` road and the same jobs through
+   ``<q>.decode`` in this call, the fetch's ms (its export and ingest
+   apart) against the local prefill's, the walls. K1-K4's
+   records in the kernels line add these launches (``peers_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
@@ -263,7 +295,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
 ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
-              "fused", "snapshot", "prefix_kv", "failure_policy", "pipeline")
+              "fused", "snapshot", "prefix_kv", "failure_policy", "pipeline", "peers")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -3214,8 +3246,12 @@ def _prefix_kv_disagg(smi, cfg, params, serve_tokens, solo_tokens) -> dict:
         problems.append(f"(c) {len(results)} results, {len(set(ids))} unique ids")
     if rcs != [0, 0]:
         problems.append(f"(c) worker exit codes {rcs} (decode, prefill)")
-    if pre.get("handoffs_fallback") != n_jobs or dec.get("jobs_adopted") != n_jobs:
-        problems.append(f"(c) handoffs {pre.get('handoffs_fallback')}, adopted "
+    # Since M6's second part a prefill worker offers each job to the decode
+    # worker first (as the reference's does); with the decode worker up,
+    # every offer must be taken: a fallback to <q>.decode is a fault.
+    roads = (pre.get("handoffs_shipped", 0), pre.get("handoffs_fallback", 0))
+    if roads != (n_jobs, 0) or dec.get("jobs_adopted") != n_jobs:
+        problems.append(f"(c) handoffs shipped / fallback {roads}, adopted "
                         f"{dec.get('jobs_adopted')}")
     if any(r["usage"]["completion_tokens"] != gen for r in results):
         problems.append("(c) a result without its 32 tokens")
@@ -3290,9 +3326,10 @@ def _prefix_kv_disagg(smi, cfg, params, serve_tokens, solo_tokens) -> dict:
               bf16_launches=launches, f32_2_layers_adopted_equal_unified=f32_equal,
               timing="wall: from a worker process's start (its engine build included) to the "
                      "16th result, the decode worker consuming before the prefill worker starts; "
-                     "handoff: the prefill worker's stamp before its publish to the decode "
-                     "worker's start of the job, after its parse and snapshot decode (wall "
-                     "clocks of one host); payload: the JSON job with its base64 snapshot",
+                     "handoff: the prefill worker's stamp before its offer to the decode "
+                     "worker's start of the job, after the offer's reply, the publish to "
+                     "<q>.d.<id>, its delivery, parse and snapshot decode (wall clocks of one "
+                     "host); payload: the JSON job with its base64 snapshot",
               note="bf16: the adopted row computes its last prompt position in a decode step "
                    "(K1), where phase 3 computed it in the prefill (K2 and a many-row "
                    "projection); a row that parts must part at a near-tie (ranks from 0 under a "
@@ -3945,6 +3982,428 @@ def phase_pipeline(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
     return launches
 
 
+# --- phase 15: the peers' plane (M6's second part) at full width -------------
+
+
+def _near_tie_problems(label: str, parting: dict) -> list:
+    """Each row of ``_parting_witness`` must part at a near-tie."""
+    return [f"{label} {rid} parts at {w['position']} at no near-tie: ranks {w['phase3_rank']} / "
+            f"{w['recompute_rank']}, gap {w['gap']} ({w['gap_bf16_steps']} bf16 steps)"
+            for rid, w in parting.items()
+            if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
+                or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS)]
+
+
+async def _until(what: str, done, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not await done():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"peers: {what}")
+        await asyncio.sleep(0.01)
+
+
+async def _results_of(mgr, queue: str, n: int, results: dict, timeout: float = 300.0) -> None:
+    """Read ``<queue>.results`` until ``results`` holds ``n`` ids."""
+    async def enough() -> bool:
+        msg = await mgr.broker.get(queue + ".results")
+        if msg is not None:
+            r = json.loads(msg.body)
+            results.setdefault(r["id"], r)
+            await msg.ack()
+        return len(results) >= n
+
+    await _until(f"{len(results)} of {n} results on {queue}.results", enough, timeout)
+
+
+async def _peers_affinity(url: str, cfg, params) -> dict:
+    """Phase 15 (a) on a running broker: worker A serves 8 templated jobs
+    from the shared queue and advertises its chains; an affinity submitter
+    publishes 8 more, which must all land on A's private queue; then A
+    leaves the shared queue (its KV server stays) and a fresh worker B
+    takes a templated job from it, fetching A's pages before it prefills."""
+    from llmq_tpu_torch.broker.manager import BrokerManager, affinity_queue_name
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.engine.engine import AsyncEngine
+    from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+    queue, gen = "smoke-peers", 32
+    jobs = _prefix_jobs(16, gen)
+    cold_job = jobs[0].model_copy(update={"id": "pfx-on-b"})  # pfx-00's prompt, served by B
+
+    def worker(wid: str) -> TorchWorker:
+        core = _prefix_kv_engine(params, cfg, prefix_host_gb=PREFIX_HOST_GB)
+        return TorchWorker(queue, AsyncEngine(core), worker_id=wid, config=Config(
+            broker_url=url, prefix_affinity=True, max_redeliveries=1000, result_digest=True))
+
+    plain = BrokerManager(Config(broker_url=url, max_redeliveries=1000))
+    submitter = BrokerManager(Config(broker_url=url, prefix_affinity=True))
+    await plain.connect()
+    await submitter.connect()
+    a, b = worker("peer-a"), worker("peer-b")
+    private = []
+    claim = a._process_affinity_message
+
+    async def counted(message) -> None:
+        private.append(message.message_id)
+        await claim(message)
+
+    a._process_affinity_message = counted
+    out, results, tasks = {}, {}, []
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        tasks.append(asyncio.create_task(a.run()))
+        for job in jobs[:8]:
+            await plain.publish_job(queue, job)
+        await _results_of(plain, queue, 8, results)
+        await a._publish_heartbeat()  # the advertisement, not the 30 s cadence
+        out["advertised"] = a._prefix_chains()
+        t1 = time.perf_counter()
+        for job in jobs[8:]:
+            await submitter.publish_job(queue, job)
+        await _results_of(plain, queue, 16, results)
+        out["routed_wall_s"] = time.perf_counter() - t1
+        out["a_wall_s"] = time.perf_counter() - t0
+        out["routed"] = dict(affinity_routed=submitter.affinity_routed,
+                             affinity_fallback=submitter.affinity_fallback)
+        out["claimed_from_private_queue"] = sorted(private)
+        out["left_on_private_queue"] = (await plain.get_queue_stats(
+            affinity_queue_name(queue, a.worker_id))).message_count
+        await a._stop_role_consumers()  # A serves its KV RPC only from here
+        fetch = b._fetch_from_peer
+        timed = {}
+
+        async def timed_fetch(peer, want, req_id) -> None:
+            t = time.perf_counter()
+            await fetch(peer, want, req_id)
+            timed.update(peer=peer, wanted=len(want), ms=(time.perf_counter() - t) * 1e3)
+
+        def timed_call(engine, name: str):
+            call = getattr(engine, name)
+
+            def run(chunks):
+                t = time.perf_counter()
+                try:
+                    return call(chunks)
+                finally:
+                    timed[name + "_ms"] = (time.perf_counter() - t) * 1e3
+
+            setattr(engine, name, run)
+
+        b._fetch_from_peer = timed_fetch
+        timed_call(a.engine, "export_prefix_chunks")  # on A's engine thread
+        timed_call(b.engine, "ingest_prefix_chunks")
+        tasks.append(asyncio.create_task(b.run()))
+        t2 = time.perf_counter()
+        await plain.publish_job(queue, cold_job)
+        await _results_of(plain, queue, 17, results)
+        out["b_wall_s"] = time.perf_counter() - t2
+        out["fetch"] = timed
+    finally:
+        for w in (a, b):
+            w.request_shutdown()
+        await asyncio.wait_for(asyncio.gather(*tasks), timeout=120)
+        await plain.disconnect()
+        await submitter.disconnect()
+    out.update(results=results, a=a, b=b, jobs=jobs, cold_job=cold_job)
+    return out
+
+
+def _cold_prefill_ms(cfg, params, job) -> tuple:
+    """What B's fetch stands in for: an engine of B's settings with empty
+    caches, warmed on a prompt of the same length that shares no page,
+    prefills the job's prompt; (ms from its admission to its first token,
+    synchronized; the tokens it prefilled)."""
+    core = _prefix_kv_engine(params, cfg, prefix_host_gb=PREFIX_HOST_GB)
+    prompt = job.get_formatted_prompt()
+    core.add_request("warm", prompt=prompt[::-1], params=_greedy(1))
+    _step_to_end(core, {})
+    before = core.stats()["prefill_tokens"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    core.add_request(job.id, prompt=prompt, params=_greedy(1))
+    _step_to_end(core, {})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    tokens = core.stats()["prefill_tokens"] - before
+    core.close()
+    return ms, tokens
+
+
+def _peers_affinity_part(smi, cfg, params, url: str) -> dict:
+    """Phase 15 (a): checks and record; returns K3's and K4's launches."""
+    from llmq_tpu_torch.workers import torch_worker
+
+    seen = asyncio.run(_peers_affinity(url, cfg, params))
+    launches, routes = read_launches(), read_routes()
+    torch.cuda.synchronize()
+    a, b, jobs, cold_job, results = (seen[k] for k in ("a", "b", "jobs", "cold_job", "results"))
+    ca, cb = a.engine.core, b.engine.core
+    sa, sb = ca.stats(), cb.stats()
+    L = cfg.num_layers
+    problems = _check_results([results[j.id] for j in jobs if j.id in results], 16, 32)
+    if seen["routed"] != dict(affinity_routed=8, affinity_fallback=0):
+        problems.append(f"(a) routing: {seen['routed']}")
+    if seen["claimed_from_private_queue"] != sorted(j.id for j in jobs[8:]) or \
+            seen["left_on_private_queue"]:
+        problems.append(f"(a) A's private queue gave {seen['claimed_from_private_queue']}, "
+                        f"{seen['left_on_private_queue']} left")
+    if any(results[j.id]["worker_id"] != a.worker_id for j in jobs if j.id in results):
+        problems.append("(a) a templated job was not served by A")
+    got_b = results.get(cold_job.id, {})
+    if got_b.get("worker_id") != b.worker_id:
+        problems.append(f"(a) the job on the shared queue went to {got_b.get('worker_id')}")
+    prompt_tokens = got_b.get("usage", {}).get("prompt_tokens", 0)
+    fetched = b.prefix_chunks_fetched
+    if not (fetched > 0 and sb["prefix_promotes"] >= fetched
+            and sb.get("prefix_cache_hit_pages", 0) >= fetched
+            and sb["prefill_tokens"] < prompt_tokens):
+        problems.append(f"(a) B fetched {fetched} chunks, promoted {sb['prefix_promotes']}, hit "
+                        f"{sb.get('prefix_cache_hit_pages')} pages, prefilled "
+                        f"{sb['prefill_tokens']} of {prompt_tokens} tokens")
+    if seen["fetch"].get("peer") != a.worker_id:
+        problems.append(f"(a) B's fetch: {seen['fetch']}")
+    problems += route_problems(routes, launches)
+    for st in (sa, sb):
+        problems += graph_problems(st)
+    chunks = sa["prefill_dispatches"] + sb["prefill_dispatches"]
+    steps = sa["decode_steps"] + _warm(sa) + sb["decode_steps"] + _warm(sb)
+    if launches["paged_prefill"] != L * chunks or launches["paged_decode_v3"] != L * steps:
+        problems.append(f"(a) K3 {launches['paged_prefill']} != {L} x {chunks} or K4 "
+                        f"{launches['paged_decode_v3']} != {L} x {steps}")
+    off_path = {k: launches[k] for k in ("paged_decode", "flash_prefill", "paged_decode_v2")}
+    if any(off_path.values()):
+        problems.append(f"(a) kernels off the prefix-cache path launched: {off_path}")
+    on_a = results.get(jobs[0].id, {}).get("token_ids")
+    on_b = got_b.get("token_ids")
+    parting = {}
+    if on_b != on_a:
+        witness_job = cold_job.model_copy(update={"id": jobs[0].id})
+        parting = _parting_witness(cb, [witness_job], {jobs[0].id: on_b}, {jobs[0].id: on_a})
+        problems += _near_tie_problems("(a) B's", parting)
+    a_stats, b_stats = a.stats(), b.stats()
+    for w in (a, b):
+        w.engine.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    local_ms, local_tokens = _cold_prefill_ms(cfg, params, cold_job)
+    fetch_ms = seen["fetch"].get("ms")
+    emit(dict(phase="peers", part="a: affinity routing and prefix shipping", broker=url,
+              results=len(results), routed=seen["routed"],
+              claimed_from_private_queue=len(seen["claimed_from_private_queue"]),
+              advertised_chains=len(seen["advertised"] or []),
+              b_fetch=seen["fetch"], fetch_timeout_s=torch_worker.PREFIX_FETCH_TIMEOUT_S,
+              local_prefill_ms=local_ms, local_prefill_tokens=local_tokens,
+              fetch_beats_local_prefill=fetch_ms is not None and fetch_ms < local_ms,
+              note="B must fetch (the slice's road) within the worker's default timeout; the "
+                   "fetch is not held to beat the local prefill, which it does not at this "
+                   "size on this card (PERF.md, PR 13)",
+              b_prefix_chunks_fetched=fetched,
+              a_prefix_chunks_served=a.prefix_chunks_served,
+              b_prefix_promotes=sb["prefix_promotes"],
+              b_prefix_hit_pages=sb.get("prefix_cache_hit_pages"),
+              b_prefill_tokens=sb["prefill_tokens"], cold_prefill_tokens=prompt_tokens,
+              b_equal_a=on_b == on_a, b_parting=parting,
+              near_tie_limit_bf16_steps=NEAR_TIE_ULPS,
+              a_wall_s=seen["a_wall_s"], routed_wall_s=seen["routed_wall_s"],
+              b_wall_s=seen["b_wall_s"], a_worker=a_stats, b_worker=b_stats,
+              launches=launches, routes=routes,
+              timing="a_wall: A's start (its first capture included) to its 16th result; "
+                     "routed_wall: the affinity submitter's first publish to the 16th result; "
+                     "b_wall: the job's publish to B's result, B's fetch included; "
+                     "b_fetch.ms: B's request to its ingest's end, at the worker's default "
+                     "timeout; its export_ms on A's engine and ingest_ms on B's are parts of "
+                     "it; local_prefill_ms: an engine of B's settings with empty caches, "
+                     "warmed, from the job's admission to its first token (what the fetch "
+                     "stands in for); cold_prefill_tokens: the prompt's tokens",
+              card=smi, problems=problems))
+    if problems:
+        raise SystemExit("peers phase (a) failed: " + "; ".join(problems[:5]))
+    return dict(paged_prefill=launches["paged_prefill"],
+                paged_decode_v3=launches["paged_decode_v3"])
+
+
+async def _peers_adoption(url: str, cfg, params, jobs, *, queue: str = "smoke-adopt",
+                          ship: bool = True) -> dict:
+    """Phase 15 (b) on a running broker: a decode worker beats first, then
+    a prefill worker serves the jobs, offering each to the decode worker;
+    with ``ship`` False the prefill worker makes no offer, and every job
+    takes the ``<q>.decode`` road (PR 10's) to the same decode worker."""
+    from llmq_tpu_torch.broker.manager import BrokerManager, decode_adopt_queue_name
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.engine.engine import AsyncEngine
+    from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+    def worker(role: str) -> TorchWorker:
+        return TorchWorker(queue, AsyncEngine(_snapshot_engine(params, cfg)),
+                           worker_id=f"peers-{role}", config=Config(
+                               broker_url=url, worker_role=role, max_redeliveries=1000,
+                               result_digest=True))
+
+    plain = BrokerManager(Config(broker_url=url, max_redeliveries=1000))
+    await plain.connect()
+    dec, pre = worker("decode"), worker("prefill")
+    if not ship:
+        async def no_offer(job, body) -> bool:
+            return False
+
+        pre._ship_to_decode_peer = no_offer
+    out, results, tasks = {}, {}, []
+    try:
+        reset_launches()
+        tasks.append(asyncio.create_task(dec.run()))
+
+        async def decode_beats() -> bool:
+            health = (await plain.get_worker_health(queue)).get(dec.worker_id)
+            if health is not None and health.role == "decode":
+                out["decode_heartbeat_role"] = health.role
+                return True
+            return False
+
+        await _until("the decode worker's heartbeat never said role decode", decode_beats, 300)
+        tasks.append(asyncio.create_task(pre.run()))
+        t0 = time.perf_counter()
+        for job in jobs:
+            await plain.publish_job(queue, job)
+        await _results_of(plain, queue, len(jobs), results)
+        out["wall_s"] = time.perf_counter() - t0
+        out["left"] = {name: (await plain.get_queue_stats(name)).message_count
+                       for name in (decode_adopt_queue_name(queue, dec.worker_id),
+                                    queue + ".decode")}
+    finally:
+        for w in (pre, dec):
+            w.request_shutdown()
+        await asyncio.wait_for(asyncio.gather(*tasks), timeout=120)
+        await plain.disconnect()
+    out.update(results=results, pre=pre, dec=dec)
+    return out
+
+
+def _peers_adoption_part(smi, cfg, params, url: str, serve_tokens, solo_tokens) -> dict:
+    """Phase 15 (b): checks and record; returns K1's and K2's launches."""
+    n_jobs, gen = 16, 32
+    jobs = _default_jobs(n_jobs, gen)
+    seen = asyncio.run(_peers_adoption(url, cfg, params, jobs))
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), read_routes()
+    pre, dec, results = seen["pre"], seen["dec"], seen["results"]
+    sp, sd = pre.engine.core.stats(), dec.engine.core.stats()
+    L = cfg.num_layers
+    problems = _check_results(list(results.values()), n_jobs, gen)
+    counts = (pre.handoffs_shipped, pre.handoffs_fallback, dec.jobs_adopted)
+    if counts != (n_jobs, 0, n_jobs):
+        problems.append(f"(b) shipped / fallback / adopted {counts}")
+    if any(seen["left"].values()):
+        problems.append(f"(b) left on the decode queues: {seen['left']}")
+    if seen.get("decode_heartbeat_role") != "decode":
+        problems.append("(b) the decode worker's heartbeat did not say role decode")
+    problems += route_problems(routes, launches) + graph_problems(sd)
+    if launches["flash_prefill"] != L * sp["prefill_dispatches"] or launches["flash_prefill"] < 1:
+        problems.append(f"(b) K2 {launches['flash_prefill']} != {L} x {sp['prefill_dispatches']}")
+    steps = sd["decode_steps"] + _warm(sd) + sp["decode_steps"] + _warm(sp)
+    if launches["paged_decode"] != L * steps or launches["paged_decode"] < 1:
+        problems.append(f"(b) K1 {launches['paged_decode']} != {L} x {steps}")
+    off_path = {k: n for k, n in launches.items() if k not in ("paged_decode", "flash_prefill")}
+    if any(off_path.values()):
+        problems.append(f"(b) kernels off the disaggregated path launched: {off_path}")
+    got = {rid: r.get("token_ids") for rid, r in results.items()}
+    shapes = {rid: _served_as(ids, rid, gen, serve_tokens, solo_tokens)
+              for rid, ids in got.items()}
+    others = [j for j in jobs if shapes.get(j.id) is None]
+    parting = _parting_witness(dec.engine.core, others, got,
+                               {j.id: serve_tokens[j.id][:gen] for j in jobs})
+    problems += _near_tie_problems("(b) adopted", parting)
+    pre_stats, dec_stats = pre.stats(), dec.stats()
+    for w in (pre, dec):
+        w.engine.shutdown()
+    # The same jobs through the <q>.decode road in this call, for comparison.
+    pool = asyncio.run(_peers_adoption(url, cfg, params, jobs, queue="smoke-adopt-pool",
+                                       ship=False))
+    pool_counts = (pool["pre"].handoffs_shipped, pool["pre"].handoffs_fallback,
+                   pool["dec"].jobs_adopted)
+    if pool_counts != (0, n_jobs, n_jobs) or len(pool["results"]) != n_jobs:
+        problems.append(f"(b) the <q>.decode road: shipped / fallback / adopted {pool_counts}, "
+                        f"{len(pool['results'])} results")
+    pool_stats = pool["dec"].stats()
+    for w in (pool["pre"], pool["dec"]):
+        w.engine.shutdown()
+    emit(dict(phase="peers", part="b: direct adoption by a decode peer", broker=url,
+              results=len(results), handoffs_shipped=counts[0], handoffs_fallback=counts[1],
+              jobs_adopted=counts[2], left_on_decode_queues=seen["left"],
+              handoff_ms_p50=dec_stats.get("handoff_ms_p50"),
+              handoff_ms_p95=dec_stats.get("handoff_ms_p95"),
+              pr10_decode_pool_handoff_s_median="1.83-2.39",
+              decode_pool_road_same_call=dict(
+                  handoff_ms_p50=pool_stats.get("handoff_ms_p50"),
+                  handoff_ms_p95=pool_stats.get("handoff_ms_p95"), wall_s=pool["wall_s"],
+                  equal_phase3=sum(r.get("token_ids") == serve_tokens[rid][:gen]
+                                   for rid, r in pool["results"].items())),
+              handoff_payload_bytes_per_job=pre.handoff_bytes / max(1, counts[0]),
+              handoff_timeout_s=pre.config.handoff_timeout_s, wall_s=seen["wall_s"],
+              equal_phase3=list(shapes.values()).count("batch"),
+              equal_solo=list(shapes.values()).count("solo"),
+              parting={rid: w["position"] for rid, w in parting.items()},
+              max_gap_bf16_steps=max((w["gap_bf16_steps"] for w in parting.values()), default=0),
+              near_tie_limit_bf16_steps=NEAR_TIE_ULPS,
+              prefill_worker=pre_stats, decode_worker=dec_stats, launches=launches,
+              routes=routes,
+              timing="wall: the first job's publish to the 16th result, both engines built and "
+                     "the decode worker beating; handoff: the prefill worker's stamp before its "
+                     "offer to the decode worker's start of the job, after the offer's reply, "
+                     "the publish to <q>.d.<id>, its delivery, parse and snapshot decode (wall "
+                     "clocks of one host); PR 10's figure is the <q>.decode road between two "
+                     "worker processes; decode_pool_road_same_call: the same jobs and settings in "
+                     "this process with no offer made, every job through <q>.decode",
+              card=smi, problems=problems))
+    if problems:
+        raise SystemExit("peers phase (b) failed: " + "; ".join(problems[:5]))
+    return dict(paged_decode=launches["paged_decode"], flash_prefill=launches["flash_prefill"])
+
+
+def phase_peers(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
+    """Phase 15, the peers' plane (M6's second part) at full width:
+    qwen2.5-3b, bf16, phase 3's seeded weights, workers in this process
+    over phase 9's ``BrokerServer`` process. Returns (a)'s K3 and K4
+    launches and (b)'s K1 and K2 launches."""
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+    from llmq_tpu_torch.workers import base as worker_base
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    server = subprocess.Popen([sys.executable, "-c", _SERVER], cwd=root, env=penv,
+                              stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    log = logging.FileHandler(os.path.join(OUT_DIR, "peers_workers.log"), mode="w")
+    log.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
+    for name in ("worker", "llmq_tpu_torch"):
+        logging.getLogger(name).addHandler(log)
+        logging.getLogger(name).setLevel(logging.INFO)
+    interval = worker_base.HEARTBEAT_INTERVAL_S
+    worker_base.HEARTBEAT_INTERVAL_S = 3600.0  # one beat at a worker's start; the rest by hand
+    try:
+        cfg = get_preset("qwen2.5-3b")
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+                             device=torch.device("cuda"))
+        url = f"tcp://127.0.0.1:{int(server.stdout.readline())}"
+        with env(LLMQ_PREFIX_AFFINITY="1"):
+            a = _peers_affinity_part(smi, cfg, params, url)
+        gc.collect()
+        torch.cuda.empty_cache()
+        b = _peers_adoption_part(smi, cfg, params, url, serve_tokens, solo_tokens)
+    finally:
+        worker_base.HEARTBEAT_INTERVAL_S = interval
+        _stop(server, signal.SIGTERM, 10)
+        for name in ("worker", "llmq_tpu_torch"):
+            logging.getLogger(name).removeHandler(log)
+        log.close()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="peers", part="total", seconds=time.perf_counter() - t0))
+    return {**a, **b}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -4043,6 +4502,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         pipeline_launches = phase_pipeline(smi, serve_tokens, solo_tokens)
+    peers_launches = {}
+    if "peers" in phases:
+        if serve_tokens is None:
+            raise SystemExit("phase peers compares with the serve phase's tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        peers_launches = phase_peers(smi, serve_tokens, solo_tokens)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -4090,6 +4556,8 @@ def main() -> int:
             entry["failure_policy_launches"] = policy_launches[name]
         if name in ("paged_decode", "flash_prefill") and pipeline_launches:  # phase 14
             entry["pipeline_launches"] = {stage: n[name] for stage, n in pipeline_launches.items()}
+        if name in peers_launches:  # phase 15: (a) K3, K4; (b) K1, K2
+            entry["peers_launches"] = peers_launches[name]
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",

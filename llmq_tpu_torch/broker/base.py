@@ -25,6 +25,7 @@ reference relies on from RabbitMQ, SURVEY.md §1 L0):
 from __future__ import annotations
 
 import abc
+import asyncio
 import base64
 import json
 import uuid
@@ -209,6 +210,16 @@ class Broker(abc.ABC):
     @abc.abstractmethod
     async def purge(self, queue: str) -> int: ...
 
+    async def delete_queue(self, name: str) -> None:
+        """Remove a queue outright (a retired worker's private queues, so
+        nothing can strand on them). Callers drain / republish first; what
+        is still there is dropped. This default purges, best-effort; the
+        transports override it to unregister the queue itself."""
+        try:
+            await self.purge(name)
+        except Exception:  # noqa: BLE001 — deletion is best-effort cleanup
+            pass
+
     async def __aenter__(self) -> "Broker":
         await self.connect()
         return self
@@ -239,6 +250,23 @@ def interactive_queue_name(queue: str) -> str:
     shared queue, so interactive work never waits behind a batch backlog
     at the broker."""
     return queue + INTERACTIVE_SUFFIX
+
+
+async def connect_broker(url: str, *, retries: int = 5, base_delay: float = 1.0) -> Broker:
+    """Open a broker connection for ``url``, retrying with exponential
+    backoff (``llmq_tpu/broker/base.py:233``)."""
+    broker = make_broker(url)
+    last_exc: Optional[Exception] = None
+    for attempt in range(retries):
+        try:
+            await broker.connect()
+            return broker
+        except Exception as exc:  # noqa: BLE001 — retrying any connect failure
+            last_exc = exc
+            if attempt < retries - 1:
+                await asyncio.sleep(base_delay * (2**attempt))
+    raise ConnectionError(
+        f"Could not connect to broker at {url!r} after {retries} attempts") from last_exc
 
 
 def make_broker(url: str) -> Broker:

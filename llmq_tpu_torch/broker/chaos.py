@@ -242,3 +242,9 @@ class ChaosBroker(Broker):
     async def purge(self, queue: str) -> int:
         self._check_alive()
         return await self.inner.purge(queue)
+
+    async def delete_queue(self, name: str) -> None:
+        # Exempt from kills, as declare is: deletion is topology cleanup on
+        # a retirement or a reclaim, not a data-plane op worth injecting.
+        self._check_alive()
+        await self.inner.delete_queue(name)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import shutil
 import time
 import uuid
 from pathlib import Path
@@ -352,6 +353,13 @@ class FileBroker(Broker):
             except FileNotFoundError:
                 pass
         return n
+
+    async def delete_queue(self, name: str) -> None:
+        self._declared.discard(name)
+        try:
+            shutil.rmtree(self._qdir(name))
+        except OSError:  # gone already, or writers racing the removal: best-effort
+            pass
 
 
 def _list_files(d: Path) -> List[Path]:

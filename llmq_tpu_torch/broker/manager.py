@@ -15,21 +15,31 @@ stage's result to the next stage as a job built by
 previous output as ``{result}`` and every passthrough extra), or to
 ``pipeline.<name>.results`` after the last stage.
 
-Left for later slices: the lifecycle trace the reference stamps into each
-published payload (``TRACE_FIELD``; ROADMAP.md queue 1, M16), and
-prefix-affinity routing, the decode-peer discovery and the orphan
-janitor (``affinity_targets``, ``decode_targets``,
-``reclaim_orphaned_affinity_queues``, with the names of the per-worker
-queues they use; M6's second part, whose settings
-``core/config.py::refuse_unported`` refuses). The queue names the port
-uses are ``broker/base.py``'s, re-exported here.
+Prefix-affinity routing (``Config.prefix_affinity``): workers advertise
+the text-chain digests of their hottest prompt prefixes in heartbeats;
+``publish_job`` peeks them (non-destructively, cached for
+``AFFINITY_REFRESH_S``) and sends a job whose prompt shares an advertised
+prefix to that worker's private queue ``<queue>.w.<worker_id>``, where its
+KV pages already are. No match, a stale heartbeat, or the flag off: the
+shared queue. ``decode_targets`` finds the fresh decode-role workers a
+prefill worker offers its handoffs to. The orphan janitor
+(``start_affinity_janitor``, started by ``setup_queue_infrastructure``
+when affinity is on or the role is not unified) returns what a dead
+worker's private queues hold to the shared queues and deletes them.
+
+Left for a later slice: the lifecycle trace the reference stamps into
+each published payload (``TRACE_FIELD``; ROADMAP.md queue 1, M16). The
+shared queue names are ``broker/base.py``'s, re-exported here; the
+per-worker ones are defined here, as in the reference.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import logging
-from typing import Any, Dict, List, Optional
+import os
+from typing import Any, Dict, List, Optional, Tuple
 
 from llmq_tpu_torch.broker.base import (
     DECODE_SUFFIX,
@@ -48,13 +58,18 @@ from llmq_tpu_torch.core.models import ErrorInfo, Job, QueueStats, Result, Worke
 from llmq_tpu_torch.core.pipeline import PipelineConfig, PipelineStage
 from llmq_tpu_torch.core.template import resolve_template_string, resolve_template_value
 from llmq_tpu_torch.utils import clock
+from llmq_tpu_torch.utils.aio import reap_all, spawn
+from llmq_tpu_torch.utils.hashing import rendezvous_pick, text_prefix_chain
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
-    "AFFINITY_REFRESH_S", "BrokerManager", "DECODE_SUFFIX", "FAILED_SUFFIX", "HEALTH_SUFFIX",
-    "HEARTBEAT_INTERVAL_S", "INTERACTIVE_SUFFIX", "QUARANTINE_SUFFIX", "RESULTS_SUFFIX",
-    "STALE_AFTER_S", "decode_queue_name", "interactive_queue_name", "results_queue_name",
+    "AFFINITY_REFRESH_S", "BrokerManager", "DECODE_SUFFIX",
+    "FAILED_SUFFIX", "HEALTH_SUFFIX", "HEARTBEAT_INTERVAL_S", "INTERACTIVE_SUFFIX",
+    "QUARANTINE_SUFFIX", "RECLAIM_INTERVAL_S", "RESULTS_SUFFIX", "STALE_AFTER_S",
+    "affinity_queue_name", "decode_adopt_queue_name", "decode_queue_name",
+    "interactive_queue_name", "job_affinity_text", "kv_fetch_queue_name",
+    "results_queue_name", "watchdog_reclaim_s",
 ]
 
 FAILED_SUFFIX = ".failed"
@@ -63,12 +78,67 @@ QUARANTINE_SUFFIX = ".quarantine"
 
 # Heartbeat cadence (workers publish WorkerHealth this often) and the
 # fleet-wide staleness threshold derived from it: a worker that missed two
-# beats is treated as gone.
+# beats is treated as gone: its advertised pages stop routing jobs and its
+# private queues become reclaimable.
 HEARTBEAT_INTERVAL_S = 30.0
 STALE_AFTER_S = 2 * HEARTBEAT_INTERVAL_S
 
-# How long an observed fleet rate is trusted before re-peeking heartbeats.
+# How long the fresh heartbeats of a queue (the affinity map, the decode
+# pool and the fleet rate are read from them) are trusted before they are
+# peeked again. A heartbeat older than STALE_AFTER_S routes no job, takes
+# no offer and adds no rate: its worker may be gone.
 AFFINITY_REFRESH_S = 10.0
+
+# The orphan janitor's cadence (one reclaim pass a queue).
+RECLAIM_INTERVAL_S = 15.0
+
+
+def watchdog_reclaim_s() -> float:
+    """``LLMQ_WATCHDOG_RECLAIM``: a worker whose heartbeat reports
+    ``last_dispatch_ok_age_s`` at or past this many seconds is reclaimed
+    although it still beats (a wedged engine under a live event loop).
+    Unset, empty or 0 (the default): only silent workers reclaim."""
+    raw = os.environ.get("LLMQ_WATCHDOG_RECLAIM", "").strip()
+    if not raw:
+        return 0.0
+    try:
+        return float(raw)
+    except ValueError as exc:
+        raise ValueError(
+            f"LLMQ_WATCHDOG_RECLAIM must be a number of seconds, got {raw!r}") from exc
+
+
+def affinity_queue_name(queue: str, worker_id: str) -> str:
+    """The per-worker job queue that prefix-affinity routing targets."""
+    return f"{queue}.w.{worker_id}"
+
+
+def kv_fetch_queue_name(queue: str, worker_id: str) -> str:
+    """The per-worker queue of prefix-page fetch requests and of the KV
+    adoption offers of a disaggregated fleet; replies go to its ``.r``."""
+    return f"{queue}.kv.{worker_id}"
+
+
+def decode_adopt_queue_name(queue: str, worker_id: str) -> str:
+    """The per-decode-worker adoption queue: a decode worker parks an
+    accepted handoff here BEFORE it replies "accepted", so the payload
+    survives either side dying mid-handshake (the janitor returns an
+    orphaned one to ``<q>.decode``)."""
+    return f"{queue}.d.{worker_id}"
+
+
+def job_affinity_text(job: Job) -> str:
+    """The prompt text whose leading chunks name the job's prefix: the
+    characters the engine will tokenize, so the digests computed here match
+    the ones workers advertise. "" where the prompt cannot be formatted."""
+    try:
+        if job.prompt is not None:
+            return job.get_formatted_prompt()
+        if job.messages:
+            return "".join(str(m.get("content", "")) for m in job.messages)
+    except Exception:  # noqa: BLE001 — an unresolvable template routes nowhere
+        return ""
+    return ""
 
 
 class BrokerManager:
@@ -78,9 +148,22 @@ class BrokerManager:
         self.config = config or get_config()
         self.url = url or self.config.broker_url
         self._broker: Optional[Broker] = None
-        # Per-queue observed fleet service rate (stamp, jobs/s) for
-        # deadline admission control; one entry per served queue.
-        self._fleet_rate: Dict[str, tuple] = {}
+        # Per-queue (monotonic stamp of the peek, {worker id: fresh
+        # heartbeat}); replaced whole on refresh.
+        self._beats: Dict[str, Tuple[float, Dict[str, WorkerHealth]]] = {}
+        # Per-queue {worker id: last heartbeat, epoch s}, kept past the
+        # caches and past the heartbeats' TTL: routing re-checks freshness
+        # per job, and the janitor still knows which private queues ever
+        # existed. The janitor pops each worker it retires.
+        self._worker_seen: Dict[str, Dict[str, float]] = {}
+        self._janitors: Dict[str, Any] = {}
+        self._janitor_tasks: set = set()
+        # One heartbeat peek at a time (see get_worker_health), per loop.
+        self._peek_lock: Optional[asyncio.Lock] = None
+        self._peek_loop: Optional[asyncio.AbstractEventLoop] = None
+        self.affinity_routed = 0
+        self.affinity_fallback = 0
+        self.affinity_reclaimed = 0
         self.jobs_shed = 0
         self.jobs_shed_interactive = 0
         self.interactive_routed = 0
@@ -118,6 +201,8 @@ class BrokerManager:
             logger.debug("Connected to broker at %s", self.url)
 
     async def disconnect(self) -> None:
+        await reap_all(self._janitor_tasks, label="affinity janitor")
+        self._janitors.clear()
         if self._broker is not None:
             await self._broker.close()
             self._broker = None
@@ -133,7 +218,8 @@ class BrokerManager:
     async def setup_queue_infrastructure(self, queue: str) -> None:
         """Declare ``<q>`` (the job TTL and redelivery cap), ``<q>.results``
         (cap 1e9), ``<q>.failed``, and when configured ``<q>.interactive``,
-        ``<q>.quarantine`` and ``<q>.decode``."""
+        ``<q>.quarantine`` and ``<q>.decode``; start the orphan janitor when
+        affinity is on or the role is not unified."""
         await self.broker.declare_queue(
             queue,
             ttl_ms=self.config.job_ttl_ms,
@@ -161,10 +247,8 @@ class BrokerManager:
                 ttl_ms=self.config.job_ttl_ms,
                 max_redeliveries=self.config.max_redeliveries,
             )
-        # The reference starts its affinity-orphan janitor here when prefix
-        # affinity is on or the role is not unified. The port creates no
-        # per-worker queue for it to reclaim (M6's second part; prefix
-        # affinity is refused by core/config.py::refuse_unported).
+        if self.config.prefix_affinity or self.config.worker_role != "unified":
+            self.start_affinity_janitor(queue)
 
     async def setup_pipeline_infrastructure(self, pipeline: PipelineConfig) -> None:
         """Declare every stage queue (the job TTL and redelivery cap) with
@@ -181,10 +265,29 @@ class BrokerManager:
         )
 
     # --- worker heartbeats ------------------------------------------------
+    def _peeking(self) -> asyncio.Lock:
+        loop = asyncio.get_running_loop()
+        if self._peek_lock is None or self._peek_loop is not loop:
+            self._peek_lock, self._peek_loop = asyncio.Lock(), loop
+        return self._peek_lock
+
     async def get_worker_health(self, queue: str) -> Dict[str, WorkerHealth]:
         """Non-destructive heartbeat peek: the freshest WorkerHealth per
         worker on ``<queue>.health``. Every message is requeued so the
-        next reader still sees it."""
+        next reader still sees it.
+
+        The peek holds the heartbeats unacked until it ends, so a second
+        peek that overlaps it finds the queue empty. The reference lets
+        one manager's peeks overlap: a prefill worker whose prefills end
+        together asks for its decode peers once a handoff, and all but the
+        first see no peer and cache that for ``AFFINITY_REFRESH_S``, so
+        their handoffs fall back to ``<q>.decode`` (ROADMAP.md queue 3
+        item 16). Here one manager peeks once at a time, and the cached
+        views re-check their cache after the wait."""
+        async with self._peeking():
+            return await self._peek_health(queue)
+
+    async def _peek_health(self, queue: str) -> Dict[str, WorkerHealth]:
         beats: Dict[str, WorkerHealth] = {}
         peeked: List[DeliveredMessage] = []
         try:
@@ -206,30 +309,174 @@ class BrokerManager:
                 await msg.reject(requeue=True)
         return beats
 
-    # --- deadline admission control ---------------------------------------
-    async def _observed_fleet_rate(self, queue: str) -> Optional[float]:
-        """Aggregate fleet service rate (jobs/s) from fresh heartbeats'
-        avg_duration_ms. None when no worker has reported a duration yet
-        (then admission control stays out of the way). Cached for
-        ``AFFINITY_REFRESH_S``."""
-        now = clock.monotonic()
-        cached = self._fleet_rate.get(queue)
-        if cached is not None and now - cached[0] < AFFINITY_REFRESH_S:
-            return cached[1]
+    async def _fresh_beats(self, queue: str) -> Dict[str, WorkerHealth]:
+        """The heartbeats on ``queue`` no older than ``STALE_AFTER_S``, peeked
+        at most once an ``AFFINITY_REFRESH_S`` (a caller that waited on
+        another's peek takes its result), so a submit loop does not peek the
+        health queue for each job."""
+        async with self._peeking():
+            now = clock.monotonic()
+            cached = self._beats.get(queue)
+            if cached is not None and now - cached[0] < AFFINITY_REFRESH_S:
+                return cached[1]
+            try:
+                beats = await self._peek_health(queue)
+            except Exception:  # noqa: BLE001 — health queue missing or unreadable
+                beats = {}
+            self._record_worker_seen(queue, beats)
+            wall = utcnow()
+            fresh = {wid: health for wid, health in beats.items()
+                     if (wall - health.last_seen).total_seconds() <= STALE_AFTER_S}
+            self._beats[queue] = (now, fresh)
+            return fresh
+
+    async def affinity_targets(self, queue: str) -> Dict[str, List[str]]:
+        """``{text-chain digest hex: [worker id, ...]}`` from the fresh
+        heartbeats."""
+        mapping: Dict[str, List[str]] = {}
+        for wid, health in (await self._fresh_beats(queue)).items():
+            for digest in health.prefix_chains or []:
+                mapping.setdefault(digest, []).append(wid)
+        return mapping
+
+    async def decode_targets(self, queue: str) -> Dict[str, List[str]]:
+        """``{worker id: prefix chains}`` of the fresh decode-role workers
+        on ``queue``, the candidates for a KV adoption offer (a stale pick
+        is harmless: the peer replies busy)."""
+        return {wid: list(health.prefix_chains or [])
+                for wid, health in (await self._fresh_beats(queue)).items()
+                if health.role == "decode"}
+
+    def _record_worker_seen(self, queue: str, beats: Dict[str, WorkerHealth]) -> None:
+        """Keep each worker's last heartbeat time (epoch s) beyond the caches
+        and the heartbeats' TTL: route-time freshness and the janitor read it."""
+        seen = self._worker_seen.setdefault(queue, {})
+        for wid, health in beats.items():
+            try:
+                at = health.last_seen.timestamp()
+            except Exception:  # noqa: BLE001 — a malformed timestamp
+                continue
+            if at > seen.get(wid, 0.0):
+                seen[wid] = at
+
+    def _fresh_workers(self, queue: str, workers: List[str]) -> List[str]:
+        """The candidates whose heartbeat is within ``STALE_AFTER_S`` now: a
+        cached map is up to ``AFFINITY_REFRESH_S`` old, and a worker can die
+        inside that window."""
+        seen = self._worker_seen.get(queue, {})
+        now = clock.wall()
+        return [w for w in workers if now - seen.get(w, 0.0) <= STALE_AFTER_S]
+
+    async def _route_for_affinity(self, queue: str, job: Job) -> str:
+        """The private queue of the worker advertising the job's deepest
+        prefix digest, or the shared queue when nothing fresh matches."""
+        chain = text_prefix_chain(job_affinity_text(job))
+        if not chain:
+            return queue
+        mapping = await self.affinity_targets(queue)
+        if not mapping:
+            return queue
+        # The deepest matching digest wins: it pins the most shared context.
+        for digest in reversed(chain):
+            workers = self._fresh_workers(queue, mapping.get(digest) or [])
+            if workers:
+                return affinity_queue_name(queue, rendezvous_pick(digest, workers))
+        return queue
+
+    # --- the orphan janitor -------------------------------------------------
+    def start_affinity_janitor(self, queue: str, *,
+                               interval_s: float = RECLAIM_INTERVAL_S) -> None:
+        """Start the queue's background janitor (once a queue), which
+        reclaims orphaned per-worker queues every ``interval_s``."""
+        if queue in self._janitors:
+            return
+
+        async def loop() -> None:
+            while True:
+                await asyncio.sleep(interval_s)
+                try:
+                    await self.reclaim_orphaned_affinity_queues(queue)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:  # noqa: BLE001 — the janitor outlives blips
+                    logger.debug("Affinity reclaim pass failed", exc_info=True)
+
+        self._janitors[queue] = spawn(loop(), registry=self._janitor_tasks,
+                                      name=f"affinity-janitor:{queue}")
+
+    async def reclaim_orphaned_affinity_queues(self, queue: str) -> int:
+        """One reclaim pass: for every worker this manager has seen beat on
+        ``queue`` whose last beat is older than ``STALE_AFTER_S`` (or whose
+        engine is wedged, :meth:`_stale_dispatch_workers`), reclaim its
+        queues (:meth:`reclaim_worker_queues`). Returns the number of
+        messages moved. Nothing
+        else consumes a dead worker's queues, and the heartbeats' TTL
+        erases the evidence that it lived: hence ``_worker_seen``."""
         try:
             beats = await self.get_worker_health(queue)
         except Exception:  # noqa: BLE001
             beats = {}
-        wall = utcnow()
-        rate = 0.0
-        for health in beats.values():
-            if (wall - health.last_seen).total_seconds() > STALE_AFTER_S:
+        self._record_worker_seen(queue, beats)
+        seen = self._worker_seen.get(queue, {})
+        now = clock.wall()
+        reclaimed = 0
+        wedged = self._stale_dispatch_workers(beats)
+        for wid, last in list(seen.items()):
+            if now - last <= STALE_AFTER_S and wid not in wedged:
                 continue
-            if health.avg_duration_ms and health.avg_duration_ms > 0:
-                rate += 1000.0 / health.avg_duration_ms
-        result = rate if rate > 0 else None
-        self._fleet_rate[queue] = (now, result)
-        return result
+            # The reference stamps an "affinity_reclaimed" trace event on
+            # each message moved (M16).
+            moved = await self.reclaim_worker_queues(queue, wid)
+            reclaimed += moved
+            seen.pop(wid, None)
+            logger.info("Reclaimed %s's queues on %s (%d stranded messages%s)", wid, queue, moved,
+                        "; worker heartbeating but dispatch-wedged" if wid in wedged else "")
+        self.affinity_reclaimed += reclaimed
+        return reclaimed
+
+    async def reclaim_worker_queues(self, queue: str, wid: str) -> int:
+        """Move what worker ``wid``'s ``<q>.w.<id>`` holds back onto the
+        shared queue and what its ``<q>.d.<id>`` holds onto ``<q>.decode``
+        (ids, headers and payloads untouched, so resume snapshots ride
+        along), each message acked after its copy is out, then delete
+        those and its ``<q>.kv.<id>``. The janitor does it for a dead
+        worker, a worker for itself as it stops. Returns the count moved."""
+        moved = 0
+        for src, dst in ((affinity_queue_name(queue, wid), queue),
+                         (decode_adopt_queue_name(queue, wid), decode_queue_name(queue))):
+            while (msg := await self.broker.get(src)) is not None:
+                await self.broker.publish(dst, msg.body, message_id=msg.message_id,
+                                          headers=msg.headers)
+                await msg.ack()
+                moved += 1
+            await self.broker.delete_queue(src)
+        await self.broker.delete_queue(kv_fetch_queue_name(queue, wid))
+        return moved
+
+    def _stale_dispatch_workers(self, beats: Dict[str, WorkerHealth]) -> set:
+        """Workers whose heartbeat is live but whose engine has completed no
+        device dispatch for ``LLMQ_WATCHDOG_RECLAIM`` seconds or more. Empty
+        with the knob off (the default) or no heartbeat carrying the field;
+        the port's heartbeats carry it with the fault planes (M12)."""
+        limit = watchdog_reclaim_s()
+        if limit <= 0:
+            return set()
+        out = set()
+        for wid, health in beats.items():
+            age = health.last_dispatch_ok_age_s
+            if age is not None and age >= limit:
+                out.add(wid)
+        return out
+
+    # --- deadline admission control ---------------------------------------
+    async def _observed_fleet_rate(self, queue: str) -> Optional[float]:
+        """Aggregate fleet service rate (jobs/s) from the fresh heartbeats'
+        avg_duration_ms. None when no worker has reported a duration yet
+        (then admission control stays out of the way)."""
+        rate = sum(1000.0 / health.avg_duration_ms
+                   for health in (await self._fresh_beats(queue)).values()
+                   if health.avg_duration_ms and health.avg_duration_ms > 0)
+        return rate if rate > 0 else None
 
     async def _should_shed(
         self, queue: str, deadline_at: float, depth_queue: Optional[str] = None
@@ -298,8 +545,21 @@ class BrokerManager:
                 return
         target = queue
         if interactive:
+            # The fast lane beats affinity: every worker drains it ahead of
+            # the shared backlog, which bounds time to first token better
+            # than one worker's private queue.
             target = interactive_queue_name(queue)
             self.interactive_routed += 1
+        elif self.config.prefix_affinity:
+            try:
+                target = await self._route_for_affinity(queue, job)
+            except Exception:  # noqa: BLE001 — routing is best-effort
+                logger.debug("Affinity routing failed", exc_info=True)
+                target = queue
+            if target != queue:
+                self.affinity_routed += 1
+            else:
+                self.affinity_fallback += 1
         payload = job.model_dump(mode="json")
         await self.broker.publish(
             target,

@@ -473,3 +473,6 @@ class MemoryBroker(Broker):
 
     async def purge(self, queue: str) -> int:
         return len(self.core.purge(queue))
+
+    async def delete_queue(self, name: str) -> None:
+        self.core.delete(name)

@@ -408,3 +408,9 @@ class ResilientBroker(Broker):
 
     async def purge(self, queue: str) -> int:
         return await self._run(lambda: self.inner.purge(queue))
+
+    async def delete_queue(self, name: str) -> None:
+        # Out of the recorded topology first, so a reconnect's replay does
+        # not declare again a queue that is being retired.
+        self._topology.pop(name, None)
+        await self._run(lambda: self.inner.delete_queue(name))

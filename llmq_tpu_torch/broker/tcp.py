@@ -9,7 +9,13 @@ daemon, every other process points ``LLMQ_BROKER_URL=tcp://host:port`` at
 it, port workers included.
 
 Wire protocol — length-prefixed JSON frames (4-byte big-endian size + UTF-8
-JSON):
+JSON). A message body rides in the JSON as text (base64 when it is not
+UTF-8), or, between two ends that both read them, as raw bytes after the
+JSON: the size word's top bit set, then the JSON's 4-byte size, the JSON
+and the body. A client asks for raw bodies with ``raw_body`` on its
+first ping; a server that reads them says ``raw_body`` back, and both
+then send them (the reference's daemon and client ignore the key and
+keep to JSON text, so either side still talks to the other's):
 
   client → server: {op, req_id, ...}   ops: declare publish consume cancel
                                             get settle stats purge ping
@@ -50,6 +56,9 @@ logger = logging.getLogger(__name__)
 
 MAX_FRAME = 64 * 1024 * 1024
 _HDR = struct.Struct(">I")
+# The size word's top bit: the frame's body follows its JSON as raw bytes.
+RAW_FLAG = 1 << 31
+_RAW_ENC = "raw"  # a read frame's ``enc`` when its body came raw
 
 
 async def read_frame(reader: asyncio.StreamReader) -> Optional[Dict[str, Any]]:
@@ -58,18 +67,41 @@ async def read_frame(reader: asyncio.StreamReader) -> Optional[Dict[str, Any]]:
     except (asyncio.IncompleteReadError, ConnectionResetError):
         return None
     (size,) = _HDR.unpack(hdr)
+    raw = bool(size & RAW_FLAG)
+    size &= RAW_FLAG - 1
     if size > MAX_FRAME:
         raise ValueError(f"Frame too large: {size}")
     try:
         payload = await reader.readexactly(size)
     except (asyncio.IncompleteReadError, ConnectionResetError):
         return None
-    return json.loads(payload.decode("utf-8"))
+    if not raw:
+        return json.loads(payload)
+    (hlen,) = _HDR.unpack_from(payload)
+    if _HDR.size + hlen > size:
+        raise ValueError(f"Raw frame header overruns the frame: {hlen} of {size}")
+    frame = json.loads(payload[_HDR.size:_HDR.size + hlen])
+    frame.update(body=payload[_HDR.size + hlen:], enc=_RAW_ENC)
+    return frame
 
 
-def write_frame(writer: asyncio.StreamWriter, obj: Dict[str, Any]) -> None:
-    payload = json.dumps(obj, separators=(",", ":")).encode("utf-8")
-    writer.write(_HDR.pack(len(payload)) + payload)
+def write_frame(writer: asyncio.StreamWriter, obj: Dict[str, Any],
+                body: Optional[bytes] = None, raw: bool = False) -> None:
+    """Write ``obj`` as one frame, with ``body`` (a message body) as raw
+    bytes after the JSON when ``raw``, else inside it as text."""
+    if body is not None and not raw:
+        obj = {**obj, **encode_body(body)}
+    header = json.dumps(obj, separators=(",", ":")).encode("utf-8")
+    if body is None or not raw:
+        writer.write(_HDR.pack(len(header)) + header)
+        return
+    writer.writelines([_HDR.pack(RAW_FLAG | (_HDR.size + len(header) + len(body))),
+                       _HDR.pack(len(header)), header, body])
+
+
+def frame_body(frame: Dict[str, Any]) -> bytes:
+    """The message body a read frame carries, raw or as text."""
+    return frame["body"] if frame.get("enc") == _RAW_ENC else decode_body(frame)
 
 
 # ---------------------------------------------------------------------------
@@ -255,10 +287,11 @@ class BrokerServer:
         conn_tags: list[str] = []
         self._conn_writers.add(writer)
         write_lock = asyncio.Lock()
+        raw = False  # does the client read raw bodies (its ping said so)?
 
-        async def send(obj: Dict[str, Any]) -> None:
+        async def send(obj: Dict[str, Any], body: Optional[bytes] = None) -> None:
             async with write_lock:
-                write_frame(writer, obj)
+                write_frame(writer, obj, body, raw)
                 await writer.drain()
 
         try:
@@ -271,6 +304,8 @@ class BrokerServer:
                     break
                 if req is None:
                     break
+                if req.get("op") == "ping" and req.get("raw_body"):
+                    raw = True
                 try:
                     await self._handle_request(req, send, conn_tags)
                 except Exception as exc:  # noqa: BLE001 — reply, don't die
@@ -303,7 +338,7 @@ class BrokerServer:
             return {"type": "reply", "req_id": req_id, "ok": True, **kw}
 
         if op == "ping":
-            await send(reply())
+            await send(reply(**({"raw_body": True} if req.get("raw_body") else {})))
         elif op == "declare":
             self.core.declare(
                 req["queue"],
@@ -313,19 +348,20 @@ class BrokerServer:
             await send(reply())
         elif op == "publish":
             message_id = req.get("message_id") or new_message_id()
-            self._journal(
-                {
-                    "op": "publish",
-                    "queue": req["queue"],
-                    "message_id": message_id,
-                    "body": req["body"],
-                    **({"enc": req["enc"]} if req.get("enc") else {}),
-                    "headers": req.get("headers", {}),
-                }
-            )
+            body = frame_body(req)
+            if self.persist_dir is not None:
+                self._journal(
+                    {
+                        "op": "publish",
+                        "queue": req["queue"],
+                        "message_id": message_id,
+                        **encode_body(body),
+                        "headers": req.get("headers", {}),
+                    }
+                )
             self.core.publish(
                 req["queue"],
-                decode_body(req),
+                body,
                 message_id=message_id,
                 headers=req.get("headers"),
             )
@@ -344,10 +380,10 @@ class BrokerServer:
                             "queue": queue,
                             "tag": tag,
                             "message_id": message.message_id,
-                            **encode_body(message.body),
                             "delivery_count": message.delivery_count,
                             "headers": message.headers,
-                        }
+                        },
+                        message.body,
                     )
                 except (ConnectionResetError, BrokenPipeError):
                     self._pending_settles.pop((tag, message.message_id), None)
@@ -412,10 +448,10 @@ class BrokerServer:
                         empty=False,
                         tag=tag,
                         message_id=message.message_id,
-                        **encode_body(message.body),
                         delivery_count=message.delivery_count,
                         headers=message.headers,
-                    )
+                    ),
+                    message.body,
                 )
         elif op == "stats":
             await send(reply(stats=self.core.stats(req["queue"]).model_dump()))
@@ -475,6 +511,7 @@ class TcpBroker(Broker):
         self._write_lock: Optional[asyncio.Lock] = None
         self._req_seq = 0
         self._lost = False
+        self._raw = False  # the daemon reads and sends raw bodies
         # Strong refs to in-flight handler tasks: the loop only keeps weak
         # ones, so a naked ensure_future could be GC'd mid-delivery.
         self._handler_tasks: Set[asyncio.Task] = set()
@@ -492,7 +529,9 @@ class TcpBroker(Broker):
         self._lost = False
         self._write_lock = asyncio.Lock()
         self._recv_task = asyncio.ensure_future(self._recv_loop())
-        await self._request({"op": "ping"})
+        self._raw = False
+        reply = await self._request({"op": "ping", "raw_body": True})
+        self._raw = bool(reply.get("raw_body"))
 
     async def close(self) -> None:
         await reap(self._recv_task, label="tcp recv loop")
@@ -585,14 +624,15 @@ class TcpBroker(Broker):
                 pass  # server requeues in-flight messages on disconnect
 
         return DeliveredMessage(
-            decode_body(frame),
+            frame_body(frame),
             message_id,
             delivery_count=frame.get("delivery_count", 0),
             headers=frame.get("headers", {}),
             _settle=settle,
         )
 
-    async def _request(self, obj: Dict[str, Any]) -> Dict[str, Any]:
+    async def _request(self, obj: Dict[str, Any],
+                       body: Optional[bytes] = None) -> Dict[str, Any]:
         if self._writer is None or self._write_lock is None or self._lost:
             raise ConnectionError("Broker is not connected")
         self._req_seq += 1
@@ -602,7 +642,7 @@ class TcpBroker(Broker):
         self._replies[req_id] = fut
         try:
             async with self._write_lock:
-                write_frame(self._writer, obj)
+                write_frame(self._writer, obj, body, self._raw)
                 await self._writer.drain()
         except OSError as exc:
             # Write-side detection: the recv loop may not have noticed yet.
@@ -643,10 +683,10 @@ class TcpBroker(Broker):
             {
                 "op": "publish",
                 "queue": queue,
-                **encode_body(body),
                 "message_id": message_id,
                 "headers": headers or {},
-            }
+            },
+            body,
         )
 
     async def consume(
@@ -685,3 +725,6 @@ class TcpBroker(Broker):
     async def purge(self, queue: str) -> int:
         reply = await self._request({"op": "purge", "queue": queue})
         return int(reply.get("purged", 0))
+
+    async def delete_queue(self, name: str) -> None:
+        await self._request({"op": "delete", "queue": name})

@@ -29,7 +29,7 @@ with its ROADMAP item. The options of the reference's ``worker run``
 ``--max-num-seqs``, ``--max-model-len``, ``--dtype``, ``--kv-dtype``,
 ``--prefill-chunk``, ``--prefix-caching``, ``--prefix-host-gb``,
 ``--decode-block``, ``--spec-tokens``, ``--mixed-step``, ``--role``
-(unified, prefill or decode). The others are accepted and, set to
+(unified, prefill, decode or auto). The others are accepted and, set to
 anything but their default, raise ``NotImplementedError`` with their
 ROADMAP item. ``worker run`` and ``worker pipeline`` take one option of
 the port's own: ``--device`` (default ``cuda``; ``cpu`` runs the plain
@@ -58,7 +58,6 @@ UNPORTED_OPTIONS = {
     "data_parallel": (lambda v: v > 1, "M13"),
     "sequence_parallel": (lambda v: v > 1, "M13"),
     "tp_overlap": (lambda v: v not in (None, "off"), "M13"),
-    "role": (lambda v: v == "auto", "M6"),
 }
 
 #: command -> (what it needs, ROADMAP.md queue 1 item)

@@ -120,12 +120,6 @@ class JobSubmitter:
         # None stamps nothing.
         self.priority = priority
         self.config = get_config()
-        if self.config.prefix_affinity:
-            # The reference's publish_job routes by the workers' advertised
-            # prefixes; the port's publishes to the shared queue only.
-            raise NotImplementedError(
-                "Config.prefix_affinity=True (prefix-affinity routing at submit) is not ported "
-                "yet (ROADMAP.md queue 1, M6 (second part))")
         self.broker = BrokerManager(self.config)
         self.submitted = 0
         self._progress: Optional[_SubmitProgress] = None

@@ -18,8 +18,8 @@ the compute dtype. The engine config is resolved as the JAX worker's
 ``_build_core`` (:333) resolves it (:func:`engine_config`): each argument over
 its variable in ``core/config.py``, ``max_model_len`` clamped to the
 model's ``max_position_embeddings``, ``prefix_host_gb`` refused without
-prefix caching (``tpu_worker.py:190``). ``role`` (unified, prefill or
-decode) sets the worker's ``Config.worker_role`` over
+prefix caching (``tpu_worker.py:190``). ``role`` (unified, prefill,
+decode or auto) sets the worker's ``Config.worker_role`` over
 ``LLMQ_WORKER_ROLE``. The worker's queue and failure policy (job TTL,
 redelivery cap, timeout, quarantine, breaker, reconnects) are read from
 the environment by ``core/config.py``; the settings of features the port
@@ -225,7 +225,7 @@ def run_torch_worker(
     config = get_config()
     if role is not None:
         config.worker_role = role
-    # Refused before any weight is loaded: the auto role, and every
+    # Refused before any weight is loaded: an unknown role, and every
     # setting of a feature the port lacks (core/config.py::UNPORTED_FIELDS).
     worker_role(config)
     refuse_unported(config)

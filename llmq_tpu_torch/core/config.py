@@ -145,7 +145,11 @@ class Config(BaseModel):
     prefix_affinity: bool = Field(
         default_factory=lambda: (_env("LLMQ_PREFIX_AFFINITY") or "").lower()
         in ("1", "true", "yes"),
-        description="Prefix-affinity routing over per-worker queues (not ported yet).",
+        description="Prefix-affinity routing: workers advertise hot prefix-chain digests in "
+        "heartbeats, and the submit path routes a job sharing an advertised prompt prefix to "
+        "the per-worker queue <queue>.w.<worker_id> of the worker holding those KV pages (the "
+        "shared queue on no fresh match). Workers also serve cross-worker page fetches on "
+        "<queue>.kv.<worker_id>.",
     )
     decode_block: int = Field(
         default_factory=lambda: _env_int("LLMQ_DECODE_BLOCK", default=1),
@@ -169,30 +173,35 @@ class Config(BaseModel):
         default_factory=lambda: (_env("LLMQ_WORKER_ROLE") or "unified").lower(),
         description="Disaggregated serving role. 'unified' (default) runs prefill and decode "
         "on one worker. 'prefill' consumes the shared job queue, runs the prompt phase only "
-        "and republishes each job with its prompt-KV snapshot to <q>.decode. 'decode' "
-        "consumes <q>.decode and continues the handed-off requests. 'auto' switches between "
-        "the two on fleet queue depths (the reference's; not ported yet, ROADMAP.md M6).",
+        "and hands the request off at the phase boundary (an adoption offer to a decode "
+        "peer, the snapshot republished to <q>.decode as the fallback). 'decode' consumes "
+        "<q>.decode and its private adoption queue <q>.d.<worker_id> and continues the "
+        "handed-off requests. 'auto' starts as prefill and switches roles on fleet "
+        "queue-depth skew with hysteresis (role_dwell_s / role_switch_*).",
     )
     role_dwell_s: float = Field(
         default_factory=lambda: _env_float("LLMQ_ROLE_DWELL_S", default=60.0),
-        description="Auto-role hysteresis: least seconds in a role (not ported yet).",
+        description="Auto-role hysteresis: least seconds a worker stays in its role before "
+        "the depth-ratio controller may switch it again.",
     )
     role_switch_hi: float = Field(
         default_factory=lambda: _env_float("LLMQ_ROLE_SWITCH_HI", default=2.0),
-        description="Auto-role band, decode -> prefill (not ported yet).",
+        description="Auto-role band: a decode worker switches to prefill when (shared depth "
+        "+ 1) / (decode depth + 1) exceeds this ratio.",
     )
     role_switch_lo: float = Field(
         default_factory=lambda: _env_float("LLMQ_ROLE_SWITCH_LO", default=0.5),
-        description="Auto-role band, prefill -> decode (not ported yet).",
+        description="Auto-role band: a prefill worker switches to decode when (shared depth "
+        "+ 1) / (decode depth + 1) falls below this ratio.",
     )
     role_check_interval_s: float = Field(
         default_factory=lambda: _env_float("LLMQ_ROLE_CHECK_INTERVAL_S", default=5.0),
-        description="Auto-role controller cadence (not ported yet).",
+        description="Auto-role controller cadence: seconds between fleet queue-depth polls.",
     )
     handoff_timeout_s: float = Field(
         default_factory=lambda: _env_float("LLMQ_HANDOFF_TIMEOUT_S", default=2.0),
-        description="Seconds a prefill worker waits for a decode peer to accept an adoption "
-        "offer (not ported yet: every handoff takes <q>.decode).",
+        description="Seconds a prefill worker waits for a decode peer to accept a KV "
+        "adoption offer before it republishes the snapshot on <q>.decode.",
     )
     result_digest: bool = Field(
         default_factory=lambda: (_env("LLMQ_RESULT_DIGEST") or "").lower()
@@ -252,7 +261,8 @@ class Config(BaseModel):
     )
     peer_serve_concurrency: int = Field(
         default_factory=lambda: _env_int("LLMQ_PEER_SERVE_CONCURRENCY", default=2),
-        description="Concurrent KV-ship fetches a worker serves (not ported yet).",
+        description="Concurrent KV-ship fetch requests a worker serves to one peer before it "
+        "replies busy (the requester recomputes at once instead of waiting out its timeout).",
     )
     breaker_failures: int = Field(
         default_factory=lambda: _env_int("LLMQ_BREAKER_FAILURES", default=0),
@@ -286,15 +296,7 @@ class Config(BaseModel):
 
 #: field -> (its default, ROADMAP.md queue 1 item, the feature) of the
 #: features the port does not have yet; refused at a non-default value.
-_M6_PEERS = "M6 (second part)"
 UNPORTED_FIELDS = {
-    "prefix_affinity": (False, _M6_PEERS, "prefix-affinity routing"),
-    "role_dwell_s": (60.0, _M6_PEERS, "the auto role's controller"),
-    "role_switch_hi": (2.0, _M6_PEERS, "the auto role's controller"),
-    "role_switch_lo": (0.5, _M6_PEERS, "the auto role's controller"),
-    "role_check_interval_s": (5.0, _M6_PEERS, "the auto role's controller"),
-    "handoff_timeout_s": (2.0, _M6_PEERS, "the adoption offer to a decode peer"),
-    "peer_serve_concurrency": (2, _M6_PEERS, "cross-worker prefix-page fetches"),
     "serve_port": (8100, "M16", "the streaming gateway"),
 }
 

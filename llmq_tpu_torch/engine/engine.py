@@ -41,9 +41,11 @@ device prefix match from it, writing the host pages into the fresh pages
 in place before the wave's first dispatch (``_promote_host_pages``,
 :3012-3065). ``flush_prefix_to_host`` and ``export_prefix_chunks`` /
 ``ingest_prefix_chunks`` (pages shipped between engines in the chunk wire
-form) follow :3055-3120; the want-list and hot-chain queries and their
-``AsyncEngine`` wrappers come with the heartbeats that call them
-(ROADMAP.md M6). ``add_request(prefill_only=True)`` stops a request at the
+form) follow :3055-3120 and ``missing_prefix_digests`` (a worker's
+want-list before it fetches a prefix from a peer) :3127-3141, with the
+three ``AsyncEngine`` wrappers (:5127-5160) that run them on the engine
+thread. (The reference's ``hot_prefix_chains`` has no caller: its
+workers advertise the chains their jobs walked.) ``add_request(prefill_only=True)`` stops a request at the
 prefill boundary (:3866-3880): its first sampled token is dropped, the
 prompt KV is snapshotted and it finishes as ``"prefill_done"`` with the
 snapshot on ``RequestOutput.snapshot``; a decode engine adopts it through
@@ -1015,6 +1017,23 @@ class EngineCore:
                 n += 1
                 self.prefix_chunks_ingested += 1
         return n
+
+    def missing_prefix_digests(self, digests_hex: List[str]) -> List[str]:
+        """The chain digests held in NEITHER the device prefix cache nor the
+        host tier: the want-list a worker sends an affinity peer before it
+        recomputes a prefix. Host-side lookups only."""
+        missing: List[str] = []
+        for hx in digests_hex:
+            try:
+                key = bytes.fromhex(hx)
+            except ValueError:
+                continue
+            if key in self.scheduler._prefix_cache:
+                continue
+            if self.prefix_store is not None and key in self.prefix_store:
+                continue
+            missing.append(hx)
+        return missing
 
     def _resync(self) -> None:
         """Rebuild the device decode state from scheduler truth, in place
@@ -2301,6 +2320,23 @@ class AsyncEngine:
         self._calls.put((fn, fut))
         self._wake.set()
         return fut.result(timeout=timeout)
+
+    def export_prefix_chunks(self, digests_hex: List[str]) -> List[str]:
+        """Thread-safe :meth:`EngineCore.export_prefix_chunks`."""
+        return self.call_on_engine(lambda: self.core.export_prefix_chunks(digests_hex))
+
+    def ingest_prefix_chunks(self, chunks_b64: List[str]) -> int:
+        """Thread-safe :meth:`EngineCore.ingest_prefix_chunks`."""
+        return self.call_on_engine(lambda: self.core.ingest_prefix_chunks(chunks_b64))
+
+    def missing_prefix_digests(self, digests_hex: List[str]) -> List[str]:
+        """Thread-safe want-list; [] on any failure (a fetch treats
+        "nothing missing" as "nothing to fetch")."""
+        try:
+            return self.call_on_engine(lambda: self.core.missing_prefix_digests(digests_hex),
+                                       timeout=5.0)
+        except Exception:  # noqa: BLE001
+            return []
 
     def shutdown(self) -> None:
         self._stop = True

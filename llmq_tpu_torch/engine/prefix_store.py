@@ -30,7 +30,6 @@ from __future__ import annotations
 import base64
 import binascii
 import dataclasses
-import hashlib
 import json
 import struct
 import threading
@@ -44,7 +43,9 @@ from llmq_tpu_torch.engine.snapshot import (
     SnapshotError,
     SnapshotIntegrityError,
     SnapshotVersionError,
+    _digest,
     _dtype_from_name,
+    _raw_buffer,
 )
 
 CHUNK_MAGIC = b"LLMQPFXC"
@@ -224,8 +225,6 @@ def chunk_to_bytes(
     """Serialize one prefix page (raw bits, see the module docstring) for
     cross-engine shipping: versioned, digest-covered, a JSON header and
     the raw buffers, never pickle."""
-    k = np.ascontiguousarray(k)
-    v = np.ascontiguousarray(v)
     try:
         name = _STORED_NAME[k.dtype]
     except KeyError:
@@ -238,11 +237,11 @@ def chunk_to_bytes(
         "shape": list(k.shape),
     }
     header = json.dumps(meta, separators=(",", ":")).encode("utf-8")
-    body = k.tobytes() + v.tobytes()
+    body = [_raw_buffer(k), _raw_buffer(v)]
     ver = _VER_STRUCT.pack(CHUNK_VERSION)
     hlen = _LEN_STRUCT.pack(len(header))
-    digest = hashlib.blake2b(ver + hlen + header + body, digest_size=_DIGEST_SIZE).digest()
-    return CHUNK_MAGIC + ver + digest + hlen + header + body
+    digest = _digest(ver, hlen, header, *body)
+    return b"".join([CHUNK_MAGIC, ver, digest, hlen, header, *body])
 
 
 def chunk_from_bytes(data: bytes) -> Tuple[bytes, np.ndarray, np.ndarray, Dict[str, Any], int]:
@@ -265,9 +264,7 @@ def chunk_from_bytes(data: bytes) -> Tuple[bytes, np.ndarray, np.ndarray, Dict[s
         raise SnapshotVersionError(
             f"prefix chunk version {version} is newer than supported {CHUNK_VERSION}"
         )
-    rest = data[off:]
-    want = hashlib.blake2b(ver_bytes + rest, digest_size=_DIGEST_SIZE).digest()
-    if digest != want:
+    if digest != _digest(ver_bytes, memoryview(data)[off:]):
         raise SnapshotIntegrityError("prefix chunk digest mismatch")
     (hlen,) = _LEN_STRUCT.unpack_from(data, off)
     off += _LEN_STRUCT.size

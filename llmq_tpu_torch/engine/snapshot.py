@@ -109,6 +109,21 @@ def dtype_name(dtype: torch.dtype) -> str:
         raise SnapshotError(f"no snapshot dtype for {dtype}") from None
 
 
+def _raw_buffer(arr: np.ndarray) -> memoryview:
+    """The bytes of ``arr`` in C order, without a copy where it is
+    contiguous already."""
+    return memoryview(np.ascontiguousarray(arr)).cast("B")
+
+
+def _digest(*parts) -> bytes:
+    """The codec's blake2b over ``parts`` in order, as over their
+    concatenation, without making it."""
+    h = hashlib.blake2b(digest_size=DIGEST_SIZE)
+    for part in parts:
+        h.update(part)
+    return h.digest()
+
+
 def pages_to_host(pool: torch.Tensor, idx: torch.Tensor) -> np.ndarray:
     """Gather pages ``idx`` of a ``[L, P, page, H, D]`` pool to the host as
     ``[L, n, page, H, D]`` raw bits (one ``index_select`` and one copy)."""
@@ -190,25 +205,23 @@ class RequestSnapshot:
         directory = []
         chunks = []
         for key, arr, name in arrays:
-            arr = np.ascontiguousarray(arr)
-            buf = arr.tobytes()
+            buf = _raw_buffer(arr)
             directory.append(
                 {
                     "key": key,
                     "dtype": name or arr.dtype.name,
                     "shape": list(arr.shape),
-                    "nbytes": len(buf),
+                    "nbytes": buf.nbytes,
                 }
             )
             chunks.append(buf)
-        body = b"".join(chunks)
         header = json.dumps({"meta": meta, "arrays": directory}, separators=(",", ":")).encode(
             "utf-8"
         )
         ver = _VER_STRUCT.pack(SNAPSHOT_VERSION)
         hlen = _LEN_STRUCT.pack(len(header))
-        digest = hashlib.blake2b(ver + hlen + header + body, digest_size=DIGEST_SIZE).digest()
-        return MAGIC + ver + digest + hlen + header + body
+        digest = _digest(ver, hlen, header, *chunks)
+        return b"".join([MAGIC, ver, digest, hlen, header, *chunks])
 
     @classmethod
     def from_bytes(cls, data: bytes) -> "RequestSnapshot":
@@ -227,9 +240,7 @@ class RequestSnapshot:
             raise SnapshotVersionError(
                 f"snapshot version {version} is newer than supported {SNAPSHOT_VERSION}"
             )
-        rest = data[off:]
-        want = hashlib.blake2b(ver_bytes + rest, digest_size=DIGEST_SIZE).digest()
-        if digest != want:
+        if digest != _digest(ver_bytes, memoryview(data)[off:]):
             raise SnapshotIntegrityError("snapshot digest mismatch")
         (hlen,) = _LEN_STRUCT.unpack_from(data, off)
         off += _LEN_STRUCT.size

@@ -1,8 +1,10 @@
-"""Content hashing: the prefix cache's page identity, result digests, and
-the dedup worker's n-gram buckets.
+"""Content hashing: the prefix cache's page identity, the text chains that
+prefix-affinity routing keys on, result digests, and the dedup worker's
+n-gram buckets.
 
-Port of ``llmq_tpu/utils/hashing.py`` (``stable_bucket`` :26,
-``chain_hash`` :33, ``token_prefix_chain`` :51, ``token_fold`` :111).
+Port of ``llmq_tpu/utils/hashing.py`` (``CHAIN_DIGEST_SIZE`` :23,
+``stable_bucket`` :26, ``chain_hash`` :33, ``token_prefix_chain`` :51,
+``text_prefix_chain`` :71, ``rendezvous_pick`` :97, ``token_fold`` :111).
 The page digests are the wire identity of a KV prefix page across a
 fleet (the host tier and cross-worker shipping key on them), so they
 must stay byte-identical to the JAX package's: blake2b is keyless and
@@ -49,6 +51,36 @@ def token_prefix_chain(token_ids: Sequence[int], page_size: int) -> List[bytes]:
         h = chain_hash(h, token_ids[i * page_size : (i + 1) * page_size])
         hashes.append(h)
     return hashes
+
+
+def text_prefix_chain(text: str, *, chunk_chars: int = 256, max_chunks: int = 4) -> List[str]:
+    """Chain digests (hex) of a prompt's leading text chunks.
+
+    The submit path has no tokenizer, so prefix-affinity routing keys on
+    character chunks instead of token pages; workers advertise the same
+    digests from the raw job text, so both sides agree without
+    tokenizing. Only FULL chunks hash (a partial tail would make "abc" a
+    prefix match of nothing), at most ``max_chunks``: routing needs the
+    shared head, not the whole prompt."""
+    n_full = min(len(text) // chunk_chars, max_chunks)
+    chains: List[str] = []
+    h = b""
+    for i in range(n_full):
+        dig = hashlib.blake2b(h, digest_size=CHAIN_DIGEST_SIZE)
+        dig.update(text[i * chunk_chars : (i + 1) * chunk_chars].encode("utf-8"))
+        h = dig.digest()
+        chains.append(h.hex())
+    return chains
+
+
+def rendezvous_pick(digest: str, workers: List[str]) -> str:
+    """Deterministic owner among several workers advertising the same
+    digest (highest-random-weight hashing): every submitter picks the same
+    worker without coordination, and losing one advertiser only remaps the
+    chains it owned. Affinity routing and the choice of a peer to fetch
+    from or to ship a handoff to all pick through it."""
+    return max(workers, key=lambda w: hashlib.blake2b(
+        (digest + "|" + w).encode("utf-8"), digest_size=8).digest())
 
 
 def token_fold(token_ids: Sequence[int]) -> str:

@@ -15,13 +15,14 @@ throughput, never correctness:
 2. **Refuse swap-preempt** (above ``SWAP_REFUSE_FRAC`` of the budget,
    after eviction). The engine falls back to recompute-preemption: the
    behaviour without swap, always correct, just slower on resume.
+3. **Refuse KV-ship serves** (above ``SERVE_REFUSE_FRAC``). A peer that
+   asked for prefix pages recomputes them locally instead; export
+   buffers are the last optional allocation standing.
 
 Resume-republish blobs are accounted but never refused: refusing one
-would strand an in-flight request mid-drain. The reference's third rung,
-refusing KV-ship serves (``admit_serve``), serves the prefix fetch RPC
-between workers, which comes with the heartbeats (ROADMAP.md M6).
+would strand an in-flight request mid-drain.
 
-A budget of 0 (the default) disables the governor: every ``admit_swap``
+A budget of 0 (the default) disables the governor: every ``admit_*``
 answers yes and no eviction pressure is applied.
 """
 
@@ -30,8 +31,11 @@ from __future__ import annotations
 import threading
 from typing import Callable, Dict, Optional
 
-# The share of the byte budget above which a swap capture is refused.
+# The shares of the byte budget above which a swap capture, then a serve of
+# prefix pages to a peer, is refused: rising pressure sheds optional local
+# buffering before it stops helping remote peers.
 SWAP_REFUSE_FRAC = 0.85
+SERVE_REFUSE_FRAC = 0.95
 
 
 class HostMemoryGovernor:
@@ -50,6 +54,7 @@ class HostMemoryGovernor:
         self._evict_fns: Dict[str, Callable[[int], int]] = {}
         self.evictions_forced = 0
         self.swap_refusals = 0
+        self.serve_refusals = 0
 
     @property
     def enabled(self) -> bool:
@@ -126,6 +131,17 @@ class HostMemoryGovernor:
         self.swap_refusals += 1
         return False
 
+    def admit_serve(self) -> bool:
+        """May this worker build an export buffer to serve a peer's fetch
+        of prefix pages? Refused only near the top of the budget (the last
+        rung); the peer recomputes, which is always correct."""
+        if not self.enabled:
+            return True
+        if self.usage_bytes() <= int(self.budget_bytes * SERVE_REFUSE_FRAC):
+            return True
+        self.serve_refusals += 1
+        return False
+
     def note_resume_blob(self, nbytes: int) -> None:
         """Account a resume-republish blob. Never refuses (that would
         strand an in-flight request mid-drain), but applies eviction
@@ -141,6 +157,7 @@ class HostMemoryGovernor:
             "usage_bytes": self.usage_bytes(),
             "evictions_forced": self.evictions_forced,
             "swap_refusals": self.swap_refusals,
+            "serve_refusals": self.serve_refusals,
         }
 
 

@@ -8,9 +8,14 @@ A worker:
    ``setup_queue_infrastructure`` does (a pipeline stage's worker: every
    queue of its pipeline, ``setup_pipeline_infrastructure``), plus
    ``<queue>.health``;
-2. consumes the queues of its role (``<queue>`` and the
-   ``<queue>.interactive`` fast lane, or ``<queue>.decode``) with prefetch
-   = concurrency;
+2. consumes the queues of its role with prefetch = concurrency: ``<queue>``
+   and the ``<queue>.interactive`` fast lane, with prefix affinity also
+   its private ``<queue>.w.<id>`` (a job routed there while the worker
+   drains bounces back to the shared queue); or, as a decode worker,
+   ``<queue>.decode`` and its private adoption queue ``<queue>.d.<id>``.
+   An ``auto`` worker starts as prefill and its controller
+   (:meth:`_maybe_switch_role`, on the run loop) swaps the two sets when
+   the shared:decode depth ratio leaves its band, after a dwell;
 3. per message: parse -> claim-time guards (a lapsed deadline, the
    quarantine backstop, a prefill worker forwarding resume state) ->
    process (under ``job_timeout_s``) -> Result (with extra-field
@@ -24,23 +29,24 @@ A worker:
    (the broker dead-letters past ``max_redeliveries``); on ``ValueError``:
    ack and drop; an unparseable payload is dead-lettered to
    ``<queue>.failed`` with an ``x-error`` header;
-5. publishes a ``WorkerHealth`` heartbeat every ``HEARTBEAT_INTERVAL_S``
-   while the transport is up;
-6. on SIGINT / SIGTERM / :meth:`request_shutdown` (the breaker's too):
+5. at the prefill boundary (``PrefillDone``) offers the job with its
+   prompt-KV snapshot to a decode peer (:meth:`_ship_to_decode_peer`, the
+   processor's), and republishes it on ``<queue>.decode`` when no peer
+   takes it;
+6. publishes a ``WorkerHealth`` heartbeat every ``HEARTBEAT_INTERVAL_S``
+   while the transport is up, with the processor's hot prefix chains;
+7. on SIGINT / SIGTERM / :meth:`request_shutdown` (the breaker's too):
    drain-with-handoff (the processor hands unfinished requests back as
    resumable jobs), wait up to ``drain_timeout_s`` for in-flight jobs,
-   clean up.
+   return what its private queues still hold to the shared ones and
+   delete them, clean up.
 
 Left out until their slices, each place marked: the lifecycle trace and
-the heartbeat's ``metrics`` (ROADMAP.md queue 1, M16), the
+the heartbeat's ``metrics`` (ROADMAP.md queue 1, M16), and the
 ``DeviceFaultError`` ladder and the watchdog / integrity heartbeat fields
-(M12), and prefix affinity, the adoption queue
-``<queue>.d.<id>``, the direct offer to a decode peer and the ``auto``
-role's controller (M6's second part; their settings are refused by
-``core/config.py::refuse_unported`` and :func:`worker_role`). Two things
-are the port's own: ``broker_url`` (the ``TorchWorker``'s argument) and
-the :meth:`_after_failure` hook, where the ``TorchWorker`` stops on a
-failed engine until M12.
+(M12). Two things are the port's own: ``broker_url`` (the
+``TorchWorker``'s argument) and the :meth:`_after_failure` hook, where the
+``TorchWorker`` stops on a failed engine until M12.
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ from llmq_tpu_torch.broker.manager import (
     HEARTBEAT_INTERVAL_S,
     QUARANTINE_SUFFIX,
     BrokerManager,
+    affinity_queue_name,
+    decode_adopt_queue_name,
     decode_queue_name,
     interactive_queue_name,
 )
@@ -76,7 +84,8 @@ from llmq_tpu_torch.workers.resume import (
     resume_offset,
 )
 
-#: Valid LLMQ_WORKER_ROLE values; "auto" is refused (M6's second part).
+#: Valid LLMQ_WORKER_ROLE values. "unified" is the monolith default;
+#: "auto" workers start as prefill and switch on fleet queue depths.
 WORKER_ROLES = ("unified", "prefill", "decode", "auto")
 
 HEALTH_TTL_MS = 120_000
@@ -97,14 +106,10 @@ class DeadlineExceeded(Exception):
 
 def worker_role(cfg: Config) -> str:
     """The configured role, checked as the reference's ``BaseWorker``
-    checks it; the ``auto`` role is refused with its ROADMAP.md item."""
+    checks it."""
     role = (cfg.worker_role or "unified").lower()
     if role not in WORKER_ROLES:
         raise ValueError(f"LLMQ_WORKER_ROLE must be one of {WORKER_ROLES}, got {role!r}")
-    if role == "auto":
-        raise NotImplementedError(
-            "worker role 'auto' is not ported yet: its controller reads fleet queue depths "
-            "beside the heartbeats (ROADMAP.md queue 1, M6 (second part))")
     return role
 
 
@@ -122,8 +127,13 @@ class BaseWorker(abc.ABC):
         self.queue = queue
         self.config = config or get_config()
         refuse_unported(self.config)
+        # The configured role, and the one served now (they differ only for
+        # "auto", whose controller flips role_active on fleet queue depths).
         self.role = worker_role(self.config)
-        self.role_active = self.role
+        self.role_active = "prefill" if self.role == "auto" else self.role
+        self.role_switches = 0
+        self._role_since = clock.monotonic()
+        self._role_checked_at = float("-inf")
         self.concurrency = concurrency or self.config.queue_prefetch
         self.pipeline = pipeline
         self.stage_name = stage_name
@@ -137,7 +147,8 @@ class BaseWorker(abc.ABC):
         self.jobs_failed = 0
         self.jobs_timed_out = 0
         self.total_duration_ms = 0.0
-        self._consumer_tags: List[str] = []
+        self._consumer_tags: List[str] = []  # the role's consumers (swapped on a switch)
+        self._extra_tags: List[str] = []  # the processor's, e.g. the KV-fetch server
         self._in_flight = 0
         self._drained = asyncio.Event()
         self._drained.set()
@@ -154,8 +165,9 @@ class BaseWorker(abc.ABC):
         self.jobs_quarantined = 0
         self.breaker_tripped = False
         self.jobs_handed_off = 0  # drain-time resume republishes (the port's counter)
+        self.handoffs_shipped = 0  # KV adoptions a decode peer accepted
         self.handoffs_fallback = 0  # snapshot republishes to <q>.decode
-        self.handoff_bytes = 0  # the bytes of those payloads (the port's counter)
+        self.handoff_bytes = 0  # the bytes of both kinds of payload (the port's counter)
         self.jobs_adopted = 0  # handoffs this worker resumed as decoder
         # Handoff publish -> adoption latency samples (ms), bounded ring.
         self._handoff_ms: deque = deque(maxlen=512)
@@ -187,6 +199,13 @@ class BaseWorker(abc.ABC):
         # non-destructive health peeks from ever dead-lettering them.
         await self.broker.broker.declare_queue(
             self.queue + HEALTH_SUFFIX, ttl_ms=HEALTH_TTL_MS, max_redeliveries=1_000_000_000)
+        if self.config.prefix_affinity:
+            # The private queue the submit path routes to: the shared
+            # queue's TTL and cap, so a job stranded by this worker's death
+            # expires or dead-letters instead of waiting forever.
+            await self.broker.broker.declare_queue(
+                affinity_queue_name(self.queue, self.worker_id),
+                ttl_ms=self.config.job_ttl_ms, max_redeliveries=self.config.max_redeliveries)
 
     async def run(self) -> None:
         """Main entry: initialize, consume until stopped, then clean up."""
@@ -205,8 +224,10 @@ class BaseWorker(abc.ABC):
             await self.initialize()
             self.running = True
             await self._start_role_consumers()
+            await self._start_extra_consumers()
             self.logger.info("Worker %s consuming %s (prefetch=%d, role=%s)", self.worker_id,
-                             ", ".join(self._role_queues()), self.concurrency, self.role)
+                             ", ".join(self._role_queues()), self.concurrency,
+                             self.role_active)
             # Monotonic clock for the beat cadence: wall time steps must
             # not skip or double beats.
             last_beat = clock.monotonic() - HEARTBEAT_INTERVAL_S
@@ -219,6 +240,7 @@ class BaseWorker(abc.ABC):
                     if self.broker.transport_connected:
                         await self._publish_heartbeat()
                         last_beat = now
+                await self._maybe_switch_role()
                 try:
                     await asyncio.wait_for(self._wake.wait(), timeout=1.0)
                 except asyncio.TimeoutError:
@@ -234,6 +256,8 @@ class BaseWorker(abc.ABC):
 
     async def shutdown(self) -> None:
         await self._stop_role_consumers()
+        await self._cancel_tags(self._extra_tags)
+        self._extra_tags = []
         # Drain-with-handoff: the processor hands unfinished requests back;
         # in-flight _process_message coroutines then settle their messages
         # as resumable republishes instead of waiting out generations.
@@ -245,6 +269,16 @@ class BaseWorker(abc.ABC):
             await asyncio.wait_for(self._drained.wait(), timeout=self.config.drain_timeout_s)
         except asyncio.TimeoutError:
             self.logger.warning("Timed out draining %d in-flight jobs", self._in_flight)
+        if (self.config.prefix_affinity or self.role != "unified") and self.broker.connected:
+            # The graceful half of the orphan reclaim: what this worker's
+            # private queues still hold goes back to the shared ones, and
+            # the queues go (the janitor covers a crashed worker).
+            try:
+                moved = await self.broker.reclaim_worker_queues(self.queue, self.worker_id)
+                if moved:
+                    self.logger.info("Returned %d unclaimed jobs to the shared queues", moved)
+            except Exception:  # noqa: BLE001 — the janitor reclaims what is left
+                self.logger.warning("Private queue retirement incomplete", exc_info=True)
         await self._cleanup_processor()
         if self.broker.connected:
             await self.broker.disconnect()
@@ -259,31 +293,42 @@ class BaseWorker(abc.ABC):
 
     # --- roles ------------------------------------------------------------
     def _role_queues(self) -> List[str]:
-        """The queues the role serves: a decode worker the decode pool, the
-        others the shared queue, after the fast lane when the priority
-        classes are on (interactive deliveries race the shared queue's
-        prefetch, and the engine's admission orders what lands)."""
+        """The shared queues the role serves: a decode worker the decode
+        pool, the others the shared queue, after the fast lane when the
+        priority classes are on (interactive deliveries race the shared
+        queue's prefetch, and the engine's admission orders what lands)."""
         if self.role_active == "decode":
             return [decode_queue_name(self.queue)]
         lane = [interactive_queue_name(self.queue)] if self.config.priority_classes else []
         return lane + [self.queue]
 
     async def _start_role_consumers(self) -> None:
-        """Attach the job consumers of the role. A decode worker declares
-        the decode pool with the job TTL and cap first; the reference's
-        decode worker also consumes its private adoption queue
-        ``<q>.d.<id>``, which comes with the direct adoption offer (M6's
-        second part)."""
+        """Attach the job consumers of the role served now: its shared
+        queues, and its private one. A decode worker declares the decode
+        pool and its adoption queue ``<q>.d.<id>`` (accepted KV handoffs
+        are parked there before the offer is answered) with the job TTL and
+        cap; a worker with prefix affinity consumes ``<q>.w.<id>``. An
+        ``auto`` worker holds one of the two sets at a time."""
+        consumers = [(name, self._process_message) for name in self._role_queues()]
         if self.role_active == "decode":
-            await self.broker.broker.declare_queue(
-                decode_queue_name(self.queue), ttl_ms=self.config.job_ttl_ms,
-                max_redeliveries=self.config.max_redeliveries)
-        for name in self._role_queues():
+            adopt = decode_adopt_queue_name(self.queue, self.worker_id)
+            for name in (decode_queue_name(self.queue), adopt):
+                await self.broker.broker.declare_queue(
+                    name, ttl_ms=self.config.job_ttl_ms,
+                    max_redeliveries=self.config.max_redeliveries)
+            consumers.append((adopt, self._process_message))
+        elif self.config.prefix_affinity:
+            consumers.append((affinity_queue_name(self.queue, self.worker_id),
+                              self._process_affinity_message))
+        for name, handler in consumers:
             self._consumer_tags.append(await self.broker.consume_jobs(
-                name, self._process_message, prefetch=self.concurrency))
+                name, handler, prefetch=self.concurrency))
 
     async def _stop_role_consumers(self) -> None:
         tags, self._consumer_tags = self._consumer_tags, []
+        await self._cancel_tags(tags)
+
+    async def _cancel_tags(self, tags: List[str]) -> None:
         for tag in tags:
             if not self.broker.connected:
                 break
@@ -294,6 +339,71 @@ class BaseWorker(abc.ABC):
                 await self.broker.cancel(tag, requeue=False)
             except Exception:  # noqa: BLE001 — best-effort teardown
                 pass
+
+    async def _maybe_switch_role(self) -> None:
+        """The ``auto`` role's controller: compare the shared queue's depth
+        (prefill demand) with the decode pool's and flip the role when
+        (shared + 1) / (decode + 1) leaves the band ``[role_switch_lo,
+        role_switch_hi]``. A check cadence (``role_check_interval_s``) and a
+        least dwell in a role (``role_dwell_s``) keep it from flapping."""
+        if self.role != "auto" or not self.running:
+            return
+        now = clock.monotonic()
+        if now - self._role_checked_at < self.config.role_check_interval_s:
+            return
+        self._role_checked_at = now
+        if now - self._role_since < self.config.role_dwell_s:
+            return
+        try:
+            shared = await self.broker.get_queue_stats(self.queue)
+            decode = await self.broker.get_queue_stats(decode_queue_name(self.queue))
+        except Exception:  # noqa: BLE001 — no stats, no switch
+            return
+        dp, dd = shared.message_count_ready, decode.message_count_ready
+        if dp is None or dd is None:
+            return
+        # +1 keeps the ratio finite and an all-empty fleet (1.0) in the band.
+        ratio = (dp + 1.0) / (dd + 1.0)
+        target = None
+        if self.role_active == "prefill" and ratio < self.config.role_switch_lo:
+            target = "decode"
+        elif self.role_active == "decode" and ratio > self.config.role_switch_hi:
+            target = "prefill"
+        if target is not None:
+            await self._switch_role(target, ratio=ratio)
+
+    async def _switch_role(self, target: str, *, ratio: float = 0.0) -> None:
+        prev = self.role_active
+        await self._stop_role_consumers()
+        self.role_active = target
+        self.role_switches += 1
+        self._role_since = clock.monotonic()
+        # The reference also stamps a "role_switch" trace event (M16).
+        self.logger.info("Role switch %s -> %s (shared:decode depth ratio %.2f)", prev, target,
+                         ratio)
+        await self._start_role_consumers()
+
+    async def _start_extra_consumers(self) -> None:
+        """Hook: attach the processor's own consumers once the job
+        consumers are live (the ``TorchWorker``'s KV-fetch server); their
+        tags go on ``_extra_tags``. Base workers have none."""
+        return None
+
+    async def _process_affinity_message(self, message: DeliveredMessage) -> None:
+        """A job from this worker's private ``<q>.w.<id>``. Claimed while the
+        worker drains (a submitter's cached fleet view lags a shutdown by
+        up to ``AFFINITY_REFRESH_S``), it bounces straight back to the
+        shared queue instead of waiting for the janitor."""
+        if not self.running:
+            try:
+                await self.broker.broker.publish(self.queue, message.body,
+                                                 message_id=message.message_id,
+                                                 headers=message.headers)
+                await message.ack()
+            except Exception:  # noqa: BLE001 — transport down: redeliver
+                await message.reject(requeue=True)
+            return
+        await self._process_message(message)
 
     # --- failure memory, guards, quarantine, breaker -----------------------
     def _remember_failure(self, job_id: str, reason: str) -> None:
@@ -528,13 +638,13 @@ class BaseWorker(abc.ABC):
 
     async def _handoff_to_decode(self, job: Job, message: DeliveredMessage,
                                  exc: PrefillDone) -> None:
-        """Settle a prefill-complete job into the decode pool: the prompt-KV
+        """Settle a prefill-complete job into the decode pool. The prompt-KV
         snapshot rides under ``RESUME_FIELD`` (offset 0) with a wall-clock
-        ``handoff_at`` stamp, published to ``<q>.decode`` before the ack,
-        so a crash between the two leaves the original to redeliver and the
-        deduper collapses the double. The reference first offers the payload
-        to a decode peer chosen from the heartbeats (M6's second part); with
-        no peer accepting, it takes this road too."""
+        ``handoff_at`` stamp. First a decode peer is asked to adopt it
+        (:meth:`_ship_to_decode_peer`); when none takes it, it is
+        republished on ``<q>.decode``. Either way the publish lands before
+        the ack, so a crash between the two leaves the original to
+        redeliver and the deduper collapses the double."""
         try:
             payload = json.loads(message.body)
         except Exception:  # noqa: BLE001 — parsed once already; paranoia
@@ -542,8 +652,20 @@ class BaseWorker(abc.ABC):
             return
         payload[RESUME_FIELD] = {"snapshot": exc.snapshot_b64, "offset": 0,
                                  "handoff_at": clock.wall()}
+        # The reference stamps "prefill_done" and "kv_handoff" trace events
+        # into the payload here (M16).
         body = json.dumps(payload).encode("utf-8")
         get_governor().note_resume_blob(len(body))
+        shipped = False
+        try:
+            shipped = await self._ship_to_decode_peer(job, body)
+        except Exception:  # noqa: BLE001 — the offer failed: take the fallback
+            self.logger.debug("Decode adoption offer failed", exc_info=True)
+        if shipped:
+            self.handoffs_shipped += 1
+            self.handoff_bytes += len(body)
+            await message.ack()
+            return
         try:
             await self.broker.broker.publish(decode_queue_name(self.queue), body,
                                              message_id=job.id)
@@ -555,6 +677,12 @@ class BaseWorker(abc.ABC):
         self.handoffs_fallback += 1
         self.handoff_bytes += len(body)
         await message.ack()
+
+    async def _ship_to_decode_peer(self, job: Job, body: bytes) -> bool:
+        """Hook: offer a prefill-complete payload to a decode peer for
+        direct adoption; True only once a peer durably holds it. Base
+        workers find no peer: the snapshot fallback covers them."""
+        return False
 
     # --- processing helpers ------------------------------------------------
     async def _run_with_timeout(self, job: Job) -> Any:
@@ -630,10 +758,10 @@ class BaseWorker(abc.ABC):
                 engine_stats=self._stats_with_robustness(),
                 reconnects=stats.reconnects if stats is not None else None,
                 # The reference fills `metrics` from its metrics registry
-                # (M16), `prefix_chains` for affinity (M6's second part), and
-                # the watchdog / integrity fields from its fault planes (M12).
+                # (M16) and the watchdog / integrity fields from its fault
+                # planes (M12).
                 metrics=None,
-                prefix_chains=None,
+                prefix_chains=self._prefix_chains(),
                 role=None if self.role == "unified" else self.role_active,
             )
             # Fields whose machinery is off are excluded (not null).
@@ -660,12 +788,19 @@ class BaseWorker(abc.ABC):
                 stats[name] = value
         if self.breaker_tripped:
             stats["breaker_tripped"] = True
-        for name in ("handoffs_fallback", "jobs_adopted"):
+        if self.role == "auto":
+            stats["role_mode"] = "auto"
+        for name in ("role_switches", "handoffs_shipped", "handoffs_fallback", "jobs_adopted"):
             value = getattr(self, name, 0)
             if value:
                 stats[name] = value
         stats.update(self._handoff_percentiles())
         return stats or None
+
+    def _prefix_chains(self) -> Optional[list]:
+        """Hook: the hot prefix-chain digests (hex) advertised for
+        prefix-affinity routing; None omits the field."""
+        return None
 
     def _handoff_percentiles(self) -> dict:
         """p50 / p95 of the handoff latency samples (ms), once there are some."""

@@ -24,7 +24,25 @@ the engine's (``_sampling_for`` :1137, ``_process_job`` :1186,
   ``LLMQ_RESULT_DIGEST`` on, the emitted token ids and their
   ``token_digest`` (``tpu_worker.py:1399``);
 - surface the engine's ``stats()`` in the heartbeats, and hand the
-  engine's unfinished requests back as snapshots when the worker drains.
+  engine's unfinished requests back as snapshots when the worker drains;
+- the peers' plane (``tpu_worker.py:529-980``). With prefix affinity on
+  and a prefix cache, count the text chains its jobs walk and advertise
+  the hottest ``CHAIN_ADVERTISE_N`` in the heartbeats; before a job whose
+  prefix pages an advertising peer holds, ask that peer for the pages
+  this engine lacks over ``<q>.kv.<peer>`` (at most
+  ``PREFIX_FETCH_TIMEOUT_S``; a timeout negative-caches the peer, a busy
+  reply or a chunk that fails its digest just prefills locally), and
+  serve the same requests from peers (at most ``peer_serve_concurrency``
+  a peer, and only while the host-memory governor admits it). A decode
+  (or ``auto``) worker answers KV adoption offers on the same queue; a
+  prefill worker makes those offers to a decode peer picked from the
+  heartbeats, waiting ``handoff_timeout_s`` for the answer, and on an
+  accept publishes the job once, to the peer's ``<q>.d.<peer>``. Replies
+  come back on the worker's ``<q>.kv.<id>.r``, matched to their request by
+  id, so offers run side by side (the reference's take one reply queue
+  at a time and carry the payload in the offer: ROADMAP.md queue 3
+  item 19). A decode worker still parks a payload-carrying offer (the
+  reference's) on ``<q>.d.<id>`` before it accepts.
 
 The prefetch, when not given, is ``max(LLMQ_QUEUE_PREFETCH, 1.5 x the
 engine's slots)``, as ``TPUWorker``'s. ``max_jobs`` (the port's) stops
@@ -43,12 +61,19 @@ its ``max_tokens``, as in the reference: neither engine aborts it.
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import json
 import time
 import uuid
-from typing import Any, Dict, Optional
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional
 
 from llmq_tpu_torch.broker.base import DeliveredMessage
+from llmq_tpu_torch.broker.manager import (
+    decode_adopt_queue_name,
+    job_affinity_text,
+    kv_fetch_queue_name,
+)
 from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job, Result
 from llmq_tpu_torch.core.pipeline import PipelineConfig
@@ -62,7 +87,13 @@ from llmq_tpu_torch.engine.snapshot import (
 )
 from llmq_tpu_torch.ops._build import kernel_launches
 from llmq_tpu_torch.utils import clock
-from llmq_tpu_torch.utils.hashing import token_fold
+from llmq_tpu_torch.utils.hashing import (
+    rendezvous_pick,
+    text_prefix_chain,
+    token_fold,
+    token_prefix_chain,
+)
+from llmq_tpu_torch.utils.host_mem import get_governor
 from llmq_tpu_torch.workers.base import (
     WORKER_ROLES,
     BaseWorker,
@@ -76,6 +107,36 @@ from llmq_tpu_torch.workers.resume import (
 )
 
 __all__ = ["DeadlineExceeded", "TorchWorker", "WORKER_ROLES", "worker_role"]
+
+# Prefix affinity: how many text-chain digests a worker tracks (an LRU of
+# hit counts), how many it advertises a heartbeat, and how long a fetch of
+# prefix pages from a peer may stall a job before it prefills locally.
+CHAIN_TRACK_CAP = 512
+CHAIN_ADVERTISE_N = 8
+PREFIX_FETCH_TIMEOUT_S = 2.0
+
+# A peer that timed out a fetch or an offer is skipped this long: its queue
+# may be an orphan the janitor has not reclaimed yet.
+PEER_NEGATIVE_CACHE_S = 30.0
+
+
+def _chunk_digest(chunk: str) -> str:
+    """The transport digest of one serialized prefix chunk: the requester
+    rejects a damaged ship before it decodes it (the chunk codec checks its
+    own payload on ingest as well)."""
+    return hashlib.blake2b(chunk.encode("utf-8"), digest_size=16).hexdigest()
+
+
+def _chunks_reply(req_id: Any, chunks: List[str]) -> bytes:
+    """The JSON reply ``{"req", "chunks", "digests"}`` to a fetch. The
+    chunks are base64, which JSON takes as it is, so they are joined in
+    rather than scanned by the encoder (tens of MB a reply), and each is
+    encoded once for the join and its digest."""
+    raw = [c.encode("ascii") for c in chunks]
+    digests = [hashlib.blake2b(r, digest_size=16).hexdigest() for r in raw]
+    quoted = [b'"', b'", "'.join(raw), b'"'] if raw else []
+    return b"".join([json.dumps({"req": req_id})[:-1].encode("utf-8"), b', "chunks": [',
+                     *quoted, b'], "digests": ', json.dumps(digests).encode("utf-8"), b"}"])
 
 
 class TorchWorker(BaseWorker):
@@ -114,6 +175,24 @@ class TorchWorker(BaseWorker):
         self._busy_to: Optional[float] = None  # and its last result
         self._settled = 0
         self.error: Optional[BaseException] = None  # the engine failure that stopped it
+        # The peers' plane: text-chain digest -> jobs that walked it (a
+        # capped LRU; the top is advertised), a lock keeping one fetch in
+        # flight, the requests to peers awaiting their reply (request id ->
+        # future, resolved by the reply queue's consumer, started at the
+        # first request), per-requester serves in flight, peer -> monotonic
+        # expiry of its negative-cache entry.
+        self._chain_hits: "OrderedDict[str, int]" = OrderedDict()
+        self._fetch_lock = asyncio.Lock()
+        self._replies: Dict[str, asyncio.Future] = {}
+        self._reply_lock = asyncio.Lock()
+        self._reply_tag: Optional[str] = None
+        self._peer_serving: Dict[str, int] = {}
+        self._dead_peers: Dict[str, float] = {}
+        self.prefix_chunks_served = 0
+        self.prefix_chunks_fetched = 0
+        self.prefix_fetch_timeouts = 0
+        self.kv_fetch_failures = 0
+        self.kv_serve_busy_rejects = 0
 
     def _generate_worker_id(self) -> str:
         return self._fixed_id or f"torch-{uuid.uuid4().hex[:8]}"
@@ -139,6 +218,9 @@ class TorchWorker(BaseWorker):
         return None  # the engine is built by the caller (cli/worker.py::build_engine)
 
     async def _cleanup_processor(self) -> None:
+        if self._reply_tag is not None:  # kept through the drain's offers
+            await self._cancel_tags([self._reply_tag])
+            self._reply_tag = None
         self.logger.info("worker %s stopped (processed=%d handed off=%d failed=%d)",
                          self.worker_id, self.jobs_processed, self.jobs_handed_off,
                          self.jobs_failed)
@@ -197,10 +279,13 @@ class TorchWorker(BaseWorker):
                                    jobs_failed=self.jobs_failed,
                                    jobs_handed_off=self.jobs_handed_off,
                                    jobs_resumed=self.jobs_resumed)
-        for name in ("handoffs_fallback", "handoff_bytes", "jobs_adopted"):
+        for name in ("role_switches", "handoffs_shipped", "handoffs_fallback", "handoff_bytes",
+                     "jobs_adopted"):
             if getattr(self, name):
                 out[name] = getattr(self, name)
         out.update(self._handoff_percentiles())
+        if self.config.prefix_affinity:
+            out.update(self._peer_counters())
         if self._busy_to is not None:
             out.update(completion_tokens=self.completion_tokens,
                        busy_s=self._busy_to - self._busy_from)
@@ -210,7 +295,20 @@ class TorchWorker(BaseWorker):
         return out
 
     def _engine_stats(self) -> Optional[dict]:
-        return self.engine.stats()
+        stats = self.engine.stats()
+        if self.config.prefix_affinity:
+            stats.update(self._peer_counters())
+        return stats
+
+    def _peer_counters(self) -> Dict[str, int]:
+        """The shipping counters, the two failure counters once they moved."""
+        out = dict(prefix_chunks_served=self.prefix_chunks_served,
+                   prefix_chunks_fetched=self.prefix_chunks_fetched,
+                   prefix_fetch_timeouts=self.prefix_fetch_timeouts)
+        for name in ("kv_fetch_failures", "kv_serve_busy_rejects"):
+            if getattr(self, name):
+                out[name] = getattr(self, name)
+        return out
 
     def _sampling_for(self, job: Job) -> SamplingParams:
         """Structured ``job.sampling`` wins, loose extra fields fall back,
@@ -256,6 +354,15 @@ class TorchWorker(BaseWorker):
             raise DeadlineExceeded(job.id)  # before any engine work
         out = None
         snapshot = self._resume_snapshot(job)
+        if self._prefix_enabled():
+            text = job_affinity_text(job)
+            if text:
+                self._note_prefix_chain(text)
+                # A fetch may stall up to its whole timeout: a job whose
+                # budget cannot cover that prefills locally at once.
+                if snapshot is None and (job.deadline_at is None or
+                                         time.time() + PREFIX_FETCH_TIMEOUT_S < job.deadline_at):
+                    await self._maybe_fetch_prefix(job, text)
         if snapshot is not None:
             # A handoff_at stamp marks a prefill -> decode handoff (a drain
             # handoff has none): count the adoption, sample its latency.
@@ -277,7 +384,7 @@ class TorchWorker(BaseWorker):
         if out is None:
             if job.priority_class == "interactive":
                 gen_kw["priority"] = "interactive"
-            if self.role == "prefill":
+            if self.role_active == "prefill":
                 # The prompt phase only: the engine finishes the request at
                 # the boundary with a prompt-KV snapshot ("prefill_done").
                 gen_kw["prefill_only"] = True
@@ -323,3 +430,295 @@ class TorchWorker(BaseWorker):
             result.token_ids = list(out.token_ids)
             result.token_digest = token_fold(out.token_ids)
         return result
+
+    # --- the peers' plane: advertise, serve, fetch, adopt -------------------
+    def _prefix_enabled(self) -> bool:
+        """Pages move between workers only with routing on AND a prefix
+        cache to hold them."""
+        return self.config.prefix_affinity and self.engine.core.cfg.enable_prefix_caching
+
+    def _note_prefix_chain(self, text: str) -> None:
+        """Count the text-chain chunks this job walked; the hottest ride the
+        next heartbeat as this worker's advertisement."""
+        for digest in text_prefix_chain(text):
+            self._chain_hits[digest] = self._chain_hits.get(digest, 0) + 1
+            self._chain_hits.move_to_end(digest)
+        while len(self._chain_hits) > CHAIN_TRACK_CAP:
+            self._chain_hits.popitem(last=False)
+
+    def _prefix_chains(self) -> Optional[List[str]]:
+        if not self.config.prefix_affinity or not self._chain_hits:
+            return None
+        ranked = sorted(self._chain_hits.items(), key=lambda kv: kv[1], reverse=True)
+        return [digest for digest, _ in ranked[:CHAIN_ADVERTISE_N]]
+
+    async def _start_extra_consumers(self) -> None:
+        """Attach the KV server: peers send fetch requests (and, in a
+        disaggregated fleet, adoption offers) to ``<q>.kv.<id>`` and take
+        replies on their own ``<q>.kv.<id>.r``. Both are ephemeral (30 s
+        TTL, one delivery): a requester that timed out has recomputed
+        already. Decode-capable workers attach it without prefix shipping
+        too. (The reference's control queue ``<q>.ctl.<id>`` comes with the
+        gateway, M16.)"""
+        if not (self._prefix_enabled() or self.role in ("decode", "auto")):
+            return
+        kv_q = kv_fetch_queue_name(self.queue, self.worker_id)
+        for name in (kv_q, kv_q + ".r"):
+            await self.broker.broker.declare_queue(name, ttl_ms=30_000, max_redeliveries=1)
+        self._extra_tags.append(
+            await self.broker.broker.consume(kv_q, self._serve_kv_fetch, prefetch=4))
+
+    async def _serve_kv_fetch(self, message: DeliveredMessage) -> None:
+        """One request: ``{"want": [hex], "reply_to": q, "req": id, "from":
+        worker}`` -> export what of the want-list this engine holds (host
+        tier or device cache) and publish the chunks back, each with the
+        outer digest the requester checks before it ingests. More than
+        ``peer_serve_concurrency`` exports in flight for one requester, or
+        a governor past its serve rung, replies ``{"busy": true}`` at once.
+        An ``adopt`` offer goes to :meth:`_serve_adopt_offer`. Always acks:
+        a failed export only means the requester recomputes."""
+        peer_key = None
+        try:
+            req = json.loads(message.body)
+            if "adopt" in req:
+                # One durable publish, not a page export: outside the
+                # serve accounting (peer_key stays None).
+                await self._serve_adopt_offer(req)
+                return
+            want = [str(d) for d in (req.get("want") or [])][:64]
+            reply_to = req.get("reply_to")
+            req_id = req.get("req")
+            peer_key = str(req.get("from") or reply_to or "?")
+            cap = self.config.peer_serve_concurrency
+            busy = (cap > 0 and self._peer_serving.get(peer_key, 0) >= cap) or \
+                not get_governor().admit_serve()
+            if busy:
+                self.kv_serve_busy_rejects += 1
+                peer_key = None  # nothing in flight to count down
+                if reply_to:
+                    await self.broker.broker.publish(
+                        reply_to, json.dumps({"req": req_id, "busy": True}).encode("utf-8"))
+                return
+            self._peer_serving[peer_key] = self._peer_serving.get(peer_key, 0) + 1
+            chunks: List[str] = []
+            if want:
+                loop = asyncio.get_running_loop()
+                chunks = await loop.run_in_executor(
+                    None, lambda: self.engine.export_prefix_chunks(want))
+            if reply_to:
+                await self.broker.broker.publish(reply_to, _chunks_reply(req_id, chunks))
+            self.prefix_chunks_served += len(chunks)
+        except Exception:  # noqa: BLE001 — serving is best-effort
+            self.logger.debug("KV fetch request failed", exc_info=True)
+        finally:
+            if peer_key is not None:
+                left = self._peer_serving.get(peer_key, 1) - 1
+                if left > 0:
+                    self._peer_serving[peer_key] = left
+                else:
+                    self._peer_serving.pop(peer_key, None)
+            try:
+                await message.ack()
+            except Exception:  # noqa: BLE001 — settled already, or the transport is gone
+                pass
+
+    async def _serve_adopt_offer(self, req: dict) -> None:
+        """The decode side of the handshake: a prefill peer asks this worker
+        to adopt a prefill-complete job. Accepted iff this worker serves the
+        decode role now; the peer then publishes the job to ``<q>.d.<id>``.
+        An offer that carries the job (``adopt`` non-empty: the reference's)
+        is parked there BEFORE the reply goes out. Either way the job lands
+        on a queue that this worker's consumer, its retirement or the
+        janitor drains."""
+        reply_to, req_id, payload = req.get("reply_to"), req.get("req"), req.get("adopt")
+        accept = self.running and self.role_active == "decode" and isinstance(payload, str)
+        if accept and payload:
+            aq = decode_adopt_queue_name(self.queue, self.worker_id)
+            try:
+                await self.broker.broker.declare_queue(
+                    aq, ttl_ms=self.config.job_ttl_ms,
+                    max_redeliveries=self.config.max_redeliveries)
+                await self.broker.broker.publish(aq, payload.encode("utf-8"), message_id=req_id)
+            except Exception:  # noqa: BLE001 — cannot park it: decline
+                self.logger.debug("Adoption park failed", exc_info=True)
+                accept = False
+        if reply_to:
+            reply = {"req": req_id, "accepted": True} if accept else {"req": req_id, "busy": True}
+            try:
+                await self.broker.broker.publish(reply_to, json.dumps(reply).encode("utf-8"))
+            except Exception:  # noqa: BLE001 — the offerer times out and falls back
+                self.logger.debug("Adoption reply failed", exc_info=True)
+
+    async def _ship_to_decode_peer(self, job: Job, body: bytes) -> bool:
+        """Pick a decode peer for this prefill-complete job (the deepest
+        prefix match among the fresh decode heartbeats, rendezvous-hashed;
+        without one, the job id rendezvous-hashed over them all) and run
+        the offer handshake. False on any miss: no fresh peer, all
+        negative-cached, a decline, or no answer in time."""
+        try:
+            mapping = await self.broker.decode_targets(self.queue)
+        except Exception:  # noqa: BLE001 — discovery failed: the fallback road
+            return False
+        now = time.monotonic()
+        peers = [w for w in mapping if w != self.worker_id and not self._peer_dead(w, now)]
+        if not peers:
+            return False
+        peer = None
+        text = job_affinity_text(job)
+        if text:
+            for digest in reversed(text_prefix_chain(text)):
+                candidates = [w for w in peers if digest in (mapping.get(w) or [])]
+                if candidates:
+                    peer = rendezvous_pick(digest, candidates)
+                    break
+        if peer is None:
+            peer = rendezvous_pick(job.id, sorted(peers))
+        return await self._offer_adoption(peer, job.id, body)
+
+    async def _offer_adoption(self, peer: str, job_id: str, body: bytes) -> bool:
+        """Ask ``peer`` to adopt the job and wait up to
+        ``handoff_timeout_s`` for its answer; on an explicit accept publish
+        the payload to its ``<q>.d.<peer>``. True once it is there. A
+        timeout also negative-caches the peer."""
+        try:
+            reply = await self._ask_peer(peer, {"adopt": ""}, self.config.handoff_timeout_s)
+        except Exception:  # noqa: BLE001 — the peer's queue is gone
+            return False
+        if reply is None:
+            self._dead_peers[peer] = time.monotonic() + PEER_NEGATIVE_CACHE_S
+            return False
+        if not reply.get("accepted"):
+            return False
+        await self.broker.broker.publish(decode_adopt_queue_name(self.queue, peer), body,
+                                         message_id=job_id)
+        return True
+
+    async def _ask_peer(self, peer: str, request: dict, timeout_s: float) -> Optional[dict]:
+        """Publish ``request`` to the peer's ``<q>.kv.<peer>`` under a
+        request id of its own and wait up to ``timeout_s`` for the reply
+        that carries it back on this worker's ``.r`` queue; None when none
+        came in time. Raises when the request cannot be published."""
+        reply_q = kv_fetch_queue_name(self.queue, self.worker_id) + ".r"
+        async with self._reply_lock:
+            if self._reply_tag is None:
+                # The reply needs its landing place before the request goes out.
+                await self.broker.broker.declare_queue(reply_q, ttl_ms=30_000,
+                                                       max_redeliveries=1)
+                self._reply_tag = await self.broker.broker.consume(
+                    reply_q, self._take_reply, prefetch=16)
+        req_id = uuid.uuid4().hex
+        reply = self._replies[req_id] = asyncio.get_running_loop().create_future()
+        try:
+            await self.broker.broker.publish(kv_fetch_queue_name(self.queue, peer), json.dumps(
+                {**request, "reply_to": reply_q, "req": req_id,
+                 "from": self.worker_id}).encode("utf-8"))
+            return await asyncio.wait_for(reply, timeout_s)
+        except asyncio.TimeoutError:
+            return None
+        finally:
+            self._replies.pop(req_id, None)
+
+    async def _take_reply(self, message: DeliveredMessage) -> None:
+        """A peer's reply: resolve the request waiting for it. A reply to a
+        request that timed out already is dropped."""
+        try:
+            payload = json.loads(message.body)
+        except Exception:  # noqa: BLE001
+            payload = None
+        try:
+            await message.ack()
+        except Exception:  # noqa: BLE001 — settled already, or the transport is gone
+            pass
+        req_id = payload.get("req") if isinstance(payload, dict) else None
+        waiting = self._replies.get(req_id) if isinstance(req_id, str) else None
+        if waiting is not None and not waiting.done():
+            waiting.set_result(payload)
+
+    async def _maybe_fetch_prefix(self, job: Job, text: str) -> None:
+        """A job whose prefix pages an advertising peer holds: ship the
+        pages this engine lacks instead of recomputing them. Best-effort:
+        no peer, no reply in time or a bad chunk all prefill locally."""
+        core = self.engine.core
+        if core.prefix_store is None:
+            return  # nowhere to land shipped pages
+        if self._fetch_lock.locked():
+            return  # another job's fetch is in flight: prefill locally
+        tchain = text_prefix_chain(text)
+        if not tchain:
+            return
+        mapping = await self.broker.affinity_targets(self.queue)
+        peer = None
+        now = time.monotonic()
+        for digest in reversed(tchain):
+            candidates = [w for w in mapping.get(digest, [])
+                          if w != self.worker_id and not self._peer_dead(w, now)]
+            if candidates:
+                peer = rendezvous_pick(digest, candidates)
+                break
+        if peer is None:
+            return
+        try:
+            token_ids = core.tokenizer.encode(text)
+        except Exception:  # noqa: BLE001 — a tokenizer hiccup: just prefill
+            return
+        digests = [h.hex() for h in token_prefix_chain(token_ids, core.cfg.page_size)]
+        if not digests:
+            return
+        loop = asyncio.get_running_loop()
+        want = await loop.run_in_executor(None,
+                                          lambda: self.engine.missing_prefix_digests(digests))
+        if not want:
+            return
+        async with self._fetch_lock:  # one fetch in flight at a time
+            await self._fetch_from_peer(peer, want, job.id)
+
+    def _peer_dead(self, peer: str, now: float) -> bool:
+        """Is ``peer`` negative-cached at monotonic ``now``? (An expired
+        entry drops.)"""
+        expiry = self._dead_peers.get(peer)
+        if expiry is None:
+            return False
+        if now >= expiry:
+            self._dead_peers.pop(peer, None)
+            return False
+        return True
+
+    def _note_kv_fetch_failed(self, req_id: str, peer: str, reason: str) -> None:
+        """Count a failed fetch (reason: timeout, busy or digest-mismatch).
+        The reference also stamps it on the job's trace (M16)."""
+        self.kv_fetch_failures += 1
+        self.logger.debug("KV fetch for %s from %s failed: %s", req_id, peer, reason)
+
+    async def _fetch_from_peer(self, peer: str, want: List[str], req_id: str) -> None:
+        try:
+            payload = await self._ask_peer(peer, {"want": want[:64]}, PREFIX_FETCH_TIMEOUT_S)
+        except Exception:  # noqa: BLE001 — the peer's queue is gone: recompute
+            return
+        if payload is None:
+            self.prefix_fetch_timeouts += 1
+            self._dead_peers[peer] = time.monotonic() + PEER_NEGATIVE_CACHE_S
+            self._note_kv_fetch_failed(req_id, peer, "timeout")
+            return
+        if payload.get("busy"):
+            # Load, not death: recompute now, no negative cache.
+            self._note_kv_fetch_failed(req_id, peer, "busy")
+            return
+        chunks = payload.get("chunks") or []
+        digests = payload.get("digests")
+        if chunks and isinstance(digests, list) and (
+                len(digests) != len(chunks)
+                or any(_chunk_digest(c) != d for c, d in zip(chunks, digests))):
+            self.logger.warning("Peer %s shipped chunks failing digest check", peer)
+            self._note_kv_fetch_failed(req_id, peer, "digest-mismatch")
+            return
+        if chunks:
+            loop = asyncio.get_running_loop()
+            try:
+                n = await loop.run_in_executor(None,
+                                               lambda: self.engine.ingest_prefix_chunks(chunks))
+                self.prefix_chunks_fetched += n
+                self.logger.info("Fetched %d prefix page(s) from %s", n, peer)
+            except SnapshotError as exc:
+                # The payload's own integrity or compatibility check.
+                self.logger.warning("Peer %s shipped incompatible prefix chunks: %s", peer, exc)
+                self._note_kv_fetch_failed(req_id, peer, "digest-mismatch")

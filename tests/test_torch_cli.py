@@ -61,6 +61,14 @@ def test_worker_run_options_parse_into_run_torch_worker_arguments():
     (["--tp-overlap", "on"], "--tp-overlap", "M13"), (["--role", "auto"], "--role", "M6"),
 ])
 def test_unported_worker_options_raise_with_their_item(option, flag, item):
+    """The multi-device options raise naming M13. ``--role auto`` (M6's
+    second part, once refused here) is ported: it reaches the worker."""
+    if item == "M6":
+        calls = []
+        cli.main(["worker", "run", "preset://tiny", "q", *option],
+                 run_worker=lambda *a, **k: calls.append(k))
+        assert [k["role"] for k in calls] == ["auto"]
+        return
     with pytest.raises(NotImplementedError, match=f"{flag}=.*{item}"):
         cli.main(["worker", "run", "preset://tiny", "q", *option],
                  run_worker=lambda *a, **k: pytest.fail("must not start a worker"))

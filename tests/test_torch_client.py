@@ -225,6 +225,51 @@ async def _drive(submit, receive, worker_cls, jobs_path, *, stream: bool):
         await task
 
 
+def test_submit_routes_by_prefix_affinity_as_the_reference(tmp_path, monkeypatch, capsys):
+    """With ``LLMQ_PREFIX_AFFINITY`` on (once refused by the port's
+    submit), the rows that share a worker's advertised template land on
+    its private ``<q>.w.<id>`` and the others on ``<q>``, in both
+    packages."""
+    from llmq_tpu.broker import manager as jmanager
+    from llmq_tpu.cli.submit import run_submit as ref_submit
+    from llmq_tpu.core import config as jconfig
+    from llmq_tpu.core import models as jmodels
+
+    from llmq_tpu_torch.broker import manager as tmanager
+    from llmq_tpu_torch.cli.submit import run_submit
+    from llmq_tpu_torch.core import config as tconfig
+    from llmq_tpu_torch.core import models as tmodels
+    from llmq_tpu_torch.utils.hashing import text_prefix_chain
+
+    template = "You are a careful translator. " * 10
+    jobs = tmp_path / "aff.jsonl"
+    jobs.write_text("\n".join(json.dumps(r) for r in (
+        {"prompt": template + "Translate: hallo"}, {"text": "a short unrelated row"},
+        {"prompt": template + "Translate: danke"})) + "\n")
+
+    async def drive(submit, manager, config, models):
+        mgr = manager.BrokerManager(config.get_config())
+        await mgr.connect()
+        await mgr.setup_queue_infrastructure("aq")
+        health = models.WorkerHealth(worker_id="w1", status="running", jobs_processed=1,
+                                     last_seen=models.utcnow(),
+                                     prefix_chains=text_prefix_chain(template))
+        await mgr.broker.publish("aq.health", health.model_dump_json().encode("utf-8"))
+        await submit("aq", str(jobs), {})
+        depths = [(await mgr.get_queue_stats(q)).message_count for q in ("aq.w.w1", "aq")]
+        await mgr.disconnect()
+        return depths
+
+    monkeypatch.setenv("LLMQ_PREFIX_AFFINITY", "1")
+    depths = []
+    for pkg in ((ref_submit, jmanager, jconfig, jmodels),
+                (run_submit, tmanager, tconfig, tmodels)):
+        monkeypatch.setenv("LLMQ_BROKER_URL", f"memory://client-aff-{uuid.uuid4().hex[:8]}")
+        depths.append(asyncio.run(drive(*pkg)))
+    capsys.readouterr()
+    assert depths == [[2, 1], [2, 1]]
+
+
 def _lines(out: str) -> dict:
     results = {}
     for line in out.strip().splitlines():

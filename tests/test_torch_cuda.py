@@ -1272,3 +1272,122 @@ def test_torch_worker_under_chaos_on_the_card_equals_its_memory_serve(cuda_devic
             engine.shutdown()
     (plain_tokens, _), (chaos_tokens, reconnects) = runs
     assert chaos_tokens == plain_tokens and reconnects >= 1
+
+
+def _card_worker_engine(device, **fields):
+    from llmq_tpu_torch.engine.engine import AsyncEngine, EngineConfig, EngineCore
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    cfg = ModelConfig.tiny(vocab_size=320, hidden_size=256, num_layers=2, num_heads=4,
+                           num_kv_heads=2, intermediate_size=320)
+    ecfg = EngineConfig(**{**dict(max_num_seqs=8, max_model_len=384, page_size=16,
+                                  num_pages=160, kv_dtype="float32"), **fields})
+    return AsyncEngine(EngineCore(
+        cfg, init_params(cfg, torch.Generator().manual_seed(0), torch.float32),
+        ByteTokenizer(), device=device, engine_config=ecfg))
+
+
+def test_prefix_pages_ship_between_two_workers_on_the_card(cuda_device):
+    """M6's second part on the card (phase 15 (a)'s road, f32, exact
+    routes): worker A serves a templated job and advertises its chain;
+    worker B, empty, fetches A's pages before it prefills the same prompt,
+    promotes them, prefills only the tail, and gives A's token ids."""
+    import asyncio
+
+    from llmq_tpu_torch.broker.memory import reset_namespace
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.core.models import Job
+    from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+    tier = dict(prefill_chunk_size=32, enable_prefix_caching=True, prefix_host_gb=0.05)
+    job = Job(id="t0", prompt=("You are a terse assistant; answer in one line. " * 7)[:300]
+              + " Q: the tail?", temperature=0.0, max_tokens=8, ignore_eos=True)
+    url = "memory://card-peers"
+
+    async def main():
+        workers = []
+        for wid in ("card-a", "card-b"):
+            w = TorchWorker("pq", _card_worker_engine(cuda_device, **tier), worker_id=wid,
+                            config=Config(broker_url=url, prefix_affinity=True))
+            await w.initialize()
+            w.running = True
+            await w._start_extra_consumers()
+            workers.append(w)
+        a, b = workers
+        out_a = await a._process_job(job)
+        await a._publish_heartbeat()
+        out_b = await b._process_job(job)
+        st = b.engine.core.stats()
+        for w in workers:
+            await w.broker.disconnect()
+            w.engine.shutdown()
+        reset_namespace("card-peers")
+        return out_a, out_b, st, b.prefix_chunks_fetched
+
+    out_a, out_b, st, fetched = asyncio.run(main())
+    pages = (len(job.prompt) - 1) // 16
+    assert fetched == pages and st["prefix_promotes"] == pages
+    assert st["prefill_tokens"] == len(job.prompt) - 16 * pages
+    assert list(out_b.token_ids) == list(out_a.token_ids)
+
+
+def test_prefill_worker_ships_to_a_decode_peer_on_the_card(cuda_device):
+    """M6's second part on the card (phase 15 (b)'s road, f32, exact
+    routes): with a decode worker beating, a prefill worker offers every
+    job to it directly; none takes ``<q>.decode``, and the token ids equal
+    a unified engine's."""
+    import asyncio
+    import json
+
+    from llmq_tpu_torch.broker.manager import BrokerManager
+    from llmq_tpu_torch.broker.memory import reset_namespace
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.core.models import Job
+    from llmq_tpu_torch.engine.sampling import SamplingParams
+    from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+    jobs = [Job(id=f"h{i}", prompt=f"hand me off {i} " * (1 + i % 3), temperature=0.0,
+                max_tokens=8, ignore_eos=True) for i in range(6)]
+    url = "memory://card-adopt"
+
+    async def main():
+        plain = BrokerManager(Config(broker_url=url))
+        await plain.connect()
+        dec, pre = (TorchWorker("aq", _card_worker_engine(cuda_device), worker_id=f"card-{r}",
+                                config=Config(broker_url=url, worker_role=r, result_digest=True))
+                    for r in ("decode", "prefill"))
+        tasks = [asyncio.create_task(dec.run())]
+        while "card-decode" not in await plain.get_worker_health("aq"):
+            await asyncio.sleep(0.01)
+        tasks.append(asyncio.create_task(pre.run()))
+        for job in jobs:
+            await plain.publish_job("aq", job)
+        got = {}
+        while len(got) < len(jobs):
+            msg = await plain.broker.get("aq.results")
+            if msg is None:
+                await asyncio.sleep(0.01)
+                continue
+            r = json.loads(msg.body)
+            got[r["id"]] = r["token_ids"]
+            await msg.ack()
+        for w in (pre, dec):
+            w.request_shutdown()
+        await asyncio.wait_for(asyncio.gather(*tasks), 60)
+        await plain.disconnect()
+        for w in (pre, dec):
+            w.engine.shutdown()
+        reset_namespace("card-adopt")
+        return got, (pre.handoffs_shipped, pre.handoffs_fallback, dec.jobs_adopted)
+
+    got, counts = asyncio.run(main())
+    unified = _card_worker_engine(cuda_device)
+    try:
+        want = {j.id: list(unified.generate_sync(
+            rid=j.id, prompt=j.prompt, timeout=60,
+            params=SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)).token_ids)
+            for j in jobs}
+    finally:
+        unified.shutdown()
+    assert counts == (len(jobs), 0, len(jobs))
+    assert got == want

@@ -1,4 +1,5 @@
-"""The port's disaggregated serving against the JAX package's (M11b).
+"""The port's disaggregated serving against the JAX package's (M11b, and
+M6's second part for the direct offer).
 
 Over ``memory://``: a port ``prefill`` worker serves the queue alone until
 every job has taken the ``<q>.decode`` road (its prompt-KV snapshot under
@@ -7,13 +8,18 @@ worker adopts them all; the results equal a unified port worker's and a
 JAX ``TPUWorker``'s (on the JAX engine of ``test_torch_prefix_store.py``),
 token ids and digests included,
 as the reference's own fallback test holds them
-(``tests/test_disagg.py::test_fallback_handoff_token_parity``). A unified
+(``tests/test_disagg.py::test_fallback_handoff_token_parity``). With a
+decode worker up first, the prefill worker offers every job to it
+directly (``<q>.kv.<peer>``, parked on ``<q>.d.<peer>``) with the same
+results, as ``test_ship_handoff_token_parity``; a decode peer that
+declines sends the job to ``<q>.decode``. A unified
 worker serves the ``<q>.interactive`` fast lane; a prefill worker forwards
 a job that already carries resume state. The roles resolve and refuse as
 the reference's; the JAX encoder's binary and b64 frames decode in the port;
 results carry their token ids and the reference's digest under
 ``LLMQ_RESULT_DIGEST``;
-the host-memory governor's eviction ladder acts as the reference's, and
+the host-memory governor's eviction ladder and its serve rung act as the
+reference's, and
 evicts the host tier from another thread while the engine serves.
 """
 
@@ -29,6 +35,7 @@ from llmq_tpu.engine import engine as jengine
 from llmq_tpu.engine import snapshot as jsnap
 from llmq_tpu.utils import host_mem as jhost_mem
 from llmq_tpu_torch.broker.base import decode_queue_name, interactive_queue_name, make_broker
+from llmq_tpu_torch.broker.manager import BrokerManager, decode_adopt_queue_name
 from llmq_tpu_torch.core.config import Config
 from llmq_tpu_torch.core.models import Job
 from llmq_tpu_torch.engine import engine as tengine
@@ -186,6 +193,84 @@ def test_prefill_then_decode_workers_equal_unified_and_jax_worker(reference_resu
     assert wp.stats()["handoffs_fallback"] == len(jobs) and "jobs_adopted" not in wp.stats()
 
 
+def test_prefill_worker_ships_every_job_to_a_decode_peer_equal_to_the_jax_worker(
+        reference_results):
+    """The reference's ship road: with a decode worker beating before the
+    jobs land, the prefill worker offers each prefill-complete job to it
+    directly; it parks each on its ``<q>.d.<id>`` and adopts it. None takes
+    the ``<q>.decode`` road, and the results equal the JAX worker's."""
+    url = f"memory://disagg-ship-{uuid.uuid4().hex[:8]}"
+    jobs = _jobs()
+
+    async def main():
+        wd = _worker(url, "decode")
+        td = asyncio.create_task(wd.run())
+        mgr = BrokerManager(Config(broker_url=url))
+        await mgr.connect()
+        deadline = time.monotonic() + 30
+        while not any(h.role == "decode" for h in (await mgr.get_worker_health(QUEUE)).values()):
+            assert time.monotonic() < deadline, "the decode worker never beat"
+            await asyncio.sleep(0.02)
+        wp = _worker(url, "prefill")
+        tp = asyncio.create_task(wp.run())
+        await _publish(url, jobs)
+        broker = make_broker(url)
+        await broker.connect()
+        results = await _results(broker, len(jobs))
+        left = [(await mgr.get_queue_stats(q)).message_count
+                for q in (decode_adopt_queue_name(QUEUE, wd.worker_id), decode_queue_name(QUEUE))]
+        await _stop((wp, tp), (wd, td))
+        await broker.close()
+        await mgr.disconnect()
+        return wp, wd, left, results
+
+    wp, wd, left, results = asyncio.run(main())
+    assert (wp.handoffs_shipped, wp.handoffs_fallback, wd.jobs_adopted) == (4, 0, 4)
+    assert left == [0, 0] and wp.jobs_processed == 0 and wd.jobs_processed == 4
+    same = ("result", "usage", "token_ids", "token_digest")
+    for rid, ref in reference_results.items():
+        assert [results[rid][k] for k in same] == [ref[k] for k in same], rid
+        assert results[rid]["resume_offset"] == 0
+    assert wp.stats()["handoffs_shipped"] == 4 and wp.handoff_bytes > 0
+    assert wd.stats()["handoff_ms_p50"] >= 0
+
+
+def test_a_declining_decode_peer_sends_the_job_to_the_decode_pool():
+    """A decode peer that is not serving declines the offer (``busy``):
+    the job takes the ``<q>.decode`` road at once, its snapshot aboard,
+    and the peer is not negative-cached (a decline is load, not death)."""
+    url = f"memory://disagg-decline-{uuid.uuid4().hex[:8]}"
+    job = _jobs()[0]
+
+    async def main():
+        peer = _worker(url, "decode")
+        await peer.initialize()
+        await peer._start_extra_consumers()
+        await peer._publish_heartbeat()  # role decode, but not running: it declines
+        wp = _worker(url, "prefill")
+        tp = asyncio.create_task(wp.run())
+        await _publish(url, [job])
+        deadline = time.monotonic() + 30
+        while wp.handoffs_fallback < 1:
+            assert time.monotonic() < deadline, "no fallback"
+            await asyncio.sleep(0.02)
+        broker = make_broker(url)
+        await broker.connect()
+        msg = await broker.get(decode_queue_name(QUEUE))
+        await msg.ack()
+        parked = await broker.get(decode_adopt_queue_name(QUEUE, peer.worker_id))
+        await _stop((wp, tp))
+        await peer.broker.disconnect()
+        peer.engine.shutdown()
+        await broker.close()
+        return wp, msg, parked
+
+    wp, msg, parked = asyncio.run(main())
+    assert (wp.handoffs_shipped, wp.handoffs_fallback) == (0, 1) and wp._dead_peers == {}
+    assert parked is None and msg.message_id == job.id
+    assert json.loads(msg.body)[RESUME_FIELD]["offset"] == 0
+
+
 def test_worker_serves_the_interactive_lane():
     """A unified worker consumes ``<q>.interactive`` beside ``<q>`` while
     the priority classes are on (the default), and not with them off."""
@@ -251,9 +336,9 @@ def test_prefill_worker_forwards_a_job_carrying_resume_state():
 @pytest.mark.parametrize("role", ["unified", "prefill", "decode", "auto", "oracle", None])
 def test_worker_role_resolves_as_the_jax_worker(monkeypatch, role):
     """``LLMQ_WORKER_ROLE`` reads as the reference's ``Config.worker_role``
-    (unset: unified); the three ported roles are taken, ``auto`` is
-    refused naming M6 and an unknown role is a ValueError, as the
-    reference's ``BaseWorker`` raises."""
+    (unset: unified); the four roles are taken as the reference's
+    ``BaseWorker`` takes them (``auto`` serves prefill first) and an
+    unknown role is a ValueError, as the reference raises."""
     from llmq_tpu.core.config import Config as JConfig
     from llmq_tpu.workers.dummy import DummyWorker
 
@@ -267,8 +352,11 @@ def test_worker_role_resolves_as_the_jax_worker(monkeypatch, role):
         with pytest.raises(ValueError):
             DummyWorker("q", delay=0, config=JConfig(broker_url="memory://role"))
     elif role == "auto":
-        with pytest.raises(NotImplementedError, match="M6"):
-            worker_role(Config())
+        ref = DummyWorker("q", delay=0, config=JConfig(broker_url="memory://role"))
+        assert worker_role(Config()) == ref.role == "auto"
+        port = TorchWorker("q", tengine.AsyncEngine(tcore()), config=Config())
+        port.engine.shutdown()
+        assert (port.role, port.role_active) == (ref.role, ref.role_active) == ("auto", "prefill")
     else:
         assert worker_role(Config()) == DummyWorker(
             "q", delay=0, config=JConfig(broker_url="memory://role")).role
@@ -333,6 +421,26 @@ def test_governor_ladder_acts_as_the_jax_governor():
     assert host_mem.HostMemoryGovernor(0).admit_swap(1 << 40)  # disabled: always yes
 
 
+def test_governor_serve_rung_acts_as_the_jax_governor():
+    """The third rung: a serve of prefix pages to a peer is refused only
+    above ``SERVE_REFUSE_FRAC`` of the budget, counted in ``stats()``,
+    step for step the reference's; a disabled governor admits every one."""
+    trace = []
+    for mod in (host_mem, jhost_mem):
+        gov = mod.HostMemoryGovernor(1000)
+        held = _Store(900, 0)
+        gov.register("held", held.usage)
+        steps = [mod.SERVE_REFUSE_FRAC, gov.admit_serve()]
+        held.nbytes = 951
+        steps += [gov.admit_serve(), gov.admit_serve(), gov.serve_refusals]
+        held.nbytes = 950
+        steps += [gov.admit_serve(), gov.stats()]
+        trace.append(steps)
+    assert trace[0] == trace[1] == [0.95, True, False, False, 2, True, trace[0][-1]]
+    assert trace[0][-1]["serve_refusals"] == 2
+    assert host_mem.HostMemoryGovernor(0).admit_serve()
+
+
 def test_engine_registers_its_prefix_tier_with_the_governor():
     """An engine's host tier reports into the shared budget and gives way
     to a swap capture; ``close`` takes its gauges out again."""
@@ -376,7 +484,11 @@ def test_resume_blobs_evict_the_tier_from_another_thread_while_the_engine_serves
         for rid, prompt in prompts.items():
             got[rid] = eng.generate_sync(rid=rid, prompt=prompt, params=greedy(TParams, 6),
                                          timeout=60)
-            eng.call_on_engine(eng.core.flush_prefix_to_host)
+            # The request resolves when its finish is seen, which can be
+            # before its trailing dispatches land and its pages leave the
+            # deferred release: drain them first, or the flush finds no
+            # cached page to demote.
+            eng.call_on_engine(lambda: (eng.core._drain([]), eng.core.flush_prefix_to_host()))
     finally:
         stop.set()
         blobs.join(timeout=10)

@@ -469,3 +469,7 @@ def test_every_reference_config_field_is_read_or_refused(monkeypatch):
             assert getattr(tconfig.Config(), name) == getattr(jconfig.Config(), name), alias
             monkeypatch.delenv(alias)
     assert set(refused) == set(tconfig.UNPORTED_FIELDS)
+    # M6's second part is ported: its fields are read, none is refused.
+    m6 = {"prefix_affinity", "role_dwell_s", "role_switch_hi", "role_switch_lo",
+          "role_check_interval_s", "handoff_timeout_s", "peer_serve_concurrency"}
+    assert m6 <= set(FIELD_ENV) and not m6 & set(refused)

@@ -3,12 +3,15 @@
 ``llmq_tpu_torch.broker.tcp`` is a copy of ``llmq_tpu.broker.tcp`` on the
 port's own broker core: the same frames on the wire, so the port's
 client works against the reference daemon and the reference's client
-against the port's daemon. Each test runs its own event loop with the
+against the port's daemon. Between the port's own client and daemon,
+message bodies ride as raw bytes after the frame's JSON, which the
+client asks for at its first ping. Each test runs its own event loop with the
 server on a free local port (bound to port 0 and read back) and closes
 every connection it opens.
 """
 
 import asyncio
+import json
 
 import pytest
 
@@ -22,6 +25,7 @@ pytestmark = pytest.mark.unit
 DIRECTIONS = {
     "port-client-reference-server": (port_tcp, ref_tcp),
     "reference-client-port-server": (ref_tcp, port_tcp),
+    "port-client-port-server": (port_tcp, port_tcp),
 }
 
 
@@ -138,6 +142,73 @@ def test_write_frame_bytes_are_the_references():
     port_tcp.write_frame(ours, frame)
     ref_tcp.write_frame(ref, frame)
     assert ours.data == ref.data and ours.data[:4] == len(ours.data[4:]).to_bytes(4, "big")
+
+
+@pytest.mark.parametrize("direction", list(DIRECTIONS))
+def test_bodies_ride_raw_only_between_two_port_ends(direction):
+    """Only the port's daemon answers the port client's ``raw_body`` ping,
+    and only then do bodies leave the JSON; either way every body (JSON
+    text with quotes and escapes over a few MB, bytes that are not UTF-8,
+    nothing) arrives as it left, by ``consume`` and by ``get``."""
+    client_mod, server_mod = DIRECTIONS[direction]
+    bodies = {"json": json.dumps({"say": 'a "quote" \\ and\n', "blob": "QUJD" * 800_000}).encode(),
+              "binary": b"\xff\x00\x80 not UTF-8", "empty": b"", "text": "héllo ✓".encode()}
+
+    async def main():
+        srv, port = await _server(server_mod)
+        producer, consumer = await _client(client_mod, port), await _client(client_mod, port)
+        try:
+            for mid, body in bodies.items():
+                await producer.publish("q", body, message_id=mid)
+            got = {}
+
+            async def handler(msg):
+                got[msg.message_id] = msg.body
+                await msg.ack()
+
+            tag = await consumer.consume("q", handler, prefetch=2)
+            await _wait_for(lambda: len(got) == len(bodies))
+            await consumer.cancel(tag)
+            for mid, body in bodies.items():
+                await producer.publish("g", body, message_id=mid)
+            for _ in bodies:
+                msg = await consumer.get("g")
+                got["get-" + msg.message_id] = msg.body
+                await msg.ack()
+            raw = [getattr(c, "_raw", False) for c in (producer, consumer)]
+            return got, raw
+        finally:
+            await producer.close()
+            await consumer.close()
+            await srv.stop()
+
+    got, raw = asyncio.run(main())
+    assert got == {**bodies, **{"get-" + k: v for k, v in bodies.items()}}
+    assert raw == [direction == "port-client-port-server"] * 2
+
+
+def test_a_raw_frame_reads_back_and_a_bad_one_is_refused():
+    """A raw frame: the size word's top bit, the JSON's size, the JSON, the
+    body; it reads back as the JSON with the body as bytes. A JSON size
+    past the frame's end is a protocol error, as a frame too large is."""
+    sink = _Sink()
+    sink.writelines = lambda parts: [sink.write(bytes(p)) for p in parts]
+    port_tcp.write_frame(sink, {"type": "deliver", "tag": "t1"}, b"\x00body", raw=True)
+    frame = sink.data
+    assert frame[0] & 0x80 and int.from_bytes(frame[:4], "big") & 0x7FFFFFFF == len(frame) - 4
+
+    async def read(data):
+        reader = asyncio.StreamReader()
+        reader.feed_data(data)
+        reader.feed_eof()
+        return await port_tcp.read_frame(reader)
+
+    got = asyncio.run(read(frame))
+    assert got == {"type": "deliver", "tag": "t1", "body": b"\x00body", "enc": "raw"}
+    assert port_tcp.frame_body(got) == b"\x00body"
+    bad = frame[:4] + (len(frame)).to_bytes(4, "big") + frame[8:]
+    with pytest.raises(ValueError, match="overruns"):
+        asyncio.run(read(bad))
 
 
 def test_make_broker_takes_tcp_and_names_the_amqp_item():

@@ -257,6 +257,15 @@ UNPORTED_OFF = {"LLMQ_TP_OVERLAP": "off", "LLMQ_WORKER_ROLE": "unified",
                 "LLMQ_PEER_SERVE_CONCURRENCY": "2", "LLMQ_SERVE_PORT": "8100"}
 
 
+#: the variables of M6's second part, once refused here -> their Config field
+PORTED_M6 = {"LLMQ_WORKER_ROLE": "worker_role", "LLMQ_PREFIX_AFFINITY": "prefix_affinity",
+             "LLMQ_ROLE_DWELL_S": "role_dwell_s", "LLMQ_ROLE_SWITCH_HI": "role_switch_hi",
+             "LLMQ_ROLE_SWITCH_LO": "role_switch_lo",
+             "LLMQ_ROLE_CHECK_INTERVAL_S": "role_check_interval_s",
+             "LLMQ_HANDOFF_TIMEOUT_S": "handoff_timeout_s",
+             "LLMQ_PEER_SERVE_CONCURRENCY": "peer_serve_concurrency"}
+
+
 @pytest.mark.parametrize("var,value,item", [
     ("LLMQ_TP_OVERLAP", "on", "M13"),
     ("LLMQ_WORKER_ROLE", "auto", "M6"),
@@ -272,12 +281,22 @@ UNPORTED_OFF = {"LLMQ_TP_OVERLAP": "off", "LLMQ_WORKER_ROLE": "unified",
 def test_worker_refuses_unported_env_features(monkeypatch, var, value, item):
     """A variable that turns on a feature the port lacks is refused with
     its ROADMAP.md item, never ignored; set to its "off" value it is not.
-    (``LLMQ_PREFIX_HOST_GB``, once refused here, is ported: M11b.)"""
+    (``LLMQ_PREFIX_HOST_GB``, once refused here, is ported: M11b. The M6
+    variables, once refused here, are ported with M6's second part: the
+    worker starts with each set, read as the reference's ``Config`` reads
+    it.)"""
     for name in ENGINE_VARS + tuple(UNPORTED_OFF):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        _start_worker_engine()
+    if item == "M6":
+        from llmq_tpu.core.config import Config as JConfig
+
+        field = PORTED_M6[var]
+        assert getattr(get_config(), field) == getattr(JConfig(), field)
+        _start_worker_engine().shutdown()
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+            _start_worker_engine()
     monkeypatch.setenv(var, UNPORTED_OFF[var])
     _start_worker_engine().shutdown()
 

@@ -301,7 +301,11 @@ def test_a_second_request_of_an_id_in_the_engine_joins_it():
     the first, both resolve with its output, and no slot stays held (queue
     3 item 12: the JAX engine adds a second row of the id; when one ends,
     its id-keyed running map no longer holds the other, which no step
-    serves again and which keeps its slot and pages)."""
+    serves again and which keeps its slot and pages). The engine thread's
+    steps wait on a gate that the test opens only once the second request
+    is in, so the first cannot finish before it, however fast the engine."""
+    import threading
+
     from llmq_tpu_torch.cli.worker import build_engine
     from llmq_tpu_torch.engine.sampling import SamplingParams
 
@@ -309,22 +313,37 @@ def test_a_second_request_of_an_id_in_the_engine_joins_it():
     tiny_engine = build_engine("preset://tiny", device="cpu", dtype="float32", max_num_seqs=4,
                                max_model_len=64)
     core = tiny_engine.core
+    gate = threading.Event()
+    step = core.step
+
+    def held_step():
+        assert gate.wait(timeout=30), "the test never opened the gate"
+        return step()
+
+    core.step = held_step
+
+    async def submitted(rid):
+        task = asyncio.ensure_future(tiny_engine.generate(rid=rid, prompt="join me",
+                                                          params=params))
+        await asyncio.sleep(0)  # the task runs up to its await: the request is in
+        return task
 
     async def main():
         before = core.stats()["generated_tokens"]
-        first = asyncio.ensure_future(tiny_engine.generate(rid="twice", prompt="join me",
-                                                           params=params))
-        await asyncio.sleep(0.05)
-        second = await asyncio.wait_for(
-            tiny_engine.generate(rid="twice", prompt="join me", params=params), 30)
+        first = await submitted("twice")
+        second = await submitted("twice")
+        gate.set()
         a = await asyncio.wait_for(first, 30)
+        second = await asyncio.wait_for(second, 30)
         # A caller that gives up (a job timeout) leaves the request running;
         # a retry of the id joins it.
+        gate.clear()
         with pytest.raises(asyncio.TimeoutError):
             await asyncio.wait_for(tiny_engine.generate(rid="again", prompt="join me",
                                                         params=params), 0.05)
-        retry = await asyncio.wait_for(
-            tiny_engine.generate(rid="again", prompt="join me", params=params), 30)
+        retry = await submitted("again")
+        gate.set()
+        retry = await asyncio.wait_for(retry, 30)
         for _ in range(100):
             if not any(s is not None for s in core.scheduler.slots):
                 break
@@ -334,6 +353,7 @@ def test_a_second_request_of_an_id_in_the_engine_joins_it():
     try:
         a, second, retry, generated = asyncio.run(main())
     finally:
+        gate.set()
         tiny_engine.shutdown()
     assert list(a.token_ids) == list(second.token_ids) == list(retry.token_ids)
     assert generated == 2 * 12  # one request of each id ran
