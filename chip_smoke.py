@@ -98,8 +98,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    their launches in phase 12 (``prefix_kv_launches``: K3, K4 in (a), K1,
    K2 in (c)'s in-process run), and phase 13 (a)'s
    (``failure_policy_launches``), phase 14's (``pipeline_launches``)
-   and phase 15's (``peers_launches``: K3, K4 in (a), K1, K2 in (b)).
-   Printed last, after phases 8-15.
+   and phase 15's (``peers_launches``: K3, K4 in (a), K1, K2 in (b)) and
+   phase 16's (``gateway_launches``: K1, K2). Printed last, after phases
+   8-16.
 8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
    same seed) written as an HF checkpoint (config.json, two safetensors
    shards and their index, HF names, [out, in] weights) under ``build/``
@@ -176,11 +177,13 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    latency (p50, p95), snapshot and payload bytes a job, the wall time to
    the 16th result. In process, the same path (prefill-only, then each
    snapshot adopted by ``insert_request``) in bf16, K2 and K1 counted:
-   each worker row's token ids equal phase 3's, its solo run's or this
-   run's (worker
-   processes under ``LLMQ_RESULT_DIGEST=1``), and each row of
-   this run that parts from phase 3's tokens parts at a near-tie (the
-   adopted row computes its last prompt position in a decode step);
+   each worker row's token ids equal phase 3's, its solo run's, this
+   run's or this run's with each job prefilled alone (a prefill worker
+   takes a job that arrives by itself in a prefill of its own; worker
+   processes under ``LLMQ_RESULT_DIGEST=1``), and each row of this run
+   that parts from phase 3's tokens (of the solo adoption, from the solo
+   run's) parts at a near-tie (the adopted row computes its last prompt
+   position in a decode step);
    then in f32 at 2 layers on the exact routes, adoption gives the
    unified run's tokens, 16 of 16.
 13. The failure policy (M6's first part) at full width (qwen2.5-3b,
@@ -262,6 +265,46 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    apart) against the local prefill's, the walls. K1-K4's
    records in the kernels line add these launches (``peers_launches``).
 
+16. The OpenAI gateway and the observability plane at full width, every
+   part a process of the port's command line over tcp://: ``broker
+   serve``; ``worker run CHECKPOINT`` (phase 3's seeded weights written as
+   an HF checkpoint beside a tokenizer that gives every id text: ids up to
+   256 are the byte tokenizer's, each later id reads "é"'s continuation
+   byte, " <id>", "é"'s lead byte, so random weights split a character
+   across every streamed flush; bf16, 16 sequences, 512 positions) with
+   ``LLMQ_METRICS_PORT`` on a free port and ``LLMQ_TRACE_LOG`` at
+   ``chiprun_out/gateway_trace.jsonl``; ``serve QUEUE --port P``. (a)
+   Phase 3's 16 prompts, 32 tokens, greedy: 8 blocking and 8 streamed at
+   once, then the other way round; each text must be non-empty and the
+   first 32 tokens' text of phase 3's run or of its solo run (see phase
+   3), each streamed text the same prompt's blocking text (unless the two
+   took the two prefill shapes), and the streamed texts must hold at least
+   one "é" joined across two tokens; after ``serve`` stops, the same 16
+   jobs straight to the worker must give phase 3's or the solo run's
+   first 32 token ids (``LLMQ_RESULT_DIGEST=1``); round 2's answers are
+   split at the worker's ``claimed`` and ``finished`` sink stamps; (b) a
+   streamed request
+   of 512 tokens the client leaves after its first frame: the gateway cancels
+   it on the worker's control queue, the pages go back to the pool
+   (``llmq_engine_kv_page_utilization`` 0), the worker's stats line counts
+   one ``jobs_cancelled`` and one ``cancelled`` result, the engine one
+   cancellation; (c) ``/metrics`` carries ``llmq_ttft_seconds``,
+   ``llmq_itl_seconds``, ``llmq_dispatch_seconds{kind=...}`` and
+   ``llmq_broker_publish_seconds`` with counts at least the requests
+   served; a chat completion, ``/v1/models`` and ``/healthz`` answer; (d)
+   after ``serve`` stops (exit 0), ``trace trace-me -q QUEUE`` of a job
+   submitted to the queue prints submitted, claimed, tokenized, admitted,
+   prefill_start, first_token, decode, finished in order, and ``monitor
+   top QUEUE --once`` shows the worker's row with nonzero tok/s and TTFT
+   p50 once a heartbeat carries the serve. The worker exits 0 on SIGTERM;
+   its stats line shows K1 and K2 on the tensor-core route only (logs
+   ``gateway_*.log``). Printed: the client's TTFT p50 / p95 (request to
+   first SSE frame) and the blocking latency p50 of each round (round 1
+   meets a cold worker process), round 2's p50 road to the worker's
+   claim, worker span and road back, the heartbeat's
+   ``ttft_p50_ms`` and ``itl_p50_ms``. ``--phases gateway`` runs phase 3
+   and this phase alone.
+
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing any
@@ -295,7 +338,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
 ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
-              "fused", "snapshot", "prefix_kv", "failure_policy", "pipeline", "peers")
+              "fused", "snapshot", "prefix_kv", "failure_policy", "pipeline", "peers", "gateway")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -1122,9 +1165,9 @@ def recording_tokens(tokens: dict):
 
     build = TorchWorker._build_result
 
-    def record(self, job, out, duration_ms):
+    def record(self, job, out, duration_ms, **kwargs):
         tokens[job.id] = list(out.token_ids)
-        return build(self, job, out, duration_ms)
+        return build(self, job, out, duration_ms, **kwargs)
 
     TorchWorker._build_result = record
     try:
@@ -2028,6 +2071,47 @@ def write_hf_checkpoint(cfg, params: dict, out_dir: str, shards: int = 2) -> int
     return total
 
 
+def _split_char_token(k: int) -> bytes:
+    """Id ``k`` >= 257 of ``write_text_tokenizer``'s vocabulary: "é"'s
+    continuation byte, " k", and "é"'s lead byte, so that every two such
+    tokens in a row join into "é" across their boundary."""
+    return b"\xa9" + f" {k}".encode() + b"\xc3"
+
+
+def write_text_tokenizer(out_dir: str, vocab_size: int) -> None:
+    """An HF tokenizer (tokenizer.json, tokenizer_config.json) beside a
+    checkpoint in which every id has text: id 0 is the EOS, ids 1..256 are
+    the byte tokenizer's (byte + 1, no merges, so a prompt encodes to the
+    byte tokenizer's ids), and every later id ``k`` is
+    ``_split_char_token(k)``. Random weights emit mostly those, so each
+    streamed text splits a character across every flush."""
+    from tokenizers import AddedToken, Tokenizer, decoders, models, pre_tokenizers
+
+    printable = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+                 + list(range(ord("®"), ord("ÿ") + 1)))
+    chars, n = {}, 0  # GPT-2's byte-level alphabet: byte -> printable character
+    for b in range(256):
+        if b in printable:
+            chars[b] = chr(b)
+        else:
+            chars[b] = chr(256 + n)
+            n += 1
+    vocab = {"<|endoftext|>": 0}
+    vocab.update({chars[b]: b + 1 for b in range(256)})
+    vocab.update({"".join(chars[b] for b in _split_char_token(k)): k
+                  for k in range(257, vocab_size)})
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=[]))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.add_special_tokens([AddedToken("<|endoftext|>", special=True)])
+    tok.save(os.path.join(out_dir, "tokenizer.json"))
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        json.dump(dict(tokenizer_class="PreTrainedTokenizerFast", eos_token="<|endoftext|>",
+                       clean_up_tokenization_spaces=False, model_max_length=32768,
+                       chat_template="{% for m in messages %}{{ m['role'] + ': ' + m['content'] "
+                                     "+ '\n' }}{% endfor %}{{ 'assistant: ' }}"), f)
+
+
 def _leaves(tree: dict, prefix: str = ""):
     for k, v in sorted(tree.items()):
         if isinstance(v, dict):
@@ -2344,8 +2428,10 @@ def phase_tcp_cli(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
     return rec
 
 
-async def _receive_n(url: str, queue: str, n: int, proc, timeout: float) -> list:
-    """``n`` results off ``<queue>.results``, acked, while ``proc`` lives."""
+async def _receive_n(url: str, queue: str, n: int, proc, timeout: float,
+                     log: str = "tcp_worker.log") -> list:
+    """``n`` results off ``<queue>.results``, acked, while ``proc`` (its
+    output in ``log``) lives."""
     from llmq_tpu_torch.broker.base import make_broker
 
     broker = make_broker(url)
@@ -2354,8 +2440,8 @@ async def _receive_n(url: str, queue: str, n: int, proc, timeout: float) -> list
     try:
         while len(results) < n:
             if time.monotonic() > deadline or proc.poll() is not None:
-                raise SystemExit(f"tcp/cli phase: {len(results)} of {n} results, worker exit "
-                                 f"code {proc.poll()} (log: tcp_worker.log in {OUT_DIR})")
+                raise SystemExit(f"{len(results)} of {n} results, worker exit code "
+                                 f"{proc.poll()} (log: {log} in {OUT_DIR})")
             msg = await broker.get(queue + ".results")
             if msg is None:
                 await asyncio.sleep(0.1)
@@ -3157,14 +3243,19 @@ def _prefix_kv_host_tier(smi, cfg, params, prefix_tokens) -> dict:
     return a_launches
 
 
-def _adopted_serve(core, jobs, gen: int) -> tuple:
-    """Every job prefilled alone (``prefill_only``), then each snapshot
-    inserted back into the same engine and decoded: the disaggregated
-    path in one process. Returns (tokens, snapshots)."""
+def _adopted_serve(core, jobs, gen: int, *, solo: bool = False) -> tuple:
+    """Every job's prompt phase alone (``prefill_only``): all waiting at
+    once (prefill rows of 4), or with ``solo`` each prefilled alone, as a
+    worker process takes a job that arrives by itself; then each snapshot
+    inserted back into the same engine and decoded: the disaggregated path
+    in one process. Returns (tokens, snapshots)."""
+    done: dict = {}
     for j in jobs:
         core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen),
                          prefill_only=True)
-    done = _step_to_end(core, {})
+        if solo:
+            _step_to_end(core, done)
+    _step_to_end(core, done)
     snaps = [done[j.id].snapshot for j in jobs]
     if any(o.finish_reason != "prefill_done" or o.token_ids for o in done.values()):
         raise SystemExit("prefix_kv phase (c): a prefill-only request did not stop at the "
@@ -3275,18 +3366,28 @@ def _prefix_kv_disagg(smi, cfg, params, serve_tokens, solo_tokens) -> dict:
     parting_ids = [j.id for j in jobs if adopted.get(j.id) != want[j.id]]
     if any(tok.decode(got[r["id"]] or []) != r["result"] for r in results):
         problems.append("(c) a result's text is not its token ids' text")
+    # The prefill worker takes a job that arrives alone in a prefill of its
+    # own (1 row, not 4): its adopted row is the in-process adoption of
+    # jobs each prefilled alone, which parts from the solo run at a
+    # near-tie as the batch adoption does from phase 3's.
+    solo_want = {j.id: solo_tokens[j.id][:gen] for j in jobs}
+    adopted_solo, _ = _adopted_serve(core, jobs, gen, solo=True)
     unwitnessed = [rid for rid, ids in got.items()
-                   if ids not in (want[rid], adopted.get(rid), solo_tokens[rid][:gen])]
+                   if ids not in (want[rid], adopted.get(rid), solo_want[rid],
+                                  adopted_solo.get(rid))]
     if unwitnessed:
         problems.append(f"(c) worker rows parting from phase 3's, its solo run's and the "
-                        f"in-process adoption: {unwitnessed}")
+                        f"in-process adoptions: {unwitnessed}")
     parting = _parting_witness(core, jobs, adopted, want)
-    for rid, w in parting.items():
-        if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
-                or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS):
-            problems.append(f"(c) adopted {rid} parts from phase 3's at {w['position']} at no "
-                            f"near-tie: ranks {w['phase3_rank']} / {w['recompute_rank']}, gap "
-                            f"{w['gap']} ({w['gap_bf16_steps']} bf16 steps)")
+    parting_solo = _parting_witness(core, jobs, adopted_solo, solo_want)
+    for what, witnessed in (("phase 3's", parting), ("the solo run's", parting_solo)):
+        for rid, w in witnessed.items():
+            if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
+                    or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS):
+                problems.append(f"(c) adopted {rid} parts from {what} at {w['position']} at "
+                                f"no near-tie: ranks {w['phase3_rank']} / "
+                                f"{w['recompute_rank']}, gap {w['gap']} "
+                                f"({w['gap_bf16_steps']} bf16 steps)")
     snap_bytes = [len(s.to_bytes()) for s in snaps]
     del core
     gc.collect()
@@ -3321,6 +3422,11 @@ def _prefix_kv_disagg(smi, cfg, params, serve_tokens, solo_tokens) -> dict:
               worker_tokens_equal_phase3=sum(ids == want[r] for r, ids in got.items()),
               worker_tokens_equal_solo=sum(ids == solo_tokens[r][:gen] for r, ids in got.items()),
               worker_tokens_equal_in_process=sum(ids == adopted.get(r) for r, ids in got.items()),
+              worker_tokens_equal_in_process_solo=sum(ids == adopted_solo.get(r)
+                                                      for r, ids in got.items()),
+              prefill_worker_prefill_dispatches=pre.get("kernel_launches", {}).get(
+                  "flash_prefill_attention_cuda", {}).get("launches", 0) // cfg.num_layers,
+              bf16_solo_adopted_parting={rid: w["position"] for rid, w in parting_solo.items()},
               bf16_in_process_equal_phase3=n_jobs - len(parting_ids),
               bf16_parting=parting, near_tie_limit_bf16_steps=NEAR_TIE_ULPS,
               bf16_launches=launches, f32_2_layers_adopted_equal_unified=f32_equal,
@@ -3766,7 +3872,7 @@ def _wait_listening(port: int, proc: subprocess.Popen, timeout: float = 60) -> N
             return
         except OSError:
             time.sleep(0.1)
-    raise SystemExit(f"pipeline phase: `broker serve` is not listening on {port}")
+    raise SystemExit(f"nothing listens on port {port} (the process's exit code: {proc.poll()})")
 
 
 def _read_lines(stream, lines: list) -> None:
@@ -4404,6 +4510,390 @@ def phase_peers(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
     return {**a, **b}
 
 
+
+# --- phase 16: the OpenAI gateway and the observability plane at full width --
+
+GATEWAY_TRACE = ["submitted", "claimed", "tokenized", "admitted", "prefill_start", "first_token",
+                 "decode", "finished"]
+
+
+def _http(port: int, method: str, path: str, body=None, *, hang_up_after=None) -> dict:
+    """One request to a local HTTP server: status, JSON body or the SSE
+    frames, the seconds to the first frame and to the end; with
+    ``hang_up_after``, the client closes after that many frames."""
+    import http.client
+
+    t0, sent_wall = time.perf_counter(), time.time()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = dict(status=resp.status, first_s=None, sent_wall=sent_wall)
+    if resp.getheader("Content-Type") != "text/event-stream":
+        raw = resp.read()
+        try:
+            out["body"] = json.loads(raw)
+        except ValueError:
+            out["body"] = raw.decode("utf-8", "replace")
+    else:
+        frames, buf = [], b""
+        while hang_up_after is None or len(frames) < hang_up_after:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n\n" in buf:
+                event, buf = buf.split(b"\n\n", 1)
+                if event.startswith(b"data: "):
+                    if out["first_s"] is None:
+                        out["first_s"] = time.perf_counter() - t0
+                    text = event[6:].decode()
+                    frames.append(text if text == "[DONE]" else json.loads(text))
+        out["frames"] = frames
+        out["text"] = "".join(f["choices"][0].get("text", "") for f in frames
+                              if isinstance(f, dict))
+    out["total_s"] = time.perf_counter() - t0
+    resp.close()
+    conn.close()
+    return out
+
+
+def _scrape(port: int) -> dict:
+    """``/metrics`` as {series with labels: value}."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+        body = resp.read().decode()
+    out = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            series, _, value = line.rpartition(" ")
+            out[series] = float(value)
+    return out
+
+
+def _pct(values: list, q: float):
+    if not values:
+        return None
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+def phase_gateway(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
+    """Phase 16: ``broker serve``, ``worker run`` of phase 3's weights as a
+    checkpoint with ``write_text_tokenizer``'s tokenizer
+    (``LLMQ_METRICS_PORT``, ``LLMQ_TRACE_LOG``) and ``serve`` as processes
+    on tcp://; (a) phase 3's 16 prompts through the gateway, 8 blocking and
+    8 streamed at once, then the other way round, and straight to the
+    worker for their token ids; (b) a streamed request
+    the client leaves after its first frame; (c) ``/metrics``, a chat request,
+    ``/v1/models``, ``/healthz``; (d) ``trace`` of a job and ``monitor top
+    --once``. Returns the worker's K1 and K2 launches."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llmq_tpu_torch.broker.manager import BrokerManager
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.core.models import Job
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer, HFTokenizer
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    # Phase 3's weights (build_engine's draw at seed 0) as a checkpoint
+    # whose tokenizer gives every id text (``write_text_tokenizer``).
+    cfg = get_preset("qwen2.5-3b")
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="hf-text-qwen2.5-3b-", dir=os.path.join(root, "build"))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+                         device=torch.device("cuda"))
+    write_hf_checkpoint(cfg, params, ckpt)
+    del params
+    torch.cuda.empty_cache()
+    write_text_tokenizer(ckpt, cfg.vocab_size)
+    n_jobs, gen, queue = 16, 32, "smoke-gw"
+    broker_port, http_port, metrics_port = _free_port(), _free_port(), _free_port()
+    url = f"tcp://127.0.0.1:{broker_port}"
+    trace_log = os.path.join(OUT_DIR, "gateway_trace.jsonl")
+    open(trace_log, "w").close()
+    penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                LLMQ_BROKER_URL=url)
+    cli = [sys.executable, "-m", "llmq_tpu_torch"]
+    logs = {name: os.path.join(OUT_DIR, f"gateway_{name}.log")
+            for name in ("broker", "worker", "serve")}
+    tok = HFTokenizer(ckpt)
+    jobs = _default_jobs(n_jobs, gen)
+    want = {j.id: {tok.decode(serve_tokens[j.id][:gen]), tok.decode(solo_tokens[j.id][:gen])}
+            for j in jobs}
+    procs, problems, rec = {}, [], dict(phase="gateway", broker=url, card=smi)
+    byte_tok = ByteTokenizer()
+    if any(tok.encode(j.get_formatted_prompt()) != byte_tok.encode(j.get_formatted_prompt())
+           for j in jobs):
+        problems.append("the checkpoint's tokenizer encodes a prompt unlike the byte tokenizer")
+    try:
+        with open(logs["broker"], "w") as log:
+            procs["broker"] = subprocess.Popen(
+                cli + ["broker", "serve", "--host", "127.0.0.1", "--port", str(broker_port)],
+                cwd=root, env=penv, stdout=log, stderr=subprocess.STDOUT)
+        _wait_listening(broker_port, procs["broker"])
+        t_start = time.perf_counter()
+        with open(logs["worker"], "w") as log:
+            procs["worker"] = subprocess.Popen(
+                cli + ["worker", "run", ckpt, queue, "--max-num-seqs", "16",
+                       "--max-model-len", "512", "--dtype", "bfloat16"],
+                cwd=root, env=dict(penv, LLMQ_DECODE_KERNEL="v1", LLMQ_RESULT_DIGEST="1",
+                                   LLMQ_METRICS_PORT=str(metrics_port),
+                                   LLMQ_TRACE_LOG=trace_log),
+                stdout=log, stderr=subprocess.STDOUT)
+        with open(logs["serve"], "w") as log:
+            procs["serve"] = subprocess.Popen(
+                cli + ["serve", queue, "--port", str(http_port)], cwd=root, env=penv,
+                stdout=log, stderr=subprocess.STDOUT)
+        _wait_listening(http_port, procs["serve"])
+        while not _log_has(logs["worker"], "consuming"):
+            if procs["worker"].poll() is not None or time.perf_counter() - t_start > 300:
+                raise SystemExit(f"gateway phase: the worker did not start ({logs['worker']})")
+            time.sleep(0.2)
+        rec["worker_ready_s"] = time.perf_counter() - t_start
+
+        # (a) 8 blocking and 8 streamed at once, then the other way round.
+        def ask(j, stream: bool) -> dict:
+            body = {"prompt": j.prompt, "max_tokens": gen, "temperature": 0.0}
+            if stream:
+                body["stream"] = True
+            r = _http(http_port, "POST", "/v1/completions", body)
+            if r["status"] == 200 and not stream:
+                r.update(text=r["body"]["choices"][0]["text"], job_id=r["body"]["id"])
+            elif r["status"] == 200:
+                r["job_id"] = r["frames"][0]["id"]
+            return dict(r, id=j.id, stream=stream)
+
+        answers = []
+        with ThreadPoolExecutor(n_jobs) as pool:
+            for n_round, first_half_streams in ((1, False), (2, True)):
+                plan = [(j, (i < n_jobs // 2) == first_half_streams) for i, j in enumerate(jobs)]
+                answers += [dict(a, round=n_round) for a in pool.map(lambda a: ask(*a), plan)]
+        blocking = {a["id"]: a for a in answers if not a["stream"]}
+        streamed = {a["id"]: a for a in answers if a["stream"]}
+        for a in answers:
+            if a["status"] != 200:
+                problems.append(f"{a['id']} ({'streamed' if a['stream'] else 'blocking'}): "
+                                f"HTTP {a['status']}")
+            elif a["text"] not in want[a["id"]]:
+                problems.append(f"{a['id']}: text is neither phase 3's first {gen} tokens' "
+                                f"nor its solo run's")
+            if a["stream"] and a["status"] == 200 and (
+                    a["frames"][-1] != "[DONE]"
+                    or a["frames"][-2]["choices"][0]["finish_reason"] != "length"):
+                problems.append(f"{a['id']}: stream ends {a['frames'][-2:]}")
+        same = 0
+        for rid, s in streamed.items():
+            b = blocking[rid]
+            if s.get("text") == b.get("text"):
+                same += 1
+            elif not (len(want[rid]) == 2 and {s.get("text"), b.get("text")} == want[rid]):
+                problems.append(f"{rid}: streamed text differs from the blocking text")
+        texts = [a.get("text") or "" for a in answers]
+        # Every id past 256 ends in "é"'s lead byte and starts with its
+        # continuation: a streamed "é" was split across two tokens.
+        joined = sum(a["text"].count("é") for a in answers if a["stream"] and a.get("text"))
+        rec.update(requests=len(answers), streamed_equal_blocking=same,
+                   texts_nonempty=sum(1 for t in texts if t), text_chars=sum(map(len, texts)),
+                   streamed_split_chars_joined=joined)
+        if rec["texts_nonempty"] != len(answers) or not joined:
+            problems.append(f"{rec['texts_nonempty']} of {len(answers)} texts non-empty, "
+                            f"{joined} split characters streamed")
+        for n_round in (1, 2):  # round 1 meets a cold worker: its first dispatches
+            ttft = [a["first_s"] * 1e3 for a in answers if a["round"] == n_round and a["stream"]]
+            lat = [a["total_s"] * 1e3 for a in answers
+                   if a["round"] == n_round and not a["stream"]]
+            rec[f"round{n_round}"] = dict(client_ttft_ms_p50=_pct(ttft, 0.5),
+                                          client_ttft_ms_p95=_pct(ttft, 0.95),
+                                          blocking_latency_ms_p50=_pct(lat, 0.5))
+
+        # (b) a long stream the client leaves after its first frame (the
+        # first token: random weights give few tokens with text).
+        left = _http(http_port, "POST", "/v1/completions",
+                     {"prompt": jobs[0].prompt, "max_tokens": 512, "temperature": 0.0,
+                      "stream": True}, hang_up_after=1)
+        cancelled_id = left["frames"][0]["id"] if left.get("frames") else None
+        t_left = time.perf_counter()
+        while True:
+            util = _scrape(metrics_port).get("llmq_engine_kv_page_utilization")
+            if util == 0.0:
+                break
+            if time.perf_counter() - t_left > 60:
+                problems.append(f"pages in use 60 s after the client left: {util}")
+                break
+            time.sleep(0.1)
+        rec["cancel_pages_free_s"] = time.perf_counter() - t_left
+
+        # (c) the metrics, a chat request, the models and the health.
+        chat = _http(http_port, "POST", "/v1/chat/completions",
+                     {"messages": [{"role": "user", "content": jobs[1].prompt}],
+                      "max_tokens": 8, "temperature": 0.0})
+        models = _http(http_port, "GET", "/v1/models")
+        health = _http(http_port, "GET", "/healthz")
+        if chat["status"] != 200 or not isinstance(
+                chat["body"]["choices"][0]["message"]["content"], str) or not (
+                chat["body"]["choices"][0]["message"]["content"]):
+            problems.append(f"chat: {chat}")
+        if models["status"] != 200 or models["body"]["data"][0]["id"] != "llmq-tpu":
+            problems.append(f"models: {models}")
+        if health["body"] != {"ok": True, "queue": queue}:
+            problems.append(f"healthz: {health}")
+        served = len(answers) + 2
+        metrics = _scrape(metrics_port)
+        counts = {name: metrics.get(name) for name in (
+            "llmq_ttft_seconds_count", "llmq_itl_seconds_count",
+            'llmq_dispatch_seconds_count{kind="decode_block"}',
+            'llmq_dispatch_seconds_count{kind="prefill"}', "llmq_broker_publish_seconds_count")}
+        for name, n in counts.items():
+            floor = 1 if "prefill" in name else served
+            if n is None or n < floor:
+                problems.append(f"/metrics {name} = {n}, want >= {floor}")
+        rec.update(metrics_counts=counts, chat_text_chars=len(
+            chat["body"]["choices"][0]["message"]["content"]) if chat["status"] == 200 else None)
+        rc_serve = _stop(procs["serve"], signal.SIGTERM, 30)
+        if rc_serve != 0:
+            problems.append(f"serve exited {rc_serve} on SIGTERM")
+
+        # The token ids behind (a)'s texts: the same 16 jobs published to
+        # the worker straight (the gateway, which owns the results, gone).
+        asyncio.run(_submit(url, queue, jobs))
+        direct = asyncio.run(_receive_n(url, queue, n_jobs, procs["worker"], timeout=300,
+                                        log="gateway_worker.log"))
+        shapes = [_served_as(r.get("token_ids"), r["id"], gen, serve_tokens, solo_tokens)
+                  for r in direct]
+        for r, shape in zip(direct, shapes):
+            if shape is None or r["result"] != tok.decode(r["token_ids"]) or not r["result"]:
+                problems.append(f"{r['id']} straight to the worker: tokens differ from the "
+                                f"first {gen} of phase 3's and of its solo run's")
+        rec.update(direct_jobs=len(direct), direct_prefilled_solo=shapes.count("solo"))
+
+        # (d) a job's trace, and the dashboard once a heartbeat carries the
+        # serve (the worker beats every 30 s).
+        t_served = time.time()
+
+        async def trace_and_beat():
+            async with BrokerManager(Config(broker_url=url)) as mgr:
+                await mgr.publish_job(queue, Job(id="trace-me", prompt=jobs[2].prompt,
+                                                 temperature=0.0, max_tokens=gen))
+                deadline = time.monotonic() + 120
+                while (await mgr.get_queue_stats(queue + ".results")).message_count < 1:
+                    if time.monotonic() > deadline:
+                        raise SystemExit("gateway phase: no result for trace-me")
+                    await asyncio.sleep(0.1)
+                while True:
+                    beats = await mgr.get_worker_health(queue)
+                    fresh = [h for h in beats.values()
+                             if h.last_seen.timestamp() > t_served
+                             and (h.engine_stats or {}).get("ttft_p50_ms")]
+                    if fresh:
+                        return fresh[0]
+                    if time.monotonic() > deadline:
+                        raise SystemExit("gateway phase: no heartbeat after the serve")
+                    await asyncio.sleep(0.5)
+
+        beat = asyncio.run(trace_and_beat())
+        es = beat.engine_stats
+        traced = subprocess.run(cli + ["trace", "trace-me", "-q", queue], cwd=root, env=penv,
+                                capture_output=True, text=True, timeout=120)
+        lines = traced.stdout.splitlines()
+        events = [line.split()[0] for line in lines[3:] if line and not line.startswith("total")]
+        if traced.returncode != 0 or events != GATEWAY_TRACE:
+            problems.append(f"trace: exit {traced.returncode}, events {events}")
+        with open(os.path.join(OUT_DIR, "gateway_trace.txt"), "w") as f:
+            f.write(traced.stdout + traced.stderr)
+        top = subprocess.run(cli + ["monitor", "top", queue, "--once"], cwd=root, env=penv,
+                             capture_output=True, text=True, timeout=120)
+        with open(os.path.join(OUT_DIR, "gateway_top.txt"), "w") as f:
+            f.write(top.stdout + top.stderr)
+        import re
+
+        table = top.stdout.splitlines()
+        head = next((i for i, line in enumerate(table) if line.startswith("worker ")), None)
+        row = None
+        if head is not None:
+            cols = re.split(r"\s{2,}", table[head].strip())
+            for line in table[head + 2:]:
+                cells = re.split(r"\s{2,}", line.strip())
+                if cells[0] == beat.worker_id:
+                    row = dict(zip(cols, cells))
+        if (row is None or float(row["tok/s"]) <= 0
+                or float(row["ttft p50/p95 ms"].split("/")[0]) <= 0):
+            problems.append(f"monitor top: the worker's row {row}")
+        for key, value in (("cancellations", 1), ("jobs_cancelled", 1),
+                           ("kv_page_utilization", 0.0)):
+            if es.get(key) != value:
+                problems.append(f"heartbeat {key} = {es.get(key)}, want {value}")
+        rec.update(heartbeat_ttft_p50_ms=es.get("ttft_p50_ms"),
+                   heartbeat_itl_p50_ms=es.get("itl_p50_ms"),
+                   heartbeat_dispatch_ms=es.get("dispatch_ms"),
+                   heartbeat_metrics_series=len(beat.metrics or {}), top_row=row,
+                   trace_events=events)
+        rc_worker = _stop(procs["worker"], signal.SIGTERM, 120)
+        if rc_worker != 0:
+            problems.append(f"worker exited {rc_worker} on SIGTERM")
+    finally:
+        for proc in procs.values():
+            _stop(proc, signal.SIGKILL, 10)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    stats = _worker_stats(logs["worker"])
+    if stats.get("jobs_cancelled") != 1 or stats.get("finish_reasons", {}).get("cancelled") != 1:
+        problems.append(f"the worker's stats: cancelled {stats.get('jobs_cancelled')}, "
+                        f"finish reasons {stats.get('finish_reasons')} (want one cancelled)")
+    with open(trace_log) as f:
+        sink = [json.loads(line) for line in f]
+    sink_events, at = {}, {}
+    for r in sink:
+        sink_events[r["event"]] = sink_events.get(r["event"], 0) + 1
+        at[(r["job_id"], r["event"])] = r["t_wall"]
+    # Round 2's answers split at the worker's claimed and finished stamps
+    # (the sink's wall clock, the client's on the same host): the road to
+    # the worker, the worker's span, the road back.
+    split = {}
+    for kind in ("blocking", "streamed"):
+        parts = {"to_claim_ms": [], "worker_ms": [], "after_finish_ms": []}
+        for a in answers:
+            claimed = at.get((a.get("job_id"), "claimed"))
+            finished = at.get((a.get("job_id"), "finished"))
+            if a["round"] != 2 or a["stream"] != (kind == "streamed") or not (claimed and finished):
+                continue
+            parts["to_claim_ms"].append((claimed - a["sent_wall"]) * 1e3)
+            parts["worker_ms"].append((finished - claimed) * 1e3)
+            parts["after_finish_ms"].append((a["sent_wall"] + a["total_s"] - finished) * 1e3)
+        split[kind] = dict({k: _pct(v, 0.5) for k, v in parts.items()}, n=len(parts["worker_ms"]))
+        if split[kind]["n"] != n_jobs // 2:
+            problems.append(f"round 2 {kind}: {split[kind]['n']} answers with both stamps")
+    rec["round2_split_p50"] = split
+    if sink_events.get("cancel_requested") != 1 or sink_events.get("finished", 0) < served:
+        problems.append(f"LLMQ_TRACE_LOG events {sink_events}")
+    launches = {}
+    kl = stats.get("kernel_launches", {})  # by wrapper name
+    on_path = {KERNEL_COUNTERS[k][1]: k for k in ("paged_decode", "flash_prefill")}
+    for w, k in on_path.items():
+        entry = kl.get(w)
+        launches[k] = entry["launches"] if entry else 0
+        if not entry or entry["tensor_core"] != entry["launches"] or entry["exact"]:
+            problems.append(f"worker: {k} launches {entry} (want all on the tensor-core route)")
+    if sorted(set(kl) - set(on_path)):
+        problems.append(f"worker: kernels off the default path launched: {sorted(kl)}")
+    rec.update(cancelled_job=cancelled_id, worker_stats=stats, trace_log_events=sink_events,
+               launches=launches, seconds=time.perf_counter() - t_phase,
+               timing="client_ttft: from sending a streamed request to its first SSE frame; "
+                      "blocking latency: request to response; both with 16 requests in "
+                      "flight through the gateway process; round2_split_p50: each part's own "
+                      "p50 (host wall clock; the parts' p50s need not add up); heartbeat "
+                      "percentiles: the worker's engine histograms (host clock)",
+               problems=problems)
+    emit(rec)
+    if problems:
+        raise SystemExit("gateway phase failed: " + "; ".join(problems[:5]))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -4509,6 +4999,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         peers_launches = phase_peers(smi, serve_tokens, solo_tokens)
+    gateway_launches = {}
+    if "gateway" in phases:
+        if serve_tokens is None:  # `--phases gateway` alone: phase 3 first, for its tokens
+            _, serve_tokens, solo_tokens = phase_serve(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gateway_launches = phase_gateway(smi, serve_tokens, solo_tokens)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -4558,6 +5055,8 @@ def main() -> int:
             entry["pipeline_launches"] = {stage: n[name] for stage, n in pipeline_launches.items()}
         if name in peers_launches:  # phase 15: (a) K3, K4; (b) K1, K2
             entry["peers_launches"] = peers_launches[name]
+        if name in gateway_launches:  # phase 16: the worker behind the gateway
+            entry["gateway_launches"] = gateway_launches[name]
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",

@@ -27,10 +27,14 @@ prefill worker offers its handoffs to. The orphan janitor
 when affinity is on or the role is not unified) returns what a dead
 worker's private queues hold to the shared queues and deletes them.
 
-Left for a later slice: the lifecycle trace the reference stamps into
-each published payload (``TRACE_FIELD``; ROADMAP.md queue 1, M16). The
-shared queue names are ``broker/base.py``'s, re-exported here; the
-per-worker ones are defined here, as in the reference.
+Lifecycle trace: ``publish_job`` stamps a ``submitted`` event (and
+``shed_job`` a ``shed`` one) into the payload's ``TRACE_FIELD`` record,
+starting one when the job carries none, so the record rides every broker
+hop and pipeline stage; the janitor logs an ``affinity_reclaimed`` event
+to the ``LLMQ_TRACE_LOG`` sink for each message it moves. The shared
+queue names are ``broker/base.py``'s, re-exported here; the per-worker
+and per-request ones (``ctl_queue_name``, ``stream_queue_name``) are
+defined here, as in the reference.
 """
 
 from __future__ import annotations
@@ -57,6 +61,14 @@ from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import ErrorInfo, Job, QueueStats, Result, WorkerHealth, utcnow
 from llmq_tpu_torch.core.pipeline import PipelineConfig, PipelineStage
 from llmq_tpu_torch.core.template import resolve_template_string, resolve_template_value
+from llmq_tpu_torch.obs.trace import (
+    TRACE_FIELD,
+    emit_trace_event,
+    new_trace,
+    record_transition,
+    trace_event,
+    trace_from_payload,
+)
 from llmq_tpu_torch.utils import clock
 from llmq_tpu_torch.utils.aio import reap_all, spawn
 from llmq_tpu_torch.utils.hashing import rendezvous_pick, text_prefix_chain
@@ -67,9 +79,9 @@ __all__ = [
     "AFFINITY_REFRESH_S", "BrokerManager", "DECODE_SUFFIX",
     "FAILED_SUFFIX", "HEALTH_SUFFIX", "HEARTBEAT_INTERVAL_S", "INTERACTIVE_SUFFIX",
     "QUARANTINE_SUFFIX", "RECLAIM_INTERVAL_S", "RESULTS_SUFFIX", "STALE_AFTER_S",
-    "affinity_queue_name", "decode_adopt_queue_name", "decode_queue_name",
+    "affinity_queue_name", "ctl_queue_name", "decode_adopt_queue_name", "decode_queue_name",
     "interactive_queue_name", "job_affinity_text", "kv_fetch_queue_name",
-    "results_queue_name", "watchdog_reclaim_s",
+    "results_queue_name", "stream_queue_name", "watchdog_reclaim_s",
 ]
 
 FAILED_SUFFIX = ".failed"
@@ -117,6 +129,22 @@ def kv_fetch_queue_name(queue: str, worker_id: str) -> str:
     """The per-worker queue of prefix-page fetch requests and of the KV
     adoption offers of a disaggregated fleet; replies go to its ``.r``."""
     return f"{queue}.kv.{worker_id}"
+
+
+def ctl_queue_name(queue: str, worker_id: str) -> str:
+    """Per-worker control queue (cancellation). The streaming gateway
+    publishes ``{"cancel": job_id}`` here when a client disconnects
+    mid-stream; the worker cancels the request in its engine, freeing its
+    pages and settling the job."""
+    return f"{queue}.ctl.{worker_id}"
+
+
+def stream_queue_name(queue: str, job_id: str) -> str:
+    """Per-request token-delta stream queue. Workers publish incremental
+    text frames here while the request decodes; the gateway forwards them
+    as SSE chunks. Short-TTL and best-effort: the final ``Result`` on
+    ``<q>.results`` remains the settlement of record."""
+    return f"{queue}.stream.{job_id}"
 
 
 def decode_adopt_queue_name(queue: str, worker_id: str) -> str:
@@ -424,9 +452,7 @@ class BrokerManager:
         for wid, last in list(seen.items()):
             if now - last <= STALE_AFTER_S and wid not in wedged:
                 continue
-            # The reference stamps an "affinity_reclaimed" trace event on
-            # each message moved (M16).
-            moved = await self.reclaim_worker_queues(queue, wid)
+            moved = await self.reclaim_worker_queues(queue, wid, trace=True)
             reclaimed += moved
             seen.pop(wid, None)
             logger.info("Reclaimed %s's queues on %s (%d stranded messages%s)", wid, queue, moved,
@@ -434,13 +460,14 @@ class BrokerManager:
         self.affinity_reclaimed += reclaimed
         return reclaimed
 
-    async def reclaim_worker_queues(self, queue: str, wid: str) -> int:
+    async def reclaim_worker_queues(self, queue: str, wid: str, *, trace: bool = False) -> int:
         """Move what worker ``wid``'s ``<q>.w.<id>`` holds back onto the
         shared queue and what its ``<q>.d.<id>`` holds onto ``<q>.decode``
-        (ids, headers and payloads untouched, so resume snapshots ride
-        along), each message acked after its copy is out, then delete
-        those and its ``<q>.kv.<id>``. The janitor does it for a dead
-        worker, a worker for itself as it stops. Returns the count moved."""
+        (ids, headers and payloads untouched, so traces and resume
+        snapshots ride along), each message acked after its copy is out,
+        then delete those and its ``<q>.kv.<id>``. The janitor does it for a
+        dead worker (``trace``: an ``affinity_reclaimed`` sink event per
+        message), a worker for itself as it stops. Returns the count moved."""
         moved = 0
         for src, dst in ((affinity_queue_name(queue, wid), queue),
                          (decode_adopt_queue_name(queue, wid), decode_queue_name(queue))):
@@ -449,6 +476,8 @@ class BrokerManager:
                                           headers=msg.headers)
                 await msg.ack()
                 moved += 1
+                if trace:
+                    emit_trace_event(str(msg.message_id), "affinity_reclaimed", worker=wid)
             await self.broker.delete_queue(src)
         await self.broker.delete_queue(kv_fetch_queue_name(queue, wid))
         return moved
@@ -503,6 +532,10 @@ class BrokerManager:
         """Dead-letter a job at admission time as ``deadline_exceeded``,
         with the same headers a worker-side deadline expiry produces."""
         payload = job.model_dump(mode="json")
+        trace = trace_from_payload(payload)
+        if trace is None:
+            trace = payload[TRACE_FIELD] = new_trace(job.id)
+        record_transition(trace, job.id, "shed", queue=queue, reason=reason)
         await self.broker.publish(
             queue + FAILED_SUFFIX,
             json.dumps(payload, default=str).encode("utf-8"),
@@ -560,7 +593,15 @@ class BrokerManager:
                 self.affinity_routed += 1
             else:
                 self.affinity_fallback += 1
+        # The lifecycle trace rides in the payload itself, so it survives
+        # broker hops, redeliveries and pipeline stage handoffs (a stage
+        # handoff lands here again: a second "submitted", the next stage's
+        # queue).
         payload = job.model_dump(mode="json")
+        trace = trace_from_payload(payload)
+        if trace is None:
+            trace = payload[TRACE_FIELD] = new_trace(job.id)
+        trace_event(trace, "submitted", queue=target)
         await self.broker.publish(
             target,
             json.dumps(payload, default=str).encode("utf-8"),

@@ -23,10 +23,10 @@ session into something that survives the most common production fault:
   instead of the outage silently buffering unbounded work in RAM.
 
 Observability rides along in ``SessionStats`` (reconnects, fenced settles,
-outbox traffic); workers surface it through heartbeats. The reference's
-two latency histograms (``llmq_broker_publish_seconds``,
-``llmq_broker_settle_seconds``) come with the port's metrics registry
-(ROADMAP.md queue 1, M16); until then no publish or settle is timed.
+outbox traffic); workers surface it through heartbeats. Two process-wide
+latency histograms in the metrics registry time every publish (outbox
+parking included) and every settle: ``llmq_broker_publish_seconds`` and
+``llmq_broker_settle_seconds``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import random
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Deque, Dict, Optional
@@ -45,9 +46,20 @@ from llmq_tpu_torch.broker.base import (
     make_broker,
 )
 from llmq_tpu_torch.core.models import QueueStats
+from llmq_tpu_torch.obs.metrics import get_registry
 from llmq_tpu_torch.utils.aio import reap
 
 logger = logging.getLogger(__name__)
+
+# Process-wide latency series (get-or-create: every session in this
+# process shares one). Publish latency includes outbox parking — what a
+# caller actually waited, not just the happy path.
+_publish_hist = get_registry().histogram(
+    "llmq_broker_publish_seconds", "Broker publish call latency"
+)
+_settle_hist = get_registry().histogram(
+    "llmq_broker_settle_seconds", "Broker ack/reject settle latency"
+)
 
 #: Exception classes treated as "the connection died" (everything else is a
 #: broker-side error and propagates to the caller unchanged).
@@ -297,11 +309,13 @@ class ResilientBroker(Broker):
                 # broker requeued it on disconnect, redelivery owns it now.
                 self.session.fenced_settles += 1
                 return
+            t0 = time.perf_counter()
             try:
                 if verb == "ack":
                     await inner_msg.ack()
                 else:
                     await inner_msg.reject(requeue=requeue)
+                _settle_hist.observe(time.perf_counter() - t0)
             except RECONNECT_EXCEPTIONS as exc:
                 self.session.fenced_settles += 1
                 self._connection_lost(exc)
@@ -345,6 +359,7 @@ class ResilientBroker(Broker):
         message_id: Optional[str] = None,
         headers: Optional[Dict[str, Any]] = None,
     ) -> None:
+        t0 = time.perf_counter()
         while True:
             self._check_usable()
             if self._connected.is_set():
@@ -352,6 +367,7 @@ class ResilientBroker(Broker):
                     await self.inner.publish(
                         queue, body, message_id=message_id, headers=headers
                     )
+                    _publish_hist.observe(time.perf_counter() - t0)
                     return
                 except RECONNECT_EXCEPTIONS as exc:
                     self._connection_lost(exc)
@@ -360,6 +376,7 @@ class ResilientBroker(Broker):
                     _ParkedPublish(queue, body, message_id, headers)
                 )
                 self.session.outbox_parked += 1
+                _publish_hist.observe(time.perf_counter() - t0)
                 return
             # Outbox full: block until the flush drains it (or the session
             # comes back / closes) — this is how back-pressure survives outages.

@@ -9,6 +9,9 @@
     python -m llmq_tpu_torch status [QUEUE] [-p PIPELINE_FILE] | health QUEUE
     python -m llmq_tpu_torch errors QUEUE [--limit N] [--requeue] | clear QUEUE [--yes]
     python -m llmq_tpu_torch broker serve [--host H] [--port P] [--persist-dir DIR]
+    python -m llmq_tpu_torch serve QUEUE [--host H] [--port P] [--model-name M] [--priority C]
+    python -m llmq_tpu_torch trace JOB_ID -q QUEUE
+    python -m llmq_tpu_torch monitor top QUEUE [--interval S] [--once] [--top N]
 
 Every command takes the reference's arguments, options and defaults
 (``argparse``, not click: the port's machines need no package beyond
@@ -36,17 +39,24 @@ the port's own: ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch path). ``worker run``'s ``--log-level`` (default
 ``LLMQ_LOG_LEVEL``, else INFO) sets the root logger's level.
 
-Refused with their ROADMAP item (``NotImplementedError``): ``serve``,
-``monitor top`` and ``trace`` (M16: the gateway, the heartbeats' metrics
-and the lifecycle trace), and ``broker serve --native`` (the C++ daemon,
-out of scope). ``lint`` and ``sim`` are out of scope.
+``serve`` runs the OpenAI-compatible HTTP/SSE gateway (``gateway/``) in
+front of QUEUE until interrupted (``--port`` default: ``LLMQ_SERVE_PORT``,
+8100; 0 binds a free port, printed on its first line); ``trace`` prints a
+job's lifecycle timeline; ``monitor top`` the fleet dashboard over the
+heartbeats (``--once``: one refresh).
+
+Refused (``NotImplementedError``): ``broker serve --native`` (the C++
+daemon, out of scope). ``lint`` and ``sim`` are out of scope.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import signal
 import sys
+import threading
+import time
 from typing import Callable, List, Optional
 
 from llmq_tpu_torch import __version__
@@ -58,13 +68,6 @@ UNPORTED_OPTIONS = {
     "data_parallel": (lambda v: v > 1, "M13"),
     "sequence_parallel": (lambda v: v > 1, "M13"),
     "tp_overlap": (lambda v: v not in (None, "off"), "M13"),
-}
-
-#: command -> (what it needs, ROADMAP.md queue 1 item)
-UNPORTED_COMMANDS = {
-    "serve": ("the OpenAI-compatible gateway", "M16"),
-    "trace": ("the lifecycle trace in each result", "M16"),
-    "monitor top": ("the heartbeats' metrics registry", "M16"),
 }
 
 
@@ -140,7 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
                         version=f"llmq_tpu_torch, version {__version__}")
     groups = parser.add_subparsers(
         dest="group", required=True,
-        metavar="{submit,receive,status,health,errors,clear,worker,broker}")
+        metavar="{submit,receive,status,health,errors,clear,trace,serve,monitor,worker,broker}")
 
     submit = groups.add_parser("submit", help="Submit jobs from a JSONL file, '-' (stdin), "
                                               "or an HF dataset")
@@ -176,8 +179,33 @@ def build_parser() -> argparse.ArgumentParser:
     clear = groups.add_parser("clear", help="Purge all ready messages from a queue")
     clear.add_argument("queue")
     clear.add_argument("--yes", action="store_true", help="Skip confirmation")
-    for name in ("serve", "trace", "monitor"):  # refused: UNPORTED_COMMANDS
-        groups.add_parser(name, add_help=False).add_argument("rest", nargs=argparse.REMAINDER)
+    trace = groups.add_parser("trace", help="Show a job's lifecycle timeline from the trace "
+                                            "record in its result")
+    trace.add_argument("job_id")
+    trace.add_argument("-q", "--queue", required=True,
+                       help="Queue the job was submitted to (its .results queue is peeked "
+                            "non-destructively)")
+    serve = groups.add_parser("serve", help="Run the OpenAI-compatible HTTP/SSE gateway in "
+                                            "front of QUEUE")
+    serve.add_argument("queue")
+    serve.add_argument("--host", default="127.0.0.1", help="Bind address for the HTTP server")
+    serve.add_argument("--port", type=int, default=None,
+                       help="Bind port (default: config serve_port / LLMQ_SERVE_PORT; "
+                            "0 = ephemeral)")
+    serve.add_argument("--model-name", default="llmq-tpu",
+                       help="Model id reported by /v1/models and in responses")
+    serve.add_argument("--priority", choices=["interactive", "batch"], default="interactive",
+                       help="Default SLO class for requests that don't set one")
+    monitor = groups.add_parser("monitor", help="Live observability dashboards")
+    monitor_commands = monitor.add_subparsers(dest="command", required=True)
+    top = monitor_commands.add_parser("top", help="Live fleet dashboard from fresh worker "
+                                                  "heartbeats")
+    top.add_argument("queue")
+    top.add_argument("--interval", type=float, default=2.0, help="Refresh period in seconds")
+    top.add_argument("--once", action="store_true",
+                     help="Render one snapshot and exit (scripts/tests)")
+    top.add_argument("--top", dest="top_n", type=int, default=40,
+                     help="Rows to render: the N busiest workers by occupancy")
 
     worker = groups.add_parser("worker", help="run workers")
     commands = worker.add_subparsers(dest="command", required=True)
@@ -314,6 +342,37 @@ def _broker_serve(args) -> None:
         print("broker stopped", flush=True)
 
 
+def _serve_until_interrupted(gateway) -> None:
+    """Block until Ctrl-C (or SIGTERM, which ``_serve`` maps to it)."""
+    while True:
+        time.sleep(1.0)
+
+
+def _interrupt(signum, frame) -> None:
+    raise KeyboardInterrupt
+
+
+def _serve(args) -> None:
+    from llmq_tpu_torch.gateway import ServingGateway
+
+    setup_logging(structured=False)
+    gw = ServingGateway(args.queue, host=args.host, port=args.port, model_name=args.model_name,
+                        default_priority=args.priority)
+    main = threading.current_thread() is threading.main_thread()
+    previous = signal.signal(signal.SIGTERM, _interrupt) if main else None  # stop as on Ctrl-C
+    try:
+        gw.start()
+        print(f"Serving {args.queue} on http://{args.host}:{gw.port} (Ctrl-C to stop)",
+              flush=True)
+        _serve_until_interrupted(gw)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        gw.stop()
+        if main:
+            signal.signal(signal.SIGTERM, previous)
+
+
 def _worker(args, run_worker: Optional[Callable[..., object]]) -> None:
     from llmq_tpu_torch.cli import worker
 
@@ -340,12 +399,21 @@ def main(argv: Optional[List[str]] = None,
     parser = build_parser()
     args = parser.parse_args(argv)
     group = args.group
-    if group in ("serve", "trace", "monitor"):
-        name = "monitor top" if group == "monitor" else group
-        needs, item = UNPORTED_COMMANDS[name]
-        raise NotImplementedError(
-            f"`{name}` needs {needs}, which is not ported yet (ROADMAP.md queue 1, {item})")
-    if group in ("submit", "pipeline"):
+    if group == "serve":
+        _serve(args)
+    elif group == "trace":
+        from llmq_tpu_torch.cli.monitor import trace_job
+
+        asyncio.run(trace_job(args.queue, args.job_id))
+    elif group == "monitor":
+        from llmq_tpu_torch.cli.monitor import monitor_top
+
+        try:
+            asyncio.run(monitor_top(args.queue, interval=args.interval,
+                                    iterations=1 if args.once else None, top=args.top_n))
+        except KeyboardInterrupt:
+            pass
+    elif group in ("submit", "pipeline"):
         is_pipeline = group == "pipeline" or args.is_pipeline
         if group == "pipeline":
             print("Warning: `pipeline` is deprecated; use `submit -p`.", file=sys.stderr)

@@ -48,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from llmq_tpu_torch.core.config import Config, get_config, refuse_unported
+from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.pipeline import load_pipeline_config
 from llmq_tpu_torch.device import DeviceLike, resolve_device
 from llmq_tpu_torch.engine.engine import AsyncEngine, EngineConfig, EngineCore
@@ -225,10 +225,7 @@ def run_torch_worker(
     config = get_config()
     if role is not None:
         config.worker_role = role
-    # Refused before any weight is loaded: an unknown role, and every
-    # setting of a feature the port lacks (core/config.py::UNPORTED_FIELDS).
-    worker_role(config)
-    refuse_unported(config)
+    worker_role(config)  # an unknown role is refused before any weight is loaded
     engine = build_engine(
         model, device=device, max_num_seqs=max_num_seqs, max_model_len=max_model_len,
         dtype=dtype, kv_dtype=kv_dtype, prefill_chunk_size=prefill_chunk_size,
@@ -302,7 +299,6 @@ def run_pipeline_worker(config_path: str, stage: str, *, concurrency: Optional[i
             _refuse(f"Stage '{stage}' needs config.model")
         config = get_config()
         worker_role(config)
-        refuse_unported(config)
         engine = build_engine(model, device=device,
                               max_model_len=stage_cfg.config.get("max_model_len"),
                               max_num_seqs=stage_cfg.config.get("max_num_seqs"))

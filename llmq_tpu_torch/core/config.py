@@ -16,11 +16,9 @@ engine. Two of the reference's fields, ``priority_preempt`` and
 ``interactive_decode_block``, have no field here: the engine reads their
 variables itself over its own ``EngineConfig`` fields
 (``engine/engine.py::priority_settings``), as the reference's engine
-does. ``chunk_size`` is the client's (``cli/submit.py``): no worker of
-either package reads it. The fields of features the port does not have yet are in
-:data:`UNPORTED_FIELDS`: :func:`refuse_unported` raises
-``NotImplementedError`` naming their ROADMAP.md item when one is set to
-anything but its default, so a worker never runs as if it were unset.
+does. ``chunk_size`` is the client's (``cli/submit.py``) and
+``serve_port`` the gateway's (``gateway/server.py``): no worker of either
+package reads them.
 """
 
 from __future__ import annotations
@@ -220,7 +218,7 @@ class Config(BaseModel):
     )
     serve_port: int = Field(
         default_factory=lambda: _env_int("LLMQ_SERVE_PORT", default=8100),
-        description="HTTP port of the streaming gateway (not ported yet).",
+        description="HTTP port of the streaming gateway (`serve`); no worker reads it.",
     )
 
     # --- queue/job policy -------------------------------------------------
@@ -292,25 +290,6 @@ class Config(BaseModel):
     @property
     def job_ttl_ms(self) -> int:
         return self.job_ttl_minutes * 60 * 1000
-
-
-#: field -> (its default, ROADMAP.md queue 1 item, the feature) of the
-#: features the port does not have yet; refused at a non-default value.
-UNPORTED_FIELDS = {
-    "serve_port": (8100, "M16", "the streaming gateway"),
-}
-
-
-def refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP.md item of the
-    first field of :data:`UNPORTED_FIELDS` set to anything but its
-    default: a feature the port lacks is refused, never ignored."""
-    for name, (default, item, feature) in UNPORTED_FIELDS.items():
-        value = getattr(cfg, name)
-        if value != default:
-            raise NotImplementedError(
-                f"Config.{name}={value!r} ({feature}) is not ported yet "
-                f"(ROADMAP.md queue 1, {item})")
 
 
 def get_config() -> Config:

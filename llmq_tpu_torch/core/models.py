@@ -162,8 +162,8 @@ class WorkerHealth(BaseModel):
     reconnects: Optional[int] = Field(
         None, description="Broker session reconnects survived (ResilientBroker session stats).")
     metrics: Optional[Dict[str, Any]] = Field(
-        None, description="Compact metrics-registry summary; the port sends none until the "
-        "metrics registry is ported (ROADMAP.md queue 1, M16).")
+        None, description="Compact metrics-registry summary (obs/metrics.py "
+        "MetricsRegistry.summary(): histograms as ms percentiles); None while it is empty.")
     prefix_chains: Optional[List[str]] = Field(
         None, description="Hot prefix-chain digests (hex) for prefix-affinity routing; None "
         "without it.")

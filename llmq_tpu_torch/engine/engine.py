@@ -65,6 +65,20 @@ instead, and the CPU always does. A dispatch's tokens go to pinned host
 memory with ``non_blocking=True`` and a ``torch.cuda.Event``; the host
 reads them ``runahead`` dispatches later. Prefill stays eager.
 
+Observability (JAX :1060-1212). TTFT and ITL histograms, unlabeled and
+``class="interactive"`` (observed where JAX observes them, :3880-3899),
+the scheduler's queue-wait and preemption-delay histograms, one
+``llmq_dispatch_seconds{kind=...}`` histogram and 256-entry ring per
+dispatch kind (``prefill``, ``mixed``, ``decode_block`` or ``verify``, each
+with ``_small`` for the interactive small block: :meth:`_record_dispatch`,
+the host span of launching the dispatch, a CUDA-graph replay included,
+never synchronized) and the engine's gauges, all registered in the
+process's metrics registry (``obs/metrics.py``); ``stats()`` carries their
+percentiles (``ttft_*``, ``itl_*``, ``dispatch_ms``, ``queue_wait_*``, the
+interactive ones once an interactive request arrived). The three
+``llmq_integrity_*`` gauges read the fault planes' counters (ROADMAP.md
+queue 1, M12).
+
 Config. The engine honours ``max_num_seqs``, ``max_model_len``,
 ``page_size``, ``num_pages``, ``hbm_utilization``, ``kv_dtype`` (bf16,
 f32 or fp8 = float8_e5m2), ``min_prefill_bucket``, ``max_prefill_batch``,
@@ -87,6 +101,7 @@ import os
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import Future
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -117,6 +132,7 @@ from llmq_tpu_torch.engine.scheduler import (
 from llmq_tpu_torch.engine.snapshot import KVRestore, RequestSnapshot, SnapshotCompatError
 from llmq_tpu_torch.engine.tokenizer import Tokenizer
 from llmq_tpu_torch.models.config import ModelConfig
+from llmq_tpu_torch.obs.metrics import DEFAULT_BUCKETS, Gauge, Histogram, get_registry, to_ms
 from llmq_tpu_torch.models.transformer import Params, Transformer, make_kv_pages
 from llmq_tpu_torch.ops.attention import mixed_query_grid
 from llmq_tpu_torch.ops.dispatch import (
@@ -130,6 +146,13 @@ logger = logging.getLogger(__name__)
 
 #: Cancellations for rids the engine doesn't hold age out after this long.
 _CANCEL_TTL_S = 5.0
+
+#: ITL buckets: the latency defaults plus a sub-millisecond low end, where
+#: the tokens of one fused decode block reach the host in a burst.
+ITL_BUCKETS: Tuple[float, ...] = (0.0001, 0.00025, 0.0005) + DEFAULT_BUCKETS
+
+#: Recent dispatch host spans kept per kind (``stats()["dispatch_ms"]``).
+DISPATCH_RING = 256
 
 
 @dataclasses.dataclass
@@ -567,6 +590,7 @@ class EngineCore:
         self.class_finished = {"interactive": 0, "batch": 0}
         self.class_tokens = {"interactive": 0, "batch": 0}
         self._started_at = time.monotonic()
+        self._register_metrics()
 
         # The swap blobs and the prefix tier report into the shared budget
         # (names per engine, so several engines in one process coexist).
@@ -583,6 +607,95 @@ class EngineCore:
                 self._gov_names.append(f"prefix:{tag}")
 
         self._resync()
+
+    def _register_metrics(self) -> None:
+        """The engine's histograms and gauges (JAX :1060-1212): host-side
+        only, a bucket increment a record. Per-engine instances, so the
+        ``stats()`` percentiles never mix across the engines of one
+        process; ``register`` replaces same-named series, so the latest
+        engine owns the exported ones."""
+        self.ttft_hist = Histogram("llmq_ttft_seconds", "Enqueue-to-first-token latency")
+        self.itl_hist = Histogram("llmq_itl_seconds", "Inter-token latency at the host boundary",
+                                  buckets=ITL_BUCKETS)
+        # Interactive requests observe into both the unlabeled series and
+        # these; batch gets no series of its own.
+        self.ttft_hist_interactive = Histogram(
+            "llmq_ttft_seconds", "Enqueue-to-first-token latency (interactive class)",
+            labels={"class": "interactive"})
+        self.itl_hist_interactive = Histogram(
+            "llmq_itl_seconds", "Inter-token latency at the host boundary (interactive class)",
+            buckets=ITL_BUCKETS, labels={"class": "interactive"})
+        # Keyed by dispatch kind, a fixed set; the rings carry maxlen.
+        self._dispatch_rings: Dict[str, Deque[float]] = {}
+        self._dispatch_hists: Dict[str, Histogram] = {}
+        # The gauges read this engine through a weak reference: the
+        # process's registry outlives it and must not hold its weights and
+        # pools (a read after it is gone gives 0).
+        ref = weakref.ref(self)
+
+        def pool_used(e):
+            total = e.scheduler.config.num_pages - 1
+            return (total - e.scheduler.allocator.available) / max(1, total)
+
+        def store(fn):
+            return lambda e: fn(e.prefix_store) if e.prefix_store is not None else 0
+
+        gauges = [
+            ("llmq_engine_tokens_per_sec", "Generated tokens per second since engine start",
+             None,
+             lambda e: e.total_generated_tokens / max(1e-9, time.monotonic() - e._started_at)),
+            ("llmq_engine_kv_page_utilization", "Fraction of the KV page pool in use", None,
+             pool_used),
+            ("llmq_engine_batch_occupancy", "Fraction of decode slots holding a running sequence",
+             None, lambda e: len(e.scheduler.running) / max(1, e.cfg.max_num_seqs)),
+            ("llmq_prefix_hit_pages", "KV pages reused via the prefix cache (device + host tier)",
+             None, lambda e: e.scheduler.prefix_hits),
+            ("llmq_prefix_miss_pages", "Full prompt pages that had to prefill (prefix cache miss)",
+             None, lambda e: e.scheduler.prefix_misses),
+            ("llmq_prefix_demote_pages", "Evicted device pages parked in the host prefix tier",
+             None, lambda e: e.prefix_demotes),
+            ("llmq_prefix_promote_pages", "Pages restored from the host prefix tier to device",
+             None, lambda e: e.prefix_promotes),
+            ("llmq_prefix_host_evictions",
+             "Host prefix tier entries dropped by the byte-budget LRU", None,
+             store(lambda st: st.evictions)),
+            ("llmq_prefix_host_bytes", "Host prefix tier occupancy in bytes", None,
+             store(lambda st: st.occupancy_bytes)),
+            ("llmq_prefix_host_entries", "Host prefix tier resident page count", None, store(len)),
+            ("llmq_priority_preemptions",
+             "Batch sequences preempted so interactive work could admit", None,
+             lambda e: e.priority_preemptions),
+        ]
+        for cls in ("interactive", "batch"):
+            gauges.append(("llmq_class_tokens", f"Tokens generated for {cls}-class requests",
+                           {"class": cls}, lambda e, c=cls: e.class_tokens[c]))
+        for cls in ("interactive", "batch"):
+            gauges.append(("llmq_class_finished",
+                           f"{cls.capitalize()}-class requests finished cleanly (goodput)",
+                           {"class": cls}, lambda e, c=cls: e.class_finished[c]))
+        reg = get_registry()
+        for metric in (self.ttft_hist, self.itl_hist, self.ttft_hist_interactive,
+                       self.itl_hist_interactive, self.scheduler.queue_wait_hist,
+                       self.scheduler.preempt_delay_hist):
+            reg.register(metric)
+        for name, help_text, labels, read in gauges:
+            reg.register(Gauge(name, help_text, labels=labels,
+                               fn=lambda read=read: read(ref())))
+
+    def _record_dispatch(self, kind: str, seconds: float) -> None:
+        """Record the host span of one dispatch call into its kind's ring
+        and histogram (JAX :3754). Launches are asynchronous, so this is the
+        host's launch cost, not the device's time: spikes mean the host
+        waited on the device."""
+        ring = self._dispatch_rings.get(kind)
+        if ring is None:
+            ring = self._dispatch_rings[kind] = deque(maxlen=DISPATCH_RING)
+            hist = self._dispatch_hists[kind] = Histogram(
+                "llmq_dispatch_seconds", "Host wall-time of one device dispatch call",
+                labels={"kind": kind})
+            get_registry().register(hist)
+        ring.append(seconds)
+        self._dispatch_hists[kind].observe(seconds)
 
     def _auto_num_pages(self) -> int:
         """Size the KV pool from free device memory (vLLM
@@ -1393,6 +1506,7 @@ class EngineCore:
             if seq.t_prefill_start == 0.0:
                 seq.t_prefill_start = t0
         out = self._prefill_fn(args, len(chunk), chunk_mode)
+        self._record_dispatch("prefill", time.monotonic() - t0)
         for seq in chunk:
             seq.prefilled = True
             self.prefill_tokens += seq.num_tokens
@@ -1473,6 +1587,8 @@ class EngineCore:
                     final = torch.tensor([r for r, _ in snapshot], device=self.device)
                     out = self._sample_and_scatter(logits, {**inv, "bt": chunk["bt"]}, final,
                                                    chunk_mode)
+                self._record_dispatch("prefill", time.monotonic() - t0)
+                if snapshot:
                     for _, seq in snapshot:
                         seq.prefilled = True
                         self.scheduler.register_prefix(seq)
@@ -1568,7 +1684,9 @@ class EngineCore:
                 mode = sampling_mod.join_modes((self._mode, seq_mode))
                 if seq.t_prefill_start == 0.0:
                     seq.t_prefill_start = time.monotonic()
+                t0 = time.monotonic()
                 out = self._dispatch_block("mixed", seg, mode)
+                self._record_dispatch("mixed", time.monotonic() - t0)
                 taken = sum(t for _, t in segs)
                 self.mixed_steps += 1
                 self.mixed_prefill_tokens += taken
@@ -1679,6 +1797,8 @@ class EngineCore:
         if not self._ensure_decode_pages(finished):
             return
         kind = "verify" if self._spec else "decode"
+        # The dispatch kind's name in the metrics, JAX's (:3778).
+        label = "verify" if self._spec else "decode_block"
         K = self.cfg.decode_block
         if 0 < self.interactive_decode_block < K and any(
             s.prefilled and s.priority == "interactive" for s in self.scheduler.running.values()
@@ -1687,7 +1807,10 @@ class EngineCore:
             # tokens home every interactive_decode_block iterations (JAX
             # :3779-3790); pure-batch dispatches keep the big block.
             K = self.interactive_decode_block
+            label += "_small"
+        t0 = time.monotonic()
         out = self._dispatch_block(kind, K=K)
+        self._record_dispatch(label, time.monotonic() - t0)
         self.decode_steps += K
         self.decode_dispatches += 1
         self._push_pending(
@@ -1751,10 +1874,21 @@ class EngineCore:
             return
         seq.output_ids.append(token)
         self.total_generated_tokens += 1
-        self.class_tokens["interactive" if seq.priority == "interactive" else "batch"] += 1
+        interactive = seq.priority == "interactive"
+        self.class_tokens["interactive" if interactive else "batch"] += 1
         now = time.monotonic()
         if seq.t_first_token == 0.0:
             seq.t_first_token = now
+            if seq.t_enqueue > 0.0:
+                self.ttft_hist.observe(now - seq.t_enqueue)
+                if interactive:
+                    self.ttft_hist_interactive.observe(now - seq.t_enqueue)
+        elif seq.t_last_token > 0.0:
+            # The host-boundary gap: the tokens of one fused block arrive in
+            # a burst, hence ITL_BUCKETS' sub-millisecond end.
+            self.itl_hist.observe(now - seq.t_last_token)
+            if interactive:
+                self.itl_hist_interactive.observe(now - seq.t_last_token)
         seq.t_last_token = now
         # Stops are checked BEFORE the page top-up: a stopping sequence
         # needs no more pages.
@@ -2116,6 +2250,19 @@ class EngineCore:
             prefix_promotes=self.prefix_promotes,
             prefix_chunks_exported=self.prefix_chunks_exported,
             prefix_chunks_ingested=self.prefix_chunks_ingested,
+            # Latency percentiles (ms; None until a histogram has data) and
+            # each dispatch kind's recent host spans from its ring.
+            ttft_p50_ms=to_ms(self.ttft_hist.percentile(0.50)),
+            ttft_p95_ms=to_ms(self.ttft_hist.percentile(0.95)),
+            ttft_p99_ms=to_ms(self.ttft_hist.percentile(0.99)),
+            itl_p50_ms=to_ms(self.itl_hist.percentile(0.50)),
+            itl_p95_ms=to_ms(self.itl_hist.percentile(0.95)),
+            itl_p99_ms=to_ms(self.itl_hist.percentile(0.99)),
+            dispatch_ms={
+                kind: {"recent_avg": round(sum(ring) / len(ring) * 1000.0, 3),
+                       "count": self._dispatch_hists[kind].total}
+                for kind, ring in list(self._dispatch_rings.items()) if ring
+            },
             # Decode-type dispatches as CUDA graphs: None when eager.
             cuda_graphs=None if self._graphs is None else dict(
                 graphs=len(self._graphs), captures=self._graphs.captures,
@@ -2134,6 +2281,10 @@ class EngineCore:
         if self._priority_enabled:
             s["priority_preemptions"] = self.priority_preemptions
             s["interactive_decode_block"] = self.interactive_decode_block
+            s["ttft_p50_ms_interactive"] = to_ms(self.ttft_hist_interactive.percentile(0.50))
+            s["ttft_p95_ms_interactive"] = to_ms(self.ttft_hist_interactive.percentile(0.95))
+            s["itl_p50_ms_interactive"] = to_ms(self.itl_hist_interactive.percentile(0.50))
+            s["itl_p95_ms_interactive"] = to_ms(self.itl_hist_interactive.percentile(0.95))
             s["tokens_interactive"] = self.class_tokens["interactive"]
             s["tokens_batch"] = self.class_tokens["batch"]
             s["finished_interactive"] = self.class_finished["interactive"]

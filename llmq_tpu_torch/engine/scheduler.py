@@ -11,7 +11,10 @@ pressure, ``_youngest_running`` :589), snapshot restores
 an evicted cache page parks in host RAM, and admission extends a device
 match from the host tier, :284-294, :486-520), plus
 ``mixed_token_budget`` (:45), the piggybacked segment's share of a mixed
-dispatch. The device half is a fixed-shape decode step over
+dispatch, and its two latency histograms (queue wait, preemption delay;
+:298-305, observed at admission :526-532, percentiles in ``stats``
+:694-697), which the owning engine registers for ``/metrics``. The device
+half is a fixed-shape decode step over
 ``max_num_seqs`` slots; this module decides which sequence lives in which
 slot and which physical KV pages back it.
 
@@ -35,6 +38,7 @@ from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from llmq_tpu_torch.engine.sampling import SamplingParams
+from llmq_tpu_torch.obs.metrics import Histogram, to_ms
 from llmq_tpu_torch.utils.hashing import token_prefix_chain
 
 
@@ -190,12 +194,15 @@ class Sequence:
     # this sequence's first dispatch and clears the field; prefix_len
     # already counts these positions.
     host_restore: Optional[List[Any]] = None
-    # Host-side lifecycle stamps (time.monotonic(); 0.0 = not yet).
+    # Host-side lifecycle stamps (time.monotonic(); 0.0 = not yet). They
+    # feed the queue-wait / TTFT / ITL histograms and the request's trace;
+    # they never influence scheduling.
     t_enqueue: float = 0.0
     t_admit: float = 0.0
     t_prefill_start: float = 0.0
     t_first_token: float = 0.0
     t_last_token: float = 0.0
+    t_preempt: float = 0.0
 
     @property
     def num_tokens(self) -> int:
@@ -256,6 +263,13 @@ class Scheduler:
         self.on_demote: Optional[Callable[[int, List[bytes]], None]] = None
         self.host_lookup: Optional[Callable[[List[bytes]], List[Any]]] = None
         self._suppress_demote = False  # invalidation must not demote
+        # Per-scheduler latency histograms (the owning engine registers
+        # them into the process-wide registry for /metrics export).
+        self.queue_wait_hist = Histogram(
+            "llmq_queue_wait_seconds", "Enqueue-to-first-admission wait per request")
+        self.preempt_delay_hist = Histogram(
+            "llmq_preemption_delay_seconds",
+            "Preemption-to-readmission delay per recompute preemption")
 
     # --- prefix caching ---------------------------------------------------
     def _prefix_hashes(self, prompt_ids: List[int]) -> List[bytes]:
@@ -441,7 +455,13 @@ class Scheduler:
             seq.slot = free_slots.pop(0)
             seq.admitted_at = self._tick
             self._tick += 1
-            seq.t_admit = time.monotonic()
+            now = time.monotonic()
+            if seq.t_preempt > 0.0:  # re-admission after a preemption
+                self.preempt_delay_hist.observe(now - seq.t_preempt)
+                seq.t_preempt = 0.0
+            elif seq.t_enqueue > 0.0 and seq.t_admit == 0.0:
+                self.queue_wait_hist.observe(now - seq.t_enqueue)
+            seq.t_admit = now
             self.slots[seq.slot] = seq
             self.running[seq.rid] = seq
             admitted.append(seq)
@@ -506,6 +526,7 @@ class Scheduler:
         pages, cacheable = self._detach_pages(seq) if defer_pages else ([], 0)
         self._release(seq)
         seq.preempt_count += 1
+        seq.t_preempt = time.monotonic()
         self.preemptions += 1
         seq.prefilled = False  # KV is gone; re-admission re-prefills
         self.waiting.appendleft(seq)
@@ -562,6 +583,9 @@ class Scheduler:
             out["running_interactive"] = sum(
                 s.priority == "interactive" for s in self.running.values()
             )
+        out["queue_wait_p50_ms"] = to_ms(self.queue_wait_hist.percentile(0.50))
+        out["queue_wait_p95_ms"] = to_ms(self.queue_wait_hist.percentile(0.95))
+        out["preemption_delay_p50_ms"] = to_ms(self.preempt_delay_hist.percentile(0.50))
         if self.config.enable_prefix_caching:
             seen = self.prefix_hits + self.prefix_misses
             out["prefix_cache_hit_pages"] = self.prefix_hits

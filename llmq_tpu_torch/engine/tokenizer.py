@@ -64,9 +64,9 @@ class HFTokenizer:
         return self._tok.decode(ids, skip_special_tokens=True)
 
     def apply_chat_template(self, messages: List[Dict[str, str]]) -> List[int]:
-        return self._tok.apply_chat_template(
-            messages, add_generation_prompt=True, tokenize=True
-        )
+        return list(self._tok.apply_chat_template(
+            messages, add_generation_prompt=True, tokenize=True, return_dict=False
+        ))
 
     def convert_tokens_to_ids(self, token: str) -> Optional[int]:
         tid = self._tok.convert_tokens_to_ids(token)

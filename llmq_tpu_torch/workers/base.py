@@ -34,17 +34,29 @@ A worker:
    processor's), and republishes it on ``<queue>.decode`` when no peer
    takes it;
 6. publishes a ``WorkerHealth`` heartbeat every ``HEARTBEAT_INTERVAL_S``
-   while the transport is up, with the processor's hot prefix chains;
+   while the transport is up, with the processor's hot prefix chains and
+   the metrics registry's summary (``LLMQ_METRICS_PORT`` also serves the
+   registry on ``/metrics``, started in :meth:`initialize`);
 7. on SIGINT / SIGTERM / :meth:`request_shutdown` (the breaker's too):
    drain-with-handoff (the processor hands unfinished requests back as
    resumable jobs), wait up to ``drain_timeout_s`` for in-flight jobs,
    return what its private queues still hold to the shared ones and
    delete them, clean up.
 
-Left out until their slices, each place marked: the lifecycle trace and
-the heartbeat's ``metrics`` (ROADMAP.md queue 1, M16), and the
-``DeviceFaultError`` ladder and the watchdog / integrity heartbeat fields
-(M12). Two things are the port's own: ``broker_url`` (the
+Lifecycle trace: each claim continues the record riding in the job
+(``obs/trace.py``; a job that carries none starts one) and stamps
+``claimed`` (``redeliveries``: the delivery's count, so a redelivered job
+re-reads its original record and no event repeats), then ``finished``,
+``deadline_exceeded``, ``quarantined``, ``retry_exhausted``, ``handoff``,
+``prefill_done`` / ``kv_handoff``; the result carries the record, a
+resumable or decode-pool republish carries it on. Every transition also
+goes to the ``LLMQ_TRACE_LOG`` JSONL sink, with those that cannot stamp a
+payload (``requeued``, ``dead_lettered``, ``dropped``, ``role_switch``,
+``affinity_bounced``, ``breaker_tripped``, ``duplicate_suppressed``).
+
+Left out until its slice, each place marked: the ``DeviceFaultError``
+ladder and the watchdog / integrity heartbeat fields (ROADMAP.md queue 1,
+M12). Two things are the port's own: ``broker_url`` (the
 ``TorchWorker``'s argument) and the :meth:`_after_failure` hook, where the
 ``TorchWorker`` stops on a failed engine until M12.
 """
@@ -71,9 +83,19 @@ from llmq_tpu_torch.broker.manager import (
     decode_queue_name,
     interactive_queue_name,
 )
-from llmq_tpu_torch.core.config import Config, get_config, refuse_unported
+from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job, Result, WorkerHealth, utcnow
 from llmq_tpu_torch.core.pipeline import PipelineConfig
+from llmq_tpu_torch.obs.exporter import maybe_start_exporter
+from llmq_tpu_torch.obs.metrics import get_registry
+from llmq_tpu_torch.obs.trace import (
+    TRACE_FIELD,
+    emit_trace_event,
+    new_trace,
+    record_transition,
+    trace_event,
+    trace_from_payload,
+)
 from llmq_tpu_torch.utils import clock
 from llmq_tpu_torch.utils.host_mem import get_governor
 from llmq_tpu_torch.workers.resume import (
@@ -126,7 +148,6 @@ class BaseWorker(abc.ABC):
     ) -> None:
         self.queue = queue
         self.config = config or get_config()
-        refuse_unported(self.config)
         # The configured role, and the one served now (they differ only for
         # "auto", whose controller flips role_active on fleet queue depths).
         self.role = worker_role(self.config)
@@ -152,6 +173,9 @@ class BaseWorker(abc.ABC):
         self._in_flight = 0
         self._drained = asyncio.Event()
         self._drained.set()
+        # Live request traces by job id, so the processor can attach its
+        # engine's lifecycle events to the record the result carries.
+        self._job_traces: dict = {}
         # Exactly-one-result guard: (job_id, resume offset) pairs this
         # worker already published for.
         self._dedup = ResultDeduper()
@@ -188,7 +212,9 @@ class BaseWorker(abc.ABC):
     # --- lifecycle --------------------------------------------------------
     async def initialize(self) -> None:
         self.logger.info("Initializing worker %s", self.worker_id)
-        # The reference starts its Prometheus exporter here (M16).
+        # Opt-in Prometheus endpoint (LLMQ_METRICS_PORT) over the
+        # process-wide registry the engine, scheduler and broker record into.
+        maybe_start_exporter()
         await self._initialize_processor()
         await self.broker.connect()
         if self.pipeline is not None:
@@ -378,7 +404,8 @@ class BaseWorker(abc.ABC):
         self.role_active = target
         self.role_switches += 1
         self._role_since = clock.monotonic()
-        # The reference also stamps a "role_switch" trace event (M16).
+        emit_trace_event(self.worker_id, "role_switch", worker_id=self.worker_id,
+                         role_from=prev, role_to=target, depth_ratio=round(ratio, 3))
         self.logger.info("Role switch %s -> %s (shared:decode depth ratio %.2f)", prev, target,
                          ratio)
         await self._start_role_consumers()
@@ -399,6 +426,8 @@ class BaseWorker(abc.ABC):
                 await self.broker.broker.publish(self.queue, message.body,
                                                  message_id=message.message_id,
                                                  headers=message.headers)
+                emit_trace_event(message.message_id or "unknown", "affinity_bounced",
+                                 worker_id=self.worker_id)
                 await message.ack()
             except Exception:  # noqa: BLE001 — transport down: redeliver
                 await message.reject(requeue=True)
@@ -414,12 +443,14 @@ class BaseWorker(abc.ABC):
     def _deadline_expired(self, job: Job) -> bool:
         return job.deadline_at is not None and clock.wall() > job.deadline_at
 
-    async def _dead_letter_deadline(self, job: Job, message: DeliveredMessage) -> None:
+    async def _dead_letter_deadline(self, job: Job, message: DeliveredMessage,
+                                    trace: dict) -> None:
         """File a job whose deadline passed on ``<q>.failed`` as
         ``deadline_exceeded`` — never silently dropped."""
         self.jobs_deadline_exceeded += 1
         if job.priority_class == "interactive":
             self.jobs_deadline_exceeded_interactive += 1
+        record_transition(trace, job.id, "deadline_exceeded", worker_id=self.worker_id)
         headers = dict(message.headers or {})
         headers["x-error"] = "deadline_exceeded"
         headers["x-failure-reason"] = "deadline_exceeded"
@@ -434,11 +465,14 @@ class BaseWorker(abc.ABC):
         finally:
             await message.ack()
 
-    async def _quarantine(self, job: Job, message: DeliveredMessage, *, reason: str) -> None:
+    async def _quarantine(self, job: Job, message: DeliveredMessage, trace: dict, *,
+                          reason: str) -> None:
         """File a poison job on ``<q>.quarantine``: it failed
         ``quarantine_attempts`` times fleet-wide (the broker's delivery
         count rides the message, so it counts every worker's attempts)."""
         self.jobs_quarantined += 1
+        record_transition(trace, job.id, "quarantined", worker_id=self.worker_id, reason=reason,
+                          on_trace=dict(attempts=message.delivery_count + 1))
         headers = dict(message.headers or {})
         headers["x-error"] = f"quarantined after repeated failures: {reason}"
         headers["x-failure-reason"] = reason
@@ -462,6 +496,8 @@ class BaseWorker(abc.ABC):
             self.breaker_tripped = True
             self.logger.error("Circuit breaker: %d consecutive engine failures (last: %s); "
                               "self-draining", self._consecutive_failures, reason)
+            emit_trace_event(self.worker_id, "breaker_tripped", worker_id=self.worker_id,
+                             failures=self._consecutive_failures)
             self.request_shutdown()
 
     async def _after_failure(self, exc: BaseException) -> None:
@@ -483,10 +519,19 @@ class BaseWorker(abc.ABC):
             await self._dead_letter_unparseable(message, exc)
             self._settle_in_flight()
             return
-        # The reference continues the job's lifecycle trace here (M16).
+        # Lifecycle trace: continue the submit-time record riding in the
+        # payload (or start one). A redelivery re-reads the ORIGINAL
+        # payload, so a failed attempt's events never repeat; the attempt
+        # count survives as the delivery count (0 on the first delivery).
+        trace = trace_from_payload(job.extras()) or new_trace(job.id)
+        trace["redeliveries"] = message.delivery_count
+        record_transition(trace, job.id, "claimed", worker_id=self.worker_id,
+                          on_trace=dict(delivery_count=message.delivery_count))
+        self._job_traces[job.id] = trace
         # Claim-time self-healing guards (no-ops at default config):
         if self._deadline_expired(job):
-            await self._dead_letter_deadline(job, message)
+            await self._dead_letter_deadline(job, message, trace)
+            self._job_traces.pop(job.id, None)
             self._settle_in_flight()
             return
         n_quarantine = self.config.quarantine_attempts
@@ -494,25 +539,31 @@ class BaseWorker(abc.ABC):
             # Backstop for the reject-time check below: catches a copy
             # whose Nth failure landed on a worker that died mid-settle.
             await self._quarantine(
-                job, message, reason=self._failure_reasons.get(job.id, "repeated_failures"))
+                job, message, trace,
+                reason=self._failure_reasons.get(job.id, "repeated_failures"))
+            self._job_traces.pop(job.id, None)
             self._settle_in_flight()
             return
         if self.role_active == "prefill" and isinstance(job.extras().get(RESUME_FIELD), dict):
             # Resume state means the prompt KV exists already: on to the
             # decode pool untouched, not prefilled again.
-            await self._forward_to_decode(message)
+            await self._forward_to_decode(job, message)
+            self._job_traces.pop(job.id, None)
             self._settle_in_flight()
             return
         try:
             output = await self._run_with_timeout(job)
             duration_ms = (clock.monotonic() - start) * 1000
-            result = self._build_result(job, output, duration_ms)
+            record_transition(trace, job.id, "finished", duration_ms=round(duration_ms, 3),
+                              on_sink=dict(worker_id=self.worker_id))
+            result = self._build_result(job, output, duration_ms, trace=trace)
             offset = resume_offset(job.extras())
             if self._dedup.seen(job.id, offset):
                 # Redelivered after a successful publish: the result is
                 # already out. Settle silently.
                 self.logger.info("Suppressing duplicate result for job %s (offset %d)",
                                  job.id, offset)
+                emit_trace_event(job.id, "duplicate_suppressed", worker_id=self.worker_id)
             else:
                 await self._publish_result(result)
                 self._dedup.record(job.id, offset)
@@ -524,13 +575,13 @@ class BaseWorker(abc.ABC):
                 self.logger.info("Processed %d jobs (avg %.0f ms)", self.jobs_processed,
                                  self.total_duration_ms / self.jobs_processed)
         except DeadlineExceeded:
-            await self._dead_letter_deadline(job, message)
+            await self._dead_letter_deadline(job, message, trace)
         except PrefillDone as exc:
             # The prefill boundary: forward progress, not a failure.
-            await self._handoff_to_decode(job, message, exc)
+            await self._handoff_to_decode(job, message, trace, exc)
         except JobHandoff as exc:
             # Drain-with-handoff: the request resolved with a snapshot.
-            await self._republish_for_resume(job, message, exc)
+            await self._republish_for_resume(job, message, trace, exc)
         except (asyncio.TimeoutError, TimeoutError):
             # Hung engine step / stuck backend: the slot must come back.
             self.logger.warning("Job %s exceeded job_timeout_s=%.1fs (delivery %d), requeueing",
@@ -540,14 +591,16 @@ class BaseWorker(abc.ABC):
             self.jobs_timed_out += 1
             self._remember_failure(job.id, "timeout")
             self._note_engine_failure("timeout")
-            if await self._maybe_quarantine(job, message, reason="timeout"):
+            if await self._maybe_quarantine(job, message, trace, reason="timeout"):
                 return
-            self._note_retry_exhausted(job, message.delivery_count, reason="timeout")
+            emit_trace_event(job.id, "requeued", worker_id=self.worker_id, reason="timeout")
+            self._note_retry_exhausted(job, message.delivery_count, trace, reason="timeout")
             await message.reject(requeue=True)
         except ValueError as exc:
             # Semantically invalid job: retrying can't fix it. Ack & drop.
             self.logger.error("Job %s invalid, dropping: %s", job.id, exc)
             self.jobs_failed += 1
+            emit_trace_event(job.id, "dropped", worker_id=self.worker_id, reason=str(exc))
             await message.ack()
         # The reference's DeviceFaultError ladder (a classified device
         # fault's class in the headers) comes with the fault planes (M12).
@@ -559,41 +612,50 @@ class BaseWorker(abc.ABC):
             self._remember_failure(job.id, reason)
             self._note_engine_failure(reason)
             await self._after_failure(exc)
-            if await self._maybe_quarantine(job, message, reason=reason):
+            if await self._maybe_quarantine(job, message, trace, reason=reason):
                 return
-            self._note_retry_exhausted(job, message.delivery_count, reason=str(exc))
+            emit_trace_event(job.id, "requeued", worker_id=self.worker_id, reason=str(exc))
+            self._note_retry_exhausted(job, message.delivery_count, trace, reason=str(exc))
             await message.reject(requeue=True)
         finally:
+            self._job_traces.pop(job.id, None)
             self._settle_in_flight()
 
-    async def _maybe_quarantine(self, job: Job, message: DeliveredMessage, *,
+    async def _maybe_quarantine(self, job: Job, message: DeliveredMessage, trace: dict, *,
                                 reason: str) -> bool:
         """Reject-time quarantine check: this failure is attempt
         ``delivery_count + 1``; at the Nth fleet-wide attempt the job
         quarantines instead of requeueing. True when settled here."""
         n = self.config.quarantine_attempts
         if n > 0 and message.delivery_count + 1 >= n:
-            await self._quarantine(job, message, reason=reason)
+            await self._quarantine(job, message, trace, reason=reason)
             return True
         return False
 
-    def _note_retry_exhausted(self, job: Job, delivery_count: int, *, reason: str) -> None:
+    def _note_retry_exhausted(self, job: Job, delivery_count: int, trace: dict, *,
+                              reason: str) -> None:
         """Flag a requeue that the broker will dead-letter (this attempt
-        pushed the job past the redelivery cap). The reference records it
-        as a trace event (M16); here it is a log line."""
+        pushed the job past the redelivery cap). The record itself never
+        ships on a requeue (a redelivery re-reads the original payload), so
+        the ``trace`` command recovers this moment from the dead letter's
+        headers; the event here feeds the live sink."""
         if delivery_count + 1 > self.config.max_redeliveries:
-            self.logger.warning("Job %s exhausted its %d redeliveries (%s)", job.id,
-                                delivery_count, reason)
+            record_transition(trace, job.id, "retry_exhausted", worker_id=self.worker_id,
+                              redeliveries=delivery_count, on_trace=dict(reason=reason))
 
     # --- handoffs -----------------------------------------------------------
-    async def _republish_for_resume(self, job: Job, message: DeliveredMessage,
+    async def _republish_for_resume(self, job: Job, message: DeliveredMessage, trace: dict,
                                     exc: JobHandoff) -> None:
         """Publish a draining request back to the job queue with its
         engine snapshot under ``RESUME_FIELD``, then ack the original
         delivery: until the ack lands the original survives, and the
         deduper suppresses a double publish. A snapshot-less handoff (the
-        request never entered the engine) requeues the original."""
+        request never entered the engine) requeues the original. The
+        republished copy carries the accumulated trace, so the resuming
+        worker's record keeps the whole lifecycle (submitted, claimed,
+        handoff, claimed, finished)."""
         if exc.snapshot_b64 is None:
+            emit_trace_event(job.id, "requeued", worker_id=self.worker_id, reason="shutdown")
             await message.reject(requeue=True)
             return
         try:
@@ -601,7 +663,9 @@ class BaseWorker(abc.ABC):
         except Exception:  # noqa: BLE001 — parsed once already; paranoia
             await message.reject(requeue=True)
             return
+        record_transition(trace, job.id, "handoff", worker_id=self.worker_id, emitted=exc.emitted)
         payload[RESUME_FIELD] = {"snapshot": exc.snapshot_b64, "offset": exc.emitted}
+        payload[TRACE_FIELD] = trace
         try:
             body = json.dumps(payload).encode("utf-8")
             # Resume blobs share the host-memory budget: accounted, never
@@ -625,18 +689,19 @@ class BaseWorker(abc.ABC):
             return decode_queue_name(self.queue)
         return self.queue
 
-    async def _forward_to_decode(self, message: DeliveredMessage) -> None:
+    async def _forward_to_decode(self, job: Job, message: DeliveredMessage) -> None:
         """Move a resume-carrying job off a prefill worker onto the decode
-        pool, payload untouched."""
+        pool, payload untouched (its trace and snapshot ride along)."""
         try:
             await self.broker.broker.publish(decode_queue_name(self.queue), message.body,
                                              message_id=message.message_id,
                                              headers=message.headers)
+            emit_trace_event(job.id, "kv_handoff", worker_id=self.worker_id, path="forward")
             await message.ack()
         except Exception:  # noqa: BLE001 — transport down: redeliver
             await message.reject(requeue=True)
 
-    async def _handoff_to_decode(self, job: Job, message: DeliveredMessage,
+    async def _handoff_to_decode(self, job: Job, message: DeliveredMessage, trace: dict,
                                  exc: PrefillDone) -> None:
         """Settle a prefill-complete job into the decode pool. The prompt-KV
         snapshot rides under ``RESUME_FIELD`` (offset 0) with a wall-clock
@@ -644,16 +709,20 @@ class BaseWorker(abc.ABC):
         (:meth:`_ship_to_decode_peer`); when none takes it, it is
         republished on ``<q>.decode``. Either way the publish lands before
         the ack, so a crash between the two leaves the original to
-        redeliver and the deduper collapses the double."""
+        redeliver and the deduper collapses the double. The boundary's
+        ``kv_handoff`` event rides inside the payload (the adopter's result
+        trace is built from it): stamped ``path="ship"``, rewritten to
+        ``"snapshot"`` when the job takes ``<q>.decode``."""
         try:
             payload = json.loads(message.body)
         except Exception:  # noqa: BLE001 — parsed once already; paranoia
             await message.reject(requeue=True)
             return
+        record_transition(trace, job.id, "prefill_done", worker_id=self.worker_id)
         payload[RESUME_FIELD] = {"snapshot": exc.snapshot_b64, "offset": 0,
                                  "handoff_at": clock.wall()}
-        # The reference stamps "prefill_done" and "kv_handoff" trace events
-        # into the payload here (M16).
+        trace_event(trace, "kv_handoff", worker_id=self.worker_id, path="ship")
+        payload[TRACE_FIELD] = trace
         body = json.dumps(payload).encode("utf-8")
         get_governor().note_resume_blob(len(body))
         shipped = False
@@ -664,8 +733,11 @@ class BaseWorker(abc.ABC):
         if shipped:
             self.handoffs_shipped += 1
             self.handoff_bytes += len(body)
+            emit_trace_event(job.id, "kv_handoff", worker_id=self.worker_id, path="ship")
             await message.ack()
             return
+        trace["events"][-1]["path"] = "snapshot"
+        body = json.dumps(payload).encode("utf-8")
         try:
             await self.broker.broker.publish(decode_queue_name(self.queue), body,
                                              message_id=job.id)
@@ -676,6 +748,7 @@ class BaseWorker(abc.ABC):
             return
         self.handoffs_fallback += 1
         self.handoff_bytes += len(body)
+        emit_trace_event(job.id, "kv_handoff", worker_id=self.worker_id, path="snapshot")
         await message.ack()
 
     async def _ship_to_decode_peer(self, job: Job, body: bytes) -> bool:
@@ -699,6 +772,8 @@ class BaseWorker(abc.ABC):
         headers["x-error"] = f"unparseable job payload: {exc}"
         headers["x-worker-id"] = self.worker_id
         headers.setdefault("x-death-queue", self.queue)
+        emit_trace_event(message.message_id or "unparseable", "dead_lettered",
+                         worker_id=self.worker_id, reason=str(exc))
         try:
             await self.broker.broker.publish(self.queue + FAILED_SUFFIX, message.body,
                                              message_id=message.message_id, headers=headers)
@@ -712,9 +787,12 @@ class BaseWorker(abc.ABC):
         if self._in_flight <= 0:
             self._drained.set()
 
-    def _build_result(self, job: Job, output: Any, duration_ms: float) -> Result:
+    def _build_result(self, job: Job, output: Any, duration_ms: float,
+                      trace: Optional[dict] = None) -> Result:
         """Result with extra-field passthrough, built dict-first so a job
-        extra named like a Result field is kept as ``job_<name>``."""
+        extra named like a Result field is kept as ``job_<name>``. The
+        accumulated trace (submit-time events and this worker's) replaces
+        the job's copy."""
         prompt_repr = job.get_formatted_prompt() if job.prompt is not None else ""
         payload = dict(job.extras())
         # The spent resume blob stays out of the result; its offset stays.
@@ -732,6 +810,8 @@ class BaseWorker(abc.ABC):
             if key in payload:
                 payload[f"job_{key}"] = payload.pop(key)
         payload.update(reserved)
+        if trace is not None:
+            payload[TRACE_FIELD] = trace
         return Result.model_validate(payload)
 
     async def _publish_result(self, result: Result) -> None:
@@ -757,10 +837,9 @@ class BaseWorker(abc.ABC):
                 queue=self.queue,
                 engine_stats=self._stats_with_robustness(),
                 reconnects=stats.reconnects if stats is not None else None,
-                # The reference fills `metrics` from its metrics registry
-                # (M16) and the watchdog / integrity fields from its fault
+                # The watchdog / integrity fields come with the fault
                 # planes (M12).
-                metrics=None,
+                metrics=get_registry().summary() or None,
                 prefix_chains=self._prefix_chains(),
                 role=None if self.role == "unified" else self.role_active,
             )

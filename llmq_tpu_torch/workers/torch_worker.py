@@ -25,6 +25,27 @@ the engine's (``_sampling_for`` :1137, ``_process_job`` :1186,
   ``token_digest`` (``tpu_worker.py:1399``);
 - surface the engine's ``stats()`` in the heartbeats, and hand the
   engine's unfinished requests back as snapshots when the worker drains;
+- the serving plane (``tpu_worker.py:564-616``, :983-1130). A job with a
+  truthy ``stream`` extra gets token-delta frames on
+  ``<q>.stream.<job id>`` (``{"text_offset", "text", "worker_id"}``, then a
+  terminal ``done`` frame with the finish reason): the engine's token
+  callback marshals each token onto the event loop, where a flush decodes
+  the pending tokens and publishes the new text. While the decoded text
+  ends in U+FFFD (a multi-byte character split across tokens) that
+  trailing run is held back and sent with a later frame or the ``done``
+  frame, whose text completes the result's. The reference sends it at
+  once and never sends the character it stood for (ROADMAP.md queue 3
+  item 20). The first frame goes out at the first token even when it has
+  no text yet, so the gateway learns the serving worker (its cancels'
+  address) and the client its first token (item 21). With the priority
+  classes on, the worker consumes its control
+  queue ``<q>.ctl.<id>``, where the gateway's ``{"cancel": job_id}`` asks
+  the engine to cancel a request (``jobs_cancelled``);
+- the lifecycle trace: the engine's stamps of each request (``tokenized``,
+  ``admitted``, ``prefill_start``, ``first_token``, ``decode``, with
+  ``preempted`` when it was) are appended to the job's record at their
+  monotonic times, and ``resumed`` / ``adopted`` / ``kv_fetch_failed``
+  where they happen;
 - the peers' plane (``tpu_worker.py:529-980``). With prefix affinity on
   and a prefix cache, count the text chains its jobs walk and advertise
   the hottest ``CHAIN_ADVERTISE_N`` in the heartbeats; before a job whose
@@ -70,9 +91,11 @@ from typing import Any, Dict, List, Optional
 
 from llmq_tpu_torch.broker.base import DeliveredMessage
 from llmq_tpu_torch.broker.manager import (
+    ctl_queue_name,
     decode_adopt_queue_name,
     job_affinity_text,
     kv_fetch_queue_name,
+    stream_queue_name,
 )
 from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job, Result
@@ -85,8 +108,15 @@ from llmq_tpu_torch.engine.snapshot import (
     snapshot_from_wire,
     snapshot_to_b64,
 )
+from llmq_tpu_torch.obs.trace import (
+    emit_trace_event,
+    record_transition,
+    trace_event,
+    trace_event_at,
+)
 from llmq_tpu_torch.ops._build import kernel_launches
 from llmq_tpu_torch.utils import clock
+from llmq_tpu_torch.utils.aio import reap_all, spawn
 from llmq_tpu_torch.utils.hashing import (
     rendezvous_pick,
     text_prefix_chain,
@@ -193,6 +223,13 @@ class TorchWorker(BaseWorker):
         self.prefix_fetch_timeouts = 0
         self.kv_fetch_failures = 0
         self.kv_serve_busy_rejects = 0
+        # The serving plane: per-job token-delta stream state (jobs with a
+        # truthy ``stream`` extra) and its flush tasks.
+        self._streams: Dict[str, dict] = {}
+        self._stream_tasks: set = set()
+        self.stream_frames_published = 0
+        self.jobs_cancelled = 0
+        self.finish_reasons: Dict[str, int] = {}  # the results it built, by finish reason
 
     def _generate_worker_id(self) -> str:
         return self._fixed_id or f"torch-{uuid.uuid4().hex[:8]}"
@@ -218,6 +255,7 @@ class TorchWorker(BaseWorker):
         return None  # the engine is built by the caller (cli/worker.py::build_engine)
 
     async def _cleanup_processor(self) -> None:
+        await reap_all(self._stream_tasks, label="stream flush")
         if self._reply_tag is not None:  # kept through the drain's offers
             await self._cancel_tags([self._reply_tag])
             self._reply_tag = None
@@ -269,10 +307,11 @@ class TorchWorker(BaseWorker):
                 self.request_shutdown()
 
     def stats(self) -> Dict[str, Any]:
-        """The worker's counters; the disaggregation ones (and the handoff
-        latency percentiles) only once they moved; once it built a result,
-        ``completion_tokens`` and ``busy_s``, the span from its first job's
-        start to its last result; ``kernel_launches``, this process's
+        """The worker's counters; the disaggregation and serving ones (and
+        the handoff latency percentiles) only once they moved; once it built
+        a result, ``completion_tokens``, ``finish_reasons`` (results by finish
+        reason) and ``busy_s``, the span from its first job's start to its
+        last result; ``kernel_launches``, this process's
         launches of each kernel (by its wrapper's name) and their routes,
         once a kernel launched (on the card)."""
         out: Dict[str, Any] = dict(role=self.role, jobs_processed=self.jobs_processed,
@@ -280,7 +319,7 @@ class TorchWorker(BaseWorker):
                                    jobs_handed_off=self.jobs_handed_off,
                                    jobs_resumed=self.jobs_resumed)
         for name in ("role_switches", "handoffs_shipped", "handoffs_fallback", "handoff_bytes",
-                     "jobs_adopted"):
+                     "jobs_adopted", "stream_frames_published", "jobs_cancelled"):
             if getattr(self, name):
                 out[name] = getattr(self, name)
         out.update(self._handoff_percentiles())
@@ -288,6 +327,7 @@ class TorchWorker(BaseWorker):
             out.update(self._peer_counters())
         if self._busy_to is not None:
             out.update(completion_tokens=self.completion_tokens,
+                       finish_reasons=dict(self.finish_reasons),
                        busy_s=self._busy_to - self._busy_from)
         launches = kernel_launches()
         if launches:
@@ -296,6 +336,10 @@ class TorchWorker(BaseWorker):
 
     def _engine_stats(self) -> Optional[dict]:
         stats = self.engine.stats()
+        # The serving counters, once they moved.
+        for name in ("stream_frames_published", "jobs_cancelled"):
+            if getattr(self, name):
+                stats[name] = getattr(self, name)
         if self.config.prefix_affinity:
             stats.update(self._peer_counters())
         return stats
@@ -363,7 +407,37 @@ class TorchWorker(BaseWorker):
                 if snapshot is None and (job.deadline_at is None or
                                          time.time() + PREFIX_FETCH_TIMEOUT_S < job.deadline_at):
                     await self._maybe_fetch_prefix(job, text)
+        streaming = await self._stream_begin(job)
+        try:
+            out = await self._generate(job, params, snapshot, gen_kw)
+        finally:
+            if streaming:
+                await self._stream_finish(job, out)
+        if isinstance(out, HandoffOutput):
+            # This worker is draining: the partial progress goes back.
+            raise JobHandoff(
+                snapshot_to_b64(out.snapshot) if out.snapshot is not None else None,
+                out.emitted,
+            )
+        if out.finish_reason == "deadline_exceeded":
+            raise DeadlineExceeded(job.id)
+        if out.finish_reason == "prefill_done":
+            if out.snapshot is None:
+                # Never expected (the engine snapshots before it finishes);
+                # RuntimeError, not ValueError, so the job requeues.
+                raise RuntimeError(f"prefill_done for job {job.id} carried no snapshot")
+            raise PrefillDone(snapshot_to_b64(out.snapshot))
+        self._trace_engine_timing(job.id, out)
+        return out
+
+    async def _generate(self, job: Job, params: SamplingParams,
+                        snapshot: Optional[RequestSnapshot], gen_kw: dict) -> Any:
+        """Resume the job from its snapshot, or (no snapshot, or one this
+        engine cannot insert) generate it from its prompt."""
+        out = None
+        trace = self._job_traces.get(job.id)
         if snapshot is not None:
+            trace_event(trace, "resumed", offset=len(snapshot.output_ids))
             # A handoff_at stamp marks a prefill -> decode handoff (a drain
             # handoff has none): count the adoption, sample its latency.
             handoff_at = job.extras()[RESUME_FIELD].get("handoff_at")
@@ -374,6 +448,8 @@ class TorchWorker(BaseWorker):
                     latency_ms = 0.0
                 self.jobs_adopted += 1
                 self._handoff_ms.append(latency_ms)
+                record_transition(trace, job.id, "adopted", latency_ms=round(latency_ms, 3),
+                                  on_sink=dict(worker_id=self.worker_id))
             try:
                 out = await self.engine.resume(rid=job.id, snapshot=snapshot, **gen_kw)
                 self.jobs_resumed += 1
@@ -398,38 +474,169 @@ class TorchWorker(BaseWorker):
             else:
                 out = await self.engine.generate(rid=job.id, prompt=job.get_formatted_prompt(),
                                                  params=params, **gen_kw)
-        if isinstance(out, HandoffOutput):
-            # This worker is draining: the partial progress goes back.
-            raise JobHandoff(
-                snapshot_to_b64(out.snapshot) if out.snapshot is not None else None,
-                out.emitted,
-            )
-        if out.finish_reason == "deadline_exceeded":
-            raise DeadlineExceeded(job.id)
-        if out.finish_reason == "prefill_done":
-            if out.snapshot is None:
-                # Never expected (the engine snapshots before it finishes);
-                # RuntimeError, not ValueError, so the job requeues.
-                raise RuntimeError(f"prefill_done for job {job.id} carried no snapshot")
-            raise PrefillDone(snapshot_to_b64(out.snapshot))
         return out
 
-    def _build_result(self, job: Job, out: RequestOutput, duration_ms: float) -> Result:
+    def _trace_engine_timing(self, job_id: str, out: RequestOutput) -> None:
+        """Append the engine's monotonic lifecycle stamps of the request to
+        its trace (``tpu_worker.py:1364-1388``); a phase that never
+        happened (a zero stamp) is skipped."""
+        trace = self._job_traces.get(job_id)
+        timing = out.timing
+        if trace is None or not timing:
+            return
+        trace_event_at(trace, "tokenized", timing.get("enqueued"))
+        trace_event_at(trace, "admitted", timing.get("admitted"))
+        trace_event_at(trace, "prefill_start", timing.get("prefill_start"))
+        trace_event_at(trace, "first_token", timing.get("first_token"))
+        preempts = int(timing.get("preempt_count", 0))
+        trace_event_at(trace, "decode", timing.get("last_token"), tokens=out.completion_tokens,
+                       preempt_count=preempts)
+        if preempts:
+            # No stamp of each preemption survives re-admission: the fact
+            # and the count, at the time decoding ended.
+            trace_event_at(trace, "preempted", timing.get("last_token"), count=preempts)
+
+    def _build_result(self, job: Job, out: RequestOutput, duration_ms: float,
+                      trace: Optional[dict] = None) -> Result:
         """The base worker's result over the output's text, with the
         usage, the finish reason and, under ``result_digest``, the token
         ids and their digest."""
-        result = super()._build_result(job, out.text, duration_ms)
+        result = super()._build_result(job, out.text, duration_ms, trace=trace)
         result.usage = {
             "prompt_tokens": out.prompt_tokens,
             "completion_tokens": out.completion_tokens,
         }
         result.finish_reason = out.finish_reason
+        self.finish_reasons[out.finish_reason] = self.finish_reasons.get(out.finish_reason, 0) + 1
         self.completion_tokens += out.completion_tokens
         self._busy_to = clock.monotonic()
         if self.config.result_digest:  # tpu_worker.py:1399
             result.token_ids = list(out.token_ids)
             result.token_digest = token_fold(out.token_ids)
         return result
+
+    # --- the serving plane: token-delta streams and cancels ------------------
+    async def _stream_begin(self, job: Job) -> bool:
+        """Stream a job that asked for it (truthy ``stream`` extra): declare
+        its stream queue and register an engine token callback that
+        marshals each token onto the event loop. False (the job runs
+        unstreamed) when the queue cannot be declared."""
+        if not job.extras().get("stream"):
+            return False
+        sq = stream_queue_name(self.queue, job.id)
+        try:
+            # Short TTL: frames that outlive their reader by a minute are
+            # garbage (the result on <q>.results settles the job).
+            await self.broker.broker.declare_queue(sq, ttl_ms=60_000,
+                                                   max_redeliveries=1_000_000_000)
+        except Exception:  # noqa: BLE001 — no stream queue: run unstreamed
+            self.logger.debug("Stream queue declare failed", exc_info=True)
+            return False
+        loop = asyncio.get_running_loop()
+        # tokens by emit index (a replay overwrites); sent: characters
+        # published; flushed_n: tokens decoded by the last flush; frames:
+        # frames published.
+        self._streams[job.id] = {"queue": sq, "tokens": [], "sent": 0, "flushed_n": 0,
+                                 "frames": 0, "task": None}
+        job_id = job.id
+
+        def on_token(token: int, n_out: int) -> None:
+            # Engine thread: marshal only; the event loop owns the state.
+            loop.call_soon_threadsafe(self._note_stream_token, job_id, token, n_out)
+
+        self.engine.set_token_callback(job.id, on_token)
+        return True
+
+    def _note_stream_token(self, job_id: str, token: int, n_out: int) -> None:
+        st = self._streams.get(job_id)
+        if st is None:
+            return
+        idx = n_out - 1
+        if idx < len(st["tokens"]):
+            st["tokens"][idx] = token
+        else:
+            st["tokens"].append(token)
+        if st["task"] is None or st["task"].done():
+            st["task"] = spawn(self._flush_stream(st, job_id), registry=self._stream_tasks,
+                               name=f"stream-{job_id}")
+
+    @staticmethod
+    def _settled_text(text: str) -> str:
+        """``text`` without its trailing run of U+FFFD: the decoder's mark
+        for a multi-byte character whose bytes have not all arrived. The
+        run is held back until a later token completes it (or the ``done``
+        frame sends what it is)."""
+        return text.rstrip("\ufffd")
+
+    async def _flush_stream(self, st: dict, job_id: str) -> None:
+        """Publish the settled, unsent tail of one stream's decoded text as a
+        frame ``{"text_offset": characters sent, "text": delta}``. Offsets
+        are absolute positions in the output's text, so a reader that sees
+        overlapping frames (the job resumed elsewhere and streams again from
+        token zero) skips what lies before its high-water mark."""
+        tokenizer = self.engine.core.tokenizer
+        try:
+            while len(st["tokens"]) != st["flushed_n"]:
+                n = len(st["tokens"])
+                text = self._settled_text(tokenizer.decode(st["tokens"][:n]))
+                st["flushed_n"] = n
+                delta = text[st["sent"]:]
+                if not delta and st["frames"]:
+                    continue  # the first frame goes out even without text
+                frame = {"id": job_id, "text_offset": st["sent"], "text": delta,
+                         "worker_id": self.worker_id}
+                st["sent"] += len(delta)
+                st["frames"] += 1
+                mid = f"{job_id}.{frame['text_offset']}" if delta else f"{job_id}.first"
+                await self.broker.broker.publish(st["queue"], json.dumps(frame).encode("utf-8"),
+                                                 message_id=mid)
+                self.stream_frames_published += 1
+        except Exception:  # noqa: BLE001 — streaming is best-effort
+            self.logger.debug("Stream flush failed", exc_info=True)
+
+    async def _stream_finish(self, job: Job, out: Any) -> None:
+        """End a job's stream: unregister the callback, let a flush in
+        flight land, and publish the ``done`` frame when the request
+        finished here; its text is the rest of the result's text. A drain
+        handoff, a prefill boundary or an error publishes none: the job
+        goes on elsewhere, whose stream continues this one (offset dedup),
+        and the result settles whatever raced."""
+        self.engine.clear_token_callback(job.id)
+        st = self._streams.pop(job.id, None)
+        if st is None:
+            return
+        if st["task"] is not None:
+            await asyncio.gather(st["task"], return_exceptions=True)
+        finish = getattr(out, "finish_reason", None)
+        if finish in (None, "prefill_done"):
+            return
+        frame = {"id": job.id, "text_offset": st["sent"], "text": out.text[st["sent"]:],
+                 "done": True, "finish_reason": finish, "worker_id": self.worker_id}
+        try:
+            await self.broker.broker.publish(st["queue"], json.dumps(frame).encode("utf-8"),
+                                             message_id=f"{job.id}.done")
+            self.stream_frames_published += 1
+        except Exception:  # noqa: BLE001 — the result still settles the job
+            self.logger.debug("Stream done frame failed", exc_info=True)
+
+    async def _serve_ctl(self, message: DeliveredMessage) -> None:
+        """One control message: ``{"cancel": job_id}`` asks the engine to
+        cancel that request. Best-effort and always acked: an unknown id
+        (finished, or landed on a peer after a requeue) ages out of the
+        engine's pending cancels on its own."""
+        try:
+            job_id = json.loads(message.body).get("cancel")
+            if job_id:
+                self.engine.cancel(str(job_id))
+                self.jobs_cancelled += 1
+                emit_trace_event(str(job_id), "cancel_requested", worker_id=self.worker_id)
+        except Exception:  # noqa: BLE001 — the control plane is best-effort
+            self.logger.debug("Control message failed", exc_info=True)
+        finally:
+            try:
+                await message.ack()
+            except Exception:  # noqa: BLE001 — settled already
+                pass
 
     # --- the peers' plane: advertise, serve, fetch, adopt -------------------
     def _prefix_enabled(self) -> bool:
@@ -453,13 +660,19 @@ class TorchWorker(BaseWorker):
         return [digest for digest, _ in ranked[:CHAIN_ADVERTISE_N]]
 
     async def _start_extra_consumers(self) -> None:
-        """Attach the KV server: peers send fetch requests (and, in a
-        disaggregated fleet, adoption offers) to ``<q>.kv.<id>`` and take
-        replies on their own ``<q>.kv.<id>.r``. Both are ephemeral (30 s
-        TTL, one delivery): a requester that timed out has recomputed
-        already. Decode-capable workers attach it without prefix shipping
-        too. (The reference's control queue ``<q>.ctl.<id>`` comes with the
-        gateway, M16.)"""
+        """With the priority classes on, attach the control queue
+        ``<q>.ctl.<id>`` (the gateway's cancels; 30 s TTL: a cancel that
+        outlives it targets a finished job). Attach the KV server: peers
+        send fetch requests (and, in a disaggregated fleet, adoption offers)
+        to ``<q>.kv.<id>`` and take replies on their own ``<q>.kv.<id>.r``.
+        Both are ephemeral (30 s TTL, one delivery): a requester that timed
+        out has recomputed already. Decode-capable workers attach it without
+        prefix shipping too."""
+        if self.config.priority_classes:
+            ctl_q = ctl_queue_name(self.queue, self.worker_id)
+            await self.broker.broker.declare_queue(ctl_q, ttl_ms=30_000, max_redeliveries=1)
+            self._extra_tags.append(
+                await self.broker.broker.consume(ctl_q, self._serve_ctl, prefetch=4))
         if not (self._prefix_enabled() or self.role in ("decode", "auto")):
             return
         kv_q = kv_fetch_queue_name(self.queue, self.worker_id)
@@ -684,9 +897,12 @@ class TorchWorker(BaseWorker):
         return True
 
     def _note_kv_fetch_failed(self, req_id: str, peer: str, reason: str) -> None:
-        """Count a failed fetch (reason: timeout, busy or digest-mismatch).
-        The reference also stamps it on the job's trace (M16)."""
+        """Count a failed fetch and stamp why on the job's trace (reason:
+        timeout, busy or digest-mismatch: a dead peer, a loaded one, a
+        damaged ship)."""
         self.kv_fetch_failures += 1
+        record_transition(self._job_traces.get(req_id), req_id, "kv_fetch_failed", peer=peer,
+                          reason=reason, on_sink=dict(worker_id=self.worker_id))
         self.logger.debug("KV fetch for %s from %s failed: %s", req_id, peer, reason)
 
     async def _fetch_from_peer(self, peer: str, want: List[str], req_id: str) -> None:

@@ -2,16 +2,20 @@
 
 - Every ported command (``submit``, ``receive``, the hidden ``pipeline`` /
   ``receive-pipeline``, ``status``, ``health``, ``errors``, ``clear``,
-  ``worker run`` / ``dummy`` / ``dedup`` / ``pipeline``, ``broker serve``)
-  takes the reference's click arguments and options, with their names,
-  flags, choices and defaults, as argparse actions; ``serve``, ``monitor
-  top``, ``trace`` and ``broker serve --native`` are refused with their
-  ROADMAP item.
+  ``trace``, ``serve``, ``monitor top``, ``worker run`` / ``dummy`` /
+  ``dedup`` / ``pipeline``, ``broker serve``) takes the reference's click
+  arguments and options, with their names, flags, choices and defaults, as
+  argparse actions; ``serve``, ``trace`` and ``monitor top --once`` run
+  (the gateway on a bound port answers ``/healthz``), and ``broker serve
+  --native`` is refused as out of scope.
 - ``run_pipeline_worker`` picks the reference's worker type for each stage
   type, with the reference's arguments, and exits 1 where it does.
 - ``submit``, ``worker dummy`` and ``receive`` over ``memory://`` print the
   reference's result lines (ids, results, extras), and ``submit --stream``
-  streams them; the operator commands print the reference's fields.
+  streams them; the operator commands print the reference's fields;
+  ``monitor top``'s summary, columns and cells equal the reference's
+  (its ``rich`` markup dropped), and ``trace`` prints the reference's rows
+  for a result, a dead letter and a job with neither.
 """
 
 import argparse
@@ -36,8 +40,8 @@ def _port_commands():
         return next(a for a in p._actions if isinstance(a, argparse._SubParsersAction))
 
     groups = sub(parser).choices
-    out = {name: p for name, p in groups.items() if name not in ("worker", "broker")}
-    for group in ("worker", "broker"):
+    out = {name: p for name, p in groups.items() if name not in ("worker", "broker", "monitor")}
+    for group in ("worker", "broker", "monitor"):
         for name, p in sub(groups[group]).choices.items():
             out[f"{group} {name}"] = p
     return out
@@ -56,8 +60,8 @@ def _ref_commands():
 
 
 PORTED = ("submit", "receive", "pipeline", "receive-pipeline", "status", "health", "errors",
-          "clear", "worker run", "worker dummy", "worker dedup", "worker pipeline",
-          "broker serve")
+          "clear", "trace", "serve", "monitor top", "worker run", "worker dummy", "worker dedup",
+          "worker pipeline", "broker serve")
 #: the port's own options: the device of an engine, worker run's log level
 PORT_ONLY = {"worker run": {"device", "log_level"}, "worker pipeline": {"device"}}
 
@@ -113,14 +117,41 @@ def test_each_command_takes_the_reference_options(name):
     assert got == want
 
 
+#: what each command that was refused until the M16 slice prints as it runs
+RUNS = {"serve": "Serving q on http://127.0.0.1:", "trace": "No result for job 'job-1'",
+        "monitor": "queue q — 0 fresh worker(s), 0 stale | ready 0 | fleet 0.0 tok/s"}
+
+
 @pytest.mark.parametrize("argv,item", [
     (["serve", "q", "--port", "0"], "M16"), (["trace", "job-1", "-q", "q"], "M16"),
     (["monitor", "top", "q", "--once"], "M16"), (["broker", "serve", "--native"], "Out of scope"),
 ])
-def test_unported_commands_are_refused_with_their_item(argv, item):
+def test_unported_commands_are_refused_with_their_item(argv, item, monkeypatch, capsys):
+    """The commands of M16 (once refused here) run: ``serve`` binds its port
+    and answers ``/healthz`` until interrupted, ``trace`` and ``monitor top
+    --once`` read an empty queue. ``broker serve --native`` stays refused."""
     assert argv[0] in _ref_commands() or f"{argv[0]} {argv[1]}" in _ref_commands()
-    with pytest.raises(NotImplementedError, match=item):
-        port_main.main(argv)
+    if item != "M16":
+        with pytest.raises(NotImplementedError, match=item):
+            port_main.main(argv)
+        return
+    import http.client
+
+    monkeypatch.setenv("LLMQ_BROKER_URL", f"memory://cmd-{uuid.uuid4().hex[:8]}")
+    answers = []
+
+    def probe_then_interrupt(gateway):
+        conn = http.client.HTTPConnection("127.0.0.1", gateway.port, timeout=10)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        answers.append((resp.status, json.loads(resp.read())))
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(port_main, "_serve_until_interrupted", probe_then_interrupt)
+    assert port_main.main(argv) == 0
+    assert RUNS[argv[0]] in capsys.readouterr().out
+    if argv[0] == "serve":
+        assert answers == [(200, {"ok": True, "queue": "q"})]
 
 
 # --- run_pipeline_worker's choice of worker ----------------------------------------
@@ -375,3 +406,152 @@ def test_operator_commands_print_the_reference_fields(monkeypatch, capsys):
                   "oq.failed", "reconnects", "redeliveries"):
         assert field in want and field in got, field
     assert "f2" not in got.split("Requeued")[0]  # --limit 2 lists two
+
+
+# --- monitor top and trace (M16) ----------------------------------------------------------
+
+def _plain(markup: str) -> str:
+    from rich.text import Text
+
+    return Text.from_markup(markup).plain
+
+
+def _fleet(models):
+    """Three heartbeats: a busy auto worker with every optional column's
+    field, a stale decode worker with a tripped breaker, a bare one."""
+    from datetime import timedelta
+
+    now = models.utcnow()
+    busy = dict(tokens_per_sec=812.345, batch_occupancy=0.5, prefix_hit_rate=0.25,
+                ttft_p50_ms=120.4, ttft_p95_ms=300.6, itl_p50_ms=7.1, itl_p95_ms=9.9,
+                ttft_p95_ms_interactive=200.0, itl_p95_ms_interactive=8.2, jobs_quarantined=2,
+                kv_fetch_failures=1, priority_preemptions=3, handoff_ms_p50=100.0,
+                handoff_ms_p95=210.0, role_mode="auto", guard_trips=1)
+    return {
+        "w-a": models.WorkerHealth(worker_id="w-a", status="running", jobs_processed=40,
+                                   last_seen=now, engine_stats=busy, reconnects=1,
+                                   integrity="ok", role="prefill"),
+        "w-b": models.WorkerHealth(worker_id="w-b", status="running", jobs_processed=3,
+                                   last_seen=now - timedelta(minutes=5), role="decode",
+                                   engine_stats=dict(breaker_tripped=True,
+                                                     wedged_dispatch="decode", batch_occupancy=0.9),
+                                   integrity="suspect"),
+        "w-c": models.WorkerHealth(worker_id="w-c", status="stopping", jobs_processed=0,
+                                   last_seen=now),
+    }
+
+
+@pytest.mark.parametrize("top", [40, 2])
+def test_monitor_top_cells_equal_the_reference(top):
+    """The dashboard's summary, columns, cells and caption over the same
+    heartbeats, the reference's ``rich`` markup dropped."""
+    from llmq_tpu.cli import monitor as ref_monitor
+    from llmq_tpu.core import models as ref_models
+
+    from llmq_tpu_torch.cli import monitor
+    from llmq_tpu_torch.core import models
+
+    kw = dict(quarantine_depth=4, top=top, decode_depth=7, interactive_depth=2)
+    group = ref_monitor._render_top(
+        "q", _fleet(ref_models), ref_models.QueueStats(queue_name="q", message_count_ready=9),
+        **kw)
+    header, table = group.renderables
+    want = (_plain(header), table.title, [c.header for c in table.columns],
+            [[_plain(cell) for cell in row] for row in zip(*(c._cells for c in table.columns))],
+            table.caption)
+    got = monitor._top_frame("q", _fleet(models),
+                             models.QueueStats(queue_name="q", message_count_ready=9), **kw)
+    assert got == want
+    assert len(got[3]) == min(top, 3) and "WEDGED:decode BRK" in str(got[3])
+    text = monitor._render_top("q", _fleet(models),
+                               models.QueueStats(queue_name="q", message_count_ready=9), **kw)
+    assert text.startswith(got[0]) and all(cell in text for row in got[3] for cell in row)
+
+
+async def _trace_session(pkg, monitor, job_id: str) -> None:
+    """A result with a trace and a dead letter on ``tq``, then ``trace``."""
+    async with pkg.manager.BrokerManager() as mgr:
+        await mgr.setup_queue_infrastructure("tq")
+        rec = pkg.trace.new_trace("done-1")
+        for name, fields in (("submitted", {"queue": "tq"}), ("claimed", {"worker_id": "w"}),
+                             ("first_token", {}), ("finished", {"duration_ms": 12.5})):
+            pkg.trace.trace_event(rec, name, **fields)
+        rec["redeliveries"] = 1
+        result = {"id": "done-1", "prompt": "p", "result": "r", "worker_id": "w",
+                  "duration_ms": 12.5, "trace": rec}
+        await mgr.broker.publish("tq.results", json.dumps(result).encode(), message_id="done-1")
+        dead = pkg.trace.new_trace("dead-1")
+        pkg.trace.trace_event(dead, "submitted", queue="tq")
+        await mgr.broker.publish("tq.failed", json.dumps({"id": "dead-1", "prompt": "p",
+                                                          "trace": dead}).encode(),
+                                 message_id="dead-1",
+                                 headers={"x-death-queue": "tq", "x-delivery-count": 4})
+        await monitor.trace_job("tq", job_id)
+        # trace peeks: both messages are still there
+        assert (await mgr.get_queue_stats("tq.results")).message_count == 1
+        assert (await mgr.get_queue_stats("tq.failed")).message_count == 1
+
+
+def _rows(out: str) -> list:
+    """A table's rows, from ``rich`` box lines or the port's plain table."""
+    import re
+
+    if "│" in out:
+        return [[c.strip() for c in re.split("[│┃]", line)[1:-1]] for line in out.splitlines()
+                if re.search("[│┃]", line)]
+
+    lines = out.splitlines()
+    head = next(i for i, line in enumerate(lines) if line.startswith("event"))
+    starts = [m.start() for m in re.finditer(r"\S+( \S+)*", lines[head])]
+    return [[line[a:b].strip() for a, b in zip(starts, starts[1:] + [None])]
+            for line in [lines[head]] + lines[head + 2:] if line and not line.startswith("total")]
+
+
+@pytest.mark.parametrize("job_id", ["done-1", "dead-1", "missing"])
+def test_trace_prints_the_reference_rows(job_id, monkeypatch, capsys):
+    """``trace``: the timeline of a result's trace, a dead letter's (its
+    death headers and a synthesized ``retry_exhausted``), or the message
+    for a job with neither; the same events, clocks, deltas and details
+    as the reference's table."""
+    from llmq_tpu.broker import manager as jmanager
+    from llmq_tpu.cli import monitor as ref_monitor
+    from llmq_tpu.obs import trace as jtrace
+
+    from llmq_tpu_torch.broker import manager as tmanager
+    from llmq_tpu_torch.cli import monitor
+    from llmq_tpu_torch.obs import trace as ttrace
+
+    from llmq_tpu.utils import clock as jclock
+
+    from llmq_tpu_torch.utils import clock as tclock
+
+    class Frozen:  # the events' clocks, so both tables show the same times
+        def monotonic(self):
+            return 500.0
+
+        def time(self):
+            return 1_700_000_000.25
+
+    monkeypatch.setattr(ref_monitor.console, "width", 200)
+    outs = []
+    try:
+        for pkg, mon, clk in ((SimpleNamespace(manager=jmanager, trace=jtrace), ref_monitor,
+                               jclock),
+                              (SimpleNamespace(manager=tmanager, trace=ttrace), monitor, tclock)):
+            clk.set_clock(Frozen())
+            monkeypatch.setenv("LLMQ_BROKER_URL", f"memory://trace-{uuid.uuid4().hex[:8]}")
+            asyncio.run(_trace_session(pkg, mon, job_id))
+            outs.append(capsys.readouterr().out)
+    finally:
+        jclock.set_clock(jclock.Clock())
+        tclock.set_clock(tclock.Clock())
+    want, got = outs
+    if job_id == "missing":
+        assert want.strip().lstrip("✗ ") == got.strip().lstrip("✗ ")
+        return
+    rows = _rows(got)
+    assert rows == _rows(want)
+    assert len(rows) == (5 if job_id == "done-1" else 3)
+    for line in want.splitlines():
+        if line.startswith(("Job ", "total", "Trace:")):
+            assert line.strip() in got

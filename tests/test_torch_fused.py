@@ -89,6 +89,15 @@ def _same(jcore, requests, **port_mode):
     return tcore, tout
 
 
+def _dispatch_counts(core, before=None) -> dict:
+    """Dispatches recorded by kind (``stats()["dispatch_ms"]``), less
+    ``before``'s; kinds that did not move are left out."""
+    counts = {kind: v["count"] for kind, v in core.stats()["dispatch_ms"].items()}
+    before = before or {}
+    return {kind: n - before.get(kind, 0) for kind, n in counts.items()
+            if n != before.get(kind, 0)}
+
+
 def _off(requests, **settings):
     return _tokens(_run(_tcore(**settings), requests, TParams))
 
@@ -219,9 +228,13 @@ def test_spec_greedy_matches_jax_and_spec_off(jax_spec2):
     sampling on the ported threefry stream and its key splits), greedy
     tokens the port's with speculation off, and the stats carry the JAX
     engine's speculation keys."""
+    before = _dispatch_counts(jax_spec2)
     tcore, tout = _same(jax_spec2, SPEC_MIX, spec_tokens=2)
     assert _greedy(tout, SPEC_MIX) == _greedy(_off(SPEC_MIX), SPEC_MIX)
     st, jst = tcore.stats(), jax_spec2.stats()
+    # Each dispatch kind's recorded count (the "verify" kind) equals JAX's.
+    assert _dispatch_counts(tcore) == _dispatch_counts(jax_spec2, before)
+    assert set(_dispatch_counts(tcore)) == {"prefill", "verify"}
     assert st["spec_tokens"] == 2 and st["spec_proposed"] > 0
     for key in ("spec_proposed", "spec_accepted", "acceptance_rate"):
         assert st[key] == jst[key], key
@@ -270,9 +283,13 @@ def test_mixed_steps_match_jax_and_mixed_off(jax_mixed):
     cache (test_engine_soak.py:348): greedy tokens equal the JAX engine's
     and the port's with mixed steps off, and the mixed_steps and
     mixed_prefill_tokens counters equal JAX's (:389, :394)."""
+    before = _dispatch_counts(jax_mixed)
     tcore, tout = _same(jax_mixed, MIXED_MIX, mixed_step="on", decode_block=2, **MIXED)
     assert tout == _off(MIXED_MIX, decode_block=2, **MIXED)
     st, jst = tcore.stats(), jax_mixed.stats()
+    # Each dispatch kind's recorded count ("mixed" among them) equals JAX's.
+    assert _dispatch_counts(tcore) == _dispatch_counts(jax_mixed, before)
+    assert "mixed" in _dispatch_counts(tcore)
     assert st["mixed_steps"] > 0 and st["mixed_prefill_tokens"] > 0
     for key in ("mixed_steps", "mixed_prefill_tokens", "decode_steps", "decode_dispatches",
                 "prefill_tokens"):

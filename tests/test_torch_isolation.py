@@ -4,11 +4,12 @@ An AST scan finds no ``jax``, ``llmq_tpu`` or ``ml_dtypes`` import in
 ``llmq_tpu_torch/`` or ``chip_smoke.py`` (the GPU machine has no
 ``ml_dtypes``: the snapshot codec carries bf16 / e5m2 pages as raw bits);
 a fresh interpreter that imports every port module loads none of them;
-the checkpoint loader, the broker, the workers and the command line
-need none of the packages the GPU machine lacks (``safetensors``,
-``transformers``, ``click``), the client and the pipelines import no
-PyYAML, ``rich`` or ``datasets`` before they are asked for; and the
-entry points default to CUDA, raising here where there is none.
+the checkpoint loader, the broker, the workers, the command line, the
+gateway and the observability modules need none of the packages the GPU
+machine lacks (``safetensors``, ``transformers``, ``click``), the client,
+the pipelines and the gateway import no PyYAML, ``rich``, ``datasets`` or
+torch before they are asked for; and the entry points default to CUDA,
+raising here where there is none.
 """
 
 import ast
@@ -55,6 +56,8 @@ def _all_port_modules():
 def test_importing_every_module_loads_no_jax():
     modules = _all_port_modules()
     assert "llmq_tpu_torch.engine.engine" in modules and len(modules) > 20
+    assert {"llmq_tpu_torch.obs.metrics", "llmq_tpu_torch.obs.trace",
+            "llmq_tpu_torch.obs.exporter", "llmq_tpu_torch.gateway.server"} <= set(modules)
     code = (
         "import sys, importlib\n"
         "before = set(sys.modules)\n"
@@ -76,7 +79,8 @@ WORKER_PATH = ("engine/weights.py", "broker/tcp.py", "cli/main.py", "cli/worker.
                "broker/manager.py", "broker/resilient.py", "broker/filebroker.py",
                "broker/chaos.py", "cli/submit.py", "cli/receive.py", "cli/monitor.py",
                "core/pipeline.py", "core/template.py", "workers/dummy.py", "workers/dedup.py",
-               "utils/logging.py")
+               "utils/logging.py", "obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+               "obs/exporter.py", "gateway/__init__.py", "gateway/server.py")
 
 
 def test_loader_broker_and_cli_need_no_optional_package():
@@ -97,6 +101,7 @@ def test_loader_broker_and_cli_need_no_optional_package():
         "import llmq_tpu_torch.engine.weights, llmq_tpu_torch.cli.submit\n"
         "import llmq_tpu_torch.cli.receive, llmq_tpu_torch.cli.monitor\n"
         "import llmq_tpu_torch.workers.dummy, llmq_tpu_torch.workers.dedup\n"
+        "import llmq_tpu_torch.obs, llmq_tpu_torch.gateway\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {OPTIONAL!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -117,6 +122,7 @@ def test_client_and_pipelines_run_without_yaml_rich_or_datasets(tmp_path):
         "import sys\n"
         "for m in ('yaml', 'rich', 'datasets', 'click', 'torch'): sys.modules[m] = None\n"
         "from llmq_tpu_torch.cli import main, monitor, receive, submit\n"
+        "from llmq_tpu_torch import gateway, obs\n"
         "del sys.modules['torch']\n"  # the workers need it; the client does not
         "from llmq_tpu_torch.cli import worker\n"
         "from llmq_tpu_torch.workers import dedup, dummy\n"

@@ -80,10 +80,23 @@ def _policies(core) -> dict:
     return {name: (q.ttl_ms, q.max_redeliveries) for name, q in core.queues.items()}
 
 
+def _policies_by_role(core, worker_id: str) -> dict:
+    """``_policies`` with the worker's id in a per-worker queue's name
+    replaced by ``<id>`` (the two packages' workers have different ids)."""
+    return {name.replace(worker_id, "<id>"): policy for name, policy in _policies(core).items()}
+
+
 async def _reference_setup(ns: str) -> dict:
+    from llmq_tpu.workers.tpu_worker import TPUWorker
+
     worker = DummyWorker(QUEUE, delay=0, config=JConfig(broker_url=f"memory://{ns}"))
     await worker.initialize()  # BaseWorker.initialize: setup_queue_infrastructure + .health
-    policies = _policies(jmem.get_namespace(ns))
+    # The engine worker's extra consumers (the control queue <q>.ctl.<id>
+    # with the priority classes on), run over this worker.
+    worker._serve_ctl = worker._serve_kv_fetch = None
+    worker._prefix_enabled = lambda: False
+    await TPUWorker._start_extra_consumers(worker)
+    policies = _policies_by_role(jmem.get_namespace(ns), worker.worker_id)
     await worker.broker.disconnect()
     return policies
 
@@ -97,7 +110,7 @@ async def _port_setup(ns: str) -> dict:
     while not (QUEUE in core.queues and core.queues[QUEUE].consumers):
         assert time.monotonic() < deadline and not task.done(), "the worker never consumed"
         await asyncio.sleep(0.01)
-    policies = _policies(core)
+    policies = _policies_by_role(core, worker.worker_id)
     worker.request_shutdown()
     await asyncio.wait_for(task, timeout=10)
     return policies
@@ -115,8 +128,9 @@ SETUP_CASES = {
 @pytest.mark.parametrize("env", SETUP_CASES.values(), ids=list(SETUP_CASES))
 def test_worker_declares_its_queues_as_the_reference(monkeypatch, env):
     """The same queues, each with the same (ttl_ms, max_redeliveries), as
-    the reference's ``BaseWorker.initialize`` declares them (queue 3
-    item 9: the port declared every queue (None, 3))."""
+    the reference's ``BaseWorker.initialize`` and its engine worker's
+    extra consumers declare them (queue 3 item 9: the port declared every
+    queue (None, 3))."""
     for var, value in env.items():
         monkeypatch.setenv(var, value)
     ns = _ns("setup")
@@ -257,8 +271,8 @@ def test_publish_job_stamps_routes_and_sheds_as_the_reference(frozen_clocks, dea
     the ``<q>.interactive`` fast lane and admission shedding (depth /
     observed fleet rate against the budget, the lane's own depth for a
     fast-lane job) land each job on the same queue with the same payload
-    and headers. The reference's payload also carries its lifecycle trace
-    (``TRACE_FIELD``), which the port stamps with M16: left out here."""
+    and headers, the lifecycle trace (``TRACE_FIELD``: ``submitted`` or
+    ``shed``, under the frozen clocks) included."""
     from llmq_tpu_torch.broker.manager import BrokerManager
     from llmq_tpu_torch.core.config import Config
 
@@ -271,9 +285,7 @@ def test_publish_job_stamps_routes_and_sheds_as_the_reference(frozen_clocks, dea
     finally:
         jmem.reset_namespace(ns)
         tmem.reset_namespace(ns)
-    for entries in want.values():
-        for _, payload, _ in entries:
-            payload.pop(TRACE_FIELD, None)
+    assert all(TRACE_FIELD in payload for entries in got.values() for _, payload, _ in entries)
     assert got == want and gc_ == wc
     shed = {mid for mid, _, _ in want[QUEUE + ".failed"]}
     assert "doomed" in shed and "vip-tight" not in shed  # the lane is empty: 0 / 2 < 0.5 s
@@ -435,9 +447,8 @@ def _port_value(cfg, name):
 
 def test_every_reference_config_field_is_read_or_refused(monkeypatch):
     """Walk the reference's fields: each is read by the port with the
-    reference's variable, default and alias order, or refused at a
-    non-default value with ``NotImplementedError`` naming its ROADMAP.md
-    item (the port's own ``UNPORTED_FIELDS``). The fields in
+    reference's variable, default and alias order (the last refused one,
+    ``serve_port``, is read since the gateway was ported). The fields in
     ``ENGINE_READ`` are read by the port's engine alone."""
     assert set(FIELD_ENV) == set(jconfig.Config.model_fields), "a reference field is not walked"
     assert not set(ENGINE_READ) & set(tconfig.Config.model_fields), "two readers of one variable"
@@ -447,20 +458,12 @@ def test_every_reference_config_field_is_read_or_refused(monkeypatch):
     for name in FIELD_ENV:
         assert _port_value(port, name) == getattr(ref, name), f"{name}: default differs"
     assert port.job_ttl_ms == ref.job_ttl_ms
-    tconfig.refuse_unported(port)
-    refused = []
     for name, (var, value) in FIELD_ENV.items():
         monkeypatch.setenv(var, value)
         ref, port = jconfig.Config(), tconfig.Config()
         assert getattr(ref, name) != jconfig.Config.model_fields[name].get_default(
             call_default_factory=False), f"{name}: {value!r} is its default"
         assert _port_value(port, name) == getattr(ref, name), f"{name} is not read from {var}"
-        if name in tconfig.UNPORTED_FIELDS:
-            refused.append(name)
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, M"):
-                tconfig.refuse_unported(port)
-        else:
-            tconfig.refuse_unported(port)
         for alias in ALIASES.get(name, ()):  # an alias is read only after the variable
             monkeypatch.setenv(alias, value if name == "broker_url" else "3")
             assert getattr(tconfig.Config(), name) == getattr(jconfig.Config(), name)
@@ -468,8 +471,8 @@ def test_every_reference_config_field_is_read_or_refused(monkeypatch):
         for alias in ALIASES.get(name, ()):
             assert getattr(tconfig.Config(), name) == getattr(jconfig.Config(), name), alias
             monkeypatch.delenv(alias)
-    assert set(refused) == set(tconfig.UNPORTED_FIELDS)
-    # M6's second part is ported: its fields are read, none is refused.
-    m6 = {"prefix_affinity", "role_dwell_s", "role_switch_hi", "role_switch_lo",
-          "role_check_interval_s", "handoff_timeout_s", "peer_serve_concurrency"}
-    assert m6 <= set(FIELD_ENV) and not m6 & set(refused)
+    # The fields once refused (M6's second part, M16's serve port) are walked.
+    ported = {"prefix_affinity", "role_dwell_s", "role_switch_hi", "role_switch_lo",
+              "role_check_interval_s", "handoff_timeout_s", "peer_serve_concurrency",
+              "serve_port"}
+    assert ported <= set(FIELD_ENV)

@@ -344,13 +344,17 @@ async def _run_pipeline(submit, receive, make_broker, workers, path, jobs):
 
 
 def _final_results(out: str) -> dict:
-    """Printed results by id, without what a run stamps (worker, times)
-    and the reference's lifecycle ``trace`` (M16 in the port)."""
+    """Printed results by id, without what a run stamps (worker, times);
+    the lifecycle ``trace`` without its times and worker ids (event names,
+    order and the other fields are compared)."""
+    from test_torch_obs import comparable_trace
+
     results = {}
     for line in out.strip().splitlines():
         r = json.loads(line)
-        for key in ("worker_id", "duration_ms", "timestamp", "trace"):
+        for key in ("worker_id", "duration_ms", "timestamp"):
             r.pop(key, None)
+        r["trace"] = comparable_trace(r["trace"])
         results[r["id"]] = r
     return results
 
@@ -422,7 +426,31 @@ def test_example_pipeline_gives_the_reference_results(hf_dir, tmp_path, monkeypa
 
     assert sorted(got) == [f"row-{i}" for i in range(N_JOBS)]
     assert got == want
+    stage = ["submitted", "claimed", "tokenized", "admitted", "prefill_start", "first_token",
+             "decode", "finished"]
+    assert [e["name"] for e in got["row-0"]["trace"][2]] == stage * 2  # the hand-off
     for r in got.values():
         assert r["usage"]["completion_tokens"] == GEN and len(r["token_ids"]) == GEN
         assert r["prompt"].startswith("Format the following translation as clean markdown")
         assert r["previous_result"] in r["prompt"] and r["lang"] == "de"
+
+
+def test_held_back_stream_text_is_a_prefix_of_the_result_with_the_hf_tokenizer(hf_dir):
+    """Queue 3 item 20 with the fixture's byte-level BPE tokenizer: prompts
+    in accented, CJK and emoji text fall back to byte tokens, so characters
+    split across tokens. The port's stream (one flush a token) only ever
+    sends a prefix of the final text, and its frames join to it."""
+    from llmq_tpu_torch.engine.tokenizer import HFTokenizer
+
+    from test_torch_obs import joined, stream_frames
+
+    tok = HFTokenizer(str(hf_dir))
+    for text in ("café crème brûlée", "日本語のテキスト", "queue 🙂 ok 🚀", "plain ascii"):
+        ids = tok.encode(text)
+        final = tok.decode(ids)
+        frames = stream_frames("port", tok, ids, final)
+        sent = ""
+        for frame in frames:
+            sent += frame["text"]
+            assert final.startswith(sent), (text, sent, final)
+        assert joined(frames) == final and frames[-1]["done"]

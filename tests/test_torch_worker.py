@@ -17,7 +17,7 @@ import torch
 from llmq_tpu_torch.broker.base import make_broker
 from llmq_tpu_torch.broker.memory import reset_namespace
 from llmq_tpu_torch.cli.worker import build_engine, engine_config, run_torch_worker
-from llmq_tpu_torch.core.config import Config, get_config, refuse_unported
+from llmq_tpu_torch.core.config import Config, get_config
 from llmq_tpu_torch.core.models import Job
 from llmq_tpu_torch.engine.sampling import SamplingParams
 from llmq_tpu_torch.models.presets import get_preset
@@ -241,11 +241,9 @@ def test_worker_engine_config_matches_the_jax_worker(monkeypatch, env, flags):
 
 
 def _start_worker_engine():
-    """What ``run_torch_worker`` does before it serves: check the role and
-    the settings of unported features, then build the engine."""
-    cfg = get_config()
-    worker_role(cfg)
-    refuse_unported(cfg)
+    """What ``run_torch_worker`` does before it serves: check the role, then
+    build the engine (which refuses the settings of unported features)."""
+    worker_role(get_config())
     return build_engine("preset://tiny", **ENGINE)
 
 
@@ -257,13 +255,15 @@ UNPORTED_OFF = {"LLMQ_TP_OVERLAP": "off", "LLMQ_WORKER_ROLE": "unified",
                 "LLMQ_PEER_SERVE_CONCURRENCY": "2", "LLMQ_SERVE_PORT": "8100"}
 
 
-#: the variables of M6's second part, once refused here -> their Config field
+#: the variables once refused here (M6's second part, M16's serve port) -> their Config field
 PORTED_M6 = {"LLMQ_WORKER_ROLE": "worker_role", "LLMQ_PREFIX_AFFINITY": "prefix_affinity",
              "LLMQ_ROLE_DWELL_S": "role_dwell_s", "LLMQ_ROLE_SWITCH_HI": "role_switch_hi",
              "LLMQ_ROLE_SWITCH_LO": "role_switch_lo",
              "LLMQ_ROLE_CHECK_INTERVAL_S": "role_check_interval_s",
              "LLMQ_HANDOFF_TIMEOUT_S": "handoff_timeout_s",
-             "LLMQ_PEER_SERVE_CONCURRENCY": "peer_serve_concurrency"}
+             "LLMQ_PEER_SERVE_CONCURRENCY": "peer_serve_concurrency",
+             # M16's: read for the gateway (``serve``), which no worker runs
+             "LLMQ_SERVE_PORT": "serve_port"}
 
 
 @pytest.mark.parametrize("var,value,item", [
@@ -282,13 +282,13 @@ def test_worker_refuses_unported_env_features(monkeypatch, var, value, item):
     """A variable that turns on a feature the port lacks is refused with
     its ROADMAP.md item, never ignored; set to its "off" value it is not.
     (``LLMQ_PREFIX_HOST_GB``, once refused here, is ported: M11b. The M6
-    variables, once refused here, are ported with M6's second part: the
-    worker starts with each set, read as the reference's ``Config`` reads
-    it.)"""
+    variables, once refused here, are ported with M6's second part, and
+    ``LLMQ_SERVE_PORT`` with M16's gateway: the worker starts with each set,
+    read as the reference's ``Config`` reads it.)"""
     for name in ENGINE_VARS + tuple(UNPORTED_OFF):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv(var, value)
-    if item == "M6":
+    if item in ("M6", "M16"):
         from llmq_tpu.core.config import Config as JConfig
 
         field = PORTED_M6[var]
