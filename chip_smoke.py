@@ -108,7 +108,9 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    ``ModelConfig.from_pretrained`` equal to the preset and every leaf
    bit for bit, and with ``quantize="int8"`` / ``"int4"`` the loader's
    block quantization applied to the whole tensors (load time, GB/s and
-   the host's peak RSS growth printed). Phase 3's 16 jobs, 32 new tokens,
+   the host's peak RSS growth printed), and a bf16 load that keeps the load
+   ledger (``checksum_ledger``, one entry a leaf) timed beside the plain
+   one. Phase 3's 16 jobs, 32 new tokens,
    served from the loaded tree through ``EngineCore`` under
    ``LLMQ_DECODE_KERNEL=v2``: K5 launches 36 times per decode step, all
    on the tensor-core route, K1 never; the tokens equal the first 32 of
@@ -305,6 +307,34 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    ``ttft_p50_ms`` and ``itl_p50_ms``. ``--phases gateway`` runs phase 3
    and this phase alone.
 
+17. The fault planes (M12) at full width: qwen2.5-3b bf16 with phase 3's
+   seeded weights, 16 of phase 3's jobs at 32 tokens through a
+   ``TorchWorker`` (``build_engine`` + ``run``, as ``run_torch_worker``
+   drives it) over ``memory://``, K2 then K1 on the tensor-core route,
+   launches counted in each leg. Each leg's results must be 16 (one a
+   job), each the first 32 token ids of phase 3's run or of its solo run,
+   or parting from phase 3's at a near-tie (``_parting_witness``), and
+   each rebuilt engine must have the first engine's ``num_pages``. (a) A
+   ``DeviceFaultInjector`` raises a CUDA error on a decode dispatch: one
+   rebuild; printed, its seconds split into extract / free / build /
+   capture / re-insert. (b) The watchdog on: a dispatch hook queues
+   ``torch.cuda._sleep`` on the engine's stream past the deadline (floor
+   1 s after a warm-up), a real device stall inside the drain's
+   ``event.synchronize()``; a thread reads ``last_dispatch_ok_age_s``
+   past the deadline while the call is in flight, then
+   ``HungDispatchError`` costs one rebuild; printed, the trip's latency
+   past the deadline. (c) A first out-of-memory error on a decode
+   dispatch is absorbed by the ladder (``shrink_runahead``), no rebuild.
+   (d) ``logit_guard=on``: the tokens of guard off; the captured decode
+   step's host span and device time with the guard and without; a
+   transient NaN flip of the logit projection costs one rebuild, a
+   sticky one quarantines one job as ``numerical_fault``. (e)
+   ``audit_weights`` over the whole tree twice (both clean, timed), a
+   finite weight flip named by the next, the canary clean and then
+   failing after a NaN flip; one ``kv_spot_check`` mid-serve on the prefix
+   path (v3, chunks of 256: K3 + K4). ``--phases build,serve,faults``
+   runs phase 3 and this phase alone.
+
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing any
@@ -338,7 +368,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
 ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
-              "fused", "snapshot", "prefix_kv", "failure_policy", "pipeline", "peers", "gateway")
+              "fused", "snapshot", "prefix_kv", "failure_policy", "pipeline", "peers", "gateway",
+              "faults")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -2235,7 +2266,8 @@ def phase_checkpoint(smi: str, serve_tokens: dict) -> int:
     loader's block quantization, against the same applied to whole
     tensors), and phase 3's jobs served from the loaded tree under
     ``LLMQ_DECODE_KERNEL=v2``: K5 on the tensor-core route, tokens equal
-    to the first 32 of phase 3's. Returns K5's launches."""
+    to the first 32 of phase 3's; a bf16 load with the load ledger timed
+    beside the plain one. Returns K5's launches."""
     import tempfile
 
     from llmq_tpu_torch.cli.worker import engine_config
@@ -2277,7 +2309,17 @@ def phase_checkpoint(smi: str, serve_tokens: dict) -> int:
         rec.update(load_bf16_s=load_s, load_bf16_gb_s=nbytes / 1e9 / load_s,
                    load_bf16_host_rss_growth_gb=rss.growth_gb, bf16_leaves=len(want),
                    bf16_bit_exact=not bad)
-        del params, want
+        # The load ledger (a worker's checkpoint load keeps one): each block
+        # copied back to the host and hashed.
+        ledger = {}
+        t0 = time.perf_counter()
+        again = load_checkpoint(ckpt, cfg, dtype=torch.bfloat16, device="cuda",
+                                checksum_ledger=ledger)
+        torch.cuda.synchronize()
+        rec.update(load_bf16_ledger_s=time.perf_counter() - t0, ledger_entries=len(ledger))
+        if len(ledger) != len(want):
+            problems.append(f"the load ledger has {len(ledger)} entries for {len(want)} leaves")
+        del params, want, again
         for mode in ("int8", "int4"):
             with _RssPeak() as rss:
                 t0 = time.perf_counter()
@@ -4894,6 +4936,358 @@ def phase_gateway(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
     return launches
 
 
+# --- phase 17: the fault planes ---------------------------------------------
+
+FAULT_GEN = 32  # tokens a job in phase 17
+
+
+async def _take_queue(url: str, name: str) -> list:
+    """``(job id, headers)`` of each message on ``name``, acked."""
+    from llmq_tpu_torch.broker.base import make_broker
+
+    broker = make_broker(url)
+    await broker.connect()
+    out = []
+    while (msg := await broker.get(name)) is not None:
+        out.append((json.loads(msg.body)["id"], dict(msg.headers or {})))
+        await msg.ack()
+    await broker.close()
+    return out
+
+
+def _fault_leg(label: str, serve_tokens: dict, solo_tokens: dict, *, leg_env=None, arm=None,
+               n_jobs: int = 16, config=None, rates: bool = False,
+               faulted_replays: int = 0) -> dict:
+    """One leg of phase 17: a fresh qwen2.5-3b engine (``build_engine``,
+    phase 3's seed), ``arm(engine)`` (its faults and probes; returns a
+    dict of what it saw) and a ``TorchWorker`` over ``memory://`` until
+    ``n_jobs`` of phase 3's jobs settled, the kernel launches counted from
+    just before the worker's run to just after; the engine is freed after.
+    The variables ``leg_env`` hold through the leg, its rebuilds too.
+    ``faulted_replays``: decode dispatches of the last engine whose graph
+    replayed and which then faulted (the engine counts no dispatch that
+    raised, as the reference counts none)."""
+    from llmq_tpu_torch.cli.worker import build_engine
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.workers.torch_worker import TorchWorker
+
+    queue, url = "smoke-faults", f"memory://smoke-faults-{label}"
+    jobs = _default_jobs(16, FAULT_GEN)[:n_jobs]
+    asyncio.run(_submit(url, queue, jobs))
+    with env(LLMQ_DECODE_KERNEL="v1", **(leg_env or {})):
+        t0 = time.perf_counter()
+        engine = build_engine("preset://qwen2.5-3b", device="cuda", dtype="bfloat16",
+                              max_num_seqs=16, max_model_len=512)
+        build_s = time.perf_counter() - t0
+        pages = engine.core.scheduler.config.num_pages
+        seen = arm(engine) if arm is not None else {}
+        worker = TorchWorker(queue, engine, max_jobs=n_jobs, config=Config(
+            broker_url=url, result_digest=True, max_redeliveries=1000, **(config or {})))
+        if seen.get("wrap_rebuild") is not None:
+            engine.rebuild_core = seen.pop("wrap_rebuild")(engine.rebuild_core)
+        reset_launches()
+        t1 = time.perf_counter()
+        try:
+            asyncio.run(worker.run())
+        finally:
+            engine.shutdown()
+            if seen.get("stop") is not None:
+                seen.pop("stop")()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches, routes = read_launches(), read_routes()
+    results = {r["id"]: r for r in asyncio.run(_receive(url, queue))}
+    quarantine = asyncio.run(_take_queue(url, queue + ".quarantine"))
+    core = engine.core
+    stats = core.stats()
+    problems = route_problems(routes, launches)
+    graphs = stats.get("cuda_graphs")
+    if graphs is None or graphs["replays"] != stats["decode_dispatches"] + faulted_replays:
+        problems.append(f"{label}: graph replays {graphs and graphs['replays']} != "
+                        f"{stats['decode_dispatches']} decode-type dispatches + "
+                        f"{faulted_replays} faulted")
+    if launches["paged_decode"] <= 0 or launches["flash_prefill"] <= 0:
+        problems.append(f"{label}: a kernel did not launch on the main path: {launches}")
+    off_path = {k: n for k, n in launches.items() if k not in ("paged_decode", "flash_prefill")}
+    if any(off_path.values()):
+        problems.append(f"{label}: kernels off the default path launched: {off_path}")
+    if core.scheduler.config.num_pages != pages:
+        problems.append(f"{label}: the rebuilt engine has {core.scheduler.config.num_pages} "
+                        f"pages, the first {pages}")
+    shapes, parted = {}, {}
+    for rid, r in results.items():
+        ids = r.get("token_ids") or []
+        shape = _served_as(ids, rid, FAULT_GEN, serve_tokens, solo_tokens)
+        shapes[shape or "parted"] = shapes.get(shape or "parted", 0) + 1
+        if shape is None:
+            parted[rid] = ids
+    parting = {}
+    if parted:
+        parting = _parting_witness(core, [j for j in jobs if j.id in parted], parted,
+                                   {rid: serve_tokens[rid][:FAULT_GEN] for rid in parted})
+        problems += _near_tie_problems(label, parting)
+    rates_rec = captured_rates(core, S=16, ctx=330) if rates else {}
+    rec = dict(label=label, build_s=build_s, wall_s=wall, num_pages=pages,
+               results=len(results), result_shapes=shapes,
+               parting_positions={rid: w["position"] for rid, w in parting.items()},
+               quarantine=[(rid, h.get("x-failure-reason")) for rid, h in quarantine],
+               engine_rebuilds=engine.engine_rebuilds,
+               last_fault_reason=engine.last_fault_reason, last_rebuild=engine.last_rebuild,
+               capture_s=(stats.get("cuda_graphs") or {}).get("capture_s"),
+               watchdog_trips=engine.watchdog_trips, worker_error=repr(worker.error),
+               jobs_quarantined=worker.jobs_quarantined, launches=launches, routes=routes,
+               stats={k: stats.get(k) for k in ("hbm_oom_events", "oom_degradations",
+                                                 "guard_trips", "integrity", "decode_steps",
+                                                 "prefill_dispatches")},
+               **rates_rec, **{k: v for k, v in seen.items() if not callable(v)})
+    if worker.error is not None:
+        problems.append(f"{label}: the worker stopped: {worker.error!r}")
+    rec["problems"] = problems
+    core.release()
+    del engine, core, worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _sleep_cycles_per_s() -> float:
+    """``torch.cuda._sleep`` cycles a second on this card, timed by events."""
+    torch.cuda._sleep(1000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    return 100_000_000 / (start.elapsed_time(end) / 1e3)
+
+
+def _arm_stall(engine) -> dict:
+    """Phase 17 (b): warm the engine (its decode graph captured under the
+    30 s floor), lower the floor to 1 s, and queue a device stall past the
+    deadline behind the 10th decode dispatch of the serve; a thread reads
+    the watchdog's ``last_ok_age_s`` / ``wedged_kind`` meanwhile."""
+    wd = engine.core.watchdog
+    engine.generate_sync(rid="warm", prompt="warm up", params=_greedy(8), timeout=300)
+    wd.min_s = 1.0
+    deadline = wd.deadline_for("decode_block")
+    stall_s = max(3.0, deadline + 2.0)
+    cycles = int(stall_s * _sleep_cycles_per_s())
+    seen = dict(deadline_s=deadline, stall_s=stall_s, stall_cycles=cycles, age_max_wedged_s=0.0)
+    trips, state, done = [], {"n": 0, "t": None}, threading.Event()
+    wd._on_trip = lambda kind, elapsed, dl: trips.append((time.monotonic(), kind, elapsed, dl))
+
+    def hook(kind: str) -> None:
+        if kind != "decode_block" or state["t"] is not None:
+            return
+        state["n"] += 1
+        if state["n"] >= 10:
+            state["t"] = time.monotonic()
+            torch.cuda._sleep(cycles)
+
+    def poll() -> None:
+        while not done.wait(0.01):
+            if wd.wedged_kind() is not None:
+                seen["age_max_wedged_s"] = max(seen["age_max_wedged_s"], wd.last_ok_age_s())
+
+    engine.core.on_dispatch = hook
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+
+    def stop() -> None:
+        done.set()
+        poller.join(5)
+        if trips:
+            t_trip, kind, elapsed, dl = trips[0]
+            seen.update(trip_kind=kind, trip_elapsed_s=elapsed, trip_past_deadline_s=elapsed - dl,
+                        stall_to_trip_s=t_trip - state["t"] if state["t"] else None)
+        seen["trips_seen"] = len(trips)
+
+    seen["stop"] = stop
+    return seen
+
+
+def _faults_integrity(smi: str) -> tuple:
+    """Phase 17 (e): the weight audit, the canary, and one KV spot check on
+    the prefix path. Returns (record, K3 / K4 launches)."""
+    from llmq_tpu_torch.broker.chaos import BitFlipInjector
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    cfg = get_preset("qwen2.5-3b")
+    problems, rec = [], {}
+
+    def params():
+        return init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+                           device=torch.device("cuda"))
+
+    with env(LLMQ_WEIGHT_AUDIT_EVERY="3600", LLMQ_CANARY_EVERY="3600"):
+        t0 = time.perf_counter()
+        core = _snapshot_engine(params(), cfg)
+        rec["build_with_baseline_and_golden_s"] = time.perf_counter() - t0
+    n_leaves = len(core._weight_baseline)
+    tree_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(core.params))
+    audits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        audits.append((core.audit_weights(), (time.perf_counter() - t) * 1e3))
+    if any(bad for bad, _ in audits):
+        problems.append(f"audit of intact weights named {audits}")
+    t = time.perf_counter()
+    canary_ok = core.run_canary()
+    canary_ms = (time.perf_counter() - t) * 1e3
+    if not canary_ok:
+        problems.append("the canary failed on intact weights")
+    flip = BitFlipInjector("weight", mode="flip", seed=8, after_range=(1, 1)).bind(core)
+    flip("decode_block")
+    named = core.audit_weights()
+    if named != flip.corrupted:
+        problems.append(f"audit after a flip of {flip.corrupted} named {named}")
+    nan = BitFlipInjector("logit", mode="nan", seed=9, after_range=(1, 1)).bind(core)
+    failed_canary = not core.run_canary()
+    if not failed_canary or nan.fired != 1:
+        problems.append(f"the canary passed after a NaN flip ({nan.corrupted})")
+    if core.integrity_status() != "suspect":
+        problems.append(f"integrity_status {core.integrity_status()} after the flips")
+    rec.update(leaves=n_leaves, tree_bytes=tree_bytes,
+               audit_ms=[ms for _, ms in audits], audit_gb_s=[tree_bytes / ms / 1e6
+                                                              for _, ms in audits],
+               canary_tokens=len(core._canary_golden), canary_ms=canary_ms,
+               flipped=flip.corrupted, audit_named=named, canary_failed_after_nan=failed_canary,
+               integrity=core.integrity_status())
+    core.release()
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One spot check mid-serve on the prefix path (K3 + K4).
+    pcore = _prefix_kv_engine(params(), cfg)
+    reset_launches()
+    for j in _prefix_jobs(4, 16):
+        pcore.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(16))
+    outs: dict = {}
+    while pcore.has_work and not any(s.prefilled for s in pcore.scheduler.running.values()):
+        outs.update({o.rid: o for o in pcore.step()})
+    pcore.step()
+    t = time.perf_counter()
+    spots = pcore.kv_spot_check()
+    spot_ms = (time.perf_counter() - t) * 1e3
+    _step_to_end(pcore, outs)
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), read_routes()
+    if spots or pcore.kv_spot_checks != 1:
+        problems.append(f"kv spot check: {spots} ({pcore.kv_spot_checks} checks)")
+    if launches["paged_prefill"] <= 0 or launches["paged_decode_v3"] <= 0:
+        problems.append(f"prefix path: K3 / K4 did not launch: {launches}")
+    problems += route_problems(routes, launches)
+    rec.update(kv_spot_ms=spot_ms, kv_spot_mismatches=spots, prefix_results=len(outs),
+               prefix_launches=launches)
+    pcore.release()
+    del pcore
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["problems"] = problems
+    return rec, {k: launches[k] for k in ("paged_prefill", "paged_decode_v3")}
+
+
+def phase_faults(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
+    """Phase 17: the fault planes (M12) at full width; returns each
+    kernel's launches summed over the legs."""
+    from llmq_tpu_torch.broker.chaos import BitFlipInjector, DeviceFaultInjector
+
+    t_phase = time.perf_counter()
+    legs, problems = {}, []
+
+    def inject(make):
+        def arm(engine):
+            engine.core.on_dispatch = make()
+            return {}
+        return arm
+
+    # (a) a CUDA error on a decode dispatch
+    legs["a"] = rec = _fault_leg("a_cuda_error", serve_tokens, solo_tokens, rates=True, arm=inject(
+        lambda: DeviceFaultInjector("decode", "xla_error", seed=22, after_range=(8, 16))))
+    if (rec["engine_rebuilds"], rec["last_fault_reason"]) != (1, "xla_runtime_error"):
+        problems.append(f"(a) {rec['engine_rebuilds']} rebuild(s) for {rec['last_fault_reason']}")
+    # (b) a real device stall under the watchdog
+    legs["b"] = rec = _fault_leg("b_device_stall", serve_tokens, solo_tokens, arm=_arm_stall,
+                                 leg_env=dict(LLMQ_WATCHDOG_MULT="2", LLMQ_WATCHDOG_MIN_S="30"))
+    if (rec["engine_rebuilds"], rec["last_fault_reason"], rec["watchdog_trips"]) != \
+            (1, "hung_dispatch", 1):
+        problems.append(f"(b) rebuilds {rec['engine_rebuilds']}, reason "
+                        f"{rec['last_fault_reason']}, trips {rec['watchdog_trips']}")
+    if not rec["age_max_wedged_s"] > rec["deadline_s"]:
+        problems.append(f"(b) last_dispatch_ok_age_s read {rec['age_max_wedged_s']} s while "
+                        f"wedged, the deadline {rec['deadline_s']} s")
+    # (c) a first out-of-memory error: the ladder, no rebuild
+    legs["c"] = rec = _fault_leg("c_oom_ladder", serve_tokens, solo_tokens, faulted_replays=1,
+                                 arm=inject(lambda: DeviceFaultInjector(
+                                     "decode", "oom", seed=31, after_range=(8, 16))))
+    if rec["engine_rebuilds"] or rec["stats"]["oom_degradations"] != ["shrink_runahead"]:
+        problems.append(f"(c) rebuilds {rec['engine_rebuilds']}, ladder "
+                        f"{rec['stats']['oom_degradations']}")
+    # (d) the guard: clean, a transient NaN flip, a sticky one
+    guard = dict(LLMQ_LOGIT_GUARD="on")
+    legs["d_clean"] = rec = _fault_leg("d_guard_clean", serve_tokens, solo_tokens, leg_env=guard,
+                                       rates=True)
+    if rec["engine_rebuilds"] or rec["stats"]["integrity"] != "ok":
+        problems.append(f"(d) guard on, no fault: {rec['engine_rebuilds']} rebuild(s), "
+                        f"integrity {rec['stats']['integrity']}")
+
+    def transient(engine):
+        BitFlipInjector("logit", mode="nan", seed=41, after_range=(8, 16)).bind(engine.core)
+        return {}
+
+    legs["d_transient"] = rec = _fault_leg("d_nan_transient", serve_tokens, solo_tokens,
+                                           leg_env=guard, arm=transient)
+    if (rec["engine_rebuilds"], rec["last_fault_reason"]) != (1, "numerical_fault"):
+        problems.append(f"(d) transient flip: {rec['engine_rebuilds']} rebuild(s), "
+                        f"{rec['last_fault_reason']}")
+
+    def sticky(engine):
+        flip = BitFlipInjector("logit", mode="nan", seed=43, after_range=(2, 4), sticky=True)
+        flip.bind(engine.core)
+
+        def wrap(rebuild):
+            def rebuild_with_flip():
+                core = rebuild()
+                flip.bind(core)  # re-armed: the rebuilt core corrupts again
+                return core
+            return rebuild_with_flip
+        return {"wrap_rebuild": wrap}
+
+    legs["d_sticky"] = rec = _fault_leg("d_nan_sticky", serve_tokens, solo_tokens, leg_env=guard,
+                                        arm=sticky, n_jobs=1, config=dict(quarantine_attempts=1))
+    if rec["quarantine"] != [("job-00", "numerical_fault")] or rec["results"]:
+        problems.append(f"(d) sticky flip: quarantine {rec['quarantine']}, results "
+                        f"{rec['results']}")
+    for key in ("a", "b", "c", "d_clean", "d_transient"):
+        if legs[key]["results"] != 16 or legs[key]["quarantine"]:
+            problems.append(f"({key}) {legs[key]['results']} results, quarantine "
+                            f"{legs[key]['quarantine']}")
+    for leg in legs.values():
+        problems += leg["problems"]
+    guard_cost = dict(
+        captured_step_ms_guard=legs["d_clean"].get("captured_step_ms"),
+        captured_step_device_ms_guard=legs["d_clean"].get("captured_step_device_ms"),
+        captured_step_ms_plain=legs["a"].get("captured_step_ms"),
+        captured_step_device_ms_plain=legs["a"].get("captured_step_device_ms"))
+    integ, prefix_launches = _faults_integrity(smi)
+    problems += integ["problems"]
+    launches = {name: sum(leg["launches"][name] for leg in legs.values())
+                for name in ("paged_decode", "flash_prefill")}
+    launches.update(prefix_launches)
+    emit(dict(phase="faults", legs=legs, guard_cost=guard_cost, integrity=integ,
+              launches=launches, seconds=time.perf_counter() - t_phase,
+              rebuild_timing="extract_s / free_s / build_s / reinsert_s: host seconds of the "
+                             "engine's rebuild (engine.last_rebuild); capture_s: the rebuilt "
+                             "engine's warm-ups and captures, host seconds",
+              card=smi, problems=problems))
+    if problems:
+        raise SystemExit("faults phase failed: " + "; ".join(problems[:5]))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -5006,6 +5400,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         gateway_launches = phase_gateway(smi, serve_tokens, solo_tokens)
+    faults_launches = {}
+    if "faults" in phases:
+        if serve_tokens is None:  # `--phases faults` alone: phase 3 first, for its tokens
+            _, serve_tokens, solo_tokens = phase_serve(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        faults_launches = phase_faults(smi, serve_tokens, solo_tokens)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -5057,6 +5458,8 @@ def main() -> int:
             entry["peers_launches"] = peers_launches[name]
         if name in gateway_launches:  # phase 16: the worker behind the gateway
             entry["gateway_launches"] = gateway_launches[name]
+        if name in faults_launches:  # phase 17: K1, K2 over the legs; K3, K4 in (e)
+            entry["faults_launches"] = faults_launches[name]
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",

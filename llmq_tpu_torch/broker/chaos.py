@@ -29,9 +29,15 @@ Queue declarations and stats are exempt from kills so a reconnect's own
 topology replay cannot re-kill the session it is rebuilding (that would
 livelock the re-dial loop, which is not a fault real brokers exhibit).
 
-The reference module's engine-side injectors (``WorkerKillSwitch``,
-``DeviceFaultInjector``, ``BitFlipInjector``) hook the engine's dispatch,
-not the broker; they come with the fault planes (ROADMAP.md queue 1, M12).
+The engine-side injectors (``PHASE_KINDS``, ``WorkerKillSwitch``,
+``FAULT_MODES``, ``DeviceFaultInjector``, ``BitFlipInjector``: the
+reference's :67-376) hook ``EngineCore.on_dispatch``, not the broker, and
+draw their ``after`` counts from the same seeds as the reference's. Two
+differences come from the card: ``DeviceFaultInjector`` raises the card's
+errors (torch's "CUDA error: ..." and "CUDA out of memory" texts, which
+``core/faults.py`` classifies as the reference's XLA texts are), and
+``BitFlipInjector`` corrupts the weight or pool page *in place*, since a
+captured CUDA graph reads the addresses it was captured on.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import asyncio
 import logging
 import os
 import random
+import time
 from typing import Any, Dict, Optional
 from urllib.parse import parse_qsl
 
@@ -66,6 +73,207 @@ def resolve_chaos_seed(seed: Optional[int] = None) -> int:
         except ValueError:
             logger.warning("ignoring non-integer LLMQ_CHAOS_SEED=%r", raw)
     return 0
+
+
+#: Engine dispatch kinds (as reported to ``EngineCore.on_dispatch``) that
+#: count toward each phase. "prefill" includes mixed dispatches: a mixed
+#: step IS the piggybacked prompt's prefill.
+PHASE_KINDS = {
+    "prefill": ("prefill", "mixed"),
+    "decode": ("decode_block",),
+    "verify": ("verify",),
+}
+
+
+class WorkerKillSwitch:
+    """Seeded worker-kill trigger for the crash-resume chaos legs: install
+    as ``engine.on_dispatch``; after a seeded-random number of dispatches
+    of ``phase`` it calls ``on_kill`` once (typically
+    ``worker.request_shutdown``). Deterministic for (phase, seed,
+    after_range)."""
+
+    def __init__(self, phase: str, on_kill, *, seed: Optional[int] = None,
+                 after_range=(1, 5)) -> None:
+        if phase not in PHASE_KINDS:
+            raise ValueError(f"unknown kill phase {phase!r}; one of {sorted(PHASE_KINDS)}")
+        self.phase = phase
+        self.kinds = PHASE_KINDS[phase]
+        self.on_kill = on_kill
+        self.seed = resolve_chaos_seed(seed)
+        self.after = random.Random(self.seed).randint(*after_range)
+        self.matched = 0
+        self.fired = False
+        logger.info("chaos: kill switch armed (phase=%s seed=%d after=%d)", self.phase,
+                    self.seed, self.after)
+
+    def __call__(self, kind: str) -> None:
+        if self.fired or kind not in self.kinds:
+            return
+        self.matched += 1
+        if self.matched >= self.after:
+            self.fired = True
+            logger.info("chaos: worker kill on %s dispatch #%d (phase=%s)", kind, self.matched,
+                        self.phase)
+            self.on_kill()
+
+
+#: What each injectable device-fault mode does when it fires.
+FAULT_MODES = ("hang", "xla_error", "oom")
+
+
+class DeviceFaultInjector:
+    """Seeded device-fault trigger: install as ``engine.on_dispatch`` (it
+    runs on the engine thread, inside the dispatch's watchdog bracket).
+    After a seeded-random number of dispatches of ``phase`` it fires once:
+
+    - ``hang``: sleeps ``hang_s`` on the engine thread; the watchdog (whose
+      deadline must be below ``hang_s``) trips, and the bracket raises
+      ``HungDispatchError`` when the sleep returns;
+    - ``xla_error``: raises a CUDA error (``xla_runtime_error``);
+    - ``oom``: raises a CUDA out-of-memory error (``hbm_oom``), which
+      drives the degradation ladder.
+    """
+
+    def __init__(self, phase: str, mode: str, *, seed: Optional[int] = None,
+                 after_range=(1, 5), hang_s: float = 2.0) -> None:
+        if phase not in PHASE_KINDS:
+            raise ValueError(f"unknown fault phase {phase!r}; one of {sorted(PHASE_KINDS)}")
+        if mode not in FAULT_MODES:
+            raise ValueError(f"unknown fault mode {mode!r}; one of {sorted(FAULT_MODES)}")
+        self.phase = phase
+        self.kinds = PHASE_KINDS[phase]
+        self.mode = mode
+        self.hang_s = hang_s
+        self.seed = resolve_chaos_seed(seed)
+        self.after = random.Random(self.seed).randint(*after_range)
+        self.matched = 0
+        self.fired = False
+        logger.info("chaos: fault injector armed (phase=%s mode=%s seed=%d after=%d)",
+                    self.phase, self.mode, self.seed, self.after)
+
+    def __call__(self, kind: str) -> None:
+        if self.fired or kind not in self.kinds:
+            return
+        self.matched += 1
+        if self.matched < self.after:
+            return
+        self.fired = True
+        logger.info("chaos: injecting %s on %s dispatch #%d (phase=%s)", self.mode, kind,
+                    self.matched, self.phase)
+        if self.mode == "hang":
+            time.sleep(self.hang_s)
+            return  # the watchdog bracket raises HungDispatchError
+        if self.mode == "oom":
+            raise RuntimeError("INJECTED CUDA out of memory. Tried to allocate 2.00 GiB (chaos)")
+        raise RuntimeError("INJECTED CUDA error: unspecified launch failure (chaos)")
+
+
+#: What a BitFlipInjector can corrupt.
+BITFLIP_TARGETS = ("weight", "kv", "logit")
+
+
+class BitFlipInjector:
+    """Seeded silent-data-corruption trigger: nothing raises when it fires.
+
+    Targets: ``weight`` corrupts one element of a seeded-random parameter
+    leaf of two or more dimensions (``leaf`` substring-filters them, by
+    their ``keystr`` names, ``engine/integrity.py::named_leaves``);
+    ``logit`` the same pinned to the logit projection (``lm_head``, else
+    ``embed`` for tied embeddings), so the next dispatch's logits show it;
+    ``kv`` overwrites page ``page`` of the K pool. Modes: ``nan`` plants a
+    NaN (float leaves), ``flip`` a *finite* wrong value (silent to the
+    guard's non-finite lane: the weight audit or the canary must catch
+    it); integer leaves always bit-flip. Each write is in place.
+
+    Attach with :meth:`bind` (sets ``core.on_dispatch``); it fires once
+    after a seeded-random number of dispatches. A ``sticky`` injector
+    re-arms on every bind: bound to each rebuilt core, the corruption
+    recurs (the poison verdict); non-sticky is the transient (the rebuilt
+    core has pristine weights)."""
+
+    def __init__(self, target: str, *, mode: str = "nan", seed: Optional[int] = None,
+                 after_range=(1, 5), sticky: bool = False, leaf: Optional[str] = None,
+                 page: int = 1) -> None:
+        if target not in BITFLIP_TARGETS:
+            raise ValueError(f"unknown bitflip target {target!r}; "
+                             f"one of {sorted(BITFLIP_TARGETS)}")
+        if mode not in ("nan", "flip"):
+            raise ValueError(f"unknown bitflip mode {mode!r}")
+        self.target = target
+        self.mode = mode
+        self.sticky = sticky
+        self.leaf = leaf
+        self.page = page
+        self.seed = resolve_chaos_seed(seed)
+        self._rng = random.Random(self.seed)
+        self.after = self._rng.randint(*after_range)
+        logger.info("chaos: bit-flip injector armed (target=%s mode=%s seed=%d after=%d "
+                    "sticky=%s)", self.target, self.mode, self.seed, self.after, self.sticky)
+        self.matched = 0
+        self.fired = 0
+        self.corrupted: list = []  # one entry a firing
+        self._core = None
+        self._armed = True
+
+    def bind(self, core) -> "BitFlipInjector":
+        """Install on an EngineCore; a sticky injector re-arms."""
+        self._core = core
+        core.on_dispatch = self
+        if self.sticky:
+            self._armed = True
+            self.matched = 0
+        return self
+
+    def __call__(self, kind: str) -> None:
+        if not self._armed or self._core is None:
+            return
+        self.matched += 1
+        if self.matched < self.after:
+            return
+        self._armed = False
+        self.fired += 1
+        logger.info("chaos: bit-flip (%s/%s) on %s dispatch #%d", self.target, self.mode, kind,
+                    self.matched)
+        if self.target == "kv":
+            self._corrupt_kv()
+        else:
+            self._corrupt_param()
+
+    # --- corruption (engine thread, like a real flip) ----------------------
+    def _corrupt_kv(self) -> None:
+        import torch
+
+        pool = self._core.k_pages
+        with torch.no_grad():
+            pool[:, self.page] = float("nan") if self.mode == "nan" else 7.0
+        self.corrupted.append(f"k:page{self.page}")
+
+    def _corrupt_param(self) -> None:
+        import torch
+
+        from llmq_tpu_torch.engine.integrity import named_leaves
+
+        leaves = list(named_leaves(self._core.params))
+        want = self.leaf
+        if want is None and self.target == "logit":
+            want = "lm_head" if any("lm_head" in n for n, _ in leaves) else "embed"
+        cands = sorted(((name, t) for name, t in leaves
+                        if t.dim() >= 2 and (want is None or want in name)),
+                       key=lambda c: c[0])
+        if not cands:
+            raise ValueError(f"no corruptible leaf matches {want!r}")
+        name, t = cands[self._rng.randrange(len(cands))]
+        idx = (0,) * t.dim()
+        with torch.no_grad():
+            if t.is_floating_point():
+                if self.mode == "nan":
+                    t[idx] = float("nan")
+                else:
+                    # A finite wrong value the non-finite lane cannot see.
+                    t[idx] = torch.tensor(-1.0, dtype=t.dtype, device=t.device) - t[idx] * 3
+            else:
+                t[idx] = t[idx] ^ 0x55
+        self.corrupted.append(name)
 
 
 class ChaosBroker(Broker):

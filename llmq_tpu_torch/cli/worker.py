@@ -41,6 +41,7 @@ reference's launchers do.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import sys
 from pathlib import Path
@@ -166,7 +167,10 @@ def build_engine(
     """An engine on ``device`` under :func:`engine_config`, over a
     ``preset://NAME`` model with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` (byte tokenizer), or over the
-    HF checkpoint directory ``model`` (its tokenizer)."""
+    HF checkpoint directory ``model`` (its tokenizer). The engine's
+    ``core_factory(num_pages)`` builds another core the same way, over
+    weights made anew (a worker's fault rebuild); a checkpoint's load ledger
+    is on ``engine.load_checksums``."""
     dev = resolve_device(device)
     if dtype not in _DTYPES:
         raise ValueError(f"dtype={dtype!r} (want one of {sorted(_DTYPES)})")
@@ -182,15 +186,27 @@ def build_engine(
         decode_block=decode_block, spec_tokens=spec_tokens, mixed_step=mixed_step,
     )
     compute, quantize = _DTYPES[dtype]
-    if preset:
-        generator = torch.Generator(device=dev).manual_seed(seed)
-        params = init_params(config, generator, compute, device=dev, quantize=quantize)
-        tokenizer = ByteTokenizer()
-    else:
-        params = load_checkpoint(model, config, dtype=compute, device=dev, quantize=quantize)
-        tokenizer = HFTokenizer(model)
-    core = EngineCore(config, params, tokenizer, engine_config=ecfg, device=dev)
-    return AsyncEngine(core)
+    tokenizer = ByteTokenizer() if preset else HFTokenizer(model)
+    # The checkpoint's load ledger (the integrity plane's provenance record,
+    # as the JAX worker keeps it: tpu_worker.py:380-396).
+    ledger: Optional[dict] = None if preset else {}
+
+    def make_core(num_pages: Optional[int] = None) -> EngineCore:
+        """A core with weights made anew from their source (the seed, or the
+        checkpoint read again): the fault rebuild's trusted copy."""
+        if preset:
+            generator = torch.Generator(device=dev).manual_seed(seed)
+            params = init_params(config, generator, compute, device=dev, quantize=quantize)
+        else:
+            params = load_checkpoint(model, config, dtype=compute, device=dev, quantize=quantize,
+                                     checksum_ledger=ledger)
+        cfg = ecfg if num_pages is None else dataclasses.replace(ecfg, num_pages=num_pages)
+        return EngineCore(config, params, tokenizer, engine_config=cfg, device=dev)
+
+    engine = AsyncEngine(make_core())
+    engine.core_factory = make_core
+    engine.load_checksums = ledger
+    return engine
 
 
 def run_torch_worker(

@@ -76,8 +76,35 @@ never synchronized) and the engine's gauges, all registered in the
 process's metrics registry (``obs/metrics.py``); ``stats()`` carries their
 percentiles (``ttft_*``, ``itl_*``, ``dispatch_ms``, ``queue_wait_*``, the
 interactive ones once an interactive request arrived). The three
-``llmq_integrity_*`` gauges read the fault planes' counters (ROADMAP.md
-queue 1, M12).
+``llmq_integrity_*`` gauges read the fault planes' counters.
+
+Fault planes (M12). ``watchdog_mult`` > 0 starts a
+``engine/watchdog.py::DispatchWatchdog``: every device call is bracketed
+(:meth:`_wd`, at the reference's kinds: ``prefill``, ``mixed``,
+``decode_block`` / ``verify`` and their ``_small``, ``guard``,
+``snapshot_gather``, ``weight_audit``, ``kv_spot``), the fetch bracket
+around the drain's ``event.synchronize()``, where a wedged kernel blocks
+the engine thread. ``logit_guard="on"`` folds
+``ops/dispatch.py::logit_guard_stats`` into every step function, inside
+the captured graphs too (their static outputs, copied home with the
+tokens; thresholds fixed at build, as JAX traces them); the drain raises
+``LogitGuardError`` with the suspects before it appends a token
+(:meth:`_eval_guard`, JAX :2839). ``weight_audit_every`` /
+``canary_every`` record a weight digest and a golden greedy canary at
+build and re-check them between batches (:meth:`maybe_idle_integrity`,
+JAX :4429-4610). ``on_dispatch(kind)`` (JAX :3771) is the injectors'
+hook. For recovery: :meth:`degrade_for_oom` (the OOM ladder),
+:meth:`extract_for_rebuild` (per-row isolated snapshots), and
+:meth:`release`, which frees the graphs, pools and weights so that a
+rebuilt core fits beside nothing. ``AsyncEngine`` classifies a failed
+step (``core/faults.py``) and contains it as JAX :5166-5560 does: the
+ladder for a first OOM, else ``rebuild_core()`` (wired by the worker)
+and every row re-inserted from its snapshot; a numerical fault puts its
+suspects on probation and a re-trip convicts them as poison. Where the
+rebuild itself fails (a CUDA error is sticky: every later call in the
+process fails), the step's futures fail with ``DeviceFaultError`` and
+``error`` is set, which stops the port's worker (ROADMAP.md queue 3); the
+reference keeps consuming there.
 
 Config. The engine honours ``max_num_seqs``, ``max_model_len``,
 ``page_size``, ``num_pages``, ``hbm_utilization``, ``kv_dtype`` (bf16,
@@ -88,19 +115,27 @@ as in JAX), ``admit_max_wait_s``, ``runahead``, ``decode_block``,
 (``LLMQ_MIXED_STEP`` pins over it; it needs ``prefill_chunk_size``),
 ``preempt_mode``, ``priority_classes``, ``priority_preempt`` and
 ``interactive_decode_block`` (each pinned by its ``LLMQ_*`` variable, as
-in JAX :733-774) and ``prefix_host_gb``. Any other field set away from its
-default raises ``NotImplementedError`` naming its ROADMAP.md item.
+in JAX :733-774), ``prefix_host_gb`` and the fault planes' fields
+``watchdog_mult``, ``watchdog_min_s``, ``logit_guard``,
+``guard_logit_max``, ``guard_entropy_min``, ``weight_audit_every`` and
+``canary_every`` (each pinned by its ``LLMQ_*`` variable, JAX :816-890).
+``tp_overlap`` set away from its default raises ``NotImplementedError``
+naming its ROADMAP.md item, and so does ``LLMQ_ACT_STATS`` turned on
+(the reference's activation taps, which need host callbacks from inside
+compiled code).
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import logging
 import os
 import queue
 import threading
 import time
+import traceback
 import weakref
 from collections import deque
 from concurrent.futures import Future
@@ -109,7 +144,15 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from llmq_tpu_torch.core.faults import (
+    FAULT_NUMERICAL,
+    FAULT_OOM,
+    DeviceFaultError,
+    LogitGuardError,
+    classify_failure,
+)
 from llmq_tpu_torch.device import DeviceLike, resolve_device
+from llmq_tpu_torch.engine import integrity as integrity_mod
 from llmq_tpu_torch.engine import sampling as sampling_mod
 from llmq_tpu_torch.engine import prefix_store as prefix_mod
 from llmq_tpu_torch.engine import snapshot as snapshot_mod
@@ -131,15 +174,18 @@ from llmq_tpu_torch.engine.scheduler import (
 )
 from llmq_tpu_torch.engine.snapshot import KVRestore, RequestSnapshot, SnapshotCompatError
 from llmq_tpu_torch.engine.tokenizer import Tokenizer
+from llmq_tpu_torch.engine.watchdog import NO_GUARD, DispatchWatchdog
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.obs.metrics import DEFAULT_BUCKETS, Gauge, Histogram, get_registry, to_ms
-from llmq_tpu_torch.models.transformer import Params, Transformer, make_kv_pages
+from llmq_tpu_torch.models.transformer import Params, Transformer, _unflatten, make_kv_pages
 from llmq_tpu_torch.ops.attention import mixed_query_grid
 from llmq_tpu_torch.ops.dispatch import (
     decode_kernel_plan,
+    logit_guard_stats,
     mixed_kernel_plan,
     verify_kernel_plan,
 )
+from llmq_tpu_torch.obs.trace import emit_trace_event
 from llmq_tpu_torch.utils.host_mem import get_governor
 
 logger = logging.getLogger(__name__)
@@ -252,20 +298,31 @@ class EngineConfig:
         self.prefix_host_gb = float(self.prefix_host_gb)
         if self.prefix_host_gb < 0:
             raise ValueError(f"prefix_host_gb={self.prefix_host_gb} (want >= 0)")
+        # The fault planes' fields (JAX :388-421).
+        for name in ("watchdog_mult", "guard_logit_max", "guard_entropy_min",
+                     "weight_audit_every", "canary_every"):
+            setattr(self, name, float(getattr(self, name)))
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name}={getattr(self, name)} (want >= 0)")
+        self.watchdog_min_s = float(self.watchdog_min_s)
+        if self.watchdog_min_s <= 0:
+            raise ValueError(f"watchdog_min_s={self.watchdog_min_s} (want > 0)")
+        self.logit_guard = str(self.logit_guard).lower()
+        if self.logit_guard not in ("off", "on"):
+            raise ValueError(f"logit_guard={self.logit_guard!r} (want off|on)")
 
 
 #: Fields of EngineConfig this engine does not honour yet → the ROADMAP.md
 #: queue 1 item that brings them.
 _UNPORTED_FIELDS = {
-    "watchdog_mult": "M12",
-    "watchdog_min_s": "M12",
-    "logit_guard": "M12",
-    "guard_logit_max": "M12",
-    "guard_entropy_min": "M12",
-    "weight_audit_every": "M12",
-    "canary_every": "M12",
     "tp_overlap": "M13",
 }
+
+#: Hard ceiling on one in-process fault recovery (extract, free, rebuild,
+#: re-insert; JAX :4896): past it the process is wedged beyond in-process
+#: recovery and exits, so the janitor reclaims its queue and its jobs
+#: requeue.
+REBUILD_HARD_EXIT_S = 180.0
 
 
 def _env_flag(name: str, default: bool) -> bool:
@@ -298,7 +355,24 @@ def priority_settings(cfg: EngineConfig) -> Tuple[bool, bool, int]:
     return classes, preempt, ik if classes else 0
 
 
+def _env_number(name: str, default: float) -> float:
+    """A numeric variable that pins over its config field (JAX :816-890)."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not a number") from None
+
+
 def _check_ported(cfg: EngineConfig) -> None:
+    act = os.environ.get("LLMQ_ACT_STATS", "").lower()
+    if act in ("1", "true", "yes", "on"):
+        raise NotImplementedError(
+            f"LLMQ_ACT_STATS={act!r} (the activation-stat taps) is not ported yet "
+            "(ROADMAP.md queue 1, M12b)"
+        )
     defaults = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
     for name, item in _UNPORTED_FIELDS.items():
         value = getattr(cfg, name)
@@ -326,13 +400,18 @@ def _prefill_buckets(cfg: EngineConfig) -> List[int]:
     return sorted(set(buckets))
 
 
-# Pipeline entry: (dispatch index, kind, host token buffers (a tensor, or a
-# tuple for verify), copy-done event or None, [(row, Sequence, epoch), ...],
-# per-row first valid iteration of a mixed block or None).
-_Pending = Tuple[int, str, Any, Optional[Any], List[Tuple[int, Sequence, int]],
-                 Optional[np.ndarray]]
+# Pipeline entry: (dispatch index, kind, host token buffers (one tensor, two
+# for verify, none for a chunk that only carries its guard fold), copy-done
+# event or None, [(row, Sequence, epoch), ...], per-row first valid
+# iteration of a mixed block or None, host guard fold (stats, bad) or None).
+_Pending = Tuple[int, str, Tuple[Any, ...], Optional[Any], List[Tuple[int, Sequence, int]],
+                 Optional[np.ndarray], Optional[Tuple[Any, Any]]]
 # Kinds that run decode iterations (each counts in the page lookahead).
 _DECODE_KINDS = ("decode", "verify", "mixed")
+# The watchdog kind of the fetch that waits for a dispatch's tokens (JAX
+# :2763-2814).
+_FETCH_KIND = {"decode": "decode_block", "verify": "verify", "mixed": "mixed",
+               "prefill": "prefill"}
 
 # Device decode state, leaf order as in JAX (:1300); speculation appends
 # "history".
@@ -457,7 +536,26 @@ class EngineCore:
         (self.priority_classes, self.priority_preempt,
          self.interactive_decode_block) = priority_settings(self.cfg)
         self._spec = self.cfg.spec_tokens > 0
+        # The fault planes: each variable pins over its field (JAX
+        # :816-890). The guard and its thresholds are fixed here, as JAX
+        # traces them into its programs.
+        self.watchdog_mult = _env_number("LLMQ_WATCHDOG_MULT", self.cfg.watchdog_mult)
+        self.watchdog_min_s = _env_number("LLMQ_WATCHDOG_MIN_S", self.cfg.watchdog_min_s)
+        self.watchdog: Optional[DispatchWatchdog] = None
+        guard = os.environ.get("LLMQ_LOGIT_GUARD", "").lower()
+        self.logit_guard = guard if guard in ("on", "off") else self.cfg.logit_guard
+        self._guard = self.logit_guard == "on"
+        self.guard_logit_max = _env_number("LLMQ_GUARD_LOGIT_MAX", self.cfg.guard_logit_max)
+        self.guard_entropy_min = _env_number("LLMQ_GUARD_ENTROPY_MIN",
+                                             self.cfg.guard_entropy_min)
+        self.weight_audit_every = _env_number("LLMQ_WEIGHT_AUDIT_EVERY",
+                                              self.cfg.weight_audit_every)
+        self.canary_every = _env_number("LLMQ_CANARY_EVERY", self.cfg.canary_every)
+        # Called on the engine thread as (kind) after every dispatch, inside
+        # its watchdog bracket (the chaos injectors' hook, JAX :3771).
+        self.on_dispatch: Optional[Any] = None
         self.model = Transformer(model_config, params).to(self.device)
+        self._decode_kernel = self.model.decode_kernel
         self._vocab = model_config.vocab_size
 
         num_pages = self.cfg.num_pages or self._auto_num_pages()
@@ -589,6 +687,24 @@ class EngineCore:
         # Finished cleanly ("stop" / "length") and tokens, by class.
         self.class_finished = {"interactive": 0, "batch": 0}
         self.class_tokens = {"interactive": 0, "batch": 0}
+        self.hbm_oom_events = 0  # allocation faults the ladder absorbed
+        # The integrity plane's counters (their stats keys appear once the
+        # knobs are on or the counters moved).
+        self.guard_trips = 0  # dispatches whose guard fired
+        self.weight_audits = 0
+        self.weight_audit_mismatches = 0  # leaves whose digest changed
+        self.kv_spot_checks = 0
+        self.canary_runs = 0
+        self.canary_failures = 0  # replays that were not bit-exact
+        self._last_audit_mismatch: List[str] = []  # replaced by each audit
+        self._weight_baseline: Optional[Dict[str, Tuple[int, int]]] = None
+        self._canary_golden: Optional[List[int]] = None
+        self._next_weight_audit = 0.0
+        self._next_canary = 0.0
+        # The OOM ladder's position (0 -> 3, never reset) and the rungs
+        # taken, in order (at most three entries).
+        self._oom_rung = 0
+        self._oom_ladder_log: List[str] = []
         self._started_at = time.monotonic()
         self._register_metrics()
 
@@ -607,6 +723,49 @@ class EngineCore:
                 self._gov_names.append(f"prefix:{tag}")
 
         self._resync()
+
+        # The watchdog reads the per-kind histograms, so it starts last
+        # (JAX :1218-1233); the baselines follow, on a working engine.
+        if self.watchdog_mult > 0:
+            self.watchdog = DispatchWatchdog(mult=self.watchdog_mult,
+                                             min_s=self.watchdog_min_s,
+                                             percentile_fn=self._dispatch_p99)
+            logger.info("dispatch watchdog: p99 x %.1f, floor %.1fs", self.watchdog_mult,
+                        self.watchdog_min_s)
+        if self.weight_audit_every > 0:
+            with self._wd("weight_audit"):
+                self._weight_baseline = integrity_mod.digest_params(self.params)
+            self._next_weight_audit = time.monotonic() + self.weight_audit_every
+            logger.info("weight audit: %d leaves digested, sweeping every %.1fs",
+                        len(self._weight_baseline), self.weight_audit_every)
+        if self.canary_every > 0:
+            self._canary_golden = self._generate_canary()
+            self._next_canary = time.monotonic() + self.canary_every
+            logger.info("canary self-test: %d golden tokens, replaying every %.1fs",
+                        len(self._canary_golden), self.canary_every)
+
+    @property
+    def params(self) -> Params:
+        """The parameter tree (the JAX layout: ``embed``, ``final_norm``,
+        ``lm_head``, ``layers``), over the model's own tensors."""
+        return {**_unflatten(self.model.top), "layers": _unflatten(self.model.layers)}
+
+    def _dispatch_p99(self, kind: str) -> Optional[float]:
+        """The watchdog's deadline source: the p99 host span of one dispatch
+        kind, or None (the floor) before any landed."""
+        hist = self._dispatch_hists.get(kind)
+        return None if hist is None else hist.percentile(0.99)
+
+    def _wd(self, kind: str):
+        """The watchdog bracket of one device call; the shared no-op
+        context with the watchdog off (the default)."""
+        wd = self.watchdog
+        return NO_GUARD if wd is None else wd.guard(kind)
+
+    def stop_watchdog(self) -> None:
+        """Stop the monitor thread (teardown, fault rebuild)."""
+        if self.watchdog is not None:
+            self.watchdog.stop()
 
     def _register_metrics(self) -> None:
         """The engine's histograms and gauges (JAX :1060-1212): host-side
@@ -673,6 +832,16 @@ class EngineCore:
             gauges.append(("llmq_class_finished",
                            f"{cls.capitalize()}-class requests finished cleanly (goodput)",
                            {"class": cls}, lambda e, c=cls: e.class_finished[c]))
+        gauges += [
+            ("llmq_integrity_guard_trips", "Dispatches whose on-device logit guard fired", None,
+             lambda e: e.guard_trips),
+            ("llmq_integrity_weight_audit_mismatches",
+             "Parameter leaves whose HBM digest diverged from the build-time baseline", None,
+             lambda e: e.weight_audit_mismatches),
+            ("llmq_integrity_canary_failures",
+             "Golden-prompt canary replays that were not bit-exact", None,
+             lambda e: e.canary_failures),
+        ]
         reg = get_registry()
         for metric in (self.ttft_hist, self.itl_hist, self.ttft_hist_interactive,
                        self.itl_hist_interactive, self.scheduler.queue_wait_hist,
@@ -696,6 +865,8 @@ class EngineCore:
             get_registry().register(hist)
         ring.append(seconds)
         self._dispatch_hists[kind].observe(seconds)
+        if self.on_dispatch is not None:
+            self.on_dispatch(kind)
 
     def _auto_num_pages(self) -> int:
         """Size the KV pool from free device memory (vLLM
@@ -904,26 +1075,30 @@ class EngineCore:
 
     def _push_pending(
         self, kind: str, out: Any, snapshot: List[Tuple[int, Sequence]],
-        starts: Optional[np.ndarray] = None,
+        starts: Optional[np.ndarray] = None, guard: Optional[Tuple[Any, Any]] = None,
     ) -> None:
-        """Start the device→host copy of a dispatch's tokens (a tensor, or
-        a tuple of them) and queue it."""
-        outs = out if isinstance(out, tuple) else (out,)
-        if outs[0].is_cuda:
-            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs)
-            for h, t in zip(host, outs):
+        """Start the device→host copy of a dispatch's tokens (a tensor, a
+        tuple of them, or None) and of its guard fold, and queue it (JAX
+        :3171)."""
+        outs = () if out is None else (out if isinstance(out, tuple) else (out,))
+        tensors = outs + (tuple(guard) if guard is not None else ())
+        if tensors[0].is_cuda:
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors)
+            for h, t in zip(host, tensors):
                 h.copy_(t, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         else:
-            host, event = outs, None
+            host, event = tensors, None
         self._dispatch_idx += 1
         if kind in _DECODE_KINDS:
             self._pending_decodes += 1
         # Epoch stamps: a row snapshotted before a preemption must not be
         # appended after the sequence is re-admitted.
         stamped = [(row, seq, seq.epoch) for row, seq in snapshot]
-        self._pending.append((self._dispatch_idx, kind, host, event, stamped, starts))
+        n = len(outs)
+        self._pending.append((self._dispatch_idx, kind, host[:n], event, stamped, starts,
+                              host[n:] if guard is not None else None))
 
     def _live(self, seq: Sequence, epoch: int) -> bool:
         """Still running in the epoch it was snapshotted in: a row that
@@ -934,11 +1109,21 @@ class EngineCore:
                 and seq.epoch == epoch)
 
     def _process_oldest(self, finished: List[RequestOutput]) -> None:
-        idx, kind, host, event, snapshot, starts = self._pending.popleft()
+        idx, kind, host, event, snapshot, starts, guard = self._pending.popleft()
         if kind in _DECODE_KINDS:
             self._pending_decodes -= 1
         if event is not None:
-            event.synchronize()
+            # Where a wedged kernel blocks the engine thread (the GIL is
+            # released meanwhile, so the watchdog's monitor runs).
+            with self._wd(_FETCH_KIND[kind]):
+                event.synchronize()
+        if guard is not None:
+            # The verdict before any of this dispatch's tokens reaches a
+            # sequence: a tripped dispatch's outputs are suspect.
+            self._eval_guard(kind, guard, snapshot)
+        if not host:  # a chunk that carried only its guard fold
+            self._processed_idx = idx
+            return
         arrays = [h.numpy() for h in host]
         if kind == "verify":
             # ([K, S, Q] candidates, [K, S] emitted counts): per iteration
@@ -970,6 +1155,37 @@ class EngineCore:
                         self._append_and_check(seq, int(k_tokens[row]), finished)
         self._processed_idx = idx
 
+    def _eval_guard(self, kind: str, guard: Tuple[Any, Any],
+                    snapshot: List[Tuple[int, Sequence, int]]) -> None:
+        """Raise :class:`LogitGuardError` with the suspects if one
+        dispatch's guard fold tripped (JAX :2839). A block's per-iteration
+        folds ([K, 3], [K, rows]) are combined on the host."""
+        with self._wd("guard"):
+            stats = guard[0].numpy()
+            bad = guard[1].numpy()
+        if stats.ndim == 2:
+            stats = np.array([stats[:, 0].sum(), stats[:, 1].max(), stats[:, 2].min()])
+        if bad.ndim == 2:
+            bad = bad.any(axis=0)
+        if not bad.any():
+            return
+        checks = []
+        if stats[0] > 0:
+            checks.append("nonfinite")
+        if self.guard_logit_max > 0 and stats[1] > self.guard_logit_max:
+            checks.append("logit_max")
+        if self.guard_entropy_min > 0 and np.isfinite(stats[2]) and \
+                stats[2] < self.guard_entropy_min:
+            checks.append("entropy_collapse")
+        suspects = tuple(seq.rid for row, seq, _ in snapshot if row < bad.shape[0] and bad[row])
+        self.guard_trips += 1
+        raise LogitGuardError(
+            check="+".join(checks) or "guard",
+            detail=(f"nonfinite={stats[0]:.0f} max|logit|={stats[1]:.4g} "
+                    f"min_entropy={stats[2]:.4g} rows={int(bad.sum())}"),
+            suspects=suspects, kind=kind,
+        )
+
     def _flush_deferred(self) -> None:
         # Swap captures first: each shares its watermark with the deferred
         # pages of the same preemption, and its pages must reach the host
@@ -983,13 +1199,16 @@ class EngineCore:
             self.scheduler.release_pages(pages, cacheable)
 
     # --- swap preemption ----------------------------------------------------
-    def _kv_gather(self, pages: List[int]) -> Tuple[np.ndarray, np.ndarray]:
+    def _kv_gather(self, pages: List[int], kind: str = "snapshot_gather"
+                   ) -> Tuple[np.ndarray, np.ndarray]:
         """Pool pages to the host as ``[L, n, page, H, D]`` raw bits (JAX
         ``_kv_gather_np`` :2314 over ``gather_kv_pages``): one
-        ``index_select`` and one copy a pool, the copy waiting for it."""
+        ``index_select`` and one copy a pool, the copy waiting for it, in
+        the watchdog bracket ``kind``."""
         idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        return (snapshot_mod.pages_to_host(self.k_pages, idx),
-                snapshot_mod.pages_to_host(self.v_pages, idx))
+        with self._wd(kind):
+            return (snapshot_mod.pages_to_host(self.k_pages, idx),
+                    snapshot_mod.pages_to_host(self.v_pages, idx))
 
     def _kv_insert(self, pages: List[int], k: np.ndarray, v: np.ndarray) -> None:
         """Write host raw-bit pages into the pools in place (JAX
@@ -1234,18 +1453,33 @@ class EngineCore:
         gumbel = None if mode == "greedy" else step_gumbel(keys, steps, self._vocab)
         return sample_tokens(logits, gumbel, temps, topks, topps, mode=mode)
 
-    def _decode_iter(self, st: tuple, mode: str, suppress: bool) -> torch.Tensor:
+    def _guard_fold(self, logits: torch.Tensor, mask: torch.Tensor):
+        """The guard's (stats, bad) over raw logits (before the stop
+        suppression's sentinels), or None with the guard off."""
+        if not self._guard:
+            return None
+        return logit_guard_stats(logits, mask, max_abs=self.guard_logit_max,
+                                 min_entropy=self.guard_entropy_min)
+
+    def _split_guard(self, out: Any) -> Tuple[Any, Any]:
+        """A dispatch's (tokens, guard fold): with the guard on the step
+        functions return both, off the fold is None (JAX :3161)."""
+        return out if self._guard else (out, None)
+
+    def _decode_iter(self, st: tuple, mode: str, suppress: bool) -> Tuple[torch.Tensor, Any]:
         """One decode iteration (JAX ``decode_step``, :1358) over the state
-        ``st``, updated in place; returns the step's tokens [S] int32."""
+        ``st``, updated in place; returns the step's tokens [S] int32 and
+        its guard fold."""
         (tokens, ctx, bt, active, keys, steps, temps, topks,
          topps, _limits, mins, stop_ids) = st[:12]
         logits = self.model.decode(tokens, ctx, self.k_pages, self.v_pages, bt, active)
+        g = self._guard_fold(logits, active)
         if suppress:
             logits = suppress_stops(logits, stop_ids, steps, mins)
         next_tokens = self._sample(logits, keys, steps, temps, topks, topps, mode)
         out = torch.where(active, next_tokens, 0).to(torch.int32)
         _assign(st[:12], advance_state(st[:12], out, active))
-        return out
+        return out, g
 
     def _verify_iter(self, st: tuple, mode: str, suppress: bool) -> Tuple[torch.Tensor, ...]:
         """One speculative iteration (JAX ``verify_step``, :1445): draft,
@@ -1265,6 +1499,9 @@ class EngineCore:
         qpos = torch.where(active[:, None] & (pos_grid < self._max_kv_pos), pos_grid, -1)
         logits = self.model.verify(qtok, qpos, self.k_pages, self.v_pages, bt)
         V = logits.shape[-1]
+        g = self._guard_fold(logits.reshape(S * Q, V), active.repeat_interleave(Q))
+        if g is not None:  # a row's verdict folds its Q candidate positions
+            g = (g[0], g[1].reshape(S, Q).any(dim=1))
         steps_grid = steps[:, None] + torch.arange(Q, dtype=steps.dtype, device=dev)[None, :]
         if suppress:
             logits = suppress_stops(
@@ -1291,7 +1528,7 @@ class EngineCore:
         history.scatter_(1, hist_pos.long(), emit)
         _assign((tokens, ctx, active, steps),
                 (torch.where(count > 0, new_tok, tokens), ctx + count, still, steps + count))
-        return torch.where(emitted, emit, 0), count
+        return (torch.where(emitted, emit, 0), count), g
 
     def _mixed_iter(self, st: tuple, seg: Dict[str, torch.Tensor], k: int, mode: str,
                     suppress: bool) -> torch.Tensor:
@@ -1317,6 +1554,10 @@ class EngineCore:
         bt_used = bt.clone()
         bt_used[row] = seg["bt"]
         logits = self.model.mixed(qtok, qpos, self.k_pages, self.v_pages, bt_used, gather)
+        # Active decode rows, and the piggy's row at the iteration of its
+        # final segment (earlier segments gather pad positions).
+        g = self._guard_fold(logits, active | ((torch.arange(S, device=dev) == slot) & final
+                                               & (seg["slots"][0] >= 0)))
         d_logits = suppress_stops(logits, stop_ids, steps, mins) if suppress else logits
         next_tokens = self._sample(d_logits, keys, steps, temps, topks, topps, mode)
         out = torch.where(active, next_tokens, 0).to(torch.int32)
@@ -1331,23 +1572,31 @@ class EngineCore:
         out1, values = self._first_tokens(logits.index_select(0, row), seg, mode, suppress)
         for leaf, name in zip(st, _STATE_LEAVES):
             leaf[row] = torch.where(valid, values[name], leaf[row])
-        return torch.where((torch.arange(S, device=dev) == slot) & final, out1[0], out)
+        return torch.where((torch.arange(S, device=dev) == slot) & final, out1[0], out), g
 
     def _block(self, kind: str, st: tuple, seg, mode: str, suppress: bool, K: int) -> Any:
         """``K`` iterations of ``kind`` over the state ``st`` (JAX
         ``decode_block_step`` :1375, ``verify_block_step`` :1549, the mixed
-        scan): a [K, S] token block, or ([K, S, Q], [K, S]) for verify."""
-        outs = []
+        scan): a [K, S] token block, or ([K, S, Q], [K, S]) for verify;
+        with the guard on, paired with the per-iteration folds ([K, 3],
+        [K, S])."""
+        outs, folds = [], []
         for k in range(K):
             if kind == "decode":
-                outs.append(self._decode_iter(st, mode, suppress))
+                out, g = self._decode_iter(st, mode, suppress)
             elif kind == "verify":
-                outs.append(self._verify_iter(st, mode, suppress))
+                out, g = self._verify_iter(st, mode, suppress)
             else:
-                outs.append(self._mixed_iter(st, seg, k, mode, suppress))
+                out, g = self._mixed_iter(st, seg, k, mode, suppress)
+            outs.append(out)
+            folds.append(g)
         if kind == "verify":
-            return tuple(torch.stack(part) for part in zip(*outs))
-        return torch.stack(outs)
+            result = tuple(torch.stack(part) for part in zip(*outs))
+        else:
+            result = torch.stack(outs)
+        if not self._guard:
+            return result
+        return result, (torch.stack([g[0] for g in folds]), torch.stack([g[1] for g in folds]))
 
     def _dispatch_block(self, kind: str, seg=None, mode: Optional[str] = None,
                         K: Optional[int] = None) -> Any:
@@ -1371,8 +1620,10 @@ class EngineCore:
                 dead_seg["final"].zero_()
             self._block(kind, dead, dead_seg, mode, suppress, K)
 
+        # The guard is fixed at build, so an engine's graphs are all guarded
+        # or all not; the key says which.
         return self._graphs.run(
-            (kind, mode, suppress, K),
+            (kind, mode, suppress, K) + (("guard",) if self._guard else ()),
             lambda: self._block(kind, self._dev_state, seg, mode, suppress, K),
             warm, steps=K,
         )
@@ -1420,13 +1671,15 @@ class EngineCore:
             leaf[idx] = values[name][rows]
         return out
 
-    def _prefill_fn(self, args: Dict[str, torch.Tensor], n: int, mode: str) -> torch.Tensor:
+    def _prefill_fn(self, args: Dict[str, torch.Tensor], n: int, mode: str) -> Tuple[Any, Any]:
         """Prefill rows, sample each row's first token, and scatter the
-        first ``n`` (valid) rows into the decode state in place."""
+        first ``n`` (valid) rows into the decode state in place; returns
+        the tokens and the guard fold of the valid rows."""
         logits = self.model.prefill(
             args["tokens"], args["lengths"], self.k_pages, self.v_pages, args["bt"]
         )
-        return self._sample_and_scatter(logits, args, slice(0, n), mode)
+        g = self._guard_fold(logits, args["slots"] >= 0)
+        return self._sample_and_scatter(logits, args, slice(0, n), mode), g
 
     def _pack_sampling_rows(self, rows: List[Sequence], B: int) -> Dict[str, np.ndarray]:
         """Per-row decode-state values shared by both prefill paths. Padding
@@ -1495,24 +1748,25 @@ class EngineCore:
             tokens[r, : len(ids)] = ids
             lengths[r] = len(ids)
             bt[r, : len(seq.pages)] = seq.pages
-        args = self._to_device(
-            dict(tokens=tokens, lengths=lengths, bt=bt, **self._pack_sampling_rows(chunk, B))
-        )
         chunk_mode = sampling_mod.join_modes(sampling_mod.required_mode(s.params) for s in chunk)
         if any(s.params.min_tokens > 0 for s in chunk):
             self._suppress = True
-        t0 = time.monotonic()
-        for seq in chunk:
-            if seq.t_prefill_start == 0.0:
-                seq.t_prefill_start = t0
-        out = self._prefill_fn(args, len(chunk), chunk_mode)
-        self._record_dispatch("prefill", time.monotonic() - t0)
+        with self._wd("prefill"):  # the upload waits behind the queued work too
+            args = self._to_device(
+                dict(tokens=tokens, lengths=lengths, bt=bt, **self._pack_sampling_rows(chunk, B))
+            )
+            t0 = time.monotonic()
+            for seq in chunk:
+                if seq.t_prefill_start == 0.0:
+                    seq.t_prefill_start = t0
+            out, g = self._prefill_fn(args, len(chunk), chunk_mode)
+            self._record_dispatch("prefill", time.monotonic() - t0)
         for seq in chunk:
             seq.prefilled = True
             self.prefill_tokens += seq.num_tokens
         self.prefills += len(chunk)
         self.prefill_dispatches += 1
-        self._push_pending("prefill", out, list(enumerate(chunk)))
+        self._push_pending("prefill", out, list(enumerate(chunk)), guard=g)
         self._mode = sampling_mod.join_modes((self._mode, chunk_mode))
 
     def _prefill_chunked(self, seqs: List[Sequence], finished: List[RequestOutput]) -> None:
@@ -1569,32 +1823,37 @@ class EngineCore:
                         snapshot.append((r, seq))
                 if not any_rows:
                     continue  # the whole chunk lies inside every row's prefix
-                chunk = self._to_device(dict(tokens=tokens, positions=positions, bt=bt,
-                                             last=last))
-                t0 = time.monotonic()
-                for seq in rows:
-                    if seq.t_prefill_start == 0.0:
-                        seq.t_prefill_start = t0
-                # The JAX chunkfill_step: every row extends its cached K/V;
-                # rows whose prompt ends here sample their first token and
-                # join the decode state.
-                logits = self.model.prefill_chunk(
-                    chunk["tokens"], chunk["positions"], self.k_pages, self.v_pages,
-                    chunk["bt"], chunk["last"],
-                )
-                self.prefill_dispatches += 1
-                if snapshot:  # rows whose prompt finished in this chunk
-                    final = torch.tensor([r for r, _ in snapshot], device=self.device)
-                    out = self._sample_and_scatter(logits, {**inv, "bt": chunk["bt"]}, final,
-                                                   chunk_mode)
-                self._record_dispatch("prefill", time.monotonic() - t0)
+                with self._wd("prefill"):
+                    chunk = self._to_device(dict(tokens=tokens, positions=positions, bt=bt,
+                                                 last=last))
+                    t0 = time.monotonic()
+                    for seq in rows:
+                        if seq.t_prefill_start == 0.0:
+                            seq.t_prefill_start = t0
+                    # The JAX chunkfill_step: every row extends its cached
+                    # K/V; rows whose prompt ends here sample their first
+                    # token and join the decode state. The guard watches
+                    # every row's chunk logits, final or not (JAX :1648).
+                    logits = self.model.prefill_chunk(
+                        chunk["tokens"], chunk["positions"], self.k_pages, self.v_pages,
+                        chunk["bt"], chunk["last"],
+                    )
+                    g = self._guard_fold(logits, inv["slots"] >= 0)
+                    self.prefill_dispatches += 1
+                    if snapshot:  # rows whose prompt finished in this chunk
+                        final = torch.tensor([r for r, _ in snapshot], device=self.device)
+                        out = self._sample_and_scatter(logits, {**inv, "bt": chunk["bt"]}, final,
+                                                       chunk_mode)
+                    self._record_dispatch("prefill", time.monotonic() - t0)
                 if snapshot:
                     for _, seq in snapshot:
                         seq.prefilled = True
                         self.scheduler.register_prefix(seq)
                     self.prefills += len(snapshot)
-                    self._push_pending("prefill", out, snapshot)
+                    self._push_pending("prefill", out, snapshot, guard=g)
                     self._mode = sampling_mod.join_modes((self._mode, chunk_mode))
+                elif g is not None:  # the verdict rides the pipeline alone
+                    self._push_pending("prefill", None, [], guard=g)
                 if lo + C < maxlen and any(rid in self.scheduler.running for rid in pre_wave):
                     self._dispatch_decode(finished)
 
@@ -1685,8 +1944,10 @@ class EngineCore:
                 if seq.t_prefill_start == 0.0:
                     seq.t_prefill_start = time.monotonic()
                 t0 = time.monotonic()
-                out = self._dispatch_block("mixed", seg, mode)
-                self._record_dispatch("mixed", time.monotonic() - t0)
+                with self._wd("mixed"):
+                    out = self._dispatch_block("mixed", seg, mode)
+                    self._record_dispatch("mixed", time.monotonic() - t0)
+                out, g = self._split_guard(out)
                 taken = sum(t for _, t in segs)
                 self.mixed_steps += 1
                 self.mixed_prefill_tokens += taken
@@ -1707,7 +1968,7 @@ class EngineCore:
                     "mixed", out,
                     [(i, s) for i, s in enumerate(self.scheduler.slots)
                      if s is not None and s.prefilled],
-                    starts,
+                    starts, guard=g,
                 )
                 while len(self._pending) > self.cfg.runahead:
                     self._process_oldest(finished)
@@ -1809,8 +2070,10 @@ class EngineCore:
             K = self.interactive_decode_block
             label += "_small"
         t0 = time.monotonic()
-        out = self._dispatch_block(kind, K=K)
-        self._record_dispatch(label, time.monotonic() - t0)
+        with self._wd(label):
+            out = self._dispatch_block(kind, K=K)
+            self._record_dispatch(label, time.monotonic() - t0)
+        out, g = self._split_guard(out)
         self.decode_steps += K
         self.decode_dispatches += 1
         self._push_pending(
@@ -1821,6 +2084,7 @@ class EngineCore:
                 for i, seq in enumerate(self.scheduler.slots)
                 if seq is not None and seq.prefilled
             ],
+            guard=g,
         )
         while len(self._pending) > self.cfg.runahead:
             self._process_oldest(finished)
@@ -2121,6 +2385,93 @@ class EngineCore:
         self._deferred_pages.clear()
         self._dirty = True
 
+    def extract_for_rebuild(self, *, reuse_pool: bool = False
+                            ) -> Tuple[List[Tuple[RequestSnapshot, Optional[float]]], List[str]]:
+        """Best-effort snapshot of every in-flight request after a device
+        fault, for re-insertion into a rebuilt (or, with ``reuse_pool``,
+        the same) engine (JAX :4222). The in-flight results are dropped
+        unread (:meth:`discard_pending`), then each sequence snapshots on
+        its own: a gather from a faulted device can itself fail. Returns
+        ``([(snapshot, deadline_at)], lost rids)``; the lost requeue."""
+        self.discard_pending(reuse_pool=reuse_pool)
+        snaps: List[Tuple[RequestSnapshot, Optional[float]]] = []
+        lost: List[str] = []
+        for seq in list(self.scheduler.running.values()) + list(self.scheduler.waiting):
+            if seq.finish_reason is not None:
+                continue
+            try:
+                snap = self._snapshot_seq(seq)
+            except Exception:  # noqa: BLE001 — per-row isolation
+                logger.exception("fault recovery: snapshot of %s failed; the request will "
+                                 "requeue instead", seq.rid)
+                lost.append(seq.rid)
+                # Removed all the same: left behind in the same-pool restore,
+                # it would go on generating for a future already requeued.
+                self._remove_extracted(seq)
+                continue
+            snaps.append((snap, seq.deadline_at))
+            self._remove_extracted(seq)
+            self.snapshots_extracted += 1
+        return snaps, lost
+
+    def degrade_for_oom(self) -> Optional[str]:
+        """One rung of the OOM ladder a call, in order (JAX :4262): demote
+        the refcount-0 prefix pages to the host tier, halve the run-ahead,
+        swap-preempt one victim. Returns the rung taken, or None when the
+        ladder is dry (the caller then rebuilds). Rungs never reset: a
+        pool that ran out once stays degraded for this engine's life."""
+        self.hbm_oom_events += 1
+        while self._oom_rung < 3:
+            rung = self._oom_rung
+            self._oom_rung += 1
+            if rung == 0:
+                if self.prefix_store is not None:
+                    dropped = self.flush_prefix_to_host()
+                    if dropped > 0:
+                        self._oom_ladder_log.append("demote_prefix")
+                        logger.warning("hbm_oom ladder: demoted %d prefix pages to the host "
+                                       "tier", dropped)
+                        return "demote_prefix"
+            elif rung == 1:
+                if self.cfg.runahead > 1:
+                    self.cfg.runahead = max(1, self.cfg.runahead // 2)
+                    self._oom_ladder_log.append("shrink_runahead")
+                    logger.warning("hbm_oom ladder: run-ahead shrunk to %d", self.cfg.runahead)
+                    return "shrink_runahead"
+            else:
+                victim = next((s for s in reversed(list(self.scheduler.running.values()))
+                               if s.prefilled and s.finish_reason is None), None)
+                if victim is not None:
+                    # The swap flavour for this one preemption: the rung
+                    # frees device memory without a re-prefill on top.
+                    prev, self.preempt_mode = self.preempt_mode, "swap"
+                    try:
+                        self._self_preempt_deferred(victim)
+                    finally:
+                        self.preempt_mode = prev
+                    self._oom_ladder_log.append("preempt_swap")
+                    logger.warning("hbm_oom ladder: swap-preempted %s", victim.rid)
+                    return "preempt_swap"
+        return None
+
+    def release(self) -> None:
+        """Free this engine's device memory before a rebuilt one is made
+        (a second full-size engine beside it would not fit): stop the
+        watchdog, drop the captured graphs, the pools, the decode state and
+        the weights, and return the cached blocks to the device. The
+        engine takes no dispatch after it."""
+        self.stop_watchdog()
+        self.close()
+        if self._graphs is not None:
+            self._graphs.reset()
+        self.model = None
+        self.k_pages = self.v_pages = None
+        self._dev_state = self._mixed_in = None
+        self._pending.clear()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def insert_request(self, snap: RequestSnapshot, *,
                        deadline_at: Optional[float] = None) -> Sequence:
         """Re-insert an extracted request, here or on another engine (JAX
@@ -2188,6 +2539,119 @@ class EngineCore:
             self.kv_restores += 1
         self._dirty = True
 
+    # --- the integrity plane ----------------------------------------------
+    def _canary_generate(self) -> List[int]:
+        """The golden prompt greedily to its end on an idle engine (JAX
+        :4429): fixed small ids, temperature 0, EOS ignored, so only the
+        weights and the compute can change its tokens."""
+        v = self.model_config.vocab_size
+        self.add_request("__canary__", prompt_ids=[(i * 7 + 1) % v for i in range(8)],
+                         params=SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True))
+        tokens: List[int] = []
+        for _ in range(256):  # 8 tokens need far fewer steps
+            for out in self.step():
+                if out.rid == "__canary__":
+                    tokens = list(out.token_ids)
+            if not self.has_work:
+                break
+        return tokens
+
+    def _generate_canary(self) -> List[int]:
+        """The golden canary tokens, recorded at build (fresh weights)."""
+        golden = self._canary_generate()
+        logger.info("canary golden recorded: %d token(s), fold=%s", len(golden),
+                    integrity_mod.token_fold(golden))
+        return golden
+
+    def run_canary(self) -> bool:
+        """Replay the golden prompt on an idle engine and compare its greedy
+        tokens bit for bit with the recording (JAX :4466); a busy engine
+        skips. A mismatch, or a raise (a guard trip) counts a failure."""
+        if self._canary_golden is None or self.has_work:
+            return True
+        self.canary_runs += 1
+        try:
+            got = self._canary_generate()
+        except Exception as exc:  # noqa: BLE001 — a trip IS a failure
+            self.canary_failures += 1
+            self.abort_all("canary_failed")  # reusable after the failed replay
+            logger.error("canary replay raised: %s", exc)
+            raise
+        if got == self._canary_golden:
+            return True
+        self.canary_failures += 1
+        logger.error("canary FAILURE: got %s (fold=%s) want %s (fold=%s)", got,
+                     integrity_mod.token_fold(got), self._canary_golden,
+                     integrity_mod.token_fold(self._canary_golden))
+        return False
+
+    def audit_weights(self) -> List[str]:
+        """Digest every parameter leaf again and name those that changed
+        since the build's baseline (JAX :4500): weight corruption, where
+        the guard catches transient compute errors. Two reads of an intact
+        buffer always agree."""
+        if self._weight_baseline is None:
+            return []
+        self.weight_audits += 1
+        with self._wd("weight_audit"):
+            current = integrity_mod.digest_params(self.params)
+        mismatched = integrity_mod.diff_digests(self._weight_baseline, current)
+        if mismatched:
+            self.weight_audit_mismatches += len(mismatched)
+            self._last_audit_mismatch = list(mismatched)
+            logger.error("weight audit: %d leaf/leaves changed in device memory since load: %s",
+                         len(mismatched), mismatched[:8])
+        return mismatched
+
+    def kv_spot_check(self, max_pages: int = 4) -> List[str]:
+        """Read-stability check of the KV pool (JAX :4527): gather a
+        deterministic sample of in-use pages twice and compare their
+        blake2b digests; names the pages that read back differently."""
+        in_use = sorted({p for s in self.scheduler.running.values() for p in s.pages})
+        if not in_use:
+            return []
+        stride = max(1, len(in_use) // max_pages)
+        sample = in_use[::stride][:max_pages]
+        self.kv_spot_checks += 1
+        k1, v1 = self._kv_gather(sample, "kv_spot")
+        k2, v2 = self._kv_gather(sample, "kv_spot")
+        mismatched: List[str] = []
+        for name, first, second in (("k", k1, k2), ("v", v1, v2)):
+            # [L, n, page, H, D] -> one digest a sampled page
+            da = integrity_mod.page_digests(np.moveaxis(first, 1, 0))
+            db = integrity_mod.page_digests(np.moveaxis(second, 1, 0))
+            mismatched.extend(f"{name}:page{p}" for p, x, y in zip(sample, da, db) if x != y)
+        if mismatched:
+            logger.error("kv spot check: %d page read(s) unstable: %s", len(mismatched),
+                         mismatched)
+        return mismatched
+
+    def maybe_idle_integrity(self) -> Optional[str]:
+        """The idle sweep between batches (JAX :4574): the checks whose
+        cadence came due. Returns what is wrong (the caller contains it as
+        a numerical fault), or None."""
+        now = time.monotonic()
+        if (self._weight_baseline is not None and self.weight_audit_every > 0
+                and now >= self._next_weight_audit):
+            self._next_weight_audit = now + self.weight_audit_every
+            bad = self.audit_weights()
+            bad.extend(self.kv_spot_check())
+            if bad:
+                return f"weight/KV audit mismatch: {bad[:8]}"
+        if (self._canary_golden is not None and self.canary_every > 0
+                and now >= self._next_canary and not self.has_work):
+            self._next_canary = now + self.canary_every
+            if not self.run_canary():
+                return "canary replay diverged from golden tokens"
+        return None
+
+    def integrity_status(self) -> str:
+        """``ok`` until an audit or a canary found corruption, then
+        ``suspect`` (the heartbeat's ``integrity``)."""
+        if self.weight_audit_mismatches or self.canary_failures or self._last_audit_mismatch:
+            return "suspect"
+        return "ok"
+
     def abort_all(self, note: str = "aborted") -> None:
         """Drop every running/waiting sequence and release their pages —
         recovery after a failed step."""
@@ -2229,7 +2693,7 @@ class EngineCore:
             prefill_dispatches=self.prefill_dispatches,
             prefill_tokens=self.prefill_tokens,
             tokens_per_sec=self.total_generated_tokens / elapsed,
-            decode_kernel=decode_kernel_plan(self.model.decode_kernel, self.device)[0],
+            decode_kernel=decode_kernel_plan(self._decode_kernel, self.device)[0],
             kv_dtype=str(self.cfg.kv_dtype).replace("torch.", ""),
             device=str(self.device),
             decode_block=self.cfg.decode_block,
@@ -2267,7 +2731,7 @@ class EngineCore:
             cuda_graphs=None if self._graphs is None else dict(
                 graphs=len(self._graphs), captures=self._graphs.captures,
                 replays=self._graphs.replays, warmup_steps=self._graphs.warmup_steps,
-                graph_iterations=self._graphs.iterations(),
+                graph_iterations=self._graphs.iterations(), capture_s=self._graphs.capture_s,
             ),
         )
         if self._spec:
@@ -2297,6 +2761,31 @@ class EngineCore:
             s["deadline_expirations"] = self.deadline_expirations
         if self.swap_refused:
             s["swap_refused"] = self.swap_refused
+        # The fault planes, superset-only (JAX :4840-4876): the watchdog's
+        # keys with the watchdog on, the OOM ladder's after a fault, each
+        # integrity block once its knob is on or its counter moved.
+        if self.watchdog is not None:
+            s["watchdog_trips"] = self.watchdog.trips
+            s["last_dispatch_ok_age_s"] = round(self.watchdog.last_ok_age_s(), 3)
+            wedged = self.watchdog.wedged_kind()
+            if wedged is not None:  # in flight and past its deadline now
+                s["wedged_dispatch"] = wedged
+        if self.hbm_oom_events:
+            s["hbm_oom_events"] = self.hbm_oom_events
+            s["oom_degradations"] = list(self._oom_ladder_log)
+        if self.guard_trips:
+            s["guard_trips"] = self.guard_trips
+        if self.weight_audits:
+            s["weight_audits"] = self.weight_audits
+            s["weight_audit_mismatches"] = self.weight_audit_mismatches
+            s["kv_spot_checks"] = self.kv_spot_checks
+            if self._last_audit_mismatch:
+                s["last_audit_mismatch"] = list(self._last_audit_mismatch)
+        if self.canary_runs:
+            s["canary_runs"] = self.canary_runs
+            s["canary_failures"] = self.canary_failures
+        if self._guard or self.weight_audit_every > 0 or self.canary_every > 0:
+            s["integrity"] = self.integrity_status()
         gov = get_governor()
         if gov.enabled:
             s["host_mem"] = gov.stats()
@@ -2324,12 +2813,43 @@ class HandoffOutput:
     emitted: int = 0
 
 
+def _hard_exit_wedged(reason: str) -> None:
+    logger.critical("engine rebuild after %s exceeded %.0fs: the process is wedged beyond "
+                    "in-process recovery; hard-exiting for the janitor's reclaim", reason,
+                    REBUILD_HARD_EXIT_S)
+    os._exit(86)
+
+
 class AsyncEngine:
     """Async facade: the step loop on a dedicated thread, asyncio-awaitable
-    results. All device work happens on the engine thread."""
+    results. All device work happens on the engine thread.
+
+    Fault containment (JAX :4928-4951), wired by the worker:
+    ``rebuild_core()`` returns a fresh ``EngineCore`` (``core_factory``,
+    set by ``cli/worker.py::build_engine``, makes one: ``num_pages`` pins
+    the pool to the first core's), and ``on_device_fault(reason)`` is the
+    worker's breaker notification, called on the engine thread."""
 
     def __init__(self, core: EngineCore) -> None:
         self.core = core
+        self.core_factory: Optional[Any] = None  # (num_pages) -> EngineCore
+        self.load_checksums: Optional[Dict[str, str]] = None  # a checkpoint's load ledger
+        self.rebuild_core: Optional[Any] = None
+        self.on_device_fault: Optional[Any] = None
+        self.engine_rebuilds = 0
+        self.last_fault_reason: Optional[str] = None
+        # The last rebuild's seconds: extract, free, build, reinsert.
+        self.last_rebuild: Optional[Dict[str, float]] = None
+        # Trips of the watchdogs of cores rebuilt away (stats never go back).
+        self._prior_watchdog_trips = 0
+        # Blame for numerical faults, rid -> trips: a first trip blames the
+        # device (rebuild, re-run), a second convicts the request as poison.
+        # Entries go on a clean finish or the verdict.
+        self._numerical_probation: Dict[str, int] = {}
+        # rid -> [(event, t_mono, fields)] recorded by the recovery; the
+        # worker moves them onto the request's trace.
+        self._fault_events: Dict[str, List[Tuple[str, float, Dict[str, Any]]]] = {}
+        self._fault_lock = threading.Lock()
         # (rid, prompt, messages, prompt_ids, params, snapshot, deadline_at,
         #  prefill_only, priority)
         self._intake: "queue.Queue[tuple]" = queue.Queue()
@@ -2345,7 +2865,9 @@ class AsyncEngine:
         # rid -> cb(token, n_out), fired on the engine thread per surviving token.
         self._token_cbs: Dict[str, Any] = {}
         core.on_token = self._dispatch_token
-        self.error: Optional[BaseException] = None  # the first failed step's exception
+        # A device fault the engine could not contain (its rebuild failed or
+        # none is wired): the port's worker stops on it (ROADMAP.md queue 3).
+        self.error: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._run, name="llmq-torch-engine", daemon=True)
         self._thread.start()
 
@@ -2429,7 +2951,17 @@ class AsyncEngine:
         return self._handoff_results
 
     def stats(self) -> Dict[str, Any]:
-        return self.core.stats()
+        s = self.core.stats()
+        if self._prior_watchdog_trips and "watchdog_trips" in s:
+            # A worker-lifetime count: the faulted cores' watchdogs died.
+            s["watchdog_trips"] += self._prior_watchdog_trips
+        return s
+
+    @property
+    def watchdog_trips(self) -> int:
+        """Watchdog trips across engine rebuilds."""
+        wd = getattr(self.core, "watchdog", None)
+        return self._prior_watchdog_trips + (wd.trips if wd else 0)
 
     # --- streaming / cancellation ----------------------------------------
     def _dispatch_token(self, seq: Sequence, token: int) -> None:
@@ -2494,6 +3026,178 @@ class AsyncEngine:
         self._wake.set()
         self._thread.join(timeout=30)
         self.core.close()
+
+    # --- fault recovery -----------------------------------------------------
+    def pop_fault_events(self, rid: str) -> List[Tuple[str, float, Dict[str, Any]]]:
+        """Take (and clear) one request's fault-recovery events:
+        ``(name, t_mono, fields)``, which the worker puts on its trace."""
+        with self._fault_lock:
+            return self._fault_events.pop(rid, [])
+
+    def _record_fault_event(self, rids: List[str], name: str, **fields: Any) -> None:
+        t = time.monotonic()
+        with self._fault_lock:
+            for rid in rids:
+                self._fault_events.setdefault(rid, []).append((name, t, dict(fields)))
+
+    def _affected(self, reason: str) -> List[str]:
+        """The requests in flight at a fault, with its event recorded."""
+        affected = [rid for rid, fut in list(self._futures.items()) if not fut.done()]
+        self._record_fault_event(affected, "device_fault", reason=reason)
+        for rid in affected:
+            emit_trace_event(rid, "device_fault", reason=reason)
+        return affected
+
+    def _reinsert(self, core: EngineCore, snaps, lost, drop=frozenset()) -> Tuple[int, int]:
+        """Snapshots back into ``core`` one by one; the lost (and each that
+        fails to insert) resolve with a snapshot-less HandoffOutput, which
+        the worker requeues whole. Returns (restored, requeued)."""
+        lost_set = set(lost) - drop
+        restored = 0
+        for snap, deadline_at in snaps:
+            if snap.rid in drop:
+                continue
+            try:
+                core.insert_request(snap, deadline_at=deadline_at)
+                restored += 1
+            except Exception:  # noqa: BLE001 — per-row isolation
+                logger.exception("fault recovery: re-insert of %s failed; requeueing", snap.rid)
+                lost_set.add(snap.rid)
+        for rid in lost_set:
+            self._resolve(rid, HandoffOutput(rid=rid, snapshot=None, emitted=0))
+        return restored, len(lost_set)
+
+    def _degrade_and_restore(self, exc: Exception) -> bool:
+        """Absorb one OOM on the same engine (JAX :5183): one rung of the
+        ladder, then every in-flight request restored from its host
+        snapshot (the faulted dispatch's outputs are lost, and restoring
+        recomputes them: greedy tokens stay identical). False when the
+        ladder is dry or the restore faults: the caller rebuilds."""
+        rung = None
+        try:
+            rung = self.core.degrade_for_oom()
+        except Exception:  # noqa: BLE001 — the ladder is best-effort
+            logger.exception("hbm_oom degradation failed")
+        if rung is None:
+            return False
+        affected = self._affected(FAULT_OOM)
+        try:
+            snaps, lost = self.core.extract_for_rebuild(reuse_pool=True)
+        except Exception:  # noqa: BLE001 — on to the rebuild
+            logger.exception("hbm_oom restore: extraction failed; rebuilding instead")
+            return False
+        restored, requeued = self._reinsert(self.core, snaps, lost)
+        self._record_fault_event(affected, "oom_degraded", rung=rung, restored=restored,
+                                 requeued=requeued)
+        logger.warning("hbm_oom (%s) absorbed by the degradation ladder (%s): %d request(s) "
+                       "restored in place, %d requeued", exc, rung, restored, requeued)
+        return True
+
+    def _recover_numerical(self, exc: Exception) -> bool:
+        """Blame-attributed recovery of a numerical fault (a guard trip, a
+        failed audit or canary; JAX :5248): the suspects' first trip blames
+        the device, so the core is rebuilt (weights made anew from their
+        source) and they re-run from their snapshots; a suspect that trips
+        again is poison and fails with ``DeviceFaultError`` (the worker
+        quarantines it as ``numerical_fault``). False without a rebuild
+        path."""
+        if self.rebuild_core is None:
+            return False
+        suspects = tuple(getattr(exc, "suspects", ()) or ())
+        poison = [r for r in suspects if r in self._numerical_probation]
+        for rid in suspects:
+            self._numerical_probation.setdefault(rid, 1)
+        if poison:
+            logger.error("numerical fault re-tripped by %s: poison job(s); quarantining "
+                         "instead of rebuilding again", poison)
+        if not self._rebuild_after_fault(FAULT_NUMERICAL, exc, drop=frozenset(poison)):
+            return False
+        failure = DeviceFaultError(
+            FAULT_NUMERICAL, f"request re-tripped the numerics guard after a rebuild: {exc}")
+        for rid in poison:
+            self._numerical_probation.pop(rid, None)
+            self._record_fault_event([rid], "poison_numerical")
+            emit_trace_event(rid, "poison_numerical")
+            fut = self._futures.pop(rid, None)
+            if fut is not None and not fut.done():
+                fut.set_exception(failure)
+        # The rebuilt core checks its own fresh baselines before it takes
+        # traffic: a chip still corrupting fails here, not on user requests.
+        try:
+            if self.core._weight_baseline is not None:
+                self.core.audit_weights()
+            if self.core._canary_golden is not None:
+                self.core.run_canary()
+        except Exception:  # noqa: BLE001 — re-verification is best-effort
+            logger.exception("post-rebuild integrity re-verify failed")
+        return True
+
+    def _rebuild_after_fault(self, reason: str, exc: Exception,
+                             drop: frozenset = frozenset()) -> bool:
+        """Contain a classified device fault by rebuilding the engine in
+        process (JAX :5302), on the engine thread. The order keeps one
+        full-size engine on the card at a time: snapshot every in-flight
+        request to the host, free the old engine (graphs, pools, weights,
+        cached blocks), then build the new one (same ``num_pages``) and
+        re-insert the snapshots. ``drop`` names requests whose fate is
+        decided (the poison verdicts). A recovery that hangs trips the
+        hard-exit backstop. False when no rebuild is wired or it failed."""
+        logger.error("device fault (%s): %s; attempting an in-process engine rebuild", reason,
+                     exc)
+        self.last_fault_reason = reason
+        if self.on_device_fault is not None:
+            try:
+                self.on_device_fault(reason)
+            except Exception:  # noqa: BLE001 — an observer must not block us
+                logger.exception("on_device_fault callback failed")
+        affected = self._affected(reason)
+        timer = threading.Timer(REBUILD_HARD_EXIT_S, _hard_exit_wedged, args=(reason,))
+        timer.daemon = True
+        timer.start()
+        try:
+            old = self.core
+            t0 = time.monotonic()
+            try:
+                snaps, lost = old.extract_for_rebuild()
+            except Exception:  # noqa: BLE001 — extraction is best-effort
+                logger.exception("fault recovery: extraction failed outright; every "
+                                 "in-flight request will requeue")
+                snaps, lost = [], list(affected)
+            t1 = time.monotonic()
+            # The failed call's frames may hold the pools (a kernel's
+            # arguments): drop their locals, or the frees below free nothing.
+            traceback.clear_frames(exc.__traceback__)
+            wd = old.watchdog
+            if wd is not None:
+                self._prior_watchdog_trips += wd.trips
+            try:
+                old.release()
+            except Exception:  # noqa: BLE001 — a faulted device may refuse the frees
+                logger.exception("fault recovery: freeing the faulted engine failed")
+            t2 = time.monotonic()
+            try:
+                new_core = self.rebuild_core()
+                if new_core.device.type == "cuda":  # the build's device work, timed too
+                    torch.cuda.synchronize(new_core.device)
+            except Exception:  # noqa: BLE001 — on to the batch abort
+                logger.exception("fault recovery: rebuild failed; aborting the batch")
+                return False
+            t3 = time.monotonic()
+            self.core = new_core
+            new_core.on_token = self._dispatch_token  # streams survive the rebuild
+            self.engine_rebuilds += 1
+            restored, requeued = self._reinsert(new_core, snaps, lost, drop)
+            self.last_rebuild = dict(extract_s=t1 - t0, free_s=t2 - t1, build_s=t3 - t2,
+                                     reinsert_s=time.monotonic() - t3)
+            self._record_fault_event(affected, "engine_rebuilt", restored=restored,
+                                     requeued=requeued)
+            for rid in affected:
+                emit_trace_event(rid, "engine_rebuilt")
+            logger.warning("engine rebuilt in-process after %s: %d request(s) restored, %d "
+                           "requeued", reason, restored, requeued)
+            return True
+        finally:
+            timer.cancel()
 
     # --- engine thread ----------------------------------------------------
     def _resolve(self, rid: str, value: Any) -> None:
@@ -2573,24 +3277,61 @@ class AsyncEngine:
                     if fut is not None and not fut.done():
                         fut.set_exception(exc)
             if not self.core.has_work and not added:
+                # The idle sweep (audit, spot check, canary on their
+                # cadences; nothing at the defaults): evidence of corruption
+                # takes the numerical containment a guard trip takes.
+                try:
+                    suspicion = self.core.maybe_idle_integrity()
+                except Exception as idle_exc:  # noqa: BLE001 — the replay tripped
+                    suspicion = f"canary replay raised: {idle_exc}"
+                if suspicion is not None and not self._recover_numerical(
+                        DeviceFaultError(FAULT_NUMERICAL, suspicion)):
+                    logger.error("numerical fault with no rebuild path: %s", suspicion)
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()
                 continue
             try:
                 for out in self.core.step():
+                    self._numerical_probation.pop(out.rid, None)
                     self._resolve(out.rid, out)
             except Exception as exc:  # noqa: BLE001 — keep the loop alive
-                logger.exception("engine step failed")
-                if self.error is None:
-                    self.error = exc
-                failure = RuntimeError("engine step failed")
-                failure.__cause__ = exc
-                self._fail_all(failure)
-                try:
-                    self.core.abort_all("error")
-                except Exception:  # noqa: BLE001 — the callers already hold the failure
-                    logger.exception("abort after a failed step failed")
+                self._contain(exc)
         try:  # catch the host up so deferred pages release
             self.core._drain([])
         except Exception:  # noqa: BLE001 — best-effort cleanup
             logger.exception("drain on shutdown failed")
+        self.core.stop_watchdog()
+
+    def _contain(self, exc: Exception) -> None:
+        """A failed step (JAX :5530-5560): a classified device fault goes
+        down the ladder, the numerical recovery or a rebuild; what none of
+        them contains aborts the batch and fails its requests, a device
+        fault with ``DeviceFaultError`` (its class in the worker's
+        headers), anything else with ``RuntimeError``. An uncontained
+        device fault sets ``error``: the port's worker stops on it."""
+        reason = classify_failure(exc)
+        if reason == FAULT_OOM and self._degrade_and_restore(exc):
+            return
+        if reason == FAULT_NUMERICAL and self._recover_numerical(exc):
+            return
+        if reason is not None and self.rebuild_core is not None and \
+                self._rebuild_after_fault(reason, exc):
+            return
+        logger.error("engine step failed", exc_info=exc)
+        if reason is not None and self.error is None:
+            self.error = exc
+        failure: Exception = (DeviceFaultError(reason, f"engine step failed: {exc}")
+                              if reason is not None else RuntimeError("engine step failed"))
+        failure.__cause__ = exc
+        try:
+            self.core.abort_all("error")
+        except Exception:  # noqa: BLE001 — the callers get the failure anyway
+            logger.exception("abort after a failed step failed")
+        # The queued requests fail too: added next round, they would finish
+        # for futures nobody awaits.
+        while True:
+            try:
+                self._intake.get_nowait()
+            except queue.Empty:
+                break
+        self._fail_all(failure)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
@@ -52,6 +53,9 @@ class DispatchGraphs:
         self.replays = 0
         # Decode iterations run eagerly before captures, by key[0] (the kind).
         self.warmup_steps: Dict[Hashable, int] = {}
+        # Host seconds spent in warm-ups and captures (launches are
+        # asynchronous: the host's cost, not the device's).
+        self.capture_s = 0.0
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -74,9 +78,11 @@ class DispatchGraphs:
         the graph's outputs."""
         entry = self._graphs.get(key)
         if entry is None:
+            t0 = time.perf_counter()
             warm()
             self.warmup_steps[key[0]] = self.warmup_steps.get(key[0], 0) + steps
             entry = self._graphs[key] = self._capture(fn, steps)
+            self.capture_s += time.perf_counter() - t0
         entry.graph.replay()
         _build.set_launch_counts(entry.launches, add=True)
         self.replays += 1

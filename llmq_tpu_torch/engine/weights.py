@@ -51,13 +51,22 @@ Name mapping (HF → ours):
     lm_head.weight                       lm_head               (transposed;
                                          none for tied embeddings)
 
+``checksum_ledger`` (the integrity plane's load ledger, JAX :156-239): a
+dict the load fills with ``{stream name: blake2b-16 hex}`` over each
+streamed buffer's device-bound bytes (after conversion or quantization,
+block by block: ``layers.<name>``, ``layers.<name>.q``, ``embed``,
+``final_norm``, ``lm_head``), equal to the JAX loader's for the same
+checkpoint and dtype. Blocks are converted on the device here, so each is
+copied back to the host to be hashed: a ledger costs a device-to-host
+copy and a blake2b pass over the tree.
+
 Left out of the reference's signature: ``mesh`` (sharded streaming, with
-multi-GPU: ROADMAP M13) and ``checksum_ledger`` (the load ledger of the
-integrity plane: ROADMAP M12). MoE checkpoints wait for M14.
+multi-GPU: ROADMAP M13). MoE checkpoints wait for M14.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import struct
@@ -221,12 +230,28 @@ def _quant_int4(a32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Te
     return qm.pack_int4(q), scale, zero
 
 
+def _host_bytes(t: torch.Tensor) -> bytes:
+    """A tensor's bytes in C order, as numpy's ``tobytes`` gives them."""
+    t = t.detach().contiguous().reshape(-1)
+    if t.dtype != torch.uint8:
+        t = t.view(torch.uint8)
+    return t.cpu().numpy().tobytes()
+
+
 def _stream(shape, dtype, blocks: Iterable[Tuple[int, torch.Tensor]], device,
-            axis: int = 0) -> torch.Tensor:
-    """A device buffer of ``shape`` filled block by block along ``axis``."""
+            axis: int = 0, *, name: str = "",
+            ledger: Optional[Dict[str, str]] = None) -> torch.Tensor:
+    """A device buffer of ``shape`` filled block by block along ``axis``;
+    with a ``ledger``, the blocks' bytes folded into a blake2b under
+    ``name``."""
     buf = torch.empty(shape, dtype=dtype, device=device)
+    fold = hashlib.blake2b(digest_size=16) if ledger is not None else None
     for start, block in blocks:
+        if fold is not None:
+            fold.update(_host_bytes(block))
         buf.narrow(axis, start, block.shape[axis]).copy_(block)
+    if fold is not None:
+        ledger[name] = fold.hexdigest()
     return buf
 
 
@@ -237,6 +262,7 @@ def load_checkpoint(
     dtype: torch.dtype = torch.bfloat16,
     device: DeviceLike = "cuda",
     quantize: Union[bool, str] = False,
+    checksum_ledger: Optional[Dict[str, str]] = None,
 ) -> Params:
     """Load an HF checkpoint directory into the stacked param layout on
     ``device``, ``dtype`` the compute (and scale) dtype.
@@ -296,9 +322,11 @@ def load_checkpoint(
                     arr = arr.to(dtype)
                 yield i, arr[None]
 
+        stream = f"layers.{our_name}" + (".q" if quant else "")
         if not quant:
-            return _stream((L, *shape0), dtype, blocks(), dev)
-        buf = _stream(full, torch.uint8 if int4 else torch.int8, blocks(), dev)
+            return _stream((L, *shape0), dtype, blocks(), dev, name=stream, ledger=checksum_ledger)
+        buf = _stream(full, torch.uint8 if int4 else torch.int8, blocks(), dev, name=stream,
+                      ledger=checksum_ledger)
         if int4:
             return {"q": buf, "scale": scales, "zero": zeros}
         return {"q": buf, "scale": scales}
@@ -333,7 +361,8 @@ def load_checkpoint(
                     arr = arr.to(dtype)
                 yield lo, arr.T if transpose else arr
 
-        buf = _stream(shape, torch.int8 if quant else dtype, blocks(), dev, axis=axis)
+        buf = _stream(shape, torch.int8 if quant else dtype, blocks(), dev, axis=axis,
+                      name=our_name + (".q" if quant else ""), ledger=checksum_ledger)
         return {"q": buf, "scale": scales} if quant else buf
 
     layers: Params = {"ln1": stacked("ln1", "model.layers.{i}.input_layernorm.weight")}
@@ -361,7 +390,9 @@ def load_checkpoint(
     norm = reader.file("model.norm.weight")
     params: Params = {
         "embed": big2d("embed", "model.embed_tokens.weight"),
-        "final_norm": fetch(norm, "model.norm.weight").to(dtype),
+        "final_norm": _stream(norm.shape("model.norm.weight"), dtype,
+                              [(0, fetch(norm, "model.norm.weight").to(dtype))], dev,
+                              name="final_norm", ledger=checksum_ledger),
         "layers": layers,
     }
     if not config.tie_word_embeddings and "lm_head.weight" in reader.index:

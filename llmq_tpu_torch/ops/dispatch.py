@@ -4,7 +4,8 @@ versions for CPU tensors.
 Port of ``llmq_tpu/ops/dispatch.py`` (``prefill_attention`` :67,
 ``chunked_prefill_attention`` :119, ``decode_kernel_plan`` :193,
 ``verify_kernel_plan`` :219, ``mixed_kernel_plan`` :245,
-``decode_attention_fused_write`` :322, ``decode_attention`` :381), plus
+``decode_attention_fused_write`` :322, ``decode_attention`` :381,
+``logit_guard_stats`` :482), plus
 the weight-only matmuls that ``llmq_tpu/models/quant.py::matmul`` sends
 to ``ops/pallas_matmul.py``. The model calls these functions, and this
 is the one place where a kernel or its plain version is chosen: by the
@@ -25,6 +26,7 @@ through its kernel at all is ``LLMQ_INT8_MATMUL`` / ``LLMQ_INT4_MATMUL``
 
 from __future__ import annotations
 
+import math
 import os
 from typing import FrozenSet, Optional, Tuple
 
@@ -201,3 +203,42 @@ def int4_matmul(
     """``x[M, K] @ dequant(q, scale, zero)``: K7 on the card."""
     mm = int4_matmul_cuda if x.is_cuda else plain_matmul.int4_matmul
     return mm(x.contiguous(), q, scale, zero)
+
+
+def logit_guard_stats(logits: torch.Tensor, mask: torch.Tensor, *, max_abs: float,
+                      min_entropy: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The numerics guard over one dispatch's logits (JAX :482): returns
+    ``(stats f32[3], bad bool[rows])``, ``stats`` = [nonfinite count, max
+    |logit|, min row entropy in nats] over the masked rows, ``bad`` each
+    masked row that trips a check (any non-finite value; ``|logit| >
+    max_abs`` when ``max_abs > 0``; softmax entropy below ``min_entropy``
+    when ``min_entropy > 0``). Rows outside ``mask`` count 0 / max 0 /
+    entropy +inf and are never flagged. Plain tensor reductions with no
+    host sync: the engine runs them inside its dispatches (the captured
+    graphs included), the thresholds fixed when the engine is built, as
+    JAX traces them."""
+    z = logits.float()
+    row_mask = mask[:, None]
+    finite = torch.isfinite(z)
+    nonfinite_rows = (~finite & row_mask).sum(dim=1).float()
+    zf = torch.where(finite, z, 0.0)
+    absmax_rows = torch.where(row_mask, zf.abs(), 0.0).amax(dim=1)
+    # Stable entropy over the finite entries: H = logsumexp(z) - sum(p z);
+    # a non-finite entry weighs 0, so one NaN cannot poison this lane too.
+    m = torch.where(finite, zf, -math.inf).amax(dim=1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    ez = torch.where(finite, torch.exp(zf - m), 0.0)
+    sz = ez.sum(dim=1).clamp(min=1e-30)
+    ent = (torch.log(sz) + m[:, 0]) - (ez * zf).sum(dim=1) / sz
+    ent_masked = torch.where(mask, ent, math.inf)
+    bad = mask & (nonfinite_rows > 0)
+    if max_abs > 0:
+        bad = bad | (mask & (absmax_rows > max_abs))
+    if min_entropy > 0:
+        bad = bad | (mask & (ent_masked < min_entropy))
+    stats = torch.stack([
+        nonfinite_rows.sum(),
+        torch.where(mask, absmax_rows, 0.0).amax(),
+        ent_masked.amin(),
+    ])
+    return stats, bad

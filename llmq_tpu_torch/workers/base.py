@@ -54,11 +54,19 @@ goes to the ``LLMQ_TRACE_LOG`` JSONL sink, with those that cannot stamp a
 payload (``requeued``, ``dead_lettered``, ``dropped``, ``role_switch``,
 ``affinity_bounced``, ``breaker_tripped``, ``duplicate_suppressed``).
 
-Left out until its slice, each place marked: the ``DeviceFaultError``
-ladder and the watchdog / integrity heartbeat fields (ROADMAP.md queue 1,
-M12). Two things are the port's own: ``broker_url`` (the
-``TorchWorker``'s argument) and the :meth:`_after_failure` hook, where the
-``TorchWorker`` stops on a failed engine until M12.
+Device faults (``base.py:788-815``): a classified fault the engine could
+not contain, or a job convicted as poison by the numerics guard, arrives
+as ``DeviceFaultError``; its class (``hung_dispatch``, ``hbm_oom``,
+``numerical_fault``, ...) goes to the breaker and into the quarantine /
+dead-letter headers as ``x-failure-reason``. The heartbeat carries
+``last_dispatch_ok_age_s`` (with the engine's watchdog on: what the
+janitor's ``LLMQ_WATCHDOG_RECLAIM`` reads) and ``integrity`` (with an
+integrity knob on), both omitted otherwise.
+
+Two things are the port's own: ``broker_url`` (the ``TorchWorker``'s
+argument) and the :meth:`_after_failure` hook, where the ``TorchWorker``
+stops once its engine failed to contain a device fault (ROADMAP.md
+queue 3).
 """
 
 from __future__ import annotations
@@ -84,6 +92,7 @@ from llmq_tpu_torch.broker.manager import (
     interactive_queue_name,
 )
 from llmq_tpu_torch.core.config import Config, get_config
+from llmq_tpu_torch.core.faults import DeviceFaultError
 from llmq_tpu_torch.core.models import Job, Result, WorkerHealth, utcnow
 from llmq_tpu_torch.core.pipeline import PipelineConfig
 from llmq_tpu_torch.obs.exporter import maybe_start_exporter
@@ -501,9 +510,9 @@ class BaseWorker(abc.ABC):
             self.request_shutdown()
 
     async def _after_failure(self, exc: BaseException) -> None:
-        """Hook (the port's): called on a generic processing failure before
-        the job settles. The ``TorchWorker`` stops on a failed engine here
-        until the fault planes (M12) contain the failure instead."""
+        """Hook (the port's): called on a processing failure (a device fault
+        or a generic one) before the job settles. The ``TorchWorker`` stops
+        here once its engine could not contain a device fault."""
         return None
 
     # --- the hot loop -----------------------------------------------------
@@ -602,8 +611,23 @@ class BaseWorker(abc.ABC):
             self.jobs_failed += 1
             emit_trace_event(job.id, "dropped", worker_id=self.worker_id, reason=str(exc))
             await message.ack()
-        # The reference's DeviceFaultError ladder (a classified device
-        # fault's class in the headers) comes with the fault planes (M12).
+        except DeviceFaultError as exc:
+            # A classified device fault the engine could not absorb, or a
+            # poison job: the generic ladder, with the machine-readable
+            # class in the breaker and the headers, so `errors` tells a
+            # wedged chip from a bad job.
+            self.logger.warning("Job %s hit device fault %s (delivery %d), requeueing: %s",
+                                job.id, exc.failure_reason, message.delivery_count, exc)
+            self.jobs_failed += 1
+            reason = exc.failure_reason
+            self._remember_failure(job.id, reason)
+            self._note_engine_failure(reason)
+            await self._after_failure(exc)
+            if await self._maybe_quarantine(job, message, trace, reason=reason):
+                return
+            emit_trace_event(job.id, "requeued", worker_id=self.worker_id, reason=reason)
+            self._note_retry_exhausted(job, message.delivery_count, trace, reason=reason)
+            await message.reject(requeue=True)
         except Exception as exc:  # noqa: BLE001 — transient: requeue
             self.logger.warning("Job %s failed (delivery %d), requeueing: %s", job.id,
                                 message.delivery_count, exc)
@@ -837,10 +861,10 @@ class BaseWorker(abc.ABC):
                 queue=self.queue,
                 engine_stats=self._stats_with_robustness(),
                 reconnects=stats.reconnects if stats is not None else None,
-                # The watchdog / integrity fields come with the fault
-                # planes (M12).
                 metrics=get_registry().summary() or None,
                 prefix_chains=self._prefix_chains(),
+                last_dispatch_ok_age_s=self._dispatch_ok_age(),
+                integrity=self._integrity_status(),
                 role=None if self.role == "unified" else self.role_active,
             )
             # Fields whose machinery is off are excluded (not null).
@@ -854,6 +878,16 @@ class BaseWorker(abc.ABC):
 
     def _engine_stats(self) -> Optional[dict]:
         """Subclasses may surface engine metrics (batch occupancy etc.)."""
+        return None
+
+    def _dispatch_ok_age(self) -> Optional[float]:
+        """Seconds since the engine's last clean device call, or None (the
+        field omitted) when no watchdog runs."""
+        return None
+
+    def _integrity_status(self) -> Optional[str]:
+        """The engine's integrity verdict ('ok' / 'suspect'), or None (the
+        field omitted) when every integrity knob is off."""
         return None
 
     def _stats_with_robustness(self) -> Optional[dict]:

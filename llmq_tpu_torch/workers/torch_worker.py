@@ -69,11 +69,21 @@ The prefetch, when not given, is ``max(LLMQ_QUEUE_PREFETCH, 1.5 x the
 engine's slots)``, as ``TPUWorker``'s. ``max_jobs`` (the port's) stops
 the worker once that many deliveries settled without a requeue.
 
-A failed engine step (a kernel launch error, say, which leaves the CUDA
-context unusable) stops the worker: it stops consuming, hands its
-in-flight jobs back to the queue, and :meth:`run` raises with the
-engine's exception as the cause; the reference's in-process fault
-containment comes with the fault planes (ROADMAP.md queue 1, M12). With
+Device faults (``tpu_worker.py:230-240``, :475-507, :1348-1424). The
+worker wires ``engine.rebuild_core`` (a fresh core from the engine's
+``core_factory``, with the first core's ``num_pages``), so the engine
+contains a classified device fault in process: it rebuilds and restores
+every in-flight row, and the jobs finish as if nothing happened, with
+``device_fault`` -> ``engine_rebuilt`` on their traces
+(:meth:`_trace_fault_events`). Each fault counts against the breaker
+(``engine.on_device_fault``, marshalled onto the event loop). The
+heartbeat carries ``last_dispatch_ok_age_s`` and ``integrity`` when the
+engine's watchdog or an integrity knob is on. A fault the engine could
+not contain (its rebuild failed: a CUDA error is sticky, and every later
+call in the process fails) stops the worker: it stops consuming, its
+in-flight jobs go back to the queue with the fault's class as their
+failure reason, and :meth:`run` raises with the engine's exception as the
+cause. The reference keeps consuming there (ROADMAP.md queue 3). With
 ``breaker_failures`` set, the breaker's self-drain applies as in the
 reference. A timed-out job's request keeps decoding in the engine until
 its ``max_tokens``, as in the reference: neither engine aborts it.
@@ -205,6 +215,11 @@ class TorchWorker(BaseWorker):
         self._busy_to: Optional[float] = None  # and its last result
         self._settled = 0
         self.error: Optional[BaseException] = None  # the engine failure that stopped it
+        # In-process fault containment: the engine rebuilds its core here.
+        # (A stand-in engine without the fault planes' surface has none.)
+        if getattr(engine, "core_factory", None) is not None:
+            engine.rebuild_core = self._rebuild_core
+        self._load_checksums = getattr(engine, "load_checksums", None)  # the checkpoint's ledger
         # The peers' plane: text-chain digest -> jobs that walked it (a
         # capped LRU; the top is advertised), a lock keeping one fetch in
         # flight, the requests to peers awaiting their reply (request id ->
@@ -252,7 +267,26 @@ class TorchWorker(BaseWorker):
             raise RuntimeError(f"worker {self.worker_id} stopped: its engine failed") from self.error
 
     async def _initialize_processor(self) -> None:
-        return None  # the engine is built by the caller (cli/worker.py::build_engine)
+        # The engine is built by the caller (cli/worker.py::build_engine).
+        # Its fault callback fires on the engine thread mid-recovery; the
+        # breaker's accounting belongs on the event loop.
+        loop = asyncio.get_running_loop()
+        self.engine.on_device_fault = (
+            lambda reason: loop.call_soon_threadsafe(self._note_device_fault, reason))
+        if self._load_checksums:
+            self.logger.info("load checksums recorded for %d streamed tensor(s)",
+                             len(self._load_checksums))
+
+    def _rebuild_core(self):
+        """On the engine thread, after the faulted core was freed: a fresh
+        core through the engine's factory, its pool as large as the first's."""
+        return self.engine.core_factory(self.engine.core.scheduler.config.num_pages)
+
+    def _note_device_fault(self, reason: str) -> None:
+        """Event-loop side of a device fault: count it against the breaker,
+        so repeated rebuilds self-drain the worker even when each succeeds."""
+        self.logger.error("Engine reported device fault: %s", reason)
+        self._note_engine_failure(reason)
 
     async def _cleanup_processor(self) -> None:
         await reap_all(self._stream_tasks, label="stream flush")
@@ -277,8 +311,9 @@ class TorchWorker(BaseWorker):
                              len(handoffs))
 
     async def _after_failure(self, exc: BaseException) -> None:
-        """Stop taking jobs once the engine failed (no redelivery loop into
-        a dead engine); the in-flight ones requeue as their handlers fail."""
+        """Stop taking jobs once the engine failed to contain a device fault
+        (no redelivery loop into a dead device); the in-flight ones requeue
+        as their handlers fail."""
         if self.engine.error is None or self.error is not None:
             return
         self.error = self.engine.error
@@ -334,8 +369,35 @@ class TorchWorker(BaseWorker):
             out["kernel_launches"] = launches
         return out
 
+    def _dispatch_ok_age(self) -> Optional[float]:
+        watchdog = getattr(self.engine.core, "watchdog", None)
+        return None if watchdog is None else round(watchdog.last_ok_age_s(), 3)
+
+    def _integrity_status(self) -> Optional[str]:
+        core = self.engine.core
+        if (getattr(core, "logit_guard", "off") != "on"
+                and getattr(core, "weight_audit_every", 0) <= 0
+                and getattr(core, "canary_every", 0) <= 0):
+            return None
+        return core.integrity_status()
+
+    def _trace_fault_events(self, job_id: str) -> None:
+        """The engine's fault-recovery events of the request onto its trace,
+        at their monotonic stamps."""
+        events = self.engine.pop_fault_events(job_id)
+        trace = self._job_traces.get(job_id)
+        if trace is None or not events:
+            return
+        for name, t_mono, fields in events:
+            trace_event_at(trace, name, t_mono, **fields)
+
     def _engine_stats(self) -> Optional[dict]:
         stats = self.engine.stats()
+        # Rebuild accounting, once a fault happened.
+        if getattr(self.engine, "engine_rebuilds", 0):
+            stats["engine_rebuilds"] = self.engine.engine_rebuilds
+            if self.engine.last_fault_reason:
+                stats["last_fault_reason"] = self.engine.last_fault_reason
         # The serving counters, once they moved.
         for name in ("stream_frames_published", "jobs_cancelled"):
             if getattr(self, name):
@@ -413,6 +475,9 @@ class TorchWorker(BaseWorker):
         finally:
             if streaming:
                 await self._stream_finish(job, out)
+        # The recovery's events (device_fault -> engine_rebuilt) onto the
+        # trace, whether the job finished after a restore or hands off below.
+        self._trace_fault_events(job.id)
         if isinstance(out, HandoffOutput):
             # This worker is draining: the partial progress goes back.
             raise JobHandoff(

@@ -189,11 +189,29 @@ def test_engine_config_fields_and_unported_options():
         jengine._prefill_buckets(jengine.EngineConfig(max_model_len=700))
     cfg = TConfig.tiny()
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
-    for field, value, item in (("watchdog_mult", 2.0, "M12"), ("logit_guard", "on", "M12"),
-                               ("tp_overlap", "on", "M13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
-                               engine_config=tengine.EngineConfig(**{field: value}))
+    with pytest.raises(NotImplementedError, match="M13"):
+        tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
+                           engine_config=tengine.EngineConfig(tp_overlap="on"))
+    # The fault planes' fields (M12, once refused here) build, each honoured
+    # with the JAX config's checks; the activation taps are refused by name.
+    core = tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu",
+                              engine_config=tengine.EngineConfig(
+                                  watchdog_mult=2.0, watchdog_min_s=5.0, logit_guard="on",
+                                  guard_logit_max=1e4, guard_entropy_min=0.01))
+    assert (core.watchdog.mult, core.watchdog.min_s, core.logit_guard, core.guard_logit_max,
+            core.guard_entropy_min) == (2.0, 5.0, "on", 1e4, 0.01)
+    assert core.stats()["integrity"] == "ok" and core.stats()["watchdog_trips"] == 0
+    core.stop_watchdog()
+    for field, value in (("watchdog_mult", -1.0), ("watchdog_min_s", 0.0),
+                         ("logit_guard", "maybe"), ("canary_every", -1.0)):
+        with pytest.raises(ValueError, match=field):
+            tengine.EngineConfig(**{field: value})
+        with pytest.raises(ValueError, match=field):
+            jengine.EngineConfig(**{field: value})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LLMQ_ACT_STATS", "1")
+        with pytest.raises(NotImplementedError, match="LLMQ_ACT_STATS.*M12b"):
+            tengine.EngineCore(cfg, params, ByteTokenizer(), device="cpu")
     # The fused dispatch modes (M10) and the request-state fields (M11, once
     # refused here: interactive_decode_block) build, holding the JAX config's
     # values; interactive_decode_block is what the config says (0 unless set).

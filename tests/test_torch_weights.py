@@ -54,12 +54,17 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     ("float32", "int4"),
 ])
 def test_load_checkpoint_matches_the_jax_loader(hf_dir, dtype, quantize):
+    """The tree bit for bit, and the load ledger (``checksum_ledger``: a
+    blake2b of each streamed buffer's device-bound bytes) name for name."""
     from llmq_tpu.engine.weights import load_checkpoint as jax_load
 
-    ref = jax_load(hf_dir, dtype=getattr(jnp, dtype), quantize=quantize)
+    ref_ledger, got_ledger = {}, {}
+    ref = jax_load(hf_dir, dtype=getattr(jnp, dtype), quantize=quantize,
+                   checksum_ledger=ref_ledger)
     ref = params_from_numpy(jax.tree.map(np.asarray, ref))
     got = tw.load_checkpoint(hf_dir, dtype=getattr(torch, dtype), device="cpu",
-                             quantize=quantize)
+                             quantize=quantize, checksum_ledger=got_ledger)
+    assert got_ledger == ref_ledger and "layers.q_proj" + (".q" if quantize else "") in got_ledger
     ref_leaves, got_leaves = dict(_leaves(ref)), dict(_leaves(got))
     assert sorted(got_leaves) == sorted(ref_leaves)
     for name, t in got_leaves.items():

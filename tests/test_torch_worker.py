@@ -82,19 +82,24 @@ def test_worker_serves_memory_queue():
 
 
 def test_worker_stops_with_the_engine_failure():
-    """A failed engine step (a kernel launch error, say) stops the worker:
-    ``run`` raises with the engine's exception as the cause, every job goes
-    back to the queue once, and nothing is published or dead-lettered."""
+    """A device fault the engine cannot contain stops the worker: a kernel
+    launch error whose in-process rebuild fails too (a CUDA error is
+    sticky: every later call in the process fails). ``run`` raises with
+    the engine's exception as the cause, every job goes back to the queue
+    once with the fault's class as its failure reason, and nothing is
+    published or dead-lettered. (A fault the rebuild contains does not
+    stop it: ``tests/test_torch_faults.py``.)"""
     url = "memory://torch-worker-fail"
     reset_namespace(url.split("://")[1])
     jobs = [Job(id=f"f{i}", prompt=f"job {i}", temperature=0.0, max_tokens=4) for i in range(3)]
     asyncio.run(_submit([j.model_dump_json().encode() for j in jobs], url))
     engine = build_engine("preset://tiny", **ENGINE)
 
-    def failing_step():
+    def failing_step(*args, **kwargs):
         raise RuntimeError("paged_decode kernel launch failed: CUDA error 700")
 
     engine.core.step = failing_step
+    engine.core_factory = failing_step  # the rebuild meets the same sticky error
     worker = TorchWorker(QUEUE, engine, broker_url=url, max_jobs=len(jobs))
     try:
         with pytest.raises(RuntimeError, match="engine failed") as info:
@@ -102,7 +107,8 @@ def test_worker_stops_with_the_engine_failure():
     finally:
         engine.shutdown()
     assert "CUDA error 700" in str(info.value.__cause__)
-    assert worker.jobs_processed == 0
+    assert worker.jobs_processed == 0 and engine.engine_rebuilds == 0
+    assert {worker._failure_reasons.get(j.id) for j in jobs} == {"xla_runtime_error"}
     requeued = [json.loads(b)["id"] for b in asyncio.run(_drain(QUEUE, url))]
     assert sorted(requeued) == [j.id for j in jobs]
     assert asyncio.run(_drain(QUEUE + ".results", url)) == []
