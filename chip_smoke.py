@@ -99,8 +99,10 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    K2 in (c)'s in-process run), and phase 13 (a)'s
    (``failure_policy_launches``), phase 14's (``pipeline_launches``)
    and phase 15's (``peers_launches``: K3, K4 in (a), K1, K2 in (b)) and
-   phase 16's (``gateway_launches``: K1, K2). Printed last, after phases
-   8-16.
+   phase 16's (``gateway_launches``: K1, K2), phase 17's
+   (``faults_launches``) and phase 18's (``moe_launches`` by dtype: K1,
+   K2, K6; ``moe_shapes``: their times at the MoE's shapes). Printed
+   last, after phases 8-18.
 8. The checkpoint path at full width: phase 3's qwen2.5-3b weights (the
    same seed) written as an HF checkpoint (config.json, two safetensors
    shards and their index, HF names, [out, in] weights) under ``build/``
@@ -335,6 +337,37 @@ Phases, each printing one JSON line (a phase that fails exits non-zero):
    path (v3, chunks of 256: K3 + K4). ``--phases build,serve,faults``
    runs phase 3 and this phase alone.
 
+18. Mixture-of-experts serving (M14) at full width: qwen1.5-moe-a2.7b
+   (24 layers, hidden 2048, 16 / 16 heads, 60 experts, top 4, a shared
+   expert of 5,632, untied head; random weights from a seeded generator).
+   (a) K1 and K2 at its attention shapes (a query group of 1, d 128) and
+   K6 at its int8 weights' shapes (q/k/v/o 2,048 x 2,048, the shared
+   expert's 2,048 x 5,632 and 5,632 x 2,048, the head 2,048 x 151,936; M =
+   16) against their plain versions, f32 and bf16. (b) bf16 and (c) int8
+   (``LLMQ_INT8_MATMUL=pallas``: K6 on the attention projections, the
+   shared expert and the head; the expert stacks are dequantized a layer
+   at a time, as in the JAX package): 16 of phase 3's jobs, 64 new tokens,
+   through ``run_torch_worker`` over ``memory://``; K1 24 launches a decode
+   step, K2 24 a prefill dispatch, K6 (int8) 7 x 24 + 1 a dispatch,
+   nothing else, tensor cores only; every decode dispatch a graph replay;
+   the same jobs on an eager engine (``cuda_graphs=False``) over the same
+   weights give the same tokens or part at a near-tie (the witness of
+   phase 11 (b)). Printed: tok/s, the decode step's host span, device time
+   and idle share (eager and captured), weight GB, the transient the KV
+   sizing reserves and the peak an eager decode step allocates. (d) f32
+   parity at the preset's widths and 2 layers, TF32 off: the card's
+   prefill and decode logits within 1e-4 of the port's CPU path, 16
+   greedy tokens a prompt identical, K1 / K2 on their exact routes. (e)
+   An HF-format qwen2_moe checkpoint (one tensor per expert, a tokenizer
+   beside it) of seeded bf16 weights at the preset's widths and 2 layers
+   under ``build/``, removed after: ``load_checkpoint`` gives the written
+   tree bit for bit (load time printed), and a ``worker run CHECKPOINT``
+   process over tcp:// serves 4 jobs whose token ids equal an in-process
+   engine's over the loaded tree (log ``moe_checkpoint_worker.log``).
+   ``--phases build,moe`` runs this phase alone. K1's, K2's and K6's
+   records in the kernels line add (b)'s and (c)'s launches
+   (``moe_launches``) and (a)'s bf16 times (``moe_shapes``).
+
 The last line is ``{"ok": true, "device": {...}}``, printed only after
 every phase ran and passed. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing any
@@ -369,7 +402,7 @@ TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DECODE_F32_MATH_TOLERANCE = 1e-2  # bf16 K1 against the plain version in f32
 ALL_PHASES = ("build", "kernels", "serve", "prefix", "quant", "parity", "checkpoint", "tcp",
               "fused", "snapshot", "prefix_kv", "failure_policy", "pipeline", "peers", "gateway",
-              "faults")
+              "faults", "moe")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -1436,9 +1469,10 @@ def _check_results(results, n_jobs: int, gen: int) -> list:
     return problems
 
 
-def _decode_rates(core, *, S: int, ctx: int) -> tuple:
+def _decode_rates(core, *, S: int, ctx: int, iters: int = 0) -> tuple:
     """Span and device time (ms) of one decode step of ``S`` rows at
-    context ``ctx``, through the engine's model and pool."""
+    context ``ctx``, through the engine's model and pool; with ``iters``,
+    only that many steps, untimed."""
     dev = core.device
     n_pages = ctx // core.cfg.page_size + 2
     bt = torch.arange(1, 1 + S * n_pages, device=dev, dtype=torch.int32).reshape(S, n_pages)
@@ -1450,6 +1484,10 @@ def _decode_rates(core, *, S: int, ctx: int) -> tuple:
     def decode(i):
         return core.model.decode(tok, ctx_t, core.k_pages, core.v_pages, bt, active)
 
+    if iters:
+        for i in range(iters):
+            decode(i)
+        return None
     return span_ms(decode, 10), device_ms(decode, 5)
 
 
@@ -2054,25 +2092,46 @@ HF_LAYER_NAMES = {
     "q_bias": "self_attn.q_proj.bias", "k_bias": "self_attn.k_proj.bias",
     "v_bias": "self_attn.v_proj.bias", "gate_proj": "mlp.gate_proj.weight",
     "up_proj": "mlp.up_proj.weight", "down_proj": "mlp.down_proj.weight",
+    # qwen2_moe (phase 18): the router, each expert's projections, the shared expert
+    "router": "mlp.gate.weight", "expert_gate_proj": "mlp.experts.{e}.gate_proj.weight",
+    "expert_up_proj": "mlp.experts.{e}.up_proj.weight",
+    "expert_down_proj": "mlp.experts.{e}.down_proj.weight",
+    "shared_gate_proj": "mlp.shared_expert.gate_proj.weight",
+    "shared_up_proj": "mlp.shared_expert.up_proj.weight",
+    "shared_down_proj": "mlp.shared_expert.down_proj.weight",
+    "shared_expert_gate": "mlp.shared_expert_gate.weight",
 }
 _ST_TAGS = {torch.bfloat16: "BF16", torch.float32: "F32"}
 
 
 def write_hf_checkpoint(cfg, params: dict, out_dir: str, shards: int = 2) -> int:
-    """A qwen2 HF checkpoint of ``params``: config.json, ``shards``
-    safetensors files and their index, HF names, linear weights [out, in].
-    Written tensor by tensor from the card; returns the bytes written."""
-    hf = dict(model_type="qwen2", vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+    """A qwen2 (or qwen2_moe) HF checkpoint of ``params``: config.json,
+    ``shards`` safetensors files and their index, HF names, linear weights
+    [out, in], an expert stack as one tensor per (layer, expert). Written
+    tensor by tensor from the card; returns the bytes written."""
+    hf = dict(model_type=cfg.model_type, vocab_size=cfg.vocab_size,
+              hidden_size=cfg.hidden_size,
               num_hidden_layers=cfg.num_layers, num_attention_heads=cfg.num_heads,
               num_key_value_heads=cfg.num_kv_heads, intermediate_size=cfg.intermediate_size,
               max_position_embeddings=cfg.max_position_embeddings, rope_theta=cfg.rope_theta,
               rms_norm_eps=cfg.rms_norm_eps, tie_word_embeddings=cfg.tie_word_embeddings)
+    if cfg.num_experts:
+        hf.update(num_experts=cfg.num_experts, num_experts_per_tok=cfg.num_experts_per_tok,
+                  moe_intermediate_size=cfg.moe_intermediate_size,
+                  shared_expert_intermediate_size=cfg.shared_expert_intermediate_size,
+                  norm_topk_prob=cfg.norm_topk_prob, decoder_sparse_step=1, mlp_only_layers=[])
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf, f)
     names = [("model.embed_tokens.weight", lambda: params["embed"])]
     for i in range(cfg.num_layers):
         for ours, theirs in HF_LAYER_NAMES.items():
-            t = params["layers"][ours]
+            t = params["layers"].get(ours)
+            if t is None:
+                continue
+            if t.dim() == 4:  # [L, E, in, out]: one tensor an expert
+                names += [(f"model.layers.{i}.{theirs.format(e=e)}",
+                           lambda t=t, i=i, e=e: t[i, e].T) for e in range(t.shape[1])]
+                continue
             names.append((f"model.layers.{i}.{theirs}",
                           lambda t=t, i=i: t[i].T if t.dim() == 3 else t[i]))
     names.append(("model.norm.weight", lambda: params["final_norm"]))
@@ -5288,6 +5347,341 @@ def phase_faults(smi: str, serve_tokens: dict, solo_tokens: dict) -> dict:
     return launches
 
 
+# --- phase 18: mixture-of-experts serving at full width ----------------------
+
+MOE_PRESET = "qwen1.5-moe-a2.7b"
+# K6 on one qwen1.5-moe-a2.7b layer's 2-D int8 weights at a decode step
+# (the expert stacks are dequantized instead), and on its untied head.
+MOE_QUANT_SHAPES = (
+    ("qwen1.5-moe q/k/v/o_proj", 2048, 2048),
+    ("qwen1.5-moe shared gate/up_proj", 2048, 5632),
+    ("qwen1.5-moe shared down_proj", 5632, 2048),
+    ("qwen1.5-moe lm_head", 2048, 151936),
+)
+
+
+def _moe_kernels(iters: int) -> dict:
+    """K1 and K2 at the MoE's attention shapes (16 query heads over 16 KV
+    heads, a query group of 1, d 128) and K6 at its int8 weights' shapes
+    (M = 16), each against its plain version in f32 and bf16."""
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        rec = check_decode(MOE_PRESET, variant="v1", S=16, H=16, n_kv=16, d=128, L=24, page=32,
+                           max_ctx=1024, dtype=dtype, softcap=None, window=None, iters=iters,
+                           seed=31)
+        recs[f"paged_decode/{rec['route']}"] = rec
+        rec = check_prefill(MOE_PRESET, B=4, T=224, H=16, n_kv=16, d=128,
+                            lengths=[224, 200, 151, 37], dtype=dtype, softcap=None, window=None,
+                            iters=iters, seed=32)
+        recs[f"flash_prefill/{rec['route']}"] = rec
+        for i, (label, K, N) in enumerate(MOE_QUANT_SHAPES):
+            rec = check_quant_matmul(label, kind="int8", M=16, K=K, N=N, dtype=dtype,
+                                     iters=iters, seed=33 + i, timed=bf16)
+            if bf16:
+                recs[f"int8_matmul/{label}"] = rec
+    return recs
+
+
+def _moe_serve(smi: str, dtype: str) -> tuple:
+    """(b) / (c): 16 of phase 3's jobs (64 new tokens) served by
+    ``run_torch_worker("preset://qwen1.5-moe-a2.7b")`` over ``memory://``
+    at full width, then the same jobs on an eager engine over the same
+    weights. Returns the counted launches and the record."""
+    from llmq_tpu_torch.cli.worker import run_torch_worker
+    from llmq_tpu_torch.engine.engine import EngineCore
+    from llmq_tpu_torch.models import transformer as tt
+
+    n_jobs, gen = 16, 64
+    url, queue = f"memory://chip-smoke-moe-{dtype}", f"moe-{dtype}"
+    jobs = _default_jobs(n_jobs, gen)
+    asyncio.run(_submit(url, queue, jobs))
+    switches = QUANT_KERNELS_ON if dtype == "int8" else {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with env(LLMQ_DECODE_KERNEL="v1", **switches), recording_tokens({}) as tokens:
+        worker = run_torch_worker(f"preset://{MOE_PRESET}", queue, device="cuda", dtype=dtype,
+                                  max_num_seqs=16, max_model_len=512, broker_url=url,
+                                  max_jobs=n_jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted, routes = read_launches(), read_routes()
+    results = asyncio.run(_receive(url, queue))
+    core = worker.engine.core
+    stats = core.stats()
+    cfg = core.model_config
+    L = cfg.num_layers
+    steps = stats["decode_steps"] + _warm(stats)
+    dispatches = steps + stats["prefill_dispatches"]
+    want = {"paged_decode": L * steps, "flash_prefill": L * stats["prefill_dispatches"]}
+    if dtype == "int8":  # q/k/v/o and the shared expert's three a layer, and the untied head
+        want["int8_matmul"] = 7 * L * dispatches + dispatches
+    problems = (_check_results(results, n_jobs, gen) + route_problems(routes, counted)
+                + graph_problems(stats))
+    for name in want:
+        if counted[name] <= 0:
+            problems.append(f"{name} did not launch on the {dtype} MoE path: {counted}")
+    for name, n in counted.items():
+        if n != want.get(name, 0):
+            problems.append(f"{name} launched {n} times, want {want.get(name, 0)}")
+
+    # The same jobs on an eager engine over the same weights and settings:
+    # the captured serve must give its tokens, or part at a near-tie.
+    with env(LLMQ_DECODE_KERNEL="v1", **switches):
+        eager = EngineCore(cfg, core.params, core.tokenizer, engine_config=core.cfg,
+                           device=core.device, cuda_graphs=False)
+    eager_out: dict = {}
+    for j in jobs:
+        eager.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+    eager_tokens = {rid: list(o.token_ids) for rid, o in _step_to_end(eager, eager_out).items()}
+    parting = _parting_witness(eager, jobs, tokens, eager_tokens)
+    for rid, w in parting.items():
+        if (w["recompute_rank"] is None or max(w["phase3_rank"], w["recompute_rank"]) > 2
+                or not w["gap_bf16_steps"] <= NEAR_TIE_ULPS):
+            problems.append(f"captured {rid} parts from the eager serve at {w['position']} at "
+                            f"no near-tie: ranks {w['phase3_rank']} / {w['recompute_rank']}, "
+                            f"gap {w['gap']} ({w['gap_bf16_steps']} bf16 steps)")
+    if eager.stats()["cuda_graphs"] is not None:
+        problems.append("the eager twin dispatched through CUDA graphs")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dec_ms, dec_dev_ms = _decode_rates(core, S=16, ctx=330)
+    captured = captured_rates(core, S=16, ctx=330)
+    # The layer's transient: the peak an eager decode step of 16 rows
+    # allocates beyond what it starts with, beside the sizing's figure.
+    quantized = dtype in ("int8", "int4")
+    reserved = tt.moe_transient_bytes(cfg, torch.bfloat16, 16, quantized)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _decode_rates(core, S=16, ctx=330, iters=1)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - base
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(core.params))
+    gen_tokens = sum(r["usage"]["completion_tokens"] for r in results)
+    rec = dict(
+        **captured, cuda_graphs=stats["cuda_graphs"], phase="moe_serve",
+        model=f"preset://{MOE_PRESET}", layers=L, experts=cfg.num_experts,
+        top_k=cfg.num_experts_per_tok, dtype=dtype, quant_kernels=sorted(core.model.quant_kernels),
+        jobs=len(results), gen_tokens=gen_tokens, wall_s=wall,
+        serve_completion_tok_s=gen_tokens / wall,
+        timing="wall from the worker's build (weights drawn on the card) to its last job",
+        decode_tok_s=16 / (dec_ms / 1e3), decode_step_ms=dec_ms, decode_step_device_ms=dec_dev_ms,
+        decode_idle_share=max(0.0, 1 - dec_dev_ms / dec_ms),
+        weight_gb=weight_bytes / 1e9, kv_pool_pages=core.k_pages.shape[1],
+        moe_transient_reserved_gb=reserved / 1e9,
+        eager_decode_step_peak_gb=step_peak / 1e9,
+        captured_equals_eager=len(jobs) - len(parting),
+        parting={rid: w["position"] for rid, w in parting.items()},
+        launches=counted, routes=routes, expected_launches=want,
+        decode_steps=stats["decode_steps"], prefill_dispatches=stats["prefill_dispatches"],
+        card=smi, problems=problems,
+    )
+    emit(rec)
+    if problems:
+        raise SystemExit(f"moe {dtype} serve failed: " + "; ".join(problems[:5]))
+    worker.engine.core.model = None
+    del worker, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: counted[name] for name in want}, rec
+
+
+def _moe_parity(smi: str) -> dict:
+    """(d) f32, TF32 off: qwen1.5-moe-a2.7b's widths at 2 layers, one tree
+    of seeded weights (attention biases perturbed), the card's engine
+    against the port's CPU path: one prefill of 4 prompts and one decode
+    step (grouped and sync-free expert forms), logits within 1e-4, and 16
+    greedy tokens each, identical; K1 and K2 on their exact routes only."""
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_preset(MOE_PRESET), num_layers=2)
+    g = torch.Generator().manual_seed(7)
+    params = init_params(cfg, g, torch.float32)
+    for name in ("q_bias", "k_bias", "v_bias"):
+        params["layers"][name].normal_(0.0, 0.5, generator=g)
+    prompts = ["The capital of France is", "def fibonacci(n):\n    if n < 2:",
+               "Once upon a time, in a kingdom by the sea, there lived",
+               "Q: What is 12 times 12?\nA:"]
+    ecfg = dict(max_num_seqs=4, max_model_len=256, page_size=32, num_pages=64, kv_dtype="f32",
+                min_prefill_bucket=32)
+    ids = [ByteTokenizer().encode(p) for p in prompts]
+    tokens = torch.zeros((4, 64), dtype=torch.int32)
+    for r, row in enumerate(ids):
+        tokens[r, :len(row)] = torch.tensor(row)
+    lengths = torch.tensor([len(r) for r in ids], dtype=torch.int32)
+    bt = torch.arange(1, 1 + 4 * 8, dtype=torch.int32).reshape(4, 8)
+    logits, outs = {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_launches()
+        with env(LLMQ_DECODE_KERNEL="v1"):
+            core = _engine(cfg, params, dev, **ecfg)
+        args = [x.to(core.device) for x in (tokens, lengths, bt)]
+        pre = core.model.prefill(args[0], args[1], core.k_pages, core.v_pages, args[2])
+        dec = core.model.decode(pre.argmax(-1).to(torch.int32), args[1], core.k_pages,
+                                core.v_pages, args[2],
+                                torch.ones(4, dtype=torch.bool, device=core.device))
+        logits[dev] = (pre.cpu(), dec.cpu())
+        core.k_pages.zero_()
+        core.v_pages.zero_()
+        outs[dev] = _generate(core, prompts, 16)
+        if dev == "cuda":
+            counted, routes = read_launches(), read_routes()
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+    err_pre = (logits["cuda"][0] - logits["cpu"][0]).abs().max().item()
+    err_dec = (logits["cuda"][1] - logits["cpu"][1]).abs().max().item()
+    same = outs["cuda"] == outs["cpu"] and all(len(v) == 16 for v in outs["cuda"].values())
+    problems = route_problems(routes, counted, route="exact")
+    if counted["paged_decode"] <= 0 or counted["flash_prefill"] <= 0:
+        problems.append(f"K1 or K2 did not launch: {counted}")
+    if not (err_pre <= 1e-4 and err_dec <= 1e-4):
+        problems.append(f"logits apart: prefill {err_pre}, decode {err_dec}")
+    if not same:
+        problems.append("greedy tokens differ between the card and the CPU")
+    rec = dict(phase="moe_parity_f32", config=f"{MOE_PRESET} widths, 2 layers",
+               allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               prefill_logits_max_abs_err=err_pre, decode_logits_max_abs_err=err_dec,
+               tolerance=1e-4, greedy_tokens_identical=same,
+               tokens_compared=sum(len(v) for v in outs["cuda"].values()),
+               card_launches=counted, routes=routes, card=smi, problems=problems)
+    emit(rec)
+    if problems:
+        raise SystemExit("moe f32 parity failed: " + "; ".join(problems[:5]))
+    return rec
+
+
+def _moe_checkpoint(smi: str) -> dict:
+    """(e) An HF-format qwen2_moe checkpoint of seeded bf16 weights at
+    qwen1.5-moe-a2.7b's widths and 2 layers (one tensor per expert, a
+    tokenizer beside it) under ``build/``, removed after:
+    ``load_checkpoint`` on the card gives the written tree bit for bit and
+    ``from_pretrained`` the config; then ``python -m llmq_tpu_torch worker
+    run CHECKPOINT`` over tcp:// (the port's ``BrokerServer`` process)
+    serves 4 jobs, whose token ids must equal an in-process engine's over
+    the loaded tree, all 4 prefilled together or each alone."""
+    from llmq_tpu_torch.cli.worker import engine_config
+    from llmq_tpu_torch.engine.engine import EngineCore
+    from llmq_tpu_torch.engine.tokenizer import HFTokenizer
+    from llmq_tpu_torch.engine.weights import load_checkpoint
+    from llmq_tpu_torch.models.config import ModelConfig
+    from llmq_tpu_torch.models.presets import get_preset
+    from llmq_tpu_torch.models.transformer import init_params
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = dataclasses.replace(get_preset(MOE_PRESET), num_layers=2)
+    dev = torch.device("cuda")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(5), torch.bfloat16,
+                         device=dev)
+    ckpt = os.path.join(root, "build", "moe_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    os.makedirs(ckpt)
+    problems = []
+    server = worker = None
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(cfg, params, ckpt)
+        write_text_tokenizer(ckpt, cfg.vocab_size)
+        write_s = time.perf_counter() - t0
+        loaded_cfg = ModelConfig.from_pretrained(ckpt)
+        keep = ("eos_token_ids", "bos_token_id", "max_position_embeddings")
+        if dataclasses.replace(loaded_cfg, **{k: getattr(cfg, k) for k in keep}) != cfg:
+            problems.append(f"from_pretrained gives {loaded_cfg}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_checkpoint(ckpt, cfg, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want, got = dict(_leaves(params)), dict(_leaves(loaded))
+        if sorted(want) != sorted(got):
+            problems.append(f"leaves {sorted(set(want) ^ set(got))} differ")
+        apart = [n for n in want if n in got and not _same_bits(want[n], got[n])]
+        if apart:
+            problems.append(f"leaves not bit for bit: {apart[:5]}")
+        del params
+        n_jobs, gen, queue = 4, 32, "smoke-moe-ckpt"
+        jobs = _default_jobs(n_jobs, gen)
+        ref = {}
+        ecfg = engine_config(loaded_cfg, dtype="bfloat16", max_num_seqs=4, max_model_len=512)
+        for shape in ("batch", "solo"):  # the worker's build: its config, its tokenizer
+            with env(LLMQ_DECODE_KERNEL="v1"):
+                core = EngineCore(loaded_cfg, loaded, HFTokenizer(ckpt), engine_config=ecfg,
+                                  device=dev)
+            outs: dict = {}
+            for j in jobs:
+                core.add_request(j.id, prompt=j.get_formatted_prompt(), params=_greedy(gen))
+                if shape == "solo":
+                    outs.update({o.rid: o for o in core.step()})
+            ref[shape] = {rid: list(o.token_ids) for rid, o in _step_to_end(core, outs).items()}
+            del core
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        penv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        server = subprocess.Popen([sys.executable, "-c", _SERVER], cwd=root, env=penv,
+                                  stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        url = f"tcp://127.0.0.1:{int(server.stdout.readline())}"
+        asyncio.run(_submit(url, queue, jobs))
+        log_path = os.path.join(OUT_DIR, "moe_checkpoint_worker.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "llmq_tpu_torch", "worker", "run", ckpt, queue,
+                 "--max-num-seqs", "4", "--max-model-len", "512", "--dtype", "bfloat16"],
+                cwd=root, env=dict(penv, LLMQ_BROKER_URL=url, LLMQ_DECODE_KERNEL="v1",
+                                   LLMQ_RESULT_DIGEST="1"),
+                stdout=log, stderr=subprocess.STDOUT)
+            results = asyncio.run(_receive_n(url, queue, n_jobs, worker, timeout=300,
+                                             log="moe_checkpoint_worker.log"))
+            worker_s = time.perf_counter() - t0
+            rc = _stop(worker)
+        if rc != 0:
+            problems.append(f"worker exited {rc} on SIGTERM")
+        problems += _check_results(results, n_jobs, gen)
+        shapes = [_served_as(r.get("token_ids"), r["id"], gen, ref["batch"], ref["solo"])
+                  for r in results]
+        for r, shape in zip(results, shapes):
+            if shape is None:
+                problems.append(f"{r['id']}: token ids differ from the loaded tree's serves")
+        rec = dict(phase="moe_checkpoint", config=f"{MOE_PRESET} widths, 2 layers, qwen2_moe",
+                   checkpoint_gb=nbytes / 1e9, write_s=write_s, load_s=load_s,
+                   load_gb_s=nbytes / 1e9 / load_s, leaves=len(want), leaves_apart=len(apart),
+                   jobs=len(results), prefilled_solo=shapes.count("solo"),
+                   worker_wall_s=worker_s,
+                   timing="load: load_checkpoint to the card, synchronised (warm file pages); "
+                          "worker: from its start to the 4th result",
+                   worker_exit_code=rc, card=smi, problems=problems)
+        emit(rec)
+    finally:
+        if worker is not None:
+            _stop(worker, signal.SIGKILL, 10)
+        if server is not None:
+            _stop(server, signal.SIGTERM, 10)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if problems:
+        raise SystemExit("moe checkpoint leg failed: " + "; ".join(problems[:5]))
+    return rec
+
+
+def phase_moe(smi: str, iters: int) -> tuple:
+    """Phase 18; returns each serve's counted launches by dtype and the
+    kernel records at the MoE's shapes."""
+    recs = _moe_kernels(iters)
+    launches = {}
+    for dtype in ("bfloat16", "int8"):
+        launches[dtype], _ = _moe_serve(smi, dtype)
+    _moe_parity(smi)
+    _moe_checkpoint(smi)
+    return launches, recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -5407,6 +5801,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         faults_launches = phase_faults(smi, serve_tokens, solo_tokens)
+    moe_launches, moe_recs = {}, {}
+    if "moe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_launches, moe_recs = phase_moe(smi, args.iters)
     if not phases >= set(ALL_PHASES):
         print("chip_smoke: phases skipped; no result line", file=sys.stderr)
         return 0
@@ -5460,6 +5859,15 @@ def main() -> int:
             entry["gateway_launches"] = gateway_launches[name]
         if name in faults_launches:  # phase 17: K1, K2 over the legs; K3, K4 in (e)
             entry["faults_launches"] = faults_launches[name]
+        if any(name in n for n in moe_launches.values()):  # phase 18: K1, K2, K6 by dtype
+            entry["moe_launches"] = {dtype: n[name] for dtype, n in moe_launches.items()
+                                     if name in n}
+            entry["moe_shapes"] = {
+                key.split("/", 1)[1]: {k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
+                                                             "bound_ms", "bound_by",
+                                                             "max_abs_err")}
+                for key, r in moe_recs.items()
+                if key.startswith(name + "/") and not key.endswith("/exact")}
         if name == "int8_matmul":
             head = main_recs.get("int8_matmul/head", {})
             entry.update({f"llama_head_{k}": head.get(k) for k in ("ms", "library_ms", "bound_ms",

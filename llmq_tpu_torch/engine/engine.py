@@ -175,9 +175,11 @@ from llmq_tpu_torch.engine.scheduler import (
 from llmq_tpu_torch.engine.snapshot import KVRestore, RequestSnapshot, SnapshotCompatError
 from llmq_tpu_torch.engine.tokenizer import Tokenizer
 from llmq_tpu_torch.engine.watchdog import NO_GUARD, DispatchWatchdog
+from llmq_tpu_torch.models import quant as qm
 from llmq_tpu_torch.models.config import ModelConfig
 from llmq_tpu_torch.obs.metrics import DEFAULT_BUCKETS, Gauge, Histogram, get_registry, to_ms
-from llmq_tpu_torch.models.transformer import Params, Transformer, _unflatten, make_kv_pages
+from llmq_tpu_torch.models.transformer import (Params, Transformer, _unflatten, make_kv_pages,
+                                               moe_transient_bytes)
 from llmq_tpu_torch.ops.attention import mixed_query_grid
 from llmq_tpu_torch.ops.dispatch import (
     decode_kernel_plan,
@@ -870,7 +872,9 @@ class EngineCore:
 
     def _auto_num_pages(self) -> int:
         """Size the KV pool from free device memory (vLLM
-        gpu_memory_utilization parity); a conservative cap on the CPU."""
+        gpu_memory_utilization parity); a conservative cap on the CPU. An
+        MoE model's per-layer transient (``moe_transient_bytes`` at the
+        widest captured dispatch) is kept out of the pool's budget."""
         cfg = self.model_config
         itemsize = torch.empty((), dtype=self.cfg.kv_dtype).element_size()
         page_bytes = (
@@ -883,7 +887,19 @@ class EngineCore:
             return min(max_useful, 4096)
         free, total = torch.cuda.mem_get_info(self.device)
         budget = int(total * self.cfg.hbm_utilization) - (total - free)
+        budget -= self._moe_transient_bytes()
         return int(min(max(2, budget // page_bytes), max_useful))
+
+    def _moe_transient_bytes(self) -> int:
+        """``models.transformer.moe_transient_bytes`` at the most rows a
+        captured dispatch of this engine runs (decode, verify, mixed)."""
+        S = self.cfg.max_num_seqs
+        rows = max(S * (self.cfg.spec_tokens + 1),
+                   S * self.cfg.prefill_chunk_size if self.mixed_step == "on" else S)
+        quantized = any(qm.is_quantized(self.model.layer_params(0).get(name))
+                        for name in ("expert_gate_proj", "expert_up_proj", "expert_down_proj"))
+        return moe_transient_bytes(self.model_config, self.model.top["final_norm"].dtype, rows,
+                                   quantized)
 
     # --- request intake ---------------------------------------------------
     def add_request(

@@ -47,6 +47,13 @@ Name mapping (HF → ours):
     model.layers.N.pre_feedforward_layernorm   layers.ln2[N]   (gemma2)
     model.layers.N.post_feedforward_layernorm  layers.post_mlp_norm[N]
     model.layers.N.mlp.{gate,up,down}_proj     layers.*[N]     (transposed)
+    model.layers.N.mlp.gate                    layers.router[N]   (MoE; transposed)
+    model.layers.N.mlp.experts.E.{gate,up,down}_proj
+        → layers.expert_{gate,up,down}_proj[N, E]  (transposed; streamed one
+          (layer, expert) tensor at a time)
+    model.layers.N.mlp.shared_expert.{gate,up,down}_proj
+        → layers.shared_{gate,up,down}_proj[N]     (qwen2_moe; transposed)
+    model.layers.N.mlp.shared_expert_gate      layers.shared_expert_gate[N]
     model.norm.weight                    final_norm
     lm_head.weight                       lm_head               (transposed;
                                          none for tied embeddings)
@@ -61,7 +68,7 @@ copied back to the host to be hashed: a ledger costs a device-to-host
 copy and a blake2b pass over the tree.
 
 Left out of the reference's signature: ``mesh`` (sharded streaming, with
-multi-GPU: ROADMAP M13). MoE checkpoints wait for M14.
+multi-GPU: ROADMAP M13).
 """
 
 from __future__ import annotations
@@ -238,18 +245,22 @@ def _host_bytes(t: torch.Tensor) -> bytes:
     return t.cpu().numpy().tobytes()
 
 
-def _stream(shape, dtype, blocks: Iterable[Tuple[int, torch.Tensor]], device,
+def _stream(shape, dtype, blocks: Iterable[Tuple[Any, torch.Tensor]], device,
             axis: int = 0, *, name: str = "",
             ledger: Optional[Dict[str, str]] = None) -> torch.Tensor:
-    """A device buffer of ``shape`` filled block by block along ``axis``;
-    with a ``ledger``, the blocks' bytes folded into a blake2b under
-    ``name``."""
+    """A device buffer of ``shape`` filled block by block: an int start
+    along ``axis``, a tuple start at that index of the leading axes (the
+    block keeps them as size-1 axes); with a ``ledger``, the blocks' bytes
+    folded into a blake2b under ``name``."""
     buf = torch.empty(shape, dtype=dtype, device=device)
     fold = hashlib.blake2b(digest_size=16) if ledger is not None else None
     for start, block in blocks:
         if fold is not None:
             fold.update(_host_bytes(block))
-        buf.narrow(axis, start, block.shape[axis]).copy_(block)
+        if isinstance(start, tuple):
+            buf[start].copy_(block.reshape(block.shape[len(start):]))
+        else:
+            buf.narrow(axis, start, block.shape[axis]).copy_(block)
     if fold is not None:
         ledger[name] = fold.hexdigest()
     return buf
@@ -275,8 +286,6 @@ def load_checkpoint(
     model_path = Path(model_path)
     if config is None:
         config = ModelConfig.from_pretrained(model_path)
-    if config.num_experts:
-        raise NotImplementedError("MoE checkpoints are not ported yet (ROADMAP.md queue 1, M14)")
     dev = resolve_device(device)
     reader = _TensorReader(model_path, pin=dev.type == "cuda")
     L = config.num_layers
@@ -289,42 +298,49 @@ def load_checkpoint(
         out = host.to(dev)
         return out.clone() if out.data_ptr() == host.data_ptr() else out
 
-    def stacked(our_name: str, fmt: str, *, transpose: bool = False):
-        """Stream layer tensors into a [L, ...] device stack."""
-        shape0 = reader.shape(fmt.format(i=0))
+    def stacked(our_name: str, fmt: str, *, transpose: bool = False, experts: int = 0):
+        """Stream layer tensors into a [L, ...] device stack; with
+        ``experts`` E, a [L, E, ...] expert stack from ``fmt``'s ``{e}``
+        tensors, one (layer, expert) tensor at a time."""
+        lead = (L, experts) if experts else (L,)
+        index = [(i, e) for i in range(L) for e in range(experts)] if experts else [
+            (i,) for i in range(L)]
+        shape0 = reader.shape(fmt.format(i=0, e=0))
         if transpose:
             shape0 = shape0[::-1]
         quant = bool(quant_mode) and our_name in qm.QUANTIZED_LAYER_KEYS
         int4 = quant and quant_mode == "int4"
         if int4:
-            full = (L, *shape0[:-2], shape0[-2] // 2, shape0[-1])
+            full = (*lead, *shape0[:-2], shape0[-2] // 2, shape0[-1])
             groups = shape0[-2] // qm.int4_group(shape0[-2])
-            scales = torch.empty((L, *shape0[:-2], groups, shape0[-1]), dtype=dtype, device=dev)
+            scales = torch.empty((*lead, *shape0[:-2], groups, shape0[-1]), dtype=dtype,
+                                 device=dev)
             zeros = torch.empty_like(scales)
         elif quant:
-            full = (L, *shape0)
-            scales = torch.empty((L, *shape0[:-2], shape0[-1]), dtype=dtype, device=dev)
+            full = (*lead, *shape0)
+            scales = torch.empty((*lead, *shape0[:-2], shape0[-1]), dtype=dtype, device=dev)
 
         def blocks():
-            for i in range(L):
-                name = fmt.format(i=i)
+            for at in index:
+                name = fmt.format(i=at[0], e=at[-1])
                 arr = fetch(reader.file(name), name)
                 if transpose:
                     arr = arr.T
                 if int4:
                     arr, s, z = _quant_int4(arr.float())
-                    scales[i] = s
-                    zeros[i] = z
+                    scales[at] = s
+                    zeros[at] = z
                 elif quant:
                     arr, s = _quant_int8(arr.float(), axis=-2)
-                    scales[i] = s
+                    scales[at] = s
                 else:
                     arr = arr.to(dtype)
-                yield i, arr[None]
+                yield at, arr.reshape((1,) * len(at) + tuple(arr.shape))
 
         stream = f"layers.{our_name}" + (".q" if quant else "")
         if not quant:
-            return _stream((L, *shape0), dtype, blocks(), dev, name=stream, ledger=checksum_ledger)
+            return _stream((*lead, *shape0), dtype, blocks(), dev, name=stream,
+                           ledger=checksum_ledger)
         buf = _stream(full, torch.uint8 if int4 else torch.int8, blocks(), dev, name=stream,
                       ledger=checksum_ledger)
         if int4:
@@ -374,11 +390,27 @@ def load_checkpoint(
             "post_mlp_norm", "model.layers.{i}.post_feedforward_layernorm.weight")
     else:
         layers["ln2"] = stacked("ln2", "model.layers.{i}.post_attention_layernorm.weight")
-    for ours, theirs in (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
-                         ("v_proj", "self_attn.v_proj"), ("o_proj", "self_attn.o_proj"),
-                         ("gate_proj", "mlp.gate_proj"), ("up_proj", "mlp.up_proj"),
-                         ("down_proj", "mlp.down_proj")):
+    linear = [("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
+              ("v_proj", "self_attn.v_proj"), ("o_proj", "self_attn.o_proj")]
+    if config.num_experts:
+        linear.append(("router", "mlp.gate"))
+    else:
+        linear += [("gate_proj", "mlp.gate_proj"), ("up_proj", "mlp.up_proj"),
+                   ("down_proj", "mlp.down_proj")]
+    for ours, theirs in linear:
         layers[ours] = stacked(ours, f"model.layers.{{i}}.{theirs}.weight", transpose=True)
+    if config.num_experts:
+        for part in ("gate", "up", "down"):
+            layers[f"expert_{part}_proj"] = stacked(
+                f"expert_{part}_proj", f"model.layers.{{i}}.mlp.experts.{{e}}.{part}_proj.weight",
+                transpose=True, experts=config.num_experts)
+        if config.shared_expert_intermediate_size:
+            for ours, theirs in (("shared_gate_proj", "shared_expert.gate_proj"),
+                                 ("shared_up_proj", "shared_expert.up_proj"),
+                                 ("shared_down_proj", "shared_expert.down_proj"),
+                                 ("shared_expert_gate", "shared_expert_gate")):
+                layers[ours] = stacked(ours, f"model.layers.{{i}}.mlp.{theirs}.weight",
+                                       transpose=True)
     if config.attention_bias:
         for ours, theirs in (("q_bias", "self_attn.q_proj"), ("k_bias", "self_attn.k_proj"),
                              ("v_bias", "self_attn.v_proj")):

@@ -51,8 +51,9 @@ __all__ = [
 
 Params = Dict[str, Any]
 
-# Every large matmul operand; norms, biases and MoE routers stay in the
-# compute dtype (the MoE keys wait for ROADMAP M14).
+# Every large matmul operand, the 4-D expert stacks [L, E, in, out]
+# included; norms, biases, the MoE router and the shared-expert gate stay
+# in the compute dtype.
 QUANTIZED_LAYER_KEYS = (
     "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
     "expert_gate_proj", "expert_up_proj", "expert_down_proj",

@@ -1,14 +1,16 @@
-"""Dense decoder-only transformer over a paged KV cache, in PyTorch.
+"""Decoder-only transformer over a paged KV cache, in PyTorch.
 
 Port of ``llmq_tpu/models/transformer.py`` (building blocks :100-176,
-``Transformer`` :340-824 with ``_paged_chunk_trunk`` :569,
-``prefill_chunk`` :628, ``mixed`` :663 and ``verify`` :710, ``init_params`` :840 with its int8/int4
+the mixture-of-experts MLP ``_moe_mlp`` :231, ``Transformer`` :340-824
+with ``_paged_chunk_trunk`` :569, ``prefill_chunk`` :628, ``mixed`` :663
+and ``verify`` :710, ``init_params`` :840 with its int8/int4
 quantization, ``make_kv_pages`` :946).
 Same parameter tree (per-layer weights stacked on a leading ``[L, ...]``
-axis, ``[in, out]`` matmul layout), same family switches (Qwen2 QKV bias,
-Qwen3 qk-norm, Gemma-2 softcaps / post-norms / alternating sliding window
-/ ``1 + w`` RMSNorm / scaled embeddings, llama3 RoPE scaling), same
-arithmetic order.
+axis, ``[in, out]`` matmul layout, expert stacks ``[L, E, in, out]``),
+same family switches (Qwen2 QKV bias, Qwen3 qk-norm, Gemma-2 softcaps /
+post-norms / alternating sliding window / ``1 + w`` RMSNorm / scaled
+embeddings, llama3 RoPE scaling, qwen2_moe / qwen3_moe sparse experts),
+same arithmetic order.
 
 PyTorch idiom in place of JAX's:
 
@@ -28,9 +30,11 @@ PyTorch idiom in place of JAX's:
   are identical).
 - The decode kernel (``LLMQ_DECODE_KERNEL``) is resolved once, when the
   module is built: the counterpart of the JAX trace-time resolution.
-
-Dense models only: an MoE config raises ``NotImplementedError``
-(ROADMAP M14).
+- The MoE MLP has two forms of the expert products (:func:`_moe_mlp`):
+  grouped, as JAX's ``ragged_dot``, for the prefill paths (which read the
+  group sizes on the host), and sync-free for the decode-type dispatches
+  (``decode``, ``verify``, ``mixed``), which the engine captures as CUDA
+  graphs.
 """
 
 from __future__ import annotations
@@ -122,14 +126,126 @@ def apply_rope(
     return _rotate(x, *rope_cos_sin(positions, inv_freq))
 
 
+def _activate(gate: torch.Tensor, up: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "gelu_tanh":
+        return F.gelu(gate, approximate="tanh") * up
+    return F.silu(gate) * up
+
+
 def _mlp(h: torch.Tensor, lp: Params, activation: str, kernels) -> torch.Tensor:
     gate = qm.matmul(h, lp["gate_proj"], kernels)
     up = qm.matmul(h, lp["up_proj"], kernels)
-    if activation == "gelu_tanh":
-        act = F.gelu(gate, approximate="tanh")
-    else:
-        act = F.silu(gate)
-    return qm.matmul(act * up, lp["down_proj"], kernels)
+    return qm.matmul(_activate(gate, up, activation), lp["down_proj"], kernels)
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, config: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routing weights and experts ``[N, k]`` of each row of ``x`` [N, H]:
+    router logits in f32, a softmax over all experts, the top k, renormed
+    when ``norm_topk_prob``. The top k are the first k of a stable
+    descending sort, so a tie goes to the lower expert id, as
+    ``jax.lax.top_k`` resolves it (``torch.topk`` promises no order)."""
+    probs = torch.softmax((x @ router).float(), dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = config.num_experts_per_tok
+    top_w, top_e = top_w[:, :k], top_e[:, :k]
+    if config.norm_topk_prob:
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    return top_w, top_e
+
+
+def _ragged_dot(xs: torch.Tensor, w: torch.Tensor, sizes: List[int]) -> torch.Tensor:
+    """``jax.lax.ragged_dot``: rows ``xs`` [M, K] grouped by expert in
+    order (``sizes`` rows each) times their expert's ``w[e]`` [K, N]."""
+    out = xs.new_empty((xs.shape[0], w.shape[-1]))
+    lo = 0
+    for e, n in enumerate(sizes):
+        if n:
+            torch.mm(xs[lo:lo + n], w[e], out=out[lo:lo + n])
+            lo += n
+    return out
+
+
+def _moe_grouped(x: torch.Tensor, top_e: torch.Tensor, lp: Params, activation: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert products in JAX's grouped form: the N*k (row, expert)
+    assignments stably sorted by expert, each expert's group one product.
+    The group sizes are read on the host, so this form cannot sit in a
+    captured graph. Returns each row's k expert outputs ``[N, k, H]`` in
+    ascending expert order, and the index of each into the flat
+    ``top_e`` (to pick the weights)."""
+    N, k = top_e.shape
+    E = lp["router"].shape[-1]
+    flat_e = top_e.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    xs = x[order // k]
+    sizes = torch.bincount(flat_e, minlength=E).tolist()
+    gate = _ragged_dot(xs, qm.dequantize(lp["expert_gate_proj"], x.dtype), sizes)
+    up = _ragged_dot(xs, qm.dequantize(lp["expert_up_proj"], x.dtype), sizes)
+    down = _ragged_dot(_activate(gate, up, activation),
+                       qm.dequantize(lp["expert_down_proj"], x.dtype), sizes)
+    # Each row's sorted positions; a row's picks are distinct experts, so
+    # ascending position is ascending expert id.
+    pos = torch.argsort(order).reshape(N, k).sort(dim=-1).values
+    return down[pos], order[pos]
+
+
+def _moe_sync_free(x: torch.Tensor, top_e: torch.Tensor, lp: Params, activation: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert products with no host read, for the captured graphs:
+    every expert over every row (``[E, N, *]`` batched products, E/k times
+    the grouped form's work), then each row's k outputs picked in
+    ascending expert order. Returns what :func:`_moe_grouped` returns."""
+    N, k = top_e.shape
+    E = lp["router"].shape[-1]
+    xe = x.expand(E, *x.shape)
+    gate = torch.bmm(xe, qm.dequantize(lp["expert_gate_proj"], x.dtype))
+    up = torch.bmm(xe, qm.dequantize(lp["expert_up_proj"], x.dtype))
+    down = torch.bmm(_activate(gate, up, activation),
+                     qm.dequantize(lp["expert_down_proj"], x.dtype))
+    experts, pick = top_e.sort(dim=-1)
+    rows = torch.arange(N, device=x.device)[:, None]
+    return down[experts, rows], rows * k + pick
+
+
+def moe_transient_bytes(config: ModelConfig, dtype: torch.dtype, rows: int,
+                        quantized: bool) -> int:
+    """Device bytes one layer's MoE MLP allocates beyond the weights, for
+    a dispatch of ``rows`` rows in the sync-free form: the dequantized
+    expert stacks (quantized weights only; all three counted live) and
+    the ``[E, rows, *]`` operands and products. 0 for a dense config."""
+    if not config.num_experts:
+        return 0
+    E, H, Im = config.num_experts, config.hidden_size, config.moe_intermediate_size
+    item = torch.empty((), dtype=dtype).element_size()
+    stacks = 3 * E * H * Im * item if quantized else 0
+    return stacks + E * rows * (2 * H + 3 * Im) * item
+
+
+def _moe_mlp(h: torch.Tensor, lp: Params, config: ModelConfig, kernels,
+             sync_free: bool) -> torch.Tensor:
+    """Sparse mixture-of-experts MLP (qwen2_moe / qwen3_moe; JAX
+    ``_moe_mlp`` :231): route, the expert products (``sync_free`` picks
+    the form), each row's k outputs weighted and summed in ascending
+    expert order (the order in which JAX's ``segment_sum`` meets them,
+    and no atomics, so a captured and an eager run agree), plus qwen2_moe's
+    shared expert through :func:`_mlp` blended by a sigmoid gate.
+    Quantized expert stacks are dequantized for the layer, as in JAX."""
+    *lead, H = h.shape
+    x = h.reshape(-1, H)
+    top_w, top_e = moe_route(x, lp["router"], config)
+    products = _moe_sync_free if sync_free else _moe_grouped
+    down, flat = products(x, top_e, lp, config.activation)
+    contrib = down * top_w.reshape(-1)[flat].to(down.dtype)[..., None]
+    out = contrib[:, 0]
+    for j in range(1, contrib.shape[1]):
+        out = out + contrib[:, j]
+    out = out.to(h.dtype)
+    if config.shared_expert_intermediate_size:
+        shared = _mlp(x, {"gate_proj": lp["shared_gate_proj"], "up_proj": lp["shared_up_proj"],
+                          "down_proj": lp["shared_down_proj"]}, config.activation, kernels)
+        out = out + torch.sigmoid(x @ lp["shared_expert_gate"]) * shared
+    return out.reshape(*lead, H)
 
 
 _PART = "__"  # flat parameter name of a quantized leaf's part: name__q
@@ -175,10 +291,6 @@ class Transformer(nn.Module):
 
     def __init__(self, config: ModelConfig, params: Params) -> None:
         super().__init__()
-        if config.num_experts:
-            raise NotImplementedError(
-                "MoE models are not ported yet (ROADMAP.md queue 1, M14)"
-            )
         self.config = config
 
         def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -236,8 +348,10 @@ class Transformer(nn.Module):
         return _rotate(q, cos, sin), _rotate(k, cos, sin), v
 
     def _finish_layer(
-        self, lp: Params, h: torch.Tensor, attn_out: torch.Tensor
+        self, lp: Params, h: torch.Tensor, attn_out: torch.Tensor, sync_free: bool
     ) -> torch.Tensor:
+        """o_proj, the residual and the MLP; ``sync_free`` (the captured
+        dispatches) picks the MoE products' form."""
         cfg = self.config
         *lead, _, _ = attn_out.shape
         attn_proj = qm.matmul(attn_out.reshape(*lead, cfg.num_heads * cfg.head_dim_),
@@ -248,7 +362,10 @@ class Transformer(nn.Module):
             )
         h = h + attn_proj
         mlp_in = rms_norm(h, lp["ln2"], cfg.rms_norm_eps, one_plus=self.one_plus)
-        mlp_out = _mlp(mlp_in, lp, cfg.activation, self.quant_kernels)
+        if cfg.num_experts:
+            mlp_out = _moe_mlp(mlp_in, lp, cfg, self.quant_kernels, sync_free)
+        else:
+            mlp_out = _mlp(mlp_in, lp, cfg.activation, self.quant_kernels)
         if cfg.post_norms:
             mlp_out = rms_norm(
                 mlp_out, lp["post_mlp_norm"], cfg.rms_norm_eps, one_plus=self.one_plus
@@ -311,7 +428,7 @@ class Transformer(nn.Module):
                 q, k, v, scale=cfg.attn_scale, lengths=lengths,
                 sliding_window=self.windows[li], softcap=cfg.attn_softcap,
             )
-            h = self._finish_layer(lp, h, attn_out)
+            h = self._finish_layer(lp, h, attn_out, sync_free=False)
         last_idx = (lengths.long() - 1).clamp(min=0)
         last_h = h[torch.arange(B, device=dev), last_idx]
         return self._logits(last_h)
@@ -324,12 +441,15 @@ class Transformer(nn.Module):
         k_pages: torch.Tensor,  # [L, P, page, n_kv, d] — written in place
         v_pages: torch.Tensor,
         block_tables: torch.Tensor,  # [B, pages_per_seq] int32
+        sync_free: bool,
     ) -> torch.Tensor:
         """Write-then-attend over every layer: store each row's valid
         positions' K/V in the paged cache, attend every query against
         everything cached so far (causal, K3 on the card), run the MLP.
         Returns the hidden grid [B, C, H]. Each row's positions must be a
-        leading contiguous run (``ops/dispatch.chunked_prefill_attention``)."""
+        leading contiguous run (``ops/dispatch.chunked_prefill_attention``).
+        ``sync_free``: the callers captured as graphs (``mixed``,
+        ``verify``)."""
         cfg = self.config
         cos, sin = rope_cos_sin(positions, self._inv_freq(tokens.device))
         h = self._embed(tokens)
@@ -345,7 +465,7 @@ class Transformer(nn.Module):
                 q, k_pages, v_pages, block_tables, positions, scale=cfg.attn_scale,
                 layer=li, sliding_window=self.windows[li], softcap=cfg.attn_softcap,
             )
-            h = self._finish_layer(lp, h, attn_out)
+            h = self._finish_layer(lp, h, attn_out, sync_free)
         return h
 
     @torch.no_grad()
@@ -363,7 +483,7 @@ class Transformer(nn.Module):
         cached so far (earlier chunks and prefix-cache pages included).
         Returns the logits [B, V] (f32) at each row's ``last_in_chunk``
         position, meaningful on a row's final chunk."""
-        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables)
+        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables, False)
         B = tokens.shape[0]
         last_h = h[torch.arange(B, device=h.device), last_in_chunk.long()]
         return self._logits(last_h)
@@ -383,7 +503,7 @@ class Transformer(nn.Module):
         0) while one pending prompt's segment rides in its own row, all
         through the chunk trunk (K3 on the card). Returns logits [S, V]
         (f32) at each row's ``gather_idx`` column."""
-        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables)
+        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables, True)
         S = tokens.shape[0]
         return self._logits(h[torch.arange(S, device=h.device), gather_idx.long()])
 
@@ -402,7 +522,7 @@ class Transformer(nn.Module):
         ``prefill_chunk`` does with the slots as the batch, and returns the
         logits of every position [S, Q, V] (f32). Rejected candidates' K/V
         stay and are overwritten by the next step at the same positions."""
-        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables)
+        h = self._paged_chunk_trunk(tokens, positions, k_pages, v_pages, block_tables, True)
         return self._logits(h)
 
     # --- decode ------------------------------------------------------------
@@ -446,7 +566,7 @@ class Transformer(nn.Module):
                 attn_out = attn_dispatch.decode_attention(
                     q[:, 0], k_pages, v_pages, block_tables, ctx_incl, kernel=kernel, **kw
                 )
-            h = self._finish_layer(lp, h, attn_out)
+            h = self._finish_layer(lp, h, attn_out, sync_free=True)
         return self._logits(h)
 
 
@@ -475,10 +595,11 @@ def init_params(
     scales, a stacked layer weight one leading-axis slice at a time, so
     the full-precision transient is one layer's slice. On int4 the layer
     weights take the group rung; the embedding and an untied LM head stay
-    int8."""
+    int8. An MoE config gets JAX's expert tree (``router``,
+    ``expert_{gate,up,down}_proj`` ``[L, E, in, out]``, qwen2_moe's
+    ``shared_*``); a 4-D expert stack is drawn one layer slice at a time
+    in every mode."""
     cfg = config
-    if cfg.num_experts:
-        raise NotImplementedError("MoE models are not ported yet (ROADMAP.md queue 1, M14)")
     device = torch.device(device) if device is not None else generator.device
     quant_mode = "int4" if str(quantize).lower() == "int4" else ("int8" if quantize else None)
     d = cfg.head_dim_
@@ -488,9 +609,14 @@ def init_params(
         arr = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
         return arr.div_(math.sqrt(fan_in)).to(dtype)
 
-    def w(shape, fan_in, *, axis: int = -2, top: bool = False):
-        if not quant_mode:
-            return draw(shape, fan_in)
+    def w(shape, fan_in, *, axis: int = -2, top: bool = False, q: bool = True):
+        if not (quant_mode and q):
+            if len(shape) < 4:
+                return draw(shape, fan_in)
+            out = torch.empty(shape, dtype=dtype, device=device)
+            for li in range(shape[0]):
+                out[li] = draw(shape[1:], fan_in)
+            return out
 
         def quant(arr):
             if quant_mode == "int4" and not top:
@@ -521,10 +647,23 @@ def init_params(
         "k_proj": w((L, H, cfg.num_kv_heads * d), H),
         "v_proj": w((L, H, cfg.num_kv_heads * d), H),
         "o_proj": w((L, cfg.num_heads * d, H), cfg.num_heads * d),
-        "gate_proj": w((L, H, I), H),
-        "up_proj": w((L, H, I), H),
-        "down_proj": w((L, I, H), I),
     }
+    if cfg.num_experts:
+        E, Im = cfg.num_experts, cfg.moe_intermediate_size
+        layers["router"] = w((L, H, E), H, q=False)
+        layers["expert_gate_proj"] = w((L, E, H, Im), H)
+        layers["expert_up_proj"] = w((L, E, H, Im), H)
+        layers["expert_down_proj"] = w((L, E, Im, H), Im)
+        if cfg.shared_expert_intermediate_size:
+            Is = cfg.shared_expert_intermediate_size
+            layers["shared_gate_proj"] = w((L, H, Is), H)
+            layers["shared_up_proj"] = w((L, H, Is), H)
+            layers["shared_down_proj"] = w((L, Is, H), Is)
+            layers["shared_expert_gate"] = w((L, H, 1), H, q=False)
+    else:
+        layers["gate_proj"] = w((L, H, I), H)
+        layers["up_proj"] = w((L, H, I), H)
+        layers["down_proj"] = w((L, I, H), I)
     if cfg.attention_bias:
         layers["q_bias"] = zeros(L, cfg.num_heads * d)
         layers["k_bias"] = zeros(L, cfg.num_kv_heads * d)

@@ -59,7 +59,8 @@ def cuda_device():
 @pytest.mark.parametrize(
     "n_heads,n_kv,d,window,softcap",
     [(4, 4, 64, None, None), (8, 4, 128, 13, None), (16, 2, 128, None, 50.0),
-     (8, 4, 256, 64, 50.0), (14, 2, 64, 7, 30.0)],
+     (8, 4, 256, 64, 50.0), (14, 2, 64, 7, 30.0),
+     (16, 16, 128, None, None)],  # qwen1.5-moe-a2.7b: a query group of 1
 )
 def test_paged_decode_kernel_matches_plain(cuda_device, dtype, n_heads, n_kv, d, window,
                                            softcap):
@@ -103,7 +104,8 @@ def test_paged_decode_kernel_promotes_f32_pool_under_bf16_query(cuda_device):
 @pytest.mark.parametrize(
     "n_heads,n_kv,d,T,window,softcap",
     [(4, 4, 64, 32, None, None), (8, 2, 128, 100, None, None),
-     (8, 4, 128, 130, 9, None), (8, 4, 256, 70, None, 50.0), (6, 3, 64, 65, 11, 15.0)],
+     (8, 4, 128, 130, 9, None), (8, 4, 256, 70, None, 50.0), (6, 3, 64, 65, 11, 15.0),
+     (16, 16, 128, 200, None, None)],  # qwen1.5-moe-a2.7b: a query group of 1
 )
 def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, n_heads, n_kv, d, T, window,
                                             softcap):
@@ -905,6 +907,14 @@ def test_int8_matmul_tensor_core_shapes(cuda_device, M, K, N):
     _check_int8_tc(x, *parts)
 
 
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 5632), (5632, 2048), (2048, 151936)])
+def test_int8_matmul_tensor_core_at_the_moe_shapes(cuda_device, K, N):
+    """qwen1.5-moe-a2.7b's 2-D int8 weights at a decode step of 16 rows:
+    q/k/v/o, the shared expert's gate/up and down, the untied head."""
+    x, _, parts = _quant_case("int8", 16, K, N, torch.bfloat16, cuda_device, seed=K + N)
+    _check_int8_tc(x, *parts)
+
+
 @pytest.mark.parametrize("M", [16, 300])
 def test_int8_matmul_tensor_core_f32_scales(cuda_device, M):
     """bf16 activations over f32 scales stay on the tensor cores."""
@@ -972,12 +982,19 @@ GRAPH_REQUESTS = [
 ]
 
 
-def _graph_engine(device, cuda_graphs, **fields):
+#: a small qwen2_moe (routed and shared experts) for the MoE graph tests
+MOE_GRAPH_CONFIG = dict(model_type="qwen2_moe", attention_bias=True, num_experts=8,
+                        num_experts_per_tok=2, moe_intermediate_size=96,
+                        shared_expert_intermediate_size=128)
+
+
+def _graph_engine(device, cuda_graphs, moe=False, **fields):
     from llmq_tpu_torch.engine.engine import EngineConfig, EngineCore
     from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
 
     cfg = ModelConfig.tiny(vocab_size=320, hidden_size=256, num_layers=2, num_heads=4,
-                           num_kv_heads=2, intermediate_size=320)
+                           num_kv_heads=2, intermediate_size=320,
+                           **(MOE_GRAPH_CONFIG if moe else {}))
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.bfloat16)
     ecfg = EngineConfig(**{**dict(max_num_seqs=4, max_model_len=128, page_size=16,
                                   num_pages=64, kv_dtype="bf16"), **fields})
@@ -1014,6 +1031,81 @@ def test_engine_graph_replay_equals_eager(cuda_device, mode):
         assert st["mixed_steps"] > 0
     if mode == "verify":
         assert st["spec_proposed"] > 0
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_moe_engine_graph_replay_equals_eager(cuda_device, mode):
+    """An MoE model's decode, decode-block, verify and mixed dispatches are
+    each one captured graph (the sync-free expert form: no host read
+    inside), replayed, and give the eager engine's tokens bit for bit."""
+    eager = _serve(_graph_engine(cuda_device, False, moe=True, **GRAPH_MODES[mode]))
+    core = _graph_engine(cuda_device, True, moe=True, **GRAPH_MODES[mode])
+    assert _serve(core) == eager
+    st = core.stats()
+    assert st["cuda_graphs"]["replays"] == st["decode_dispatches"] > 0
+    assert st["cuda_graphs"]["graph_iterations"] == [GRAPH_MODES[mode].get("decode_block", 1)]
+
+
+def test_moe_decode_step_captured_equals_eager_bit_for_bit(cuda_device):
+    """One MoE decode step of the model captured as a graph and replayed
+    gives the eager step's logits and pools bit for bit."""
+    from llmq_tpu_torch.models.transformer import Transformer
+
+    cfg = ModelConfig.tiny(vocab_size=320, hidden_size=256, num_layers=2, num_heads=4,
+                           num_kv_heads=2, intermediate_size=320, **MOE_GRAPH_CONFIG)
+    model = Transformer(cfg, init_params(cfg, torch.Generator().manual_seed(3),
+                                         torch.bfloat16)).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    S, page, pps = 4, 16, 4
+    pools = make_kv_pages(cfg, 1 + S * pps, page, torch.bfloat16, device=cuda_device)
+    for p in pools:
+        p.copy_(torch.randn(p.shape, generator=g, device=cuda_device).to(p.dtype))
+    tok = torch.randint(1, 320, (S,), generator=g, device=cuda_device, dtype=torch.int32)
+    ctx = torch.tensor([5, 17, 40, 0], dtype=torch.int32, device=cuda_device)
+    bt = torch.arange(1, 1 + S * pps, dtype=torch.int32, device=cuda_device).reshape(S, pps)
+    active = ctx > 0
+    start = [p.clone() for p in pools]
+    eager = model.decode(tok, ctx, *pools, bt, active)
+    eager_pools = [p.clone() for p in pools]
+    for p, s0 in zip(pools, start):
+        p.copy_(s0)
+    model.decode(tok, ctx, *pools, bt, active)  # warm-up
+    for p, s0 in zip(pools, start):
+        p.copy_(s0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = model.decode(tok, ctx, *pools, bt, active)
+    for p, s0 in zip(pools, start):
+        p.copy_(s0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert all(torch.equal(a, b) for a, b in zip(pools, eager_pools))
+
+
+def test_moe_router_ties_on_the_card_pick_the_lower_expert(cuda_device):
+    """Exactly tied router logits: the card picks the lower expert ids, as
+    ``lax.top_k`` and the CPU path do, and both expert forms agree with
+    the CPU's output."""
+    from llmq_tpu_torch.models import transformer as tt
+
+    cfg = ModelConfig.tiny(hidden_size=64, num_experts=8, num_experts_per_tok=3,
+                           moe_intermediate_size=32, model_type="qwen3_moe",
+                           norm_topk_prob=True)
+    lp = {k: v[0].clone() for k, v in
+          tt.init_params(cfg, torch.Generator().manual_seed(1))["layers"].items()}
+    lp["router"][:, [2, 4, 6]] = lp["router"][:, [1]]
+    x = torch.randn((40, 64), generator=torch.Generator().manual_seed(2))
+    x[:8] = 0.0  # every logit equal
+    on_card = {k: v.to(cuda_device) for k, v in lp.items()}
+    _, cpu_e = tt.moe_route(x, lp["router"], cfg)
+    _, card_e = tt.moe_route(x.to(cuda_device), on_card["router"], cfg)
+    assert torch.equal(card_e.cpu(), cpu_e)
+    assert card_e[:8].tolist() == [[0, 1, 2]] * 8
+    ref = tt._moe_mlp(x, lp, cfg, frozenset(), False)
+    for sync_free in (False, True):
+        got = tt._moe_mlp(x.to(cuda_device), on_card, cfg, frozenset(), sync_free)
+        torch.testing.assert_close(got.cpu(), ref, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("mode,wrapper,per_layer", [

@@ -7,7 +7,8 @@ carried to torch by ``params_from_numpy`` (bit-exact). Prefill and decode logits
 pools within 1e-5 (f32, every page but the scratch page 0), over tiny
 qwen2 / llama (llama3 RoPE scaling) / mistral (sliding window) / qwen3
 (qk-norm) / gemma2 (softcaps, pattern-2 window, post-norms, scaled
-embeddings) configs.
+embeddings) / qwen2_moe (``__graft_entry__._moe_tiny``: routed experts
+and a shared expert) / qwen3_moe (renormed top-k, qk-norm) configs.
 """
 
 import dataclasses
@@ -43,6 +44,14 @@ FAMILIES = {
                    logit_softcap=30.0, attn_softcap=50.0, post_norms=True,
                    sliding_window=5, sliding_window_pattern=2, head_dim=32,
                    query_pre_attn_scalar=24, tie_word_embeddings=True),
+    # ``__graft_entry__._moe_tiny`` (tests/test_torch_moe.py pins it): shared
+    # expert, no renorm.
+    "qwen2_moe": dict(model_type="qwen2_moe", attention_bias=True, vocab_size=512,
+                      hidden_size=128, num_heads=8, num_kv_heads=4, intermediate_size=256,
+                      num_experts=8, num_experts_per_tok=2, moe_intermediate_size=64,
+                      shared_expert_intermediate_size=96),
+    "qwen3_moe": dict(model_type="qwen3_moe", qk_norm=True, head_dim=32, num_experts=8,
+                      num_experts_per_tok=3, moe_intermediate_size=48, norm_topk_prob=True),
 }
 
 
@@ -188,10 +197,27 @@ def test_init_params_tree_matches_jax_layout():
 
 
 def test_moe_config_raises():
+    """An MoE config no longer raises: it builds (JAX's tree, int8 too) and
+    a prefill and a decode step run to finite logits."""
     cfg = TConfig.tiny(num_experts=4, num_experts_per_tok=2, moe_intermediate_size=32,
-                       model_type="qwen2_moe")
-    with pytest.raises(NotImplementedError, match="M14"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+                       model_type="qwen2_moe", shared_expert_intermediate_size=48)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    theirs = jax.eval_shape(lambda key: jinit(JConfig.tiny(**_as_dict(cfg)), key),
+                            jax.random.key(0))
+    assert {n: tuple(t.shape) for n, t in params["layers"].items()} == {
+        n: leaf.shape for n, leaf in theirs["layers"].items()}
+    quant = init_params(cfg, torch.Generator().manual_seed(0), quantize="int8")
+    assert quant["layers"]["expert_up_proj"]["scale"].shape == (2, 4, 32)
+    assert quant["layers"]["router"].dtype == torch.float32
+    for tree in (params, quant):
+        model = Transformer(cfg, tree)
+        k, v = make_kv_pages(cfg, 8, 8, torch.float32)
+        bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+        lengths = torch.tensor([5, 3], dtype=torch.int32)
+        logits = model.prefill(torch.ones((2, 8), dtype=torch.int32), lengths, k, v, bt)
+        logits = model.decode(logits.argmax(-1).int(), lengths, k, v, bt,
+                              torch.tensor([True, True]))
+        assert logits.shape == (2, cfg.vocab_size) and bool(torch.isfinite(logits).all())
 
 
 def test_params_from_numpy_carries_quantized_and_fp8_leaves():

@@ -27,6 +27,15 @@ profiles one bucketed prefill dispatch of 4 x 200-token prompts in a
 compute; unless ``LLMQ_INT8_MATMUL`` / ``LLMQ_INT4_MATMUL`` are set in the
 environment, the tool sets both to ``pallas``, so the projections run
 through K6 / K7. ``--kv-dtype fp8`` stores the KV pool as float8_e5m2.
+
+For an MoE preset (``--preset qwen1.5-moe-a2.7b``) a third line splits the
+decode step's device time (``moe_decode_split``): attention (K1's
+kernels in the step's trace) and each stage of the MoE MLP timed alone on
+layer 0 at the step's rows, times the layers: the router (logits,
+softmax, top k), the dequantize of the three expert stacks, the expert
+products of the sync-free form, the weighted combine and the shared
+expert; the rest of the step (projections, norms, head, sampling) is
+what remains (``chiprun_out/torch_profile_moe.txt``).
 """
 
 from __future__ import annotations
@@ -96,6 +105,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report("decode_step", prof, wall, args.steps, smi, args, core, "torch_profile.txt")
+    if core.model_config.num_experts:
+        moe_split(core, prof, args, smi)
     B, dev = 4, core.device
     if args.prefix:
         n_pages = (1024 + chunk) // core.cfg.page_size
@@ -129,6 +140,76 @@ def main() -> int:
         report("prefill_dispatch_4x200", prof, wall, args.steps, smi, args, core,
                "torch_profile_prefill.txt")
     return 0
+
+
+def _device_ms(fn, iters: int = 10) -> float:
+    """Summed device time per call of ``fn()`` over ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+
+def moe_split(core, step_prof, args, smi) -> None:
+    """The MoE decode step's device time by stage (see the module doc)."""
+    from llmq_tpu_torch.models import quant as qm
+    from llmq_tpu_torch.models import transformer as tt
+
+    cfg, L, rows = core.model_config, core.model_config.num_layers, args.rows
+    lp = core.model.layer_params(0)
+    dtype = core.model.top["final_norm"].dtype
+    x = torch.randn((rows, cfg.hidden_size), device=core.device, dtype=dtype)
+    experts = ("expert_gate_proj", "expert_up_proj", "expert_down_proj")
+    plain = dict(lp, **{k: qm.dequantize(lp[k], dtype) for k in experts})
+    top_w, top_e = tt.moe_route(x, lp["router"], cfg)
+    down, flat = tt._moe_sync_free(x, top_e, plain, cfg.activation)
+    kernels = core.model.quant_kernels
+
+    def combine():
+        contrib = down * top_w.reshape(-1)[flat].to(down.dtype)[..., None]
+        out = contrib[:, 0]
+        for j in range(1, contrib.shape[1]):
+            out = out + contrib[:, j]
+        return out
+
+    def shared():
+        out = tt._mlp(x, {"gate_proj": lp["shared_gate_proj"], "up_proj": lp["shared_up_proj"],
+                          "down_proj": lp["shared_down_proj"]}, cfg.activation, kernels)
+        return torch.sigmoid(x @ lp["shared_expert_gate"]) * out
+
+    stages = {
+        "router": lambda: tt.moe_route(x, lp["router"], cfg),
+        "dequantize": lambda: [qm.dequantize(lp[k], dtype) for k in experts],
+        "expert_products": lambda: tt._moe_sync_free(x, top_e, plain, cfg.activation),
+        "combine": combine,
+    }
+    if cfg.shared_expert_intermediate_size:
+        stages["shared_expert"] = shared
+    ms = {name: L * _device_ms(fn) for name, fn in stages.items()}
+    events = step_prof.key_averages()
+    step_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    attn_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "paged_decode" in e.key)
+    ms["attention"] = attn_us / 1e3 / args.steps
+    step_ms = step_us / 1e3 / args.steps
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "chiprun_out")
+    with open(os.path.join(out_dir, "torch_profile_moe.txt"), "w") as f:
+        f.write(smi + "\n")
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
+    print(json.dumps(dict(
+        tool="torch_profile", what="moe_decode_split", card=smi, preset=args.preset,
+        rows=rows, dtype=args.dtype, layers=L, step_device_ms=step_ms,
+        stage_ms_per_step=ms, other_ms_per_step=step_ms - sum(ms.values()),
+        timing="attention: K1's kernels in the traced steps; each MoE stage timed alone on "
+               "layer 0 at the step's rows (torch.profiler device time), times the layers",
+    )))
 
 
 def report(what, prof, wall, steps, smi, args, core, table_name) -> None:
